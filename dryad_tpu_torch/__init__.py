@@ -1,0 +1,19 @@
+"""dryad_tpu_torch — the PyTorch / CUDA port of dryad_tpu.
+
+A second package beside ``dryad_tpu`` (the JAX reference, which stays as
+it is).  Its module layout mirrors ``dryad_tpu`` so each counterpart is
+easy to find.  It imports torch and numpy, never jax and nothing of
+``dryad_tpu``.  Every TPU (Pallas) kernel on a ported path is a
+hand-written CUDA kernel for Hopper under ``ops/csrc/``, built on first
+use; each has a plain PyTorch version that runs only for CPU tensors.
+
+Entry points run on the CUDA card unless the caller passes
+``device="cpu"``.  This slice ports WordCount end to end: from_columns ->
+split_words -> group_by count -> collect, with P logical partitions on one
+device and a hash exchange between them.
+"""
+
+__version__ = "0.1.0"
+
+from dryad_tpu_torch.api.dataset import Context, Dataset  # noqa: F401
+from dryad_tpu_torch.utils.config import JobConfig  # noqa: F401

@@ -1,0 +1,98 @@
+"""User-facing API: ``Context`` and the lazy ``Dataset`` — the subset of
+``dryad_tpu/api/dataset.py`` that WordCount calls.
+
+``Context(device="cuda", nparts=8)`` runs ``nparts`` logical partitions
+on one CUDA card (``parallel/mesh.py``).  The device is CUDA unless the
+caller asks for the CPU; on a machine without CUDA the default raises
+rather than quietly running on the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+
+from dryad_tpu_torch.exec.data import maybe_shrink_for_collect, \
+    pdata_from_host, pdata_to_host
+from dryad_tpu_torch.exec.executor import Executor
+from dryad_tpu_torch.parallel.mesh import Mesh, resolve_device
+from dryad_tpu_torch.plan import expr as E
+from dryad_tpu_torch.plan.planner import plan_query
+from dryad_tpu_torch.utils.config import JobConfig
+
+__all__ = ["Context", "Dataset"]
+
+
+class Context:
+    """Owns the mesh + executor and creates root Datasets."""
+
+    def __init__(self, device="cuda", nparts: int = 8,
+                 config: JobConfig | None = None):
+        self.config = config or JobConfig()
+        self.mesh = Mesh(resolve_device(device), nparts)
+        self.nparts = nparts
+        self.executor = Executor(self.mesh, config=self.config)
+
+    @property
+    def device(self):
+        return self.mesh.device
+
+    def from_columns(self, columns: Mapping[str, Any],
+                     capacity: int | None = None,
+                     str_max_len: int | None = None) -> "Dataset":
+        """A partitioned dataset from host columns (block-partitioned
+        rows; lists of str/bytes become string columns)."""
+        str_max_len = str_max_len or self.config.string_max_len
+        pdata = pdata_from_host(columns, self.mesh, capacity=capacity,
+                                str_max_len=str_max_len)
+        return Dataset(self, E.Source(parents=(), data=pdata,
+                                      _npartitions=self.nparts))
+
+
+class Dataset:
+    """A lazy, partitioned, columnar dataset."""
+
+    def __init__(self, ctx: Context, node: E.Node):
+        self.ctx = ctx
+        self.node = node
+
+    def split_words(self, column: str, out_capacity: int,
+                    max_token_len: int | None = None,
+                    delims: bytes | None = None,
+                    lower: bool = False,
+                    max_tokens_per_row: int | None = None) -> "Dataset":
+        """Tokenizing SelectMany (the WordCount flat-map).  Token length
+        and delimiter defaults come from JobConfig."""
+        cfg = self.ctx.config
+        return Dataset(self.ctx, E.FlatTokens(
+            parents=(self.node,), column=column, out_capacity=out_capacity,
+            max_token_len=(cfg.token_max_len if max_token_len is None
+                           else max_token_len),
+            delims=cfg.token_delims if delims is None else delims,
+            lower=lower, max_tokens_per_row=max_tokens_per_row))
+
+    def group_by(self, keys: Sequence[str],
+                 aggs: Dict[str, Tuple[str, Optional[str]]]) -> "Dataset":
+        """GroupBy + decomposable aggregates: aggs maps output column ->
+        (kind, value_column).  Groups are identified by a 64-bit key hash,
+        as in the JAX package."""
+        return Dataset(self.ctx, E.GroupByAgg(
+            parents=(self.node,), keys=tuple(keys), aggs=dict(aggs)))
+
+    def hash_partition(self, keys: Sequence[str]) -> "Dataset":
+        """Explicit repartition by key hash."""
+        return Dataset(self.ctx, E.HashRepartition(parents=(self.node,),
+                                                   keys=tuple(keys)))
+
+    def plan(self):
+        return plan_query(self.node, self.ctx.nparts)
+
+    def _materialize(self):
+        return self.ctx.executor.run(self.plan())
+
+    def collect(self) -> Dict[str, Any]:
+        """Execute and pull all rows to the host."""
+        return pdata_to_host(maybe_shrink_for_collect(self._materialize(),
+                                                      self.ctx.config))
+
+    def explain(self) -> str:
+        return self.plan().explain()

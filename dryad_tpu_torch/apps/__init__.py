@@ -1,0 +1,1 @@
+"""apps layer of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""exec layer of the PyTorch port (see the package docstring)."""

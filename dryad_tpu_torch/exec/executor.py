@@ -1,0 +1,190 @@
+"""Stage-graph executor over the logical mesh — the port of the stage loop
+of ``dryad_tpu/exec/executor.py``.
+
+The JAX package runs each stage as ONE jit(shard_map) program whose
+``per_shard`` body applies the leg ops, the exchange and the body ops on
+every device.  Here the P partitions share one device: a stage is a
+Python loop over the partitions for the leg ops, one batched exchange
+across all of them, and a loop for the body ops.  Every op returns a NEED
+vector ``[need_scale, need_slack]`` that stays on the device; the
+executor reads it once per stage (the one host sync) and, on overflow,
+re-runs the stage at the measured scale and send-slot slack instead of
+dropping rows.
+
+Not ported yet (later slices, see ROADMAP.md): lineage recovery and the
+deferred settle, adaptivity, the cost cross-check, slot feedback and
+probes, hot-key salting, multi-leg stages.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+
+from dryad_tpu_torch.data.columnar import Batch
+from dryad_tpu_torch.exec.data import PData, split_partitions, \
+    stack_partitions
+from dryad_tpu_torch.ops import kernels
+from dryad_tpu_torch.ops.kernels import NotPortedYet
+from dryad_tpu_torch.ops.text import lower_ascii, split_tokens, \
+    tokenize_group_count
+from dryad_tpu_torch.parallel import shuffle
+from dryad_tpu_torch.plan.stages import Exchange, Stage, StageGraph, StageOp
+from dryad_tpu_torch.utils.config import JobConfig
+
+__all__ = ["Executor", "CapacityError"]
+
+class CapacityError(RuntimeError):
+    pass
+
+
+def _needs(dev, ns=None, nsl=None) -> torch.Tensor:
+    """Pack an int32[2] (need_scale, need_slack) vector."""
+    z = torch.zeros((), dtype=torch.int32, device=dev)
+    return torch.stack([z if ns is None else ns.to(torch.int32),
+                        z if nsl is None else nsl.to(torch.int32)])
+
+
+def _scale_need(need_rows: torch.Tensor, base_capacity: int) -> torch.Tensor:
+    """Rows needed -> capacity scale needed (0 stays 0)."""
+    return (-(-need_rows.long() // max(base_capacity, 1))).to(torch.int32)
+
+
+def _apply_op(b: Batch, op: StageOp, scale: int) -> Tuple[Batch,
+                                                          torch.Tensor]:
+    """Apply one StageOp to one partition's batch; returns (batch, needs)
+    where needs = int32[2] (need_scale, need_slack): 0 = fits, > 0 = the
+    measured requirement for a right-sized retry."""
+    k, p = op.kind, op.params
+    dev = b.device
+    if k == "mean_fin":
+        return Batch(kernels.mean_finalize_columns(dict(b.columns),
+                                                   p["cols"]), b.count), \
+            _needs(dev)
+    if k == "flat_tokens":
+        mtr = p.get("max_tokens_per_row")
+        out, need_rows = split_tokens(
+            b, p["column"], out_capacity=p["out_capacity"] * scale,
+            max_token_len=p["max_token_len"], delims=p["delims"],
+            max_tokens_per_row=(mtr * scale if mtr else None))
+        if p["lower"]:
+            out = Batch({p["column"]: lower_ascii(out.columns[p["column"]])},
+                        out.count)
+        return out, _needs(dev, _scale_need(need_rows, p["out_capacity"]))
+    if k == "tokens_group_count":
+        mtr = p.get("max_tokens_per_row")
+        out, need_rows = tokenize_group_count(
+            b, p["column"], out_capacity=p["out_capacity"] * scale,
+            vocab_capacity=p["vocab_capacity"] * scale,
+            count_name=p["count_name"], max_token_len=p["max_token_len"],
+            delims=p["delims"], lower=p["lower"],
+            max_tokens_per_row=(mtr * scale if mtr else None))
+        return out, _needs(dev, _scale_need(need_rows, p["out_capacity"]))
+    if k == "group":
+        return kernels.group_aggregate(b, list(p["keys"]),
+                                       dict(p["aggs"])), _needs(dev)
+    raise ValueError(f"unknown op kind {k}")
+
+
+def _fuse_stage_ops(ops: List[StageOp]) -> List[StageOp]:
+    """flat_tokens immediately followed by a count-only group over the
+    token column becomes ONE fused op: bytes are then extracted only for
+    group representatives (ops/text.tokenize_group_count)."""
+    out = []
+    i = 0
+    while i < len(ops):
+        op = ops[i]
+        if (op.kind == "flat_tokens" and i + 1 < len(ops)
+                and ops[i + 1].kind == "group"):
+            g = ops[i + 1]
+            aggs = dict(g.params["aggs"])
+            if (list(g.params["keys"]) == [op.params["column"]]
+                    and len(aggs) == 1
+                    and all(kind == "count" and v is None
+                            for kind, v in aggs.values())):
+                p = dict(op.params)
+                p["count_name"] = next(iter(aggs))
+                p["vocab_capacity"] = max(1 << 16, p["out_capacity"] // 32)
+                out.append(StageOp("tokens_group_count", p))
+                i += 2
+                continue
+        out.append(op)
+        i += 1
+    return out
+
+
+def _apply_exchange(parts: List[Batch], ex: Exchange, scale: int,
+                    slack: int) -> Tuple[List[Batch], torch.Tensor]:
+    """Returns (batches, needs[2])."""
+    if ex.kind != "hash":
+        raise ValueError(ex.kind)
+    # empty keys = whole row; sorted so both legs of a set op agree
+    keys = list(ex.keys) or sorted(parts[0].names)
+    out, nr, nsl, _slot = shuffle.hash_exchange(
+        parts, keys, ex.out_capacity * scale, send_slack=slack)
+    return out, _needs(nr.device, _scale_need(nr, ex.out_capacity), nsl)
+
+
+class Executor:
+    """Executes StageGraphs on a logical mesh."""
+
+    def __init__(self, mesh, config: JobConfig | None = None):
+        self.mesh = mesh
+        self.nparts = mesh.nparts
+        self.config = config or JobConfig()
+
+    def _run_once(self, stage: Stage, inp: PData, scale: int,
+                  slack: int) -> Tuple[PData, torch.Tensor]:
+        """One attempt of a one-leg stage: (output, needs[2] on device)."""
+        leg = stage.legs[0]
+        parts = split_partitions(inp)
+        needs = torch.zeros(2, dtype=torch.int32, device=self.mesh.device)
+        for op in _fuse_stage_ops(leg.ops):
+            outs = []
+            for b in parts:
+                b, nd = _apply_op(b, op, scale)
+                needs = torch.maximum(needs, nd)
+                outs.append(b)
+            parts = outs
+        if leg.exchange is not None:
+            parts, nd = _apply_exchange(parts, leg.exchange, scale, slack)
+            needs = torch.maximum(needs, nd)
+        for op in _fuse_stage_ops(stage.body):
+            outs = []
+            for b in parts:
+                b, nd = _apply_op(b, op, scale)
+                needs = torch.maximum(needs, nd)
+                outs.append(b)
+            parts = outs
+        return stack_partitions(parts), needs
+
+    def _run_stage(self, stage: Stage, results: Dict[int, PData]) -> PData:
+        if len(stage.legs) != 1:
+            raise NotPortedYet("multi-leg stages (joins, zips, set ops)",
+                               "PageRank")
+        src = stage.legs[0].src
+        inp = results[src] if isinstance(src, int) else src[1]
+        scale = stage._capacity_scale
+        slack = stage._send_slack or self.config.initial_send_slack
+        retries = self.config.max_capacity_retries
+        for _attempt in range(retries + 1):
+            out, needs = self._run_once(stage, inp, scale, slack)
+            need_scale, need_slack = (int(v) for v in needs.tolist())
+            if need_scale <= 0 and need_slack <= 0:
+                stage._capacity_scale = scale
+                stage._send_slack = slack
+                return out
+            # right-size from the measured requirement: ONE retry at the
+            # exact need instead of a blind doubling ladder
+            scale = max(scale, need_scale)
+            slack = max(slack, min(need_slack, self.nparts))
+        raise CapacityError(
+            f"stage {stage.id} ({stage.label}) still overflowing after "
+            f"{retries} capacity retries (scale={scale}, slack={slack})")
+
+    def run(self, graph: StageGraph) -> PData:
+        results: Dict[int, PData] = {}
+        for stage in graph.topo_order():
+            results[stage.id] = self._run_stage(stage, results)
+        return results[graph.out_stage]

@@ -1,0 +1,106 @@
+"""Hash exchange across the logical partitions of one device — the port of
+the pack form of ``dryad_tpu/parallel/shuffle.py``.
+
+The JAX package runs each exchange inside ``shard_map`` with one
+``all_to_all`` over the mesh.  Here the P partitions share one device, so
+an exchange takes the list of per-partition Batches:
+
+  PACK (per source partition): packed u32 words of every column, the
+  per-destination counts (``hist_buckets`` kernel), their exclusive
+  prefix (``prefix_sum`` kernel), a stable sort by destination, and the
+  send-slot grid [D*C, W] (``slot_expand`` kernel);
+  ALL_TO_ALL: the stacked ``[P_src, P_dst, C, W]`` send buffers permute
+  to ``[P_dst, P_src, C, W]`` in device memory;
+  UNPACK (per destination): the valid prefix of every source block,
+  densely (``slot_compact`` kernel), unpacked into columns.
+
+The JAX package's gather form of the exchange exists only for backends
+without its kernels; the port has no such backend.  The NEED channels are
+kept: capacity shortfalls come back as the measured requirement, and the
+executor retries at that size instead of dropping rows.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import torch
+
+from dryad_tpu_torch.data.columnar import Batch
+from dryad_tpu_torch.ops.hashing import hash_batch_keys
+from dryad_tpu_torch.ops.hopper_kernels import (hist_buckets, prefix_sum,
+                                                slot_compact, slot_expand)
+from dryad_tpu_torch.ops.kernels import _pack_columns_u32, _unpack_columns_u32
+
+__all__ = ["exchange_by_dest", "hash_exchange"]
+
+
+def _canonical_hash_dest(lo: torch.Tensor, nparts: int) -> torch.Tensor:
+    """Destination partition of a key's lo-hash on a 1-D mesh — the JAX
+    package's mixed-radix mapping reduces to lo % P."""
+    return (lo % nparts).to(torch.int32)
+
+
+def exchange_by_dest(parts: List[Batch], dests: List[torch.Tensor],
+                     out_capacity: int, send_slack: int = 2
+                     ) -> Tuple[List[Batch], torch.Tensor, torch.Tensor,
+                                torch.Tensor]:
+    """Send each valid row of partition p to partition ``dests[p][row]``
+    (1-D mesh: one hop — the pack form of the JAX package's
+    ``_exchange_one_axis``).
+
+    Returns ``(batches, need_recv_rows, need_slack, slot_used)`` as 0-d
+    int32 tensors: the NEEDs are 0 when everything fit, else the measured
+    requirement (max rows a destination must hold / the send-slot slack
+    factor that would fit); ``slot_used`` is the max rows any source sent
+    one destination."""
+    D = len(parts)
+    cap = parts[0].capacity
+    # per-destination send slots: sized for the whole batch going to one
+    # destination would square the buffer, so slack x the fair share,
+    # raised by the executor's retry from the measured need
+    C = max(1, min(cap, -(-send_slack * cap // D)))
+
+    send, counts_all, spec = [], [], None
+    for b, dest in zip(parts, dests):
+        # invalid rows go to the sentinel bucket D, which nothing counts
+        dest = torch.where(b.valid_mask(), dest.to(torch.int32), D)
+        words, spec = _pack_columns_u32(b.columns)         # [cap, W]
+        counts = hist_buckets(dest, D)                     # [D]
+        offsets = prefix_sum(counts) - counts              # exclusive
+        order = torch.sort(dest, stable=True).indices      # (dest, row)
+        send.append(slot_expand(words.index_select(0, order), offsets, C))
+        counts_all.append(counts)
+    W = send[0].shape[1]
+    counts_m = torch.stack(counts_all)                     # [src, dst]
+    send_counts = torch.clamp(counts_m, max=C)
+
+    # the all_to_all: [P_src, P_dst, C, W] -> [P_dst, P_src, C, W]
+    recv = (torch.stack(send).view(D, D, C, W).transpose(0, 1)
+            .contiguous().view(D, D * C, W))
+    recv_counts = send_counts.t().contiguous()             # [dst, src]
+    totals = recv_counts.sum(dim=1, dtype=torch.int32)
+
+    out = []
+    for d in range(D):
+        ow = slot_compact(recv[d], recv_counts[d], C, out_capacity)
+        out.append(Batch(_unpack_columns_u32(ow, spec),
+                         torch.clamp(totals[d], max=out_capacity)))
+
+    # measured requirements, pre-truncation so they are exact even when
+    # this run dropped rows
+    max_total = counts_m.sum(dim=0).max().to(torch.int32)
+    need_recv = torch.where(max_total > out_capacity, max_total, 0)
+    max_cnt = counts_m.max().to(torch.int32)
+    need_slack = torch.where(max_cnt > C, -(-max_cnt * D // cap), 0)
+    return out, need_recv, need_slack.to(torch.int32), max_cnt
+
+
+def hash_exchange(parts: List[Batch], keys: Sequence[str],
+                  out_capacity: int, send_slack: int = 2):
+    """Repartition rows by key hash (HashPartition / shuffle for GroupBy):
+    row r goes to partition lo(hash(keys[r])) % P."""
+    D = len(parts)
+    dests = [_canonical_hash_dest(hash_batch_keys(b, keys)[1], D)
+             for b in parts]
+    return exchange_by_dest(parts, dests, out_capacity, send_slack)

@@ -1,0 +1,1 @@
+"""plan layer of the PyTorch port (see the package docstring)."""

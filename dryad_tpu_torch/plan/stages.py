@@ -1,0 +1,87 @@
+"""Physical plan: a DAG of stages — the port of
+``dryad_tpu/plan/stages.py``.
+
+A stage is one or more legs (a source, local ops, an optional exchange)
+and body ops after the exchange.  The JAX package runs a stage as one
+jit(shard_map) program over the mesh; the port's executor runs the same
+structure as a loop over the logical partitions of one device around a
+batched exchange.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional
+
+__all__ = ["StageOp", "Exchange", "Leg", "Stage", "StageGraph"]
+
+
+@dataclasses.dataclass
+class StageOp:
+    """One fused local operator; params are kind-specific (see
+    exec.executor._apply_op)."""
+
+    kind: str
+    params: Dict[str, Any]
+
+
+@dataclasses.dataclass
+class Exchange:
+    """Repartition at a leg boundary.  out_capacity is resolved by the
+    planner and scaled by the executor on overflow."""
+
+    kind: str
+    keys: tuple = ()
+    out_capacity: int = 0
+
+
+@dataclasses.dataclass
+class Leg:
+    """One input arm of a stage: source stage (or bound source data),
+    local ops before the exchange, optional exchange."""
+
+    src: Any  # int stage id | ("source", data)
+    ops: List[StageOp] = dataclasses.field(default_factory=list)
+    exchange: Optional[Exchange] = None
+
+
+@dataclasses.dataclass
+class Stage:
+    id: int
+    legs: List[Leg]
+    body: List[StageOp] = dataclasses.field(default_factory=list)
+    label: str = ""
+    _capacity_scale: int = 1
+    # send-slot slack factor for exchanges (C = ceil(slack*cap/D)); None =
+    # JobConfig.initial_send_slack
+    _send_slack: Optional[int] = None
+
+
+@dataclasses.dataclass
+class StageGraph:
+    stages: List[Stage]
+    out_stage: int
+
+    def topo_order(self) -> List[Stage]:
+        # stages are created in topo order by the planner
+        return self.stages
+
+    def explain(self) -> str:
+        """Plan pretty-printer, in the JAX package's format."""
+        lines = []
+        for st in self.stages:
+            srcs = []
+            for leg in st.legs:
+                s = f"stage{leg.src}" if isinstance(leg.src, int) \
+                    else "source"
+                ops = ",".join(o.kind for o in leg.ops) or "-"
+                ex = ""
+                if leg.exchange:
+                    ex = (f" =>{leg.exchange.kind}"
+                          f"({','.join(leg.exchange.keys)})")
+                srcs.append(f"{s}[{ops}{ex}]")
+            body = ",".join(o.kind for o in st.body) or "-"
+            lines.append(f"stage{st.id} <{st.label}> legs: " +
+                         " + ".join(srcs) + f" body: {body}")
+        lines.append(f"output: stage{self.out_stage}")
+        return "\n".join(lines)

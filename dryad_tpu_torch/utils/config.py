@@ -1,0 +1,40 @@
+"""Job configuration — the subset of ``dryad_tpu/utils/config.JobConfig``
+that the port's WordCount path reads.  Field names and defaults match the
+JAX package, so one set of overrides means the same thing to both."""
+
+from __future__ import annotations
+
+import dataclasses
+
+__all__ = ["JobConfig"]
+
+
+@dataclasses.dataclass(frozen=True)
+class JobConfig:
+    # -- executor: capacity management (exec/executor.py) ------------------
+    # retries after the first overflow; each retry is right-sized from the
+    # measured need
+    max_capacity_retries: int = 3
+    # initial send-slot slack factor for exchanges (C = ceil(slack*cap/D))
+    initial_send_slack: int = 2
+
+    # -- collect shrink policy (exec/data.py) ------------------------------
+    collect_shrink_min_capacity: int = 1024
+    collect_shrink_waste_factor: int = 4
+
+    # -- text (api split_words / ops/text.py) ------------------------------
+    token_delims: bytes = b" \t\r\n.,;:!?\"'()[]{}<>"
+    token_max_len: int = 24
+    string_max_len: int = 64          # from_columns string payload bytes
+
+    def __post_init__(self):
+        checks = [
+            (self.max_capacity_retries >= 0, "max_capacity_retries >= 0"),
+            (self.initial_send_slack >= 1, "initial_send_slack >= 1"),
+            (self.token_max_len >= 1, "token_max_len >= 1"),
+            (self.string_max_len >= 1, "string_max_len >= 1"),
+            (len(self.token_delims) >= 1, "token_delims non-empty"),
+        ]
+        bad = [msg for ok, msg in checks if not ok]
+        if bad:
+            raise ValueError("invalid JobConfig: " + "; ".join(bad))
