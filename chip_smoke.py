@@ -1,32 +1,50 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (dryad_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--lines N] [--out DIR]
+    python3 chip_smoke.py [--lines N] [--rows N] [--out DIR]
 
 Phases, each failing the run (non-zero exit, no result line) on error:
 
   0. the card's name and power limit (``nvidia-smi``); no CUDA -> exit 2;
-  1. build: every Hopper kernel of the WordCount path compiles from
+  1. build: all five Hopper kernels compile from
      ``dryad_tpu_torch/ops/csrc`` (one nvcc per source, all at once);
   2. kernels: each kernel against its plain PyTorch version on the card,
      at edge shapes (n = 0 and 1, ragged tiles, sentinels and negative
      ids, D = 1/8/16, C < 8, counts 0 and >= C, out_rows below the total).
      Integers must match exactly; the f32 scan within 1e-5 x max|prefix|
-     of a float64 cumsum (the additions run in another order);
+     of a float64 cumsum (the additions run in another order); the
+     compensated scan, kernel and plain alike, within 2**-40 x
+     sum_{i<=j} |x_i| of the exact prefix on a dyadic grid, and group sums
+     differenced from both lanes within the group bound after a prefix of
+     1e9 (where a plain f32 prefix errs by ~64 and must fail it);
   3. WordCount through ``Context(device="cuda", nparts=8)`` on two
      corpora of N lines (default 1,000,000: the JAX bench's 12-word
      vocabulary corpus, and 50,000 synthetic words sampled Zipf(1.1)),
      held exactly against a ``collections.Counter`` oracle; every launch
-     counter must have risen during each run;
-  4. timing: each kernel, its plain version and one library call at the
-     largest shapes the main path gave it (CUDA events), the bound the
-     card's memory rate sets for the same bytes, and a torch.profiler
-     breakdown of one warm run.
+     counter of the WordCount path must have risen during each run;
+  4. GroupByReduce through the same entry points at the JAX bench's size
+     for BASELINE config 3 (default 2,000,000 rows, seed 0): the app's
+     query on 10,000 keys, the same aggregates as one user Decomposable,
+     and count/sum/mean on 500 keys (the small-key lowering), each held
+     against a numpy oracle (keys, counts, min, max exact; f32 sums and
+     means within the group bound); every launch counter must rise in the
+     app's run, prefix_sum2 once per partition, and the exchange's four
+     in every run;
+  3-4. after each of those five main-path runs, every kernel call it made
+     is made again through the kernel and through its plain version on
+     the very tensors the run passed (integers exactly, prefix_sum2
+     within twice its bound);
+  5. timing: each kernel, its plain version and one library call at the
+     largest call of one main-path run (``TIMED_ON``; CUDA events), the
+     bound the card's memory rate sets for the same bytes, and a
+     torch.profiler breakdown of one warm run of each timed path.  A
+     kernel row's ``launches`` sums its launches over the five main-path
+     runs; ``runs`` gives each run's own count and |kernel - plain|.
 
-Output: one JSON line per corpus and per kernel, then the card line, then
-the ``{"kernels": [...]}`` line, then the result line
-``{"ok": true, "device": {...}}`` last.  Long logs (nvcc -Xptxas -v, the
-profile) go under ``--out`` (default chiprun_out/).
+Output: one JSON line per corpus, per GroupByReduce variant and per
+kernel, then the card line, then the ``{"kernels": [...]}`` line, then the
+result line ``{"ok": true, "device": {...}}`` last.  Long logs (nvcc
+-Xptxas -v, the profiles) go under ``--out`` (default chiprun_out/).
 """
 
 from __future__ import annotations
@@ -47,16 +65,26 @@ PEAK_OPS_PER_S = 67e12       # H100 SXM non-tensor float32; int32 adds are
                              # counted at the same rate
 NPARTS = 8                   # logical partitions on the one card
 F32_TOL = 1e-5               # x max|prefix|, as tests/test_pallas_kernels
+DD_TOL = 2.0**-40            # x sum_{i<=j} |x_i|: prefix_sum2's bound
+EPS = 2.0**-24
 
 TPU_KERNEL = {   # the Pallas function each kernel replaces
     "hist_buckets": "dryad_tpu/ops/pallas_kernels.py:137",
     "prefix_sum": "dryad_tpu/ops/pallas_kernels.py:270",
+    "prefix_sum2": "dryad_tpu/ops/pallas_kernels.py:300",
     "slot_expand": "dryad_tpu/ops/pallas_kernels.py:384",
     "slot_compact": "dryad_tpu/ops/pallas_kernels.py:445",
 }
+# the main-path run whose largest call each kernel is timed on, and whose
+# profile gives its device time per launch
+TIMED_ON = {"hist_buckets": "zipf50k", "prefix_sum": "zipf50k",
+            "prefix_sum2": "app10k", "slot_expand": "zipf50k",
+            "slot_compact": "zipf50k"}
+EXCHANGE = ("hist_buckets", "prefix_sum", "slot_expand", "slot_compact")
 DEVICE_NAMES = {  # substrings of the compiled kernels' names
     "hist_buckets": ("hist_shared", "hist_global"),
     "prefix_sum": ("tile_totals", "scan_totals", "tile_scan_offset"),
+    "prefix_sum2": ("scan2_partials", "scan2_carry", "scan2_tiles"),
     "slot_expand": ("slot_expand_k",),
     "slot_compact": ("slot_compact_k",),
 }
@@ -124,6 +152,20 @@ def check_kernels(hk, dev) -> None:
             if e > F32_TOL * float(np.abs(ref).max()):
                 raise AssertionError(f"prefix_sum f32 n={n}: err {e}")
 
+    for n in [0, 1, 4095, 4096, 4097, 250_000, 20_000_001]:
+        # dyadic grid k/256: the float64 cumsum is exact
+        xd = t((rng.randint(-2**13, 2**15, n) / 256).astype(np.float32))
+        ref = torch.cumsum(xd.double(), 0)
+        bound = DD_TOL * torch.cumsum(xd.double().abs(), 0)
+        for what, (hi, lo) in (("kernel", hk.prefix_sum2(xd)),
+                               ("plain", hk.prefix_sum2_plain(xd))):
+            torch.cuda.synchronize()
+            err = (hi.double() + lo.double() - ref).abs()
+            if hi.shape != xd.shape or not bool((err <= bound).all()):
+                raise AssertionError(f"prefix_sum2 {what} n={n}: outside "
+                                     f"the 2**-40 bound")
+    check_cancellation(hk, t)
+
     for cap, W, D, C in [(64, 3, 1, 5), (500, 8, 8, 3), (65_536, 8, 8, 16_384),
                          (10_000, 7, 16, 700), (300, 2, 8, 300)]:
         words = t(rng.randint(-2**31, 2**31 - 1, (cap, W)).astype(np.int32))
@@ -145,6 +187,79 @@ def check_kernels(hk, dev) -> None:
         same("slot_compact", hk.slot_compact(words, counts, C, out_rows),
              hk.slot_compact_plain(words, counts, C, out_rows),
              f"D={D} C={C} out_rows={out_rows}")
+
+
+def hold(hk, name, args, what) -> float:
+    """The wrapper (the kernel) against the plain version on the same
+    inputs: integers exactly, the f32 scan within F32_TOL x max|prefix|,
+    the compensated scan within twice its bound (each lies within the
+    bound of the exact prefix).  Returns the largest |kernel - plain|."""
+    import torch
+    got = getattr(hk, name)(*args)
+    want = getattr(hk, name + "_plain")(*args)
+    torch.cuda.synchronize()
+    if name == "prefix_sum2":
+        (x,) = args
+        bound = DD_TOL * torch.cumsum(x.double().abs(), 0)
+        err = (_dd_value(got) - _dd_value(want)).abs()
+        if got[0].shape != x.shape or not bool((err <= 2 * bound).all()):
+            raise AssertionError(f"prefix_sum2 {what}: kernel and plain "
+                                 f"differ by more than twice the bound")
+        return float(err.max()) if x.numel() else 0.0
+    if got.shape != want.shape:
+        raise AssertionError(f"{name} {what}: kernel and plain shapes "
+                             f"differ")
+    if got.dtype == torch.float32:
+        err = (got.double() - want.double()).abs()
+        if got.numel() and float(err.max()) > F32_TOL * float(
+                want.double().abs().max()):
+            raise AssertionError(f"{name} {what}: kernel != plain beyond "
+                                 f"the f32 tolerance")
+        return float(err.max()) if got.numel() else 0.0
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name} {what}: kernel != plain")
+    return 0.0
+
+
+def hold_run(hk, run, captured) -> dict:
+    """Every kernel call a main-path run made, made again through the
+    kernel and through its plain version on the very tensors that run
+    passed it.  Returns {kernel: largest |kernel - plain|}."""
+    errs = {}
+    for name, calls in captured.items():
+        for i, (_size, args) in enumerate(calls):
+            e = hold(hk, name, args, f"{run} call {i}")
+            errs[name] = max(errs.get(name, 0.0), e)
+    return errs
+
+
+def check_cancellation(hk, t) -> None:
+    """1,000 values of 1e6 (the prefix climbs to 1e9), then 10,000 groups
+    of 16 values in [0, 1/8): each group's sum, differenced from both
+    lanes of the compensated prefix, must hold the group bound
+    16 eps sum_group|v| + 16 eps^2 P (about 6e-5 here); the same
+    differencing over the plain f32 prefix_sum kernel must not."""
+    import torch
+    rng = np.random.RandomState(3)
+    G, g = 10_000, 16
+    small = (rng.rand(G * g) / 8).astype(np.float32)
+    x = t(np.concatenate([np.full(1000, 1e6, np.float32), small]))
+    b = t(1000 + g * np.arange(1, G + 1) - 1)
+    a = b - g
+    grp = t(small).double().reshape(G, g)
+    bound = (16 * EPS * grp.abs().sum(1)
+             + 16 * EPS**2 * x.double().abs().sum())
+    want = grp.sum(1)
+    for what, (hi, lo) in (("kernel", hk.prefix_sum2(x)),
+                           ("plain", hk.prefix_sum2_plain(x))):
+        got = (hi[b] - hi[a]) + (lo[b] - lo[a])
+        if not bool(((got.double() - want).abs() <= bound).all()):
+            raise AssertionError(f"prefix_sum2 {what}: group sums outside "
+                                 f"the bound after a 1e9 prefix")
+    f = hk.prefix_sum(x)
+    if bool(((f[b] - f[a]).double() - want).abs().le(bound).all()):
+        raise AssertionError("cancellation check has no teeth: the plain "
+                             "f32 prefix met the group bound")
 
 
 # ---------------------------------------------------------------------------
@@ -202,7 +317,89 @@ def run_wordcount(port, hk, wc, lines):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: timing
+# phase 4: GroupByReduce
+
+
+def gbr_variants(port, gbr):
+    """name -> (keys, query, output columns): the app's query; the same
+    aggregates as ONE user Decomposable whose state is (count, sum, min,
+    max); count/sum/mean on 500 keys (span <= 512: the small-key
+    lowering in the partial stage)."""
+    import torch
+
+    def seed(c):
+        v = c["v"]
+        return (torch.ones(v.shape[0], dtype=torch.int32, device=v.device),
+                v, v, v)
+
+    stats = port.Decomposable(
+        seed,
+        lambda a, b: (a[0] + b[0], a[1] + b[1], torch.minimum(a[2], b[2]),
+                      torch.maximum(a[3], b[3])),
+        lambda s: {"n": s[0], "s": s[1], "m": s[1] / s[0], "lo": s[2],
+                   "hi": s[3]})
+    full = ("n", "s", "m", "lo", "hi")
+    return {
+        "app10k": (10_000, gbr.groupbyreduce_query, full),
+        "decomposable10k": (10_000, lambda ds: ds.group_by(
+            ["k"], {"d": stats}), full),
+        "smallkey500": (500, lambda ds: ds.group_by(["k"], {
+            "n": ("count", None), "s": ("sum", "v"), "m": ("mean", "v")}),
+            ("n", "s", "m")),
+    }
+
+
+def run_gbr(port, hk, data, query):
+    """One main-path GroupByReduce run through the user's entry points,
+    timed as load (from_columns: host packing + copy to the card) and
+    query (plan, stages, collect).  Counters zeroed just before, read
+    just after.  Returns (table, launches, load_s, query_s)."""
+    import torch
+    ctx = port.Context(device="cuda", nparts=NPARTS)
+    hk.reset_launches()
+    t0 = time.perf_counter()
+    ds = ctx.from_columns(data)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = query(ds).collect()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return out, dict(hk.launches), t1 - t0, t2 - t1
+
+
+def check_gbr(name, out, data, cols) -> None:
+    """Against a numpy oracle: keys, counts, min, max exact; f32 sums
+    within 16 eps sum_group|v| + 16 eps^2 P (P = sum|v| over all rows, at
+    least any partition's), means within that / count."""
+    k, v = data["k"], data["v"]
+    v64 = v.astype(np.float64)
+    m = int(k.max()) + 1
+    cnt = np.bincount(k, minlength=m)
+    keys = np.flatnonzero(cnt)
+    o = np.argsort(out["k"])
+    if not np.array_equal(out["k"][o], keys):
+        raise AssertionError(f"{name}: the groups differ from the oracle")
+    if not np.array_equal(out["n"][o], cnt[keys]):
+        raise AssertionError(f"{name}: counts differ from the oracle")
+    s = np.bincount(k, weights=v64, minlength=m)[keys]
+    bound = (16 * EPS * np.bincount(k, weights=np.abs(v64), minlength=m)
+             [keys] + 16 * EPS**2 * float(np.abs(v64).sum()))
+    if not (np.abs(out["s"][o] - s) <= bound).all():
+        raise AssertionError(f"{name}: f32 sums outside the bound")
+    if not (np.abs(out["m"][o] - s / cnt[keys]) <= bound / cnt[keys]).all():
+        raise AssertionError(f"{name}: means outside the bound")
+    if "lo" in cols:
+        lo = np.full(m, np.inf, np.float32)
+        hi = np.full(m, -np.inf, np.float32)
+        np.minimum.at(lo, k, v)
+        np.maximum.at(hi, k, v)
+        if not (np.array_equal(out["lo"][o], lo[keys])
+                and np.array_equal(out["hi"][o], hi[keys])):
+            raise AssertionError(f"{name}: min/max differ from the oracle")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: timing
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -223,13 +420,16 @@ def cuda_ms(fn, reps: int = 20) -> float:
 def work(name: str, args) -> tuple:
     """(bytes the function must move, operations it does) for these
     inputs: each input byte read once, each output byte written once."""
-    import torch
     if name == "hist_buckets":
         bid, nb = args
         return 4 * bid.numel() + 4 * nb, bid.numel()
     if name == "prefix_sum":
         (x,) = args
         return 8 * x.numel(), x.numel()
+    if name == "prefix_sum2":
+        # f32 in, (hi, lo) out; one TwoSum combine (10 f32 adds) an element
+        (x,) = args
+        return 12 * x.numel(), 10 * x.numel()
     if name == "slot_expand":
         # rows read: the union of the runs [start, min(start + C, cap)),
         # which overlap (C exceeds the fair share); rows written: D*C
@@ -252,7 +452,9 @@ def library_call(name: str, args):
     output (a yardstick only; the port never calls it), or None.  The
     slot kernels have no one-call counterpart: theirs is the gather index
     built from the offsets/counts, then one ``index_select`` (into a
-    zeroed output for ``slot_compact``), all inside the timed call."""
+    zeroed output for ``slot_compact``), all inside the timed call.
+    ``prefix_sum2``'s is the JAX fallback's x64 recipe: a float64 cumsum
+    split into its f32 head and the f32 rounding of the rest."""
     import torch
     if name == "hist_buckets":
         bid, nb = args
@@ -260,6 +462,14 @@ def library_call(name: str, args):
     if name == "prefix_sum":
         (x,) = args
         return lambda: torch.cumsum(x, 0, dtype=x.dtype)
+    if name == "prefix_sum2":
+        (x,) = args
+
+        def dd_cumsum():
+            c = torch.cumsum(x.double(), 0)
+            hi = c.float()
+            return hi, (c - hi.double()).float()
+        return dd_cumsum
     if name == "slot_expand":
         words, offs, C = args
         cap, W = words.shape
@@ -283,53 +493,65 @@ def library_call(name: str, args):
     return compact
 
 
-def time_kernels(hk, captured, launches, prof, card) -> list:
+def _dd_value(pair):
+    """hi + lo of a (hi, lo) pair, in float64."""
+    return pair[0].double() + pair[1].double()
+
+
+def time_kernels(hk, runs, timed, card) -> list:
+    """One row per kernel.  ``runs``: every main-path run's label ->
+    (launches, {kernel: largest |kernel - plain| over its calls}); the
+    row's ``launches`` is their sum, ``runs`` each one's own.  ``timed``:
+    the label ``TIMED_ON`` names -> (captured calls, profile); the kernel,
+    its plain version and the library call are timed on that run's
+    largest call, and its profile gives the device time per launch."""
     import torch
-    plain = {"hist_buckets": hk.hist_buckets_plain,
-             "prefix_sum": hk.prefix_sum_plain,
-             "slot_expand": hk.slot_expand_plain,
-             "slot_compact": hk.slot_compact_plain}
-    wrapper = {"hist_buckets": hk.hist_buckets, "prefix_sum": hk.prefix_sum,
-               "slot_expand": hk.slot_expand,
-               "slot_compact": hk.slot_compact}
     rows = []
     for name in TPU_KERNEL:
-        _size, args = captured[name]
-        got, want = wrapper[name](*args), plain[name](*args)
+        label = TIMED_ON[name]
+        captured, prof = timed[label]
+        _size, args = max(captured[name], key=lambda c: c[0])
+        wrapper = getattr(hk, name)
+        plain = getattr(hk, name + "_plain")
+        got = wrapper(*args)
+        lib = library_call(name, args)
         torch.cuda.synchronize()
-        if got.dtype == torch.float32:
-            mae = float((got.double() - want.double()).abs().max())
-        else:
-            if not torch.equal(got, want):
-                raise AssertionError(f"{name}: kernel != plain at the main "
-                                     f"path's shapes")
-            mae = 0.0
+        if name == "prefix_sum2":
+            (x,) = args
+            bound = DD_TOL * torch.cumsum(x.double().abs(), 0)
+            lerr = (_dd_value(lib()) - _dd_value(got)).abs()
+            if not bool((lerr <= 2 * bound).all()):
+                raise AssertionError("prefix_sum2: kernel and library "
+                                     "disagree beyond the bound")
+        elif lib is not None:
+            ref = lib()
+            if ref.shape != got.shape or not torch.equal(
+                    ref.to(got.dtype), got):
+                raise AssertionError(f"{name}: the library yardstick does "
+                                     f"not compute the same function")
+        per_run = {r: {"launches": l[name], "max_abs_err": e[name]}
+                   for r, (l, e) in runs.items() if l[name]}
         nbytes, ops = work(name, args)
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS_PER_S * 1e3
-        lib = library_call(name, args)
-        if lib is not None and got.dtype != torch.float32:
-            ref = lib()
-            if ref.shape != want.shape or not torch.equal(
-                    ref.to(want.dtype), want):
-                raise AssertionError(f"{name}: the library yardstick does "
-                                     f"not compute the same function")
         rows.append({
             "name": name, "route": "cuda",
             "source": f"dryad_tpu_torch/ops/csrc/{name}.cu",
             "replaces": TPU_KERNEL[name],
-            "launches": launches[name],
-            "max_abs_err": mae,
-            "ms": cuda_ms(lambda: wrapper[name](*args)),
-            "plain_ms": cuda_ms(lambda: plain[name](*args)),
+            "launches": sum(r["launches"] for r in per_run.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in per_run.values()),
+            "ms": cuda_ms(lambda: wrapper(*args)),
+            "plain_ms": cuda_ms(lambda: plain(*args)),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": cuda_ms(lib) if lib is not None else None,
+            "runs": per_run,
             # device time alone, per launch, from the profiled warm run
-            # (ms above also holds the host's launch gaps)
+            # of the timed path (ms above also holds the host's gaps)
             "profiled_device_ms_per_launch": (
-                prof["port_kernels_ms"][name] / launches[name]
+                prof["port_kernels_ms"][name] / runs[label][0][name]
                 if prof.get("port_kernels_ms") else None),
+            "timed_on": label,
             "shape": [list(a.shape) if hasattr(a, "shape") else a
                       for a in args],
             "bytes": nbytes,
@@ -338,17 +560,18 @@ def time_kernels(hk, captured, launches, prof, card) -> list:
     return rows
 
 
-def profile_run(port, hk, wc, lines, out_dir) -> dict:
-    """Device time by kernel over one warm WordCount run (kernel-level
-    events only: the operator-level rows repeat their kernels' time)."""
+def profile_run(run, label, out_dir) -> dict:
+    """Device time by kernel over one warm run of a path (kernel-level
+    events only: the operator-level rows repeat their kernels' time).
+    ``run()`` returns (table, launches, load_s, query_s)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _out, _l, load, query = run_wordcount(port, hk, wc, lines)
+        _out, _l, load, query = run()
     wall = load + query
     avgs = prof.key_averages()
-    with open(os.path.join(out_dir, "profile_key_averages.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"profile_{label}.txt"), "w") as f:
         f.write(avgs.table(sort_by="self_cuda_time_total", row_limit=60))
     dev_ms = collections.Counter()
     for ev in avgs:
@@ -366,7 +589,7 @@ def profile_run(port, hk, wc, lines, out_dir) -> dict:
             "device_busy_share": total / 1e3 / wall,
             "port_kernels_ms": ours,
             "rest_ms": total - sum(ours.values()),
-            "top": [[k[:120], v] for k, v in dev_ms.most_common(10)]}
+            "top": [[k[:120], v] for k, v in dev_ms.most_common(12)]}
 
 
 # ---------------------------------------------------------------------------
@@ -375,6 +598,7 @@ def profile_run(port, hk, wc, lines, out_dir) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--lines", type=int, default=1_000_000)
+    ap.add_argument("--rows", type=int, default=2_000_000)
     ap.add_argument("--out", default=os.path.join(HERE, "chiprun_out"))
     a = ap.parse_args(argv)
 
@@ -388,6 +612,7 @@ def main(argv=None) -> int:
     os.makedirs(a.out, exist_ok=True)
 
     port = import_port()
+    from dryad_tpu_torch.apps import groupbyreduce as gbr
     from dryad_tpu_torch.apps import wordcount as wc
     from dryad_tpu_torch.ops import _build
     from dryad_tpu_torch.ops import hopper_kernels as hk
@@ -406,22 +631,30 @@ def main(argv=None) -> int:
     print(json.dumps({"phase": "kernels", "ok": True, "card": card}),
           flush=True)
 
+    # every main-path run: label -> (launches, {kernel: max |kernel -
+    # plain|} over all its calls); the TIMED_ON runs keep their calls
+    runs, timed_calls = {}, {}
+
+    def held(label, launches, captured):
+        runs[label] = (launches, hold_run(hk, label, captured))
+        if label in TIMED_ON.values():
+            timed_calls[label] = captured
+
     corpora = {"bench12": bench_corpus(a.lines),
                "zipf50k": zipf_corpus(a.lines)}
-    # the kernel line reports the last corpus's main-path run (zipf50k:
-    # its exchange moves real rows): its launches, its kernel inputs
     for cname, lines in corpora.items():
         want = oracle(lines)
         hk.capture = {}
         out, launches, load, query = run_wordcount(port, hk, wc, lines)
         captured, hk.capture = hk.capture, None
+        held(cname, launches, captured)
         got = dict(zip(out["line"], (int(v) for v in out["n"])))
         if got != want:
             diff = [(k, got.get(k), want.get(k)) for k in
                     set(got) | set(want) if got.get(k) != want.get(k)]
             raise AssertionError(f"{cname}: {len(diff)} words differ from "
                                  f"the oracle, e.g. {diff[:5]}")
-        zero = [k for k, v in launches.items() if v == 0]
+        zero = [k for k in EXCHANGE if launches[k] == 0]
         if zero:
             raise AssertionError(f"{cname}: kernels never launched: {zero}")
         _, _, wload, wquery = run_wordcount(port, hk, wc, lines)
@@ -434,10 +667,57 @@ def main(argv=None) -> int:
             "warm_query_s": wquery, "lines_per_s": len(lines) / warm,
             "card": card}), flush=True)
 
-    prof = profile_run(port, hk, wc, corpora["zipf50k"], a.out)
-    print(json.dumps({"profile": "zipf50k warm run", **prof, "card": card}),
-          flush=True)
-    rows = time_kernels(hk, captured, launches, prof, card)
+    variants = gbr_variants(port, gbr)
+    for vname, (n_keys, query, cols) in variants.items():
+        data = gbr.gen_pairs(a.rows, n_keys, seed=0)
+        hk.capture = {}
+        out, launches, load, qs = run_gbr(port, hk, data, query)
+        captured, hk.capture = hk.capture, None
+        check_gbr(vname, out, data, cols)
+        held(vname, launches, captured)
+        zero = [k for k in (TPU_KERNEL if vname == "app10k" else EXCHANGE)
+                if launches[k] == 0]
+        if zero:
+            raise AssertionError(f"{vname}: kernels never launched: {zero}")
+        if vname == "app10k":
+            gbr_data = data
+            if launches["prefix_sum2"] != NPARTS:
+                raise AssertionError(
+                    f"{vname}: prefix_sum2 launched "
+                    f"{launches['prefix_sum2']} times, not once per "
+                    f"partition in the partial stage")
+        elif vname == "smallkey500" and launches["prefix_sum2"] != \
+                2 * NPARTS:
+            # the merge stage sums s and m__sum (2 per partition); a
+            # partial stage off the small-key lowering would add more
+            raise AssertionError(f"{vname}: prefix_sum2 launched "
+                                 f"{launches['prefix_sum2']} times")
+        _, _, wload, wquery = run_gbr(port, hk, data, query)
+        warm = wload + wquery
+        print(json.dumps({
+            "groupbyreduce": vname, "rows": a.rows, "keys": n_keys,
+            "groups": len(out["k"]), "nparts": NPARTS,
+            "launches": launches, "cold_wall_s": load + qs,
+            "warm_wall_s": warm, "warm_load_s": wload,
+            "warm_query_s": wquery, "rows_per_s": a.rows / warm,
+            "card": card}), flush=True)
+
+    wc_prof = profile_run(
+        lambda: run_wordcount(port, hk, wc, corpora["zipf50k"]),
+        "wordcount_zipf50k", a.out)
+    print(json.dumps({"profile": "wordcount zipf50k warm run", **wc_prof,
+                      "card": card}), flush=True)
+    gbr_prof = profile_run(
+        lambda: run_gbr(port, hk, gbr_data, variants["app10k"][1]),
+        "groupbyreduce_app10k", a.out)
+    print(json.dumps({"profile": "groupbyreduce app10k warm run",
+                      **gbr_prof, "card": card}), flush=True)
+    print(json.dumps({"phase": "held", "ok": True, "runs": {
+        r: {k: {"launches": l[k], "max_abs_err": e[k]} for k in e}
+        for r, (l, e) in runs.items()}, "card": card}), flush=True)
+    rows = time_kernels(hk, runs, {
+        "zipf50k": (timed_calls["zipf50k"], wc_prof),
+        "app10k": (timed_calls["app10k"], gbr_prof)}, card)
     for row in rows:
         print(json.dumps({"kernel": row}))
     print(card)

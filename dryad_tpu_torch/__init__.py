@@ -8,12 +8,14 @@ hand-written CUDA kernel for Hopper under ``ops/csrc/``, built on first
 use; each has a plain PyTorch version that runs only for CPU tensors.
 
 Entry points run on the CUDA card unless the caller passes
-``device="cpu"``.  This slice ports WordCount end to end: from_columns ->
-split_words -> group_by count -> collect, with P logical partitions on one
-device and a hash exchange between them.
+``device="cpu"``.  Ported end to end, with P logical partitions on one
+device and a hash exchange between them: WordCount (from_columns ->
+split_words -> group_by count -> collect) and GroupByReduce (group_by
+with builtin or user-defined ``Decomposable`` aggregates, select, where).
 """
 
 __version__ = "0.1.0"
 
 from dryad_tpu_torch.api.dataset import Context, Dataset  # noqa: F401
+from dryad_tpu_torch.plan.expr import Decomposable  # noqa: F401
 from dryad_tpu_torch.utils.config import JobConfig  # noqa: F401

@@ -1,5 +1,5 @@
 """User-facing API: ``Context`` and the lazy ``Dataset`` — the subset of
-``dryad_tpu/api/dataset.py`` that WordCount calls.
+``dryad_tpu/api/dataset.py`` that WordCount and GroupByReduce call.
 
 ``Context(device="cuda", nparts=8)`` runs ``nparts`` logical partitions
 on one CUDA card (``parallel/mesh.py``).  The device is CUDA unless the
@@ -9,7 +9,7 @@ rather than quietly running on the CPU.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Mapping, Sequence
 
 from dryad_tpu_torch.exec.data import maybe_shrink_for_collect, \
     pdata_from_host, pdata_to_host
@@ -55,6 +55,19 @@ class Dataset:
         self.ctx = ctx
         self.node = node
 
+    def select(self, fn: Callable[[Dict[str, Any]], Dict[str, Any]],
+               label: str = "select") -> "Dataset":
+        """Columnwise projection: fn(cols) -> new cols (replaces the
+        columns)."""
+        return Dataset(self.ctx, E.Map(parents=(self.node,), fn=fn,
+                                       label=label))
+
+    def where(self, fn: Callable[[Dict[str, Any]], Any],
+              label: str = "where") -> "Dataset":
+        """Keep the rows where fn(cols) (a bool [capacity] mask) holds."""
+        return Dataset(self.ctx, E.Filter(parents=(self.node,), fn=fn,
+                                          label=label))
+
     def split_words(self, column: str, out_capacity: int,
                     max_token_len: int | None = None,
                     delims: bytes | None = None,
@@ -71,10 +84,12 @@ class Dataset:
             lower=lower, max_tokens_per_row=max_tokens_per_row))
 
     def group_by(self, keys: Sequence[str],
-                 aggs: Dict[str, Tuple[str, Optional[str]]]) -> "Dataset":
+                 aggs: Dict[str, Any]) -> "Dataset":
         """GroupBy + decomposable aggregates: aggs maps output column ->
-        (kind, value_column).  Groups are identified by a 64-bit key hash,
-        as in the JAX package."""
+        (kind, value_column), kind in sum/count/min/max/mean/any/all, or
+        -> a ``Decomposable(seed, merge, finalize)`` for user-defined
+        aggregation.  Groups are identified by a 64-bit key hash, as in
+        the JAX package."""
         return Dataset(self.ctx, E.GroupByAgg(
             parents=(self.node,), keys=tuple(keys), aggs=dict(aggs)))
 

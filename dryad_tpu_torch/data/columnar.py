@@ -92,6 +92,14 @@ class Batch:
         return Batch({k: map_column(v, fn) for k, v in self.columns.items()},
                      self.count)
 
+    def gather(self, idx: torch.Tensor, count=None) -> "Batch":
+        """Row gather; ``idx`` is [new_capacity] int32/int64.  Keeps the
+        count unless one is given."""
+        return Batch(self.map(lambda x: x.index_select(0, idx)).columns,
+                     self.count if count is None else
+                     torch.as_tensor(count, dtype=torch.int32,
+                                     device=self.device))
+
 
 # -- host-side packing (numpy) ------------------------------------------------
 

@@ -130,7 +130,8 @@ def pdata_from_numpy(columns: Mapping[str, Any], counts, device) -> PData:
     """numpy state -> PData.  ``columns`` maps a name to a ``[P, cap, ...]``
     array, or to a ``(data [P, cap, L] u8, lengths [P, cap] i32)`` pair
     for a string column — the leaves of a JAX ``PData`` after
-    ``np.asarray``.  ``counts`` is ``[P]``."""
+    ``np.asarray``, the state columns ``{out}@{i}`` of a decomposable
+    partial included.  ``counts`` is ``[P]``."""
     cols: Dict[str, Any] = {}
     for k, v in columns.items():
         if isinstance(v, tuple):

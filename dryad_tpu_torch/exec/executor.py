@@ -58,6 +58,10 @@ def _apply_op(b: Batch, op: StageOp, scale: int) -> Tuple[Batch,
     measured requirement for a right-sized retry."""
     k, p = op.kind, op.params
     dev = b.device
+    if k == "fn":
+        return Batch(dict(p["fn"](dict(b.columns))), b.count), _needs(dev)
+    if k == "filter":
+        return kernels.compact(b, p["fn"](dict(b.columns))), _needs(dev)
     if k == "mean_fin":
         return Batch(kernels.mean_finalize_columns(dict(b.columns),
                                                    p["cols"]), b.count), \
@@ -84,6 +88,16 @@ def _apply_op(b: Batch, op: StageOp, scale: int) -> Tuple[Batch,
     if k == "group":
         return kernels.group_aggregate(b, list(p["keys"]),
                                        dict(p["aggs"])), _needs(dev)
+    if k == "dgroup_local":
+        return kernels.group_decompose_local(
+            b, list(p["keys"]), p["decs"], p["box"]), _needs(dev)
+    if k == "dgroup_partial":
+        return kernels.group_decompose_partial(
+            b, list(p["keys"]), p["decs"], p["box"]), _needs(dev)
+    if k == "dgroup_merge":
+        return kernels.group_decompose_merge(
+            b, list(p["keys"]), p["decs"], p["box"], p["finalize"]), \
+            _needs(dev)
     raise ValueError(f"unknown op kind {k}")
 
 

@@ -35,6 +35,7 @@ KERNELS = {
     "hist_buckets": {"dryad_hist_buckets": [_P, _LL, _I, _P, _P]},
     "prefix_sum": {"dryad_prefix_sum_u32": [_P, _P, _LL, _P, _P],
                    "dryad_prefix_sum_f32": [_P, _P, _LL, _P, _P]},
+    "prefix_sum2": {"dryad_prefix_sum2_f32": [_P, _P, _P, _LL, _P, _P]},
     "slot_expand": {"dryad_slot_expand": [_P, _LL, _I, _P, _I, _I, _P, _P]},
     "slot_compact": {"dryad_slot_compact": [_P, _P, _I, _I, _I, _LL, _P,
                                             _P]},

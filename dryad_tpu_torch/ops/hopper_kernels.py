@@ -1,13 +1,16 @@
 """Hand-written Hopper kernels for the data-plane hot spots, with their
 plain PyTorch versions.
 
-The port's counterparts of the TPU kernels in
-``dryad_tpu/ops/pallas_kernels.py`` that the WordCount path runs:
+The port's counterparts of the five TPU kernels in
+``dryad_tpu/ops/pallas_kernels.py``:
 
   * ``hist_buckets`` — counts of ids in [0, n_buckets) (exchange slot
     sizing);
   * ``prefix_sum`` — inclusive 1-D scan, modular for 32-bit integers
-    (tokenizer slot bases, boundary-carry group sums);
+    (tokenizer slot bases, boundary-carry integer group sums, exchange
+    offsets);
+  * ``prefix_sum2`` — compensated (double-single) f32 inclusive scan
+    returning a (hi, lo) pair per prefix (boundary-carry f32 group sums);
   * ``slot_expand`` / ``slot_compact`` — the exchange's send-slot grid
     and receive-side compaction.
 
@@ -31,20 +34,23 @@ from __future__ import annotations
 import torch
 
 from dryad_tpu_torch.ops import _build
+from dryad_tpu_torch.ops.scan import associative_scan
 
-__all__ = ["hist_buckets", "prefix_sum", "slot_expand", "slot_compact",
-           "hist_buckets_plain", "prefix_sum_plain", "slot_expand_plain",
-           "slot_compact_plain", "launches", "reset_launches"]
+__all__ = ["hist_buckets", "prefix_sum", "prefix_sum2", "slot_expand",
+           "slot_compact", "hist_buckets_plain", "prefix_sum_plain",
+           "prefix_sum2_plain", "slot_expand_plain", "slot_compact_plain",
+           "dd_add", "launches", "reset_launches"]
 
-launches = {"hist_buckets": 0, "prefix_sum": 0, "slot_expand": 0,
-            "slot_compact": 0}
+launches = {"hist_buckets": 0, "prefix_sum": 0, "prefix_sum2": 0,
+            "slot_expand": 0, "slot_compact": 0}
 
-_SCAN_TILE = 4096            # kTile of csrc/prefix_sum.cu
+_SCAN_TILE = 4096            # kTile of csrc/prefix_sum.cu and prefix_sum2.cu
 _MAX_COMPACT_SOURCES = 4096  # starts[D + 1] of csrc/slot_compact.cu in
                              # shared memory (8 bytes each, under 48 KB)
 
 
-# chip_smoke.py's hook, not API: a dict gets each wrapper's largest call.
+# chip_smoke.py's hook, not API: a dict gets every wrapper call's
+# (size, args), listed by kernel.
 capture = None
 
 
@@ -54,8 +60,8 @@ def reset_launches() -> None:
 
 
 def _capture(name: str, size: int, *args) -> None:
-    if capture is not None and size >= capture.get(name, (-1,))[0]:
-        capture[name] = (size, args)
+    if capture is not None:
+        capture.setdefault(name, []).append((size, args))
 
 
 def _check(name: str, t: torch.Tensor, dtypes, ndim: int) -> None:
@@ -157,6 +163,54 @@ def prefix_sum(x: torch.Tensor) -> torch.Tensor:
                          _stream()))
     launches["prefix_sum"] += 1
     return y
+
+
+# ---------------------------------------------------------------------------
+# prefix_sum2
+
+
+def dd_add(hi1: torch.Tensor, lo1: torch.Tensor, hi2: torch.Tensor,
+           lo2: torch.Tensor):
+    """Double-single (compensated) f32 add: Knuth's TwoSum of the high
+    parts + Dekker's renormalisation — the JAX package's ``_dd_add``
+    (``pallas_kernels.py:205``) step for step, and the kernel's combine.
+    (hi1, lo1) is the earlier operand."""
+    s = hi1 + hi2
+    bb = s - hi1
+    err = (hi1 - (s - bb)) + (hi2 - bb)
+    lo = lo1 + lo2 + err
+    hi_n = s + lo
+    lo_n = lo - (hi_n - s)
+    return hi_n, lo_n
+
+
+def prefix_sum2_plain(x: torch.Tensor):
+    """``dd_add`` as a log-step (Hillis–Steele) inclusive scan in f32."""
+    return associative_scan(lambda a, b: dd_add(a[0], a[1], b[0], b[1]),
+                            (x, torch.zeros_like(x)))
+
+
+def prefix_sum2(x: torch.Tensor):
+    """Compensated inclusive prefix sum of f32 [n] -> (hi, lo), each f32
+    [n]: hi + lo is the prefix to about twice f32's precision.  Callers
+    that difference two prefixes difference BOTH lanes."""
+    _check("prefix_sum2", x, (torch.float32,), 1)
+    _capture("prefix_sum2", x.numel(), x)
+    if not _on_card("prefix_sum2", x):
+        return prefix_sum2_plain(x)
+    n = x.numel()
+    hi = torch.empty_like(x)
+    lo = torch.empty_like(x)
+    if n == 0:
+        return hi, lo
+    tiles = -(-n // _SCAN_TILE)
+    scratch = torch.empty(2 * tiles, dtype=torch.float32, device=x.device)
+    lib = _build.library("prefix_sum2")
+    _ok("prefix_sum2", lib.dryad_prefix_sum2_f32(
+        x.data_ptr(), hi.data_ptr(), lo.data_ptr(), n, scratch.data_ptr(),
+        _stream()))
+    launches["prefix_sum2"] += 1
+    return hi, lo
 
 
 # ---------------------------------------------------------------------------

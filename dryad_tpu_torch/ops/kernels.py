@@ -1,12 +1,16 @@
 """Per-partition operator kernels over columnar Batches — the subset of
-``dryad_tpu/ops/kernels.py`` that the WordCount path runs.
+``dryad_tpu/ops/kernels.py`` that the WordCount and GroupByReduce paths
+run: compaction (``where``), group aggregation in its three lowerings,
+and user-defined decomposable aggregation.
 
 Idioms carried over from the JAX package:
   * validity is a prefix: ``count`` valid rows, then padding;
+  * compaction = stable sort of the drop mask;
   * group-by = 64-bit key hash (or an exact 32-bit order lane for a
-    single dense key) -> sort -> segment boundaries -> boundary-carry
-    aggregation (one prefix sum, adjacent differences on the dense
-    group-end rows).
+    single dense key) -> sort -> segment boundaries -> segment reduces:
+    boundary-carry (one prefix sum, adjacent differences on the dense
+    group-end rows), a segmented associative scan, or, for small-span
+    integer keys, one one-hot matrix product.
 
 What changes in PyTorch: ``jax.lax.sort`` with several keys and carried
 values becomes an argsort of one folded int64 key (two 32-bit lanes
@@ -18,17 +22,22 @@ packed rows are int32 word matrices ``[cap, W]``.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
+from torch.utils import _pytree as pytree
 
-from dryad_tpu_torch.data.columnar import Batch, StringColumn
+from dryad_tpu_torch.data.columnar import Batch, StringColumn, map_column
 from dryad_tpu_torch.ops.hashing import (M32, canon_zero, from_u32,
                                          hash_batch_keys, to_u32)
-from dryad_tpu_torch.ops.hopper_kernels import prefix_sum
+from dryad_tpu_torch.ops.hopper_kernels import prefix_sum, prefix_sum2
+from dryad_tpu_torch.ops.scan import associative_scan
 
-__all__ = ["group_aggregate", "mean_finalize_columns", "AGG_KINDS",
-           "NotPortedYet"]
+__all__ = ["compact", "filter_rows", "permute_by_sort", "group_aggregate",
+           "group_decompose_partial", "group_decompose_merge",
+           "group_decompose_local", "resolve_dec_spec",
+           "mean_finalize_columns", "AGG_KINDS", "NotPortedYet"]
 
 AGG_KINDS = ("sum", "count", "min", "max", "mean", "any", "all")
 
@@ -175,6 +184,72 @@ def _sort_carrying(key_lanes, values, stable: bool = True):
             [v.index_select(0, order) for v in values])
 
 
+def _sort_segments_carry(hi: torch.Tensor, lo: torch.Tensor,
+                         valid: torch.Tensor, n_valid):
+    """Hash segmentation: an unstable sort of the rows by the 64-bit hash
+    (invalid rows fold to the all-ones sentinel and sort last; nothing
+    downstream reads the order of rows within a segment).  Returns
+    (order, is_start, is_end, num_groups) over the sorted rows; callers
+    gather what rides along with ``order``."""
+    hi_s, lo_s = _sentinel_fold(hi, lo, valid)
+    order = _sort_order([hi_s, lo_s], stable=False)
+    return (order,) + _segment_flags(
+        _lane_differs(hi_s.index_select(0, order),
+                      lo_s.index_select(0, order)), n_valid)
+
+
+def _sort_segments_dense(key_lane: torch.Tensor, valid: torch.Tensor,
+                         n_valid):
+    """Dense-key segmentation by the EXACT 32-bit order lane of a single
+    key, an explicit invalid flag most significant (a real key may hit
+    the all-ones lane, so no sentinel fold).  Unstable: no caller reads
+    the in-segment order.  Returns (order, sorted key lane, is_start,
+    is_end, num_groups)."""
+    order = _sort_order([(~valid).to(torch.int64), key_lane], stable=False)
+    skey = key_lane.index_select(0, order)
+    return (order, skey) + _segment_flags(_lane_differs(skey), n_valid)
+
+
+def _hash_sort_segments(hi: torch.Tensor, lo: torch.Tensor,
+                        valid: torch.Tensor):
+    """Stable sort by 64-bit hash (invalid rows last); equal-hash runs of
+    valid rows are segments.  Returns (order, seg, is_start, num_groups);
+    seg is n for invalid rows.  Keys colliding in all 64 bits merge —
+    P ~ n^2 / 2^64, as in the JAX package."""
+    n = hi.shape[0]
+    hi_s, lo_s = _sentinel_fold(hi, lo, valid)
+    order = _sort_order([hi_s, lo_s])
+    svalid = valid.index_select(0, order)
+    is_start = svalid & _lane_differs(hi_s.index_select(0, order),
+                                      lo_s.index_select(0, order))
+    seg = torch.cumsum(is_start.to(torch.int32), 0, dtype=torch.int32) - 1
+    seg = torch.where(svalid, seg, n)
+    return order, seg, is_start, is_start.sum(dtype=torch.int32)
+
+
+def _group_segments(batch: Batch, key_names: Sequence[str]):
+    """Sort the batch by key hash: (sorted batch, seg, is_start,
+    num_groups)."""
+    hi, lo = hash_batch_keys(batch, key_names)
+    order, seg, is_start, num_groups = _hash_sort_segments(
+        hi, lo, batch.valid_mask())
+    return batch.gather(order), seg, is_start, num_groups
+
+
+def _segment_rows(is_start: torch.Tensor, num_groups, n_valid):
+    """(first, last) sorted row index of each segment over segment-sorted
+    rows (the g-th True of ``is_start`` starts segment g; segments tile
+    the valid prefix); 0 past num_groups."""
+    cap = is_start.shape[0]
+    start_pos = _stable_front(is_start)
+    idx = torch.arange(cap, device=is_start.device)
+    end_excl = torch.where(idx + 1 < num_groups, torch.roll(start_pos, -1),
+                           n_valid)
+    live = idx < num_groups
+    return (torch.where(live, start_pos, 0),
+            torch.where(live, torch.clamp(end_excl - 1, min=0), 0))
+
+
 def _stable_front(flag: torch.Tensor) -> torch.Tensor:
     """Permutation listing the rows where ``flag`` is True first, each
     group in index order (the stable valid-first sort)."""
@@ -252,12 +327,38 @@ def _dense_fast_key(batch: Batch, key_names: Sequence[str]) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# filtering / compaction
+
+
+def permute_by_sort(batch: Batch, key_lanes: Sequence[torch.Tensor],
+                    count=None) -> Batch:
+    """Stable sort of the batch's rows by 32-bit ``key_lanes`` (most
+    significant first), moving every column along."""
+    return batch.gather(_sort_order(list(key_lanes)),
+                        batch.count if count is None else count)
+
+
+def compact(batch: Batch, keep: torch.Tensor) -> Batch:
+    """Move the valid rows where ``keep`` to the front, in their order;
+    count = the number kept."""
+    keep = keep & batch.valid_mask()
+    return permute_by_sort(batch, [(~keep).to(torch.int64)],
+                           count=keep.sum(dtype=torch.int32))
+
+
+def filter_rows(batch: Batch, predicate) -> Batch:
+    """predicate: dict[str, Column] -> bool[capacity]."""
+    return compact(batch, predicate(dict(batch.columns)))
+
+
+# ---------------------------------------------------------------------------
 # group aggregation
 
 
 def _boundary_eligible(batch: Batch, aggs) -> Tuple[bool, str | None]:
     """Can this agg set run on the boundary-carry path?  (ok, the single
-    min/max order column or None)."""
+    min/max order column or None).  Sum/mean/any/all columns are 1-D
+    4-byte dense; all min/max share ONE 1-D reconstructible column."""
     minmax: set = set()
     for _out, (kind, vname) in aggs.items():
         if kind == "count":
@@ -282,7 +383,9 @@ def _boundary_eligible(batch: Batch, aggs) -> Tuple[bool, str | None]:
 
 
 def _matmul_group_eligible(batch: Batch, key_names, aggs) -> bool:
-    """The JAX package's gate for its one-hot small-key lowering."""
+    """Static half of the small-key gate: a single integer dense key,
+    sums/means over f32 columns only (f32 counts are exact below 2**24
+    rows), a partition small enough that counts stay exact."""
     if not _dense_fast_key(batch, key_names):
         return False
     kd = batch.columns[key_names[0]].dtype
@@ -303,30 +406,139 @@ def _matmul_group_eligible(batch: Batch, key_names, aggs) -> bool:
 
 def group_aggregate(batch: Batch, key_names: Sequence[str],
                     aggs: Dict[str, Tuple[str, str | None]]) -> Batch:
-    """GroupBy + decomposable aggregation (count, integer sum/mean,
-    min/max over one order column, any/all) on the boundary-carry path.
+    """GroupBy + decomposable aggregation.
 
-    aggs: out_name -> (kind, value_column | None).  The output batch has
-    the key columns (one representative row per group) and one column per
-    aggregate; count = number of groups.  The JAX package's small-key and
-    segmented-scan lowerings, and f32 sums (its compensated prefix_sum2
-    kernel), come with the GroupByReduce slice and raise here."""
+    aggs: out_name -> (kind, value_column | None), kind in AGG_KINDS.  The
+    output batch has the key columns (one representative row per group)
+    and one column per aggregate; count = number of groups.
+
+    Lowering, as in the JAX package: small-span integer keys take the
+    one-hot product (a runtime span check, _group_aggregate_smallkey);
+    else the boundary-carry path when the agg set allows it; else the
+    segmented scan (_group_aggregate_scan).
+
+    NaN: the boundary path ranks float min/max by the total order
+    -NaN < -inf < ... < +inf < +NaN; the scan path's torch.minimum /
+    maximum propagate any NaN to both extremes (jnp.minimum's rule), so
+    groups holding NaN answer differently across the two lowerings."""
     for _o, (kind, _v) in aggs.items():
         if kind not in AGG_KINDS:
             raise ValueError(f"unknown aggregate kind {kind!r}")
-    if _matmul_group_eligible(batch, key_names, aggs):
-        raise NotPortedYet("the small-key (one-hot) group lowering",
-                           "GroupByReduce")
     ok, minmax_col = _boundary_eligible(batch, aggs)
-    if not ok:
-        raise NotPortedYet("the segmented-scan group lowering",
-                           "GroupByReduce")
+    if ok:
+        fallback = lambda b: _group_aggregate_boundary(  # noqa: E731
+            b, key_names, aggs, minmax_col)
+    else:
+        fallback = lambda b: _group_aggregate_scan(  # noqa: E731
+            b, key_names, aggs)
+    if _matmul_group_eligible(batch, key_names, aggs):
+        return _group_aggregate_smallkey(batch, key_names, aggs, fallback)
+    return fallback(batch)
+
+
+_SMALLKEY_SLOTS = 512      # one-hot width: a key span <= this takes the
+                           # product
+_SMALLKEY_CHUNK = 16384    # rows per accumulation step (bounds the
+                           # [chunk, slots] f32 one-hot at 32 MB)
+
+
+@contextlib.contextmanager
+def _full_f32_matmul():
+    """f32 products in full f32 for the duration, whatever the caller set:
+    TF32 (or bf16 on the CPU) would round the summed values to a 10-bit
+    (8-bit) mantissa."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def _group_aggregate_smallkey(batch: Batch, key_names: Sequence[str],
+                              aggs: Dict[str, Tuple[str, str | None]],
+                              fallback) -> Batch:
+    """One-hot group aggregation for small-span integer keys: per-group
+    sums are ONE product of the [slots, rows] one-hot with the value
+    columns, chunk by chunk (the JAX package's MXU lowering; here a plain
+    torch.matmul in full f32).  The span is a runtime property: the JAX
+    package branches with lax.cond, the port reads ``use`` on the host —
+    one sync per call — and runs the sort ``fallback`` on wide spans."""
+    kcol = batch.columns[key_names[0]]
+    cap = batch.capacity
+    dev = batch.device
+    valid = batch.valid_mask()
+    S = _SMALLKEY_SLOTS
+    if cap == 0:
+        return fallback(batch)
+    info = torch.iinfo(kcol.dtype)
+    kmin = torch.where(valid, kcol, info.max).min().to(torch.int64)
+    kmax = torch.where(valid, kcol, info.min).max().to(torch.int64)
+    # the true span, in int64 (a span past 2**31 is simply wide; JAX's
+    # wrapped i32 span lands negative and takes the same fallback)
+    span = kmax - kmin + 1
+    use = (batch.count > 0) & (span >= 1) & (span <= S)
+    if not bool(use):
+        return fallback(batch)
+
+    slot = torch.clamp(kcol.to(torch.int64) - kmin, 0, S - 1)
+    slot = torch.where(valid, slot, S)          # padding matches nothing
+    vals: Dict[str, torch.Tensor] = {}
+    shapes: Dict[str, Tuple] = {}
     for _o, (kind, vname) in aggs.items():
-        if kind in ("sum", "mean") and \
-                batch.columns[vname].dtype == torch.float32:
-            raise NotPortedYet("f32 group sums (prefix_sum2)",
-                               "GroupByReduce")
-    return _group_aggregate_boundary(batch, key_names, aggs, minmax_col)
+        if kind != "count" and vname not in vals:
+            v = batch.columns[vname]
+            shapes[vname] = tuple(v.shape[1:])
+            # padding rows hold unspecified bytes (NaN included) and
+            # 0 * NaN = NaN in the product: zero the values themselves
+            vals[vname] = _mask_rows(v, valid).reshape(cap, -1)
+    names = list(vals)
+    vcat = torch.cat([vals[n] for n in names], dim=1) if names else None
+    iota = torch.arange(S, device=dev)
+    cnts = torch.zeros(S, dtype=torch.float32, device=dev)
+    sums = torch.zeros((S, vcat.shape[1] if names else 1),
+                       dtype=torch.float32, device=dev)
+    with _full_f32_matmul():
+        for c0 in range(0, cap, _SMALLKEY_CHUNK):
+            oh = (slot[c0:c0 + _SMALLKEY_CHUNK, None] == iota[None, :]) \
+                .to(torch.float32)                        # [chunk, S]
+            cnts = cnts + oh.sum(dim=0)
+            if names:
+                sums = sums + torch.matmul(
+                    oh.t(), vcat[c0:c0 + _SMALLKEY_CHUNK])   # [S, m]
+    nonempty = cnts > 0
+    num_groups = nonempty.sum(dtype=torch.int32)
+    order = _stable_front(nonempty)                   # [S], tiny
+    rank = torch.arange(S, dtype=torch.int32, device=dev)
+    gvalid_s = rank < num_groups
+
+    def place(a_s: torch.Tensor) -> torch.Tensor:
+        """[S, ...] slot-ordered -> [cap, ...] group-compacted."""
+        g = _mask_rows(a_s.index_select(0, order), gvalid_s)
+        if cap >= S:
+            return torch.cat([g, g.new_zeros((cap - S,) + g.shape[1:])])
+        return g[:cap]
+
+    out_cols: Dict[str, Any] = {
+        key_names[0]: place((kmin + rank).to(kcol.dtype))}
+    cnt_g = place(cnts).to(torch.int32)
+    col_sums: Dict[str, torch.Tensor] = {}
+    off = 0
+    for n in names:
+        m = vals[n].shape[1]
+        col_sums[n] = place(sums[:, off:off + m]).reshape(
+            (cap,) + shapes[n])
+        off += m
+    for out_name, (kind, vname) in aggs.items():
+        if kind == "count":
+            out_cols[out_name] = cnt_g
+        elif kind == "sum":
+            out_cols[out_name] = col_sums[vname]
+        else:   # mean
+            c = torch.clamp(cnt_g, min=1).reshape(
+                (cap,) + (1,) * len(shapes[vname]))
+            out_cols[out_name] = col_sums[vname] / c.to(torch.float32)
+    return Batch(out_cols, num_groups)
 
 
 def _int_bits(a: torch.Tensor) -> torch.Tensor:
@@ -341,10 +553,13 @@ def _group_aggregate_boundary(batch: Batch, key_names: Sequence[str],
 
       * ONE sort by the grouping lanes (+ the min/max order lane, so a
         segment's min sits at its first row and its max at its last);
-      * integer sums ride ONE prefix_sum (Hopper kernel) over the sorted,
-        masked values; per-group sums are adjacent differences of that
-        prefix on the dense group-end rows (exact under 32-bit wrap);
-      * counts are adjacent differences of the end rows' sorted index;
+      * sums ride ONE prefix per summed column over the sorted, masked
+        values: integers the ``prefix_sum`` kernel (exact under 32-bit
+        wrap), f32 the compensated ``prefix_sum2`` kernel, whose (hi, lo)
+        lanes are BOTH differenced, so a group's error stays near ulp of
+        its own sum instead of ulp of the global prefix;
+      * per-group sums are adjacent differences of the prefix on the
+        dense group-end rows; counts those of the end rows' sorted index;
       * a stable valid-first sort densifies the segment-end rows."""
     valid = batch.valid_mask()
     cap = batch.capacity
@@ -371,17 +586,27 @@ def _group_aggregate_boundary(batch: Batch, key_names: Sequence[str],
     svord = skeys[2] if minmax_col is not None else None
     svalid = idx < n_valid
 
-    # integer prefix sums over the sorted value columns (int32 bits)
+    # prefix sums over the sorted value columns: (prefix,) for integers,
+    # (hi, lo) for f32
     sum_cols: Dict[str, torch.Tensor] = {}
     for _out, (kind, vname) in aggs.items():
         if kind in ("sum", "mean") and vname not in sum_cols:
-            sum_cols[vname] = _int_bits(batch.columns[vname])
+            sum_cols[vname] = batch.columns[vname]
         elif kind in ("any", "all") and "#i:" + vname not in sum_cols:
             sum_cols["#i:" + vname] = batch.columns[vname].to(torch.int32)
-    csums: Dict[str, torch.Tensor] = {}
+    csums: Dict[str, Tuple[torch.Tensor, ...]] = {}
     for name, v in sum_cols.items():
-        sv = v.index_select(0, order)
-        csums[name] = prefix_sum(torch.where(svalid, sv, 0))
+        if name == minmax_col:
+            # the min/max column is also summed: its sorted values are
+            # rebuilt from the sorted order lane instead of gathered
+            sv = _dense_lanes_invert(svord, v.dtype)
+        else:
+            sv = v.index_select(0, order)
+        if sv.dtype == torch.float32:
+            csums[name] = prefix_sum2(torch.where(svalid, sv, 0.0))
+        else:
+            csums[name] = (prefix_sum(torch.where(svalid, _int_bits(sv),
+                                                  0)),)
 
     # densify segment-END rows to the front, in group order
     dperm = _stable_front(is_end)
@@ -407,12 +632,15 @@ def _group_aggregate_boundary(batch: Batch, key_names: Sequence[str],
         vmin = torch.where(idx == 0, v0, vmin)
     dcs: Dict[str, torch.Tensor] = {}
     for name, c in csums.items():
-        c = to_u32(c.index_select(0, dperm))
+        if len(c) == 2:
+            # difference BOTH compensated lanes
+            hi, lo = (l.index_select(0, dperm) for l in c)
+            dcs[name] = (hi - _shift_fwd(hi, 0)) + (lo - _shift_fwd(lo, 0))
+            continue
+        c = to_u32(c[0].index_select(0, dperm))
         d = from_u32((c - _shift_fwd(c, 0)) & M32)
-        v = batch.columns[name[3:]] if name.startswith("#i:") \
-            else batch.columns[name]
-        dcs[name] = d if name.startswith("#i:") or v.dtype == torch.int32 \
-            else d.view(v.dtype)
+        v = sum_cols[name]
+        dcs[name] = d if v.dtype == torch.int32 else d.view(v.dtype)
     didx = dperm.to(torch.int32)
     cnt_g = didx - _shift_fwd(didx, -1)
 
@@ -432,6 +660,267 @@ def _group_aggregate_boundary(batch: Batch, key_names: Sequence[str],
         else:   # all
             o = dcs["#i:" + vname] == cnt_g
         out_cols[out_name] = _mask_rows(o, gmask)
+    return Batch(out_cols, num_groups)
+
+
+_SCAN_OPS = {"sum": torch.add, "isum": torch.add, "min": torch.minimum,
+             "max": torch.maximum}
+
+
+def _group_aggregate_scan(batch: Batch, key_names: Sequence[str],
+                          aggs: Dict[str, Tuple[str, str | None]]) -> Batch:
+    """Segmented-scan group aggregation — the general path (2-D value
+    columns, 8-byte sums, several or string min/max columns): ONE sort
+    groups the rows, ONE segmented scan carries every aggregate's running
+    reduce (each group's total lands on its last row), a stable
+    valid-first sort densifies the group-end rows.  A single <= 32-bit
+    dense key groups by its exact order lane, sorted unstable."""
+    valid = batch.valid_mask()
+    cap = batch.capacity
+    dev = batch.device
+    n_valid = batch.count
+    idx = torch.arange(cap, dtype=torch.int32, device=dev)
+
+    kcol0 = batch.columns[key_names[0]]
+    dense_fast = _dense_fast_key(batch, key_names)
+    needed_vals = list(dict.fromkeys(
+        v for _, v in aggs.values() if v and v not in
+        (key_names if dense_fast else ())))
+    needed = needed_vals if dense_fast else \
+        list(dict.fromkeys(list(key_names) + needed_vals))
+    if dense_fast:
+        order, skey, is_start, is_end, num_groups = _sort_segments_dense(
+            _dense_key_lane(kcol0), valid, n_valid)
+    else:
+        hi, lo = hash_batch_keys(batch, key_names)
+        order, is_start, is_end, num_groups = _sort_segments_carry(
+            hi, lo, valid, n_valid)
+    scols = {k: map_column(batch.columns[k],
+                           lambda x: x.index_select(0, order))
+             for k in needed}
+    if dense_fast and key_names[0] in (v for _, v in aggs.values() if v):
+        # the key doubles as an agg value (count over the key): rebuild
+        # its sorted values from the (canonicalized) key lane
+        scols[key_names[0]] = _dense_lanes_invert(skey, kcol0.dtype)
+
+    scan_in: List[Tuple[torch.Tensor, Any]] = [
+        ((idx < n_valid).to(torch.int32), torch.add)]     # run_cnt
+    slots: Dict[Tuple[str, str | None], int] = {}
+
+    def _slot(kind, vname, arr):
+        if (kind, vname) not in slots:
+            slots[(kind, vname)] = len(scan_in)
+            scan_in.append((arr, _SCAN_OPS[kind]))
+
+    for _out, (kind, vname) in aggs.items():
+        if kind in ("sum", "mean"):
+            _slot("sum", vname, scols[vname])
+        elif kind in ("min", "max"):
+            _slot(kind, vname, scols[vname])
+        elif kind in ("any", "all"):
+            _slot("isum", vname, scols[vname].to(torch.int32))
+    scanned = _seg_scan_multi(scan_in, is_start)
+    run_cnt = scanned[0]
+
+    dense_in: Dict[str, Any] = ({} if dense_fast
+                                else {k: scols[k] for k in key_names})
+    for out_name, (kind, vname) in aggs.items():
+        if kind == "count":
+            o = run_cnt
+        elif kind in ("sum", "mean"):
+            s = scanned[slots[("sum", vname)]]
+            if kind == "sum":
+                o = s
+            else:
+                c = torch.clamp(run_cnt, min=1).reshape(
+                    (cap,) + (1,) * (s.dim() - 1))
+                o = s / c.to(s.dtype) if s.dtype.is_floating_point \
+                    else s.to(torch.float32) / c
+        elif kind in ("min", "max"):
+            o = scanned[slots[(kind, vname)]]
+        elif kind == "any":
+            o = scanned[slots[("isum", vname)]] > 0
+        else:   # all
+            o = scanned[slots[("isum", vname)]] == run_cnt
+        dense_in[out_name] = o
+
+    dperm = _stable_front(is_end)
+    gmask = idx < num_groups
+    out_cols = {name: _mask_rows(map_column(
+        v, lambda x: x.index_select(0, dperm)), gmask)
+        for name, v in dense_in.items()}
+    if dense_fast:
+        out_cols[key_names[0]] = _mask_rows(_dense_lanes_invert(
+            skey.index_select(0, dperm), kcol0.dtype), gmask)
+    return Batch(out_cols, num_groups)
+
+
+# ---------------------------------------------------------------------------
+# segmented scans (the port's associative_scan, ops/scan.py)
+
+
+def _bcast(flag: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return flag.reshape(flag.shape + (1,) * (like.dim() - 1))
+
+
+def _seg_scan_multi(vals_ops, is_start: torch.Tensor) -> List[torch.Tensor]:
+    """Running segment reduces for SEVERAL (value, op) pairs in ONE scan:
+    the log2(cap) passes and the boundary flags are shared instead of
+    paid per aggregate.  Rows are segment-sorted, ``is_start`` marks each
+    segment's first row; each segment's total sits at its last row."""
+
+    def comb(a, b):
+        fa, va = a[0], a[1:]
+        fb, vb = b[0], b[1:]
+        out = [torch.where(_bcast(fb, xa), xb, op(xa, xb))
+               for xa, xb, (_, op) in zip(va, vb, vals_ops)]
+        return (fa | fb,) + tuple(out)
+
+    res = associative_scan(comb, (is_start,) + tuple(v for v, _ in vals_ops))
+    return list(res[1:])
+
+
+def _seg_scan_reduce(v: torch.Tensor, is_start: torch.Tensor, op,
+                     reverse: bool = False) -> torch.Tensor:
+    """Per-row running ``op``-reduce within each segment (one pair of
+    ``_seg_scan_multi``).  The segment total sits at its last row; with
+    ``reverse=True`` (the flags then marking segment ENDS) at its first
+    row."""
+    if reverse:
+        return _seg_scan_multi([(v.flip(0), op)], is_start.flip(0))[0].flip(0)
+    return _seg_scan_multi([(v, op)], is_start)[0]
+
+
+# ---------------------------------------------------------------------------
+# user-defined decomposable aggregation (IDecomposable parity)
+
+
+def _segmented_merge(seg: torch.Tensor, states, merge_fn):
+    """Reduce an associative ``merge_fn`` over each segment: one scan over
+    rows carrying (segment id, state) whose combine keeps the right
+    operand where the segments differ, so each segment's LAST row ends up
+    holding the whole segment's reduction."""
+
+    def combine(a, b):
+        sa, va = a
+        sb, vb = b
+        same = sa == sb
+        leaves_b, spec = pytree.tree_flatten(vb)
+        merged = pytree.tree_leaves(merge_fn(va, vb))
+        return sb, pytree.tree_unflatten(
+            [torch.where(_bcast(same, x), x, y)
+             for x, y in zip(merged, leaves_b)], spec)
+
+    _, scanned = associative_scan(combine, (seg, states))
+    return scanned
+
+
+def _group_states(batch: Batch, key_names: Sequence[str],
+                  decs: Dict[str, Tuple], state_box: Dict):
+    """Seed + segmented merge: (key out_cols, out -> per-group merged
+    state pytree, num_groups).  Publishes each state's treespec into
+    ``state_box``."""
+    sb, seg, is_start, num_groups = _group_segments(batch, key_names)
+    first, last = _segment_rows(is_start, num_groups, batch.count)
+    rep = sb.gather(first)
+    out_cols = {k: rep.columns[k] for k in key_names}
+    merged_states = {}
+    for out_name, (seed, merge_fn, _fin) in decs.items():
+        states = seed(dict(sb.columns))
+        state_box[out_name] = pytree.tree_structure(states)
+        scanned = _segmented_merge(seg, states, merge_fn)
+        merged_states[out_name] = pytree.tree_map(
+            lambda l: l.index_select(0, last), scanned)
+    return out_cols, merged_states, num_groups
+
+
+def _group_mask(cap: int, num_groups, dev) -> torch.Tensor:
+    """Rows [0, num_groups) of a [cap] output."""
+    return torch.arange(cap, device=dev) < num_groups
+
+
+def _emit_states(out_cols, out_name, merged, gmask) -> None:
+    for i, leaf in enumerate(pytree.tree_leaves(merged)):
+        out_cols[f"{out_name}@{i}"] = _mask_rows(leaf, gmask)
+
+
+def _emit_finalized(out_cols, out_name, fin, merged, gmask) -> None:
+    val = fin(merged) if fin is not None else merged
+    named = val if isinstance(val, dict) else {out_name: val}
+    for cname, v in named.items():
+        out_cols[cname] = _mask_rows(v, gmask)
+
+
+def resolve_dec_spec(spec):
+    """Dec spec -> (seed, merge, finalize): a ``plan.expr.Decomposable``,
+    a ("__builtin__", kind, col) tag rebuilt here on the executing side,
+    or already a triple (direct kernel callers)."""
+    if isinstance(spec, tuple) and len(spec) == 3 and \
+            spec[0] == "__builtin__":
+        # imported here: the planner sits above the ops layer
+        from dryad_tpu_torch.plan.planner import _builtin_as_decomposable
+        d = _builtin_as_decomposable(spec[1], spec[2])
+        return (d.seed, d.merge, d.finalize)
+    if hasattr(spec, "seed"):
+        return (spec.seed, spec.merge, spec.finalize)
+    return spec
+
+
+def _resolve_decs(decs):
+    return {k: resolve_dec_spec(v) for k, v in decs.items()}
+
+
+def group_decompose_partial(batch: Batch, key_names: Sequence[str],
+                            decs: Dict[str, Any], state_box: Dict) -> Batch:
+    """Map-side combine for user-defined decomposable aggregates.
+    ``seed(columns)`` maps the row columns to a state pytree (vectorized
+    over rows), ``merge(a, b)`` is the associative combine.  Output: the
+    key columns + each state's leaves as columns ``{out}@{i}``; the
+    treespecs go into ``state_box`` for the merge stage."""
+    decs = _resolve_decs(decs)
+    out_cols, merged_states, num_groups = _group_states(
+        batch, key_names, decs, state_box)
+    gmask = _group_mask(batch.capacity, num_groups, batch.device)
+    for out_name, merged in merged_states.items():
+        _emit_states(out_cols, out_name, merged, gmask)
+    return Batch(out_cols, num_groups)
+
+
+def group_decompose_local(batch: Batch, key_names: Sequence[str],
+                          decs: Dict[str, Any], state_box: Dict) -> Batch:
+    """Single-pass decomposable GroupBy over co-located input: seed, merge
+    and finalize in one op."""
+    decs = _resolve_decs(decs)
+    out_cols, merged_states, num_groups = _group_states(
+        batch, key_names, decs, state_box)
+    gmask = _group_mask(batch.capacity, num_groups, batch.device)
+    for out_name, merged in merged_states.items():
+        _emit_finalized(out_cols, out_name, decs[out_name][2], merged, gmask)
+    return Batch(out_cols, num_groups)
+
+
+def group_decompose_merge(batch: Batch, key_names: Sequence[str],
+                          decs: Dict[str, Any], state_box: Dict,
+                          finalize: bool) -> Batch:
+    """Reduce-side merge of partial states (columns ``{out}@{i}``), then
+    finalize when ``finalize``."""
+    decs = _resolve_decs(decs)
+    sb, seg, is_start, num_groups = _group_segments(batch, key_names)
+    first, last = _segment_rows(is_start, num_groups, batch.count)
+    rep = sb.gather(first)
+    out_cols = {k: rep.columns[k] for k in key_names}
+    gmask = _group_mask(batch.capacity, num_groups, batch.device)
+    for out_name, (_seed, merge_fn, fin) in decs.items():
+        spec = state_box[out_name]
+        states = pytree.tree_unflatten(
+            [sb.columns[f"{out_name}@{i}"] for i in range(spec.num_leaves)],
+            spec)
+        merged = pytree.tree_map(lambda l: l.index_select(0, last),
+                                 _segmented_merge(seg, states, merge_fn))
+        if finalize:
+            _emit_finalized(out_cols, out_name, fin, merged, gmask)
+        else:
+            _emit_states(out_cols, out_name, merged, gmask)
     return Batch(out_cols, num_groups)
 
 

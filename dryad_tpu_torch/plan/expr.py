@@ -1,17 +1,18 @@
 """Logical query expression DAG — the subset of ``dryad_tpu/plan/expr.py``
-that the WordCount slice plans: sources, the tokenizing SelectMany,
-GroupBy with builtin decomposable aggregates, and explicit hash
-repartition.  A ``Dataset`` method chain builds this DAG lazily; the
-planner (``plan/planner.py``) lowers it to stages."""
+that the WordCount and GroupByReduce slices plan: sources, Select /
+Where, the tokenizing SelectMany, GroupBy with builtin or user-defined
+decomposable aggregates, and explicit hash repartition.  A ``Dataset``
+method chain builds this DAG lazily; the planner (``plan/planner.py``)
+lowers it to stages."""
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
-__all__ = ["Partitioning", "Node", "Source", "FlatTokens", "GroupByAgg",
-           "HashRepartition", "walk"]
+__all__ = ["Partitioning", "Node", "Source", "Map", "Filter", "FlatTokens",
+           "Decomposable", "GroupByAgg", "HashRepartition", "walk"]
 
 _ids = itertools.count()
 
@@ -69,6 +70,24 @@ class Source(Node):
 
 
 @_node
+class Map(Node):
+    """Columnwise projection / transform: fn(cols) -> cols."""
+
+    parents: Tuple[Node, ...]
+    fn: Callable
+    label: str = "map"
+
+
+@_node
+class Filter(Node):
+    """fn(cols) -> bool mask (Where)."""
+
+    parents: Tuple[Node, ...]
+    fn: Callable
+    label: str = "where"
+
+
+@_node
 class FlatTokens(Node):
     """Tokenizing SelectMany over a string column (the WordCount kernel)."""
 
@@ -87,10 +106,27 @@ class FlatTokens(Node):
         return Partitioning.none()
 
 
+@dataclasses.dataclass(frozen=True)
+class Decomposable:
+    """User-defined decomposable aggregate (IDecomposable parity):
+
+    * ``seed(columns) -> state``: the row columns (tensors, vectorized
+      over rows) to a state pytree (tensors in tuples, lists, dicts);
+    * ``merge(a, b) -> state``: ASSOCIATIVE combine of two states,
+      elementwise over rows (it runs inside a segmented scan);
+    * ``finalize(state) -> value | dict[str, value]``: the per-group
+      result (None = the state itself; a dict fans out to columns).
+    """
+
+    seed: Any
+    merge: Any
+    finalize: Any = None
+
+
 @_node
 class GroupByAgg(Node):
-    """GroupBy + decomposable aggregation.
-    aggs: out_name -> (kind, value_col | None)."""
+    """GroupBy + decomposable aggregation.  aggs: out_name -> (kind,
+    value_col | None) builtin aggregate, or a ``Decomposable``."""
 
     parents: Tuple[Node, ...]
     keys: Tuple[str, ...]

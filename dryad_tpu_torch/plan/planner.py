@@ -1,11 +1,14 @@
 """Logical -> physical lowering — the subset of
-``dryad_tpu/plan/planner.py`` that the WordCount slice needs.
+``dryad_tpu/plan/planner.py`` that the WordCount and GroupByReduce
+slices need.
 
-Row-local ops grow a fragment along each edge; stages are cut at
-exchanges and at fan-out (a node consumed twice is materialized once).
-GroupBy lowers to partial group -> hash exchange -> final group (the
-IDecomposable / PARTIALAGGR pattern), so P = 8 plans exactly as the JAX
-package plans on its 8-device mesh.
+Row-local ops (select, where, tokenize) grow a fragment along each edge;
+stages are cut at exchanges and at fan-out (a node consumed twice is
+materialized once).  GroupBy lowers to partial group -> hash exchange ->
+final group (the IDecomposable / PARTIALAGGR pattern); with a
+user-defined ``Decomposable`` among the aggregates, to seed + merge ->
+exchange of the flattened states -> merge + finalize.  P = 8 plans
+exactly as the JAX package plans on its 8-device mesh.
 """
 
 from __future__ import annotations
@@ -13,7 +16,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
-from dryad_tpu_torch.ops.kernels import NotPortedYet
+import torch
+
 from dryad_tpu_torch.plan import expr as E
 from dryad_tpu_torch.plan.stages import Exchange, Leg, Stage, StageGraph, \
     StageOp
@@ -54,6 +58,58 @@ def _decompose_aggs(aggs: Dict[str, Tuple[str, Optional[str]]]):
     return partial, final, mean_cols
 
 
+def _ones(cols) -> torch.Tensor:
+    """int32 ones, one per row of the columns."""
+    v = next(iter(cols.values()))
+    t = v.lengths if hasattr(v, "lengths") else v
+    return torch.ones(t.shape[0], dtype=torch.int32, device=t.device)
+
+
+def _mean_finalize(s):
+    tot, cnt = s
+    cf = torch.clamp(cnt, min=1)
+    return tot / cf.to(tot.dtype) if tot.dtype.is_floating_point \
+        else tot.to(torch.float32) / cf
+
+
+def _builtin_as_decomposable(kind: str, col: Optional[str]):
+    """A builtin aggregate kind as a Decomposable, for a group_by that
+    mixes builtin kinds with user-defined Decomposables (the whole
+    aggregation then runs through the segmented merge)."""
+    if kind == "count":
+        return E.Decomposable(_ones, lambda a, b: a + b, None)
+    if kind == "sum":
+        return E.Decomposable(lambda c: c[col], lambda a, b: a + b, None)
+    if kind == "min":
+        return E.Decomposable(lambda c: c[col], torch.minimum, None)
+    if kind == "max":
+        return E.Decomposable(lambda c: c[col], torch.maximum, None)
+    if kind == "any":
+        return E.Decomposable(lambda c: c[col].to(torch.bool),
+                              lambda a, b: a | b, None)
+    if kind == "all":
+        return E.Decomposable(lambda c: c[col].to(torch.bool),
+                              lambda a, b: a & b, None)
+    if kind == "mean":
+        return E.Decomposable(lambda c: (c[col], _ones(c)),
+                              lambda a, b: (a[0] + b[0], a[1] + b[1]),
+                              _mean_finalize)
+    raise ValueError(f"aggregate kind {kind!r} not decomposable")
+
+
+def _normalize_decs(aggs: Dict[str, Any]) -> Dict[str, Any]:
+    """aggs (builtin tuples and/or Decomposables) -> out -> dec spec: the
+    user's Decomposable itself, or a ("__builtin__", kind, col) tag that
+    the kernel resolves (ops.kernels.resolve_dec_spec)."""
+    return {name: spec if isinstance(spec, E.Decomposable)
+            else ("__builtin__",) + tuple(spec)
+            for name, spec in aggs.items()}
+
+
+def _has_user_decs(aggs: Dict[str, Any]) -> bool:
+    return any(isinstance(v, E.Decomposable) for v in aggs.values())
+
+
 class Planner:
     def __init__(self, npartitions: int):
         self.nparts = npartitions
@@ -89,6 +145,30 @@ class Planner:
         out_id, _ = self._materialize(self.frags[root.id], label="output")
         return StageGraph(self.stages, out_id)
 
+    def _lower_group_decomposable(self, f: Fragment, keys: Tuple[str, ...],
+                                  aggs: Dict[str, Any]) -> Fragment:
+        """GroupBy with user-defined Decomposables: seed + merge ->
+        hash exchange of the flattened states -> merge + finalize.  The
+        state treespecs travel through a box shared by the two ops (the
+        partial always runs before its merge)."""
+        decs = _normalize_decs(aggs)
+        box: Dict[str, Any] = {}
+        if self.nparts == 1 or (f.partitioning.kind == "hash"
+                                and f.partitioning.keys == keys):
+            f.ops.append(StageOp("dgroup_local", {"keys": keys,
+                                                  "decs": decs, "box": box}))
+            f.partitioning = E.Partitioning("hash", keys)
+            return f
+        f.ops.append(StageOp("dgroup_partial", {"keys": keys, "decs": decs,
+                                                "box": box}))
+        ex = Exchange("hash", keys=keys, out_capacity=f.capacity)
+        st = self._new_stage(
+            [Leg(f.src, f.ops, ex)],
+            [StageOp("dgroup_merge", {"keys": keys, "decs": decs,
+                                      "box": box, "finalize": True})],
+            "dgroupby")
+        return Fragment(st.id, [], f.capacity, E.Partitioning("hash", keys))
+
     def _frag(self, n: E.Node) -> Fragment:
         f = self.frags[n.id]
         return Fragment(f.src, list(f.ops), f.capacity, f.partitioning)
@@ -97,6 +177,18 @@ class Planner:
         if isinstance(n, E.Source):
             return Fragment(("source", n.data), [], n.data.capacity,
                             n.partitioning)
+
+        if isinstance(n, E.Map):
+            # the fragment's partitioning claim carries through, as in
+            # the JAX planner
+            f = self._frag(n.parents[0])
+            f.ops.append(StageOp("fn", {"fn": n.fn, "label": n.label}))
+            return f
+
+        if isinstance(n, E.Filter):
+            f = self._frag(n.parents[0])
+            f.ops.append(StageOp("filter", {"fn": n.fn, "label": n.label}))
+            return f
 
         if isinstance(n, E.FlatTokens):
             f = self._frag(n.parents[0])
@@ -112,9 +204,8 @@ class Planner:
         if isinstance(n, E.GroupByAgg):
             f = self._frag(n.parents[0])
             keys = tuple(n.keys)
-            if any(not isinstance(v, tuple) for v in n.aggs.values()):
-                raise NotPortedYet("user-defined Decomposable aggregates",
-                                   "GroupByReduce")
+            if _has_user_decs(n.aggs):
+                return self._lower_group_decomposable(f, keys, n.aggs)
             if self.nparts == 1:
                 # one partition: everything is co-located already
                 f.ops.append(StageOp("group", {"keys": keys,

@@ -1,14 +1,20 @@
-"""The port's four kernel wrappers (dryad_tpu_torch/ops/hopper_kernels.py)
+"""The port's five kernel wrappers (dryad_tpu_torch/ops/hopper_kernels.py)
 on CPU tensors — where they run their plain PyTorch versions — against
 the JAX package's Pallas wrappers, both in interpreter mode (the real
 Pallas kernel bodies) and through their XLA fallbacks.
 
 Tolerances: every integer result must match exactly; f32 prefix sums
 agree within 1e-5 x max|prefix| (the bound tests/test_pallas_kernels.py
-uses: the two scans add in different orders).  slot_expand is compared on
-valid slots only (j < min(count, C)) and slot_compact on the valid prefix
-only — the rest is padding whose contents the JAX wrappers leave
-unspecified.  The CUDA kernels themselves run in chip_smoke.py."""
+uses: the two scans add in different orders).  The compensated scan
+``prefix_sum2`` is held to its error bound, not to bits: on a dyadic grid
+(k/256, |k| < 2**15, where a float64 cumsum is exact) |hi + lo - ref| <=
+2**-40 x sum_{i<=j} |x_i| for the port and the JAX function alike — a
+plain f32 scan misses that by orders of magnitude; and group sums
+differenced from both lanes meet the group bound 16 x 2**-24 x
+sum_group |v| + 16 x 2**-48 x sum |v| even after a prefix of ~1e9.
+slot_expand is compared on valid slots only (j < min(count, C)) and
+slot_compact on the valid prefix only — the rest is padding whose
+contents the JAX wrappers leave unspecified.  The CUDA kernels themselves run in chip_smoke.py."""
 
 import numpy as np
 import pytest
@@ -28,8 +34,8 @@ def _jax(mode, fn):
     mode is read while tracing, so each call traces afresh)."""
     if mode == "interpret":
         with jk.force_interpret():
-            return np.asarray(jax.jit(fn)())
-    return np.asarray(jax.jit(fn)())
+            return jax.tree.map(np.asarray, jax.jit(fn)())
+    return jax.tree.map(np.asarray, jax.jit(fn)())
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -77,6 +83,88 @@ def test_prefix_sum_matches_jax(mode, dtype, n):
         assert np.abs(got - ref).max() <= tol
     else:
         np.testing.assert_array_equal(got, want)
+
+
+def _dyadic(n, seed):
+    """f32 values k/256, -2**13 <= k < 2**15: exact in a float64 cumsum,
+    and drifting upward so the prefix outgrows f32's exact range."""
+    rng = np.random.RandomState(seed)
+    return (rng.randint(-2**13, 2**15, n) / 256).astype(np.float32)
+
+
+def _dd_err(hi, lo, x):
+    """(|hi + lo - exact prefix|, the 2**-40 x sum|x| bound) per prefix."""
+    ref = np.cumsum(x.astype(np.float64))
+    got = np.asarray(hi).astype(np.float64) + np.asarray(lo)
+    return np.abs(got - ref), 2.0**-40 * np.cumsum(np.abs(x.astype(
+        np.float64)))
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("n", [5, 40_000, 70_000])
+def test_prefix_sum2_matches_jax_within_bound(mode, n):
+    x = _dyadic(n, n)
+    jhi, jlo = _jax(mode, lambda: jk.prefix_sum2(jnp.asarray(x)))
+    hi, lo = tk.prefix_sum2(torch.from_numpy(x))
+    assert hi.dtype == lo.dtype == torch.float32
+    assert hi.shape == lo.shape == (n,)
+    for h, l in ((hi.numpy(), lo.numpy()), (jhi, jlo)):
+        err, bound = _dd_err(h, l, x)
+        assert (err <= bound).all(), err.max()
+    if n >= 40_000:
+        # the bound has teeth: a plain f32 scan misses it
+        err, bound = _dd_err(tk.prefix_sum_plain(torch.from_numpy(x)),
+                             0.0, x)
+        assert (err > 2.0**10 * bound).any()
+
+
+def _cancellation_case():
+    """1,000 values of 1e6 (the prefix climbs to 1e9), then 10,000 groups
+    of 16 values in [0, 1/8): group sums about 1."""
+    rng = np.random.RandomState(3)
+    G, g = 10_000, 16
+    small = (rng.rand(G * g) / 8).astype(np.float32)
+    x = np.concatenate([np.full(1000, 1e6, np.float32), small])
+    ends = 1000 + g * np.arange(1, G + 1) - 1
+    grp = small.astype(np.float64).reshape(G, g)
+    bound = (16 * 2.0**-24 * np.abs(grp).sum(1)
+             + 16 * 2.0**-48 * np.abs(x.astype(np.float64)).sum())
+    return x, ends, grp.sum(1), bound
+
+
+def _group_sums(hi, lo, ends):
+    """Each group's sum from the prefix at its end and the one before
+    it, both lanes differenced in f32 (the boundary path's arithmetic)."""
+    hi, lo = np.asarray(hi, np.float32), np.asarray(lo, np.float32)
+    a, b = ends - 16, ends
+    return ((hi[b] - hi[a]) + (lo[b] - lo[a])).astype(np.float64)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_prefix_sum2_group_sums_survive_cancellation(mode):
+    x, ends, want, bound = _cancellation_case()
+    hi, lo = tk.prefix_sum2(torch.from_numpy(x))
+    jhi, jlo = _jax(mode, lambda: jk.prefix_sum2(jnp.asarray(x)))
+    for h, l in ((hi.numpy(), lo.numpy()), (jhi, jlo)):
+        err = np.abs(_group_sums(h, l, ends) - want)
+        assert (err <= bound).all(), (err.max(), bound.min())
+    # the same differencing over a plain f32 prefix errs by ~ulp(1e9)
+    plain = tk.prefix_sum(torch.from_numpy(x)).numpy()
+    err = np.abs(_group_sums(plain, np.zeros_like(plain), ends) - want)
+    assert (err > bound).any()
+    assert err.max() > 8
+
+
+def test_prefix_sum2_empty_and_dd_add_is_the_jax_combine():
+    hi, lo = tk.prefix_sum2(torch.zeros(0))
+    assert hi.shape == lo.shape == (0,)
+    rng = np.random.RandomState(9)
+    a = [rng.randn(1000).astype(np.float32) * s for s in (1e6, 1e-3)]
+    b = [rng.randn(1000).astype(np.float32) * s for s in (1e3, 1e-6)]
+    want = jk._dd_add(*(jnp.asarray(v) for v in a + b))
+    got = tk.dd_add(*(torch.from_numpy(v) for v in a + b))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
 def _runs(rng, cap, D, skew):
@@ -153,6 +241,9 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     tk.reset_launches()
     tk.hist_buckets(torch.zeros(10, dtype=torch.int32), 2)
     tk.prefix_sum(torch.ones(10, dtype=torch.int32))
+    tk.prefix_sum2(torch.ones(10))
+    assert set(tk.launches) == {"hist_buckets", "prefix_sum", "prefix_sum2",
+                                "slot_expand", "slot_compact"}
     assert sum(tk.launches.values()) == 0
 
 
@@ -162,6 +253,12 @@ def test_wrappers_refuse_other_devices_and_bad_input():
         tk.hist_buckets(meta, 4)
     with pytest.raises(TypeError):
         tk.prefix_sum(torch.ones(4, dtype=torch.int64))
+    with pytest.raises(TypeError):
+        tk.prefix_sum2(torch.ones(4, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        tk.prefix_sum2(torch.ones(8)[::2])
+    with pytest.raises(ValueError):
+        tk.prefix_sum2(torch.empty(4, device="meta"))
     with pytest.raises(ValueError):
         tk.slot_compact(torch.zeros((10, 2), dtype=torch.int32),
                         torch.zeros(3, dtype=torch.int32), 4, 8)
