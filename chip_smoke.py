@@ -16,7 +16,12 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      compensated scan, kernel and plain alike, within 2**-40 x
      sum_{i<=j} |x_i| of the exact prefix on a dyadic grid, and group sums
      differenced from both lanes within the group bound after a prefix of
-     1e9 (where a plain f32 prefix errs by ~64 and must fail it);
+     1e9 (where a plain f32 prefix errs by ~64 and must fail it).  The
+     look-back scans also: five calls on one input bit-identical (i32,
+     u32, f32, both prefix_sum2 lanes, n = 1,250,000 and 20,000,001); 50
+     calls of each queued with no sync over sizes 1 to 1,250,000, each
+     then held; tile counts just above the blocks the card holds at once;
+     an input not 16-byte aligned;
   3. WordCount through ``Context(device="cuda", nparts=8)`` on two
      corpora of N lines (default 1,000,000: the JAX bench's 12-word
      vocabulary corpus, and 50,000 synthetic words sampled Zipf(1.1)),
@@ -37,9 +42,14 @@ Phases, each failing the run (non-zero exit, no result line) on error:
   5. timing: each kernel, its plain version and one library call at the
      largest call of one main-path run (``TIMED_ON``; CUDA events), the
      bound the card's memory rate sets for the same bytes, and a
-     torch.profiler breakdown of one warm run of each timed path.  A
-     kernel row's ``launches`` sums its launches over the five main-path
-     runs; ``runs`` gives each run's own count and |kernel - plain|.
+     torch.profiler breakdown of one warm run of each timed path (a
+     kernel launched there with no profiled device time fails the run).
+     Per kernel at its timed shape also: the device time per call and the
+     device events (kernels, memsets) per call from a profiler window
+     around 20 calls, and the host's enqueue time per call (200 calls, no
+     sync).  A kernel row's ``launches`` sums its launches over the five
+     main-path runs; ``runs`` gives each run's own count and
+     |kernel - plain|.
 
 Output: one JSON line per corpus, per GroupByReduce variant and per
 kernel, then the card line, then the ``{"kernels": [...]}`` line, then the
@@ -83,8 +93,8 @@ TIMED_ON = {"hist_buckets": "zipf50k", "prefix_sum": "zipf50k",
 EXCHANGE = ("hist_buckets", "prefix_sum", "slot_expand", "slot_compact")
 DEVICE_NAMES = {  # substrings of the compiled kernels' names
     "hist_buckets": ("hist_shared", "hist_global"),
-    "prefix_sum": ("tile_totals", "scan_totals", "tile_scan_offset"),
-    "prefix_sum2": ("scan2_partials", "scan2_carry", "scan2_tiles"),
+    "prefix_sum": ("scan_lookback",),
+    "prefix_sum2": ("scan2_lookback",),
     "slot_expand": ("slot_expand_k",),
     "slot_compact": ("slot_compact_k",),
 }
@@ -165,6 +175,7 @@ def check_kernels(hk, dev) -> None:
                 raise AssertionError(f"prefix_sum2 {what} n={n}: outside "
                                      f"the 2**-40 bound")
     check_cancellation(hk, t)
+    check_lookback(hk, t, rng)
 
     for cap, W, D, C in [(64, 3, 1, 5), (500, 8, 8, 3), (65_536, 8, 8, 16_384),
                          (10_000, 7, 16, 700), (300, 2, 8, 300)]:
@@ -187,6 +198,91 @@ def check_kernels(hk, dev) -> None:
         same("slot_compact", hk.slot_compact(words, counts, C, out_rows),
              hk.slot_compact_plain(words, counts, C, out_rows),
              f"D={D} C={C} out_rows={out_rows}")
+
+
+def check_lookback(hk, t, rng) -> None:
+    """What a single-pass look-back scan can get wrong.  Determinism: five
+    calls on one input give the same bits (i32, u32, f32, both lanes of
+    prefix_sum2).  Back-to-back: 50 calls of each scan over sizes from 1
+    to 1,250,000 queued with no sync, then each held against the exact
+    result (scratch state leaking from one call into the next), and every
+    kept scratch's head and flags zero again at the end.  Tile
+    counts just above the blocks the card holds at once: SMs x k tiles
+    plus one element, for every k up to the 512-thread blocks an SM can
+    hold; and an input misaligned for 16-byte loads."""
+    import torch
+
+    def bits(a):
+        return a.view(torch.int32)
+
+    def dd_ok(x, pair):
+        ref = torch.cumsum(x.double(), 0)
+        bound = DD_TOL * torch.cumsum(x.double().abs(), 0)
+        return bool(((_dd_value(pair) - ref).abs() <= bound).all())
+
+    for n in (1_250_000, 20_000_001):
+        xi = t(rng.randint(-2**31, 2**31 - 1, n).astype(np.int32))
+        xf = t(rng.rand(n).astype(np.float32))
+        xd = t(rng.randn(n).astype(np.float32))
+        cases = {
+            "i32": lambda: [hk.prefix_sum(xi)],
+            "u32": lambda: [hk.prefix_sum(xi.view(torch.uint32))],
+            "f32": lambda: [hk.prefix_sum(xf)],
+            "prefix_sum2": lambda: list(hk.prefix_sum2(xd)),
+        }
+        for what, fn in cases.items():
+            outs = [fn() for _ in range(5)]
+            torch.cuda.synchronize()
+            for o in outs[1:]:
+                if not all(torch.equal(bits(a), bits(b))
+                           for a, b in zip(o, outs[0])):
+                    raise AssertionError(f"{what} n={n}: five calls on one "
+                                         f"input differ in their bits")
+
+    sizes = (1, 4096, 4097, 250_000, 1_250_000)
+    ins = {n: (t(rng.randint(-2**31, 2**31 - 1, n).astype(np.int32)),
+               t((rng.randint(-2**13, 2**15, n) / 256).astype(np.float32)))
+           for n in sizes}
+    torch.cuda.synchronize()
+    queued = [(n, hk.prefix_sum(ins[n][0]), hk.prefix_sum2(ins[n][1]))
+              for n in sizes * 10]
+    torch.cuda.synchronize()
+    for i, (n, y, pair) in enumerate(queued):
+        if not torch.equal(y, hk.prefix_sum_plain(ins[n][0])):
+            raise AssertionError(f"prefix_sum queued call {i} n={n}: "
+                                 f"kernel != plain")
+        if not dd_ok(ins[n][1], pair):
+            raise AssertionError(f"prefix_sum2 queued call {i} n={n}: "
+                                 f"outside the 2**-40 bound")
+
+    props = torch.cuda.get_device_properties(0)
+    per_sm = getattr(props, "max_threads_per_multi_processor", 2048) // 512
+    # (n, off): the last scans a view one element in, so the input is not
+    # 16-byte aligned and the tiles load element by element
+    cases = [(props.multi_processor_count * k * hk._SCAN_TILE + 1, 0)
+             for k in range(1, per_sm + 1)] + [(1_250_000, 1)]
+    for n, off in cases:
+        xi = t(rng.randint(-2**31, 2**31 - 1, n + off).astype(np.int32))[off:]
+        xd = t((rng.randint(-2**13, 2**15, n + off) / 256).astype(
+            np.float32))[off:]
+        if not torch.equal(hk.prefix_sum(xi), hk.prefix_sum_plain(xi)):
+            raise AssertionError(f"prefix_sum n={n} off={off}: kernel != "
+                                 f"plain")
+        f = hk.prefix_sum(xd).double()
+        ref = torch.cumsum(xd.double(), 0)
+        if float((f - ref).abs().max()) > F32_TOL * float(ref.abs().max()):
+            raise AssertionError(f"prefix_sum f32 n={n} off={off}: outside "
+                                 f"the f32 tolerance")
+        if not dd_ok(xd, hk.prefix_sum2(xd)):
+            raise AssertionError(f"prefix_sum2 n={n} off={off}: outside "
+                                 f"the 2**-40 bound")
+
+    torch.cuda.synchronize()
+    head = hk._SCAN_HEAD_WORDS
+    for (name, *_), buf in hk._scan_scratch_bufs.items():
+        if buf[:head].any() or buf[head::hk._SCAN_SCRATCH_WORDS[name]].any():
+            raise AssertionError(f"{name}: a kept scratch is not cleared "
+                                 f"after its kernels ran")
 
 
 def hold(hk, name, args, what) -> float:
@@ -493,6 +589,56 @@ def library_call(name: str, args):
     return compact
 
 
+def profile_calls(name: str, fn, calls: int = 20) -> dict:
+    """torch.profiler over ``calls`` wrapper calls at the timed shape and
+    nothing else: the row's kernel time per call, and the device events
+    (kernels and memsets) per call, in all and by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    # one warm-up step first: a window's first device event goes
+    # unrecorded (20 calls showed as 19 events on the H100)
+    avgs = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: avgs.append(p.key_averages())
+                 ) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+    ours = events = 0
+    by_name = {}
+    for ev in avgs[0]:
+        if (ev.device_type != torch.autograd.DeviceType.CUDA
+                or ev.key.startswith("ProfilerStep")):
+            continue
+        events += ev.count
+        by_name[ev.key[:80]] = ev.count / calls
+        if any(s in ev.key for s in DEVICE_NAMES[name]):
+            ours += ev.self_device_time_total
+    if not ours:
+        raise AssertionError(f"{name}: no profiled device time under "
+                             f"{DEVICE_NAMES[name]} at the timed shape")
+    return {"device_us_at_timed_shape": ours / calls,
+            "device_kernels_per_call": events / calls,
+            "device_events_per_call": by_name}
+
+
+def host_enqueue_us(fn, calls: int = 200) -> float:
+    """Host time of one wrapper call: ``calls`` calls with no sync."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
 def _dd_value(pair):
     """hi + lo of a (hi, lo) pair, in float64."""
     return pair[0].double() + pair[1].double()
@@ -531,6 +677,13 @@ def time_kernels(hk, runs, timed, card) -> list:
                                      f"not compute the same function")
         per_run = {r: {"launches": l[name], "max_abs_err": e[name]}
                    for r, (l, e) in runs.items() if l[name]}
+        prof_launches = prof["launches"][name]
+        prof_ms = (prof.get("port_kernels_ms") or {}).get(name, 0.0)
+        if prof_launches and not prof_ms:
+            raise AssertionError(
+                f"{name}: {prof_launches} launches in the profiled {label} "
+                f"run but no profiled device time: DEVICE_NAMES misses its "
+                f"kernels")
         nbytes, ops = work(name, args)
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS_PER_S * 1e3
@@ -549,8 +702,10 @@ def time_kernels(hk, runs, timed, card) -> list:
             # device time alone, per launch, from the profiled warm run
             # of the timed path (ms above also holds the host's gaps)
             "profiled_device_ms_per_launch": (
-                prof["port_kernels_ms"][name] / runs[label][0][name]
-                if prof.get("port_kernels_ms") else None),
+                prof_ms / prof_launches if prof_launches else None),
+            # the same at the timed shape alone, and the host's side
+            **profile_calls(name, lambda: wrapper(*args)),
+            "host_enqueue_us": host_enqueue_us(lambda: wrapper(*args)),
             "timed_on": label,
             "shape": [list(a.shape) if hasattr(a, "shape") else a
                       for a in args],
@@ -568,7 +723,7 @@ def profile_run(run, label, out_dir) -> dict:
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _out, _l, load, query = run()
+        _out, launches, load, query = run()
     wall = load + query
     avgs = prof.key_averages()
     with open(os.path.join(out_dir, f"profile_{label}.txt"), "w") as f:
@@ -579,13 +734,13 @@ def profile_run(run, label, out_dir) -> dict:
             dev_ms[ev.key] += ev.self_device_time_total / 1e3
     if not dev_ms:
         return {"device_ms": None, "wall_s": wall, "load_s": load,
-                "query_s": query}
+                "query_s": query, "launches": launches}
     ours = {k: sum(v for key, v in dev_ms.items()
                    if any(s in key for s in subs))
             for k, subs in DEVICE_NAMES.items()}
     total = sum(dev_ms.values())
     return {"wall_s": wall, "load_s": load, "query_s": query,
-            "device_ms": total,
+            "launches": launches, "device_ms": total,
             "device_busy_share": total / 1e3 / wall,
             "port_kernels_ms": ours,
             "rest_ms": total - sum(ours.values()),

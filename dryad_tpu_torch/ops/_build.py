@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` file has a plain C interface and compiles with ``nvcc``
 into its own shared library under ``build/kernels/`` at the root of the
 checkout (a directory ``.gitignore`` lists), loaded with ``ctypes``.  A
-library's file name carries a digest of its source and flags, so an edited
-source never loads a stale build.  ``build()`` starts one ``nvcc`` per
+library's file name carries a digest of its source, the shared
+``csrc/*.cuh`` headers and the flags, so an edited source or header never
+loads a stale build.  ``build()`` starts one ``nvcc`` per
 missing library, all at once, and waits for them together; nothing is
 built at import time.
 """
@@ -57,9 +58,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (_CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library's path, named by a digest of its source, every shared
+    ``csrc/*.cuh`` header (any of them may be included) and the flags."""
+    h = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = tuple(KERNELS)) -> Dict[str, str]:

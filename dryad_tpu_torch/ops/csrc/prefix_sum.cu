@@ -8,146 +8,93 @@
 //
 // Design: the TPU kernel streams tiles through ONE core in grid order and
 // carries the running total in SMEM from one grid step to the next.
-// Hopper's blocks run in parallel and in no order, so nothing carries
-// between them.  This is reduce-then-scan in three launches:
-//   1. tile_totals: each block sums one tile of kTile elements;
-//   2. scan_totals: one block turns the tile totals into their exclusive
-//      prefix, walking them tile by tile with a register carry;
-//   3. tile_scan_offset: each block scans its tile again and adds the
-//      exclusive prefix of the tiles before it.
-// Inside a tile, values pass through shared memory so that the loads and
-// stores are coalesced; each thread scans kItems contiguous values, warps
-// scan thread totals with shuffles, and warp 0 scans the warp totals.
-// 32-bit integers (int32 and uint32 alike) run as unsigned int: modular
-// addition is the same for both and unsigned overflow is defined, so the
-// result is bit-exact.  float32 adds in another order than a sequential
-// cumsum; the caller states the tolerance.  Reading every element twice
-// (passes 1 and 3) costs 12n bytes instead of 8n; decoupled look-back
-// would bring it to 8n in one launch.
+// Hopper's blocks run in parallel and in no order, so the carry becomes a
+// single-pass scan with decoupled look-back (scan_lookback.cuh): ONE
+// kernel launch per call, `scan_lookback`, and nothing else (no memset:
+// the kernel leaves its scratch cleared for the next launch on the
+// stream).  It reads each element once and writes it once — the 8n bytes
+// of the bound.  A single tile (n <= kTile: the exchange's D = 8 offsets)
+// skips the look-back and touches no scratch.
+//
+// Status word of a tile: the flag in the high half and the aggregate's 32
+// bits in the low half, published with one 64-bit store, so a reader that
+// sees the flag sees the value.  32-bit integers (int32 and uint32 alike)
+// run as unsigned int: modular addition is the same for both and unsigned
+// overflow is defined, so the result is bit-exact.  float32 adds in
+// another order than a sequential cumsum (the caller states the
+// tolerance), but in the SAME order on every run: each tile's offset
+// folds its predecessors' aggregates in a fixed order (see the header), so
+// the result is deterministic to the bit.  The look-back reads tiles^2/2
+// status words from L2: 0.37 MB at 306 tiles (1.25M values), ~95 MB at
+// 4,883 tiles (20M).
 
 #include <cuda_runtime.h>
+
+#include "scan_lookback.cuh"
 
 namespace {
 
 constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
 constexpr int kItems = 8;
 constexpr int kTile = kThreads * kItems;
-constexpr unsigned kFull = 0xffffffffu;
+// kItems = 8: 4,096-value tiles give 306 blocks at the main path's 1.25M
+// values, two or three to an SM; 16 would halve the blocks (and quarter
+// the look-back's reads, which are small at these sizes) but leave some
+// SMs with twice the bytes of others.
+// scratch, in 64-bit words: lookback::kHeadWords, then one status word a
+// tile (hopper_kernels._SCAN_TILE mirrors kTile, _SCAN_SCRATCH_WORDS the
+// words a tile)
+constexpr int kScratchWordsPerTile = 1;
 
-// shared-memory index with one pad word per 32 so that a thread reading
-// kItems contiguous values does not hit the same bank as its neighbours
-__device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
-
-template <typename T>
-__device__ T warp_inclusive(T v, int lane) {
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    T u = __shfl_up_sync(kFull, v, o);
-    if (lane >= o) v += u;
-  }
-  return v;
-}
-
-// Scan the tile in[base, base + kTile) (elements >= n read as 0) into
-// out, each result plus `offset`; exclusive or inclusive.  Returns the
-// tile total (the same value in every thread).  Safe in place.
-template <typename T>
-__device__ T scan_tile(const T* in, T* out, long long base, long long n,
-                       T offset, bool exclusive, T* s, T* warp_tot) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const int k = i * kThreads + tid;
-    const long long j = base + k;
-    s[pad(k)] = j < n ? in[j] : T(0);
-  }
-  __syncthreads();
-  const int k0 = tid * kItems;
-  T v[kItems];
-  T run = T(0);
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    v[i] = s[pad(k0 + i)];
-    run += v[i];
-  }
-  const T incl = warp_inclusive(run, lane);
-  T excl = __shfl_up_sync(kFull, incl, 1);
-  if (lane == 0) excl = T(0);
-  if (lane == 31) warp_tot[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    T w = lane < kWarps ? warp_tot[lane] : T(0);
-    w = warp_inclusive(w, lane);
-    if (lane < kWarps) warp_tot[lane] = w;
-  }
-  __syncthreads();
-  T acc = offset + (warp > 0 ? warp_tot[warp - 1] : T(0)) + excl;
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    if (exclusive) {
-      s[pad(k0 + i)] = acc;
-      acc += v[i];
-    } else {
-      acc += v[i];
-      s[pad(k0 + i)] = acc;
-    }
-  }
-  const T total = warp_tot[kWarps - 1];
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const int k = i * kThreads + tid;
-    const long long j = base + k;
-    if (j < n) out[j] = s[pad(k)];
-  }
-  __syncthreads();
-  return total;
+__device__ __forceinline__ unsigned bits(unsigned v) { return v; }
+__device__ __forceinline__ unsigned bits(float v) {
+  return __float_as_uint(v);
 }
 
 template <typename T>
-__global__ void tile_totals(const T* __restrict__ x, long long n,
-                            T* __restrict__ totals) {
-  __shared__ T warp_tot[kWarps];
-  const long long base = (long long)blockIdx.x * kTile;
-  T acc = T(0);
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const long long j = base + i * kThreads + threadIdx.x;
-    if (j < n) acc += x[j];
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(kFull, acc, o);
-  if ((threadIdx.x & 31) == 0) warp_tot[threadIdx.x >> 5] = acc;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    T w = threadIdx.x < kWarps ? warp_tot[threadIdx.x] : T(0);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) w += __shfl_down_sync(kFull, w, o);
-    if (threadIdx.x == 0) totals[blockIdx.x] = w;
-  }
+__device__ __forceinline__ T from_bits(unsigned w);
+template <>
+__device__ __forceinline__ unsigned from_bits<unsigned>(unsigned w) {
+  return w;
+}
+template <>
+__device__ __forceinline__ float from_bits<float>(unsigned w) {
+  return __uint_as_float(w);
 }
 
 template <typename T>
-__global__ void scan_totals(T* totals, long long tiles) {
-  __shared__ T s[kTile + kTile / 32];
-  __shared__ T warp_tot[kWarps];
-  T carry = T(0);
-  for (long long base = 0; base < tiles; base += kTile) {
-    carry += scan_tile(totals, totals, base, tiles, carry, true, s,
-                       warp_tot);
+struct Sum {
+  using V = T;
+  static constexpr int kLanes = 1;
+  static constexpr int kWords = kScratchWordsPerTile;
+  __device__ static V zero() { return T(0); }
+  __device__ static V lift(unsigned w) { return from_bits<T>(w); }
+  __device__ static unsigned lane(V v, int) { return bits(v); }
+  __device__ static V add(V a, V b) { return a + b; }
+  __device__ static V shfl_up(V v, int o) {
+    return __shfl_up_sync(lookback::kFull, v, o);
   }
-}
+  __device__ static V shfl_down(V v, int o) {
+    return __shfl_down_sync(lookback::kFull, v, o);
+  }
+  __device__ static void publish(unsigned long long* status, long long t,
+                                 V agg) {
+    lookback::st_relaxed(status + t, (1ull << 32) | bits(agg));
+  }
+  __device__ static V read(const unsigned long long* status, long long j) {
+    unsigned spins = 0;
+    unsigned long long w;
+    while (((w = lookback::ld_relaxed(status + j)) >> 32) == 0)
+      lookback::backoff(spins);
+    return from_bits<T>((unsigned)w);
+  }
+};
 
 template <typename T>
-__global__ void tile_scan_offset(const T* __restrict__ x, T* __restrict__ y,
-                                 long long n, const T* __restrict__ excl) {
-  __shared__ T s[kTile + kTile / 32];
-  __shared__ T warp_tot[kWarps];
-  scan_tile(x, y, (long long)blockIdx.x * kTile, n, excl[blockIdx.x], false,
-            s, warp_tot);
+__global__ void __launch_bounds__(kThreads)
+    scan_lookback(const unsigned* __restrict__ x, unsigned* __restrict__ y,
+                  long long n, unsigned long long* scratch) {
+  lookback::scan<Sum<T>, kThreads, kItems>(x, y, nullptr, n, scratch);
 }
 
 template <typename T>
@@ -156,19 +103,17 @@ int launch(const void* x, void* y, long long n, void* scratch,
   if (n <= 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long tiles = (n + kTile - 1) / kTile;
-  const T* xi = static_cast<const T*>(x);
-  T* yo = static_cast<T*>(y);
-  T* tot = static_cast<T*>(scratch);
-  tile_totals<T><<<(unsigned)tiles, kThreads, 0, s>>>(xi, n, tot);
-  scan_totals<T><<<1, kThreads, 0, s>>>(tot, tiles);
-  tile_scan_offset<T><<<(unsigned)tiles, kThreads, 0, s>>>(xi, yo, n, tot);
+  scan_lookback<T><<<(unsigned)tiles, kThreads, 0, s>>>(
+      static_cast<const unsigned*>(x), static_cast<unsigned*>(y), n,
+      static_cast<unsigned long long*>(scratch));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// scratch holds ceil(n / kTile) = ceil(n / 4096) values of the element type
-// (hopper_kernels._SCAN_TILE mirrors kTile)
+// scratch: lookback::kHeadWords + kScratchWordsPerTile * ceil(n / kTile)
+// 64-bit words, all zero (and left so), kept by the caller for the stream;
+// null when n <= kTile
 extern "C" int dryad_prefix_sum_u32(const void* x, void* y, long long n,
                                     void* scratch, void* stream) {
   return launch<unsigned int>(x, y, n, scratch, stream);

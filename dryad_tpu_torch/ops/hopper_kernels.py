@@ -45,6 +45,9 @@ launches = {"hist_buckets": 0, "prefix_sum": 0, "prefix_sum2": 0,
             "slot_expand": 0, "slot_compact": 0}
 
 _SCAN_TILE = 4096            # kTile of csrc/prefix_sum.cu and prefix_sum2.cu
+_SCAN_HEAD_WORDS = 2         # lookback::kHeadWords of csrc/scan_lookback.cuh
+# kScratchWordsPerTile of each scan's source
+_SCAN_SCRATCH_WORDS = {"prefix_sum": 1, "prefix_sum2": 2}
 _MAX_COMPACT_SOURCES = 4096  # starts[D + 1] of csrc/slot_compact.cu in
                              # shared memory (8 bytes each, under 48 KB)
 
@@ -76,13 +79,13 @@ def _check(name: str, t: torch.Tensor, dtypes, ndim: int) -> None:
 def _on_card(name: str, *ts: torch.Tensor) -> bool:
     """True for CUDA tensors (launch the kernel), False for CPU tensors
     (plain version); anything else, or a mix, raises."""
-    kinds = {t.device.type for t in ts}
     devs = {t.device for t in ts}
     if len(devs) != 1:
         raise ValueError(f"{name}: tensors on different devices {devs}")
-    if kinds == {"cpu"}:
+    kind = next(iter(devs)).type
+    if kind == "cpu":
         return False
-    if kinds == {"cuda"}:
+    if kind == "cuda":
         return True
     raise ValueError(f"{name}: unsupported device {devs}")
 
@@ -92,8 +95,44 @@ def _ok(name: str, rc: int) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _stream(t: torch.Tensor) -> int:
+    """The current stream of ``t``'s device, as the raw handle."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def _scan_scratch_words(name: str, n: int) -> int:
+    """64-bit words of the look-back scratch a scan of n values needs: the
+    head (ticket, blocks done), then each tile's words; 0 when one tile
+    covers n (the kernel then touches no scratch)."""
+    tiles = -(-n // _SCAN_TILE)
+    if tiles <= 1:
+        return 0
+    return _SCAN_HEAD_WORDS + _SCAN_SCRATCH_WORDS[name] * tiles
+
+
+# (scan, device index, stream) -> its look-back scratch.  A scan's kernel
+# needs the scratch's head and flags zero at launch and leaves them so,
+# and launches on one stream run in order, so one zeroed buffer serves
+# every call of that scan on that stream: no allocation and no clearing
+# per call.  Process-wide, like the streams it follows.
+_scan_scratch_bufs = {}
+
+
+def _scan_scratch(name: str, x: torch.Tensor, stream: int):
+    """The scratch for one scan launch on ``stream`` (None for a single
+    tile), replaced by a larger zeroed one when n outgrows it.  The caller
+    holds it until the launch is queued: a replaced buffer is freed in
+    stream order only after that."""
+    words = _scan_scratch_words(name, x.numel())
+    if not words:
+        return None
+    key = (name, x.get_device(), stream)
+    buf = _scan_scratch_bufs.get(key)
+    if buf is None or buf.numel() < words:
+        buf = torch.zeros(1 << (words - 1).bit_length(), dtype=torch.int64,
+                          device=x.device)
+        _scan_scratch_bufs[key] = buf
+    return buf
 
 
 # ---------------------------------------------------------------------------
@@ -122,7 +161,8 @@ def hist_buckets(bid: torch.Tensor, n_buckets: int) -> torch.Tensor:
     out = torch.empty(n_buckets, dtype=torch.int32, device=bid.device)
     lib = _build.library("hist_buckets")
     _ok("hist_buckets", lib.dryad_hist_buckets(
-        bid.data_ptr(), bid.numel(), n_buckets, out.data_ptr(), _stream()))
+        bid.data_ptr(), bid.numel(), n_buckets, out.data_ptr(),
+        _stream(bid)))
     launches["hist_buckets"] += 1
     return out
 
@@ -151,16 +191,17 @@ def prefix_sum(x: torch.Tensor) -> torch.Tensor:
     if not _on_card("prefix_sum", x):
         return prefix_sum_plain(x)
     n = x.numel()
-    y = torch.empty_like(x)
+    y = torch.empty(n, dtype=x.dtype, device=x.device)
     if n == 0:
         return y
-    tiles = -(-n // _SCAN_TILE)
-    scratch = torch.empty(tiles, dtype=x.dtype, device=x.device)
     lib = _build.library("prefix_sum")
     fn = (lib.dryad_prefix_sum_f32 if x.dtype == torch.float32
           else lib.dryad_prefix_sum_u32)
-    _ok("prefix_sum", fn(x.data_ptr(), y.data_ptr(), n, scratch.data_ptr(),
-                         _stream()))
+    stream = _stream(x)
+    scratch = _scan_scratch("prefix_sum", x, stream)
+    _ok("prefix_sum", fn(x.data_ptr(), y.data_ptr(), n,
+                         scratch if scratch is None else scratch.data_ptr(),
+                         stream))
     launches["prefix_sum"] += 1
     return y
 
@@ -199,16 +240,16 @@ def prefix_sum2(x: torch.Tensor):
     if not _on_card("prefix_sum2", x):
         return prefix_sum2_plain(x)
     n = x.numel()
-    hi = torch.empty_like(x)
-    lo = torch.empty_like(x)
+    hi = torch.empty(n, dtype=x.dtype, device=x.device)
+    lo = torch.empty(n, dtype=x.dtype, device=x.device)
     if n == 0:
         return hi, lo
-    tiles = -(-n // _SCAN_TILE)
-    scratch = torch.empty(2 * tiles, dtype=torch.float32, device=x.device)
     lib = _build.library("prefix_sum2")
+    stream = _stream(x)
+    scratch = _scan_scratch("prefix_sum2", x, stream)
     _ok("prefix_sum2", lib.dryad_prefix_sum2_f32(
-        x.data_ptr(), hi.data_ptr(), lo.data_ptr(), n, scratch.data_ptr(),
-        _stream()))
+        x.data_ptr(), hi.data_ptr(), lo.data_ptr(), n,
+        scratch if scratch is None else scratch.data_ptr(), stream))
     launches["prefix_sum2"] += 1
     return hi, lo
 
@@ -257,7 +298,7 @@ def slot_expand(words: torch.Tensor, offsets: torch.Tensor,
     lib = _build.library("slot_expand")
     _ok("slot_expand", lib.dryad_slot_expand(
         words.data_ptr(), cap, W, offsets.data_ptr(), D, C, out.data_ptr(),
-        _stream()))
+        _stream(words)))
     launches["slot_expand"] += 1
     return out
 
@@ -305,6 +346,6 @@ def slot_compact(words: torch.Tensor, counts: torch.Tensor, C: int,
     lib = _build.library("slot_compact")
     _ok("slot_compact", lib.dryad_slot_compact(
         words.data_ptr(), counts.data_ptr(), D, C, W, out_rows,
-        out.data_ptr(), _stream()))
+        out.data_ptr(), _stream(words)))
     launches["slot_compact"] += 1
     return out

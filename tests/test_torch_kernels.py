@@ -16,6 +16,9 @@ slot_expand is compared on valid slots only (j < min(count, C)) and
 slot_compact on the valid prefix only — the rest is padding whose
 contents the JAX wrappers leave unspecified.  The CUDA kernels themselves run in chip_smoke.py."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -244,6 +247,83 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     tk.prefix_sum2(torch.ones(10))
     assert set(tk.launches) == {"hist_buckets", "prefix_sum", "prefix_sum2",
                                 "slot_expand", "slot_compact"}
+    assert sum(tk.launches.values()) == 0
+
+
+CSRC = Path(tk.__file__).resolve().parent / "csrc"
+
+
+def _constants(path):
+    """``constexpr int kName = <int>;`` definitions of one CUDA source."""
+    return {k: int(v) for k, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", path.read_text())}
+
+
+@pytest.mark.parametrize("name", ["prefix_sum", "prefix_sum2"])
+def test_scan_constants_mirror_the_cuda_sources(name):
+    """The wrappers' tile and scratch layout are the CUDA sources' own:
+    kTile = kThreads * kItems, the shared header's head words, and the
+    source's words a tile."""
+    c = _constants(CSRC / f"{name}.cu")
+    head = _constants(CSRC / "scan_lookback.cuh")["kHeadWords"]
+    assert tk._SCAN_TILE == c["kThreads"] * c["kItems"]
+    assert tk._SCAN_HEAD_WORDS == head
+    assert tk._SCAN_SCRATCH_WORDS[name] == c["kScratchWordsPerTile"]
+    assert '#include "scan_lookback.cuh"' in (CSRC / f"{name}.cu"
+                                               ).read_text()
+
+
+@pytest.mark.parametrize("name", ["prefix_sum", "prefix_sum2"])
+@pytest.mark.parametrize("n,tiles", [(0, 0), (1, 1), (8, 1), (4096, 1),
+                                     (4097, 2), (1_250_000, 306),
+                                     (20_000_001, 4883)])
+def test_scan_scratch_words(name, n, tiles):
+    """Head + words a tile x ceil(n / kTile) 64-bit words; none for one
+    tile, which the kernel runs without a look-back."""
+    c = _constants(CSRC / f"{name}.cu")
+    head = _constants(CSRC / "scan_lookback.cuh")["kHeadWords"]
+    assert -(-n // (c["kThreads"] * c["kItems"])) == tiles
+    want = head + c["kScratchWordsPerTile"] * tiles if tiles > 1 else 0
+    assert tk._scan_scratch_words(name, n) == want
+
+
+def test_scan_scratch_is_kept_per_scan_and_stream(monkeypatch):
+    """One zeroed buffer per (scan, device, stream), reused while big
+    enough and replaced by a larger zeroed one (a power of two) when not;
+    none for one tile.  (The host side only: the kernel clears it.)"""
+    monkeypatch.setattr(tk, "_scan_scratch_bufs", {})
+    x = torch.zeros(3 * tk._SCAN_TILE)
+    assert tk._scan_scratch("prefix_sum", x[:tk._SCAN_TILE], 7) is None
+    a = tk._scan_scratch("prefix_sum", x, 7)
+    assert a.dtype == torch.int64 and a.numel() == 8 and not a.any()
+    assert tk._scan_scratch("prefix_sum", x[:5000], 7) is a
+    assert tk._scan_scratch("prefix_sum", x, 8) is not a
+    assert tk._scan_scratch("prefix_sum2", x, 7) is not a
+    big = torch.zeros(40 * tk._SCAN_TILE)
+    b = tk._scan_scratch("prefix_sum2", big, 7)
+    assert b.numel() == 128 and not b.any()
+    assert len(tk._scan_scratch_bufs) == 3
+
+
+_SCANS = {"prefix_sum": tk.prefix_sum, "prefix_sum2": tk.prefix_sum2}
+
+
+@pytest.mark.parametrize("name", sorted(_SCANS))
+@pytest.mark.parametrize("bad,err", [
+    (lambda: torch.ones(4, dtype=torch.int64), TypeError),
+    (lambda: torch.ones(4, dtype=torch.float64), TypeError),
+    (lambda: torch.ones(4, dtype=torch.int16), TypeError),
+    (lambda: torch.ones(4, dtype=torch.bool), TypeError),
+    (lambda: torch.ones((2, 4)), ValueError),
+    (lambda: torch.ones(()), ValueError),
+    (lambda: torch.ones(8)[::2], ValueError),
+    (lambda: torch.empty(4, device="meta"), ValueError),
+])
+def test_scan_wrappers_refuse_bad_input(name, bad, err):
+    """Bad dtype, rank, layout or device raises before any launch."""
+    tk.reset_launches()
+    with pytest.raises(err):
+        _SCANS[name](bad())
     assert sum(tk.launches.values()) == 0
 
 
