@@ -33,11 +33,13 @@ _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # kernel -> {C entry point: argtypes}; every entry point returns the
 # cudaError_t of its launches as an int
 KERNELS = {
-    "hist_buckets": {"dryad_hist_buckets": [_P, _LL, _I, _P, _P]},
+    "hist_buckets": {"dryad_hist_buckets": [_P, _I, _LL, _I, _I, _P, _P, _P,
+                                            _P]},
     "prefix_sum": {"dryad_prefix_sum_u32": [_P, _P, _LL, _P, _P],
                    "dryad_prefix_sum_f32": [_P, _P, _LL, _P, _P]},
     "prefix_sum2": {"dryad_prefix_sum2_f32": [_P, _P, _P, _LL, _P, _P]},
-    "slot_expand": {"dryad_slot_expand": [_P, _LL, _I, _P, _I, _I, _P, _P]},
+    "slot_expand": {"dryad_slot_expand": [_P, _I, _LL, _I, _P, _I, _I, _P,
+                                          _P]},
     "slot_compact": {"dryad_slot_compact": [_P, _P, _I, _I, _I, _LL, _P,
                                             _P]},
 }

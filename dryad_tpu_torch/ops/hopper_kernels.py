@@ -5,14 +5,18 @@ The port's counterparts of the five TPU kernels in
 ``dryad_tpu/ops/pallas_kernels.py``:
 
   * ``hist_buckets`` — counts of ids in [0, n_buckets) (exchange slot
-    sizing);
+    sizing), ``hist_buckets_batched`` for P rows of ids in one launch;
   * ``prefix_sum`` — inclusive 1-D scan, modular for 32-bit integers
     (tokenizer slot bases, boundary-carry integer group sums, exchange
     offsets);
   * ``prefix_sum2`` — compensated (double-single) f32 inclusive scan
     returning a (hi, lo) pair per prefix (boundary-carry f32 group sums);
   * ``slot_expand`` / ``slot_compact`` — the exchange's send-slot grid
-    and receive-side compaction.
+    and receive-side compaction; ``slot_expand_batched`` expands all P
+    source partitions in one launch, straight into the receive layout.
+
+A one-row (one-partition) call of a batched kernel is the batched call
+with P = 1: one kernel, one launch counter, one capture name.
 
 Each kernel is CUDA C++ for ``sm_90a`` under ``csrc/`` (its file says what
 it replaces, what bounds it and how it is built), compiled by ``_build`` on
@@ -22,7 +26,8 @@ A wrapper takes the plain version ONLY for a tensor that lies on the CPU
 (the tests).  A CUDA tensor gets the kernel or an exception: there is no
 fallback, no switch and no size gate.  ``launches`` counts, per kernel,
 the wrapper calls that launched it, so a run can show that its main path
-went through the kernels.
+went through the kernels; ``capture`` records a batched call under the
+kernel's own name with its batched arguments.
 
 32-bit packed words travel as ``torch.int32`` tensors holding the bits
 (PyTorch's ``uint32`` lacks most kernels); ``prefix_sum`` also takes
@@ -36,10 +41,12 @@ import torch
 from dryad_tpu_torch.ops import _build
 from dryad_tpu_torch.ops.scan import associative_scan
 
-__all__ = ["hist_buckets", "prefix_sum", "prefix_sum2", "slot_expand",
-           "slot_compact", "hist_buckets_plain", "prefix_sum_plain",
-           "prefix_sum2_plain", "slot_expand_plain", "slot_compact_plain",
-           "dd_add", "launches", "reset_launches"]
+__all__ = ["hist_buckets", "hist_buckets_batched", "prefix_sum",
+           "prefix_sum2", "slot_expand", "slot_expand_batched",
+           "slot_compact", "hist_buckets_plain", "hist_buckets_batched_plain",
+           "prefix_sum_plain", "prefix_sum2_plain", "slot_expand_plain",
+           "slot_expand_batched_plain", "slot_compact_plain", "dd_add",
+           "launches", "reset_launches"]
 
 launches = {"hist_buckets": 0, "prefix_sum": 0, "prefix_sum2": 0,
             "slot_expand": 0, "slot_compact": 0}
@@ -48,6 +55,9 @@ _SCAN_TILE = 4096            # kTile of csrc/prefix_sum.cu and prefix_sum2.cu
 _SCAN_HEAD_WORDS = 2         # lookback::kHeadWords of csrc/scan_lookback.cuh
 # kScratchWordsPerTile of each scan's source
 _SCAN_SCRATCH_WORDS = {"prefix_sum": 1, "prefix_sum2": 2}
+_HIST_SMALL_BUCKETS = 32     # kMaxSmallBuckets of csrc/hist_buckets.cu
+_HIST_IDS_PER_BLOCK = 4096   # its kThreads x kVecs x 4 ids a block pass
+_HIST_MAX_BLOCKS = 132 * 8   # one wave of 256-thread blocks on an H100
 _MAX_COMPACT_SOURCES = 4096  # starts[D + 1] of csrc/slot_compact.cu in
                              # shared memory (8 bytes each, under 48 KB)
 
@@ -139,6 +149,39 @@ def _scan_scratch(name: str, x: torch.Tensor, stream: int):
 # hist_buckets
 
 
+def _hist_blocks_per_row(P: int, n: int) -> int:
+    """Blocks a row of ids gets: one per _HIST_IDS_PER_BLOCK ids, at most
+    one wave of _HIST_MAX_BLOCKS over the P rows, at least one."""
+    return max(1, min(-(-n // _HIST_IDS_PER_BLOCK),
+                      _HIST_MAX_BLOCKS // P))
+
+
+# (device index, stream) -> (tickets, partials) of the small-bucket
+# route.  The kernel needs the P tickets zero at launch and leaves them so,
+# so one zeroed buffer serves every call on the stream; the partials are
+# written before they are read.  Tickets and partials are separate
+# buffers, so a queued call's partials never land on a later call's
+# tickets, whatever the sizes.
+_hist_scratch_bufs = {}
+
+
+def _hist_scratch(bid: torch.Tensor, stream: int, P: int, words: int):
+    """(tickets >= P int32 zeros, partials >= ``words`` int32) for one
+    launch on ``stream``, each replaced by a larger one when outgrown (a
+    power of two; new tickets zeroed).  The caller holds them until the
+    launch is queued."""
+    key = (bid.get_device(), stream)
+    tickets, partials = _hist_scratch_bufs.get(key, (None, None))
+    if tickets is None or tickets.numel() < P:
+        tickets = torch.zeros(1 << (P - 1).bit_length(), dtype=torch.int32,
+                              device=bid.device)
+    if partials is None or partials.numel() < words:
+        partials = torch.empty(1 << (words - 1).bit_length(),
+                               dtype=torch.int32, device=bid.device)
+    _hist_scratch_bufs[key] = (tickets, partials)
+    return tickets, partials
+
+
 def hist_buckets_plain(bid: torch.Tensor, n_buckets: int) -> torch.Tensor:
     """bincount of the ids in [0, n_buckets); others fold into a dropped
     bucket."""
@@ -148,23 +191,50 @@ def hist_buckets_plain(bid: torch.Tensor, n_buckets: int) -> torch.Tensor:
                           )[:n_buckets].to(torch.int32)
 
 
+def hist_buckets_batched_plain(bid: torch.Tensor,
+                               n_buckets: int) -> torch.Tensor:
+    """``hist_buckets_plain`` of each row, stacked."""
+    return torch.stack([hist_buckets_plain(row, n_buckets) for row in bid])
+
+
+def hist_buckets_batched(bid: torch.Tensor, n_buckets: int) -> torch.Tensor:
+    """Counts of each bucket id in [0, n_buckets), row by row, in one
+    launch; other ids (the invalid-row sentinel ``n_buckets``, negatives)
+    are ignored.  bid: i32 [P, n] -> i32 [P, n_buckets]; row p is
+    ``hist_buckets(bid[p], n_buckets)``."""
+    _check("hist_buckets", bid, (torch.int32,), 2)
+    if n_buckets < 0:
+        raise ValueError(f"hist_buckets: n_buckets {n_buckets} < 0")
+    P, n = bid.shape
+    if not 1 <= P <= 65535:
+        raise ValueError(f"hist_buckets: 1 to 65535 rows, got {P}")
+    _capture("hist_buckets", bid.numel(), bid, n_buckets)
+    if not _on_card("hist_buckets", bid):
+        return hist_buckets_batched_plain(bid, n_buckets)
+    out = torch.empty((P, n_buckets), dtype=torch.int32, device=bid.device)
+    if n_buckets == 0:
+        return out
+    bpr = _hist_blocks_per_row(P, n)
+    stream = _stream(bid)
+    tickets = partials = None
+    if bpr > 1 and n_buckets <= _HIST_SMALL_BUCKETS:
+        tickets, partials = _hist_scratch(bid, stream, P,
+                                          P * bpr * n_buckets)
+    lib = _build.library("hist_buckets")
+    _ok("hist_buckets", lib.dryad_hist_buckets(
+        bid.data_ptr(), P, n, n_buckets, bpr, out.data_ptr(),
+        None if tickets is None else tickets.data_ptr(),
+        None if partials is None else partials.data_ptr(), stream))
+    launches["hist_buckets"] += 1
+    return out
+
+
 def hist_buckets(bid: torch.Tensor, n_buckets: int) -> torch.Tensor:
     """Counts of each bucket id in [0, n_buckets); other ids (the invalid
     row sentinel ``n_buckets``, negatives) are ignored.  bid: i32 [n] ->
-    i32 [n_buckets]."""
+    i32 [n_buckets].  The one-row call of ``hist_buckets_batched``."""
     _check("hist_buckets", bid, (torch.int32,), 1)
-    if n_buckets < 0:
-        raise ValueError(f"hist_buckets: n_buckets {n_buckets} < 0")
-    _capture("hist_buckets", bid.numel(), bid, n_buckets)
-    if not _on_card("hist_buckets", bid):
-        return hist_buckets_plain(bid, n_buckets)
-    out = torch.empty(n_buckets, dtype=torch.int32, device=bid.device)
-    lib = _build.library("hist_buckets")
-    _ok("hist_buckets", lib.dryad_hist_buckets(
-        bid.data_ptr(), bid.numel(), n_buckets, out.data_ptr(),
-        _stream(bid)))
-    launches["hist_buckets"] += 1
-    return out
+    return hist_buckets_batched(bid[None], n_buckets)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -275,32 +345,62 @@ def slot_expand_plain(words: torch.Tensor, offsets: torch.Tensor,
     return xp.index_select(0, src.reshape(-1)).reshape(D * C, W)
 
 
+def slot_expand_batched_plain(words: torch.Tensor, offsets: torch.Tensor,
+                              C: int) -> torch.Tensor:
+    """``slot_expand_plain`` of each partition, stacked and permuted from
+    [P, D, C, W] to the receive layout [D, P*C, W]."""
+    P, _cap, W = words.shape
+    D = offsets.shape[1]
+    send = torch.stack([slot_expand_plain(words[p], offsets[p], C)
+                        for p in range(P)])
+    return send.view(P, D, C, W).transpose(0, 1).reshape(D, P * C, W)
+
+
+def slot_expand_batched(words: torch.Tensor, offsets: torch.Tensor,
+                        C: int) -> torch.Tensor:
+    """Send-slot expansion of P partitions at once, in the receive layout.
+    ``words`` is P dest-sorted packed row matrices [P, cap, W] (32-bit
+    words as int32); in partition p, destination d's rows start at
+    ``offsets[p, d]`` (i32 [P, D]).  Returns [D, P*C, W]: rows
+    [p*C, (p+1)*C) of block d are the C rows of partition p starting at
+    clip(offsets[p, d], 0, cap), padded with C zero rows — what
+    ``slot_expand(words[p], offsets[p], C)`` puts in its block d.  Slots
+    past a run's count are for the receiver to mask."""
+    _check("slot_expand", words, (torch.int32,), 3)
+    _check("slot_expand", offsets, (torch.int32,), 2)
+    P, cap, W = words.shape
+    D = offsets.shape[1]
+    if offsets.shape[0] != P or not 1 <= P <= 65535:
+        raise ValueError(f"slot_expand: offsets {tuple(offsets.shape)} is "
+                         f"not [P, D] for P={P} (1 to 65535)")
+    if not 1 <= D <= 65535:
+        raise ValueError(f"slot_expand: 1 to 65535 destinations, got {D}")
+    if C < 1:
+        raise ValueError(f"slot_expand: C must be >= 1, got {C}")
+    _capture("slot_expand", D * P * C * W, words, offsets, C)
+    if not _on_card("slot_expand", words, offsets):
+        return slot_expand_batched_plain(words, offsets, C)
+    out = torch.empty((D, P * C, W), dtype=torch.int32, device=words.device)
+    lib = _build.library("slot_expand")
+    _ok("slot_expand", lib.dryad_slot_expand(
+        words.data_ptr(), P, cap, W, offsets.data_ptr(), D, C,
+        out.data_ptr(), _stream(words)))
+    launches["slot_expand"] += 1
+    return out
+
+
 def slot_expand(words: torch.Tensor, offsets: torch.Tensor,
                 C: int) -> torch.Tensor:
     """Send-slot expansion: ``words`` is the dest-sorted packed row matrix
     [cap, W] (32-bit words as int32); destination d's rows start at
     ``offsets[d]`` (i32 [D]).  Returns [D*C, W] whose block d holds the C
     rows starting at clip(offsets[d], 0, cap) of ``words`` padded with C
-    zero rows; slots past the run's count are for the receiver to mask."""
+    zero rows; slots past the run's count are for the receiver to mask.
+    The one-partition call of ``slot_expand_batched``."""
     _check("slot_expand", words, (torch.int32,), 2)
     _check_offsets("slot_expand", offsets)
-    if C < 1:
-        raise ValueError(f"slot_expand: C must be >= 1, got {C}")
-    if offsets.shape[0] > 65535:
-        raise ValueError("slot_expand: at most 65535 destinations")
-    _capture("slot_expand", offsets.shape[0] * C * words.shape[1], words,
-             offsets, C)
-    if not _on_card("slot_expand", words, offsets):
-        return slot_expand_plain(words, offsets, C)
-    cap, W = words.shape
-    D = offsets.shape[0]
-    out = torch.empty((D * C, W), dtype=torch.int32, device=words.device)
-    lib = _build.library("slot_expand")
-    _ok("slot_expand", lib.dryad_slot_expand(
-        words.data_ptr(), cap, W, offsets.data_ptr(), D, C, out.data_ptr(),
-        _stream(words)))
-    launches["slot_expand"] += 1
-    return out
+    return slot_expand_batched(words[None], offsets[None], C).view(
+        offsets.shape[0] * C, words.shape[1])
 
 
 def slot_compact_plain(words: torch.Tensor, counts: torch.Tensor, C: int,

@@ -5,12 +5,16 @@ The JAX package runs each exchange inside ``shard_map`` with one
 ``all_to_all`` over the mesh.  Here the P partitions share one device, so
 an exchange takes the list of per-partition Batches:
 
-  PACK (per source partition): packed u32 words of every column, the
-  per-destination counts (``hist_buckets`` kernel), their exclusive
-  prefix (``prefix_sum`` kernel), a stable sort by destination, and the
-  send-slot grid [D*C, W] (``slot_expand`` kernel);
-  ALL_TO_ALL: the stacked ``[P_src, P_dst, C, W]`` send buffers permute
-  to ``[P_dst, P_src, C, W]`` in device memory;
+  PACK (all P source partitions at once): the per-destination counts
+  [P, D] (ONE ``hist_buckets`` launch), their exclusive prefix per row
+  (ONE ``prefix_sum`` over the flattened counts, less each row's base),
+  one stable sort by destination of every row, the packed u32 words of
+  every column gathered in that order into one [P, cap, W] buffer, and
+  the send-slot grid (ONE ``slot_expand`` launch), all inside the
+  profiler range ``dryad.exchange.pack``;
+  ALL_TO_ALL: none on one device — ``slot_expand`` stores each (source,
+  destination) block straight at its place in the receive layout
+  [P_dst, P_src*C, W];
   UNPACK (per destination): the valid prefix of every source block,
   densely (``slot_compact`` kernel), unpacked into columns.
 
@@ -25,11 +29,13 @@ from __future__ import annotations
 from typing import List, Sequence, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from dryad_tpu_torch.data.columnar import Batch
 from dryad_tpu_torch.ops.hashing import hash_batch_keys
-from dryad_tpu_torch.ops.hopper_kernels import (hist_buckets, prefix_sum,
-                                                slot_compact, slot_expand)
+from dryad_tpu_torch.ops.hopper_kernels import (hist_buckets_batched,
+                                                prefix_sum, slot_compact,
+                                                slot_expand_batched)
 from dryad_tpu_torch.ops.kernels import _pack_columns_u32, _unpack_columns_u32
 
 __all__ = ["exchange_by_dest", "hash_exchange"]
@@ -61,23 +67,26 @@ def exchange_by_dest(parts: List[Batch], dests: List[torch.Tensor],
     # raised by the executor's retry from the measured need
     C = max(1, min(cap, -(-send_slack * cap // D)))
 
-    send, counts_all, spec = [], [], None
-    for b, dest in zip(parts, dests):
-        # invalid rows go to the sentinel bucket D, which nothing counts
-        dest = torch.where(b.valid_mask(), dest.to(torch.int32), D)
-        words, spec = _pack_columns_u32(b.columns)         # [cap, W]
-        counts = hist_buckets(dest, D)                     # [D]
-        offsets = prefix_sum(counts) - counts              # exclusive
-        order = torch.sort(dest, stable=True).indices      # (dest, row)
-        send.append(slot_expand(words.index_select(0, order), offsets, C))
-        counts_all.append(counts)
-    W = send[0].shape[1]
-    counts_m = torch.stack(counts_all)                     # [src, dst]
+    # invalid rows go to the sentinel bucket D, which nothing counts
+    dest = torch.stack([torch.where(b.valid_mask(), d.to(torch.int32), D)
+                        for b, d in zip(parts, dests)])      # [P, cap]
+    packed = [_pack_columns_u32(b.columns) for b in parts]
+    spec = packed[0][1]
+    with record_function("dryad.exchange.pack"):
+        counts_m = hist_buckets_batched(dest, D)             # [src, dst]
+        # exclusive offsets of every row from one scan: the flat
+        # exclusive prefix less its row's first entry (exact: 32-bit
+        # addition is modular)
+        excl = prefix_sum(counts_m.view(-1)).view(D, D) - counts_m
+        offsets = excl - excl[:, :1]
+        order = torch.sort(dest, dim=1, stable=True).indices  # (dest, row)
+        words = torch.empty((D, cap, packed[0][0].shape[1]),
+                            dtype=torch.int32, device=dest.device)
+        for p, (w, _spec) in enumerate(packed):
+            torch.index_select(w, 0, order[p], out=words[p])
+        # the all_to_all: block (d, p) lands at recv[d, p*C:(p+1)*C]
+        recv = slot_expand_batched(words, offsets, C)      # [dst, src*C, W]
     send_counts = torch.clamp(counts_m, max=C)
-
-    # the all_to_all: [P_src, P_dst, C, W] -> [P_dst, P_src, C, W]
-    recv = (torch.stack(send).view(D, D, C, W).transpose(0, 1)
-            .contiguous().view(D, D * C, W))
     recv_counts = send_counts.t().contiguous()             # [dst, src]
     totals = recv_counts.sum(dim=1, dtype=torch.int32)
 
