@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (dryad_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--lines N] [--rows N] [--out DIR]
+    python3 chip_smoke.py [--lines N] [--rows N] [--records N] [--out DIR]
 
 Phases, each failing the run (non-zero exit, no result line) on error:
 
@@ -41,29 +41,46 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      means within the group bound); every launch counter must rise in the
      app's run, prefix_sum2 once per partition, and the exchange's four
      in every run (hist_buckets and slot_expand once per exchange);
-  3-4. after each of those five main-path runs, every kernel call it made
+  6. the sort paths through the same entry points: TeraSort on
+     1,000,000 records (``terasort.gen_records(N, seed=0)``, the JAX
+     bench's in-memory size, ``str_max_len=10``: a range exchange of
+     5-word rows) held against Python's sorted (key, payload) pairs;
+     ``order_by([("k", True), ("v", False)])`` on the GroupByReduce pairs
+     (2,000,000 rows, 10,000 keys) against numpy's lexsort order;
+     ``group_top_k(["k"], 3, "v")`` and ``group_median(["k"], "v")`` on
+     them (one run, two queries) against numpy as multisets of (k, v)
+     and exact lower medians; ``distinct(["k"])`` on them, each key's v
+     that of its first row in input order.  Each run's exchange kernels
+     must all launch, hist_buckets and slot_expand once per exchange
+     attempt (a capacity retry is an attempt: the counts must equal the
+     executor's own attempt log); its stages' retries and final capacity
+     scales are printed;
+  3-6. after each of those nine main-path runs, every kernel call it made
      is made again through the kernel and through its plain version on
      the very tensors the run passed (integers exactly, prefix_sum2
      within twice its bound);
   5. timing: each kernel, its plain version and one library call at the
      largest call of one main-path run (``TIMED_ON``; CUDA events), the
      bound the card's memory rate sets for the same bytes, and a
-     torch.profiler breakdown of one warm run of each timed path (a
-     kernel launched there with no profiled device time fails the run).
+     torch.profiler breakdown of one warm run of each timed path and of
+     TeraSort (a kernel launched there with no profiled device time fails
+     the run).
      Per kernel at its timed shape also: the device time per call and the
      device events (kernels, memsets) per call from a profiler window
      around 20 calls, and the host's enqueue time per call (200 calls, no
-     sync).  The exchange's pack side per exchange in both profiles
+     sync).  The exchange's pack side per exchange in the three profiles
      (hist_buckets, slot_expand, copy kernels, the rest of the pack
      range), against its bound, beside the send-buffer copies that the
      batched slot_expand removed, replayed at the same shape.  A kernel
-     row's ``launches`` sums its launches over the five main-path runs;
+     row's ``launches`` sums its launches over the nine main-path runs;
      ``runs`` gives each run's own count and |kernel - plain|.
 
-Output: one JSON line per corpus, per GroupByReduce variant, per pack
-side and per kernel, then the card line, then the ``{"kernels": [...]}``
-line, then the result line ``{"ok": true, "device": {...}}`` last.
-Long logs (nvcc -Xptxas -v, the profiles) go under ``--out`` (default
+Output: one JSON line per corpus, per GroupByReduce variant, per sort
+path, per pack side and per kernel, then the card line, then the
+``{"kernels": [...]}`` line, then the result line
+``{"ok": true, "device": {...}}`` last.
+Long logs (nvcc -Xptxas -v, the profiles) and every JSON line but the
+result line (``chip_smoke.jsonl``) go under ``--out`` (default
 chiprun_out/).
 """
 
@@ -115,6 +132,8 @@ DEVICE_NAMES = {  # substrings of the compiled kernels' names
     "slot_compact": ("slot_compact_k",),
 }
 PACK_RANGE = "dryad.exchange.pack"   # parallel/shuffle.py's profiler range
+# the runs whose calls are kept for a pack_side line
+PROFILED = ("zipf50k", "app10k", "terasort1m")
 
 
 def card_line() -> str:
@@ -468,11 +487,16 @@ def check_cancellation(hk, t) -> None:
                              "f32 prefix met the group bound")
 
 
-def check_per_exchange(run, launches) -> None:
-    """hist_buckets and slot_expand launch once per exchange: as often as
-    the exchange's unpack runs (slot_compact once per destination)."""
+def check_per_exchange(run, launches, attempts=None) -> None:
+    """hist_buckets and slot_expand launch once per exchange attempt: as
+    often as the exchange's unpack runs (slot_compact once per
+    destination).  A capacity retry runs the stage's exchange again, so
+    it counts; ``attempts``, where given, is the executor's own count of
+    exchange attempts (its ``stage_log``), which must agree."""
     exchanges, rest = divmod(launches["slot_compact"], NPARTS)
     bad = {k: launches[k] for k in PER_EXCHANGE if launches[k] != exchanges}
+    if attempts is not None and attempts != exchanges:
+        bad["executor_attempts"] = attempts
     if rest or not exchanges or bad:
         raise AssertionError(f"{run}: {exchanges} exchanges "
                              f"(slot_compact {launches['slot_compact']}) "
@@ -613,6 +637,110 @@ def check_gbr(name, out, data, cols) -> None:
         if not (np.array_equal(out["lo"][o], lo[keys])
                 and np.array_equal(out["hi"][o], hi[keys])):
             raise AssertionError(f"{name}: min/max differ from the oracle")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the sort paths
+
+
+def sort_runs(ts, gbr, records: int, rows: int) -> dict:
+    """name -> ((data, str_max_len), queries, oracle check): TeraSort, a
+    descending two-key order_by, top-k and lower median per key, and
+    distinct, the last three on the GroupByReduce pairs.  A check returns
+    the run's sizes."""
+
+    def tera_check(outs, recs):
+        (out,) = outs
+        keys = np.array(recs["key"], dtype="S10")    # printable, no NULs
+        order = np.lexsort((recs["payload"], keys))
+        if (out["key"] != keys[order].tolist()
+                or not np.array_equal(out["payload"],
+                                      recs["payload"][order])):
+            raise AssertionError("terasort1m: not the sorted (key, "
+                                 "payload) pairs")
+        return {"rows": len(out["key"])}
+
+    def desc_check(outs, d):
+        (out,) = outs
+        order = np.lexsort((d["v"], -d["k"].astype(np.int64)))
+        if not (np.array_equal(out["k"], d["k"][order])
+                and np.array_equal(out["v"], d["v"][order])):
+            raise AssertionError("orderby_desc2m: not numpy's lexsort "
+                                 "order")
+        return {"rows": len(out["k"]), "groups": len(np.unique(d["k"]))}
+
+    def topk_check(outs, d):
+        topk, med = outs
+        k, v = d["k"], d["v"]
+        order = np.lexsort((-v.astype(np.float64), k))
+        ks = k[order]
+        keep = order[np.arange(len(ks)) - np.searchsorted(ks, ks) < 3]
+        want = sorted(zip(k[keep].tolist(), v[keep].tolist()))
+        if sorted(zip(topk["k"].tolist(), topk["v"].tolist())) != want:
+            raise AssertionError("topk10k: top-3 rows differ from numpy")
+        order = np.lexsort((v, k))
+        ks, vs = k[order], v[order]
+        starts = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
+        sizes = np.diff(np.r_[starts, len(ks)])
+        lower = dict(zip(ks[starts].tolist(),
+                         vs[starts + (sizes - 1) // 2].tolist()))
+        if (len(med["k"]) != len(lower)
+                or dict(zip(med["k"].tolist(), med["v"].tolist())) != lower):
+            raise AssertionError("topk10k: lower medians differ from numpy")
+        return {"rows": len(k), "groups": len(lower),
+                "topk_rows": len(topk["k"])}
+
+    def distinct_check(outs, d):
+        (out,) = outs
+        keys, first = np.unique(d["k"], return_index=True)
+        o = np.argsort(out["k"])
+        if not (np.array_equal(out["k"][o], keys)
+                and np.array_equal(out["v"][o], d["v"][first])):
+            raise AssertionError("distinct10k: not each key's first row")
+        return {"rows": len(d["k"]), "groups": len(keys)}
+
+    pairs = (gbr.gen_pairs(rows, 10_000, seed=0), None)
+    return {
+        "terasort1m": ((ts.gen_records(records, seed=0), 10),
+                       [ts.terasort_query], tera_check),
+        "orderby_desc2m": (pairs, [lambda ds: ds.order_by(
+            [("k", True), ("v", False)])], desc_check),
+        "topk10k": (pairs, [lambda ds: ds.group_top_k(["k"], 3, "v"),
+                            lambda ds: ds.group_median(["k"], "v")],
+                    topk_check),
+        "distinct10k": (pairs, [lambda ds: ds.distinct(["k"])],
+                        distinct_check),
+    }
+
+
+def run_sort(port, hk, data, str_max_len, queries):
+    """One main-path run of a sort path through the user's entry points,
+    timed as load (from_columns) and query (each query's plan, stages
+    and collect).  Counters zeroed just before, read just after.  Returns
+    (tables, launches, load_s, query_s, the executor's stage log of each
+    query)."""
+    import torch
+    ctx = port.Context(device="cuda", nparts=NPARTS)
+    hk.reset_launches()
+    t0 = time.perf_counter()
+    ds = ctx.from_columns(data, str_max_len=str_max_len)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    outs, logs = [], []
+    for q in queries:
+        outs.append(q(ds).collect())
+        logs.append(list(ctx.executor.stage_log))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return outs, dict(hk.launches), t1 - t0, t2 - t1, logs
+
+
+def exchanging_stages(logs) -> list:
+    """Each exchanging stage of a run: its label, exchange kind, retries
+    (attempts past the first) and final capacity scale."""
+    return [{"stage": st["label"], "exchange": st["exchange"],
+             "retries": st["attempts"] - 1, "scale": st["scale"]}
+            for log in logs for st in log if st["exchange"]]
 
 
 # ---------------------------------------------------------------------------
@@ -1004,6 +1132,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--lines", type=int, default=1_000_000)
     ap.add_argument("--rows", type=int, default=2_000_000)
+    ap.add_argument("--records", type=int, default=1_000_000)
     ap.add_argument("--out", default=os.path.join(HERE, "chiprun_out"))
     a = ap.parse_args(argv)
 
@@ -1015,9 +1144,20 @@ def main(argv=None) -> int:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     os.makedirs(a.out, exist_ok=True)
+    lines_path = os.path.join(a.out, "chip_smoke.jsonl")
+    open(lines_path, "w").close()
+
+    def emit(obj) -> None:
+        """A result line on stdout and in ``--out``/chip_smoke.jsonl
+        (the whole run's lines outlast a cut-off stdout)."""
+        line = json.dumps(obj)
+        print(line, flush=True)
+        with open(lines_path, "a") as f:
+            f.write(line + "\n")
 
     port = import_port()
     from dryad_tpu_torch.apps import groupbyreduce as gbr
+    from dryad_tpu_torch.apps import terasort as ts
     from dryad_tpu_torch.apps import wordcount as wc
     from dryad_tpu_torch.ops import _build
     from dryad_tpu_torch.ops import hopper_kernels as hk
@@ -1029,12 +1169,11 @@ def main(argv=None) -> int:
     with open(os.path.join(a.out, "nvcc_ptxas.log"), "w") as f:
         for name, log in logs.items():
             f.write(f"== {name}\n{log}\n")
-    print(json.dumps({"phase": "build", "seconds": build_s,
-                      "kernels": sorted(logs), "card": card}), flush=True)
+    emit({"phase": "build", "seconds": build_s,
+                      "kernels": sorted(logs), "card": card})
 
     check_kernels(hk, dev)
-    print(json.dumps({"phase": "kernels", "ok": True, "card": card}),
-          flush=True)
+    emit({"phase": "kernels", "ok": True, "card": card})
 
     # every main-path run: label -> (launches, {kernel: max |kernel -
     # plain|} over all its calls); the TIMED_ON runs keep their calls
@@ -1042,7 +1181,7 @@ def main(argv=None) -> int:
 
     def held(label, launches, captured):
         runs[label] = (launches, hold_run(hk, label, captured))
-        if label in TIMED_ON.values():
+        if label in PROFILED:
             timed_calls[label] = captured
 
     corpora = {"bench12": bench_corpus(a.lines),
@@ -1065,13 +1204,13 @@ def main(argv=None) -> int:
         check_per_exchange(cname, launches)
         _, _, wload, wquery = run_wordcount(port, hk, wc, lines)
         warm = wload + wquery
-        print(json.dumps({
+        emit({
             "corpus": cname, "lines": len(lines), "nparts": NPARTS,
             "words": len(want), "tokens": sum(want.values()),
             "launches": launches, "cold_wall_s": load + query,
             "warm_wall_s": warm, "warm_load_s": wload,
             "warm_query_s": wquery, "lines_per_s": len(lines) / warm,
-            "card": card}), flush=True)
+            "card": card})
 
     variants = gbr_variants(port, gbr)
     for vname, (n_keys, query, cols) in variants.items():
@@ -1101,38 +1240,73 @@ def main(argv=None) -> int:
                                  f"{launches['prefix_sum2']} times")
         _, _, wload, wquery = run_gbr(port, hk, data, query)
         warm = wload + wquery
-        print(json.dumps({
+        emit({
             "groupbyreduce": vname, "rows": a.rows, "keys": n_keys,
             "groups": len(out["k"]), "nparts": NPARTS,
             "launches": launches, "cold_wall_s": load + qs,
             "warm_wall_s": warm, "warm_load_s": wload,
             "warm_query_s": wquery, "rows_per_s": a.rows / warm,
-            "card": card}), flush=True)
+            "card": card})
+
+    sorts = sort_runs(ts, gbr, a.records, a.rows)
+    for sname, ((data, sml), queries, check) in sorts.items():
+        hk.capture = {}
+        outs, launches, load, qs, logs = run_sort(port, hk, data, sml,
+                                                  queries)
+        captured, hk.capture = hk.capture, None
+        sizes = check(outs, data)
+        del outs
+        held(sname, launches, captured)
+        zero = [k for k in EXCHANGE if launches[k] == 0]
+        if zero:
+            raise AssertionError(f"{sname}: kernels never launched: {zero}")
+        stages = exchanging_stages(logs)
+        check_per_exchange(sname, launches,
+                           sum(st["retries"] + 1 for st in stages))
+        _, _, wload, wquery, wlogs = run_sort(port, hk, data, sml, queries)
+        warm = wload + wquery
+        emit({
+            "sort": sname, **sizes, "nparts": NPARTS,
+            "exchanging_stages": stages,
+            "warm_exchanging_stages": exchanging_stages(wlogs),
+            "launches": launches, "cold_wall_s": load + qs,
+            "warm_wall_s": warm, "warm_load_s": wload,
+            "warm_query_s": wquery, "rows_per_s": sizes["rows"] / warm,
+            "card": card})
+    tera_data, tera_sml = sorts["terasort1m"][0]
+    del sorts
 
     wc_prof = profile_path(
         lambda: run_wordcount(port, hk, wc, corpora["zipf50k"]),
         "wordcount_zipf50k", a.out)
-    print(json.dumps({"profile": "wordcount zipf50k warm run",
-                      **_no_pack(wc_prof), "card": card}), flush=True)
+    emit({"profile": "wordcount zipf50k warm run",
+                      **_no_pack(wc_prof), "card": card})
     gbr_prof = profile_path(
         lambda: run_gbr(port, hk, gbr_data, variants["app10k"][1]),
         "groupbyreduce_app10k", a.out)
-    print(json.dumps({"profile": "groupbyreduce app10k warm run",
-                      **_no_pack(gbr_prof), "card": card}), flush=True)
-    for label, prof in (("zipf50k", wc_prof), ("app10k", gbr_prof)):
-        print(json.dumps({"pack_side": label,
+    emit({"profile": "groupbyreduce app10k warm run",
+                      **_no_pack(gbr_prof), "card": card})
+    tera_prof = profile_path(
+        lambda: run_sort(port, hk, tera_data, tera_sml,
+                         [ts.terasort_query])[:4],
+        "terasort1m", a.out)
+    emit({"profile": "terasort1m warm run",
+                      **_no_pack(tera_prof), "card": card})
+    for label, prof in (("zipf50k", wc_prof), ("app10k", gbr_prof),
+                        ("terasort1m", tera_prof)):
+        emit({"pack_side": label,
                           **pack_side(prof, timed_calls[label]),
-                          "card": card}), flush=True)
-    print(json.dumps({"phase": "held", "ok": True, "runs": {
+                          "card": card})
+    emit({"phase": "held", "ok": True, "runs": {
         r: {k: {"launches": l[k], "max_abs_err": e[k]} for k in e}
-        for r, (l, e) in runs.items()}, "card": card}), flush=True)
+        for r, (l, e) in runs.items()}, "card": card})
     rows = time_kernels(hk, runs, {
         "zipf50k": (timed_calls["zipf50k"], wc_prof),
         "app10k": (timed_calls["app10k"], gbr_prof)}, card)
     for row in rows:
-        print(json.dumps({"kernel": row}))
+        emit({"kernel": row})
     print(card)
-    print(json.dumps({"kernels": rows}))
+    emit({"kernels": rows})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -9,9 +9,13 @@ use; each has a plain PyTorch version that runs only for CPU tensors.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.  Ported end to end, with P logical partitions on one
-device and a hash exchange between them: WordCount (from_columns ->
-split_words -> group_by count -> collect) and GroupByReduce (group_by
-with builtin or user-defined ``Decomposable`` aggregates, select, where).
+device and a hash or range exchange between them: WordCount
+(from_columns -> split_words -> group_by count -> collect),
+GroupByReduce (group_by with builtin or user-defined ``Decomposable``
+aggregates, select, where) and TeraSort (order_by: sampled split points,
+a range exchange, a local sort), with the rest of the sort family
+(range_partition, assume_range_partition / assume_order_by, take,
+distinct, group_top_k, group_median).
 """
 
 __version__ = "0.1.0"

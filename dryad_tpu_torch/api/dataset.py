@@ -1,5 +1,8 @@
 """User-facing API: ``Context`` and the lazy ``Dataset`` — the subset of
-``dryad_tpu/api/dataset.py`` that WordCount and GroupByReduce call.
+``dryad_tpu/api/dataset.py`` that WordCount, GroupByReduce and TeraSort
+call, with the sort family (``order_by``, ``range_partition``, the
+``assume_*`` claims, ``take``, ``distinct``, ``group_top_k``,
+``group_median``).
 
 ``Context(device="cuda", nparts=8)`` runs ``nparts`` logical partitions
 on one CUDA card (``parallel/mesh.py``).  The device is CUDA unless the
@@ -9,7 +12,7 @@ rather than quietly running on the CPU.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, Sequence
+from typing import Any, Callable, Dict, Mapping, Sequence, Tuple
 
 from dryad_tpu_torch.exec.data import maybe_shrink_for_collect, \
     pdata_from_host, pdata_to_host
@@ -98,6 +101,57 @@ class Dataset:
         return Dataset(self.ctx, E.HashRepartition(parents=(self.node,),
                                                    keys=tuple(keys)))
 
+    def group_top_k(self, keys: Sequence[str], k: int, by: str,
+                    descending: bool = True) -> "Dataset":
+        """Per-group top-k rows by ``by`` (all columns kept; ties keep
+        arrival order)."""
+        return Dataset(self.ctx, E.GroupTopK(
+            parents=(self.node,), keys=tuple(keys), k=k, by=by,
+            descending=descending))
+
+    def group_median(self, keys: Sequence[str], by: str,
+                     out: str | None = None) -> "Dataset":
+        """One row per group: keys + the LOWER median of ``by`` (element
+        (n-1)//2 of the ascending order — always an element of the
+        group, unlike numpy's interpolated even-size median)."""
+        return Dataset(self.ctx, E.GroupRankSelect(
+            parents=(self.node,), keys=tuple(keys), by=by, rank="median",
+            out=out))
+
+    def order_by(self, keys: Sequence[Tuple[str, bool]]) -> "Dataset":
+        """Global sort; keys = [(column, descending), ...]."""
+        return Dataset(self.ctx, E.OrderBy(parents=(self.node,),
+                                           keys=tuple(keys)))
+
+    def distinct(self, keys: Sequence[str] = ()) -> "Dataset":
+        """One row per distinct key (by ``keys``, or all columns when
+        empty): the first in arrival order.  Keys are told apart by their
+        64-bit hash, as in ``group_by``."""
+        return Dataset(self.ctx, E.Distinct(parents=(self.node,),
+                                            keys=tuple(keys)))
+
+    def range_partition(self, keys: Sequence[str]) -> "Dataset":
+        """Explicit repartition by ranges of the first key."""
+        return Dataset(self.ctx, E.RangeRepartition(parents=(self.node,),
+                                                    keys=tuple(keys)))
+
+    def assume_range_partition(self, keys: Sequence[str]) -> "Dataset":
+        """Declare, without moving rows, that partitions hold ascending
+        ranges of ``keys``."""
+        return Dataset(self.ctx, E.AssumePartitioning(
+            parents=(self.node,), kind="range", keys=tuple(keys)))
+
+    def assume_order_by(self, keys: Sequence[str]) -> "Dataset":
+        """Declare, without sorting, that the data is globally sorted
+        ascending by ``keys`` (AssumeOrderBy).  A later ``order_by`` whose
+        ascending keys are a prefix of ``keys`` skips the range exchange
+        and only sorts locally."""
+        return self.assume_range_partition(keys)
+
+    def take(self, n: int) -> "Dataset":
+        """The first ``n`` rows, in partition order."""
+        return Dataset(self.ctx, E.Take(parents=(self.node,), n=n))
+
     def plan(self):
         return plan_query(self.node, self.ctx.nparts)
 
@@ -106,8 +160,11 @@ class Dataset:
 
     def collect(self) -> Dict[str, Any]:
         """Execute and pull all rows to the host."""
-        return pdata_to_host(maybe_shrink_for_collect(self._materialize(),
-                                                      self.ctx.config))
+        out = pdata_to_host(maybe_shrink_for_collect(self._materialize(),
+                                                     self.ctx.config))
+        if isinstance(self.node, E.Take):
+            out = {k: v[:self.node.n] for k, v in out.items()}
+        return out
 
     def explain(self) -> str:
         return self.plan().explain()

@@ -9,7 +9,14 @@ across all of them, and a loop for the body ops.  Every op returns a NEED
 vector ``[need_scale, need_slack]`` that stays on the device; the
 executor reads it once per stage (the one host sync) and, on overflow,
 re-runs the stage at the measured scale and send-slot slack instead of
-dropping rows.
+dropping rows.  ``stage_log`` keeps each stage's attempts and final
+capacity scale from the last ``run``.
+
+A range exchange splits on bounds sampled from the output of its
+``bounds_from`` stage (``_range_bounds``), once per stage before the
+retry loop and on the device.  The global ``take`` needs every
+partition's count, so the executor applies it over the whole partition
+list (``_take_global``) rather than per partition.
 
 Not ported yet (later slices, see ROADMAP.md): lineage recovery and the
 deferred settle, adaptivity, the cost cross-check, slot feedback and
@@ -18,14 +25,15 @@ probes, hot-key salting, multi-leg stages.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from dryad_tpu_torch.data.columnar import Batch
+from dryad_tpu_torch.data.columnar import Batch, StringColumn
 from dryad_tpu_torch.exec.data import PData, split_partitions, \
     stack_partitions
 from dryad_tpu_torch.ops import kernels
+from dryad_tpu_torch.ops.hashing import M32
 from dryad_tpu_torch.ops.kernels import NotPortedYet
 from dryad_tpu_torch.ops.text import lower_ascii, split_tokens, \
     tokenize_group_count
@@ -98,7 +106,49 @@ def _apply_op(b: Batch, op: StageOp, scale: int) -> Tuple[Batch,
         return kernels.group_decompose_merge(
             b, list(p["keys"]), p["decs"], p["box"], p["finalize"]), \
             _needs(dev)
+    if k == "group_top_k":
+        return kernels.group_top_k(b, list(p["keys"]), p["k"], p["by"],
+                                   p["descending"]), _needs(dev)
+    if k == "group_rank":
+        return kernels.group_rank_select(b, list(p["keys"]), p["by"],
+                                         p["rank"], p["out"]), _needs(dev)
+    if k == "distinct":
+        return kernels.distinct(b, list(p["keys"]) or None), _needs(dev)
+    if k == "sort":
+        return kernels.sort_by_columns(b, list(p["keys"])), _needs(dev)
     raise ValueError(f"unknown op kind {k}")
+
+
+def _take_global(parts: List[Batch], n: int) -> List[Batch]:
+    """The first ``n`` rows over all partitions in partition order:
+    partition p keeps clip(n - sum_{q<p} count_q, 0, count_p)."""
+    local = [kernels.take(b, n) for b in parts]
+    counts = torch.stack([b.count for b in local])
+    before = torch.cumsum(counts, 0) - counts
+    keep = torch.minimum(torch.clamp(n - before, min=0), counts).to(
+        torch.int32)
+    return [Batch(b.columns, keep[p]) for p, b in enumerate(local)]
+
+
+def _sample_lanes(col, counts: torch.Tensor, S: int) -> torch.Tensor:
+    """[P, S] ordering lanes: partition p's first min(count, S) samples
+    evenly spread over its valid rows.  The stride is overflow-safe in
+    int32, as the JAX package computes it: i*(cnt//take) +
+    (i*(cnt%take))//take, clipped to cap - 1."""
+    if isinstance(col, StringColumn):
+        P, cap, L = col.data.shape
+        flat = StringColumn(col.data.reshape(P * cap, L),
+                            col.lengths.reshape(P * cap))
+        lane = shuffle.range_dest_lane(flat).reshape(P, cap)
+    else:
+        lane = shuffle.range_dest_lane(col)
+        cap = lane.shape[1]
+    cnt = counts.to(torch.int64)[:, None]
+    take = torch.clamp(torch.clamp(cnt, max=S), min=1)
+    i = torch.arange(S, device=lane.device)[None, :]
+    idx = torch.clamp(i * (cnt // take) + (i * (cnt % take)) // take,
+                      0, cap - 1)
+    return torch.gather(lane, 1, idx)
 
 
 def _fuse_stage_ops(ops: List[StageOp]) -> List[StageOp]:
@@ -129,14 +179,21 @@ def _fuse_stage_ops(ops: List[StageOp]) -> List[StageOp]:
 
 
 def _apply_exchange(parts: List[Batch], ex: Exchange, scale: int,
-                    slack: int) -> Tuple[List[Batch], torch.Tensor]:
+                    slack: int, bounds: Optional[torch.Tensor]
+                    ) -> Tuple[List[Batch], torch.Tensor]:
     """Returns (batches, needs[2])."""
-    if ex.kind != "hash":
+    cap = ex.out_capacity * scale
+    if ex.kind == "hash":
+        # empty keys = whole row; sorted so both legs of a set op agree
+        keys = list(ex.keys) or sorted(parts[0].names)
+        out, nr, nsl, _slot = shuffle.hash_exchange(
+            parts, keys, cap, send_slack=slack)
+    elif ex.kind == "range":
+        out, nr, nsl, _slot = shuffle.range_exchange(
+            parts, ex.bounds_key, bounds, cap, descending=ex.descending,
+            send_slack=slack)
+    else:
         raise ValueError(ex.kind)
-    # empty keys = whole row; sorted so both legs of a set op agree
-    keys = list(ex.keys) or sorted(parts[0].names)
-    out, nr, nsl, _slot = shuffle.hash_exchange(
-        parts, keys, ex.out_capacity * scale, send_slack=slack)
     return out, _needs(nr.device, _scale_need(nr, ex.out_capacity), nsl)
 
 
@@ -147,47 +204,84 @@ class Executor:
         self.mesh = mesh
         self.nparts = mesh.nparts
         self.config = config or JobConfig()
+        # per stage of the last run: label, attempts, final scale / slack
+        self.stage_log: List[Dict] = []
 
-    def _run_once(self, stage: Stage, inp: PData, scale: int,
-                  slack: int) -> Tuple[PData, torch.Tensor]:
+    def _range_bounds(self, src: PData, key: str) -> torch.Tensor:
+        """[P-1] split points over the ordering lane of ``key``, on the
+        device: each partition samples at most
+        ``range_samples_per_partition`` lanes, invalid sample slots fold
+        to the all-ones sentinel and sort last, and the bounds are the
+        n_tot * p // P-th of the sorted samples (zeros when no row was
+        sampled).  The same bounds as the JAX package's, bit for bit."""
+        dev = self.mesh.device
+        if self.nparts == 1:
+            return torch.zeros(0, dtype=torch.int64, device=dev)
+        S = self.config.range_samples_per_partition
+        lanes = _sample_lanes(src.batch.columns[key], src.counts, S)
+        take = torch.clamp(src.counts.to(torch.int64), max=S)      # [P]
+        valid = torch.arange(S, device=dev)[None, :] < take[:, None]
+        flat = torch.where(valid, lanes, M32).reshape(-1)
+        srt = torch.sort(flat).values
+        n_tot = take.sum()
+        qs = n_tot * torch.arange(1, self.nparts, device=dev) // self.nparts
+        bounds = srt.index_select(0, torch.clamp(qs, 0, flat.shape[0] - 1))
+        return torch.where(n_tot > 0, bounds, 0)
+
+    def _run_ops(self, parts: List[Batch], ops: List[StageOp], scale: int,
+                 needs: torch.Tensor):
+        for op in _fuse_stage_ops(ops):
+            if op.kind == "take":
+                parts = _take_global(parts, op.params["n"])
+                continue
+            outs = []
+            for b in parts:
+                b, nd = _apply_op(b, op, scale)
+                needs = torch.maximum(needs, nd)
+                outs.append(b)
+            parts = outs
+        return parts, needs
+
+    def _run_once(self, stage: Stage, inp: PData, scale: int, slack: int,
+                  bounds: Optional[torch.Tensor]
+                  ) -> Tuple[PData, torch.Tensor]:
         """One attempt of a one-leg stage: (output, needs[2] on device)."""
         leg = stage.legs[0]
-        parts = split_partitions(inp)
         needs = torch.zeros(2, dtype=torch.int32, device=self.mesh.device)
-        for op in _fuse_stage_ops(leg.ops):
-            outs = []
-            for b in parts:
-                b, nd = _apply_op(b, op, scale)
-                needs = torch.maximum(needs, nd)
-                outs.append(b)
-            parts = outs
+        parts, needs = self._run_ops(split_partitions(inp), leg.ops, scale,
+                                     needs)
         if leg.exchange is not None:
-            parts, nd = _apply_exchange(parts, leg.exchange, scale, slack)
+            parts, nd = _apply_exchange(parts, leg.exchange, scale, slack,
+                                        bounds)
             needs = torch.maximum(needs, nd)
-        for op in _fuse_stage_ops(stage.body):
-            outs = []
-            for b in parts:
-                b, nd = _apply_op(b, op, scale)
-                needs = torch.maximum(needs, nd)
-                outs.append(b)
-            parts = outs
+        parts, needs = self._run_ops(parts, stage.body, scale, needs)
         return stack_partitions(parts), needs
 
     def _run_stage(self, stage: Stage, results: Dict[int, PData]) -> PData:
         if len(stage.legs) != 1:
             raise NotPortedYet("multi-leg stages (joins, zips, set ops)",
                                "PageRank")
-        src = stage.legs[0].src
-        inp = results[src] if isinstance(src, int) else src[1]
+        leg = stage.legs[0]
+        inp = results[leg.src] if isinstance(leg.src, int) else leg.src[1]
+        bounds = None
+        if leg.exchange is not None and leg.exchange.kind == "range":
+            bounds = self._range_bounds(results[leg.exchange.bounds_from],
+                                        leg.exchange.bounds_key)
         scale = stage._capacity_scale
         slack = stage._send_slack or self.config.initial_send_slack
         retries = self.config.max_capacity_retries
-        for _attempt in range(retries + 1):
-            out, needs = self._run_once(stage, inp, scale, slack)
+        for attempt in range(retries + 1):
+            out, needs = self._run_once(stage, inp, scale, slack, bounds)
             need_scale, need_slack = (int(v) for v in needs.tolist())
             if need_scale <= 0 and need_slack <= 0:
                 stage._capacity_scale = scale
                 stage._send_slack = slack
+                self.stage_log.append({
+                    "stage": stage.id, "label": stage.label,
+                    "exchange": (leg.exchange.kind if leg.exchange
+                                 else None),
+                    "attempts": attempt + 1, "scale": scale,
+                    "slack": slack})
                 return out
             # right-size from the measured requirement: ONE retry at the
             # exact need instead of a blind doubling ladder
@@ -199,6 +293,7 @@ class Executor:
 
     def run(self, graph: StageGraph) -> PData:
         results: Dict[int, PData] = {}
+        self.stage_log = []
         for stage in graph.topo_order():
             results[stage.id] = self._run_stage(stage, results)
         return results[graph.out_stage]

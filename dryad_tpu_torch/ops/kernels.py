@@ -1,7 +1,9 @@
 """Per-partition operator kernels over columnar Batches — the subset of
-``dryad_tpu/ops/kernels.py`` that the WordCount and GroupByReduce paths
-run: compaction (``where``), group aggregation in its three lowerings,
-and user-defined decomposable aggregation.
+``dryad_tpu/ops/kernels.py`` that the WordCount, GroupByReduce and
+TeraSort paths run: compaction (``where``), group aggregation in its
+three lowerings, user-defined decomposable aggregation, the sort lanes
+and ``sort_by_columns``, ``take``, ``distinct`` and the group-contents
+operators ``group_top_k`` / ``group_rank_select``.
 
 Idioms carried over from the JAX package:
   * validity is a prefix: ``count`` valid rows, then padding;
@@ -34,10 +36,13 @@ from dryad_tpu_torch.ops.hashing import (M32, canon_zero, from_u32,
 from dryad_tpu_torch.ops.hopper_kernels import prefix_sum, prefix_sum2
 from dryad_tpu_torch.ops.scan import associative_scan
 
-__all__ = ["compact", "filter_rows", "permute_by_sort", "group_aggregate",
-           "group_decompose_partial", "group_decompose_merge",
-           "group_decompose_local", "resolve_dec_spec",
-           "mean_finalize_columns", "AGG_KINDS", "NotPortedYet"]
+__all__ = ["compact", "filter_rows", "permute_by_sort", "take",
+           "searchsorted_small", "sort_lanes_for", "sort_by_columns",
+           "group_aggregate", "group_decompose_partial",
+           "group_decompose_merge", "group_decompose_local",
+           "resolve_dec_spec", "distinct", "group_top_k",
+           "group_rank_select", "mean_finalize_columns", "AGG_KINDS",
+           "NotPortedYet"]
 
 AGG_KINDS = ("sum", "count", "min", "max", "mean", "any", "all")
 
@@ -211,14 +216,18 @@ def _sort_segments_dense(key_lane: torch.Tensor, valid: torch.Tensor,
 
 
 def _hash_sort_segments(hi: torch.Tensor, lo: torch.Tensor,
-                        valid: torch.Tensor):
+                        valid: torch.Tensor,
+                        extra_lanes: Sequence[torch.Tensor] = ()):
     """Stable sort by 64-bit hash (invalid rows last); equal-hash runs of
-    valid rows are segments.  Returns (order, seg, is_start, num_groups);
-    seg is n for invalid rows.  Keys colliding in all 64 bits merge —
-    P ~ n^2 / 2^64, as in the JAX package."""
+    valid rows are segments.  ``extra_lanes`` order rows WITHIN a segment
+    and are given LEAST significant first, as the JAX package's
+    ``jnp.lexsort`` takes them (``_sort_order`` wants them most
+    significant first, so they are reversed here).  Returns (order, seg,
+    is_start, num_groups); seg is n for invalid rows.  Keys colliding in
+    all 64 bits merge — P ~ n^2 / 2^64, as in the JAX package."""
     n = hi.shape[0]
     hi_s, lo_s = _sentinel_fold(hi, lo, valid)
-    order = _sort_order([hi_s, lo_s])
+    order = _sort_order([hi_s, lo_s] + list(extra_lanes)[::-1])
     svalid = valid.index_select(0, order)
     is_start = svalid & _lane_differs(hi_s.index_select(0, order),
                                       lo_s.index_select(0, order))
@@ -236,15 +245,31 @@ def _group_segments(batch: Batch, key_names: Sequence[str]):
     return batch.gather(order), seg, is_start, num_groups
 
 
-def _segment_rows(is_start: torch.Tensor, num_groups, n_valid):
-    """(first, last) sorted row index of each segment over segment-sorted
-    rows (the g-th True of ``is_start`` starts segment g; segments tile
-    the valid prefix); 0 past num_groups."""
+def _segments_by_keys_and_lanes(batch: Batch, key_names: Sequence[str],
+                                extra_lanes: Sequence[torch.Tensor]):
+    """_hash_sort_segments by the keys' hash, rows ordered within a
+    segment by ``extra_lanes`` (least significant first)."""
+    hi, lo = hash_batch_keys(batch, key_names)
+    return _hash_sort_segments(hi, lo, batch.valid_mask(), extra_lanes)
+
+
+def _segment_bounds(is_start: torch.Tensor, num_groups, n_valid):
+    """(start_pos, end_excl) of each segment over segment-sorted rows: the
+    g-th True of ``is_start`` starts segment g, and segments tile the
+    valid prefix.  Slots past num_groups hold no segment."""
     cap = is_start.shape[0]
     start_pos = _stable_front(is_start)
     idx = torch.arange(cap, device=is_start.device)
     end_excl = torch.where(idx + 1 < num_groups, torch.roll(start_pos, -1),
                            n_valid)
+    return start_pos, end_excl
+
+
+def _segment_rows(is_start: torch.Tensor, num_groups, n_valid):
+    """(first, last) sorted row index of each segment; 0 past
+    num_groups."""
+    start_pos, end_excl = _segment_bounds(is_start, num_groups, n_valid)
+    idx = torch.arange(is_start.shape[0], device=is_start.device)
     live = idx < num_groups
     return (torch.where(live, start_pos, 0),
             torch.where(live, torch.clamp(end_excl - 1, min=0), 0))
@@ -273,43 +298,145 @@ def _shift_fwd(a: torch.Tensor, fill) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# dense order lanes
+# sort lanes: a column as 32-bit lanes (most significant first) whose
+# unsigned lexicographic order is the column's order.  Lanes are int64 in
+# [0, 2**32), so the JAX package's ``~l`` for a descending lane is
+# ``l ^ M32`` here (``~l`` on int64 would go negative and sort first).
 
 
-def _dense_sort_lane(col: torch.Tensor) -> torch.Tensor:
-    """A <= 32-bit dense column as one 32-bit lane whose unsigned order is
-    the column's ascending order (the JAX package's _dense_sort_lanes for
-    the dtypes _lanes_reconstructible admits)."""
+_SIGNED_INTS = (torch.int8, torch.int16, torch.int32)
+
+
+def searchsorted_small(bounds: torch.Tensor, q: torch.Tensor,
+                       side: str = "left") -> torch.Tensor:
+    """Insertion points of ``q`` in a SMALL sorted ``bounds`` (partition
+    split points): one ``torch.searchsorted``; int32."""
+    if bounds.numel() == 0:
+        return torch.zeros(q.shape, dtype=torch.int32, device=q.device)
+    return torch.searchsorted(bounds, q, right=(side == "right")).to(
+        torch.int32)
+
+
+def _dense_sort_lanes(col: torch.Tensor,
+                      descending: bool = False) -> List[torch.Tensor]:
+    """A dense column's sort lanes.  Floats go through an f32 cast (so
+    float64 keys order as their f32 values) and the sign-flip total
+    order: -NaN < -inf < ... < -0.0 < +0.0 < ... < +inf < +NaN.  64-bit
+    integers take two lanes, (hi ^ sign, lo)."""
     if col.dtype.is_floating_point:
         bits = to_u32(col.to(torch.float32))
         neg = (bits >> 31) == 1
-        return torch.where(neg, bits ^ M32, bits | _SIGN)
-    if col.dtype in (torch.int8, torch.int16, torch.int32):
-        return (col.to(torch.int64) & M32) ^ _SIGN
-    return col.to(torch.int64) & M32      # bool and unsigned
+        lanes = [torch.where(neg, bits ^ M32, bits | _SIGN)]
+    elif col.dtype in (torch.int64, torch.uint64):
+        u = col.view(torch.int64)
+        hi = (u >> 32) & M32
+        if col.dtype == torch.int64:
+            hi = hi ^ _SIGN
+        lanes = [hi, u & M32]
+    elif col.dtype in _SIGNED_INTS:
+        lanes = [(col.to(torch.int64) & M32) ^ _SIGN]
+    else:                                  # bool and unsigned
+        lanes = [col.to(torch.int64) & M32]
+    if descending:
+        lanes = [l ^ M32 for l in lanes]
+    return lanes
+
+
+def _string_fold_len(max_len: int) -> bool:
+    """Does a string column's length fold into its last lane's pad bytes
+    (at least two of them spare)?"""
+    return (-max_len) % 4 >= 2 and max_len <= 0xFFFF
+
+
+def _string_sort_lanes(col: StringColumn,
+                       descending: bool = False) -> List[torch.Tensor]:
+    """Lexicographic byte order as lanes of 4 bytes each, big-endian
+    (``b0 << 24 | b1 << 16 | b2 << 8 | b3``: NOT the little-endian packed
+    transport words).  Bytes past a row's length are masked to 0, so a
+    shorter string sorts first among equal prefixes, the length breaking
+    the tie: folded as a u16 into the last lane's spare pad bytes when
+    there are two or more (L = 10, TeraSort: 3 lanes), else a lane of its
+    own (L = 11, 12)."""
+    L = col.max_len
+    dev = col.data.device
+    mask = torch.arange(L, device=dev)[None, :] < col.lengths[:, None]
+    b = torch.where(mask, col.data, 0).to(torch.int64)
+    pad = (-L) % 4
+    lens = col.lengths.to(torch.int64) & M32
+    fold = _string_fold_len(L)
+    if fold:
+        parts = [b, (lens >> 8)[:, None], (lens & 0xFF)[:, None]]
+        if pad == 3:
+            parts.append(torch.zeros_like(lens)[:, None])
+        b = torch.cat(parts, dim=1)
+    elif pad:
+        b = torch.nn.functional.pad(b, (0, pad))
+    b4 = b.reshape(b.shape[0], -1, 4)
+    w = (b4[..., 0] << 24) | (b4[..., 1] << 16) | (b4[..., 2] << 8) \
+        | b4[..., 3]                                        # [cap, lanes]
+    lanes = list(w.t().contiguous().unbind(0))
+    if not fold:
+        lanes.append(lens)
+    if descending:
+        lanes = [l ^ M32 for l in lanes]
+    return lanes
+
+
+def sort_lanes_for(col, descending: bool = False) -> List[torch.Tensor]:
+    if isinstance(col, StringColumn):
+        return _string_sort_lanes(col, descending)
+    return _dense_sort_lanes(col, descending)
 
 
 def _lanes_reconstructible(col) -> bool:
-    """Can the column be rebuilt exactly from one sort lane?  1-D dense
-    <= 32-bit columns other than half floats (their f32 cast is not
-    bit-injective on NaN payloads)."""
-    if isinstance(col, StringColumn) or col.dim() != 1:
+    """Can the column be rebuilt exactly from its sort lanes?  Strings
+    (byte lanes + length, folded or not) and 1-D dense <= 32-bit columns
+    other than half floats (their f32 cast is not bit-injective on NaN
+    payloads)."""
+    if isinstance(col, StringColumn):
+        return True
+    if col.dim() != 1:
         return False
     return col.dtype not in (torch.int64, torch.uint64, torch.float64,
                              torch.float16, torch.bfloat16)
 
 
-def _dense_lanes_invert(b: torch.Tensor, dtype) -> torch.Tensor:
-    """Inverse of _dense_sort_lane."""
+def _dense_lanes_invert(b: torch.Tensor, dtype,
+                        descending: bool = False) -> torch.Tensor:
+    """Inverse of _dense_sort_lanes for the reconstructible dtypes (one
+    lane)."""
+    if descending:
+        b = b ^ M32
     if dtype.is_floating_point:
         neg = (b >> 31) == 0
         bits = torch.where(neg, b ^ M32, b ^ _SIGN)
         return from_u32(bits).view(torch.float32).to(dtype)
-    if dtype in (torch.int8, torch.int16, torch.int32):
+    if dtype in _SIGNED_INTS:
         return from_u32(b ^ _SIGN).to(dtype)
     if dtype == torch.bool:
         return b != 0
     return b.to(dtype)
+
+
+def _string_lanes_invert(lanes: Sequence[torch.Tensor], max_len: int,
+                         descending: bool = False) -> StringColumn:
+    """Inverse of _string_sort_lanes (folded and separate-length
+    layouts).  Rows whose lanes are sentinels come back as garbage: the
+    caller masks them."""
+    ls = [l ^ M32 for l in lanes] if descending else list(lanes)
+    L = max_len
+    fold = _string_fold_len(L)
+    byte_lanes = ls if fold else ls[:-1]
+    w = torch.stack(byte_lanes, dim=1)                     # [cap, nl]
+    b4 = torch.stack([(w >> 24) & 0xFF, (w >> 16) & 0xFF, (w >> 8) & 0xFF,
+                      w & 0xFF], dim=2)                    # [cap, nl, 4]
+    flat = b4.reshape(w.shape[0], -1)
+    data = flat[:, :L].to(torch.uint8)
+    if fold:
+        lens = (flat[:, L] << 8) | flat[:, L + 1]
+    else:
+        lens = ls[-1]
+    return StringColumn(data.contiguous(), from_u32(lens))
 
 
 def _dense_key_lane(kcol: torch.Tensor) -> torch.Tensor:
@@ -317,13 +444,15 @@ def _dense_key_lane(kcol: torch.Tensor) -> torch.Tensor:
     hashing.canon_zero) group with +0.0."""
     if kcol.dtype.is_floating_point:
         kcol = canon_zero(kcol)
-    return _dense_sort_lane(kcol)
+    return _dense_sort_lanes(kcol)[0]
 
 
 def _dense_fast_key(batch: Batch, key_names: Sequence[str]) -> bool:
     """Single <= 32-bit 1-D dense key: group by its exact order lane."""
-    return (len(key_names) == 1
-            and _lanes_reconstructible(batch.columns[key_names[0]]))
+    if len(key_names) != 1:
+        return False
+    col = batch.columns[key_names[0]]
+    return not isinstance(col, StringColumn) and _lanes_reconstructible(col)
 
 
 # ---------------------------------------------------------------------------
@@ -349,6 +478,64 @@ def compact(batch: Batch, keep: torch.Tensor) -> Batch:
 def filter_rows(batch: Batch, predicate) -> Batch:
     """predicate: dict[str, Column] -> bool[capacity]."""
     return compact(batch, predicate(dict(batch.columns)))
+
+
+def take(batch: Batch, n) -> Batch:
+    """The first ``n`` valid rows of one partition."""
+    return Batch(batch.columns, torch.clamp(batch.count, max=n))
+
+
+# ---------------------------------------------------------------------------
+# sorting
+
+
+def sort_by_columns(batch: Batch, keys: Sequence[Tuple[str, bool]]) -> Batch:
+    """Stable sort of the valid rows by (column, descending) keys; padding
+    stays at the end.
+
+    Invalid rows: in the TeraSort shape (one ascending string key whose
+    length folds into its last lane) every lane of an invalid row is set
+    to all-ones, which no valid row reaches (its length bytes are below
+    0xFFFF), so no invalid lane is sorted; otherwise an explicit invalid
+    lane is the most significant key.  Key columns the lanes determine
+    (strings, 1-D dense <= 32-bit) are rebuilt from the sorted lanes, as
+    in the JAX package, so their valid rows come out canonical (string
+    bytes past the length zero); the other columns are gathered."""
+    lanes: List[torch.Tensor] = []
+    recon: Dict[str, Tuple[int, int, bool]] = {}
+    for name, desc in keys:
+        col = batch.columns[name]
+        ls = sort_lanes_for(col, desc)
+        if name not in recon and _lanes_reconstructible(col):
+            recon[name] = (len(lanes), len(ls), desc)
+        lanes.extend(ls)
+    invalid = ~batch.valid_mask()
+    col0 = batch.columns[keys[0][0]]
+    if (len(keys) == 1 and not keys[0][1]
+            and isinstance(col0, StringColumn)
+            and _string_fold_len(col0.max_len)):
+        lanes = [torch.where(invalid, M32, l) for l in lanes]
+        base = 0
+    else:
+        lanes = [invalid.to(torch.int64)] + lanes
+        base = 1
+    order = _sort_order(lanes, stable=True)
+    valid_sorted = batch.valid_mask()
+    out: Dict[str, Any] = {}
+    for name, col in batch.columns.items():
+        if name not in recon:
+            out[name] = map_column(col, lambda x: x.index_select(0, order))
+            continue
+        off, cnt, desc = recon[name]
+        kl = [l.index_select(0, order)
+              for l in lanes[base + off: base + off + cnt]]
+        if isinstance(col, StringColumn):
+            newcol = _string_lanes_invert(kl, col.max_len, desc)
+        else:
+            newcol = _dense_lanes_invert(kl[0], col.dtype, desc)
+        # padding rows may hold sentinel lanes: zero them
+        out[name] = _mask_rows(newcol, valid_sorted)
+    return Batch(out, batch.count)
 
 
 # ---------------------------------------------------------------------------
@@ -575,7 +762,7 @@ def _group_aggregate_boundary(batch: Batch, key_names: Sequence[str],
         key_lanes = list(_sentinel_fold(*hash_batch_keys(batch, key_names),
                                         valid))
     if minmax_col is not None:
-        key_lanes.append(_dense_sort_lane(batch.columns[minmax_col]))
+        key_lanes.append(_dense_sort_lanes(batch.columns[minmax_col])[0])
     order = _sort_order(key_lanes, stable=False)
     skeys = [k.index_select(0, order) for k in key_lanes]
     if dense_fast:
@@ -921,6 +1108,76 @@ def group_decompose_merge(batch: Batch, key_names: Sequence[str],
             _emit_finalized(out_cols, out_name, fin, merged, gmask)
         else:
             _emit_states(out_cols, out_name, merged, gmask)
+    return Batch(out_cols, num_groups)
+
+
+# ---------------------------------------------------------------------------
+# distinct and the group-contents operators (they read the order of rows
+# within a segment, so their sorts are stable)
+
+
+def distinct(batch: Batch, key_names: Sequence[str] | None = None) -> Batch:
+    """One representative row per distinct key (all columns kept): the
+    first row, in arrival order, of each 64-bit key-hash segment; groups
+    in hash order.  Empty ``key_names`` = all columns."""
+    keys = list(key_names) if key_names else sorted(batch.names)
+    hi, lo = hash_batch_keys(batch, keys)
+    hi_s, lo_s = _sentinel_fold(hi, lo, batch.valid_mask())
+    order = _sort_order([hi_s, lo_s], stable=True)
+    is_start, _is_end, num_groups = _segment_flags(
+        _lane_differs(hi_s.index_select(0, order),
+                      lo_s.index_select(0, order)), batch.count)
+    rep = batch.gather(order.index_select(0, _stable_front(is_start)),
+                       num_groups)
+    gmask = rep.valid_mask()
+    return Batch({k: _mask_rows(v, gmask) for k, v in rep.columns.items()},
+                 num_groups)
+
+
+def group_top_k(batch: Batch, key_names: Sequence[str], k: int, by: str,
+                descending: bool = True) -> Batch:
+    """Per-group top-k rows by the ``by`` column (all columns kept): rows
+    sorted by (key hash, ``by``), each segment keeps its first k.  Ties
+    keep arrival order (the sort is stable).  The output fits the input
+    capacity by construction."""
+    lanes = sort_lanes_for(batch.columns[by], descending)
+    order, seg, is_start, num_groups = _segments_by_keys_and_lanes(
+        batch, key_names, tuple(reversed(lanes)))
+    cap = batch.capacity
+    sb = batch.gather(order)
+    start_pos, _ = _segment_bounds(is_start, num_groups, batch.count)
+    idx = torch.arange(cap, device=batch.device)
+    rel = idx - start_pos.index_select(0, torch.clamp(seg, 0, cap - 1))
+    keep = (idx < batch.count) & (rel < k)
+    return compact(sb, keep)
+
+
+def group_rank_select(batch: Batch, key_names: Sequence[str], by: str,
+                      rank: str = "median", out: str | None = None) -> Batch:
+    """One row per group: the key columns + ``out`` (default ``by``)
+    holding the group's element at a sorted rank of ``by``: "median" is
+    the LOWER median (element (n-1)//2 of the ascending order, always an
+    element of the group), "min" / "max" the ends."""
+    lanes = sort_lanes_for(batch.columns[by], False)
+    order, _seg, is_start, num_groups = _segments_by_keys_and_lanes(
+        batch, key_names, tuple(reversed(lanes)))
+    cap = batch.capacity
+    sb = batch.gather(order)
+    start_pos, end_excl = _segment_bounds(is_start, num_groups, batch.count)
+    if rank == "median":
+        pos = start_pos + (end_excl - start_pos - 1) // 2
+    elif rank == "min":
+        pos = start_pos
+    elif rank == "max":
+        pos = end_excl - 1
+    else:
+        raise ValueError(f"unknown rank {rank!r}")
+    gvalid = torch.arange(cap, device=batch.device) < num_groups
+    sel = torch.where(gvalid, torch.clamp(pos, 0, cap - 1), 0)
+    rep = sb.gather(torch.where(gvalid, start_pos, 0))
+    out_cols: Dict[str, Any] = {k: rep.columns[k] for k in key_names}
+    out_cols[out or by] = map_column(sb.columns[by],
+                                     lambda x: x.index_select(0, sel))
     return Batch(out_cols, num_groups)
 
 

@@ -1,5 +1,5 @@
-"""Hash exchange across the logical partitions of one device — the port of
-the pack form of ``dryad_tpu/parallel/shuffle.py``.
+"""Hash and range exchange across the logical partitions of one device —
+the port of the pack form of ``dryad_tpu/parallel/shuffle.py``.
 
 The JAX package runs each exchange inside ``shard_map`` with one
 ``all_to_all`` over the mesh.  Here the P partitions share one device, so
@@ -18,7 +18,10 @@ an exchange takes the list of per-partition Batches:
   UNPACK (per destination): the valid prefix of every source block,
   densely (``slot_compact`` kernel), unpacked into columns.
 
-The JAX package's gather form of the exchange exists only for backends
+A hash exchange sends row r to lo(hash(keys[r])) % P; a range exchange
+to the partition whose sampled split points bracket the row's first sort
+lane (``range_exchange``).  The JAX package's gather form of the
+exchange exists only for backends
 without its kernels; the port has no such backend.  The NEED channels are
 kept: capacity shortfalls come back as the measured requirement, and the
 executor retries at that size instead of dropping rows.
@@ -36,9 +39,12 @@ from dryad_tpu_torch.ops.hashing import hash_batch_keys
 from dryad_tpu_torch.ops.hopper_kernels import (hist_buckets_batched,
                                                 prefix_sum, slot_compact,
                                                 slot_expand_batched)
-from dryad_tpu_torch.ops.kernels import _pack_columns_u32, _unpack_columns_u32
+from dryad_tpu_torch.ops.kernels import (_pack_columns_u32,
+                                         _unpack_columns_u32,
+                                         searchsorted_small, sort_lanes_for)
 
-__all__ = ["exchange_by_dest", "hash_exchange"]
+__all__ = ["exchange_by_dest", "hash_exchange", "range_dest_lane",
+           "range_dest", "range_exchange"]
 
 
 def _canonical_hash_dest(lo: torch.Tensor, nparts: int) -> torch.Tensor:
@@ -112,4 +118,31 @@ def hash_exchange(parts: List[Batch], keys: Sequence[str],
     D = len(parts)
     dests = [_canonical_hash_dest(hash_batch_keys(b, keys)[1], D)
              for b in parts]
+    return exchange_by_dest(parts, dests, out_capacity, send_slack)
+
+
+def range_dest_lane(col) -> torch.Tensor:
+    """The ordering lane range partitioning decides on: the column's FIRST
+    ascending sort lane (``ops.kernels.sort_lanes_for``).  Order-preserving
+    for numerics; for strings the first 4 bytes, so rows equal in the lane
+    go to one destination and the partitions' local full-key sorts still
+    make a global order."""
+    return sort_lanes_for(col, descending=False)[0]
+
+
+def range_dest(col, bounds: torch.Tensor,
+               descending: bool = False) -> torch.Tensor:
+    """Each row's destination: searchsorted(bounds, lane, right), or
+    P - 1 - that for a descending primary key.  ``bounds`` is the [P-1]
+    split points over the ordering lane (int64 lanes in [0, 2**32))."""
+    dest = searchsorted_small(bounds, range_dest_lane(col), side="right")
+    return bounds.shape[0] - dest if descending else dest
+
+
+def range_exchange(parts: List[Batch], key: str, bounds: torch.Tensor,
+                   out_capacity: int, descending: bool = False,
+                   send_slack: int = 2):
+    """Repartition by ranges of ``key`` (``range_dest``), with ``bounds``
+    from the executor's sampling (``Executor._range_bounds``)."""
+    dests = [range_dest(b.columns[key], bounds, descending) for b in parts]
     return exchange_by_dest(parts, dests, out_capacity, send_slack)

@@ -1,9 +1,10 @@
 """Logical query expression DAG — the subset of ``dryad_tpu/plan/expr.py``
-that the WordCount and GroupByReduce slices plan: sources, Select /
-Where, the tokenizing SelectMany, GroupBy with builtin or user-defined
-decomposable aggregates, and explicit hash repartition.  A ``Dataset``
-method chain builds this DAG lazily; the planner (``plan/planner.py``)
-lowers it to stages."""
+that the ported slices plan: sources, Select / Where, the tokenizing
+SelectMany, GroupBy with builtin or user-defined decomposable aggregates,
+the group-contents operators (top-k, rank select), OrderBy, Distinct,
+Take, explicit hash and range repartition, and partitioning claims
+(AssumePartitioning).  A ``Dataset`` method chain builds this DAG
+lazily; the planner (``plan/planner.py``) lowers it to stages."""
 
 from __future__ import annotations
 
@@ -12,7 +13,9 @@ import itertools
 from typing import Any, Callable, Dict, Optional, Tuple
 
 __all__ = ["Partitioning", "Node", "Source", "Map", "Filter", "FlatTokens",
-           "Decomposable", "GroupByAgg", "HashRepartition", "walk"]
+           "Decomposable", "GroupByAgg", "GroupTopK", "GroupRankSelect",
+           "OrderBy", "Distinct", "HashRepartition", "RangeRepartition",
+           "Take", "AssumePartitioning", "walk"]
 
 _ids = itertools.count()
 
@@ -21,7 +24,7 @@ _ids = itertools.count()
 class Partitioning:
     """How a dataset's rows are distributed over partitions."""
 
-    kind: str  # "none" | "hash"
+    kind: str  # "none" | "hash" | "range"
     keys: Tuple[str, ...] = ()
 
     @staticmethod
@@ -138,6 +141,59 @@ class GroupByAgg(Node):
 
 
 @_node
+class GroupTopK(Node):
+    """Per-group top-k rows by a column (all columns kept)."""
+
+    parents: Tuple[Node, ...]
+    keys: Tuple[str, ...]
+    k: int
+    by: str
+    descending: bool = True
+
+    @property
+    def partitioning(self) -> Partitioning:
+        return Partitioning("hash", tuple(self.keys))
+
+
+@_node
+class GroupRankSelect(Node):
+    """One row per group at a sorted rank of a column (median/min/max)."""
+
+    parents: Tuple[Node, ...]
+    keys: Tuple[str, ...]
+    by: str
+    rank: str = "median"
+    out: Optional[str] = None
+
+    @property
+    def partitioning(self) -> Partitioning:
+        return Partitioning("hash", tuple(self.keys))
+
+
+@_node
+class OrderBy(Node):
+    """Global sort: sampled split points, a range exchange on the primary
+    key, a local sort by all keys."""
+
+    parents: Tuple[Node, ...]
+    keys: Tuple[Tuple[str, bool], ...]  # (column, descending)
+
+    @property
+    def partitioning(self) -> Partitioning:
+        return Partitioning("range", tuple(k for k, _ in self.keys))
+
+
+@_node
+class Distinct(Node):
+    parents: Tuple[Node, ...]
+    keys: Tuple[str, ...]  # empty = all columns
+
+    @property
+    def partitioning(self) -> Partitioning:
+        return Partitioning("hash", tuple(self.keys))
+
+
+@_node
 class HashRepartition(Node):
     """Explicit HashPartition."""
 
@@ -147,6 +203,40 @@ class HashRepartition(Node):
     @property
     def partitioning(self) -> Partitioning:
         return Partitioning("hash", tuple(self.keys))
+
+
+@_node
+class RangeRepartition(Node):
+    """Explicit RangePartition."""
+
+    parents: Tuple[Node, ...]
+    keys: Tuple[str, ...]
+
+    @property
+    def partitioning(self) -> Partitioning:
+        return Partitioning("range", tuple(self.keys))
+
+
+@_node
+class Take(Node):
+    """The first n rows, in partition order."""
+
+    parents: Tuple[Node, ...]
+    n: int
+
+
+@_node
+class AssumePartitioning(Node):
+    """Declare, without moving rows, that the data is already partitioned
+    this way (AssumeHashPartition / AssumeRangePartition)."""
+
+    parents: Tuple[Node, ...]
+    kind: str
+    keys: Tuple[str, ...]
+
+    @property
+    def partitioning(self) -> Partitioning:
+        return Partitioning(self.kind, tuple(self.keys))
 
 
 def walk(root: Node):

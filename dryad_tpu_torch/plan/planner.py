@@ -1,13 +1,18 @@
 """Logical -> physical lowering — the subset of
-``dryad_tpu/plan/planner.py`` that the WordCount and GroupByReduce
-slices need.
+``dryad_tpu/plan/planner.py`` that the ported slices need.
 
-Row-local ops (select, where, tokenize) grow a fragment along each edge;
-stages are cut at exchanges and at fan-out (a node consumed twice is
-materialized once).  GroupBy lowers to partial group -> hash exchange ->
-final group (the IDecomposable / PARTIALAGGR pattern); with a
+Row-local ops (select, where, tokenize, take) grow a fragment along each
+edge; stages are cut at exchanges and at fan-out (a node consumed twice
+is materialized once).  GroupBy lowers to partial group -> hash exchange
+-> final group (the IDecomposable / PARTIALAGGR pattern); with a
 user-defined ``Decomposable`` among the aggregates, to seed + merge ->
-exchange of the flattened states -> merge + finalize.  P = 8 plans
+exchange of the flattened states -> merge + finalize.  Distinct is a
+partial distinct -> hash exchange -> distinct; the group-contents
+operators co-locate by hash and run once.  OrderBy materializes its
+input, samples split points from it, range-exchanges on the primary key
+and sorts locally by all keys.  An exchange is elided where the input is
+already placed as needed (partition elimination); the stages whose
+placement was trusted are marked ``placement_relied``.  P = 8 plans
 exactly as the JAX package plans on its 8-device mesh.
 """
 
@@ -116,6 +121,13 @@ class Planner:
         self.stages: List[Stage] = []
         self.frags: Dict[int, Fragment] = {}
         self.consumers: Dict[int, int] = {}
+        # stage ids whose OUTPUT PLACEMENT a later lowering relied on
+        # (partition elimination)
+        self.placement_dependent: set = set()
+
+    def _rely_on_placement(self, f: Fragment) -> None:
+        if isinstance(f.src, int):
+            self.placement_dependent.add(f.src)
 
     def _new_stage(self, legs: List[Leg], body: List[StageOp],
                    label: str) -> Stage:
@@ -143,6 +155,22 @@ class Planner:
                     frag, label=f"tee:{type(n).__name__}")
             self.frags[n.id] = frag
         out_id, _ = self._materialize(self.frags[root.id], label="output")
+        # a placement claim flows back through exchange-less legs, so the
+        # whole ancestor chain carrying it is relied upon
+        dependent = set(self.placement_dependent)
+        changed = True
+        while changed:
+            changed = False
+            for st in self.stages:
+                if st.id not in dependent:
+                    continue
+                for leg in st.legs:
+                    if (leg.exchange is None and isinstance(leg.src, int)
+                            and leg.src not in dependent):
+                        dependent.add(leg.src)
+                        changed = True
+        for sid in dependent:
+            self.stages[sid].placement_relied = True
         return StageGraph(self.stages, out_id)
 
     def _lower_group_decomposable(self, f: Fragment, keys: Tuple[str, ...],
@@ -155,6 +183,8 @@ class Planner:
         box: Dict[str, Any] = {}
         if self.nparts == 1 or (f.partitioning.kind == "hash"
                                 and f.partitioning.keys == keys):
+            if self.nparts > 1:
+                self._rely_on_placement(f)
             f.ops.append(StageOp("dgroup_local", {"keys": keys,
                                                   "decs": decs, "box": box}))
             f.partitioning = E.Partitioning("hash", keys)
@@ -172,6 +202,22 @@ class Planner:
     def _frag(self, n: E.Node) -> Fragment:
         f = self.frags[n.id]
         return Fragment(f.src, list(f.ops), f.capacity, f.partitioning)
+
+    def _colocate_then(self, f: Fragment, keys: Tuple[str, ...],
+                       op: StageOp, label: str) -> Fragment:
+        """Hash-co-locate rows by ``keys``, then apply ``op`` — the shared
+        lowering of the group-contents operators; no exchange when the
+        input already hashes on the same keys."""
+        if self.nparts == 1 or (f.partitioning.kind == "hash"
+                                and f.partitioning.keys == keys and keys):
+            if self.nparts > 1:
+                self._rely_on_placement(f)
+            f.ops.append(op)
+            f.partitioning = E.Partitioning("hash", keys)
+            return f
+        ex = Exchange("hash", keys=keys, out_capacity=f.capacity)
+        st = self._new_stage([Leg(f.src, f.ops, ex)], [op], label)
+        return Fragment(st.id, [], f.capacity, E.Partitioning("hash", keys))
 
     def _lower(self, n: E.Node) -> Fragment:
         if isinstance(n, E.Source):
@@ -214,6 +260,7 @@ class Planner:
                 return f
             if f.partitioning.kind == "hash" and f.partitioning.keys == keys:
                 # partition elimination: already co-located by these keys
+                self._rely_on_placement(f)
                 f.ops.append(StageOp("group", {"keys": keys,
                                                "aggs": dict(n.aggs)}))
                 return f
@@ -237,7 +284,103 @@ class Planner:
             return Fragment(st.id, [], f.capacity,
                             E.Partitioning("hash", tuple(n.keys)))
 
+        if isinstance(n, E.RangeRepartition):
+            f = self._frag(n.parents[0])
+            if self.nparts == 1:
+                f.partitioning = E.Partitioning("range", tuple(n.keys))
+                return f
+            src_id, f = self._materialize(f, label="range-input")
+            key = n.keys[0]
+            ex = Exchange("range", keys=(key,), out_capacity=f.capacity,
+                          bounds_from=src_id, bounds_key=key)
+            st = self._new_stage([Leg(src_id, [], ex)], [], "rangepartition")
+            return Fragment(st.id, [], f.capacity,
+                            E.Partitioning("range", tuple(n.keys)))
+
+        if isinstance(n, E.AssumePartitioning):
+            f = self._frag(n.parents[0])
+            f.partitioning = E.Partitioning(n.kind, tuple(n.keys))
+            return f
+
+        if isinstance(n, E.Take):
+            f = self._frag(n.parents[0])
+            f.ops.append(StageOp("take", {"n": n.n}))
+            return f
+
+        if isinstance(n, E.GroupTopK):
+            f = self._frag(n.parents[0])
+            op = StageOp("group_top_k", {
+                "keys": tuple(n.keys), "k": n.k, "by": n.by,
+                "descending": n.descending})
+            return self._colocate_then(f, tuple(n.keys), op, "group_top_k")
+
+        if isinstance(n, E.GroupRankSelect):
+            f = self._frag(n.parents[0])
+            op = StageOp("group_rank", {
+                "keys": tuple(n.keys), "by": n.by, "rank": n.rank,
+                "out": n.out})
+            return self._colocate_then(f, tuple(n.keys), op, "group_rank")
+
+        if isinstance(n, E.Distinct):
+            f = self._frag(n.parents[0])
+            keys = tuple(n.keys)
+            if self.nparts == 1 or (f.partitioning.kind == "hash"
+                                    and f.partitioning.keys == keys
+                                    and keys):
+                if self.nparts > 1:
+                    self._rely_on_placement(f)
+                f.ops.append(StageOp("distinct", {"keys": keys}))
+                return f
+            # a partial distinct, then the copies arriving from different
+            # partitions are co-located and deduplicated once more
+            f.ops.append(StageOp("distinct", {"keys": keys}))
+            ex = Exchange("hash", keys=keys, out_capacity=f.capacity)
+            st = self._new_stage([Leg(f.src, f.ops, ex)],
+                                 [StageOp("distinct", {"keys": keys})],
+                                 "distinct")
+            return Fragment(st.id, [], f.capacity,
+                            E.Partitioning("hash", keys))
+
+        if isinstance(n, E.OrderBy):
+            return self._lower_order_by(n)
+
         raise TypeError(f"planner: unhandled node {type(n).__name__}")
+
+    def _lower_order_by(self, n: "E.OrderBy") -> Fragment:
+        f = self._frag(n.parents[0])
+        sort_keys = tuple(k for k, _ in n.keys)
+        all_asc = all(not d for _, d in n.keys)
+        sort = StageOp("sort", {"keys": tuple(n.keys)})
+        if self.nparts == 1:
+            f.ops.append(sort)
+            f.partitioning = (E.Partitioning("range", sort_keys) if all_asc
+                              else E.Partitioning.none())
+            return f
+        pkeys = f.partitioning.keys
+        if (f.partitioning.kind == "range" and all_asc
+                and sort_keys == pkeys[:len(sort_keys)]):
+            # exchange elimination (AssumeOrderBy): sound only when the
+            # ascending sort keys are a PREFIX of the claimed range keys.
+            # A range claim keeps the data globally sorted in partition
+            # order but need not keep key ties together, so a key beyond
+            # the claim, or a descending one, keeps its exchange.  A
+            # stable local sort of claim-sorted partitions keeps the
+            # whole claim.
+            self._rely_on_placement(f)
+            f.ops.append(sort)
+            return f
+        src_id, f = self._materialize(f, label="sort-input")
+        primary, desc = n.keys[0]
+        ex = Exchange("range", keys=(primary,), out_capacity=f.capacity,
+                      descending=desc, bounds_from=src_id,
+                      bounds_key=primary)
+        st = self._new_stage([Leg(src_id, [], ex)], [sort], "orderby")
+        # the exchange ranges on the primary only, but it routes equal
+        # primary lanes to ONE destination, and the local sort orders
+        # each partition by every key: globally sorted by all keys
+        return Fragment(st.id, [], f.capacity,
+                        E.Partitioning("range", sort_keys) if all_asc
+                        else E.Partitioning.none())
 
 
 def plan_query(root: E.Node, npartitions: int) -> StageGraph:

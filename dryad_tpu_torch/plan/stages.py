@@ -27,12 +27,18 @@ class StageOp:
 
 @dataclasses.dataclass
 class Exchange:
-    """Repartition at a leg boundary.  out_capacity is resolved by the
-    planner and scaled by the executor on overflow."""
+    """Repartition at a leg boundary (kind hash | range).  out_capacity is
+    resolved by the planner and scaled by the executor on overflow.  A
+    range exchange splits on bounds sampled from stage ``bounds_from``'s
+    output column ``bounds_key``; ``descending`` reverses the partition
+    order."""
 
     kind: str
     keys: tuple = ()
     out_capacity: int = 0
+    descending: bool = False
+    bounds_from: Optional[int] = None
+    bounds_key: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -55,6 +61,10 @@ class Stage:
     # send-slot slack factor for exchanges (C = ceil(slack*cap/D)); None =
     # JobConfig.initial_send_slack
     _send_slack: Optional[int] = None
+    # True when a later lowering elided an exchange by trusting this
+    # stage's output placement (the planner's placement_dependent
+    # closure): nothing may change where its rows land
+    placement_relied: bool = False
 
 
 @dataclasses.dataclass

@@ -1,5 +1,5 @@
 """Job configuration — the subset of ``dryad_tpu/utils/config.JobConfig``
-that the port's WordCount path reads.  Field names and defaults match the
+that the port's ported paths read.  Field names and defaults match the
 JAX package, so one set of overrides means the same thing to both."""
 
 from __future__ import annotations
@@ -17,6 +17,9 @@ class JobConfig:
     max_capacity_retries: int = 3
     # initial send-slot slack factor for exchanges (C = ceil(slack*cap/D))
     initial_send_slack: int = 2
+    # range exchange split points: ordering lanes sampled per partition
+    # (evenly spread over its valid rows) before the bounds are picked
+    range_samples_per_partition: int = 4096
 
     # -- collect shrink policy (exec/data.py) ------------------------------
     collect_shrink_min_capacity: int = 1024
@@ -31,6 +34,8 @@ class JobConfig:
         checks = [
             (self.max_capacity_retries >= 0, "max_capacity_retries >= 0"),
             (self.initial_send_slack >= 1, "initial_send_slack >= 1"),
+            (self.range_samples_per_partition >= 2,
+             "range_samples_per_partition >= 2"),
             (self.token_max_len >= 1, "token_max_len >= 1"),
             (self.string_max_len >= 1, "string_max_len >= 1"),
             (len(self.token_delims) >= 1, "token_delims non-empty"),

@@ -79,9 +79,9 @@ def _count_attempts(monkeypatch):
     calls = []
     orig = Executor._run_once
 
-    def spy(self, stage, inp, scale, slack):
+    def spy(self, stage, inp, scale, *rest):
         calls.append(scale)
-        return orig(self, stage, inp, scale, slack)
+        return orig(self, stage, inp, scale, *rest)
 
     monkeypatch.setattr(Executor, "_run_once", spy)
     return calls
