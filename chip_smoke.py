@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (dryad_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--lines N] [--rows N] [--records N] [--out DIR]
+    python3 chip_smoke.py [--lines N] [--rows N] [--records N] [--nodes N]
+                          [--out DIR]
 
 Phases, each failing the run (non-zero exit, no result line) on error:
 
@@ -55,7 +56,23 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      attempt (a capacity retry is an attempt: the counts must equal the
      executor's own attempt log); its stages' retries and final capacity
      scales are printed;
-  3-6. after each of those nine main-path runs, every kernel call it made
+  7. PageRank (``pagerank100k``) through the same entry points at the JAX
+     bench's size for BASELINE config 4: ``gen_graph(100,000, 1,000,000,
+     seed=0)`` (plus the 100,000 ring edges it adds), 10 iterations,
+     damping 0.85: ``from_columns -> join -> cache -> do_while ->
+     collect``.  The node set must be 0..n-1 exactly, every rank within
+     rtol 2e-3 of ``pagerank_numpy`` (float64), the ranks' sum within
+     1e-2 of 1; all five launch counters must rise, and hist_buckets and
+     slot_expand launch once per exchanging leg and attempt (the
+     executor's own log over every run of the job).  One cold and one
+     warm run, each split into load (``from_columns``) and query; time
+     per superstep; edges per second per iteration over the query wall
+     and over the summed executor runs (the JAX bench's
+     ``edges_per_sec_iter_chip_run`` form); attempts per stage.  Then
+     NaN min/max: ``group_by(["k"], min/max of v)`` over 400 rows with
+     NaNs, and an ``order_by`` of the max, on the card against a numpy
+     oracle bit for bit (a NaN result is the JAX package's 0x7FC00000);
+  3-7. after each of those ten main-path runs, every kernel call it made
      is made again through the kernel and through its plain version on
      the very tensors the run passed (integers exactly, prefix_sum2
      within twice its bound);
@@ -63,8 +80,8 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      largest call of one main-path run (``TIMED_ON``; CUDA events), the
      bound the card's memory rate sets for the same bytes, and a
      torch.profiler breakdown of one warm run of each timed path and of
-     TeraSort (a kernel launched there with no profiled device time fails
-     the run).
+     TeraSort and PageRank (a kernel launched in any of them that shows
+     no profiled device time in three takes fails the run).
      Per kernel at its timed shape also: the device time per call and the
      device events (kernels, memsets) per call from a profiler window
      around 20 calls, and the host's enqueue time per call (200 calls, no
@@ -72,11 +89,12 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      (hist_buckets, slot_expand, copy kernels, the rest of the pack
      range), against its bound, beside the send-buffer copies that the
      batched slot_expand removed, replayed at the same shape.  A kernel
-     row's ``launches`` sums its launches over the nine main-path runs;
+     row's ``launches`` sums its launches over the ten main-path runs;
      ``runs`` gives each run's own count and |kernel - plain|.
 
 Output: one JSON line per corpus, per GroupByReduce variant, per sort
-path, per pack side and per kernel, then the card line, then the
+path, for PageRank and the NaN hold, per pack side and per kernel, then
+the card line, then the
 ``{"kernels": [...]}`` line, then the result line
 ``{"ok": true, "device": {...}}`` last.
 Long logs (nvcc -Xptxas -v, the profiles) and every JSON line but the
@@ -488,11 +506,12 @@ def check_cancellation(hk, t) -> None:
 
 
 def check_per_exchange(run, launches, attempts=None) -> None:
-    """hist_buckets and slot_expand launch once per exchange attempt: as
-    often as the exchange's unpack runs (slot_compact once per
-    destination).  A capacity retry runs the stage's exchange again, so
-    it counts; ``attempts``, where given, is the executor's own count of
-    exchange attempts (its ``stage_log``), which must agree."""
+    """hist_buckets and slot_expand launch once per exchange: as often as
+    the exchange's unpack runs (slot_compact once per destination).  A
+    capacity retry runs the stage's exchanges again, and a join stage has
+    up to two exchanging legs, so ``attempts``, where given, is the
+    executor's own count of exchanging legs times attempts over its
+    ``stage_log`` (``exchange_attempts``), which must agree."""
     exchanges, rest = divmod(launches["slot_compact"], NPARTS)
     bad = {k: launches[k] for k in PER_EXCHANGE if launches[k] != exchanges}
     if attempts is not None and attempts != exchanges:
@@ -736,11 +755,169 @@ def run_sort(port, hk, data, str_max_len, queries):
 
 
 def exchanging_stages(logs) -> list:
-    """Each exchanging stage of a run: its label, exchange kind, retries
-    (attempts past the first) and final capacity scale."""
+    """Each exchanging stage of a run: its label, exchange kind, number of
+    exchanging legs, retries (attempts past the first) and final capacity
+    scale."""
     return [{"stage": st["label"], "exchange": st["exchange"],
+             "exchanges": st["exchanges"],
              "retries": st["attempts"] - 1, "scale": st["scale"]}
             for log in logs for st in log if st["exchange"]]
+
+
+def exchange_attempts(stages) -> int:
+    """Exchanges the executor ran over ``exchanging_stages``: each
+    exchanging leg once per attempt."""
+    return sum((st["retries"] + 1) * st["exchanges"] for st in stages)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: PageRank, and NaN min/max
+
+
+PR_EDGES, PR_ITERS = 1_000_000, 10   # the JAX bench's (bench.py:2038-2045)
+PR_RTOL = 2e-3                       # tests/test_apps.py's test_pagerank
+
+
+def run_pagerank(port, hk, pr, edges, n_nodes, device="cuda"):
+    """One main-path PageRank run through the app's entry point
+    (``pagerank()``: from_columns -> join -> cache -> do_while ->
+    collect), with the context's ``from_columns`` timed as load and each
+    executor run timed and logged.  Counters zeroed just before, read just
+    after.  Returns (table, launches, load_s, query_s, runs): ``runs`` is
+    one dict per executor run (a superstep or not, seconds, stage log)."""
+    import torch
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    ctx = port.Context(device=device, nparts=NPARTS)
+    load, runs = [0.0], []
+    from_columns, run = ctx.from_columns, ctx.executor.run
+
+    def timed_from_columns(*args, **kw):
+        t0 = time.perf_counter()
+        ds = from_columns(*args, **kw)
+        sync()
+        load[0] += time.perf_counter() - t0
+        return ds
+
+    def logged_run(graph, bindings=None):
+        t0 = time.perf_counter()
+        out = run(graph, bindings)
+        sync()
+        runs.append({"superstep": bindings is not None,
+                     "s": time.perf_counter() - t0,
+                     "stages": list(ctx.executor.stage_log)})
+        return out
+
+    ctx.from_columns, ctx.executor.run = timed_from_columns, logged_run
+    hk.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    out = pr.pagerank(ctx, edges, n_nodes, n_iters=PR_ITERS)
+    sync()
+    wall = time.perf_counter() - t0
+    return out, dict(hk.launches), load[0], wall - load[0], runs
+
+
+def check_pagerank(out, edges, n_nodes, pr) -> dict:
+    """The node set is exactly 0..n-1, every rank within PR_RTOL of the
+    float64 ``pagerank_numpy``, the ranks sum to 1 within 1e-2."""
+    nodes = np.asarray(out["node"])
+    ranks = np.asarray(out["rank"], np.float64)
+    if len(nodes) != n_nodes or not np.array_equal(np.sort(nodes),
+                                                   np.arange(n_nodes)):
+        raise AssertionError("pagerank: the node set is not 0..n-1")
+    ref = pr.pagerank_numpy(edges, n_nodes, PR_ITERS)
+    got = np.empty(n_nodes)
+    got[nodes] = ranks
+    rel = float((np.abs(got - ref) / np.abs(ref)).max())
+    if not rel <= PR_RTOL:
+        raise AssertionError(f"pagerank: a rank is {rel:.3g} off "
+                             f"pagerank_numpy (rtol {PR_RTOL})")
+    total = float(ranks.sum())
+    if abs(total - 1.0) > 1e-2:
+        raise AssertionError(f"pagerank: the ranks sum to {total}")
+    return {"nodes": n_nodes, "max_rel_err": rel, "rank_sum": total}
+
+
+def pagerank_stages(runs) -> dict:
+    """The executor's log of a PageRank job: the exchanging stages of its
+    runs outside the loop, each superstep's attempts per stage, and the
+    exchange count (legs x attempts) over all runs."""
+    outside = [st for r in runs if not r["superstep"]
+               for st in exchanging_stages([r["stages"]])]
+    steps = [[{"stage": st["label"], "exchanges": st["exchanges"],
+               "attempts": st["attempts"]} for st in r["stages"]]
+             for r in runs if r["superstep"]]
+    return {"outside_loop": outside, "supersteps": steps,
+            "exchange_attempts": exchange_attempts(
+                exchanging_stages([r["stages"] for r in runs]))}
+
+
+def nan_minmax_data(n: int = 400):
+    """int32 keys on 24 groups, f32 values with one in ten NaN (numpy seed
+    7): 400 rows, 50 a partition."""
+    rng = np.random.RandomState(7)
+    v = rng.randn(n).astype(np.float32)
+    v[rng.rand(n) < 0.1] = np.nan
+    return {"k": rng.randint(0, 24, n).astype(np.int32), "v": v}
+
+
+def nan_minmax_oracle(data) -> dict:
+    """key -> (min, max) as f32 bits, by the two stages' lowerings: each
+    partition's block (rows split evenly, first blocks one longer) takes
+    the min and max in the sort lanes' total order (a positive NaN above
+    +inf), the final stage's minimum / maximum propagate a NaN, and a NaN
+    result has the bits 0x7FC00000."""
+    k, v = data["k"], data["v"]
+    blocks = np.array_split(np.arange(len(k)), NPARTS)
+    want = {}
+    for key in np.unique(k).tolist():
+        mins, maxs = [], []
+        for b in blocks:
+            g = v[b][k[b] == key]
+            if len(g):
+                nn = g[~np.isnan(g)]
+                mins.append(nn.min() if len(nn) else np.nan)
+                maxs.append(np.nan if np.isnan(g).any() else g.max())
+        mn = np.float32(np.nan if np.isnan(mins).any() else min(mins))
+        mx = np.float32(np.nan if np.isnan(maxs).any() else max(maxs))
+        want[key] = tuple(int(np.where(np.isnan(x), np.float32(np.nan), x)
+                              .view(np.uint32)) for x in (mn, mx))
+    return want
+
+
+def check_nan_minmax(port, device="cuda") -> dict:
+    """``group_by(["k"], {"mn": min v, "mx": max v})`` at P = 8 (the final
+    stage has two min/max columns: the segmented-scan lowering), then
+    ``order_by([("mx", False)])`` of it: bit for bit against
+    ``nan_minmax_oracle``, NaN groups last in the order."""
+    data = nan_minmax_data()
+    want = nan_minmax_oracle(data)
+    ctx = port.Context(device=device, nparts=NPARTS)
+    g = ctx.from_columns(data).group_by(["k"], {"mn": ("min", "v"),
+                                                "mx": ("max", "v")})
+    out = g.collect()
+    got = {key: (int(a), int(b)) for key, a, b in zip(
+        out["k"].tolist(), np.asarray(out["mn"]).view(np.uint32),
+        np.asarray(out["mx"]).view(np.uint32))}
+    if got != want:
+        bad = {key: (got.get(key), w) for key, w in want.items()
+               if got.get(key) != w}
+        raise AssertionError(f"nan min/max: groups differ from the oracle "
+                             f"(key: got, want bits) {bad}")
+    srt = np.asarray(g.order_by([("mx", False)]).collect()["mx"])
+    mx = np.array([w[1] for w in want.values()], np.uint32).view(np.float32)
+    nan = np.isnan(mx)
+    order = np.concatenate([np.sort(mx[~nan]), mx[nan]]).view(np.uint32)
+    if not np.array_equal(srt.view(np.uint32), order):
+        raise AssertionError("nan min/max: order_by of the max is not the "
+                             "total order with NaN last")
+    return {"groups": len(want), "nan_max_groups": int(nan.sum()),
+            "nan_min_groups": int(sum(np.isnan(np.array(
+                [w[0] for w in want.values()], np.uint32).view(np.float32))))}
 
 
 # ---------------------------------------------------------------------------
@@ -995,17 +1172,24 @@ def pack_side(prof: dict, captured) -> dict:
     }
 
 
-def profile_path(run, label, out_dir, tries: int = 3) -> dict:
+def profile_path(run, label, out_dir, tries: int = 3,
+                 pack: bool = True) -> dict:
     """``profile_run``, taken again (up to ``tries`` times) while a port
-    kernel launched in the run shows no profiled device time or the
-    pack ranges show none: the profiler can miss a window's events."""
-    for _ in range(tries):
-        prof = profile_run(run, label, out_dir)
+    kernel launched in the run shows no profiled device time or (with
+    ``pack``) the pack ranges show none: the profiler can miss a window's
+    events.  Fails when the last take still misses a launched kernel."""
+    for attempt in range(tries):
+        prof = profile_run(run, label, out_dir, pack)
         ours = prof.get("port_kernels_ms") or {}
-        if prof.get("pack_kernels_us") and all(
-                ours.get(k) for k, n in prof["launches"].items() if n):
+        missing = [k for k, n in prof["launches"].items()
+                   if n and not ours.get(k)]
+        if not missing and (not pack or prof.get("pack_kernels_us")):
             break
-    return prof
+    if missing:
+        raise AssertionError(
+            f"{label}: {missing} launched but show no profiled device "
+            f"time in {tries} profiles")
+    return {**prof, "profile_takes": attempt + 1}
 
 
 def _no_pack(prof: dict) -> dict:
@@ -1088,14 +1272,20 @@ def time_kernels(hk, runs, timed, card) -> list:
     return rows
 
 
-def profile_run(run, label, out_dir) -> dict:
+def profile_run(run, label, out_dir, pack: bool = True) -> dict:
     """Device time by kernel over one warm run of a path (kernel-level
     events only: the operator-level rows repeat their kernels' time).
-    ``run()`` returns (table, launches, load_s, query_s)."""
+    ``run()`` returns (table, launches, load_s, query_s).  ``pack``
+    also traces the host side, which the pack-side ranges need; without
+    it only the device is traced (PageRank's warm run issues hundreds of
+    thousands of host ops, whose events the profiler is slow to
+    process)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA]
+    if pack:
+        acts.insert(0, ProfilerActivity.CPU)
+    with profile(activities=acts) as prof:
         _out, launches, load, query = run()
     wall = load + query
     avgs = prof.key_averages()
@@ -1111,7 +1301,7 @@ def profile_run(run, label, out_dir) -> dict:
     if not dev_ms:
         return {"device_ms": None, "wall_s": wall, "load_s": load,
                 "query_s": query, "launches": launches}
-    pack_n, pack_by = pack_side_kernels(prof)
+    pack_n, pack_by = pack_side_kernels(prof) if pack else (0, {})
     ours = {k: sum(v for key, v in dev_ms.items()
                    if any(s in key for s in subs))
             for k, subs in DEVICE_NAMES.items()}
@@ -1133,6 +1323,8 @@ def main(argv=None) -> int:
     ap.add_argument("--lines", type=int, default=1_000_000)
     ap.add_argument("--rows", type=int, default=2_000_000)
     ap.add_argument("--records", type=int, default=1_000_000)
+    ap.add_argument("--nodes", type=int, default=100_000,
+                    help="PageRank nodes; edges are 10x the nodes")
     ap.add_argument("--out", default=os.path.join(HERE, "chiprun_out"))
     a = ap.parse_args(argv)
 
@@ -1147,9 +1339,15 @@ def main(argv=None) -> int:
     lines_path = os.path.join(a.out, "chip_smoke.jsonl")
     open(lines_path, "w").close()
 
+    started = time.perf_counter()
+
     def emit(obj) -> None:
         """A result line on stdout and in ``--out``/chip_smoke.jsonl
-        (the whole run's lines outlast a cut-off stdout)."""
+        (the whole run's lines outlast a cut-off stdout), with the
+        seconds since the script started (``t_s``; not on the kernels
+        line, whose keys are fixed)."""
+        if list(obj) != ["kernels"]:
+            obj = {**obj, "t_s": time.perf_counter() - started}
         line = json.dumps(obj)
         print(line, flush=True)
         with open(lines_path, "a") as f:
@@ -1157,6 +1355,7 @@ def main(argv=None) -> int:
 
     port = import_port()
     from dryad_tpu_torch.apps import groupbyreduce as gbr
+    from dryad_tpu_torch.apps import pagerank as pr
     from dryad_tpu_torch.apps import terasort as ts
     from dryad_tpu_torch.apps import wordcount as wc
     from dryad_tpu_torch.ops import _build
@@ -1261,8 +1460,7 @@ def main(argv=None) -> int:
         if zero:
             raise AssertionError(f"{sname}: kernels never launched: {zero}")
         stages = exchanging_stages(logs)
-        check_per_exchange(sname, launches,
-                           sum(st["retries"] + 1 for st in stages))
+        check_per_exchange(sname, launches, exchange_attempts(stages))
         _, _, wload, wquery, wlogs = run_sort(port, hk, data, sml, queries)
         warm = wload + wquery
         emit({
@@ -1275,6 +1473,39 @@ def main(argv=None) -> int:
             "card": card})
     tera_data, tera_sml = sorts["terasort1m"][0]
     del sorts
+
+    n_edges = PR_EDGES * a.nodes // 100_000
+    edges = pr.gen_graph(a.nodes, n_edges, seed=0)
+    hk.capture = {}
+    out, launches, load, qs, pr_runs = run_pagerank(port, hk, pr, edges,
+                                                    a.nodes)
+    captured, hk.capture = hk.capture, None
+    sizes = check_pagerank(out, edges, a.nodes, pr)
+    del out
+    held("pagerank100k", launches, captured)
+    del captured
+    zero = [k for k in TPU_KERNEL if launches[k] == 0]
+    if zero:
+        raise AssertionError(f"pagerank100k: kernels never launched: {zero}")
+    stages = pagerank_stages(pr_runs)
+    check_per_exchange("pagerank100k", launches, stages["exchange_attempts"])
+    _, _, wload, wquery, wruns = run_pagerank(port, hk, pr, edges, a.nodes)
+    steps = [r["s"] for r in wruns if r["superstep"]]
+    emit({
+        "pagerank": "pagerank100k", **sizes, "edges": n_edges,
+        "edges_with_ring": len(edges["src"]), "iters": PR_ITERS,
+        "nparts": NPARTS, "launches": launches, "stages": stages,
+        "warm_stages": pagerank_stages(wruns),
+        "cold_wall_s": load + qs, "cold_load_s": load, "cold_query_s": qs,
+        "warm_wall_s": wload + wquery, "warm_load_s": wload,
+        "warm_query_s": wquery, "warm_superstep_s": steps,
+        "warm_superstep_mean_s": sum(steps) / len(steps),
+        "edges_per_s_iter": n_edges * PR_ITERS / wquery,
+        "executor_run_s": sum(r["s"] for r in wruns),
+        "edges_per_sec_iter_chip_run": n_edges * PR_ITERS / sum(
+            r["s"] for r in wruns),
+        "card": card})
+    emit({"nan_minmax": check_nan_minmax(port), "ok": True, "card": card})
 
     wc_prof = profile_path(
         lambda: run_wordcount(port, hk, wc, corpora["zipf50k"]),
@@ -1292,6 +1523,11 @@ def main(argv=None) -> int:
         "terasort1m", a.out)
     emit({"profile": "terasort1m warm run",
                       **_no_pack(tera_prof), "card": card})
+    pr_prof = profile_path(
+        lambda: run_pagerank(port, hk, pr, edges, a.nodes)[:4],
+        "pagerank100k", a.out, pack=False)
+    emit({"profile": "pagerank100k warm run", **_no_pack(pr_prof),
+          "card": card})
     for label, prof in (("zipf50k", wc_prof), ("app10k", gbr_prof),
                         ("terasort1m", tera_prof)):
         emit({"pack_side": label,

@@ -12,10 +12,12 @@ Entry points run on the CUDA card unless the caller passes
 device and a hash or range exchange between them: WordCount
 (from_columns -> split_words -> group_by count -> collect),
 GroupByReduce (group_by with builtin or user-defined ``Decomposable``
-aggregates, select, where) and TeraSort (order_by: sampled split points,
+aggregates, select, where), TeraSort (order_by: sampled split points,
 a range exchange, a local sort), with the rest of the sort family
 (range_partition, assume_range_partition / assume_order_by, take,
-distinct, group_top_k, group_median).
+distinct, group_top_k, group_median), and PageRank (from_columns -> join
+-> cache -> do_while -> collect: two-leg join stages, inner and left,
+with the lookup-table form; with_capacity; the in-memory cache).
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,9 @@
 """User-facing API: ``Context`` and the lazy ``Dataset`` — the subset of
-``dryad_tpu/api/dataset.py`` that WordCount, GroupByReduce and TeraSort
-call, with the sort family (``order_by``, ``range_partition``, the
-``assume_*`` claims, ``take``, ``distinct``, ``group_top_k``,
-``group_median``).
+``dryad_tpu/api/dataset.py`` that WordCount, GroupByReduce, TeraSort and
+PageRank call, with the sort family (``order_by``, ``range_partition``,
+the ``assume_*`` claims, ``take``, ``distinct``, ``group_top_k``,
+``group_median``), ``join`` (inner / left), ``with_capacity``, the
+in-memory ``cache`` and ``Context.do_while``.
 
 ``Context(device="cuda", nparts=8)`` runs ``nparts`` logical partitions
 on one CUDA card (``parallel/mesh.py``).  The device is CUDA unless the
@@ -12,11 +13,12 @@ rather than quietly running on the CPU.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, Sequence, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
-from dryad_tpu_torch.exec.data import maybe_shrink_for_collect, \
+from dryad_tpu_torch.exec.data import PData, maybe_shrink_for_collect, \
     pdata_from_host, pdata_to_host
 from dryad_tpu_torch.exec.executor import Executor
+from dryad_tpu_torch.ops.kernels import NotPortedYet
 from dryad_tpu_torch.parallel.mesh import Mesh, resolve_device
 from dryad_tpu_torch.plan import expr as E
 from dryad_tpu_torch.plan.planner import plan_query
@@ -49,6 +51,50 @@ class Context:
                                 str_max_len=str_max_len)
         return Dataset(self, E.Source(parents=(), data=pdata,
                                       _npartitions=self.nparts))
+
+    def from_pdata(self, pdata: PData,
+                   partitioning: E.Partitioning = E.Partitioning.none()
+                   ) -> "Dataset":
+        """A dataset over data already on the mesh, with the partitioning
+        it is claimed to have (a cached or loop-carried result keeps its
+        hash placement, so later joins and group-bys skip the
+        exchange)."""
+        return Dataset(self, E.Source(parents=(), data=pdata,
+                                      _npartitions=self.nparts,
+                                      _partitioning=partitioning))
+
+    def do_while(self, init: "Dataset",
+                 body: Callable[["Dataset"], "Dataset"], n_iters: int,
+                 cond: Optional[Callable[[Dict[str, Any]], bool]] = None
+                 ) -> "Dataset":
+        """Iterative execution (DoWhile), in memory on one process: the
+        body is planned ONCE over a placeholder, and each of up to
+        ``n_iters`` iterations runs that plan with the previous
+        iteration's output bound to it (stages are reused, so a capacity
+        scale learned in the first iteration carries over).  The body must
+        keep the per-partition capacity (``with_capacity``).  ``cond``, a
+        predicate on the current table collected to the host, stops the
+        loop early when it returns False."""
+        if n_iters > self.config.max_loop_iterations:
+            raise ValueError(
+                f"n_iters={n_iters} exceeds JobConfig.max_loop_iterations="
+                f"{self.config.max_loop_iterations}; raise the knob "
+                f"explicitly for longer loops")
+        cur = init._materialize()
+        ph = E.Placeholder(parents=(), name="__loop",
+                           _npartitions=self.nparts, capacity=cur.capacity)
+        graph = plan_query(body(Dataset(self, ph)).node, self.nparts)
+        for _ in range(n_iters):
+            nxt = self.executor.run(graph, bindings={"__loop": cur})
+            if nxt.capacity != cur.capacity:
+                raise ValueError(
+                    "do_while body must preserve per-partition capacity "
+                    f"({cur.capacity} -> {nxt.capacity}); use explicit "
+                    "capacities (with_capacity) inside the loop")
+            cur = nxt
+            if cond is not None and not cond(pdata_to_host(cur)):
+                break
+        return self.from_pdata(cur)
 
 
 class Dataset:
@@ -152,8 +198,48 @@ class Dataset:
         """The first ``n`` rows, in partition order."""
         return Dataset(self.ctx, E.Take(parents=(self.node,), n=n))
 
+    def with_capacity(self, capacity: int) -> "Dataset":
+        """Coerce per-partition capacity (pad; a truncation that would drop
+        rows raises CapacityError): keeps do_while bodies shape-stable."""
+        return Dataset(self.ctx, E.WithCapacity(parents=(self.node,),
+                                                capacity=capacity))
+
+    def join(self, other: "Dataset", left_keys: Sequence[str],
+             right_keys: Sequence[str] | None = None,
+             expansion: float | None = None, broadcast: bool = False,
+             how: str = "inner", right_unique: bool = False) -> "Dataset":
+        """Equi-join on ``left_keys`` = ``right_keys``; output columns =
+        left columns + right non-key columns (suffixed ``_r`` on a name
+        clash), ``expansion`` x the left capacity per partition.
+        ``how="left"`` keeps unmatched left rows with the right columns
+        zero-filled.  ``right_unique=True`` declares the right side
+        unique-keyed (a lookup table) and routes matching through the
+        merge-fill join; uniqueness is checked at run time and duplicates
+        take the general join.  The broadcast form and right / full joins
+        come with later slices."""
+        if how in ("right", "full"):
+            raise NotPortedYet(f'how="{how}" joins',
+                               "other two-input operators")
+        if how not in ("inner", "left"):
+            raise ValueError(f"unknown join how={how!r}")
+        return Dataset(self.ctx, E.Join(
+            parents=(self.node, other.node), left_keys=tuple(left_keys),
+            right_keys=tuple(right_keys or left_keys),
+            expansion=expansion or self.ctx.config.join_expansion,
+            broadcast_right=broadcast, how=how,
+            right_unique=right_unique))
+
+    def cache(self) -> "Dataset":
+        """Materialize NOW and reuse the result in later queries (hoist
+        loop-invariant work out of a do_while body).  The in-memory form:
+        the result stays on the card and keeps its partitioning claim.
+        The store-backed re-streaming tiers come with the out-of-core
+        slice."""
+        return self.ctx.from_pdata(self._materialize(),
+                                   partitioning=self.node.partitioning)
+
     def plan(self):
-        return plan_query(self.node, self.ctx.nparts)
+        return plan_query(self.node, self.ctx.nparts, config=self.ctx.config)
 
     def _materialize(self):
         return self.ctx.executor.run(self.plan())

@@ -92,6 +92,24 @@ class Batch:
         return Batch({k: map_column(v, fn) for k, v in self.columns.items()},
                      self.count)
 
+    def with_count(self, count) -> "Batch":
+        return Batch(self.columns, torch.as_tensor(count, dtype=torch.int32,
+                                                   device=self.device))
+
+    def pad_to(self, capacity: int) -> "Batch":
+        """Grow (or keep) capacity; padding rows are zeros."""
+        cur = self.capacity
+        if capacity == cur:
+            return self
+        if capacity < cur:
+            raise ValueError(f"pad_to smaller than capacity ({capacity} < "
+                             f"{cur})")
+        extra = capacity - cur
+
+        def pad(x):
+            return torch.cat([x, x.new_zeros((extra,) + tuple(x.shape[1:]))])
+        return self.map(pad)
+
     def gather(self, idx: torch.Tensor, count=None) -> "Batch":
         """Row gather; ``idx`` is [new_capacity] int32/int64.  Keeps the
         count unless one is given."""

@@ -2,25 +2,31 @@
 of ``dryad_tpu/exec/executor.py``.
 
 The JAX package runs each stage as ONE jit(shard_map) program whose
-``per_shard`` body applies the leg ops, the exchange and the body ops on
-every device.  Here the P partitions share one device: a stage is a
-Python loop over the partitions for the leg ops, one batched exchange
-across all of them, and a loop for the body ops.  Every op returns a NEED
+``per_shard`` body applies each leg's ops and exchange, then the body ops,
+on every device.  Here the P partitions share one device: each leg is a
+Python loop over the partitions for its ops and one batched exchange
+across all of them, then a loop for the body ops; a two-input body op
+(``join``) takes the other legs' partitions.  Every op returns a NEED
 vector ``[need_scale, need_slack]`` that stays on the device; the
-executor reads it once per stage (the one host sync) and, on overflow,
-re-runs the stage at the measured scale and send-slot slack instead of
-dropping rows.  ``stage_log`` keeps each stage's attempts and final
-capacity scale from the last ``run``.
+executor reads it once per stage attempt (the one host sync, with the
+exchanges' own share of the need beside it) and, on overflow, re-runs the
+stage at the measured scale and send-slot slack instead of dropping rows.
+An overflow no scale can fix (a ``with_capacity`` truncation) raises
+``CapacityError``.  ``stage_log`` keeps each stage's attempts, exchanging
+legs and final capacity scale from the last ``run``.
 
 A range exchange splits on bounds sampled from the output of its
 ``bounds_from`` stage (``_range_bounds``), once per stage before the
 retry loop and on the device.  The global ``take`` needs every
-partition's count, so the executor applies it over the whole partition
-list (``_take_global``) rather than per partition.
+partition's count, and the lookup-join choice every partition's
+duplicate flag, so the executor applies those two over the whole
+partition list (``_take_global``, ``_join_global``).  ``run`` binds a
+do_while body's placeholder to the previous iteration's output.
 
 Not ported yet (later slices, see ROADMAP.md): lineage recovery and the
 deferred settle, adaptivity, the cost cross-check, slot feedback and
-probes, hot-key salting, multi-leg stages.
+probes, hot-key salting (where the JAX package would switch a join stage
+to the salted exchange, the port raises ``NotPortedYet``).
 """
 
 from __future__ import annotations
@@ -45,6 +51,19 @@ __all__ = ["Executor", "CapacityError"]
 
 class CapacityError(RuntimeError):
     pass
+
+
+# sentinel need: the overflow source cannot be fixed by scaling
+_UNSCALABLE = 1 << 30
+# op kinds whose overflow a larger capacity scale fixes (exchanges too)
+_SCALABLE_OVERFLOW_KINDS = {"flat_tokens", "join"}
+
+
+def _stage_overflow_scalable(stage: Stage) -> bool:
+    kinds = ({op.kind for leg in stage.legs for op in leg.ops}
+             | {op.kind for op in stage.body})
+    return bool(kinds & _SCALABLE_OVERFLOW_KINDS) or any(
+        leg.exchange is not None for leg in stage.legs)
 
 
 def _needs(dev, ns=None, nsl=None) -> torch.Tensor:
@@ -116,7 +135,45 @@ def _apply_op(b: Batch, op: StageOp, scale: int) -> Tuple[Batch,
         return kernels.distinct(b, list(p["keys"]) or None), _needs(dev)
     if k == "sort":
         return kernels.sort_by_columns(b, list(p["keys"])), _needs(dev)
+    if k == "recap":
+        cap = p["capacity"]
+        if cap >= b.capacity:
+            return b.pad_to(cap), _needs(dev)
+        trunc = b.map(lambda x: x[:cap])
+        return (trunc.with_count(torch.clamp(b.count, max=cap)),
+                _needs(dev, torch.where(b.count > cap, _UNSCALABLE, 0)))
     raise ValueError(f"unknown op kind {k}")
+
+
+def _join_global(lparts: List[Batch], rparts: List[Batch], op: StageOp,
+                 scale: int) -> Tuple[List[Batch], torch.Tensor]:
+    """The ``join`` body op over every partition.  With ``right_unique``
+    every partition runs ``lookup_join`` and the P duplicate flags it
+    returns are read in ONE host sync; a partition whose right side has
+    a duplicate hash takes the general join instead (the JAX package
+    picks each partition's lowering with ``lax.cond``).  The join's need
+    is the largest partition's."""
+    p = op.params
+    lk, rk = list(p["left_keys"]), list(p["right_keys"])
+    how, cap = p["how"], p["out_capacity"] * scale
+
+    def general(lb, rb):
+        return kernels.general_join(lb, rb, lk, rk, out_capacity=cap,
+                                    how=how)
+
+    if p["right_unique"]:
+        looked = [kernels.lookup_join(lb, rb, lk, rk, out_capacity=cap,
+                                      how=how)
+                  for lb, rb in zip(lparts, rparts)]
+        dups = torch.stack([d for _, _, d in looked]).tolist()
+        results = [general(lb, rb) if dup else (out, nr)
+                   for lb, rb, (out, nr, _), dup
+                   in zip(lparts, rparts, looked, dups)]
+    else:
+        results = [general(lb, rb) for lb, rb in zip(lparts, rparts)]
+    need = torch.stack([nr for _, nr in results]).max()
+    return ([out for out, _ in results],
+            _needs(need.device, _scale_need(need, p["out_capacity"])))
 
 
 def _take_global(parts: List[Batch], n: int) -> List[Batch]:
@@ -229,10 +286,15 @@ class Executor:
         return torch.where(n_tot > 0, bounds, 0)
 
     def _run_ops(self, parts: List[Batch], ops: List[StageOp], scale: int,
-                 needs: torch.Tensor):
+                 needs: torch.Tensor, others=()):
+        others = list(others)
         for op in _fuse_stage_ops(ops):
             if op.kind == "take":
                 parts = _take_global(parts, op.params["n"])
+                continue
+            if op.kind == "join":
+                parts, nd = _join_global(parts, others.pop(0), op, scale)
+                needs = torch.maximum(needs, nd)
                 continue
             outs = []
             for b in parts:
@@ -242,58 +304,109 @@ class Executor:
             parts = outs
         return parts, needs
 
-    def _run_once(self, stage: Stage, inp: PData, scale: int, slack: int,
-                  bounds: Optional[torch.Tensor]
+    def _run_once(self, stage: Stage, inputs: List[PData], scale: int,
+                  slack: int, bounds: Optional[torch.Tensor]
                   ) -> Tuple[PData, torch.Tensor]:
-        """One attempt of a one-leg stage: (output, needs[2] on device)."""
-        leg = stage.legs[0]
-        needs = torch.zeros(2, dtype=torch.int32, device=self.mesh.device)
-        parts, needs = self._run_ops(split_partitions(inp), leg.ops, scale,
-                                     needs)
-        if leg.exchange is not None:
-            parts, nd = _apply_exchange(parts, leg.exchange, scale, slack,
-                                        bounds)
-            needs = torch.maximum(needs, nd)
-        parts, needs = self._run_ops(parts, stage.body, scale, needs)
-        return stack_partitions(parts), needs
+        """One attempt of a stage: (output, [need_scale, need_slack,
+        the exchanges' need_scale] on the device)."""
+        dev = self.mesh.device
+        needs = torch.zeros(2, dtype=torch.int32, device=dev)
+        exch_need = torch.zeros((), dtype=torch.int32, device=dev)
+        legs = []
+        for leg, inp in zip(stage.legs, inputs):
+            parts, needs = self._run_ops(split_partitions(inp), leg.ops,
+                                         scale, needs)
+            if leg.exchange is not None:
+                parts, nd = _apply_exchange(parts, leg.exchange, scale,
+                                            slack, bounds)
+                needs = torch.maximum(needs, nd)
+                exch_need = torch.maximum(exch_need, nd[0])
+            legs.append(parts)
+        parts, needs = self._run_ops(legs[0], stage.body, scale, needs,
+                                     legs[1:])
+        return stack_partitions(parts), torch.cat([needs, exch_need[None]])
 
-    def _run_stage(self, stage: Stage, results: Dict[int, PData]) -> PData:
-        if len(stage.legs) != 1:
-            raise NotPortedYet("multi-leg stages (joins, zips, set ops)",
-                               "PageRank")
-        leg = stage.legs[0]
-        inp = results[leg.src] if isinstance(leg.src, int) else leg.src[1]
+    @staticmethod
+    def _leg_input(leg, results: Dict[int, PData],
+                   bindings: Dict[str, PData]) -> PData:
+        if isinstance(leg.src, int):
+            return results[leg.src]
+        kind, v = leg.src
+        if kind == "source":
+            return v
+        if kind == "placeholder":
+            try:
+                return bindings[v]
+            except KeyError:
+                raise KeyError(f"unbound placeholder {v!r}") from None
+        raise ValueError(leg.src)
+
+    def _decide(self, stage: Stage, scale: int, slack: int, need_scale: int,
+                need_slack: int, need_exch: int):
+        """The JAX package's retry policy: None when the attempt fit, else
+        the (scale, slack) of the retry; raises CapacityError for an
+        overflow no scale fixes, and NotPortedYet where the JAX package
+        would switch the stage to the hot-key-salted exchange."""
+        if need_scale <= 0 and need_slack <= 0:
+            return None
+        if need_scale >= _UNSCALABLE or not _stage_overflow_scalable(stage):
+            raise CapacityError(
+                f"stage {stage.id} ({stage.label}) overflowed a fixed "
+                f"capacity (a with_capacity truncation): retrying at a "
+                f"larger scale cannot succeed; raise the declared capacity "
+                f"instead")
+        if (stage.salt_ok and self.nparts > 1
+                and need_exch >= self.config.salt_trigger_factor * scale):
+            raise NotPortedYet(
+                f"hot-key salting of the join stage {stage.id}'s exchanges "
+                f"(need {need_exch}x the capacity)",
+                "other two-input operators")
+        # right-size from the measured requirement: ONE retry at the exact
+        # need instead of a blind doubling ladder
+        return max(scale, need_scale), max(slack, min(need_slack,
+                                                      self.nparts))
+
+    def _run_stage(self, stage: Stage, results: Dict[int, PData],
+                   bindings: Dict[str, PData]) -> PData:
+        inputs = [self._leg_input(leg, results, bindings)
+                  for leg in stage.legs]
+        exchanges = [leg.exchange for leg in stage.legs
+                     if leg.exchange is not None]
         bounds = None
-        if leg.exchange is not None and leg.exchange.kind == "range":
-            bounds = self._range_bounds(results[leg.exchange.bounds_from],
-                                        leg.exchange.bounds_key)
+        for ex in exchanges:
+            if ex.kind == "range":
+                bounds = self._range_bounds(results[ex.bounds_from],
+                                            ex.bounds_key)
+                break
         scale = stage._capacity_scale
         slack = stage._send_slack or self.config.initial_send_slack
         retries = self.config.max_capacity_retries
         for attempt in range(retries + 1):
-            out, needs = self._run_once(stage, inp, scale, slack, bounds)
-            need_scale, need_slack = (int(v) for v in needs.tolist())
-            if need_scale <= 0 and need_slack <= 0:
+            out, needs = self._run_once(stage, inputs, scale, slack, bounds)
+            retry = self._decide(stage, scale, slack,
+                                 *(int(v) for v in needs.tolist()))
+            if retry is None:
                 stage._capacity_scale = scale
                 stage._send_slack = slack
                 self.stage_log.append({
                     "stage": stage.id, "label": stage.label,
-                    "exchange": (leg.exchange.kind if leg.exchange
-                                 else None),
+                    "exchange": exchanges[0].kind if exchanges else None,
+                    "exchanges": len(exchanges),
                     "attempts": attempt + 1, "scale": scale,
                     "slack": slack})
                 return out
-            # right-size from the measured requirement: ONE retry at the
-            # exact need instead of a blind doubling ladder
-            scale = max(scale, need_scale)
-            slack = max(slack, min(need_slack, self.nparts))
+            scale, slack = retry
         raise CapacityError(
             f"stage {stage.id} ({stage.label}) still overflowing after "
             f"{retries} capacity retries (scale={scale}, slack={slack})")
 
-    def run(self, graph: StageGraph) -> PData:
+    def run(self, graph: StageGraph,
+            bindings: Optional[Dict[str, PData]] = None) -> PData:
+        """Run every stage in order; ``bindings`` maps a placeholder's
+        name to its data (a do_while body's loop-carried input)."""
         results: Dict[int, PData] = {}
         self.stage_log = []
         for stage in graph.topo_order():
-            results[stage.id] = self._run_stage(stage, results)
+            results[stage.id] = self._run_stage(stage, results,
+                                                bindings or {})
         return results[graph.out_stage]

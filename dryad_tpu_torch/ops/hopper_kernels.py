@@ -348,12 +348,14 @@ def slot_expand_plain(words: torch.Tensor, offsets: torch.Tensor,
 def slot_expand_batched_plain(words: torch.Tensor, offsets: torch.Tensor,
                               C: int) -> torch.Tensor:
     """``slot_expand_plain`` of each partition, stacked and permuted from
-    [P, D, C, W] to the receive layout [D, P*C, W]."""
+    [P, D, C, W] to the receive layout [D, P*C, W], contiguous as the
+    kernel's output is (at C = 1 the permute alone would stay a view)."""
     P, _cap, W = words.shape
     D = offsets.shape[1]
     send = torch.stack([slot_expand_plain(words[p], offsets[p], C)
                         for p in range(P)])
-    return send.view(P, D, C, W).transpose(0, 1).reshape(D, P * C, W)
+    return send.view(P, D, C, W).transpose(0, 1).reshape(
+        D, P * C, W).contiguous()
 
 
 def slot_expand_batched(words: torch.Tensor, offsets: torch.Tensor,

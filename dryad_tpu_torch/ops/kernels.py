@@ -1,9 +1,10 @@
 """Per-partition operator kernels over columnar Batches — the subset of
-``dryad_tpu/ops/kernels.py`` that the WordCount, GroupByReduce and
-TeraSort paths run: compaction (``where``), group aggregation in its
+``dryad_tpu/ops/kernels.py`` that the WordCount, GroupByReduce, TeraSort
+and PageRank paths run: compaction (``where``), group aggregation in its
 three lowerings, user-defined decomposable aggregation, the sort lanes
-and ``sort_by_columns``, ``take``, ``distinct`` and the group-contents
-operators ``group_top_k`` / ``group_rank_select``.
+and ``sort_by_columns``, ``take``, ``distinct``, the group-contents
+operators ``group_top_k`` / ``group_rank_select`` and the equi-join
+``hash_join`` (inner and left, with the lookup-table form).
 
 Idioms carried over from the JAX package:
   * validity is a prefix: ``count`` valid rows, then padding;
@@ -32,7 +33,7 @@ from torch.utils import _pytree as pytree
 
 from dryad_tpu_torch.data.columnar import Batch, StringColumn, map_column
 from dryad_tpu_torch.ops.hashing import (M32, canon_zero, from_u32,
-                                         hash_batch_keys, to_u32)
+                                         hash_batch_keys, mul32, to_u32)
 from dryad_tpu_torch.ops.hopper_kernels import prefix_sum, prefix_sum2
 from dryad_tpu_torch.ops.scan import associative_scan
 
@@ -42,7 +43,8 @@ __all__ = ["compact", "filter_rows", "permute_by_sort", "take",
            "group_decompose_merge", "group_decompose_local",
            "resolve_dec_spec", "distinct", "group_top_k",
            "group_rank_select", "mean_finalize_columns", "AGG_KINDS",
-           "NotPortedYet"]
+           "NotPortedYet", "canon_nan", "minimum", "maximum",
+           "searchsorted_big", "hash_join", "lookup_join", "general_join"]
 
 AGG_KINDS = ("sum", "count", "min", "max", "mean", "any", "all")
 
@@ -850,6 +852,29 @@ def _group_aggregate_boundary(batch: Batch, key_names: Sequence[str],
     return Batch(out_cols, num_groups)
 
 
+def canon_nan(x: torch.Tensor) -> torch.Tensor:
+    """Every NaN of a float tensor as the positive quiet NaN (f32 bits
+    0x7FC00000), the bits the JAX package's ``jnp.minimum`` /
+    ``jnp.maximum`` give; ATen's vectorized CPU kernels return
+    0xFFFFFFFF from 16 elements up, which the sort lanes' total order
+    would rank below every number."""
+    if not x.dtype.is_floating_point:
+        return x
+    return torch.where(torch.isnan(x), float("nan"), x)
+
+
+def minimum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.minimum`` (NaN propagates) with ``canon_nan``'s NaN."""
+    return canon_nan(torch.minimum(a, b))
+
+
+def maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.maximum`` (NaN propagates) with ``canon_nan``'s NaN."""
+    return canon_nan(torch.maximum(a, b))
+
+
+# min / max NaN bits are canonicalized once, on the scan's output (a NaN
+# propagates through every pass whatever its bits)
 _SCAN_OPS = {"sum": torch.add, "isum": torch.add, "min": torch.minimum,
              "max": torch.maximum}
 
@@ -924,7 +949,7 @@ def _group_aggregate_scan(batch: Batch, key_names: Sequence[str],
                 o = s / c.to(s.dtype) if s.dtype.is_floating_point \
                     else s.to(torch.float32) / c
         elif kind in ("min", "max"):
-            o = scanned[slots[(kind, vname)]]
+            o = canon_nan(scanned[slots[(kind, vname)]])
         elif kind == "any":
             o = scanned[slots[("isum", vname)]] > 0
         else:   # all
@@ -1179,6 +1204,252 @@ def group_rank_select(batch: Batch, key_names: Sequence[str], by: str,
     out_cols[out or by] = map_column(sb.columns[by],
                                      lambda x: x.index_select(0, sel))
     return Batch(out_cols, num_groups)
+
+
+# ---------------------------------------------------------------------------
+# join
+
+
+def searchsorted_big(table: torch.Tensor, q: torch.Tensor,
+                     side: str = "left") -> torch.Tensor:
+    """Insertion points of ``q`` in a LARGE sorted ``table`` (join
+    candidate ranges): one ``torch.searchsorted``, a binary search per
+    query; int64.  32-bit lanes are int64 in [0, 2**32), so the order is
+    the unsigned one and the all-ones sentinel stays the largest value."""
+    if table.numel() == 0:
+        return torch.zeros(q.shape, dtype=torch.int64, device=q.device)
+    return torch.searchsorted(table, q, right=(side == "right"))
+
+
+def _keys_equal(a: Batch, a_idx: torch.Tensor, a_names: Sequence[str],
+                b: Batch, b_idx: torch.Tensor,
+                b_names: Sequence[str]) -> torch.Tensor:
+    """Row a_idx[i] of ``a`` and row b_idx[i] of ``b`` have equal keys
+    (strings: equal lengths and bytes below the length)."""
+    eq = torch.ones(a_idx.shape, dtype=torch.bool, device=a_idx.device)
+    for an, bn in zip(a_names, b_names):
+        ca, cb = a.columns[an], b.columns[bn]
+        if isinstance(ca, StringColumn):
+            la = ca.lengths.index_select(0, a_idx)
+            lb = cb.lengths.index_select(0, b_idx)
+            L = min(ca.max_len, cb.max_len)
+            da = ca.data.index_select(0, a_idx)[:, :L]
+            db = cb.data.index_select(0, b_idx)[:, :L]
+            m = torch.arange(L, device=la.device)[None, :] < la[:, None]
+            beq = torch.where(m, da == db, True).all(dim=1)
+            eq = eq & (la == lb) & beq
+        else:
+            eq = eq & (ca.index_select(0, a_idx) == cb.index_select(0, b_idx))
+    return eq
+
+
+def _packed_gather(cols: Dict[str, Any], idx: torch.Tensor) -> Dict[str, Any]:
+    """Rows ``idx`` of every column: one ``index_select`` per column (the
+    JAX package packs the columns into one word matrix first, a trade
+    made for the TPU's per-row gather cost)."""
+    return {k: map_column(v, lambda x: x.index_select(0, idx))
+            for k, v in cols.items()}
+
+
+def _join_out_names(left: Batch, right: Batch, right_keys, suffix: str):
+    """(right column, output name) of the right side's non-key columns,
+    suffixed where a left column has the name; shared by both join
+    lowerings."""
+    names = list(left.names)
+    rkeyset = set(right_keys)
+    rmap = []
+    for k in right.names:
+        if k in rkeyset:
+            continue
+        name = k if k not in names else k + suffix
+        rmap.append((k, name))
+        names.append(name)
+    return rmap
+
+
+def _folded_hash(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """A 64-bit hash's two lanes as one int64 whose signed order is the
+    pair's unsigned order."""
+    return ((hi - _SIGN) << 32) | lo
+
+
+def lookup_join(left: Batch, right: Batch, left_keys: Sequence[str],
+                right_keys: Sequence[str], out_capacity: int,
+                suffix: str = "_r", how: str = "inner"
+                ) -> Tuple[Batch, torch.Tensor, torch.Tensor]:
+    """Join against a right side with at most one row per key hash (a
+    lookup table: the PageRank rank table).  Returns ``(batch, need,
+    dups)``: ``dups`` is the 0-d "two valid right rows share a 64-bit
+    key hash" flag, read off the same sort (a key's right rows sit
+    together at the head of its run); where it is set the batch is not
+    the join and the caller takes ``hash_join``'s general form.
+
+    Each left row is its own output row, so the join is a merge: ONE
+    stable sort of both sides' rows (the right rows first) by 64-bit key
+    hash puts a key's right row, if any, at the head of its run, and every
+    left row reads the right row at its run's head.  The JAX package
+    forward-fills the right payload with a segmented max over u32 words
+    (zeros elsewhere); the port reads the head's row instead, which is
+    the same row, with no unsigned compare of int32 bits.
+
+    Match verification: when both sides' key columns pack to the same
+    word layout (same dtype / string max_len), a left row matches only if
+    its packed key words equal the head right row's, so a 64-bit hash
+    collision is rejected; otherwise the hash pair alone decides, as in
+    the JAX package.  ``how="left"`` keeps unmatched left rows with the
+    right columns zero-filled."""
+    lvalid, rvalid = left.valid_mask(), right.valid_mask()
+    lhi, llo = _sentinel_fold(*hash_batch_keys(left, left_keys), lvalid)
+    rhi, rlo = _sentinel_fold(*hash_batch_keys(right, right_keys), rvalid)
+    cl, cr = left.capacity, right.capacity
+    n = cl + cr
+    dev = left.device
+    hi = torch.cat([rhi, lhi])
+    lo = torch.cat([rlo, llo])
+    order = torch.sort(_folded_hash(hi, lo), stable=True).indices
+    n_valid = left.count + right.count
+    is_start, _is_end, _ng = _segment_flags(
+        _lane_differs(hi.index_select(0, order), lo.index_select(0, order)),
+        n_valid)
+    # each row's run head: the start position of its run, scattered by
+    # run number (rows that start no run write a dump slot)
+    idx = torch.arange(n, device=dev)
+    run = torch.clamp(torch.cumsum(is_start, 0) - 1, min=0)
+    starts = torch.zeros(n + 1, dtype=torch.int64, device=dev).scatter_(
+        0, torch.where(is_start, run, n), idx)
+    head = order.index_select(0, starts.index_select(0, run))
+    rrow = torch.clamp(head, max=cr - 1)
+    lrow = torch.clamp(order - cr, min=0)
+    present = (head < cr) & rvalid.index_select(0, rrow)
+
+    lkw, lspec = _pack_columns_u32({k: left.columns[k] for k in left_keys})
+    rkw, rspec = _pack_columns_u32(
+        {ln: right.columns[rn] for ln, rn in zip(left_keys, right_keys)})
+    verify = (len(set(left_keys)) == len(left_keys)
+              and [e[1:] for e in lspec] == [e[1:] for e in rspec])
+    if verify:
+        present = present & (lkw.index_select(0, lrow)
+                             == rkw.index_select(0, rrow)).all(dim=1)
+
+    is_right = order < cr
+    dups = (~is_start[1:] & is_right[1:] & is_right[:-1]
+            & (idx[1:] < n_valid)).any()
+    is_left = ~is_right & (idx < n_valid)
+    keep = is_left & present if how == "inner" else is_left
+    total = keep.sum(dtype=torch.int32)
+    sel = _stable_front(keep)
+    if n >= out_capacity:
+        sel = sel[:out_capacity]
+    else:
+        sel = torch.cat([sel, sel.new_zeros(out_capacity - n)])
+    cnt = torch.clamp(total, max=out_capacity)
+    gmask = torch.arange(out_capacity, device=dev) < cnt
+    cols = _packed_gather(dict(left.columns), lrow.index_select(0, sel))
+    cols = {k: _mask_rows(v, gmask) for k, v in cols.items()}
+    rkeep = gmask & present.index_select(0, sel)
+    rcols = _packed_gather({name: right.columns[k]
+                            for k, name in _join_out_names(
+                                left, right, right_keys, suffix)},
+                           rrow.index_select(0, sel))
+    cols.update({k: _mask_rows(v, rkeep) for k, v in rcols.items()})
+    need = torch.where(total > out_capacity, total, 0).to(torch.int32)
+    return Batch(cols, cnt), need, dups
+
+
+def hash_join(left: Batch, right: Batch, left_keys: Sequence[str],
+              right_keys: Sequence[str], out_capacity: int,
+              suffix: str = "_r", how: str = "inner",
+              right_unique: bool = False) -> Tuple[Batch, torch.Tensor]:
+    """Equi-join of one partition's left and right rows; output columns =
+    left columns + right non-key columns (right name suffixed on
+    collision).  Returns ``(batch, need)``: ``need`` is 0 when every
+    candidate pair fit ``out_capacity``, else the candidate count, so the
+    executor can right-size the retry.
+
+    ``how="left"``: a left row without a match emits ONE row with the
+    right columns zero-filled.  ``right`` and ``full`` come with a later
+    slice.
+
+    Candidates are found on one 32-bit hash lane (``hi ^ lo * 0x9E3779B9``
+    mod 2**32): the right side sorted by (invalid, lane) — stable, so
+    candidates keep row order — two binary searches per left row, output
+    slots mapped to (left row, candidate) through a prefix sum of the
+    multiplicities; real-key equality then drops the collisions, and the
+    kept slots are compacted.
+
+    ``right_unique=True`` declares the right side a lookup table:
+    ``lookup_join`` runs, and its result stands when no two valid right
+    rows share a 64-bit key hash, else this general join runs.  The JAX
+    package picks with ``lax.cond`` on the device; the port reads the
+    flag on the host (the executor reads every partition's at once)."""
+    if how in ("right", "full"):
+        raise NotPortedYet(f'how="{how}" joins',
+                           "other two-input operators")
+    if how not in ("inner", "left"):
+        raise ValueError(f"unknown join how={how!r}")
+    if right_unique:
+        out, need, dups = lookup_join(left, right, left_keys, right_keys,
+                                      out_capacity, suffix, how)
+        if not bool(dups):
+            return out, need
+    return general_join(left, right, left_keys, right_keys, out_capacity,
+                        suffix, how)
+
+
+def general_join(left: Batch, right: Batch, left_keys: Sequence[str],
+                 right_keys: Sequence[str], out_capacity: int,
+                 suffix: str = "_r", how: str = "inner"
+                 ) -> Tuple[Batch, torch.Tensor]:
+    """``hash_join`` for any right side (duplicate keys included)."""
+    cl, cr = left.capacity, right.capacity
+    dev = left.device
+    lhi, llo = hash_batch_keys(left, left_keys)
+    rhi, rlo = hash_batch_keys(right, right_keys)
+    lh = lhi ^ mul32(llo, 0x9E3779B9)
+    rh = rhi ^ mul32(rlo, 0x9E3779B9)
+    lvalid, rvalid = left.valid_mask(), right.valid_mask()
+    order = torch.sort(((~rvalid).to(torch.int64) << 32) | rh,
+                       stable=True).indices
+    # padding rows take the all-ones sentinel; a valid row hashing to it
+    # is just one more candidate, dropped by the key check
+    rkey = torch.where(torch.arange(cr, device=dev) < right.count,
+                       rh.index_select(0, order), M32)
+    start = searchsorted_big(rkey, lh, side="left")
+    stop = searchsorted_big(rkey, lh, side="right")
+    mult = torch.where(lvalid, stop - start, 0)
+    left_synth = how == "left"
+    if left_synth:
+        # an unmatched left row still takes one (synthetic) output slot
+        synth_row = lvalid & (mult == 0)
+        mult = torch.where(synth_row, 1, mult)
+
+    # output slot -> (left row, right candidate) via the prefix sums
+    cum = torch.cumsum(mult, 0)
+    total = cum[-1]
+    t = torch.arange(out_capacity, device=dev)
+    lid = torch.clamp(searchsorted_big(cum, t, side="right"), max=cl - 1)
+    base = cum.index_select(0, lid) - mult.index_select(0, lid)
+    rid = torch.clamp(start.index_select(0, lid) + (t - base), 0, cr - 1)
+    slot_valid = t < total
+    rid_abs = order.index_select(0, rid)
+    # true key equality drops hash collisions and candidates that landed
+    # in the right side's padding
+    keep = slot_valid & (rid < right.count) & _keys_equal(
+        left, lid, left_keys, right, rid_abs, right_keys)
+    if left_synth:
+        synth_slot = slot_valid & synth_row.index_select(0, lid)
+        keep = keep | synth_slot
+    out_cols = _packed_gather(dict(left.columns), lid)
+    rpayload = {name: right.columns[k]
+                for k, name in _join_out_names(left, right, right_keys,
+                                               suffix)}
+    for name, g in _packed_gather(rpayload, rid_abs).items():
+        out_cols[name] = _mask_rows(g, ~synth_slot) if left_synth else g
+    out = compact(Batch(out_cols, torch.full((), out_capacity,
+                                             dtype=torch.int32,
+                                             device=dev)), keep)
+    need = torch.where(total > out_capacity, total, 0).to(torch.int32)
+    return out, need
 
 
 def mean_finalize_columns(cols: dict, mean_cols: Sequence[str]) -> dict:

@@ -2,9 +2,10 @@
 that the ported slices plan: sources, Select / Where, the tokenizing
 SelectMany, GroupBy with builtin or user-defined decomposable aggregates,
 the group-contents operators (top-k, rank select), OrderBy, Distinct,
-Take, explicit hash and range repartition, and partitioning claims
-(AssumePartitioning).  A ``Dataset`` method chain builds this DAG
-lazily; the planner (``plan/planner.py``) lowers it to stages."""
+Take, explicit hash and range repartition, partitioning claims
+(AssumePartitioning), the equi-Join, WithCapacity and the do_while
+loop's Placeholder.  A ``Dataset`` method chain builds this DAG lazily;
+the planner (``plan/planner.py``) lowers it to stages."""
 
 from __future__ import annotations
 
@@ -12,10 +13,11 @@ import dataclasses
 import itertools
 from typing import Any, Callable, Dict, Optional, Tuple
 
-__all__ = ["Partitioning", "Node", "Source", "Map", "Filter", "FlatTokens",
-           "Decomposable", "GroupByAgg", "GroupTopK", "GroupRankSelect",
-           "OrderBy", "Distinct", "HashRepartition", "RangeRepartition",
-           "Take", "AssumePartitioning", "walk"]
+__all__ = ["Partitioning", "Node", "Source", "Placeholder", "Map", "Filter",
+           "FlatTokens", "Decomposable", "GroupByAgg", "GroupTopK",
+           "GroupRankSelect", "Join", "OrderBy", "Distinct",
+           "HashRepartition", "RangeRepartition", "Take", "WithCapacity",
+           "AssumePartitioning", "walk"]
 
 _ids = itertools.count()
 
@@ -61,6 +63,25 @@ class Source(Node):
     parents: Tuple[Node, ...]
     data: Any
     _npartitions: int
+    _partitioning: Partitioning = Partitioning.none()
+
+    @property
+    def npartitions(self) -> int:
+        return self._npartitions
+
+    @property
+    def partitioning(self) -> Partitioning:
+        return self._partitioning
+
+
+@_node
+class Placeholder(Node):
+    """Loop-carried input of a do_while body; bound at execution time."""
+
+    parents: Tuple[Node, ...]
+    name: str
+    _npartitions: int
+    capacity: int = 0
     _partitioning: Partitioning = Partitioning.none()
 
     @property
@@ -171,6 +192,26 @@ class GroupRankSelect(Node):
 
 
 @_node
+class Join(Node):
+    """Equi-join (inner, or left-outer with zero-filled right columns)."""
+
+    parents: Tuple[Node, ...]  # (left, right)
+    left_keys: Tuple[str, ...]
+    right_keys: Tuple[str, ...]
+    expansion: float = 1.0  # out_capacity multiplier over left capacity
+    broadcast_right: bool = False
+    how: str = "inner"
+    # caller hint: right keys are unique (a lookup table) — enables the
+    # merge-fill join, verified at run time (duplicates take the general
+    # join)
+    right_unique: bool = False
+
+    @property
+    def partitioning(self) -> Partitioning:
+        return Partitioning("hash", tuple(self.left_keys))
+
+
+@_node
 class OrderBy(Node):
     """Global sort: sampled split points, a range exchange on the primary
     key, a local sort by all keys."""
@@ -223,6 +264,15 @@ class Take(Node):
 
     parents: Tuple[Node, ...]
     n: int
+
+
+@_node
+class WithCapacity(Node):
+    """Coerce per-partition capacity (pad, or truncate with an overflow
+    check): do_while bodies keep their shapes across iterations."""
+
+    parents: Tuple[Node, ...]
+    capacity: int
 
 
 @_node

@@ -10,10 +10,14 @@ exchange of the flattened states -> merge + finalize.  Distinct is a
 partial distinct -> hash exchange -> distinct; the group-contents
 operators co-locate by hash and run once.  OrderBy materializes its
 input, samples split points from it, range-exchanges on the primary key
-and sorts locally by all keys.  An exchange is elided where the input is
+and sorts locally by all keys.  A Join is one stage of two legs, each
+hash-exchanged on its keys unless already placed by them, and a body
+``join`` op; a do_while Placeholder is a leg source bound at run time;
+WithCapacity is a ``recap`` op.  An exchange is elided where the input is
 already placed as needed (partition elimination); the stages whose
-placement was trusted are marked ``placement_relied``.  P = 8 plans
-exactly as the JAX package plans on its 8-device mesh.
+placement was trusted are marked ``placement_relied`` (and never
+salted).  P = 8 plans exactly as the JAX package plans on its 8-device
+mesh.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from dryad_tpu_torch.ops.kernels import NotPortedYet, maximum, minimum
 from dryad_tpu_torch.plan import expr as E
 from dryad_tpu_torch.plan.stages import Exchange, Leg, Stage, StageGraph, \
     StageOp
@@ -86,9 +91,9 @@ def _builtin_as_decomposable(kind: str, col: Optional[str]):
     if kind == "sum":
         return E.Decomposable(lambda c: c[col], lambda a, b: a + b, None)
     if kind == "min":
-        return E.Decomposable(lambda c: c[col], torch.minimum, None)
+        return E.Decomposable(lambda c: c[col], minimum, None)
     if kind == "max":
-        return E.Decomposable(lambda c: c[col], torch.maximum, None)
+        return E.Decomposable(lambda c: c[col], maximum, None)
     if kind == "any":
         return E.Decomposable(lambda c: c[col].to(torch.bool),
                               lambda a, b: a | b, None)
@@ -116,8 +121,9 @@ def _has_user_decs(aggs: Dict[str, Any]) -> bool:
 
 
 class Planner:
-    def __init__(self, npartitions: int):
+    def __init__(self, npartitions: int, config=None):
         self.nparts = npartitions
+        self.config = config
         self.stages: List[Stage] = []
         self.frags: Dict[int, Fragment] = {}
         self.consumers: Dict[int, int] = {}
@@ -170,6 +176,7 @@ class Planner:
                         dependent.add(leg.src)
                         changed = True
         for sid in dependent:
+            self.stages[sid].salt_ok = False
             self.stages[sid].placement_relied = True
         return StageGraph(self.stages, out_id)
 
@@ -222,6 +229,10 @@ class Planner:
     def _lower(self, n: E.Node) -> Fragment:
         if isinstance(n, E.Source):
             return Fragment(("source", n.data), [], n.data.capacity,
+                            n.partitioning)
+
+        if isinstance(n, E.Placeholder):
+            return Fragment(("placeholder", n.name), [], n.capacity or 0,
                             n.partitioning)
 
         if isinstance(n, E.Map):
@@ -307,6 +318,15 @@ class Planner:
             f.ops.append(StageOp("take", {"n": n.n}))
             return f
 
+        if isinstance(n, E.WithCapacity):
+            f = self._frag(n.parents[0])
+            f.ops.append(StageOp("recap", {"capacity": n.capacity}))
+            f.capacity = n.capacity
+            return f
+
+        if isinstance(n, E.Join):
+            return self._lower_join(n)
+
         if isinstance(n, E.GroupTopK):
             f = self._frag(n.parents[0])
             op = StageOp("group_top_k", {
@@ -346,6 +366,47 @@ class Planner:
 
         raise TypeError(f"planner: unhandled node {type(n).__name__}")
 
+    def _lower_join(self, n: "E.Join") -> Fragment:
+        """Both legs hash-exchange on their keys unless already placed by
+        them; the body joins.  The broadcast form comes with k-means."""
+        lf = self._frag(n.parents[0])
+        rf = self._frag(n.parents[1])
+        lkeys, rkeys = tuple(n.left_keys), tuple(n.right_keys)
+        out_cap = max(1, int(lf.capacity * n.expansion))
+        bthresh = getattr(self.config, "broadcast_join_threshold", 0.0) \
+            if self.config else 0.0
+        broadcast_right = n.broadcast_right or (
+            bthresh > 0 and rf.capacity * self.nparts <= bthresh * lf.capacity)
+        if n.how in ("right", "full"):
+            broadcast_right = False
+        if self.nparts == 1:
+            lex = rex = None
+        elif broadcast_right:
+            raise NotPortedYet("the broadcast join", "k-means")
+        else:
+            lex = None if (lf.partitioning.kind == "hash"
+                           and lf.partitioning.keys == lkeys) else \
+                Exchange("hash", keys=lkeys, out_capacity=lf.capacity)
+            rex = None if (rf.partitioning.kind == "hash"
+                           and rf.partitioning.keys == rkeys) else \
+                Exchange("hash", keys=rkeys, out_capacity=rf.capacity)
+            if lex is None:
+                self._rely_on_placement(lf)
+            if rex is None:
+                self._rely_on_placement(rf)
+        st = self._new_stage(
+            [Leg(lf.src, lf.ops, lex), Leg(rf.src, rf.ops, rex)],
+            [StageOp("join", {"left_keys": lkeys, "right_keys": rkeys,
+                              "out_capacity": out_cap, "how": n.how,
+                              "right_unique": n.right_unique})],
+            "join")
+        # the JAX executor may salt this stage's exchanges on hot-key skew:
+        # only the two-hash-exchange inner/left shape, and plan() clears
+        # it where a later elimination trusted the placement
+        st.salt_ok = (lex is not None and rex is not None
+                      and n.how in ("inner", "left"))
+        return Fragment(st.id, [], out_cap, E.Partitioning("hash", lkeys))
+
     def _lower_order_by(self, n: "E.OrderBy") -> Fragment:
         f = self._frag(n.parents[0])
         sort_keys = tuple(k for k, _ in n.keys)
@@ -383,5 +444,5 @@ class Planner:
                         else E.Partitioning.none())
 
 
-def plan_query(root: E.Node, npartitions: int) -> StageGraph:
-    return Planner(npartitions).plan(root)
+def plan_query(root: E.Node, npartitions: int, config=None) -> StageGraph:
+    return Planner(npartitions, config=config).plan(root)

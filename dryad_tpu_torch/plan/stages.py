@@ -46,7 +46,7 @@ class Leg:
     """One input arm of a stage: source stage (or bound source data),
     local ops before the exchange, optional exchange."""
 
-    src: Any  # int stage id | ("source", data)
+    src: Any  # int stage id | ("source", data) | ("placeholder", name)
     ops: List[StageOp] = dataclasses.field(default_factory=list)
     exchange: Optional[Exchange] = None
 
@@ -65,6 +65,10 @@ class Stage:
     # stage's output placement (the planner's placement_dependent
     # closure): nothing may change where its rows land
     placement_relied: bool = False
+    # a two-hash-exchange inner/left join stage that the JAX executor may
+    # switch to a hot-key-salted exchange on skew (the port raises
+    # NotPortedYet where that switch would happen)
+    salt_ok: bool = False
 
 
 @dataclasses.dataclass
@@ -82,8 +86,12 @@ class StageGraph:
         for st in self.stages:
             srcs = []
             for leg in st.legs:
-                s = f"stage{leg.src}" if isinstance(leg.src, int) \
-                    else "source"
+                if isinstance(leg.src, int):
+                    s = f"stage{leg.src}"
+                elif leg.src[0] == "placeholder":
+                    s = f"placeholder:{leg.src[1]}"
+                else:
+                    s = "source"
                 ops = ",".join(o.kind for o in leg.ops) or "-"
                 ex = ""
                 if leg.exchange:

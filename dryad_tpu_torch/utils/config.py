@@ -20,6 +20,21 @@ class JobConfig:
     # range exchange split points: ordering lanes sampled per partition
     # (evenly spread over its valid rows) before the bounds are picked
     range_samples_per_partition: int = 4096
+    # hot-key salting: a saltable join stage would switch to the salted
+    # exchange when a retry needs >= trigger x the current per-destination
+    # capacity (the port raises NotPortedYet there instead)
+    salt_trigger_factor: int = 4
+
+    # -- planner (plan/planner.py) -----------------------------------------
+    # default fan-out allowance for join output capacity (out = expansion *
+    # left capacity); per-join override via Dataset.join(expansion=...)
+    join_expansion: float = 1.0
+    # broadcast the build side instead of hash-exchanging both sides when
+    # its capacity is at most this fraction of the probe side's
+    broadcast_join_threshold: float = 0.0   # 0 disables auto-broadcast
+
+    # -- iteration (api do_while) ------------------------------------------
+    max_loop_iterations: int = 1000
 
     # -- collect shrink policy (exec/data.py) ------------------------------
     collect_shrink_min_capacity: int = 1024
@@ -36,6 +51,11 @@ class JobConfig:
             (self.initial_send_slack >= 1, "initial_send_slack >= 1"),
             (self.range_samples_per_partition >= 2,
              "range_samples_per_partition >= 2"),
+            (self.salt_trigger_factor >= 2, "salt_trigger_factor >= 2"),
+            (self.join_expansion > 0, "join_expansion > 0"),
+            (self.broadcast_join_threshold >= 0,
+             "broadcast_join_threshold >= 0"),
+            (self.max_loop_iterations >= 1, "max_loop_iterations >= 1"),
             (self.token_max_len >= 1, "token_max_len >= 1"),
             (self.string_max_len >= 1, "string_max_len >= 1"),
             (len(self.token_delims) >= 1, "token_delims non-empty"),
