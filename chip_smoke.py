@@ -2,7 +2,7 @@
 """Drive the PyTorch port (dryad_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--lines N] [--rows N] [--records N] [--nodes N]
-                          [--out DIR]
+                          [--points N] [--out DIR]
 
 Phases, each failing the run (non-zero exit, no result line) on error:
 
@@ -72,7 +72,31 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      NaN min/max: ``group_by(["k"], min/max of v)`` over 400 rows with
      NaNs, and an ``order_by`` of the max, on the card against a numpy
      oracle bit for bit (a NaN result is the JAX package's 0x7FC00000);
-  3-7. after each of those ten main-path runs, every kernel call it made
+  8. k-means (``kmeans500k``) through the same entry points at the JAX
+     bench's size for BASELINE config 5: ``gen_points(500,000, 8, 16,
+     seed=0)``, k = 16, 5 iterations, init = the first 16 points:
+     ``from_columns -> with_capacity -> do_while(cross_apply over the
+     broadcast centroid table -> group_by mean -> with_capacity) ->
+     collect``.  Every cid present and every centroid within rtol and
+     atol 1e-3 of ``kmeans_numpy`` (float64); the exchange's four
+     kernels must launch, hist_buckets and slot_expand once per hash
+     exchange and slot_compact 8 times per hash exchange plus ONCE per
+     broadcast (the executor's own log).  One cold and one warm run,
+     load and query, time per iteration, points per second per
+     iteration, attempts per stage.  Then, each one main-path run held
+     the same way: ``setops1m`` (``union``, ``intersect``, ``except_``
+     and ``concat`` of two 1,000,000-row tables of (k, k % 97), keys
+     drawn with replacement from overlapping ranges) against numpy's
+     sets of rows (a multiset for concat); ``bcastjoin2m`` (the
+     GroupByReduce pairs joined with a unique-keyed 10,000-row table,
+     ``broadcast=True``: one slot_compact and no other exchange kernel)
+     as a multiset against the same join planned with hash exchanges
+     and against numpy; ``scalars2m`` (count, first, sum / min / max of
+     the int32 key, sum / mean / min / max of the f32 value, any / all
+     of derived flags, NaN min / max, ``aggregate`` with a user
+     Decomposable) against numpy: the f32 sum and mean within the
+     GroupByReduce bound, the rest exactly, NaN bits as numpy's;
+  3-8. after each of those main-path runs, every kernel call it made
      is made again through the kernel and through its plain version on
      the very tensors the run passed (integers exactly, prefix_sum2
      within twice its bound);
@@ -80,8 +104,8 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      largest call of one main-path run (``TIMED_ON``; CUDA events), the
      bound the card's memory rate sets for the same bytes, and a
      torch.profiler breakdown of one warm run of each timed path and of
-     TeraSort and PageRank (a kernel launched in any of them that shows
-     no profiled device time in three takes fails the run).
+     TeraSort, PageRank and k-means (a kernel launched in any of them
+     that shows no profiled device time in three takes fails the run).
      Per kernel at its timed shape also: the device time per call and the
      device events (kernels, memsets) per call from a profiler window
      around 20 calls, and the host's enqueue time per call (200 calls, no
@@ -89,11 +113,12 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      (hist_buckets, slot_expand, copy kernels, the rest of the pack
      range), against its bound, beside the send-buffer copies that the
      batched slot_expand removed, replayed at the same shape.  A kernel
-     row's ``launches`` sums its launches over the ten main-path runs;
+     row's ``launches`` sums its launches over the main-path runs;
      ``runs`` gives each run's own count and |kernel - plain|.
 
 Output: one JSON line per corpus, per GroupByReduce variant, per sort
-path, for PageRank and the NaN hold, per pack side and per kernel, then
+path, for PageRank and the NaN hold, for k-means and each phase-8 run,
+per profile, per pack side and per kernel, then
 the card line, then the
 ``{"kernels": [...]}`` line, then the result line
 ``{"ok": true, "device": {...}}`` last.
@@ -505,21 +530,26 @@ def check_cancellation(hk, t) -> None:
                              "f32 prefix met the group bound")
 
 
-def check_per_exchange(run, launches, attempts=None) -> None:
-    """hist_buckets and slot_expand launch once per exchange: as often as
-    the exchange's unpack runs (slot_compact once per destination).  A
+def check_per_exchange(run, launches, attempts=None,
+                       broadcasts: int = 0) -> None:
+    """hist_buckets and slot_expand launch once per hash or range
+    exchange: as often as the exchange's unpack runs (slot_compact once
+    per destination).  A broadcast launches exactly one slot_compact and
+    nothing else, so ``broadcasts`` (the executor's count of broadcast
+    legs times attempts) come off slot_compact's launches first.  A
     capacity retry runs the stage's exchanges again, and a join stage has
     up to two exchanging legs, so ``attempts``, where given, is the
-    executor's own count of exchanging legs times attempts over its
-    ``stage_log`` (``exchange_attempts``), which must agree."""
-    exchanges, rest = divmod(launches["slot_compact"], NPARTS)
+    executor's own count of hash / range exchanging legs times attempts
+    over its ``stage_log`` (``exchange_attempts``), which must agree."""
+    exchanges, rest = divmod(launches["slot_compact"] - broadcasts, NPARTS)
     bad = {k: launches[k] for k in PER_EXCHANGE if launches[k] != exchanges}
     if attempts is not None and attempts != exchanges:
         bad["executor_attempts"] = attempts
-    if rest or not exchanges or bad:
-        raise AssertionError(f"{run}: {exchanges} exchanges "
-                             f"(slot_compact {launches['slot_compact']}) "
-                             f"but launches {bad}: not once per exchange")
+    if rest or exchanges < 0 or not (exchanges or broadcasts) or bad:
+        raise AssertionError(f"{run}: {exchanges} exchanges and "
+                             f"{broadcasts} broadcasts (slot_compact "
+                             f"{launches['slot_compact']}) but launches "
+                             f"{bad}: not once per exchange")
 
 
 # ---------------------------------------------------------------------------
@@ -756,18 +786,24 @@ def run_sort(port, hk, data, str_max_len, queries):
 
 def exchanging_stages(logs) -> list:
     """Each exchanging stage of a run: its label, exchange kind, number of
-    exchanging legs, retries (attempts past the first) and final capacity
-    scale."""
+    exchanging legs (broadcast legs among them), retries (attempts past
+    the first) and final capacity scale."""
     return [{"stage": st["label"], "exchange": st["exchange"],
-             "exchanges": st["exchanges"],
+             "exchanges": st["exchanges"], "broadcasts": st["broadcasts"],
              "retries": st["attempts"] - 1, "scale": st["scale"]}
             for log in logs for st in log if st["exchange"]]
 
 
 def exchange_attempts(stages) -> int:
-    """Exchanges the executor ran over ``exchanging_stages``: each
-    exchanging leg once per attempt."""
-    return sum((st["retries"] + 1) * st["exchanges"] for st in stages)
+    """Hash and range exchanges the executor ran over
+    ``exchanging_stages``: each such leg once per attempt."""
+    return sum((st["retries"] + 1) * (st["exchanges"] - st["broadcasts"])
+               for st in stages)
+
+
+def broadcast_attempts(stages) -> int:
+    """Broadcasts the executor ran over ``exchanging_stages``."""
+    return sum((st["retries"] + 1) * st["broadcasts"] for st in stages)
 
 
 # ---------------------------------------------------------------------------
@@ -778,13 +814,13 @@ PR_EDGES, PR_ITERS = 1_000_000, 10   # the JAX bench's (bench.py:2038-2045)
 PR_RTOL = 2e-3                       # tests/test_apps.py's test_pagerank
 
 
-def run_pagerank(port, hk, pr, edges, n_nodes, device="cuda"):
-    """One main-path PageRank run through the app's entry point
-    (``pagerank()``: from_columns -> join -> cache -> do_while ->
-    collect), with the context's ``from_columns`` timed as load and each
-    executor run timed and logged.  Counters zeroed just before, read just
-    after.  Returns (table, launches, load_s, query_s, runs): ``runs`` is
-    one dict per executor run (a superstep or not, seconds, stage log)."""
+def run_app(port, hk, app, device="cuda"):
+    """One main-path run of ``app(ctx)`` through the user's entry points,
+    with the context's ``from_columns`` timed as load and each executor
+    run timed and logged.  Counters zeroed just before, read just after.
+    Returns (app's result, launches, load_s, query_s, runs): ``runs`` is
+    one dict per executor run (a do_while superstep or not, seconds,
+    stage log)."""
     import torch
 
     def sync():
@@ -815,10 +851,17 @@ def run_pagerank(port, hk, pr, edges, n_nodes, device="cuda"):
     hk.reset_launches()
     sync()
     t0 = time.perf_counter()
-    out = pr.pagerank(ctx, edges, n_nodes, n_iters=PR_ITERS)
+    out = app(ctx)
     sync()
     wall = time.perf_counter() - t0
     return out, dict(hk.launches), load[0], wall - load[0], runs
+
+
+def run_pagerank(port, hk, pr, edges, n_nodes, device="cuda"):
+    """PageRank's main path (``pagerank()``: from_columns -> join -> cache
+    -> do_while -> collect) through ``run_app``."""
+    return run_app(port, hk, lambda ctx: pr.pagerank(
+        ctx, edges, n_nodes, n_iters=PR_ITERS), device)
 
 
 def check_pagerank(out, edges, n_nodes, pr) -> dict:
@@ -842,18 +885,20 @@ def check_pagerank(out, edges, n_nodes, pr) -> dict:
     return {"nodes": n_nodes, "max_rel_err": rel, "rank_sum": total}
 
 
-def pagerank_stages(runs) -> dict:
-    """The executor's log of a PageRank job: the exchanging stages of its
-    runs outside the loop, each superstep's attempts per stage, and the
-    exchange count (legs x attempts) over all runs."""
+def loop_stages(runs) -> dict:
+    """The executor's log of a job: the exchanging stages of its runs
+    outside a do_while loop, each superstep's attempts per stage, and the
+    hash / range exchange and broadcast counts (legs x attempts) over all
+    runs."""
     outside = [st for r in runs if not r["superstep"]
                for st in exchanging_stages([r["stages"]])]
     steps = [[{"stage": st["label"], "exchanges": st["exchanges"],
                "attempts": st["attempts"]} for st in r["stages"]]
              for r in runs if r["superstep"]]
+    every = exchanging_stages([r["stages"] for r in runs])
     return {"outside_loop": outside, "supersteps": steps,
-            "exchange_attempts": exchange_attempts(
-                exchanging_stages([r["stages"] for r in runs]))}
+            "exchange_attempts": exchange_attempts(every),
+            "broadcast_attempts": broadcast_attempts(every)}
 
 
 def nan_minmax_data(n: int = 400):
@@ -918,6 +963,184 @@ def check_nan_minmax(port, device="cuda") -> dict:
     return {"groups": len(want), "nan_max_groups": int(nan.sum()),
             "nan_min_groups": int(sum(np.isnan(np.array(
                 [w[0] for w in want.values()], np.uint32).view(np.float32))))}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: k-means, the set operators, the broadcast join, the scalars
+
+
+KM_DIM, KM_K, KM_ITERS = 8, 16, 5    # the JAX bench's (bench.py:2014-2019)
+KM_TOL = 1e-3                        # tests/test_apps.py's test_kmeans
+SETOPS = ("union", "intersect", "except_", "concat")
+
+
+def run_kmeans(port, hk, km, pts, device="cuda"):
+    """k-means' main path (``kmeans()``: from_columns -> with_capacity ->
+    do_while(cross_apply over the broadcast centroids -> group_by mean ->
+    with_capacity) -> collect) through ``run_app``; init = the first k
+    points."""
+    return run_app(port, hk, lambda ctx: km.kmeans(
+        ctx, pts, KM_K, n_iters=KM_ITERS), device)
+
+
+def check_kmeans(cents, pts, km) -> dict:
+    """Every cid present (k rows: a cluster that lost every point would
+    drop out), each centroid within rtol and atol KM_TOL of the float64
+    ``kmeans_numpy``."""
+    ref = km.kmeans_numpy(pts, KM_K, KM_ITERS)
+    got = np.asarray(cents, np.float64)
+    if got.shape != ref.shape:
+        raise AssertionError(f"kmeans: {got.shape[0]} centroids, not "
+                             f"{KM_K}: a cid is missing")
+    dev = np.abs(got - ref)
+    if not np.all(dev <= KM_TOL + KM_TOL * np.abs(ref)):
+        raise AssertionError(f"kmeans: a centroid is {dev.max():.3g} off "
+                             f"kmeans_numpy")
+    return {"points": len(pts["x"]), "dim": KM_DIM, "k": KM_K,
+            "iters": KM_ITERS, "max_abs_dev": float(dev.max()),
+            "max_rel_dev": float((dev / np.abs(ref)).max())}
+
+
+def setop_tables(n: int):
+    """Two tables of ``n`` rows (k int32, tag = k % 97): k drawn with
+    replacement, seeds 0 and 1, the left from [0, 2**20), the right from
+    [2**19, 2**19 + 2**20): duplicates on both sides, overlapping by
+    half."""
+    lk = np.random.RandomState(0).randint(0, 2**20, n).astype(np.int32)
+    rk = np.random.RandomState(1).randint(2**19, 2**19 + 2**20, n).astype(
+        np.int32)
+    return ({"k": lk, "tag": lk % 97}, {"k": rk, "tag": rk % 97})
+
+
+def setop_queries(ctx, left, right) -> dict:
+    a, b = ctx.from_columns(left), ctx.from_columns(right)
+    return {op: getattr(a, op)(b).collect() for op in SETOPS}
+
+
+def check_setops(outs, left, right) -> dict:
+    """Each operator's rows against numpy: a row is fixed by k (tag = k %
+    97 everywhere), so union / intersect / except_ must hold exactly
+    numpy's sorted set of keys, each once, and concat the multiset of
+    both sides' keys."""
+    lk, rk = left["k"], right["k"]
+    want = {"union": np.union1d(lk, rk), "intersect": np.intersect1d(lk, rk),
+            "except_": np.setdiff1d(lk, rk),
+            "concat": np.sort(np.concatenate([lk, rk]))}
+    rows = {}
+    for op in SETOPS:
+        k, tag = np.asarray(outs[op]["k"]), np.asarray(outs[op]["tag"])
+        if not np.array_equal(tag, k % 97):
+            raise AssertionError(f"setops {op}: a row's tag is not k % 97")
+        if not np.array_equal(np.sort(k), want[op]):
+            raise AssertionError(f"setops {op}: the rows differ from "
+                                 f"numpy's")
+        rows[op] = len(k)
+    return {"rows_each": len(lk), "out_rows": rows}
+
+
+def bcast_tables(gbr, rows: int):
+    """The GroupByReduce pairs (``gen_pairs(rows, 10,000)``, seed 0) and a
+    10,000-row unique-keyed table (k, w = 3k + 1)."""
+    k = np.arange(10_000, dtype=np.int32)
+    return gbr.gen_pairs(rows, 10_000, seed=0), {"k": k, "w": 3 * k + 1}
+
+
+def bcast_join(ctx, left, right, broadcast: bool = True):
+    return ctx.from_columns(left).join(ctx.from_columns(right), ["k"],
+                                       broadcast=broadcast).collect()
+
+
+def _sorted_rows(t, cols):
+    """A table's columns in one canonical row order (a multiset)."""
+    order = np.lexsort([np.asarray(t[c]).view(np.int32) for c in cols])
+    return [np.asarray(t[c])[order] for c in cols]
+
+
+def check_bcast_join(out, hashed, left) -> dict:
+    """The broadcast join as a multiset: equal to the same join planned
+    with hash exchanges, and to numpy's (every left row once, w = 3k +
+    1)."""
+    cols = ("k", "v", "w")
+    got = _sorted_rows(out, cols)
+    want = _sorted_rows({**left, "w": 3 * left["k"] + 1}, cols)
+    for name, other in (("the hash-join plan's", _sorted_rows(hashed, cols)),
+                        ("numpy's", want)):
+        if not all(np.array_equal(a.view(np.int32), b.view(np.int32))
+                   for a, b in zip(got, other)):
+            raise AssertionError(f"bcastjoin: rows differ from {name}")
+    return {"rows": len(got[0]), "right_rows": 10_000}
+
+
+def scalar_queries(port, ctx, data, nan_data) -> dict:
+    """Every terminal scalar on the GroupByReduce pairs, and min / max of
+    the NaN data's f32 column."""
+    ds = ctx.from_columns(data)
+    flags = ds.select(lambda c: {"pos": c["v"] > 0,
+                                 "big": c["v"] > -100})
+    nan = ctx.from_columns(nan_data)
+    stats = port_stats(port)
+    return {
+        "count": ds.count(), "first": ds.first(),
+        "sum_k": ds.sum("k"), "min_k": ds.min("k"), "max_k": ds.max("k"),
+        "sum_v": ds.sum("v"), "mean_v": ds.mean("v"),
+        "min_v": ds.min("v"), "max_v": ds.max("v"),
+        "any_pos": flags.any("pos"), "all_pos": flags.all("pos"),
+        "all_big": flags.all("big"),
+        "nan_min": nan.min("v"), "nan_max": nan.max("v"),
+        "aggregate": ds.aggregate(stats),
+    }
+
+
+def port_stats(port):
+    """A user Decomposable: count, sum, min and max of ``v``."""
+    import torch
+
+    def seed(c):
+        v = c["v"]
+        return (torch.ones(v.shape[0], dtype=torch.int32, device=v.device),
+                v, v, v)
+    return port.Decomposable(
+        seed, lambda a, b: (a[0] + b[0], a[1] + b[1],
+                            torch.minimum(a[2], b[2]),
+                            torch.maximum(a[3], b[3])),
+        lambda s: {"n": s[0], "s": s[1], "lo": s[2], "hi": s[3]})
+
+
+def check_scalars(got, data, nan_data) -> dict:
+    """Against numpy: the f32 sum and mean within the GroupByReduce bound
+    (16 eps sum|v|, over n for the mean), the rest exactly, NaN min / max
+    with numpy's bits."""
+    k, v = data["k"], data["v"]
+    v64 = v.astype(np.float64)
+    bound = 16 * EPS * float(np.abs(v64).sum())
+    exact = {"count": len(k), "sum_k": int(k.astype(np.int64).sum()),
+             "min_k": int(k.min()), "max_k": int(k.max()),
+             "min_v": v.min(), "max_v": v.max(),
+             "any_pos": bool((v > 0).any()), "all_pos": bool((v > 0).all()),
+             "all_big": bool((v > -100).all())}
+    bad = [n for n, w in exact.items() if not got[n] == w]
+    first = got["first"]
+    if int(first["k"]) != int(k[0]) or np.float32(first["v"]) != v[0]:
+        bad.append("first")
+    if not abs(float(got["sum_v"]) - v64.sum()) <= bound:
+        bad.append("sum_v")
+    if not abs(float(got["mean_v"]) - v64.mean()) <= bound / len(v):
+        bad.append("mean_v")
+    for name in ("nan_min", "nan_max"):
+        want = getattr(np, name[4:])(nan_data["v"])
+        if np.float32(got[name]).view(np.uint32) != np.float32(want).view(
+                np.uint32):
+            bad.append(name)
+    agg = got["aggregate"]
+    if not (int(agg["n"]) == len(k) and agg["lo"] == v.min()
+            and agg["hi"] == v.max()
+            and abs(float(agg["s"]) - v64.sum()) <= bound):
+        bad.append("aggregate")
+    if bad:
+        raise AssertionError(f"scalars: {bad} differ from numpy")
+    return {"rows": len(k), "scalars": len(got),
+            "sum_v_err": abs(float(got["sum_v"]) - v64.sum()),
+            "sum_v_bound": bound}
 
 
 # ---------------------------------------------------------------------------
@@ -1325,6 +1548,8 @@ def main(argv=None) -> int:
     ap.add_argument("--records", type=int, default=1_000_000)
     ap.add_argument("--nodes", type=int, default=100_000,
                     help="PageRank nodes; edges are 10x the nodes")
+    ap.add_argument("--points", type=int, default=500_000,
+                    help="k-means points (dim 8, k = 16, 5 iterations)")
     ap.add_argument("--out", default=os.path.join(HERE, "chiprun_out"))
     a = ap.parse_args(argv)
 
@@ -1355,6 +1580,7 @@ def main(argv=None) -> int:
 
     port = import_port()
     from dryad_tpu_torch.apps import groupbyreduce as gbr
+    from dryad_tpu_torch.apps import kmeans as km
     from dryad_tpu_torch.apps import pagerank as pr
     from dryad_tpu_torch.apps import terasort as ts
     from dryad_tpu_torch.apps import wordcount as wc
@@ -1487,7 +1713,7 @@ def main(argv=None) -> int:
     zero = [k for k in TPU_KERNEL if launches[k] == 0]
     if zero:
         raise AssertionError(f"pagerank100k: kernels never launched: {zero}")
-    stages = pagerank_stages(pr_runs)
+    stages = loop_stages(pr_runs)
     check_per_exchange("pagerank100k", launches, stages["exchange_attempts"])
     _, _, wload, wquery, wruns = run_pagerank(port, hk, pr, edges, a.nodes)
     steps = [r["s"] for r in wruns if r["superstep"]]
@@ -1495,7 +1721,7 @@ def main(argv=None) -> int:
         "pagerank": "pagerank100k", **sizes, "edges": n_edges,
         "edges_with_ring": len(edges["src"]), "iters": PR_ITERS,
         "nparts": NPARTS, "launches": launches, "stages": stages,
-        "warm_stages": pagerank_stages(wruns),
+        "warm_stages": loop_stages(wruns),
         "cold_wall_s": load + qs, "cold_load_s": load, "cold_query_s": qs,
         "warm_wall_s": wload + wquery, "warm_load_s": wload,
         "warm_query_s": wquery, "warm_superstep_s": steps,
@@ -1506,6 +1732,72 @@ def main(argv=None) -> int:
             r["s"] for r in wruns),
         "card": card})
     emit({"nan_minmax": check_nan_minmax(port), "ok": True, "card": card})
+
+    km_pts, _ = km.gen_points(a.points, KM_DIM, KM_K, seed=0)
+    hk.capture = {}
+    cents, launches, load, qs, km_runs = run_kmeans(port, hk, km, km_pts)
+    captured, hk.capture = hk.capture, None
+    sizes = check_kmeans(cents, km_pts, km)
+    held("kmeans500k", launches, captured)
+    del captured
+    zero = [k for k in EXCHANGE if launches[k] == 0]
+    if zero:
+        raise AssertionError(f"kmeans500k: kernels never launched: {zero}")
+    stages = loop_stages(km_runs)
+    check_per_exchange("kmeans500k", launches, stages["exchange_attempts"],
+                       stages["broadcast_attempts"])
+    _, _, wload, wquery, wruns = run_kmeans(port, hk, km, km_pts)
+    steps = [r["s"] for r in wruns if r["superstep"]]
+    emit({
+        "kmeans": "kmeans500k", **sizes, "nparts": NPARTS,
+        "launches": launches, "stages": stages,
+        "warm_stages": loop_stages(wruns),
+        "cold_wall_s": load + qs, "cold_load_s": load, "cold_query_s": qs,
+        "warm_wall_s": wload + wquery, "warm_load_s": wload,
+        "warm_query_s": wquery, "warm_iteration_s": steps,
+        "warm_iteration_mean_s": sum(steps) / len(steps),
+        "points_per_s_iter": a.points * KM_ITERS / wquery,
+        "card": card})
+
+    # the set operators, the broadcast join and the scalars: each one
+    # main-path run, its kernel calls held, its launches checked against
+    # the executor's log
+    left, right = setop_tables(a.rows // 2)
+    bleft, bright = bcast_tables(gbr, a.rows)
+    nan_data = nan_minmax_data()
+    phase8 = {
+        "setops1m": (lambda ctx: setop_queries(ctx, left, right),
+                     lambda out: check_setops(out, left, right), EXCHANGE),
+        "bcastjoin2m": (lambda ctx: bcast_join(ctx, bleft, bright),
+                        lambda out: check_bcast_join(out, run_app(
+                            port, hk, lambda c: bcast_join(
+                                c, bleft, bright, broadcast=False))[0],
+                            bleft), ("slot_compact",)),
+        "scalars2m": (lambda ctx: scalar_queries(port, ctx, gbr_data,
+                                                 nan_data),
+                      lambda out: check_scalars(out, gbr_data, nan_data),
+                      EXCHANGE),
+    }
+    for label, (app, check, must) in phase8.items():
+        hk.capture = {}
+        out, launches, load, qs, app_runs = run_app(port, hk, app)
+        captured, hk.capture = hk.capture, None
+        held(label, launches, captured)
+        del captured
+        zero = [k for k in must if launches[k] == 0]
+        if zero:
+            raise AssertionError(f"{label}: kernels never launched: {zero}")
+        stages = loop_stages(app_runs)
+        check_per_exchange(label, launches, stages["exchange_attempts"],
+                           stages["broadcast_attempts"])
+        sizes = check(out)
+        del out
+        emit({"phase8": label, **sizes, "nparts": NPARTS,
+              "launches": launches,
+              "exchanging_stages": stages["outside_loop"],
+              "exchange_attempts": stages["exchange_attempts"],
+              "broadcast_attempts": stages["broadcast_attempts"],
+              "load_s": load, "query_s": qs, "card": card})
 
     wc_prof = profile_path(
         lambda: run_wordcount(port, hk, wc, corpora["zipf50k"]),
@@ -1527,6 +1819,11 @@ def main(argv=None) -> int:
         lambda: run_pagerank(port, hk, pr, edges, a.nodes)[:4],
         "pagerank100k", a.out, pack=False)
     emit({"profile": "pagerank100k warm run", **_no_pack(pr_prof),
+          "card": card})
+    km_prof = profile_path(
+        lambda: run_kmeans(port, hk, km, km_pts)[:4], "kmeans500k", a.out,
+        pack=False)
+    emit({"profile": "kmeans500k warm run", **_no_pack(km_prof),
           "card": card})
     for label, prof in (("zipf50k", wc_prof), ("app10k", gbr_prof),
                         ("terasort1m", tera_prof)):

@@ -17,7 +17,11 @@ a range exchange, a local sort), with the rest of the sort family
 (range_partition, assume_range_partition / assume_order_by, take,
 distinct, group_top_k, group_median), and PageRank (from_columns -> join
 -> cache -> do_while -> collect: two-leg join stages, inner and left,
-with the lookup-table form; with_capacity; the in-memory cache).
+with the lookup-table form; with_capacity; the in-memory cache), and
+k-means (cross_apply over a broadcast centroid table -> group_by mean
+under do_while), with broadcast joins, the set operators (union,
+intersect, except_, concat) and the terminal scalars (count, sum, min,
+max, mean, any, all, first, aggregate).
 """
 
 __version__ = "0.1.0"

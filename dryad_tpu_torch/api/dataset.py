@@ -1,9 +1,13 @@
 """User-facing API: ``Context`` and the lazy ``Dataset`` — the subset of
-``dryad_tpu/api/dataset.py`` that WordCount, GroupByReduce, TeraSort and
-PageRank call, with the sort family (``order_by``, ``range_partition``,
-the ``assume_*`` claims, ``take``, ``distinct``, ``group_top_k``,
-``group_median``), ``join`` (inner / left), ``with_capacity``, the
-in-memory ``cache`` and ``Context.do_while``.
+``dryad_tpu/api/dataset.py`` that WordCount, GroupByReduce, TeraSort,
+PageRank and k-means call, with the sort family (``order_by``,
+``range_partition``, the ``assume_*`` claims, ``take``, ``distinct``,
+``group_top_k``, ``group_median``), ``join`` (inner / left, hash or
+broadcast), ``cross_apply``, ``broadcast``, the set operators (``union``,
+``intersect``, ``except_``, ``concat``), ``with_capacity``, the
+in-memory ``cache``, ``Context.do_while`` and the terminal scalars
+(``count``, ``sum``, ``min``, ``max``, ``mean``, ``any``, ``all``,
+``first``, ``aggregate``).
 
 ``Context(device="cuda", nparts=8)`` runs ``nparts`` logical partitions
 on one CUDA card (``parallel/mesh.py``).  The device is CUDA unless the
@@ -15,16 +19,33 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
+import torch
+
 from dryad_tpu_torch.exec.data import PData, maybe_shrink_for_collect, \
-    pdata_from_host, pdata_to_host
+    pdata_from_host, pdata_to_host, split_partitions
 from dryad_tpu_torch.exec.executor import Executor
-from dryad_tpu_torch.ops.kernels import NotPortedYet
+from dryad_tpu_torch.ops.kernels import NotPortedYet, scalar_aggregate
 from dryad_tpu_torch.parallel.mesh import Mesh, resolve_device
 from dryad_tpu_torch.plan import expr as E
 from dryad_tpu_torch.plan.planner import plan_query
 from dryad_tpu_torch.utils.config import JobConfig
 
 __all__ = ["Context", "Dataset"]
+
+
+def _add_agg_key(cols):
+    """The columns plus a zero int32 ``__agg_key`` (one global group for
+    the whole-dataset ``aggregate``)."""
+    v = next(iter(cols.values()))
+    t = v.lengths if hasattr(v, "lengths") else v
+    return dict(cols, __agg_key=torch.zeros(t.shape[0], dtype=torch.int32,
+                                            device=t.device))
+
+
+def _first_if_one(v):
+    v = np.asarray(v)
+    return v[0] if v.shape and v.shape[0] == 1 else v
 
 
 class Context:
@@ -204,6 +225,51 @@ class Dataset:
         return Dataset(self.ctx, E.WithCapacity(parents=(self.node,),
                                                 capacity=capacity))
 
+    def cross_apply(self, other: "Dataset", fn, host_fn=None,
+                    label: str = "cross_apply") -> "Dataset":
+        """``fn(batch, other_batch) -> Batch`` on every partition, with
+        ``other`` broadcast to every partition (small data).  ``fn`` sees
+        the port's Batches: torch tensors on the context's device, the
+        count a 0-d int32 tensor.  ``host_fn(table, other_table)`` is the
+        same function on host tables, kept with the plan."""
+        return Dataset(self.ctx, E.CrossApply(
+            parents=(self.node, other.node), fn=fn, host_fn=host_fn,
+            label=label))
+
+    def broadcast(self) -> "Dataset":
+        """Replicate to every partition (small datasets)."""
+        return Dataset(self.ctx, E.Broadcast(parents=(self.node,)))
+
+    def union(self, other: "Dataset") -> "Dataset":
+        """The distinct rows of both (set semantics, all columns)."""
+        return Dataset(self.ctx, E.SetOp(parents=(self.node, other.node),
+                                         op="union"))
+
+    def intersect(self, other: "Dataset") -> "Dataset":
+        """The distinct rows found in both."""
+        return Dataset(self.ctx, E.SetOp(parents=(self.node, other.node),
+                                         op="intersect"))
+
+    def except_(self, other: "Dataset") -> "Dataset":
+        """The distinct rows of this dataset not found in ``other``."""
+        return Dataset(self.ctx, E.SetOp(parents=(self.node, other.node),
+                                         op="except"))
+
+    def concat(self, other: "Dataset") -> "Dataset":
+        """Every row of both (a multiset), partition by partition."""
+        return Dataset(self.ctx, E.Concat(parents=(self.node, other.node)))
+
+    def aggregate(self, dec: "E.Decomposable"):
+        """Whole-dataset user-defined aggregation: the decomposable
+        protocol over ONE global group (a const-key ``group_by``); returns
+        the finalized value, or a dict of them for a dict finalize."""
+        const = self.select(_add_agg_key, label="agg-key")
+        out = const.group_by(["__agg_key"], {"agg": dec}).collect()
+        res = {k: v for k, v in out.items() if k != "__agg_key"}
+        if set(res) == {"agg"}:
+            return _first_if_one(res["agg"])
+        return {k: _first_if_one(v) for k, v in res.items()}
+
     def join(self, other: "Dataset", left_keys: Sequence[str],
              right_keys: Sequence[str] | None = None,
              expansion: float | None = None, broadcast: bool = False,
@@ -215,8 +281,11 @@ class Dataset:
         zero-filled.  ``right_unique=True`` declares the right side
         unique-keyed (a lookup table) and routes matching through the
         merge-fill join; uniqueness is checked at run time and duplicates
-        take the general join.  The broadcast form and right / full joins
-        come with later slices."""
+        take the general join.  ``broadcast=True`` (or
+        ``JobConfig.broadcast_join_threshold``) replicates the right side
+        to every partition instead of hash-exchanging both; the output
+        then keeps the left side's placement.  Right / full joins come
+        with a later slice."""
         if how in ("right", "full"):
             raise NotPortedYet(f'how="{how}" joins',
                                "other two-input operators")
@@ -254,3 +323,59 @@ class Dataset:
 
     def explain(self) -> str:
         return self.plan().explain()
+
+    # -- terminal scalars --------------------------------------------------
+
+    def count(self) -> int:
+        return int(self._materialize().counts.sum())
+
+    def _scalar(self, kind: str, column: str):
+        """A terminal scalar aggregate: per-partition partials on the
+        device (``scalar_aggregate``), combined on the host as the JAX
+        package does: min / max over the non-empty partitions, the mean
+        weighted by the counts, None for an empty dataset."""
+        pd = self._materialize()
+        parts = [scalar_aggregate(b, {"out": (kind, column),
+                                      "cnt": ("count", None)})
+                 for b in split_partitions(pd)]
+        vals = torch.stack([p["out"] for p in parts]).cpu().numpy()
+        cnts = torch.stack([p["cnt"] for p in parts]).cpu().numpy()
+        nonempty = cnts > 0
+        if kind == "sum":
+            return vals.sum(axis=0)
+        if kind == "min":
+            return vals[nonempty].min(axis=0) if nonempty.any() else None
+        if kind == "max":
+            return vals[nonempty].max(axis=0) if nonempty.any() else None
+        if kind == "mean":
+            total = cnts.sum()
+            if total == 0:
+                return None
+            return (vals.T * cnts).T.sum(axis=0) / total
+        if kind == "any":
+            return bool(vals[nonempty].any())
+        if kind == "all":
+            return bool(vals[nonempty].all()) if nonempty.any() else True
+        raise ValueError(kind)
+
+    def sum(self, column: str):
+        return self._scalar("sum", column)
+
+    def min(self, column: str):
+        return self._scalar("min", column)
+
+    def max(self, column: str):
+        return self._scalar("max", column)
+
+    def mean(self, column: str):
+        return self._scalar("mean", column)
+
+    def any(self, column: str) -> bool:
+        return self._scalar("any", column)
+
+    def all(self, column: str) -> bool:
+        return self._scalar("all", column)
+
+    def first(self) -> Dict[str, Any]:
+        t = self.take(1).collect()
+        return {k: v[0] for k, v in t.items()}

@@ -1,4 +1,4 @@
 """apps layer of the PyTorch port (see the package docstring)."""
 
-from dryad_tpu_torch.apps import (groupbyreduce, pagerank,  # noqa: F401
-                                  terasort, wordcount)
+from dryad_tpu_torch.apps import (groupbyreduce, kmeans,  # noqa: F401
+                                  pagerank, terasort, wordcount)

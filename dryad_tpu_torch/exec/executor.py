@@ -6,7 +6,8 @@ The JAX package runs each stage as ONE jit(shard_map) program whose
 on every device.  Here the P partitions share one device: each leg is a
 Python loop over the partitions for its ops and one batched exchange
 across all of them, then a loop for the body ops; a two-input body op
-(``join``) takes the other legs' partitions.  Every op returns a NEED
+(``join``, ``apply2``, ``semi_anti``, ``concat``) takes the other legs'
+partitions.  Every op returns a NEED
 vector ``[need_scale, need_slack]`` that stays on the device; the
 executor reads it once per stage attempt (the one host sync, with the
 exchanges' own share of the need beside it) and, on overflow, re-runs the
@@ -20,7 +21,10 @@ A range exchange splits on bounds sampled from the output of its
 retry loop and on the device.  The global ``take`` needs every
 partition's count, and the lookup-join choice every partition's
 duplicate flag, so the executor applies those two over the whole
-partition list (``_take_global``, ``_join_global``).  ``run`` binds a
+partition list (``_take_global``, ``_join_global``).  The other two-input
+body ops (``apply2`` of ``cross_apply``, the set operators' ``semi_anti``
+and ``concat``) pair each partition with the other leg's same partition.
+A broadcast leg hands every partition the same replicated Batch.  ``run`` binds a
 do_while body's placeholder to the previous iteration's output.
 
 Not ported yet (later slices, see ROADMAP.md): lineage recovery and the
@@ -145,6 +149,19 @@ def _apply_op(b: Batch, op: StageOp, scale: int) -> Tuple[Batch,
     raise ValueError(f"unknown op kind {k}")
 
 
+# two-input body ops other than the join: (partition, the other leg's
+# partition, params) -> batch; none of them can overflow
+_TWO_INPUT_OPS = {
+    # the user's fn(batch, other) per partition (cross_apply)
+    "apply2": lambda b, o, p: p["fn"](b, o),
+    # canonical (sorted) column order on both sides: the two legs may
+    # carry the same columns in different insertion order
+    "semi_anti": lambda b, o, p: kernels.semi_anti_join(
+        b, o, sorted(b.names), sorted(o.names), anti=p["anti"]),
+    "concat": lambda b, o, p: kernels.concat2(b, o),
+}
+
+
 def _join_global(lparts: List[Batch], rparts: List[Batch], op: StageOp,
                  scale: int) -> Tuple[List[Batch], torch.Tensor]:
     """The ``join`` body op over every partition.  With ``right_unique``
@@ -249,6 +266,8 @@ def _apply_exchange(parts: List[Batch], ex: Exchange, scale: int,
         out, nr, nsl, _slot = shuffle.range_exchange(
             parts, ex.bounds_key, bounds, cap, descending=ex.descending,
             send_slack=slack)
+    elif ex.kind == "broadcast":
+        out, nr, nsl = shuffle.broadcast_gather(parts, cap)
     else:
         raise ValueError(ex.kind)
     return out, _needs(nr.device, _scale_need(nr, ex.out_capacity), nsl)
@@ -295,6 +314,10 @@ class Executor:
             if op.kind == "join":
                 parts, nd = _join_global(parts, others.pop(0), op, scale)
                 needs = torch.maximum(needs, nd)
+                continue
+            if op.kind in _TWO_INPUT_OPS:
+                parts = [_TWO_INPUT_OPS[op.kind](b, o, op.params)
+                         for b, o in zip(parts, others.pop(0))]
                 continue
             outs = []
             for b in parts:
@@ -392,6 +415,8 @@ class Executor:
                     "stage": stage.id, "label": stage.label,
                     "exchange": exchanges[0].kind if exchanges else None,
                     "exchanges": len(exchanges),
+                    "broadcasts": sum(ex.kind == "broadcast"
+                                      for ex in exchanges),
                     "attempts": attempt + 1, "scale": scale,
                     "slack": slack})
                 return out

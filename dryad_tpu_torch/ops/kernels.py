@@ -3,8 +3,9 @@
 and PageRank paths run: compaction (``where``), group aggregation in its
 three lowerings, user-defined decomposable aggregation, the sort lanes
 and ``sort_by_columns``, ``take``, ``distinct``, the group-contents
-operators ``group_top_k`` / ``group_rank_select`` and the equi-join
-``hash_join`` (inner and left, with the lookup-table form).
+operators ``group_top_k`` / ``group_rank_select``, the equi-join
+``hash_join`` (inner and left, with the lookup-table form), the set
+operators' ``semi_anti_join`` and ``concat2``, and ``scalar_aggregate``.
 
 Idioms carried over from the JAX package:
   * validity is a prefix: ``count`` valid rows, then padding;
@@ -44,7 +45,8 @@ __all__ = ["compact", "filter_rows", "permute_by_sort", "take",
            "resolve_dec_spec", "distinct", "group_top_k",
            "group_rank_select", "mean_finalize_columns", "AGG_KINDS",
            "NotPortedYet", "canon_nan", "minimum", "maximum",
-           "searchsorted_big", "hash_join", "lookup_join", "general_join"]
+           "searchsorted_big", "hash_join", "lookup_join", "general_join",
+           "semi_anti_join", "concat2", "scalar_aggregate"]
 
 AGG_KINDS = ("sum", "count", "min", "max", "mean", "any", "all")
 
@@ -1450,6 +1452,138 @@ def general_join(left: Batch, right: Batch, left_keys: Sequence[str],
                                              device=dev)), keep)
     need = torch.where(total > out_capacity, total, 0).to(torch.int32)
     return out, need
+
+
+# ---------------------------------------------------------------------------
+# set membership, semi / anti join, concat
+
+
+def _hash_membership(hi: torch.Tensor, lo: torch.Tensor, flag: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """bool [n] in ORIGINAL row order: does the row's 64-bit-hash segment
+    hold a flagged row?  ONE stable sort by the folded hash (invalid rows
+    fold to the all-ones sentinel and sort last), a per-segment max of
+    the flag (segments are the runs of equal hash among the valid
+    prefix), read back by each row through the sort order.  The JAX
+    package spreads the answer with two segmented max-scans and restores
+    the order with a second sort, trades made for the TPU's scatter cost;
+    the membership is the same."""
+    n = hi.shape[0]
+    hi_s, lo_s = _sentinel_fold(hi, lo, valid)
+    order = torch.sort(_folded_hash(hi_s, lo_s), stable=True).indices
+    is_start, _is_end, _ng = _segment_flags(
+        _lane_differs(hi_s.index_select(0, order),
+                      lo_s.index_select(0, order)),
+        valid.sum(dtype=torch.int32))
+    seg = torch.cumsum(is_start, 0) - 1
+    # rows past the valid prefix belong to no segment: a dump slot
+    seg = torch.where(torch.arange(n, device=hi.device)
+                      < valid.sum(), seg, n)
+    hit = torch.zeros(n + 1, dtype=torch.int32, device=hi.device
+                      ).scatter_reduce_(0, seg, flag.to(torch.int32)
+                                        .index_select(0, order), "amax")
+    member = torch.empty(n, dtype=torch.bool, device=hi.device)
+    member[order] = hit.index_select(0, seg) > 0
+    return member
+
+
+def semi_anti_join(left: Batch, right: Batch, left_keys: Sequence[str],
+                   right_keys: Sequence[str], anti: bool = False) -> Batch:
+    """Keep the left rows whose key does (semi) / does not (anti) appear
+    in ``right``, in their order: membership on the full 64-bit key hash
+    over the union of both sides' rows, the right ones flagged."""
+    lhi, llo = hash_batch_keys(left, left_keys)
+    rhi, rlo = hash_batch_keys(right, right_keys)
+    lvalid, rvalid = left.valid_mask(), right.valid_mask()
+    member = _hash_membership(
+        torch.cat([lhi, rhi]), torch.cat([llo, rlo]),
+        torch.cat([torch.zeros_like(lvalid), rvalid]),
+        torch.cat([lvalid, rvalid]))[:left.capacity]
+    return compact(left, lvalid & (~member if anti else member))
+
+
+def concat2(a: Batch, b: Batch) -> Batch:
+    """The valid rows of ``a``, then the valid rows of ``b`` (``a``'s
+    column order; string columns padded to the wider ``max_len``), in a
+    batch of capacity ``a.capacity + b.capacity``."""
+    ca, cb = a.capacity, b.capacity
+    i = torch.arange(ca + cb, device=a.device)
+    src = torch.where(i < a.count, torch.clamp(i, max=ca - 1),
+                      torch.clamp(ca + (i - a.count), max=ca + cb - 1))
+    cols: Dict[str, Any] = {}
+    for k in a.names:
+        va, vb = a.columns[k], b.columns[k]
+        if isinstance(va, StringColumn):
+            L = max(va.max_len, vb.max_len)
+            data = torch.cat([
+                torch.nn.functional.pad(va.data, (0, L - va.max_len)),
+                torch.nn.functional.pad(vb.data, (0, L - vb.max_len))])
+            cols[k] = StringColumn(
+                data.index_select(0, src),
+                torch.cat([va.lengths, vb.lengths]).index_select(0, src))
+        else:
+            cols[k] = torch.cat([va, vb]).index_select(0, src)
+    return Batch(cols, (a.count + b.count).to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# whole-batch (scalar) aggregation
+
+
+def _sum_dtype(dtype: torch.dtype) -> torch.dtype:
+    """A sum's dtype, as ``jnp.sum`` gives it: integers narrower than 32
+    bits and bool widen to int32, the rest keep their dtype (torch's own
+    sum would widen every integer to int64)."""
+    if dtype == torch.bool or (not dtype.is_floating_point
+                               and torch.iinfo(dtype).bits < 32):
+        return torch.int32
+    return dtype
+
+
+def _scalar_neutral(kind: str, dtype: torch.dtype):
+    """The fill of a masked min / max: the dtype's largest / smallest
+    finite value (the JAX package's ``_neutral_for``)."""
+    info = torch.finfo(dtype) if dtype.is_floating_point \
+        else torch.iinfo(dtype)
+    return info.max if kind == "min" else info.min
+
+
+def scalar_aggregate(batch: Batch, aggs: Dict[str, Tuple[str, str | None]]
+                     ) -> Dict[str, torch.Tensor]:
+    """Masked full-batch reductions: out_name -> (kind, value_column |
+    None); a vector column reduces over rows, per element.  ``mean`` of
+    an integer column is the f32 sum over the count; an empty batch's
+    mean is 0, its min / max the neutral fill."""
+    valid = batch.valid_mask()
+    out: Dict[str, torch.Tensor] = {}
+    for out_name, (kind, vname) in aggs.items():
+        if kind == "count":
+            out[out_name] = batch.count
+            continue
+        v = batch.columns[vname]
+        m = valid.reshape(valid.shape + (1,) * (v.dim() - 1))
+        if kind in ("sum", "mean"):
+            s = torch.where(m, v, 0).sum(dim=0, dtype=_sum_dtype(v.dtype))
+            if kind == "sum":
+                out[out_name] = s
+            else:
+                c = torch.clamp(batch.count, min=1)
+                out[out_name] = s / c.to(s.dtype) \
+                    if s.dtype.is_floating_point \
+                    else s.to(torch.float32) / c
+        elif kind in ("min", "max"):
+            filled = torch.where(m, v, _scalar_neutral(kind, v.dtype))
+            out[out_name] = filled.amin(dim=0) if kind == "min" \
+                else filled.amax(dim=0)
+        elif kind in ("any", "all"):
+            vb = v if v.dtype == torch.bool else v != 0
+            if kind == "any":
+                out[out_name] = (m & vb).any(dim=0)
+            else:
+                out[out_name] = (~m | vb).all(dim=0)
+        else:
+            raise ValueError(kind)
+    return out
 
 
 def mean_finalize_columns(cols: dict, mean_cols: Sequence[str]) -> dict:

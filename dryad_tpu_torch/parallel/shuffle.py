@@ -1,5 +1,6 @@
-"""Hash and range exchange across the logical partitions of one device —
-the port of the pack form of ``dryad_tpu/parallel/shuffle.py``.
+"""Hash, range and broadcast exchange across the logical partitions of
+one device — the port of the pack form of
+``dryad_tpu/parallel/shuffle.py``.
 
 The JAX package runs each exchange inside ``shard_map`` with one
 ``all_to_all`` over the mesh.  Here the P partitions share one device, so
@@ -20,7 +21,10 @@ an exchange takes the list of per-partition Batches:
 
 A hash exchange sends row r to lo(hash(keys[r])) % P; a range exchange
 to the partition whose sampled split points bracket the row's first sort
-lane (``range_exchange``).  The JAX package's gather form of the
+lane (``range_exchange``).  A broadcast (``broadcast_gather``) gives
+every partition all partitions' valid rows: the JAX package's
+``all_gather`` + compaction is ONE ``slot_compact`` launch over the
+stacked partitions here.  The JAX package's gather form of the
 exchange exists only for backends
 without its kernels; the port has no such backend.  The NEED channels are
 kept: capacity shortfalls come back as the measured requirement, and the
@@ -34,7 +38,7 @@ from typing import List, Sequence, Tuple
 import torch
 from torch.profiler import record_function
 
-from dryad_tpu_torch.data.columnar import Batch
+from dryad_tpu_torch.data.columnar import Batch, StringColumn
 from dryad_tpu_torch.ops.hashing import hash_batch_keys
 from dryad_tpu_torch.ops.hopper_kernels import (hist_buckets_batched,
                                                 prefix_sum, slot_compact,
@@ -44,7 +48,7 @@ from dryad_tpu_torch.ops.kernels import (_pack_columns_u32,
                                          searchsorted_small, sort_lanes_for)
 
 __all__ = ["exchange_by_dest", "hash_exchange", "range_dest_lane",
-           "range_dest", "range_exchange"]
+           "range_dest", "range_exchange", "broadcast_gather"]
 
 
 def _canonical_hash_dest(lo: torch.Tensor, nparts: int) -> torch.Tensor:
@@ -146,3 +150,39 @@ def range_exchange(parts: List[Batch], key: str, bounds: torch.Tensor,
     from the executor's sampling (``Executor._range_bounds``)."""
     dests = [range_dest(b.columns[key], bounds, descending) for b in parts]
     return exchange_by_dest(parts, dests, out_capacity, send_slack)
+
+
+def broadcast_gather(parts: List[Batch], out_capacity: int
+                     ) -> Tuple[List[Batch], torch.Tensor, torch.Tensor]:
+    """Replicate every partition's valid rows to every partition (the
+    broadcast join's right side, the k-means centroids): partition-major,
+    in row order within a partition, ``out_capacity`` rows.
+
+    The JAX package all-gathers the P partitions and compacts them with a
+    2-key sort on (invalid flag, row index).  Here the P partitions lie
+    stacked on one card, so the compaction is ONE ``slot_compact`` over
+    their packed words [P*cap, W] with each partition a source block of
+    C = cap rows: it packs each block's valid prefix in source order,
+    which is that sort's order.  Every partition gets the same Batch.
+
+    Returns ``(batches, need_recv_rows, need_slack = 0)``: the need is the
+    total when it exceeds ``out_capacity``, else 0."""
+    cap = parts[0].capacity
+    words, spec = _pack_columns_u32(
+        {k: _cat_column([b.columns[k] for b in parts])
+         for k in parts[0].names})
+    counts = torch.stack([b.count.to(torch.int32) for b in parts])
+    total = counts.sum(dtype=torch.int32)
+    out = slot_compact(words, counts, cap, out_capacity)
+    batch = Batch(_unpack_columns_u32(out, spec),
+                  torch.clamp(total, max=out_capacity))
+    need = torch.where(total > out_capacity, total, 0).to(torch.int32)
+    return [batch] * len(parts), need, torch.zeros_like(need)
+
+
+def _cat_column(cols: list):
+    """One column of every partition, stacked row-wise [P*cap, ...]."""
+    if isinstance(cols[0], StringColumn):
+        return StringColumn(torch.cat([c.data for c in cols]),
+                            torch.cat([c.lengths for c in cols]))
+    return torch.cat(cols)

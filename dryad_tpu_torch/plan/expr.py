@@ -3,7 +3,8 @@ that the ported slices plan: sources, Select / Where, the tokenizing
 SelectMany, GroupBy with builtin or user-defined decomposable aggregates,
 the group-contents operators (top-k, rank select), OrderBy, Distinct,
 Take, explicit hash and range repartition, partitioning claims
-(AssumePartitioning), the equi-Join, WithCapacity and the do_while
+(AssumePartitioning), the equi-Join, the set operators (SetOp, Concat),
+Broadcast, the two-input CrossApply, WithCapacity and the do_while
 loop's Placeholder.  A ``Dataset`` method chain builds this DAG lazily;
 the planner (``plan/planner.py``) lowers it to stages."""
 
@@ -15,9 +16,10 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 __all__ = ["Partitioning", "Node", "Source", "Placeholder", "Map", "Filter",
            "FlatTokens", "Decomposable", "GroupByAgg", "GroupTopK",
-           "GroupRankSelect", "Join", "OrderBy", "Distinct",
-           "HashRepartition", "RangeRepartition", "Take", "WithCapacity",
-           "AssumePartitioning", "walk"]
+           "GroupRankSelect", "Join", "OrderBy", "Distinct", "SetOp",
+           "Concat", "HashRepartition", "RangeRepartition", "Broadcast",
+           "Take", "WithCapacity", "CrossApply", "AssumePartitioning",
+           "walk"]
 
 _ids = itertools.count()
 
@@ -26,7 +28,7 @@ _ids = itertools.count()
 class Partitioning:
     """How a dataset's rows are distributed over partitions."""
 
-    kind: str  # "none" | "hash" | "range"
+    kind: str  # "none" | "hash" | "range" | "replicated"
     keys: Tuple[str, ...] = ()
 
     @staticmethod
@@ -235,6 +237,30 @@ class Distinct(Node):
 
 
 @_node
+class SetOp(Node):
+    """Union / Intersect / Except with set semantics (dedup), over all
+    columns."""
+
+    parents: Tuple[Node, ...]  # (left, right)
+    op: str  # "union" | "intersect" | "except"
+
+    @property
+    def partitioning(self) -> Partitioning:
+        return Partitioning("hash", ())
+
+
+@_node
+class Concat(Node):
+    """The left's rows, then the right's, partition by partition."""
+
+    parents: Tuple[Node, ...]  # (left, right)
+
+    @property
+    def partitioning(self) -> Partitioning:
+        return Partitioning.none()
+
+
+@_node
 class HashRepartition(Node):
     """Explicit HashPartition."""
 
@@ -259,6 +285,17 @@ class RangeRepartition(Node):
 
 
 @_node
+class Broadcast(Node):
+    """Replicate a (small) dataset to every partition."""
+
+    parents: Tuple[Node, ...]
+
+    @property
+    def partitioning(self) -> Partitioning:
+        return Partitioning("replicated")
+
+
+@_node
 class Take(Node):
     """The first n rows, in partition order."""
 
@@ -273,6 +310,24 @@ class WithCapacity(Node):
 
     parents: Tuple[Node, ...]
     capacity: int
+
+
+@_node
+class CrossApply(Node):
+    """Binary per-partition op: fn(left_batch, right_broadcast_batch) ->
+    Batch.  The right side is replicated to every partition (small data).
+    ``host_fn(table_l, table_r) -> table`` is the same function on host
+    tables (the JAX package's oracle reads it; the port keeps it with the
+    node)."""
+
+    parents: Tuple[Node, ...]  # (left, right)
+    fn: Any
+    host_fn: Any = None
+    label: str = "cross_apply"
+
+    @property
+    def partitioning(self) -> Partitioning:
+        return Partitioning.none()
 
 
 @_node

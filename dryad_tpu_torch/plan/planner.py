@@ -12,7 +12,11 @@ operators co-locate by hash and run once.  OrderBy materializes its
 input, samples split points from it, range-exchanges on the primary key
 and sorts locally by all keys.  A Join is one stage of two legs, each
 hash-exchanged on its keys unless already placed by them, and a body
-``join`` op; a do_while Placeholder is a leg source bound at run time;
+``join`` op, or, for a broadcast join, the right leg is replicated to
+every partition and the left one stays put.  CrossApply is the same
+two-leg shape (a broadcast right leg, the user's ``apply2``); the set
+operators hash-exchange whole rows on both legs; Concat is two legs and
+no exchange.  A do_while Placeholder is a leg source bound at run time;
 WithCapacity is a ``recap`` op.  An exchange is elided where the input is
 already placed as needed (partition elimination); the stages whose
 placement was trusted are marked ``placement_relied`` (and never
@@ -27,7 +31,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from dryad_tpu_torch.ops.kernels import NotPortedYet, maximum, minimum
+from dryad_tpu_torch.ops.kernels import maximum, minimum
 from dryad_tpu_torch.plan import expr as E
 from dryad_tpu_torch.plan.stages import Exchange, Leg, Stage, StageGraph, \
     StageOp
@@ -327,6 +331,41 @@ class Planner:
         if isinstance(n, E.Join):
             return self._lower_join(n)
 
+        if isinstance(n, E.CrossApply):
+            # the left leg stays where it is; the right one is replicated
+            # to every partition
+            lf = self._frag(n.parents[0])
+            rf = self._frag(n.parents[1])
+            rex = None if self.nparts == 1 else Exchange(
+                "broadcast", out_capacity=rf.capacity * self.nparts)
+            st = self._new_stage(
+                [Leg(lf.src, lf.ops, None), Leg(rf.src, rf.ops, rex)],
+                [StageOp("apply2", {"fn": n.fn, "label": n.label})],
+                "cross_apply")
+            return Fragment(st.id, [], lf.capacity, E.Partitioning.none())
+
+        if isinstance(n, E.Broadcast):
+            f = self._frag(n.parents[0])
+            if self.nparts == 1:
+                f.partitioning = E.Partitioning("replicated")
+                return f
+            ex = Exchange("broadcast", out_capacity=f.capacity * self.nparts)
+            st = self._new_stage([Leg(f.src, f.ops, ex)], [], "broadcast")
+            return Fragment(st.id, [], f.capacity * self.nparts,
+                            E.Partitioning("replicated"))
+
+        if isinstance(n, E.SetOp):
+            return self._lower_set_op(n)
+
+        if isinstance(n, E.Concat):
+            lf = self._frag(n.parents[0])
+            rf = self._frag(n.parents[1])
+            st = self._new_stage(
+                [Leg(lf.src, lf.ops, None), Leg(rf.src, rf.ops, None)],
+                [StageOp("concat", {})], "concat")
+            return Fragment(st.id, [], lf.capacity + rf.capacity,
+                            E.Partitioning.none())
+
         if isinstance(n, E.GroupTopK):
             f = self._frag(n.parents[0])
             op = StageOp("group_top_k", {
@@ -366,9 +405,37 @@ class Planner:
 
         raise TypeError(f"planner: unhandled node {type(n).__name__}")
 
+    def _lower_set_op(self, n: "E.SetOp") -> Fragment:
+        """Both legs deduplicate locally (the right one not for a union)
+        and hash-exchange whole rows, so equal rows meet; the body
+        concatenates (union) or keeps the left rows found (intersect) or
+        not found (except) on the right, then deduplicates the copies
+        that arrived from different partitions."""
+        lf = self._frag(n.parents[0])
+        rf = self._frag(n.parents[1])
+        lf.ops.append(StageOp("distinct", {"keys": ()}))
+        if n.op != "union":
+            rf.ops.append(StageOp("distinct", {"keys": ()}))
+        lex = rex = None
+        if self.nparts > 1:
+            lex = Exchange("hash", keys=(), out_capacity=lf.capacity)
+            rex = Exchange("hash", keys=(), out_capacity=rf.capacity)
+        if n.op == "union":
+            first, cap = StageOp("concat", {}), lf.capacity + rf.capacity
+        elif n.op in ("intersect", "except"):
+            first = StageOp("semi_anti", {"anti": n.op == "except"})
+            cap = lf.capacity
+        else:
+            raise ValueError(n.op)
+        st = self._new_stage(
+            [Leg(lf.src, lf.ops, lex), Leg(rf.src, rf.ops, rex)],
+            [first, StageOp("distinct", {"keys": ()})], n.op)
+        return Fragment(st.id, [], cap, E.Partitioning("hash", ()))
+
     def _lower_join(self, n: "E.Join") -> Fragment:
         """Both legs hash-exchange on their keys unless already placed by
-        them; the body joins.  The broadcast form comes with k-means."""
+        them, or the right one is broadcast to every partition; the body
+        joins."""
         lf = self._frag(n.parents[0])
         rf = self._frag(n.parents[1])
         lkeys, rkeys = tuple(n.left_keys), tuple(n.right_keys)
@@ -382,7 +449,9 @@ class Planner:
         if self.nparts == 1:
             lex = rex = None
         elif broadcast_right:
-            raise NotPortedYet("the broadcast join", "k-means")
+            lex = None
+            rex = Exchange("broadcast",
+                           out_capacity=rf.capacity * self.nparts)
         else:
             lex = None if (lf.partitioning.kind == "hash"
                            and lf.partitioning.keys == lkeys) else \
@@ -404,8 +473,13 @@ class Planner:
         # only the two-hash-exchange inner/left shape, and plan() clears
         # it where a later elimination trusted the placement
         st.salt_ok = (lex is not None and rex is not None
-                      and n.how in ("inner", "left"))
-        return Fragment(st.id, [], out_cap, E.Partitioning("hash", lkeys))
+                      and n.how in ("inner", "left")
+                      and not broadcast_right)
+        # a broadcast join keeps the LEFT side's placement: each partition
+        # holds the matches of its own left rows only
+        out_part = lf.partitioning if broadcast_right \
+            else E.Partitioning("hash", lkeys)
+        return Fragment(st.id, [], out_cap, out_part)
 
     def _lower_order_by(self, n: "E.OrderBy") -> Fragment:
         f = self._frag(n.parents[0])

@@ -252,13 +252,16 @@ def test_join_on_placed_sides_skips_both_exchanges(devices8):
 
 
 def test_joins_not_ported_raise():
+    """Right and full joins still raise; the broadcast join, ported since,
+    plans a broadcast right leg instead of raising."""
     t = TContext(device="cpu", nparts=P)
     a, b = _pairs(t), _pairs(t, seed=1)
     for how in ("right", "full"):
         with pytest.raises(NotPortedYet):
             a.join(b, ["k"], how=how)
-    with pytest.raises(NotPortedYet):
-        a.join(b, ["k"], broadcast=True).plan()
+    join = a.join(b, ["k"], broadcast=True).plan().stages[-1]
+    assert [leg.exchange and leg.exchange.kind for leg in join.legs] == \
+        [None, "broadcast"]
 
 
 def test_skewed_join_raises_where_jax_would_salt(devices8):

@@ -154,7 +154,7 @@ def test_chip_smoke_pagerank_rehearsal(devices8, monkeypatch):
     sizes = chip_smoke.check_pagerank(out, edges, n, tpr)
     assert sizes["max_rel_err"] <= 2e-3 and load > 0 and query > 0
     assert all(launches[k] > 0 for k in chip_smoke.TPU_KERNEL)
-    stages = chip_smoke.pagerank_stages(runs)
+    stages = chip_smoke.loop_stages(runs)
     assert len(stages["supersteps"]) == 10
     # per superstep: the join's rank leg and the group-by's exchange
     assert all(sum(st["exchanges"] for st in step) == 2
