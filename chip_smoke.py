@@ -2,7 +2,7 @@
 """Drive the PyTorch port (dryad_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--lines N] [--rows N] [--records N] [--nodes N]
-                          [--points N] [--out DIR]
+                          [--points N] [--lineitems N] [--out DIR]
 
 Phases, each failing the run (non-zero exit, no result line) on error:
 
@@ -96,7 +96,29 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      of derived flags, NaN min / max, ``aggregate`` with a user
      Decomposable) against numpy: the f32 sum and mean within the
      GroupByReduce bound, the rest exactly, NaN bits as numpy's;
-  3-8. after each of those main-path runs, every kernel call it made
+  9. skewed joins, outer joins and the positional operators through the
+     same entry points on TPC-H-shaped tables at SF1 cardinalities
+     (``tpch_tables``: 6,000,000 lineitems, 90 % of them on order key 0
+     as in the JAX bench's skewed join, 1,500,000 orders, 150,000
+     customers; ``--lineitems N``), each run cold (held, launches against
+     the executor's log, where a salted join attempt counts two hash
+     exchanges and one broadcast), warm and profiled warm (busy share):
+     ``skewjoin6m`` (lineitem joined with orders, flag == 0, revenue per
+     customer, cached, collected whole and as its top 10): exactly
+     numpy's, the join stage overflowing once unsalted and salted at
+     attempt 2, its scale x 750,000 below N / 2 and every partition
+     receiving fewer than 2N / P lineitems; ``skewjoin6m_relied`` (the
+     same grouped by order key: the group-by trusts the join's placement)
+     exactly numpy's and never salted, one retry at the measured scale;
+     ``q13_outer`` (TPC-H Q13's shape: ``group_join`` of customers with
+     their orders' count and f32 spend, the count of customers per count,
+     the same counts by a right join, a full join of seg-0 customers with
+     the prio-0 orders' aggregate): keys and counts exactly, f32 sums
+     within the GroupByReduce bound, both sides' unmatched rows present;
+     ``zip6m`` (two differently filtered lineitem sides zipped, a row
+     index, skip, take_while; skip_while over a row index) exactly
+     numpy's in global row order;
+  3-9. after each of those main-path runs, every kernel call it made
      is made again through the kernel and through its plain version on
      the very tensors the run passed (integers exactly, prefix_sum2
      within twice its bound);
@@ -117,8 +139,8 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      ``runs`` gives each run's own count and |kernel - plain|.
 
 Output: one JSON line per corpus, per GroupByReduce variant, per sort
-path, for PageRank and the NaN hold, for k-means and each phase-8 run,
-per profile, per pack side and per kernel, then
+path, for PageRank and the NaN hold, for k-means and each phase-8 and
+phase-9 run, per profile, per pack side and per kernel, then
 the card line, then the
 ``{"kernels": [...]}`` line, then the result line
 ``{"ok": true, "device": {...}}`` last.
@@ -786,11 +808,16 @@ def run_sort(port, hk, data, str_max_len, queries):
 
 def exchanging_stages(logs) -> list:
     """Each exchanging stage of a run: its label, exchange kind, number of
-    exchanging legs (broadcast legs among them), retries (attempts past
-    the first) and final capacity scale."""
+    exchanges (legs and a zip's; broadcast legs among them), retries
+    (attempts past the first), final capacity scale, whether it ran
+    salted (and how many attempts did) and each exchanging leg's received
+    rows per destination."""
     return [{"stage": st["label"], "exchange": st["exchange"],
              "exchanges": st["exchanges"], "broadcasts": st["broadcasts"],
-             "retries": st["attempts"] - 1, "scale": st["scale"]}
+             "retries": st["attempts"] - 1, "scale": st["scale"],
+             "salted": st["salted"],
+             "salted_attempts": st["salted_attempts"],
+             "recv_rows": st["recv_rows"]}
             for log in logs for st in log if st["exchange"]]
 
 
@@ -802,8 +829,12 @@ def exchange_attempts(stages) -> int:
 
 
 def broadcast_attempts(stages) -> int:
-    """Broadcasts the executor ran over ``exchanging_stages``."""
-    return sum((st["retries"] + 1) * st["broadcasts"] for st in stages)
+    """Broadcasts the executor ran over ``exchanging_stages``: broadcast
+    legs once per attempt, and a salted join attempt's broadcast of its
+    hot right rows (its two hash exchanges count as the stage's two hash
+    legs)."""
+    return sum((st["retries"] + 1) * st["broadcasts"]
+               + st["salted_attempts"] for st in stages)
 
 
 # ---------------------------------------------------------------------------
@@ -1141,6 +1172,276 @@ def check_scalars(got, data, nan_data) -> dict:
     return {"rows": len(k), "scalars": len(got),
             "sum_v_err": abs(float(got["sum_v"]) - v64.sum()),
             "sum_v_bound": bound}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: skewed joins, outer joins and group_join, the positional
+# operators
+
+
+HOT_FRAC = 0.9                       # the JAX bench's skew (bench.py:357-360)
+
+
+def tpch_tables(n_items: int, seed: int = 0):
+    """LINEITEM, ORDERS and CUSTOMER at TPC-H's proportions (spec §4.2.3:
+    SF1 is 6,000,000 / 1,500,000 / 150,000 rows), numpy seed ``seed``.
+    lineitem: ``okey`` 0 with probability 0.9, else uniform in
+    [1, n_orders) (the JAX bench's skew), ``price`` in [1, 100), ``qty``
+    in [1, 10).  orders: ``okey`` = arange, ``flag`` = okey % 2,
+    ``custkey`` uniform over [1, n_cust] and never divisible by 3 (as
+    O_CUSTKEY), ``prio`` in [0, 5), ``totalprice`` f32 in [850, 550,000).
+    customer: ``custkey`` = 1..n_cust, ``seg`` in [0, 5)."""
+    rng = np.random.RandomState(seed)
+    n_orders, n_cust = n_items // 4, n_items // 40
+    okey = np.where(rng.rand(n_items) < HOT_FRAC, 0,
+                    rng.randint(1, n_orders, n_items)).astype(np.int32)
+    li = {"okey": okey,
+          "price": rng.randint(1, 100, n_items).astype(np.int32),
+          "qty": rng.randint(1, 10, n_items).astype(np.int32)}
+    ck = np.arange(1, n_cust + 1, dtype=np.int32)
+    allowed = ck[ck % 3 != 0]
+    ok = np.arange(n_orders, dtype=np.int32)
+    orders = {"okey": ok, "flag": ok % 2,
+              "custkey": allowed[rng.randint(0, len(allowed), n_orders)],
+              "prio": rng.randint(0, 5, n_orders).astype(np.int32),
+              "totalprice": rng.uniform(850, 550_000, n_orders).astype(
+                  np.float32)}
+    cust = {"custkey": ck, "seg": rng.randint(0, 5, n_cust).astype(np.int32)}
+    return li, orders, cust
+
+
+def skew_join_query(ctx, li, orders, by: str) -> dict:
+    """bench.py's skewed join (lineitem joined with orders on okey,
+    flag == 0, rev = price * qty), grouped by ``by``: "custkey" (top
+    customers by revenue: the group-by exchanges, so the join's placement
+    is not relied on and the join may salt) or "okey" (bench.py's own
+    query: the group-by trusts the join's placement, so it must not).
+    The group-by is cached, then collected whole and as its top 10 by
+    revenue (ties by key)."""
+    j = ctx.from_columns(li).join(ctx.from_columns(orders), ["okey"]).where(
+        lambda c: c["flag"] == 0).select(
+        lambda c: {by: c[by], "rev": c["price"] * c["qty"]})
+    g = j.group_by([by], {"revenue": ("sum", "rev"),
+                          "n": ("count", None)}).cache()
+    return {"groups": g.collect(),
+            "top": g.order_by([("revenue", True), (by, False)]).take(
+                10).collect()}
+
+
+def join_stage(runs) -> dict:
+    """The executor's log entry of the one join stage of a job."""
+    (st,) = [s for r in runs for s in r["stages"] if s["label"] == "join"]
+    return st
+
+
+def check_skew_join(out, li, orders, by: str, runs, salted: bool) -> dict:
+    """Against numpy exactly: every group's int32 revenue (int64 sums,
+    each below 2**31) and count, and the top 10 by (revenue desc, key).
+    The join stage, by the executor's log: with ``salted``, it overflowed
+    once unsalted and ran salted at the second attempt, at a scale x
+    capacity below N / 2, every partition receiving fewer than 2N / P
+    left rows; without, it never salted and retried once at the
+    measured scale."""
+    okey = li["okey"]
+    keep = orders["flag"][okey] == 0
+    key = orders[by][okey[keep]]
+    rev = li["price"][keep].astype(np.int64) * li["qty"][keep]
+    m = int(key.max()) + 1
+    cnt = np.bincount(key, minlength=m)
+    keys = np.flatnonzero(cnt)
+    sums = np.zeros(m, np.int64)
+    np.add.at(sums, key, rev)
+    want = sums[keys]
+    if not want.max() < 2**31:
+        raise AssertionError(f"{by}: a revenue passes 2**31: no int32 "
+                             f"oracle")
+    g = out["groups"]
+    o = np.argsort(g[by])
+    if not (np.array_equal(g[by][o], keys)
+            and np.array_equal(g["revenue"][o], want)
+            and np.array_equal(g["n"][o], cnt[keys])):
+        raise AssertionError(f"skew join by {by}: groups differ from numpy")
+    top = np.lexsort((keys, -want))[:10]
+    t = out["top"]
+    if not (np.array_equal(t[by], keys[top])
+            and np.array_equal(t["revenue"], want[top])):
+        raise AssertionError(f"skew join by {by}: the top 10 differ from "
+                             f"numpy")
+    st = join_stage(runs)
+    n, P = len(okey), NPARTS
+    cap = -(-n // P)
+    ok = (st["salted"] and st["attempts"] == 2 and st["salted_attempts"] == 1
+          and st["scale"] * cap < n / 2
+          and max(st["recv_rows"][0]) < 2 * n / P) if salted else (
+        st["attempts"] == 2 and not any(
+            s["salted"] for r in runs for s in r["stages"]))
+    if not ok:
+        raise AssertionError(f"skew join by {by}: the join stage "
+                             f"{st} is not as predicted")
+    return {"lineitems": n, "orders": len(orders["okey"]),
+            "groups": len(keys), "hot_revenue": int(want.max()),
+            "join_attempts": st["attempts"], "join_salted": st["salted"],
+            "join_scale": st["scale"], "join_slack": st["slack"],
+            "join_recv_rows": st["recv_rows"]}
+
+
+def q13_queries(ctx, orders, cust) -> dict:
+    """The TPC-H Q13 shape: each customer's count and f32 spend of the
+    orders with prio != 0 by ``group_join`` (cached), the count of
+    customers per count (custdist); the same counts through a right join
+    with the orders' aggregate on the left; the seg-0 customers full-
+    joined with the prio-0 orders' per-customer aggregate."""
+    o, c = ctx.from_columns(orders), ctx.from_columns(cust)
+    aggs = {"n": ("count", None), "spend": ("sum", "totalprice")}
+    prio = o.where(lambda x: x["prio"] != 0)
+    per = c.group_join(prio, ["custkey"], aggs).cache()
+    return {
+        "per_customer": per.collect(),
+        "custdist": per.group_by(["n"], {"custdist": ("count", None)}
+                                 ).collect(),
+        "right": prio.group_by(["custkey"], {"n": ("count", None)}).join(
+            c, ["custkey"], how="right").collect(),
+        "full": c.where(lambda x: x["seg"] == 0).join(
+            o.where(lambda x: x["prio"] == 0).group_by(["custkey"], aggs),
+            ["custkey"], how="full").collect(),
+    }
+
+
+def _per_customer(orders, sel, n_cust):
+    """(count, f32 sum as float64, its bound) per custkey 0..n_cust of the
+    selected orders: 16 eps sum_group|v| + 16 eps^2 sum|v|, as for
+    GroupByReduce."""
+    ck = orders["custkey"][sel]
+    v = orders["totalprice"][sel].astype(np.float64)
+    n = np.bincount(ck, minlength=n_cust + 1)
+    s = np.bincount(ck, weights=v, minlength=n_cust + 1)
+    bound = (16 * EPS * np.bincount(ck, weights=np.abs(v),
+                                    minlength=n_cust + 1)
+             + 16 * EPS**2 * float(np.abs(v).sum()))
+    return n, s, bound
+
+
+def check_q13(out, orders, cust) -> dict:
+    """Against numpy: custkeys and counts exactly, f32 spends within the
+    bound; every customer in the group_join and right join (those with no
+    order counted 0); the full join holds the seg-0 customers with no
+    prio-0 order (unmatched left) and the customers of prio-0 orders
+    outside seg 0 (unmatched right, seg zero-filled)."""
+    n_cust = len(cust["custkey"])
+    seg = np.zeros(n_cust + 1, np.int32)
+    seg[cust["custkey"]] = cust["seg"]
+    n, s, bound = _per_customer(orders, orders["prio"] != 0, n_cust)
+    bad = []
+    per = out["per_customer"]
+    o = np.argsort(per["custkey"])
+    k = per["custkey"][o]
+    if not (np.array_equal(k, cust["custkey"])
+            and np.array_equal(per["n"][o], n[k])
+            and np.array_equal(per["seg"][o], seg[k])
+            and (np.abs(per["spend"][o] - s[k]) <= bound[k]).all()):
+        bad.append("group_join")
+    cd = out["custdist"]
+    want = np.bincount(n[1:])
+    got = np.zeros(max(len(want), int(cd["n"].max()) + 1), np.int64)
+    got[cd["n"]] = cd["custdist"]
+    if not np.array_equal(got[:len(want)], want) or got[len(want):].any():
+        bad.append("custdist")
+    r = out["right"]
+    o = np.argsort(r["custkey"])
+    k = r["custkey"][o]
+    if not (np.array_equal(k, cust["custkey"])
+            and np.array_equal(r["n"][o], n[k])
+            and np.array_equal(r["seg"][o], seg[k])):
+        bad.append("right join")
+    n0, s0, b0 = _per_customer(orders, orders["prio"] == 0, n_cust)
+    left = cust["custkey"][cust["seg"] == 0]
+    right = np.flatnonzero(n0)
+    f = out["full"]
+    o = np.argsort(f["custkey"])
+    k = f["custkey"][o]
+    unmatched_l = np.setdiff1d(left, right)
+    unmatched_r = np.setdiff1d(right, left)
+    if not (np.array_equal(k, np.union1d(left, right))
+            and not f["seg"].any()
+            and np.array_equal(f["n"][o], n0[k])
+            and (np.abs(f["spend"][o] - s0[k]) <= b0[k]).all()
+            and len(unmatched_l) and len(unmatched_r)):
+        bad.append("full join")
+    if bad:
+        raise AssertionError(f"q13_outer: {bad} differ from numpy")
+    return {"customers": n_cust, "orders": len(orders["okey"]),
+            "custdist_rows": len(cd["n"]), "zero_order_customers":
+            int((n[1:] == 0).sum()), "full_rows": len(k),
+            "full_unmatched_left": len(unmatched_l),
+            "full_unmatched_right": len(unmatched_r),
+            "max_spend_err": float(np.abs(per["spend"][np.argsort(
+                per["custkey"])] - s[1:]).max())}
+
+
+def zip_bounds(n: int):
+    """(skip, take_while's row-index end, skip_while's row-index start):
+    1,000,000, 4,000,000 and 2,000,000 at 6,000,000 lineitems."""
+    return n // 6, 2 * n // 3, n // 3
+
+
+def zip_queries(ctx, li) -> dict:
+    """The lineitems with qty > 4 zipped with those with price > 50 (sides
+    with different per-partition counts), a row index, skip, take_while;
+    and skip_while over a row index of all lineitems."""
+    skip, until, start = zip_bounds(len(li["okey"]))
+    d = ctx.from_columns(li)
+    z = d.where(lambda c: c["qty"] > 4).zip_with(
+        d.where(lambda c: c["price"] > 50)).with_row_index().skip(
+        skip).take_while(lambda c: c["row_index"] < until)
+    return {"zip": z.collect(),
+            "skip_while": d.with_row_index().skip_while(
+                lambda c: c["row_index"] < start).collect()}
+
+
+def check_zip(out, li) -> dict:
+    """In global row order against numpy, exactly."""
+    n = len(li["okey"])
+    skip, until, start = zip_bounds(n)
+    a = np.flatnonzero(li["qty"] > 4)
+    b = np.flatnonzero(li["price"] > 50)
+    m = min(len(a), len(b))
+    rows = slice(skip, min(m, until))
+    z, w = out["zip"], out["skip_while"]
+    bad = [c for c in li if not (
+        np.array_equal(z[c], li[c][a[:m]][rows])
+        and np.array_equal(z[c + "_r"], li[c][b[:m]][rows])
+        and np.array_equal(w[c], li[c][start:]))]
+    if not (np.array_equal(z["row_index"], np.arange(skip, min(m, until)))
+            and np.array_equal(w["row_index"], np.arange(start, n))):
+        bad.append("row_index")
+    if bad:
+        raise AssertionError(f"zip6m: {bad} differ from numpy")
+    return {"lineitems": n, "zip_pairs": m, "zip_rows": len(z["okey"]),
+            "skip_while_rows": len(w["okey"])}
+
+
+def phase9_runs(li, orders, cust) -> dict:
+    """label -> (app(ctx), check(out, runs), rows for rows/s, kernels the
+    run must launch)."""
+    q13_kernels = EXCHANGE + ("prefix_sum2",)
+    return {
+        "skewjoin6m": (
+            lambda ctx: skew_join_query(ctx, li, orders, "custkey"),
+            lambda out, runs: check_skew_join(out, li, orders, "custkey",
+                                              runs, salted=True),
+            len(li["okey"]), EXCHANGE),
+        "skewjoin6m_relied": (
+            lambda ctx: skew_join_query(ctx, li, orders, "okey"),
+            lambda out, runs: check_skew_join(out, li, orders, "okey",
+                                              runs, salted=False),
+            len(li["okey"]), EXCHANGE),
+        "q13_outer": (lambda ctx: q13_queries(ctx, orders, cust),
+                      lambda out, runs: check_q13(out, orders, cust),
+                      len(orders["okey"]), q13_kernels),
+        "zip6m": (lambda ctx: zip_queries(ctx, li),
+                  lambda out, runs: check_zip(out, li), len(li["okey"]),
+                  EXCHANGE),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -1550,6 +1851,9 @@ def main(argv=None) -> int:
                     help="PageRank nodes; edges are 10x the nodes")
     ap.add_argument("--points", type=int, default=500_000,
                     help="k-means points (dim 8, k = 16, 5 iterations)")
+    ap.add_argument("--lineitems", type=int, default=6_000_000,
+                    help="phase 9's lineitems; orders a quarter, "
+                    "customers a fortieth (TPC-H SF1: 6,000,000)")
     ap.add_argument("--out", default=os.path.join(HERE, "chiprun_out"))
     a = ap.parse_args(argv)
 
@@ -1798,6 +2102,42 @@ def main(argv=None) -> int:
               "exchange_attempts": stages["exchange_attempts"],
               "broadcast_attempts": stages["broadcast_attempts"],
               "load_s": load, "query_s": qs, "card": card})
+
+    # phase 9: each run cold (its calls held, its launches checked against
+    # the executor's log), warm, and warm under the profiler (busy share)
+    for label, (app, check, rows, must) in phase9_runs(
+            *tpch_tables(a.lineitems)).items():
+        hk.capture = {}
+        out, launches, load, qs, app_runs = run_app(port, hk, app)
+        captured, hk.capture = hk.capture, None
+        held(label, launches, captured)
+        del captured
+        zero = [k for k in must if launches[k] == 0]
+        if zero:
+            raise AssertionError(f"{label}: kernels never launched: {zero}")
+        stages = loop_stages(app_runs)
+        check_per_exchange(label, launches, stages["exchange_attempts"],
+                           stages["broadcast_attempts"])
+        sizes = check(out, app_runs)
+        del out
+        _, _, wload, wquery, wruns = run_app(port, hk, app)
+        prof = profile_path(lambda: run_app(port, hk, app)[:4], label,
+                            a.out, pack=False)
+        emit({"phase9": label, **sizes, "nparts": NPARTS,
+              "launches": launches,
+              "exchanging_stages": stages["outside_loop"],
+              "warm_exchanging_stages": loop_stages(wruns)["outside_loop"],
+              "exchange_attempts": stages["exchange_attempts"],
+              "broadcast_attempts": stages["broadcast_attempts"],
+              "cold_wall_s": load + qs, "cold_load_s": load,
+              "cold_query_s": qs, "warm_wall_s": wload + wquery,
+              "warm_load_s": wload, "warm_query_s": wquery,
+              "rows_per_s": rows / (wload + wquery),
+              "profiled_wall_s": prof["wall_s"],
+              "profiled_device_ms": prof["device_ms"],
+              "device_busy_share": prof.get("device_busy_share"),
+              "port_kernels_ms": prof.get("port_kernels_ms"),
+              "top": prof.get("top"), "card": card})
 
     wc_prof = profile_path(
         lambda: run_wordcount(port, hk, wc, corpora["zipf50k"]),

@@ -21,7 +21,10 @@ with the lookup-table form; with_capacity; the in-memory cache), and
 k-means (cross_apply over a broadcast centroid table -> group_by mean
 under do_while), with broadcast joins, the set operators (union,
 intersect, except_, concat) and the terminal scalars (count, sum, min,
-max, mean, any, all, first, aggregate).
+max, mean, any, all, first, aggregate), and skewed joins (a hot-key
+salted join exchange; right and full joins, group_join) with the
+positional operators (zip_with, with_row_index, skip, take_while,
+skip_while).
 """
 
 __version__ = "0.1.0"

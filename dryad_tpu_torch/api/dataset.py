@@ -2,12 +2,15 @@
 ``dryad_tpu/api/dataset.py`` that WordCount, GroupByReduce, TeraSort,
 PageRank and k-means call, with the sort family (``order_by``,
 ``range_partition``, the ``assume_*`` claims, ``take``, ``distinct``,
-``group_top_k``, ``group_median``), ``join`` (inner / left, hash or
-broadcast), ``cross_apply``, ``broadcast``, the set operators (``union``,
-``intersect``, ``except_``, ``concat``), ``with_capacity``, the
-in-memory ``cache``, ``Context.do_while`` and the terminal scalars
-(``count``, ``sum``, ``min``, ``max``, ``mean``, ``any``, ``all``,
-``first``, ``aggregate``).
+``group_top_k``, ``group_median``), ``join`` (inner / left / right /
+full, hash or broadcast, hot-key salted on skew), ``group_join``,
+``cross_apply``, ``broadcast``, the set operators (``union``,
+``intersect``, ``except_``, ``concat``), the positional operators
+(``zip_with``, ``with_row_index``, ``skip``, ``take_while``,
+``skip_while``), ``with_capacity``, the in-memory ``cache``,
+``Context.do_while`` and the terminal scalars (``count``, ``sum``,
+``min``, ``max``, ``mean``, ``any``, ``all``, ``first``,
+``aggregate``).
 
 ``Context(device="cuda", nparts=8)`` runs ``nparts`` logical partitions
 on one CUDA card (``parallel/mesh.py``).  The device is CUDA unless the
@@ -25,7 +28,7 @@ import torch
 from dryad_tpu_torch.exec.data import PData, maybe_shrink_for_collect, \
     pdata_from_host, pdata_to_host, split_partitions
 from dryad_tpu_torch.exec.executor import Executor
-from dryad_tpu_torch.ops.kernels import NotPortedYet, scalar_aggregate
+from dryad_tpu_torch.ops.kernels import scalar_aggregate
 from dryad_tpu_torch.parallel.mesh import Mesh, resolve_device
 from dryad_tpu_torch.plan import expr as E
 from dryad_tpu_torch.plan.planner import plan_query
@@ -219,6 +222,35 @@ class Dataset:
         """The first ``n`` rows, in partition order."""
         return Dataset(self.ctx, E.Take(parents=(self.node,), n=n))
 
+    def zip_with(self, other: "Dataset", suffix: str = "_r") -> "Dataset":
+        """Positional pairing by global row index (LINQ Zip), as many rows
+        as the shorter side; ``other``'s columns suffixed on a name clash.
+        Sides with different per-partition counts are realigned by an
+        exchange."""
+        return Dataset(self.ctx, E.Zip(parents=(self.node, other.node),
+                                       suffix=suffix))
+
+    def with_row_index(self, column: str = "row_index") -> "Dataset":
+        """Add a global int32 row-index column (partition order)."""
+        return Dataset(self.ctx, E.WithRowIndex(parents=(self.node,),
+                                                column=column))
+
+    def skip(self, n: int) -> "Dataset":
+        """Every row but the first ``n``, in partition order."""
+        return Dataset(self.ctx, E.SkipTake(parents=(self.node,), op="skip",
+                                            n=n))
+
+    def take_while(self, fn) -> "Dataset":
+        """The rows before the first one where ``fn(cols)`` (a bool
+        [capacity] mask) fails, in partition order."""
+        return Dataset(self.ctx, E.SkipTake(parents=(self.node,),
+                                            op="take_while", fn=fn))
+
+    def skip_while(self, fn) -> "Dataset":
+        """The rows from the first one where ``fn(cols)`` fails on."""
+        return Dataset(self.ctx, E.SkipTake(parents=(self.node,),
+                                            op="skip_while", fn=fn))
+
     def with_capacity(self, capacity: int) -> "Dataset":
         """Coerce per-partition capacity (pad; a truncation that would drop
         rows raises CapacityError): keeps do_while bodies shape-stable."""
@@ -278,18 +310,21 @@ class Dataset:
         left columns + right non-key columns (suffixed ``_r`` on a name
         clash), ``expansion`` x the left capacity per partition.
         ``how="left"`` keeps unmatched left rows with the right columns
-        zero-filled.  ``right_unique=True`` declares the right side
-        unique-keyed (a lookup table) and routes matching through the
-        merge-fill join; uniqueness is checked at run time and duplicates
-        take the general join.  ``broadcast=True`` (or
-        ``JobConfig.broadcast_join_threshold``) replicates the right side
-        to every partition instead of hash-exchanging both; the output
-        then keeps the left side's placement.  Right / full joins come
-        with a later slice."""
-        if how in ("right", "full"):
-            raise NotPortedYet(f'how="{how}" joins',
-                               "other two-input operators")
-        if how not in ("inner", "left"):
+        zero-filled; ``how="right"`` keeps unmatched right rows, their
+        keys in the left key columns and the other left columns
+        zero-filled; ``how="full"`` keeps both.  ``right_unique=True``
+        declares the right side unique-keyed (a lookup table) and routes
+        an inner or left join through the merge-fill join; uniqueness is
+        checked at run time and duplicates take the general join.
+        ``broadcast=True`` (or ``JobConfig.broadcast_join_threshold``)
+        replicates the right side to every partition instead of
+        hash-exchanging both; the output
+        then keeps the left side's placement (a right or full join never
+        broadcasts: its unmatched right rows would come out once per
+        partition).  A hash join whose exchanges overflow on a hot key
+        re-runs with the salted exchange, unless a later stage relies on
+        its placement."""
+        if how not in ("inner", "left", "right", "full"):
             raise ValueError(f"unknown join how={how!r}")
         return Dataset(self.ctx, E.Join(
             parents=(self.node, other.node), left_keys=tuple(left_keys),
@@ -298,20 +333,41 @@ class Dataset:
             broadcast_right=broadcast, how=how,
             right_unique=right_unique))
 
+    def group_join(self, other: "Dataset", left_keys: Sequence[str],
+                   aggs: Dict[str, Any],
+                   right_keys: Sequence[str] | None = None,
+                   expansion: float = 1.0) -> "Dataset":
+        """GroupJoin: each left row with the AGGREGATE of its matching
+        right group: ``other.group_by(right_keys, aggs)`` then a left join,
+        so a left row without a group gets zero aggregates (include a
+        ``("count", None)`` to tell empty groups apart)."""
+        rkeys = list(right_keys or left_keys)
+        return self.join(other.group_by(rkeys, aggs), left_keys, rkeys,
+                         expansion=expansion, how="left")
+
     def cache(self) -> "Dataset":
         """Materialize NOW and reuse the result in later queries (hoist
         loop-invariant work out of a do_while body).  The in-memory form:
         the result stays on the card and keeps its partitioning claim.
         The store-backed re-streaming tiers come with the out-of-core
-        slice."""
-        return self.ctx.from_pdata(self._materialize(),
-                                   partitioning=self.node.partitioning)
+        slice.  A run that salted a join drops the claim: its rows no
+        longer lie where the key's hash says."""
+        pd, salted = self._run()
+        return self.ctx.from_pdata(
+            pd, partitioning=(E.Partitioning.none() if salted
+                              else self.node.partitioning))
 
     def plan(self):
         return plan_query(self.node, self.ctx.nparts, config=self.ctx.config)
 
+    def _run(self):
+        """(output, whether any stage ran salted)."""
+        graph = self.plan()
+        return (self.ctx.executor.run(graph),
+                any(st._salted for st in graph.stages))
+
     def _materialize(self):
-        return self.ctx.executor.run(self.plan())
+        return self._run()[0]
 
     def collect(self) -> Dict[str, Any]:
         """Execute and pull all rows to the host."""

@@ -6,31 +6,38 @@ The JAX package runs each stage as ONE jit(shard_map) program whose
 on every device.  Here the P partitions share one device: each leg is a
 Python loop over the partitions for its ops and one batched exchange
 across all of them, then a loop for the body ops; a two-input body op
-(``join``, ``apply2``, ``semi_anti``, ``concat``) takes the other legs'
-partitions.  Every op returns a NEED
+(``join``, ``zip``, ``apply2``, ``semi_anti``, ``concat``) takes the
+other legs' partitions.  Every op returns a NEED
 vector ``[need_scale, need_slack]`` that stays on the device; the
 executor reads it once per stage attempt (the one host sync, with the
 exchanges' own share of the need beside it) and, on overflow, re-runs the
 stage at the measured scale and send-slot slack instead of dropping rows.
-An overflow no scale can fix (a ``with_capacity`` truncation) raises
-``CapacityError``.  ``stage_log`` keeps each stage's attempts, exchanging
-legs and final capacity scale from the last ``run``.
+An overflow no scale can fix (a ``with_capacity`` truncation, a zip
+alignment shortfall) raises ``CapacityError``.  A saltable join stage
+whose exchanges fall short by at least ``salt_trigger_factor`` x their
+capacity re-runs with the hot-key-salted exchange instead
+(``shuffle.skew_join_exchange``), and stays salted in later runs of the
+same plan.  ``stage_log`` keeps each stage's attempts, exchanging legs,
+final capacity scale, whether it ran salted and each exchanging leg's
+received rows per destination from the last ``run``.
 
 A range exchange splits on bounds sampled from the output of its
 ``bounds_from`` stage (``_range_bounds``), once per stage before the
-retry loop and on the device.  The global ``take`` needs every
-partition's count, and the lookup-join choice every partition's
-duplicate flag, so the executor applies those two over the whole
-partition list (``_take_global``, ``_join_global``).  The other two-input
-body ops (``apply2`` of ``cross_apply``, the set operators' ``semi_anti``
-and ``concat``) pair each partition with the other leg's same partition.
-A broadcast leg hands every partition the same replicated Batch.  ``run`` binds a
+retry loop and on the device.  The global positional ops (``take``,
+``row_index``, ``skip``, ``take_while``, ``skip_while``) need every
+partition's count or "clean" flag, ``zip`` both sides' counts, and the
+lookup-join choice every partition's duplicate flag, so the executor
+applies those over the whole partition list (``_POSITIONAL``,
+``_join_global``, ``shuffle.zip_exchange``); only the duplicate flags
+are read on the host.  The other two-input body ops (``apply2`` of
+``cross_apply``, the set operators' ``semi_anti`` and ``concat``) pair
+each partition with the other leg's same partition.  A broadcast leg
+hands every partition the same replicated Batch.  ``run`` binds a
 do_while body's placeholder to the previous iteration's output.
 
 Not ported yet (later slices, see ROADMAP.md): lineage recovery and the
 deferred settle, adaptivity, the cost cross-check, slot feedback and
-probes, hot-key salting (where the JAX package would switch a join stage
-to the salted exchange, the port raises ``NotPortedYet``).
+probes.
 """
 
 from __future__ import annotations
@@ -44,7 +51,6 @@ from dryad_tpu_torch.exec.data import PData, split_partitions, \
     stack_partitions
 from dryad_tpu_torch.ops import kernels
 from dryad_tpu_torch.ops.hashing import M32
-from dryad_tpu_torch.ops.kernels import NotPortedYet
 from dryad_tpu_torch.ops.text import lower_ascii, split_tokens, \
     tokenize_group_count
 from dryad_tpu_torch.parallel import shuffle
@@ -60,7 +66,7 @@ class CapacityError(RuntimeError):
 # sentinel need: the overflow source cannot be fixed by scaling
 _UNSCALABLE = 1 << 30
 # op kinds whose overflow a larger capacity scale fixes (exchanges too)
-_SCALABLE_OVERFLOW_KINDS = {"flat_tokens", "join"}
+_SCALABLE_OVERFLOW_KINDS = {"flat_tokens", "join", "zip"}
 
 
 def _stage_overflow_scalable(stage: Stage) -> bool:
@@ -178,7 +184,7 @@ def _join_global(lparts: List[Batch], rparts: List[Batch], op: StageOp,
         return kernels.general_join(lb, rb, lk, rk, out_capacity=cap,
                                     how=how)
 
-    if p["right_unique"]:
+    if p["right_unique"] and how in ("inner", "left"):
         looked = [kernels.lookup_join(lb, rb, lk, rk, out_capacity=cap,
                                       how=how)
                   for lb, rb in zip(lparts, rparts)]
@@ -193,15 +199,84 @@ def _join_global(lparts: List[Batch], rparts: List[Batch], op: StageOp,
             _needs(need.device, _scale_need(need, p["out_capacity"])))
 
 
-def _take_global(parts: List[Batch], n: int) -> List[Batch]:
+def _starts(parts: List[Batch]) -> torch.Tensor:
+    """[P] global row index of each partition's first row (the exclusive
+    prefix of the counts, on the device)."""
+    counts = torch.stack([b.count for b in parts]).to(torch.int64)
+    return torch.cumsum(counts, 0) - counts
+
+
+def _take_global(parts: List[Batch], p) -> List[Batch]:
     """The first ``n`` rows over all partitions in partition order:
     partition p keeps clip(n - sum_{q<p} count_q, 0, count_p)."""
+    n = p["n"]
     local = [kernels.take(b, n) for b in parts]
     counts = torch.stack([b.count for b in local])
-    before = torch.cumsum(counts, 0) - counts
-    keep = torch.minimum(torch.clamp(n - before, min=0), counts).to(
-        torch.int32)
-    return [Batch(b.columns, keep[p]) for p, b in enumerate(local)]
+    keep = torch.minimum(torch.clamp(n - _starts(local), min=0),
+                         counts).to(torch.int32)
+    return [Batch(b.columns, keep[q]) for q, b in enumerate(local)]
+
+
+def _row_index_global(parts: List[Batch], p) -> List[Batch]:
+    """A global int32 row-index column: each partition's rows count on
+    from the rows of the partitions before it."""
+    starts = _starts(parts)
+    return [Batch(dict(b.columns, **{p["column"]: (
+        starts[q] + torch.arange(b.capacity, device=b.device)).to(
+            torch.int32)}), b.count) for q, b in enumerate(parts)]
+
+
+def _skip_global(parts: List[Batch], p) -> List[Batch]:
+    """Drop the first ``n`` rows over all partitions: partition q drops
+    its first clip(n - start_q, 0, count_q) rows."""
+    starts = _starts(parts)
+    out = []
+    for q, b in enumerate(parts):
+        drop = torch.minimum(torch.clamp(p["n"] - starts[q], min=0),
+                             b.count)
+        out.append(kernels.compact(
+            b, torch.arange(b.capacity, device=b.device) >= drop))
+    return out
+
+
+def _while_global(parts: List[Batch], p, take: bool) -> List[Batch]:
+    """take_while / skip_while over the global row order: the prefix is
+    each partition's rows before its first failing row, and counts only
+    while every earlier partition is clean (no failing row)."""
+    firsts = []
+    for b in parts:
+        valid = b.valid_mask()
+        fail = ~p["fn"](dict(b.columns)) & valid
+        idx = torch.arange(b.capacity, device=b.device)
+        firsts.append(torch.minimum(
+            torch.where(fail, idx, b.capacity).min(), b.count))
+    first = torch.stack(firsts)
+    counts = torch.stack([b.count for b in parts])
+    clean = (first >= counts).to(torch.int32)
+    # every partition before q clean: the exclusive running product
+    before_clean = torch.cat([clean.new_ones(1),
+                              torch.cumprod(clean, 0)[:-1]]) > 0
+    prefix = torch.where(before_clean, first, 0)
+    out = []
+    for q, b in enumerate(parts):
+        if take:
+            out.append(b.with_count(prefix[q]))
+        else:
+            out.append(kernels.compact(
+                b, torch.arange(b.capacity, device=b.device) >= prefix[q]))
+    return out
+
+
+# single-input ops over the whole partition list: (partitions, params) ->
+# partitions; each needs every partition's count or "clean" flag, and
+# none can overflow
+_POSITIONAL = {
+    "take": _take_global,
+    "row_index": _row_index_global,
+    "skip": _skip_global,
+    "take_while": lambda parts, p: _while_global(parts, p, take=True),
+    "skip_while": lambda parts, p: _while_global(parts, p, take=False),
+}
 
 
 def _sample_lanes(col, counts: torch.Tensor, S: int) -> torch.Tensor:
@@ -305,11 +380,20 @@ class Executor:
         return torch.where(n_tot > 0, bounds, 0)
 
     def _run_ops(self, parts: List[Batch], ops: List[StageOp], scale: int,
-                 needs: torch.Tensor, others=()):
+                 slack: int, needs: torch.Tensor, others=()):
         others = list(others)
         for op in _fuse_stage_ops(ops):
-            if op.kind == "take":
-                parts = _take_global(parts, op.params["n"])
+            if op.kind in _POSITIONAL:
+                parts = _POSITIONAL[op.kind](parts, op.params)
+                continue
+            if op.kind == "zip":
+                parts, nr, nsl = shuffle.zip_exchange(
+                    parts, others.pop(0), op.params["suffix"], slack)
+                # a destination holds at most its own left rows, so the
+                # receive side fits by construction: only send slots can
+                # fall short under skewed right-side counts
+                needs = torch.maximum(needs, _needs(
+                    nr.device, torch.where(nr > 0, _UNSCALABLE, 0), nsl))
                 continue
             if op.kind == "join":
                 parts, nd = _join_global(parts, others.pop(0), op, scale)
@@ -328,26 +412,52 @@ class Executor:
         return parts, needs
 
     def _run_once(self, stage: Stage, inputs: List[PData], scale: int,
-                  slack: int, bounds: Optional[torch.Tensor]
+                  slack: int, bounds: Optional[torch.Tensor], salted: bool
                   ) -> Tuple[PData, torch.Tensor]:
-        """One attempt of a stage: (output, [need_scale, need_slack,
-        the exchanges' need_scale] on the device)."""
+        """One attempt of a stage: (output, [need_scale, need_slack, the
+        exchanges' need_scale, then each exchanging leg's received rows
+        per destination] on the device).  The exchanges' need is kept
+        apart so that the salting trigger reacts to exchange skew only:
+        a join-output shortfall must scale, not salt."""
         dev = self.mesh.device
         needs = torch.zeros(2, dtype=torch.int32, device=dev)
         exch_need = torch.zeros((), dtype=torch.int32, device=dev)
         legs = []
         for leg, inp in zip(stage.legs, inputs):
             parts, needs = self._run_ops(split_partitions(inp), leg.ops,
-                                         scale, needs)
-            if leg.exchange is not None:
-                parts, nd = _apply_exchange(parts, leg.exchange, scale,
-                                            slack, bounds)
+                                         scale, slack, needs)
+            legs.append(parts)
+        if salted:
+            # both legs' hash exchanges rewritten jointly: the left one
+            # spreads hot keys, the right one replicates its hot rows
+            lex, rex = stage.legs[0].exchange, stage.legs[1].exchange
+            lout, rout, lnr, rnr, nsl = shuffle.skew_join_exchange(
+                legs[0], legs[1], lex.keys, rex.keys,
+                lex.out_capacity * scale, rex.out_capacity * scale,
+                hot_factor=self.config.salt_hot_factor,
+                topk=self.config.salt_topk, send_slack=slack)
+            nd = _needs(dev, torch.maximum(
+                _scale_need(lnr, lex.out_capacity),
+                _scale_need(rnr, rex.out_capacity)), nsl)
+            needs = torch.maximum(needs, nd)
+            exch_need = torch.maximum(exch_need, nd[0])
+            legs = [lout, rout]
+            exchanged = legs
+        else:
+            exchanged = []
+            for i, leg in enumerate(stage.legs):
+                if leg.exchange is None:
+                    continue
+                legs[i], nd = _apply_exchange(legs[i], leg.exchange, scale,
+                                              slack, bounds)
                 needs = torch.maximum(needs, nd)
                 exch_need = torch.maximum(exch_need, nd[0])
-            legs.append(parts)
-        parts, needs = self._run_ops(legs[0], stage.body, scale, needs,
-                                     legs[1:])
-        return stack_partitions(parts), torch.cat([needs, exch_need[None]])
+                exchanged.append(legs[i])
+        parts, needs = self._run_ops(legs[0], stage.body, scale, slack,
+                                     needs, legs[1:])
+        recv = [b.count.to(torch.int32) for leg in exchanged for b in leg]
+        return stack_partitions(parts), torch.stack(
+            [needs[0], needs[1], exch_need] + recv)
 
     @staticmethod
     def _leg_input(leg, results: Dict[int, PData],
@@ -364,30 +474,33 @@ class Executor:
                 raise KeyError(f"unbound placeholder {v!r}") from None
         raise ValueError(leg.src)
 
-    def _decide(self, stage: Stage, scale: int, slack: int, need_scale: int,
-                need_slack: int, need_exch: int):
-        """The JAX package's retry policy: None when the attempt fit, else
-        the (scale, slack) of the retry; raises CapacityError for an
-        overflow no scale fixes, and NotPortedYet where the JAX package
-        would switch the stage to the hot-key-salted exchange."""
+    def _decide(self, stage: Stage, scale: int, slack: int, salted: bool,
+                need_scale: int, need_slack: int, need_exch: int):
+        """The JAX package's retry policy (``_decide_needs``): None when
+        the attempt fit, else the (scale, slack, salted) of the retry;
+        raises CapacityError for an overflow no scale fixes."""
         if need_scale <= 0 and need_slack <= 0:
             return None
         if need_scale >= _UNSCALABLE or not _stage_overflow_scalable(stage):
             raise CapacityError(
                 f"stage {stage.id} ({stage.label}) overflowed a fixed "
-                f"capacity (a with_capacity truncation): retrying at a "
-                f"larger scale cannot succeed; raise the declared capacity "
-                f"instead")
-        if (stage.salt_ok and self.nparts > 1
+                f"capacity (a with_capacity truncation or a zip alignment "
+                f"shortfall): retrying at a larger scale cannot succeed; "
+                f"raise the declared capacity instead")
+        slack = max(slack, min(need_slack, self.nparts))
+        if (not salted and stage.salt_ok and self.nparts > 1
                 and need_exch >= self.config.salt_trigger_factor * scale):
-            raise NotPortedYet(
-                f"hot-key salting of the join stage {stage.id}'s exchanges "
-                f"(need {need_exch}x the capacity)",
-                "other two-input operators")
+            # hot-key exchange skew: salting spreads the hot keys, so the
+            # retry needs about twice the balanced share, not the hot
+            # destination's whole load
+            new_scale = max(stage._capacity_scale,
+                            -(-need_exch * 2 // self.nparts))
+            if need_scale > need_exch:
+                new_scale = max(new_scale, need_scale)
+            return new_scale, slack, True
         # right-size from the measured requirement: ONE retry at the exact
         # need instead of a blind doubling ladder
-        return max(scale, need_scale), max(slack, min(need_slack,
-                                                      self.nparts))
+        return max(scale, need_scale), slack, salted
 
     def _run_stage(self, stage: Stage, results: Dict[int, PData],
                    bindings: Dict[str, PData]) -> PData:
@@ -403,24 +516,36 @@ class Executor:
                 break
         scale = stage._capacity_scale
         slack = stage._send_slack or self.config.initial_send_slack
+        salted = stage._salted
+        salted_attempts = 0
         retries = self.config.max_capacity_retries
         for attempt in range(retries + 1):
-            out, needs = self._run_once(stage, inputs, scale, slack, bounds)
-            retry = self._decide(stage, scale, slack,
-                                 *(int(v) for v in needs.tolist()))
+            out, info = self._run_once(stage, inputs, scale, slack, bounds,
+                                       salted)
+            info = info.tolist()   # the attempt's ONE host sync
+            salted_attempts += salted
+            retry = self._decide(stage, scale, slack, salted, *info[:3])
             if retry is None:
                 stage._capacity_scale = scale
                 stage._send_slack = slack
+                stage._salted = salted
+                P = self.nparts
+                # a zip body op runs an exchange of its own
+                kinds = [ex.kind for ex in exchanges] + [
+                    "zip" for op in stage.body if op.kind == "zip"]
                 self.stage_log.append({
                     "stage": stage.id, "label": stage.label,
-                    "exchange": exchanges[0].kind if exchanges else None,
-                    "exchanges": len(exchanges),
-                    "broadcasts": sum(ex.kind == "broadcast"
-                                      for ex in exchanges),
+                    "exchange": kinds[0] if kinds else None,
+                    "exchanges": len(kinds),
+                    "broadcasts": kinds.count("broadcast"),
                     "attempts": attempt + 1, "scale": scale,
-                    "slack": slack})
+                    "slack": slack, "salted": salted,
+                    # each salted attempt broadcast the hot right rows
+                    "salted_attempts": salted_attempts,
+                    "recv_rows": [info[i:i + P]
+                                  for i in range(3, len(info), P)]})
                 return out
-            scale, slack = retry
+            scale, slack, salted = retry
         raise CapacityError(
             f"stage {stage.id} ({stage.label}) still overflowing after "
             f"{retries} capacity retries (scale={scale}, slack={slack})")

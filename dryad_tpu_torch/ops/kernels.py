@@ -44,21 +44,13 @@ __all__ = ["compact", "filter_rows", "permute_by_sort", "take",
            "group_decompose_merge", "group_decompose_local",
            "resolve_dec_spec", "distinct", "group_top_k",
            "group_rank_select", "mean_finalize_columns", "AGG_KINDS",
-           "NotPortedYet", "canon_nan", "minimum", "maximum",
+           "canon_nan", "minimum", "maximum",
            "searchsorted_big", "hash_join", "lookup_join", "general_join",
-           "semi_anti_join", "concat2", "scalar_aggregate"]
+           "semi_anti_join", "concat2", "zip2", "scalar_aggregate"]
 
 AGG_KINDS = ("sum", "count", "min", "max", "mean", "any", "all")
 
 _SIGN = 0x80000000
-
-
-class NotPortedYet(NotImplementedError):
-    """A part of the JAX package that a later slice of the port brings."""
-
-    def __init__(self, what: str, slice_name: str):
-        super().__init__(f"{what} is not ported yet; it comes with the "
-                         f"{slice_name} slice (ROADMAP.md)")
 
 
 # ---------------------------------------------------------------------------
@@ -1369,8 +1361,10 @@ def hash_join(left: Batch, right: Batch, left_keys: Sequence[str],
     executor can right-size the retry.
 
     ``how="left"``: a left row without a match emits ONE row with the
-    right columns zero-filled.  ``right`` and ``full`` come with a later
-    slice.
+    right columns zero-filled.  ``how="right"`` mirrors it: a right row
+    without a match emits ONE row whose left key columns carry the right
+    keys and whose other left columns are zero-filled, appended after
+    the matched rows; ``how="full"`` does both.
 
     Candidates are found on one 32-bit hash lane (``hi ^ lo * 0x9E3779B9``
     mod 2**32): the right side sorted by (invalid, lane) — stable, so
@@ -1383,13 +1377,12 @@ def hash_join(left: Batch, right: Batch, left_keys: Sequence[str],
     ``lookup_join`` runs, and its result stands when no two valid right
     rows share a 64-bit key hash, else this general join runs.  The JAX
     package picks with ``lax.cond`` on the device; the port reads the
-    flag on the host (the executor reads every partition's at once)."""
-    if how in ("right", "full"):
-        raise NotPortedYet(f'how="{how}" joins',
-                           "other two-input operators")
-    if how not in ("inner", "left"):
+    flag on the host (the executor reads every partition's at once).
+    The lookup form is for inner and left joins only, as in the JAX
+    package."""
+    if how not in ("inner", "left", "right", "full"):
         raise ValueError(f"unknown join how={how!r}")
-    if right_unique:
+    if right_unique and how in ("inner", "left"):
         out, need, dups = lookup_join(left, right, left_keys, right_keys,
                                       out_capacity, suffix, how)
         if not bool(dups):
@@ -1403,6 +1396,8 @@ def general_join(left: Batch, right: Batch, left_keys: Sequence[str],
                  suffix: str = "_r", how: str = "inner"
                  ) -> Tuple[Batch, torch.Tensor]:
     """``hash_join`` for any right side (duplicate keys included)."""
+    if how not in ("inner", "left", "right", "full"):
+        raise ValueError(f"unknown join how={how!r}")
     cl, cr = left.capacity, right.capacity
     dev = left.device
     lhi, llo = hash_batch_keys(left, left_keys)
@@ -1419,7 +1414,7 @@ def general_join(left: Batch, right: Batch, left_keys: Sequence[str],
     start = searchsorted_big(rkey, lh, side="left")
     stop = searchsorted_big(rkey, lh, side="right")
     mult = torch.where(lvalid, stop - start, 0)
-    left_synth = how == "left"
+    left_synth = how in ("left", "full")
     if left_synth:
         # an unmatched left row still takes one (synthetic) output slot
         synth_row = lvalid & (mult == 0)
@@ -1436,8 +1431,9 @@ def general_join(left: Batch, right: Batch, left_keys: Sequence[str],
     rid_abs = order.index_select(0, rid)
     # true key equality drops hash collisions and candidates that landed
     # in the right side's padding
-    keep = slot_valid & (rid < right.count) & _keys_equal(
+    keep_match = slot_valid & (rid < right.count) & _keys_equal(
         left, lid, left_keys, right, rid_abs, right_keys)
+    keep = keep_match
     if left_synth:
         synth_slot = slot_valid & synth_row.index_select(0, lid)
         keep = keep | synth_slot
@@ -1451,7 +1447,62 @@ def general_join(left: Batch, right: Batch, left_keys: Sequence[str],
                                              dtype=torch.int32,
                                              device=dev)), keep)
     need = torch.where(total > out_capacity, total, 0).to(torch.int32)
+    if how in ("right", "full"):
+        out, need = _append_unmatched_right(out, need, total, left, right,
+                                            left_keys, right_keys, rid_abs,
+                                            keep_match, out_capacity, suffix)
     return out, need
+
+
+def _append_unmatched_right(out: Batch, need: torch.Tensor, total, left,
+                            right, left_keys, right_keys, rid_abs,
+                            keep_match, out_capacity: int, suffix: str):
+    """The right / full join's tail: every right row that no VERIFIED
+    match kept gets one output row after the matched ones, its left key
+    columns carrying the right keys (a string key at the right key's full
+    width: ``concat2`` pads the narrower side, where truncating would
+    corrupt a longer unmatched right key) and its other left columns
+    zero-filled.  A match dropped only by the capacity leaves its right
+    row unmatched, inflating the count: harmless, the need already forces
+    a right-sized retry then.  The need becomes matched + unmatched."""
+    matched = torch.zeros(right.capacity, dtype=torch.int32,
+                          device=right.device).scatter_reduce_(
+        0, rid_abs, keep_match.to(torch.int32), "amax")
+    ru = compact(right, matched == 0)
+    u = ru.count
+    key_map = dict(zip(left_keys, right_keys))
+    synth: Dict[str, Any] = {}
+    for k, v in left.columns.items():
+        if k in key_map:
+            rv = ru.columns[key_map[k]]
+            synth[k] = rv if isinstance(v, StringColumn) else rv.to(v.dtype)
+        elif isinstance(v, StringColumn):
+            synth[k] = StringColumn(
+                v.data.new_zeros((right.capacity, v.max_len)),
+                v.lengths.new_zeros((right.capacity,)))
+        else:
+            synth[k] = v.new_zeros((right.capacity,) + tuple(v.shape[1:]))
+    for k, name in _join_out_names(left, right, right_keys, suffix):
+        synth[name] = ru.columns[k]
+    merged = concat2(out, Batch(synth, u))
+    keep_rows = torch.arange(out_capacity, device=out.device)
+    out = merged.gather(keep_rows, torch.clamp(merged.count,
+                                               max=out_capacity))
+    need = torch.where(total + u > out_capacity, total + u, need).to(
+        torch.int32)
+    return out, need
+
+
+def zip2(a: Batch, b: Batch, suffix: str = "_r") -> Batch:
+    """Positional pairing within a partition, the shorter side's count
+    (LINQ Zip): ``a``'s columns, then ``b``'s (suffixed on a name clash),
+    capacity the smaller of the two."""
+    cap = min(a.capacity, b.capacity)
+    cols = {k: map_column(v, lambda x: x[:cap]) for k, v in a.columns.items()}
+    for k, v in b.columns.items():
+        cols[k if k not in cols else k + suffix] = map_column(
+            v, lambda x: x[:cap])
+    return Batch(cols, torch.minimum(a.count, b.count).to(torch.int32))
 
 
 # ---------------------------------------------------------------------------

@@ -24,7 +24,12 @@ to the partition whose sampled split points bracket the row's first sort
 lane (``range_exchange``).  A broadcast (``broadcast_gather``) gives
 every partition all partitions' valid rows: the JAX package's
 ``all_gather`` + compaction is ONE ``slot_compact`` launch over the
-stacked partitions here.  The JAX package's gather form of the
+stacked partitions here.  The hot-key-salted join exchange
+(``skew_join_exchange``) is a hash exchange of the left side with hot
+keys spread over every partition, a broadcast of the right side's hot
+rows and a hash exchange of the rest; the zip exchange
+(``zip_exchange``) moves right rows to the partition holding the same
+global row index on the left.  The JAX package's gather form of the
 exchange exists only for backends
 without its kernels; the port has no such backend.  The NEED channels are
 kept: capacity shortfalls come back as the measured requirement, and the
@@ -44,11 +49,13 @@ from dryad_tpu_torch.ops.hopper_kernels import (hist_buckets_batched,
                                                 prefix_sum, slot_compact,
                                                 slot_expand_batched)
 from dryad_tpu_torch.ops.kernels import (_pack_columns_u32,
-                                         _unpack_columns_u32,
-                                         searchsorted_small, sort_lanes_for)
+                                         _unpack_columns_u32, compact,
+                                         concat2, searchsorted_small,
+                                         sort_lanes_for, zip2)
 
 __all__ = ["exchange_by_dest", "hash_exchange", "range_dest_lane",
-           "range_dest", "range_exchange", "broadcast_gather"]
+           "range_dest", "range_exchange", "broadcast_gather",
+           "skew_join_exchange", "zip_exchange"]
 
 
 def _canonical_hash_dest(lo: torch.Tensor, nparts: int) -> torch.Tensor:
@@ -186,3 +193,140 @@ def _cat_column(cols: list):
         return StringColumn(torch.cat([c.data for c in cols]),
                             torch.cat([c.lengths for c in cols]))
     return torch.cat(cols)
+
+
+def _left_heavy_hitters(lo: torch.Tensor, valid: torch.Tensor, topk: int,
+                        hot_factor: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Globally hot key hashes from per-partition heavy hitters.  ``lo``
+    and ``valid`` are [P, cap]: every partition's lo-hashes and valid
+    flags.
+
+    Each partition nominates its top-``topk`` most frequent lo-hashes
+    (a local run count over its sorted lo-hashes); a candidate's global
+    count sums the counts of every partition that NOMINATED it (not a
+    true global count, as in the JAX package), and a candidate is hot
+    when that exceeds ``hot_factor`` x the balanced per-partition share.
+    The JAX package's all_gather of the candidates is the [P, topk]
+    result itself here, and its psum of the valid counts a sum.  Ties
+    among equal counts pick any of them, as ``argsort`` does there.
+    Returns (cand [P*topk] int64, hot [P*topk] bool)."""
+    P, cap = lo.shape
+    k = min(topk, cap)
+    dev = lo.device
+    # invalid rows take a key above every lo-hash and sort last
+    s = torch.sort(torch.where(valid, lo, 1 << 32), dim=1).values
+    sval = s < (1 << 32)
+    first = torch.ones((P, 1), dtype=torch.bool, device=dev)
+    is_start = sval & torch.cat([first, s[:, 1:] != s[:, :-1]], dim=1)
+    # run number of every valid row; the rest go to a dump slot
+    seg = torch.where(sval, torch.cumsum(is_start, 1) - 1, cap)
+    counts = torch.zeros((P, cap + 1), dtype=torch.int32, device=dev
+                         ).scatter_add_(1, seg, sval.to(torch.int32))
+    rep = torch.zeros((P, cap + 1), dtype=torch.int64, device=dev
+                      ).scatter_(1, torch.where(is_start, seg, cap), s)
+    cnts, top = torch.topk(counts[:, :cap], k, dim=1)
+    cand = rep.gather(1, top).reshape(-1)
+    cnts = cnts.reshape(-1)
+    eq = cand[:, None] == cand[None, :]
+    global_cnt = (eq * cnts[None, :]).sum(dim=1)
+    share = torch.clamp(valid.sum() // P, min=1)
+    hot = (cnts > 0) & (global_cnt.to(torch.float32)
+                        > hot_factor * share.to(torch.float32))
+    return cand, hot
+
+
+def _is_member(lo: torch.Tensor, cand: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+    """Rows whose lo-hash is one of the masked-in candidates (-1 never
+    equals a lo-hash in [0, 2**32))."""
+    return torch.isin(lo, torch.where(mask, cand, -1))
+
+
+def skew_join_exchange(left: List[Batch], right: List[Batch], left_keys,
+                       right_keys, left_cap: int, right_cap: int,
+                       hot_factor: float = 4.0, topk: int = 8,
+                       send_slack: int = 2):
+    """Hot-key-salted join repartition: the escape a 95 %-hot join key
+    needs, where one destination would otherwise hold ~all left rows.
+
+    Left rows of HOT keys spread over ALL partitions ((canonical + i) % P,
+    i the row's position in its partition after the leg's ops); the right
+    side splits: its hot-key rows are replicated to every partition (ONE
+    ``slot_compact``, ``broadcast_gather``), the rest hash-exchange
+    canonically, so every matching pair still meets exactly once.  Each
+    partition's left capacity then tracks ~N/P instead of ~N.  The output
+    placement is NOT hash by key any more; the planner allows salting
+    only on stages whose placement no later stage trusted
+    (``Stage.salt_ok``).  Both right parts are appended with ``concat2``,
+    so the right side's capacity becomes 2 x ``right_cap``.
+
+    Returns (left', right', need_left_rows, need_right_rows,
+    need_slack)."""
+    P = len(left)
+    llo = torch.stack([hash_batch_keys(b, list(left_keys))[1]
+                       for b in left])
+    lvalid = torch.stack([b.valid_mask() for b in left])
+    cand, hot = _left_heavy_hitters(llo, lvalid, topk, hot_factor)
+    is_hot_l = _is_member(llo, cand, hot)
+    base = _canonical_hash_dest(llo, P)
+    salt = torch.arange(llo.shape[1], dtype=torch.int32,
+                        device=llo.device) % P
+    ldest = torch.where(is_hot_l, (base + salt) % P, base)
+    lout, lnr, lnsl, _ls = exchange_by_dest(left, list(ldest), left_cap,
+                                            send_slack)
+
+    r_hot, r_non = [], []
+    for b in right:
+        hot_r = _is_member(hash_batch_keys(b, list(right_keys))[1], cand,
+                           hot)
+        # compact keeps valid rows only
+        r_hot.append(compact(b, hot_r))
+        r_non.append(compact(b, ~hot_r))
+    # hot right rows must be visible on every salted destination
+    rh, rnr1, _ = broadcast_gather(r_hot, right_cap)
+    # compaction REORDERED the rows: hash_exchange takes the destinations
+    # from the compacted batches' own keys
+    rn, rnr2, rnsl, _rs = hash_exchange(r_non, list(right_keys), right_cap,
+                                        send_slack)
+    rout = [concat2(h, n) for h, n in zip(rh, rn)]
+    return (lout, rout, lnr, torch.maximum(rnr1, rnr2),
+            torch.maximum(lnsl, rnsl))
+
+
+def zip_exchange(a: List[Batch], b: List[Batch], suffix: str = "_r",
+                 send_slack: int = 2
+                 ) -> Tuple[List[Batch], torch.Tensor, torch.Tensor]:
+    """Globally aligned positional Zip (LINQ Zip across partitions): the
+    right row with global index g pairs with the left row with global
+    index g, whatever the two sides' per-partition counts.  Right rows
+    go to the partition whose left rows cover g (``searchsorted`` over
+    the left side's running ends, on the device); rows past the left
+    side's total are dropped (shorter-side semantics; ``zip2`` trims the
+    other side).
+
+    The JAX package re-sorts the received rows by (invalid, g); here the
+    exchange already delivers them source partition by source partition,
+    each source's rows in row order, which is g order, so no column
+    carries g and no sort runs.
+
+    Returns (batches, need_recv, need_slack).  A destination never
+    receives more rows than its left count, so a receive shortfall
+    cannot happen by scaling; only send slots can fall short."""
+    P = len(a)
+    zero = torch.zeros((), dtype=torch.int32, device=a[0].device)
+    if P == 1:   # one partition: already globally aligned
+        return [zip2(a[0], b[0], suffix)], zero, zero
+    counts_a = torch.stack([x.count for x in a]).to(torch.int64)
+    counts_b = torch.stack([x.count for x in b]).to(torch.int64)
+    ends_a = torch.cumsum(counts_a, 0)
+    starts_b = torch.cumsum(counts_b, 0) - counts_b
+    dests = []
+    for p, x in enumerate(b):
+        g = starts_b[p] + torch.arange(x.capacity, device=x.device)
+        d = searchsorted_small(ends_a, g, side="right")
+        dests.append(torch.where(g < ends_a[-1], d, P))  # past the end: drop
+    recv, need_recv, need_slack, _slot = exchange_by_dest(
+        b, dests, a[0].capacity, send_slack)
+    return ([zip2(x, r, suffix) for x, r in zip(a, recv)], need_recv,
+            need_slack)

@@ -4,8 +4,9 @@ SelectMany, GroupBy with builtin or user-defined decomposable aggregates,
 the group-contents operators (top-k, rank select), OrderBy, Distinct,
 Take, explicit hash and range repartition, partitioning claims
 (AssumePartitioning), the equi-Join, the set operators (SetOp, Concat),
-Broadcast, the two-input CrossApply, WithCapacity and the do_while
-loop's Placeholder.  A ``Dataset`` method chain builds this DAG lazily;
+Broadcast, the two-input CrossApply, the positional operators (Zip,
+WithRowIndex, SkipTake), WithCapacity and the do_while loop's
+Placeholder.  A ``Dataset`` method chain builds this DAG lazily;
 the planner (``plan/planner.py``) lowers it to stages."""
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ __all__ = ["Partitioning", "Node", "Source", "Placeholder", "Map", "Filter",
            "GroupRankSelect", "Join", "OrderBy", "Distinct", "SetOp",
            "Concat", "HashRepartition", "RangeRepartition", "Broadcast",
            "Take", "WithCapacity", "CrossApply", "AssumePartitioning",
-           "walk"]
+           "Zip", "WithRowIndex", "SkipTake", "walk"]
 
 _ids = itertools.count()
 
@@ -195,7 +196,9 @@ class GroupRankSelect(Node):
 
 @_node
 class Join(Node):
-    """Equi-join (inner, or left-outer with zero-filled right columns)."""
+    """Equi-join: inner, or left / right / full outer with the other
+    side's columns zero-filled (a right row's keys fill the left key
+    columns)."""
 
     parents: Tuple[Node, ...]  # (left, right)
     left_keys: Tuple[str, ...]
@@ -328,6 +331,39 @@ class CrossApply(Node):
     @property
     def partitioning(self) -> Partitioning:
         return Partitioning.none()
+
+
+@_node
+class Zip(Node):
+    """Pairwise combination by GLOBAL position (shorter-side semantics):
+    right rows move to the partition holding the same global row index
+    on the left (``parallel/shuffle.zip_exchange``), so sides with
+    different per-partition counts (after a filter) pair correctly."""
+
+    parents: Tuple[Node, ...]  # (left, right)
+    suffix: str = "_r"
+
+    @property
+    def partitioning(self) -> Partitioning:
+        return Partitioning.none()
+
+
+@_node
+class WithRowIndex(Node):
+    """Add a global row-index column."""
+
+    parents: Tuple[Node, ...]
+    column: str = "row_index"
+
+
+@_node
+class SkipTake(Node):
+    """Global skip / take_while / skip_while."""
+
+    parents: Tuple[Node, ...]
+    op: str  # "skip" | "take_while" | "skip_while"
+    n: int = 0
+    fn: Any = None
 
 
 @_node

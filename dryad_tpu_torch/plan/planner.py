@@ -15,8 +15,10 @@ hash-exchanged on its keys unless already placed by them, and a body
 ``join`` op, or, for a broadcast join, the right leg is replicated to
 every partition and the left one stays put.  CrossApply is the same
 two-leg shape (a broadcast right leg, the user's ``apply2``); the set
-operators hash-exchange whole rows on both legs; Concat is two legs and
-no exchange.  A do_while Placeholder is a leg source bound at run time;
+operators hash-exchange whole rows on both legs; Concat and Zip are two
+legs and no exchange (the zip body realigns the right side itself).
+WithRowIndex and SkipTake are row-local ops that read every partition's
+count.  A do_while Placeholder is a leg source bound at run time;
 WithCapacity is a ``recap`` op.  An exchange is elided where the input is
 already placed as needed (partition elimination); the stages whose
 placement was trusted are marked ``placement_relied`` (and never
@@ -321,6 +323,26 @@ class Planner:
             f = self._frag(n.parents[0])
             f.ops.append(StageOp("take", {"n": n.n}))
             return f
+
+        if isinstance(n, E.WithRowIndex):
+            f = self._frag(n.parents[0])
+            f.ops.append(StageOp("row_index", {"column": n.column}))
+            return f
+
+        if isinstance(n, E.SkipTake):
+            f = self._frag(n.parents[0])
+            f.ops.append(StageOp(n.op, {"n": n.n} if n.op == "skip"
+                                 else {"fn": n.fn}))
+            return f
+
+        if isinstance(n, E.Zip):
+            lf = self._frag(n.parents[0])
+            rf = self._frag(n.parents[1])
+            st = self._new_stage(
+                [Leg(lf.src, lf.ops, None), Leg(rf.src, rf.ops, None)],
+                [StageOp("zip", {"suffix": n.suffix})], "zip")
+            return Fragment(st.id, [], min(lf.capacity, rf.capacity),
+                            E.Partitioning.none())
 
         if isinstance(n, E.WithCapacity):
             f = self._frag(n.parents[0])

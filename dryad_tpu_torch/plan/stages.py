@@ -65,10 +65,15 @@ class Stage:
     # stage's output placement (the planner's placement_dependent
     # closure): nothing may change where its rows land
     placement_relied: bool = False
-    # a two-hash-exchange inner/left join stage that the JAX executor may
-    # switch to a hot-key-salted exchange on skew (the port raises
-    # NotPortedYet where that switch would happen)
+    # True when the executor MAY rewrite this stage's exchanges into the
+    # hot-key-salted form on skew overflow: a two-hash-exchange
+    # inner/left join whose output placement no downstream stage assumed
+    # (the planner clears it wherever partition elimination relied on
+    # the claim)
     salt_ok: bool = False
+    # executor runtime state: the stage ran salted, and stays salted in
+    # later runs of the same plan (sticky)
+    _salted: bool = False
 
 
 @dataclasses.dataclass

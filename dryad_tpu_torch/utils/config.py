@@ -20,10 +20,15 @@ class JobConfig:
     # range exchange split points: ordering lanes sampled per partition
     # (evenly spread over its valid rows) before the bounds are picked
     range_samples_per_partition: int = 4096
-    # hot-key salting: a saltable join stage would switch to the salted
-    # exchange when a retry needs >= trigger x the current per-destination
-    # capacity (the port raises NotPortedYet there instead)
+    # hot-key salting (exec/executor.py + parallel/shuffle.py
+    # skew_join_exchange): a saltable join stage switches to the salted
+    # exchange when a retry would need >= trigger x the current
+    # per-destination capacity
     salt_trigger_factor: int = 4
+    # a key is hot when its global row count exceeds factor x (rows / P)
+    salt_hot_factor: float = 4.0
+    # per-partition heavy-hitter candidates nominated for the hot set
+    salt_topk: int = 8
 
     # -- planner (plan/planner.py) -----------------------------------------
     # default fan-out allowance for join output capacity (out = expansion *
@@ -52,6 +57,8 @@ class JobConfig:
             (self.range_samples_per_partition >= 2,
              "range_samples_per_partition >= 2"),
             (self.salt_trigger_factor >= 2, "salt_trigger_factor >= 2"),
+            (self.salt_hot_factor >= 1.0, "salt_hot_factor >= 1.0"),
+            (self.salt_topk >= 1, "salt_topk >= 1"),
             (self.join_expansion > 0, "join_expansion > 0"),
             (self.broadcast_join_threshold >= 0,
              "broadcast_join_threshold >= 0"),

@@ -23,7 +23,6 @@ from dryad_tpu_torch import Context as TContext
 from dryad_tpu_torch.data import columnar as tcol
 from dryad_tpu_torch.exec.executor import CapacityError
 from dryad_tpu_torch.ops import kernels as tkern
-from dryad_tpu_torch.ops.kernels import NotPortedYet
 
 P = 8
 LCAP, RCAP = 320, 128
@@ -251,14 +250,19 @@ def test_join_on_placed_sides_skips_both_exchanges(devices8):
     assert _table_rows(q.collect(), cols) == _table_rows(jq.collect(), cols)
 
 
-def test_joins_not_ported_raise():
-    """Right and full joins still raise; the broadcast join, ported since,
-    plans a broadcast right leg instead of raising."""
+def test_joins_not_ported_raise(devices8):
+    """Right and full joins, ported since, give the JAX package's rows
+    (they raised before); the broadcast join plans a broadcast right leg
+    instead of raising."""
     t = TContext(device="cpu", nparts=P)
+    j = JContext()
     a, b = _pairs(t), _pairs(t, seed=1)
+    cols = ("k", "x", "x_r")
     for how in ("right", "full"):
-        with pytest.raises(NotPortedYet):
-            a.join(b, ["k"], how=how)
+        got = a.join(b, ["k"], expansion=12.0, how=how).collect()
+        want = _pairs(j).join(_pairs(j, seed=1), ["k"], expansion=12.0,
+                              how=how).collect()
+        assert _table_rows(got, cols) == _table_rows(want, cols)
     join = a.join(b, ["k"], broadcast=True).plan().stages[-1]
     assert [leg.exchange and leg.exchange.kind for leg in join.legs] == \
         [None, "broadcast"]
@@ -266,16 +270,20 @@ def test_joins_not_ported_raise():
 
 def test_skewed_join_raises_where_jax_would_salt(devices8):
     """Every left row on one key: the left exchange needs 8x its
-    capacity, past the salting trigger (4x), so the JAX package would
-    switch to the salted exchange; the port refuses rather than retry
-    unsalted."""
+    capacity, past the salting trigger (4x), so the stage switches to
+    the salted exchange, as the JAX package's does (the port raised
+    here before salting was ported); every row matches its one right
+    row."""
     t = TContext(device="cpu", nparts=P)
     left = t.from_columns({"k": np.zeros(800, np.int32),
                            "x": np.arange(800, dtype=np.int32)})
     right = t.from_columns({"k": np.arange(8, dtype=np.int32),
-                            "y": np.arange(8, dtype=np.int32)})
-    with pytest.raises(NotPortedYet, match="salting"):
-        left.join(right, ["k"], expansion=8.0).collect()
+                            "y": np.arange(8, dtype=np.int32) + 5})
+    out = left.join(right, ["k"], expansion=8.0).collect()
+    assert sorted(out["x"].tolist()) == list(range(800))
+    assert (np.asarray(out["y"]) == 5).all()
+    (join,) = [s for s in t.executor.stage_log if s["label"] == "join"]
+    assert join["salted"] and join["attempts"] == 2
 
 
 def _loop_body(ds, cap):
