@@ -2,7 +2,8 @@
 """Drive the PyTorch port (dryad_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--lines N] [--rows N] [--records N] [--nodes N]
-                          [--points N] [--lineitems N] [--out DIR]
+                          [--points N] [--lineitems N] [--orders N]
+                          [--out DIR]
 
 Phases, each failing the run (non-zero exit, no result line) on error:
 
@@ -118,7 +119,28 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      ``zip6m`` (two differently filtered lineitem sides zipped, a row
      index, skip, take_while; skip_while over a row index) exactly
      numpy's in global row order;
-  3-9. after each of those main-path runs, every kernel call it made
+ 10. the unnest-and-regroup path through the same entry points on
+     ORDERS with their LINEITEMs nested (``nested_orders``: 1,500,000
+     orders of 1 to 7 lines, about 6,000,000, TPC-H SF1; ``--orders N``),
+     the orders hash-repartitioned (a 276 MB pure hash leg: the slot probe
+     ships its first attempt's slot, below the structural one), unnested
+     by ``flat_map``, claimed hash-placed by okey, net added by
+     ``apply_per_partition``: ``unnest6m`` (each order's top two lines by
+     net, ties by line, by ``group_apply`` under ``torch.func.vmap``, with
+     no exchange: the claim) and ``unnest6m_shuffled`` (the same without
+     the claim: one hash exchange) exactly numpy's; ``q1fork6m`` (TPC-H
+     Q1's shape over ``fork_on`` branches of one materialized scan)
+     within the group bound; ``window6m`` (a 7-row ``sliding_window``
+     over ship order: every window exactly numpy's on the held run, the
+     moving sum of net within 7 eps sum|v| after); ``partidx6m`` (each
+     lineitem's partition index is lo(hash(okey)) % 8).  Each cold, then
+     warm and profiled warm in the cold run's context: the orders
+     repartition ships the probe's slot cold and the feedback slot warm.
+     A vmap fallback to a Python loop over groups fails the phase.  Every
+     run's launches match the executor's log, slot probes apart, and
+     PageRank's and k-means' supersteps from the second on ship the
+     feedback slot;
+  3-10. after each of those main-path runs, every kernel call it made
      is made again through the kernel and through its plain version on
      the very tensors the run passed (integers exactly, prefix_sum2
      within twice its bound);
@@ -139,8 +161,10 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      ``runs`` gives each run's own count and |kernel - plain|.
 
 Output: one JSON line per corpus, per GroupByReduce variant, per sort
-path, for PageRank and the NaN hold, for k-means and each phase-8 and
-phase-9 run, per profile, per pack side and per kernel, then
+path, for PageRank and the NaN hold, for k-means and each phase-8,
+phase-9 and phase-10 run (each exchanging stage's send-slot rows and
+their source per attempt among them), per profile, per pack side and per
+kernel, then
 the card line, then the
 ``{"kernels": [...]}`` line, then the result line
 ``{"ok": true, "device": {...}}`` last.
@@ -158,6 +182,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -553,23 +578,27 @@ def check_cancellation(hk, t) -> None:
 
 
 def check_per_exchange(run, launches, attempts=None,
-                       broadcasts: int = 0) -> None:
+                       broadcasts: int = 0, probes: int = 0) -> None:
     """hist_buckets and slot_expand launch once per hash or range
     exchange: as often as the exchange's unpack runs (slot_compact once
     per destination).  A broadcast launches exactly one slot_compact and
     nothing else, so ``broadcasts`` (the executor's count of broadcast
-    legs times attempts) come off slot_compact's launches first.  A
-    capacity retry runs the stage's exchanges again, and a join stage has
-    up to two exchanging legs, so ``attempts``, where given, is the
-    executor's own count of hash / range exchanging legs times attempts
-    over its ``stage_log`` (``exchange_attempts``), which must agree."""
+    legs times attempts) come off slot_compact's launches first.  A slot
+    probe launches one hist_buckets and nothing else, so ``probes`` (the
+    executor's count) come off hist_buckets' launches.  A capacity retry
+    runs the stage's exchanges again, and a join stage has up to two
+    exchanging legs, so ``attempts``, where given, is the executor's own
+    count of hash / range exchanging legs times attempts over its
+    ``stage_log`` (``exchange_attempts``), which must agree."""
     exchanges, rest = divmod(launches["slot_compact"] - broadcasts, NPARTS)
-    bad = {k: launches[k] for k in PER_EXCHANGE if launches[k] != exchanges}
+    apart = {"hist_buckets": probes}
+    bad = {k: launches[k] for k in PER_EXCHANGE
+           if launches[k] - apart.get(k, 0) != exchanges}
     if attempts is not None and attempts != exchanges:
         bad["executor_attempts"] = attempts
     if rest or exchanges < 0 or not (exchanges or broadcasts) or bad:
-        raise AssertionError(f"{run}: {exchanges} exchanges and "
-                             f"{broadcasts} broadcasts (slot_compact "
+        raise AssertionError(f"{run}: {exchanges} exchanges, {broadcasts} "
+                             f"broadcasts and {probes} probes (slot_compact "
                              f"{launches['slot_compact']}) but launches "
                              f"{bad}: not once per exchange")
 
@@ -613,7 +642,8 @@ def run_wordcount(port, hk, wc, lines):
     """One main-path run through the user's entry points (what
     ``wordcount()`` does, timed in two parts: host packing + copy to the
     card, then the query and collect).  Counters zeroed just before, read
-    just after.  Returns (table, launches, load_s, query_s)."""
+    just after.  Returns (table, launches, load_s, query_s, [the
+    executor's stage log])."""
     import torch
     ctx = port.Context(device="cuda", nparts=NPARTS)
     per_part = -(-len(lines) // NPARTS)
@@ -625,7 +655,8 @@ def run_wordcount(port, hk, wc, lines):
     out = wc.wordcount_query(ds, tokens_per_partition=per_part * 10).collect()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    return out, dict(hk.launches), t1 - t0, t2 - t1
+    return (out, dict(hk.launches), t1 - t0, t2 - t1,
+            [list(ctx.executor.stage_log)])
 
 
 # ---------------------------------------------------------------------------
@@ -665,7 +696,8 @@ def run_gbr(port, hk, data, query):
     """One main-path GroupByReduce run through the user's entry points,
     timed as load (from_columns: host packing + copy to the card) and
     query (plan, stages, collect).  Counters zeroed just before, read
-    just after.  Returns (table, launches, load_s, query_s)."""
+    just after.  Returns (table, launches, load_s, query_s, [the
+    executor's stage log])."""
     import torch
     ctx = port.Context(device="cuda", nparts=NPARTS)
     hk.reset_launches()
@@ -676,7 +708,8 @@ def run_gbr(port, hk, data, query):
     out = query(ds).collect()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    return out, dict(hk.launches), t1 - t0, t2 - t1
+    return (out, dict(hk.launches), t1 - t0, t2 - t1,
+            [list(ctx.executor.stage_log)])
 
 
 def check_gbr(name, out, data, cols) -> None:
@@ -810,14 +843,17 @@ def exchanging_stages(logs) -> list:
     """Each exchanging stage of a run: its label, exchange kind, number of
     exchanges (legs and a zip's; broadcast legs among them), retries
     (attempts past the first), final capacity scale, whether it ran
-    salted (and how many attempts did) and each exchanging leg's received
-    rows per destination."""
+    salted (and how many attempts did), each attempt's send-slot rows of
+    each hash / range / zip exchange and their source ("probe",
+    "feedback" or "slack"), the slot probes it ran and each exchanging
+    leg's received rows per destination."""
     return [{"stage": st["label"], "exchange": st["exchange"],
              "exchanges": st["exchanges"], "broadcasts": st["broadcasts"],
              "retries": st["attempts"] - 1, "scale": st["scale"],
              "salted": st["salted"],
              "salted_attempts": st["salted_attempts"],
-             "recv_rows": st["recv_rows"]}
+             "slot_rows": st["slot_rows"], "slot_source": st["slot_source"],
+             "probes": st["probes"], "recv_rows": st["recv_rows"]}
             for log in logs for st in log if st["exchange"]]
 
 
@@ -826,6 +862,12 @@ def exchange_attempts(stages) -> int:
     ``exchanging_stages``: each such leg once per attempt."""
     return sum((st["retries"] + 1) * (st["exchanges"] - st["broadcasts"])
                for st in stages)
+
+
+def probes_run(stages) -> int:
+    """Slot probes the executor ran over ``exchanging_stages`` (one
+    hist_buckets launch each)."""
+    return sum(st["probes"] for st in stages)
 
 
 def broadcast_attempts(stages) -> int:
@@ -845,20 +887,22 @@ PR_EDGES, PR_ITERS = 1_000_000, 10   # the JAX bench's (bench.py:2038-2045)
 PR_RTOL = 2e-3                       # tests/test_apps.py's test_pagerank
 
 
-def run_app(port, hk, app, device="cuda"):
+def run_app(port, hk, app, device="cuda", ctx=None):
     """One main-path run of ``app(ctx)`` through the user's entry points,
     with the context's ``from_columns`` timed as load and each executor
     run timed and logged.  Counters zeroed just before, read just after.
-    Returns (app's result, launches, load_s, query_s, runs): ``runs`` is
-    one dict per executor run (a do_while superstep or not, seconds,
-    stage log)."""
+    ``ctx``: a context to run in (a warm run in the cold run's context
+    finds the send slots its stages measured), else a new one.  Returns
+    (app's result, launches, load_s, query_s, runs): ``runs`` is one dict
+    per executor run (a do_while superstep or not, seconds, stage
+    log)."""
     import torch
 
     def sync():
         if device == "cuda":
             torch.cuda.synchronize()
 
-    ctx = port.Context(device=device, nparts=NPARTS)
+    ctx = ctx or port.Context(device=device, nparts=NPARTS)
     load, runs = [0.0], []
     from_columns, run = ctx.from_columns, ctx.executor.run
 
@@ -879,12 +923,16 @@ def run_app(port, hk, app, device="cuda"):
         return out
 
     ctx.from_columns, ctx.executor.run = timed_from_columns, logged_run
-    hk.reset_launches()
-    sync()
-    t0 = time.perf_counter()
-    out = app(ctx)
-    sync()
-    wall = time.perf_counter() - t0
+    try:
+        hk.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        out = app(ctx)
+        sync()
+        wall = time.perf_counter() - t0
+    finally:
+        # the class's own methods again, for the context's next run
+        del ctx.from_columns, ctx.executor.run
     return out, dict(hk.launches), load[0], wall - load[0], runs
 
 
@@ -924,12 +972,27 @@ def loop_stages(runs) -> dict:
     outside = [st for r in runs if not r["superstep"]
                for st in exchanging_stages([r["stages"]])]
     steps = [[{"stage": st["label"], "exchanges": st["exchanges"],
-               "attempts": st["attempts"]} for st in r["stages"]]
+               "attempts": st["attempts"], "slot_rows": st["slot_rows"],
+               "slot_source": st["slot_source"]} for st in r["stages"]]
              for r in runs if r["superstep"]]
     every = exchanging_stages([r["stages"] for r in runs])
     return {"outside_loop": outside, "supersteps": steps,
             "exchange_attempts": exchange_attempts(every),
-            "broadcast_attempts": broadcast_attempts(every)}
+            "broadcast_attempts": broadcast_attempts(every),
+            "probes": probes_run(every)}
+
+
+def check_feedback(run, stages) -> None:
+    """From the second superstep on, every hash / range exchange of the
+    loop's stages ships, at its first attempt, the send slot that the
+    same stage measured in the superstep before (source "feedback")."""
+    bad = [(i, st["stage"], st["slot_source"][0])
+           for i, step in enumerate(stages["supersteps"][1:], 2)
+           for st in step if any(s != "feedback"
+                                 for s in st["slot_source"][0])]
+    if bad or len(stages["supersteps"]) < 2:
+        raise AssertionError(f"{run}: (superstep, stage, sources) not "
+                             f"shipping the measured slot: {bad}")
 
 
 def nan_minmax_data(n: int = 400):
@@ -1445,6 +1508,343 @@ def phase9_runs(li, orders, cust) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the unnest-and-regroup path
+
+
+LINES = 7                            # TPC-H: 1 to 7 lineitems an order
+LINE_COLS = ("qty", "price", "disc", "shipdate", "flag", "status")
+# the warning torch.func.vmap gives where an op has no batching rule and
+# it loops over the batch in Python instead
+VMAP_FALLBACK = ("There is a performance drop because we have not yet "
+                 "implemented the batching rule")
+Q1_AGGS = {"sum_qty": ("sum", "qty"), "sum_base_price": ("sum", "price"),
+           "sum_disc_price": ("sum", "net"), "avg_disc": ("mean", "disc"),
+           "count_order": ("count", None)}
+
+
+def nested_orders(n_orders: int, seed: int = 0) -> dict:
+    """ORDERS with its LINEITEMs nested, at TPC-H's cardinalities (spec
+    §4.2.3: SF1 is 1,500,000 orders of 1 to 7 lineitems, uniformly, about
+    6,000,000 in all), numpy seed ``seed``.  Per order: ``okey`` =
+    arange, ``custkey`` uniform over [1, n_orders / 10], ``nlines`` in
+    [1, 7], ``odate`` (days) in [0, 2406); per order and line slot, [n, 7]
+    arrays: ``qty`` in [1, 50], ``price`` = qty x a part price in
+    [900, 2000) (f32), ``disc`` in {0.00, 0.01, ..., 0.10} (f32),
+    ``shipdate`` = odate + [1, 121], ``flag`` in {0, 1, 2} (A / N / R),
+    ``status`` in {0, 1}.  Slots past ``nlines`` hold values no query may
+    see.  46 four-byte words an order."""
+    rng = np.random.RandomState(seed)
+    shape = (n_orders, LINES)
+    odate = rng.randint(0, 2406, n_orders).astype(np.int32)
+    qty = rng.randint(1, 51, shape).astype(np.int32)
+    part = (rng.randint(90_000, 200_000, shape) / 100).astype(np.float32)
+    return {"okey": np.arange(n_orders, dtype=np.int32),
+            "custkey": rng.randint(1, max(2, n_orders // 10 + 1),
+                                   n_orders).astype(np.int32),
+            "nlines": rng.randint(1, LINES + 1, n_orders).astype(np.int32),
+            "odate": odate, "qty": qty,
+            "price": qty.astype(np.float32) * part,
+            "disc": (rng.randint(0, 11, shape) / 100).astype(np.float32),
+            "shipdate": (odate[:, None]
+                         + rng.randint(1, 122, shape)).astype(np.int32),
+            "flag": rng.randint(0, 3, shape).astype(np.int32),
+            "status": rng.randint(0, 2, shape).astype(np.int32)}
+
+
+def flat_lineitems(orders) -> dict:
+    """The numpy unnest: every order's first ``nlines`` line slots as rows
+    (order by order, line 1 first), with ``net`` = price * (1 - disc) in
+    f32 as the query computes it."""
+    live = np.arange(1, LINES + 1)[None, :] <= orders["nlines"][:, None]
+    li = {"okey": np.broadcast_to(orders["okey"][:, None], live.shape)[live],
+          "line": np.broadcast_to(np.arange(1, LINES + 1, dtype=np.int32),
+                                  live.shape)[live]}
+    li.update({k: orders[k][live] for k in LINE_COLS})
+    li["net"] = li["price"] * (np.float32(1) - li["disc"])
+    return li
+
+
+def li_capacity(n_orders: int) -> int:
+    """flat_map's rows a partition: 4.25 lines an order (the mean is 4)."""
+    return -(-n_orders * 17 // (4 * NPARTS))
+
+
+def max_groups(n_orders: int) -> int:
+    """group_apply's groups a partition: 1.25 x the orders a partition."""
+    return -(-n_orders * 5 // (4 * NPARTS))
+
+
+def unnest(c):
+    """SelectMany(o => o.Lines): each order's 7 line slots as [n, 7]
+    columns, the first ``nlines`` of them kept."""
+    import torch
+    okey = c["okey"]
+    n = okey.shape[0]
+    line = torch.arange(1, LINES + 1, dtype=torch.int32, device=okey.device)
+    out = {"okey": okey[:, None].expand(n, LINES),
+           "line": line[None, :].expand(n, LINES)}
+    out.update({k: c[k] for k in LINE_COLS})
+    return out, line[None, :] <= c["nlines"][:, None]
+
+
+def add_net(b):
+    """net = price * (1 - disc), per partition."""
+    return b.with_columns({"net": b.columns["price"]
+                           * (1 - b.columns["disc"])})
+
+
+def top2_by_net(cols, count):
+    """ROW_NUMBER() OVER (PARTITION BY okey ORDER BY net DESC, line) <= 2
+    for ONE order: a line's rank is the number of the order's lines
+    before it in (net desc, line) order, unique since lines are; the
+    lines of rank 0 and 1 are emitted.  Comparisons, a sum and argmax
+    only: every op has a vmap batching rule."""
+    import torch
+    net, line = cols["net"], cols["line"]
+    slot = torch.arange(net.shape[0], device=net.device)
+    live = slot < count
+    before = live[None, :] & ((net[None, :] > net[:, None])
+                              | ((net[None, :] == net[:, None])
+                                 & (line[None, :] < line[:, None])))
+    rank = before.sum(dim=1)
+    top = torch.stack([torch.argmax((live & (rank == r)).to(torch.int32))
+                       for r in (0, 1)])
+    return ({k: torch.gather(v, 0, top) for k, v in cols.items()
+             if k != "okey"}, slot[:2] < count)
+
+
+def tag_partition(b, index):
+    """The partition's index on every row."""
+    import torch
+    return b.with_columns({"part": torch.full(
+        (b.capacity,), index, dtype=torch.int32, device=b.device)})
+
+
+def lineitems(ctx, orders, claim: bool = True):
+    """The orders hash-repartitioned by okey (a pure hash leg: the slot
+    probe's), unnested, claimed hash-placed by okey (true: a line stays
+    on its order's partition) unless ``claim`` is off, with net added by
+    a per-partition fn that keeps the claim."""
+    n = len(orders["okey"])
+    li = ctx.from_columns(orders).hash_partition(["okey"]).flat_map(
+        unnest, li_capacity(n))
+    if claim:
+        li = li.assume_hash_partition(["okey"])
+    return li.apply_per_partition(add_net, preserves_partitioning=True)
+
+
+def unnest_query(ctx, orders, claim: bool) -> dict:
+    """Each order's top two lines by net (ties by line)."""
+    return lineitems(ctx, orders, claim).group_apply(
+        ["okey"], top2_by_net, group_capacity=8, out_rows=2,
+        max_groups=max_groups(len(orders["okey"]))).collect()
+
+
+def q1fork_query(ctx, orders) -> dict:
+    """TPC-H Q1's shape over one shared scan: the lineitems forked by
+    flag, each branch grouped by status (sums, mean, count), the three
+    tagged with their flag and concatenated into one plan."""
+    import torch
+    branches = lineitems(ctx, orders).fork_on("flag", [0, 1, 2])
+    outs = [b.group_by(["status"], Q1_AGGS).select(
+        lambda c, f=f: dict(c, flag=torch.full_like(c["status"], f)))
+        for f, b in enumerate(branches)]
+    return outs[0].concat(outs[1]).concat(outs[2]).collect()
+
+
+def window_query(ctx, orders, held: bool) -> dict:
+    """ROWS BETWEEN 6 PRECEDING AND CURRENT ROW over ship order: the
+    lineitems sorted by (shipdate, okey, line), unique, so every window
+    is defined; whole windows on a held run, else their moving sum of
+    net (so collect copies no [N, 7] columns)."""
+    w = lineitems(ctx, orders).select(
+        lambda c: {k: c[k] for k in ("shipdate", "okey", "line", "net")}
+    ).order_by([("shipdate", False), ("okey", False),
+                ("line", False)]).sliding_window(LINES)
+    if not held:
+        w = w.select(lambda c: {"shipdate": c["shipdate"][:, 0],
+                                "okey": c["okey"][:, 0],
+                                "line": c["line"][:, 0],
+                                "msum": c["net"].sum(dim=1)})
+    return w.collect()
+
+
+def partidx_query(ctx, orders) -> dict:
+    """Each lineitem's okey and the index of the partition it lies on."""
+    return lineitems(ctx, orders).apply_with_partition_index(
+        tag_partition).select(lambda c: {"okey": c["okey"],
+                                         "part": c["part"]}).collect()
+
+
+def _stages(runs) -> list:
+    return [st for r in runs for st in r["stages"]]
+
+
+def check_probe(label, runs, n_orders: int, warm: bool) -> dict:
+    """The orders repartition (a pure hash leg of 46 words x 1.5 M rows):
+    its first attempt ships the probe's slot on a cold run, the slot its
+    last run measured on a warm one, below the structural
+    ceil(2 cap / P)."""
+    (st,) = [s for s in _stages(runs) if s["label"] == "hashpartition"]
+    c_struct = -(-2 * -(-n_orders // NPARTS) // NPARTS)
+    want = "feedback" if warm else "probe"
+    if st["slot_source"][0] != [want] or not st["slot_rows"][0][0] < c_struct:
+        raise AssertionError(f"{label}: the orders repartition shipped "
+                             f"{st['slot_rows'][0]} from "
+                             f"{st['slot_source'][0]}, not {want} below "
+                             f"{c_struct}")
+    return {"orders_slot_rows": st["slot_rows"],
+            "orders_slot_source": st["slot_source"],
+            "orders_structural_slot": c_struct}
+
+
+def top2_oracle(li) -> dict:
+    """numpy's top two lines of each order by (net desc, line), sorted by
+    (okey, line)."""
+    o = np.lexsort((li["line"], -li["net"], li["okey"]))
+    k = li["okey"][o]
+    rank = np.arange(len(k)) - np.searchsorted(k, k)
+    keep = o[rank < 2]
+    keep = keep[np.lexsort((li["line"][keep], li["okey"][keep]))]
+    return {c: v[keep] for c, v in li.items()}
+
+
+def check_unnest(label, out, runs, want, n_orders, claim, warm) -> dict:
+    """Exactly numpy's top two lines of every order, every carried value;
+    the group_apply stage runs with no exchange under the claim and with
+    one hash exchange without it; the probe as ``check_probe``."""
+    o = np.lexsort((out["line"], out["okey"]))
+    bad = [c for c in want
+           if not np.array_equal(np.asarray(out[c])[o], want[c])]
+    if sorted(out) != sorted(want) or bad:
+        raise AssertionError(f"{label}: {bad or sorted(out)} differ from "
+                             f"numpy's top two lines")
+    ga = [s for s in _stages(runs) if s["label"] == "group_apply"]
+    if claim and ga or not claim and [s["exchange"] for s in ga] != ["hash"]:
+        raise AssertionError(f"{label}: the group_apply stage's exchange "
+                             f"{ga} is not as the claim says")
+    return {"orders": n_orders, "rows_out": len(o),
+            # the dense [G, 8] regroup of every column, all partitions
+            "regroup_bytes": NPARTS * max_groups(n_orders) * 8 * 4 * len(
+                want),
+            **check_probe(label, runs, n_orders, warm)}
+
+
+def check_q1(out, li, runs, n_orders, warm) -> dict:
+    """Counts and integer sums exactly; f32 sums within 16 eps sum|v|
+    over the group, the mean within that over its count; ``li``
+    materialized by ONE stage (the tee of the fork's shared parent)."""
+    bad = []
+    seen = set()
+    for i, (f, st) in enumerate(zip(out["flag"].tolist(),
+                                    out["status"].tolist())):
+        g = (li["flag"] == f) & (li["status"] == st)
+        seen.add((f, st))
+        n = int(g.sum())
+        if (int(out["count_order"][i]) != n
+                or int(out["sum_qty"][i]) != int(li["qty"][g].sum())):
+            bad.append((f, st, "count / sum_qty"))
+        for col, src in (("sum_base_price", "price"),
+                         ("sum_disc_price", "net"), ("avg_disc", "disc")):
+            v = li[src][g].astype(np.float64)
+            bound = 16 * EPS * np.abs(v).sum()
+            want = v.sum()
+            if col == "avg_disc":
+                want, bound = want / n, bound / n
+            if not abs(float(out[col][i]) - want) <= bound:
+                bad.append((f, st, col))
+    if bad or seen != {(f, s) for f in range(3) for s in range(2)}:
+        raise AssertionError(f"q1fork6m: {bad or seen} differ from numpy")
+    tees = [s["label"] for s in _stages(runs)
+            if s["label"].startswith("tee")]
+    labels = [s["label"] for s in _stages(runs)]
+    if tees != ["tee:ApplyPerPartition"] or len(labels) != 7:
+        raise AssertionError(f"q1fork6m: stages {labels}: the shared "
+                             f"lineitems not materialized once")
+    return {"groups": len(out["flag"]), "stages": labels,
+            **check_probe("q1fork6m", runs, n_orders, warm)}
+
+
+def window_oracle(li) -> dict:
+    """The four columns sorted by (shipdate, okey, line)."""
+    o = np.lexsort((li["line"], li["okey"], li["shipdate"]))
+    return {c: li[c][o] for c in ("shipdate", "okey", "line", "net")}
+
+
+def check_window(out, want, runs, n_orders, held, warm) -> dict:
+    """Held: every window equals numpy's sliding_window_view of the
+    sorted columns, exactly, N - 6 of them.  Else each window's first
+    row exactly, and its f32 moving sum of net within 7 eps sum|v| of
+    numpy's sum in window order."""
+    view = np.lib.stride_tricks.sliding_window_view
+    n = len(want["okey"]) - LINES + 1
+    if held:
+        bad = [c for c in want
+               if not np.array_equal(np.asarray(out[c]), view(want[c],
+                                                              LINES))]
+    else:
+        bad = [c for c in ("shipdate", "okey", "line")
+               if not np.array_equal(np.asarray(out[c]), want[c][:n])]
+        w = view(want["net"], LINES)
+        s = w[:, 0].copy()
+        for j in range(1, LINES):
+            s = s + w[:, j]
+        err = np.abs(np.asarray(out["msum"], np.float64) - s)
+        if not (len(err) == n and (err <= LINES * EPS * np.abs(w).astype(
+                np.float64).sum(1)).all()):
+            bad.append("msum")
+    if bad:
+        raise AssertionError(f"window6m: {bad} differ from numpy's "
+                             f"windows")
+    return {"windows": n, "held": held,
+            **check_probe("window6m", runs, n_orders, warm)}
+
+
+def check_partidx(out) -> dict:
+    """Every lineitem lies on partition lo(hash(okey)) % P, the port's
+    hash computed on the CPU: the assume_hash_partition claim was true."""
+    import torch
+    from dryad_tpu_torch.ops.hashing import hash_columns
+    okey = np.asarray(out["okey"])
+    lo = hash_columns([torch.from_numpy(okey)])[1].numpy()
+    if not np.array_equal(np.asarray(out["part"]), lo % NPARTS):
+        raise AssertionError("partidx6m: a lineitem lies off its order's "
+                             "hash partition")
+    return {"lineitems": len(okey),
+            "per_partition": np.bincount(lo % NPARTS).tolist()}
+
+
+def phase10_runs(orders, li) -> dict:
+    """label -> (cold app(ctx), warm app(ctx) or None for no warm run,
+    check(out, runs, warm), kernels the run must launch).  A warm run
+    goes in the cold run's context."""
+    n = len(orders["okey"])
+    top2 = top2_oracle(li)
+    win = window_oracle(li)
+
+    def unnest_run(label, claim):
+        app = lambda ctx: unnest_query(ctx, orders, claim)  # noqa: E731
+        return (app, app, lambda out, runs, warm: check_unnest(
+            label, out, runs, top2, n, claim, warm), EXCHANGE)
+
+    q1 = lambda ctx: q1fork_query(ctx, orders)  # noqa: E731
+    return {
+        "unnest6m": unnest_run("unnest6m", True),
+        "unnest6m_shuffled": unnest_run("unnest6m_shuffled", False),
+        "q1fork6m": (q1, q1, lambda out, runs, warm: check_q1(
+            out, li, runs, n, warm), EXCHANGE + ("prefix_sum2",)),
+        "window6m": (
+            lambda ctx: window_query(ctx, orders, True),
+            lambda ctx: window_query(ctx, orders, False),
+            lambda out, runs, warm: check_window(
+                out, win, runs, n, not warm, warm), EXCHANGE),
+        "partidx6m": (lambda ctx: partidx_query(ctx, orders), None,
+                      lambda out, runs, warm: check_partidx(out),
+                      EXCHANGE),
+    }
+
+
+# ---------------------------------------------------------------------------
 # phase 5: timing
 
 
@@ -1854,6 +2254,9 @@ def main(argv=None) -> int:
     ap.add_argument("--lineitems", type=int, default=6_000_000,
                     help="phase 9's lineitems; orders a quarter, "
                     "customers a fortieth (TPC-H SF1: 6,000,000)")
+    ap.add_argument("--orders", type=int, default=1_500_000,
+                    help="phase 10's orders, each with 1 to 7 nested "
+                    "lineitems (TPC-H SF1: 1,500,000)")
     ap.add_argument("--out", default=os.path.join(HERE, "chiprun_out"))
     a = ap.parse_args(argv)
 
@@ -1918,7 +2321,8 @@ def main(argv=None) -> int:
     for cname, lines in corpora.items():
         want = oracle(lines)
         hk.capture = {}
-        out, launches, load, query = run_wordcount(port, hk, wc, lines)
+        out, launches, load, query, logs = run_wordcount(port, hk, wc,
+                                                         lines)
         captured, hk.capture = hk.capture, None
         held(cname, launches, captured)
         got = dict(zip(out["line"], (int(v) for v in out["n"])))
@@ -1930,13 +2334,16 @@ def main(argv=None) -> int:
         zero = [k for k in EXCHANGE if launches[k] == 0]
         if zero:
             raise AssertionError(f"{cname}: kernels never launched: {zero}")
-        check_per_exchange(cname, launches)
-        _, _, wload, wquery = run_wordcount(port, hk, wc, lines)
+        stages = exchanging_stages(logs)
+        check_per_exchange(cname, launches, exchange_attempts(stages),
+                           probes=probes_run(stages))
+        _, _, wload, wquery, _ = run_wordcount(port, hk, wc, lines)
         warm = wload + wquery
         emit({
             "corpus": cname, "lines": len(lines), "nparts": NPARTS,
             "words": len(want), "tokens": sum(want.values()),
-            "launches": launches, "cold_wall_s": load + query,
+            "launches": launches, "exchanging_stages": stages,
+            "cold_wall_s": load + query,
             "warm_wall_s": warm, "warm_load_s": wload,
             "warm_query_s": wquery, "lines_per_s": len(lines) / warm,
             "card": card})
@@ -1945,7 +2352,7 @@ def main(argv=None) -> int:
     for vname, (n_keys, query, cols) in variants.items():
         data = gbr.gen_pairs(a.rows, n_keys, seed=0)
         hk.capture = {}
-        out, launches, load, qs = run_gbr(port, hk, data, query)
+        out, launches, load, qs, logs = run_gbr(port, hk, data, query)
         captured, hk.capture = hk.capture, None
         check_gbr(vname, out, data, cols)
         held(vname, launches, captured)
@@ -1953,7 +2360,9 @@ def main(argv=None) -> int:
                 if launches[k] == 0]
         if zero:
             raise AssertionError(f"{vname}: kernels never launched: {zero}")
-        check_per_exchange(vname, launches)
+        stages = exchanging_stages(logs)
+        check_per_exchange(vname, launches, exchange_attempts(stages),
+                           probes=probes_run(stages))
         if vname == "app10k":
             gbr_data = data
             if launches["prefix_sum2"] != NPARTS:
@@ -1967,12 +2376,13 @@ def main(argv=None) -> int:
             # partial stage off the small-key lowering would add more
             raise AssertionError(f"{vname}: prefix_sum2 launched "
                                  f"{launches['prefix_sum2']} times")
-        _, _, wload, wquery = run_gbr(port, hk, data, query)
+        _, _, wload, wquery, _ = run_gbr(port, hk, data, query)
         warm = wload + wquery
         emit({
             "groupbyreduce": vname, "rows": a.rows, "keys": n_keys,
             "groups": len(out["k"]), "nparts": NPARTS,
-            "launches": launches, "cold_wall_s": load + qs,
+            "launches": launches, "exchanging_stages": stages,
+            "cold_wall_s": load + qs,
             "warm_wall_s": warm, "warm_load_s": wload,
             "warm_query_s": wquery, "rows_per_s": a.rows / warm,
             "card": card})
@@ -1990,7 +2400,8 @@ def main(argv=None) -> int:
         if zero:
             raise AssertionError(f"{sname}: kernels never launched: {zero}")
         stages = exchanging_stages(logs)
-        check_per_exchange(sname, launches, exchange_attempts(stages))
+        check_per_exchange(sname, launches, exchange_attempts(stages),
+                           probes=probes_run(stages))
         _, _, wload, wquery, wlogs = run_sort(port, hk, data, sml, queries)
         warm = wload + wquery
         emit({
@@ -2018,7 +2429,9 @@ def main(argv=None) -> int:
     if zero:
         raise AssertionError(f"pagerank100k: kernels never launched: {zero}")
     stages = loop_stages(pr_runs)
-    check_per_exchange("pagerank100k", launches, stages["exchange_attempts"])
+    check_per_exchange("pagerank100k", launches, stages["exchange_attempts"],
+                       probes=stages["probes"])
+    check_feedback("pagerank100k", stages)
     _, _, wload, wquery, wruns = run_pagerank(port, hk, pr, edges, a.nodes)
     steps = [r["s"] for r in wruns if r["superstep"]]
     emit({
@@ -2049,7 +2462,8 @@ def main(argv=None) -> int:
         raise AssertionError(f"kmeans500k: kernels never launched: {zero}")
     stages = loop_stages(km_runs)
     check_per_exchange("kmeans500k", launches, stages["exchange_attempts"],
-                       stages["broadcast_attempts"])
+                       stages["broadcast_attempts"], stages["probes"])
+    check_feedback("kmeans500k", stages)
     _, _, wload, wquery, wruns = run_kmeans(port, hk, km, km_pts)
     steps = [r["s"] for r in wruns if r["superstep"]]
     emit({
@@ -2093,7 +2507,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"{label}: kernels never launched: {zero}")
         stages = loop_stages(app_runs)
         check_per_exchange(label, launches, stages["exchange_attempts"],
-                           stages["broadcast_attempts"])
+                           stages["broadcast_attempts"], stages["probes"])
         sizes = check(out)
         del out
         emit({"phase8": label, **sizes, "nparts": NPARTS,
@@ -2101,6 +2515,7 @@ def main(argv=None) -> int:
               "exchanging_stages": stages["outside_loop"],
               "exchange_attempts": stages["exchange_attempts"],
               "broadcast_attempts": stages["broadcast_attempts"],
+              "probe_launches": stages["probes"],
               "load_s": load, "query_s": qs, "card": card})
 
     # phase 9: each run cold (its calls held, its launches checked against
@@ -2117,7 +2532,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"{label}: kernels never launched: {zero}")
         stages = loop_stages(app_runs)
         check_per_exchange(label, launches, stages["exchange_attempts"],
-                           stages["broadcast_attempts"])
+                           stages["broadcast_attempts"], stages["probes"])
         sizes = check(out, app_runs)
         del out
         _, _, wload, wquery, wruns = run_app(port, hk, app)
@@ -2129,6 +2544,7 @@ def main(argv=None) -> int:
               "warm_exchanging_stages": loop_stages(wruns)["outside_loop"],
               "exchange_attempts": stages["exchange_attempts"],
               "broadcast_attempts": stages["broadcast_attempts"],
+              "probe_launches": stages["probes"],
               "cold_wall_s": load + qs, "cold_load_s": load,
               "cold_query_s": qs, "warm_wall_s": wload + wquery,
               "warm_load_s": wload, "warm_query_s": wquery,
@@ -2139,13 +2555,84 @@ def main(argv=None) -> int:
               "port_kernels_ms": prof.get("port_kernels_ms"),
               "top": prof.get("top"), "card": card})
 
+    # phase 10: each run cold (its calls held, its launches checked
+    # against the executor's log, slot probes apart), then warm and warm
+    # under the profiler in the cold run's context (measured slots from
+    # the slot feedback); a vmap fallback to a Python loop over groups is
+    # an error
+    orders = nested_orders(a.orders)
+    li_np = flat_lineitems(orders)
+    ten = {}
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=VMAP_FALLBACK)
+        torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+        for label, (app, warm_app, check, must) in phase10_runs(
+                orders, li_np).items():
+            ctx = port.Context(device="cuda", nparts=NPARTS)
+            hk.capture = {}
+            out, launches, load, qs, app_runs = run_app(port, hk, app,
+                                                        ctx=ctx)
+            captured, hk.capture = hk.capture, None
+            held(label, launches, captured)
+            del captured
+            zero = [k for k in must if launches[k] == 0]
+            if zero:
+                raise AssertionError(f"{label}: kernels never launched: "
+                                     f"{zero}")
+            stages = loop_stages(app_runs)
+            check_per_exchange(label, launches, stages["exchange_attempts"],
+                               stages["broadcast_attempts"],
+                               stages["probes"])
+            sizes = check(out, app_runs, False)
+            del out
+            line = {"phase10": label, **sizes, "nparts": NPARTS,
+                    "lineitems": len(li_np["okey"]), "launches": launches,
+                    "probe_launches": stages["probes"],
+                    "exchanging_stages": stages["outside_loop"],
+                    "exchange_attempts": stages["exchange_attempts"],
+                    "cold_wall_s": load + qs, "cold_load_s": load,
+                    "cold_query_s": qs, "card": card}
+            if warm_app is not None:
+                wout, wlaunches, wload, wquery, wruns = run_app(
+                    port, hk, warm_app, ctx=ctx)
+                wsizes = check(wout, wruns, True)
+                del wout
+                prof = profile_path(lambda: run_app(
+                    port, hk, warm_app, ctx=ctx)[:4], label, a.out,
+                    pack=False)
+                pl = prof["launches"]
+                line.update({
+                    "warm": wsizes, "warm_launches": wlaunches,
+                    "warm_exchanging_stages":
+                        loop_stages(wruns)["outside_loop"],
+                    "warm_wall_s": wload + wquery, "warm_load_s": wload,
+                    "warm_query_s": wquery,
+                    "rows_per_s": len(li_np["okey"]) / (wload + wquery),
+                    "profiled_wall_s": prof["wall_s"],
+                    "profiled_device_ms": prof["device_ms"],
+                    "device_busy_share": prof.get("device_busy_share"),
+                    "port_kernels_ms": prof.get("port_kernels_ms"),
+                    # device µs per launch at the measured slots
+                    "device_us_per_launch": {
+                        k: v * 1e3 / pl[k] for k, v in
+                        (prof.get("port_kernels_ms") or {}).items()
+                        if pl.get(k)},
+                    "top": prof.get("top")})
+                ten[label] = wquery
+            emit(line)
+        torch._C._functorch._set_vmap_fallback_warning_enabled(False)
+    emit({"phase10": "claim_saving", "card": card,
+          "warm_query_s_shuffled_less_claimed":
+              ten["unnest6m_shuffled"] - ten["unnest6m"]})
+    del orders, li_np
+
     wc_prof = profile_path(
-        lambda: run_wordcount(port, hk, wc, corpora["zipf50k"]),
+        lambda: run_wordcount(port, hk, wc, corpora["zipf50k"])[:4],
         "wordcount_zipf50k", a.out)
     emit({"profile": "wordcount zipf50k warm run",
                       **_no_pack(wc_prof), "card": card})
     gbr_prof = profile_path(
-        lambda: run_gbr(port, hk, gbr_data, variants["app10k"][1]),
+        lambda: run_gbr(port, hk, gbr_data, variants["app10k"][1])[:4],
         "groupbyreduce_app10k", a.out)
     emit({"profile": "groupbyreduce app10k warm run",
                       **_no_pack(gbr_prof), "card": card})

@@ -24,7 +24,11 @@ intersect, except_, concat) and the terminal scalars (count, sum, min,
 max, mean, any, all, first, aggregate), and skewed joins (a hot-key
 salted join exchange; right and full joins, group_join) with the
 positional operators (zip_with, with_row_index, skip, take_while,
-skip_while).
+skip_while), and the unnest-and-regroup path (flat_map,
+assume_hash_partition, apply_per_partition / apply_with_partition_index,
+group_apply mapped over groups with torch.func.vmap, fork / fork_by /
+fork_on, sliding_window), with measured exchange send slots (a slot
+probe on big pure hash legs, slot feedback on every later run).
 """
 
 __version__ = "0.1.0"

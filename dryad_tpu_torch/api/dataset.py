@@ -7,7 +7,10 @@ full, hash or broadcast, hot-key salted on skew), ``group_join``,
 ``cross_apply``, ``broadcast``, the set operators (``union``,
 ``intersect``, ``except_``, ``concat``), the positional operators
 (``zip_with``, ``with_row_index``, ``skip``, ``take_while``,
-``skip_while``), ``with_capacity``, the in-memory ``cache``,
+``skip_while``, ``sliding_window``), ``flat_map``, ``group_apply``,
+``apply_per_partition`` / ``apply_with_partition_index``, ``fork`` /
+``fork_by`` / ``fork_on``, ``assume_hash_partition``,
+``with_capacity``, the in-memory ``cache``,
 ``Context.do_while`` and the terminal scalars (``count``, ``sum``,
 ``min``, ``max``, ``mean``, ``any``, ``all``, ``first``,
 ``aggregate``).
@@ -156,6 +159,75 @@ class Dataset:
             delims=cfg.token_delims if delims is None else delims,
             lower=lower, max_tokens_per_row=max_tokens_per_row))
 
+    def apply_per_partition(self, fn, label: str = "apply",
+                            preserves_partitioning: bool = False,
+                            host_fn=None) -> "Dataset":
+        """``fn(batch) -> Batch`` on every partition (the escape hatch).
+        ``fn`` sees the port's Batches: torch tensors on the context's
+        device, the count a 0-d int32 tensor.  With
+        ``preserves_partitioning`` the input's partitioning claim carries
+        over.  ``host_fn(table) -> table`` is the same function on host
+        tables, kept with the plan."""
+        return Dataset(self.ctx, E.ApplyPerPartition(
+            parents=(self.node,), fn=fn, label=label,
+            preserves_partitioning=preserves_partitioning, host_fn=host_fn))
+
+    def apply_with_partition_index(self, fn, label: str = "apply_idx"
+                                   ) -> "Dataset":
+        """``fn(batch, partition_index) -> Batch``; the index is an int in
+        [0, nparts)."""
+        return Dataset(self.ctx, E.ApplyPerPartition(
+            parents=(self.node,), fn=fn, label=label, with_index=True))
+
+    def flat_map(self, fn, out_capacity: int,
+                 label: str = "flat_map") -> "Dataset":
+        """Generic SelectMany: ``fn(cols) -> (out_cols, mask)`` with every
+        output column [capacity, m, ...] and mask [capacity, m] bool; the
+        masked cells of the valid rows, flattened row-major, become rows.
+        ``out_capacity`` rows per partition; an overflow retries at the
+        measured size."""
+        return Dataset(self.ctx, E.FlatMap(
+            parents=(self.node,), fn=fn, out_capacity=out_capacity,
+            label=label))
+
+    def sliding_window(self, w: int) -> "Dataset":
+        """Windows of ``w`` consecutive rows in global row order (windows
+        crossing the end are dropped); columns gain a window axis
+        [rows, w, ...].  Every partition but the last takes its halo from
+        the next one, which must hold at least w - 1 rows."""
+        return Dataset(self.ctx, E.SlidingWindow(parents=(self.node,), w=w))
+
+    def fork_by(self, fn) -> Tuple["Dataset", "Dataset"]:
+        """Split one scan into the rows where ``fn(cols)`` holds and the
+        rest; the shared parent is materialized once (Tee)."""
+        t = self.where(fn, label="fork_t")
+        f = self.where(lambda c, _fn=fn: ~_fn(c), label="fork_f")
+        return t, f
+
+    def fork(self, *predicates) -> Tuple["Dataset", ...]:
+        """One branch per predicate over a single shared scan (the parent
+        is materialized once by the planner's consumer count).  Branches
+        may overlap or leave rows out."""
+        return tuple(self.where(p, label=f"fork_{i}")
+                     for i, p in enumerate(predicates))
+
+    def fork_on(self, column: str, values: Sequence[Any]
+                ) -> Tuple["Dataset", ...]:
+        """One branch per value: branch i holds the rows where
+        ``column == values[i]``."""
+        dev = self.ctx.device
+        return tuple(
+            self.where(lambda c, _v=torch.as_tensor(v, device=dev):
+                       c[column] == _v, label=f"fork_{column}_{i}")
+            for i, v in enumerate(values))
+
+    def assume_hash_partition(self, keys: Sequence[str]) -> "Dataset":
+        """Declare, without moving rows, that each key's rows lie on the
+        partition its hash names: a later group-by, group-contents
+        operator or join on the same keys skips its exchange."""
+        return Dataset(self.ctx, E.AssumePartitioning(
+            parents=(self.node,), kind="hash", keys=tuple(keys)))
+
     def group_by(self, keys: Sequence[str],
                  aggs: Dict[str, Any]) -> "Dataset":
         """GroupBy + decomposable aggregates: aggs maps output column ->
@@ -178,6 +250,28 @@ class Dataset:
         return Dataset(self.ctx, E.GroupTopK(
             parents=(self.node,), keys=tuple(keys), k=k, by=by,
             descending=descending))
+
+    def group_apply(self, keys: Sequence[str], fn,
+                    group_capacity: int, max_groups: int | None = None,
+                    out_rows: int = 1, out_capacity: int | None = None
+                    ) -> "Dataset":
+        """GroupBy yielding each group's CONTENTS to ``fn`` (the general
+        result selector: a window function, a mode, any non-decomposable
+        reduction).  ``fn(cols, count) -> (out_cols, mask)`` sees one
+        group's columns as [group_capacity, ...] tensors (rows >= count
+        unspecified: mask by count) and its row count; out_cols are
+        [out_rows, ...] and mask [out_rows] bool.  ``fn`` is mapped over
+        the groups with ``torch.func.vmap``, so it must be vmap-able (no
+        data-dependent Python control flow).  The group keys are attached
+        to the output.  ``group_capacity`` bounds one group's rows,
+        ``max_groups`` a partition's groups (default: the input capacity),
+        ``out_capacity`` the output rows (default: the input capacity); an
+        overflow of any retries at the measured size.  The regroup holds
+        max_groups x group_capacity cells per column."""
+        return Dataset(self.ctx, E.GroupApply(
+            parents=(self.node,), keys=tuple(keys), fn=fn,
+            group_capacity=group_capacity, max_groups=max_groups,
+            out_rows=out_rows, out_capacity=out_capacity))
 
     def group_median(self, keys: Sequence[str], by: str,
                      out: str | None = None) -> "Dataset":

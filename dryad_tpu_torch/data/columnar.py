@@ -92,6 +92,12 @@ class Batch:
         return Batch({k: map_column(v, fn) for k, v in self.columns.items()},
                      self.count)
 
+    def with_columns(self, new: Mapping[str, Column]) -> "Batch":
+        """These columns added (or replaced), the count kept."""
+        cols = dict(self.columns)
+        cols.update(new)
+        return Batch(cols, self.count)
+
     def with_count(self, count) -> "Batch":
         return Batch(self.columns, torch.as_tensor(count, dtype=torch.int32,
                                                    device=self.device))

@@ -18,14 +18,28 @@ whose exchanges fall short by at least ``salt_trigger_factor`` x their
 capacity re-runs with the hot-key-salted exchange instead
 (``shuffle.skew_join_exchange``), and stays salted in later runs of the
 same plan.  ``stage_log`` keeps each stage's attempts, exchanging legs,
-final capacity scale, whether it ran salted and each exchanging leg's
+final capacity scale, whether it ran salted, each attempt's send-slot
+rows and their sources, the slot probes it ran and each exchanging leg's
 received rows per destination from the last ``run``.
+
+Each hash or range exchange ships measured send slots where it can, in
+the JAX package's order of sources: the slot an earlier run of the same
+stage measured (``_slot_hints``: feedback keyed by the stage's
+fingerprint and the leg), else, for a first-wave pure hash leg of at
+least ``JobConfig.exchange_probe_min_mb``, a counts-only probe (ONE
+batched ``hist_buckets`` over the [P, cap] destinations and one scalar
+read, ``_probe_slot_rows``), else the structural slack.  Every attempt
+feeds its exchanges' measured slots back through the attempt's one host
+read.  A measured slot that meets other data and falls short is a
+send-slack shortfall like any other, and the stage retries.
 
 A range exchange splits on bounds sampled from the output of its
 ``bounds_from`` stage (``_range_bounds``), once per stage before the
 retry loop and on the device.  The global positional ops (``take``,
 ``row_index``, ``skip``, ``take_while``, ``skip_while``) need every
-partition's count or "clean" flag, ``zip`` both sides' counts, and the
+partition's count or "clean" flag, ``sliding_window`` the next
+partition's first rows and count (its halo), ``zip`` both sides' counts,
+and the
 lookup-join choice every partition's duplicate flag, so the executor
 applies those over the whole partition list (``_POSITIONAL``,
 ``_join_global``, ``shuffle.zip_exchange``); only the duplicate flags
@@ -36,21 +50,24 @@ hands every partition the same replicated Batch.  ``run`` binds a
 do_while body's placeholder to the previous iteration's output.
 
 Not ported yet (later slices, see ROADMAP.md): lineage recovery and the
-deferred settle, adaptivity, the cost cross-check, slot feedback and
-probes.
+deferred settle, adaptivity, the cost cross-check and remembered capacity
+scales.
 """
 
 from __future__ import annotations
 
+import collections
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from dryad_tpu_torch.data.columnar import Batch, StringColumn
+from dryad_tpu_torch.data.columnar import Batch, StringColumn, map_column
 from dryad_tpu_torch.exec.data import PData, split_partitions, \
     stack_partitions
 from dryad_tpu_torch.ops import kernels
-from dryad_tpu_torch.ops.hashing import M32
+from dryad_tpu_torch.ops.hashing import M32, hash_batch_keys
+from dryad_tpu_torch.ops.hopper_kernels import hist_buckets_batched
 from dryad_tpu_torch.ops.text import lower_ascii, split_tokens, \
     tokenize_group_count
 from dryad_tpu_torch.parallel import shuffle
@@ -66,7 +83,29 @@ class CapacityError(RuntimeError):
 # sentinel need: the overflow source cannot be fixed by scaling
 _UNSCALABLE = 1 << 30
 # op kinds whose overflow a larger capacity scale fixes (exchanges too)
-_SCALABLE_OVERFLOW_KINDS = {"flat_tokens", "join", "zip"}
+_SCALABLE_OVERFLOW_KINDS = {"flat_tokens", "flat_map", "join", "zip",
+                            "group_apply"}
+# slot feedback is kept for a stage's first legs only, as in the JAX
+# package (its info vector has a fixed width)
+_SLOT_FEEDBACK_LEGS = 4
+
+
+def _quantize_slot_rows(slot: int) -> int:
+    """A measured slot rounded UP to a grid of about 1/16 of its size (the
+    JAX package's compile-cache grid; here it leaves a measured slot some
+    room for data that drifts between runs)."""
+    g = max(16, 1 << max(int(slot).bit_length() - 4, 0))
+    return -(-int(slot) // g) * g
+
+
+def _leaves(b: Batch) -> List[torch.Tensor]:
+    """Every tensor of a batch: the columns' (a string's data and
+    lengths), then the count."""
+    out = []
+    for v in b.columns.values():
+        out.extend((v.data, v.lengths) if isinstance(v, StringColumn)
+                   else (v,))
+    return out + [b.count]
 
 
 def _stage_overflow_scalable(stage: Stage) -> bool:
@@ -88,15 +127,34 @@ def _scale_need(need_rows: torch.Tensor, base_capacity: int) -> torch.Tensor:
     return (-(-need_rows.long() // max(base_capacity, 1))).to(torch.int32)
 
 
-def _apply_op(b: Batch, op: StageOp, scale: int) -> Tuple[Batch,
-                                                          torch.Tensor]:
-    """Apply one StageOp to one partition's batch; returns (batch, needs)
-    where needs = int32[2] (need_scale, need_slack): 0 = fits, > 0 = the
-    measured requirement for a right-sized retry."""
+def _apply_op(b: Batch, op: StageOp, scale: int,
+              index: int = 0) -> Tuple[Batch, torch.Tensor]:
+    """Apply one StageOp to partition ``index``'s batch; returns (batch,
+    needs) where needs = int32[2] (need_scale, need_slack): 0 = fits,
+    > 0 = the measured requirement for a right-sized retry."""
     k, p = op.kind, op.params
     dev = b.device
     if k == "fn":
         return Batch(dict(p["fn"](dict(b.columns))), b.count), _needs(dev)
+    if k == "apply":
+        return (p["fn"](b, index) if p["with_index"] else p["fn"](b)), \
+            _needs(dev)
+    if k == "flat_map":
+        out, need_rows = kernels.flat_map_expand(
+            b, p["fn"], p["out_capacity"] * scale)
+        return out, _needs(dev, _scale_need(need_rows, p["out_capacity"]))
+    if k == "group_apply":
+        G0, C0, O0 = p["max_groups"], p["group_capacity"], p["out_capacity"]
+        out, ng, ms, tot = kernels.group_regroup_apply(
+            b, list(p["keys"]), p["fn"], G0 * scale, C0 * scale,
+            p["out_rows"], O0 * scale)
+        # the largest of the three needs: more groups, a larger group or
+        # more output rows than this scale holds
+        ns = torch.maximum(torch.maximum(
+            torch.where(ng > G0 * scale, _scale_need(ng, G0), 0),
+            torch.where(ms > C0 * scale, _scale_need(ms, C0), 0)),
+            torch.where(tot > O0 * scale, _scale_need(tot, O0), 0))
+        return out, _needs(dev, ns)
     if k == "filter":
         return kernels.compact(b, p["fn"](dict(b.columns))), _needs(dev)
     if k == "mean_fin":
@@ -267,6 +325,69 @@ def _while_global(parts: List[Batch], p, take: bool) -> List[Batch]:
     return out
 
 
+def _window_take(x: torch.Tensor, nx: torch.Tensor, halo: int,
+                 widx: torch.Tensor) -> torch.Tensor:
+    """Rows ``widx`` [cap, w] of ``x`` with the first ``halo`` rows of
+    ``nx`` appended (zero rows where ``nx`` holds fewer)."""
+    head = nx[:halo]
+    if head.shape[0] < halo:
+        head = torch.cat([head, head.new_zeros(
+            (halo - head.shape[0],) + tuple(head.shape[1:]))])
+    ext = torch.cat([x, head])
+    return ext.index_select(0, widx.reshape(-1)).reshape(
+        tuple(widx.shape) + tuple(x.shape[1:]))
+
+
+def _sliding_window_global(parts: List[Batch], p
+                           ) -> Tuple[List[Batch], torch.Tensor]:
+    """Windows of ``w`` consecutive rows in global row order: row i of
+    partition q becomes rows i .. i + w - 1, the rows past its count
+    taken from partition q + 1's first w - 1 (the halo; the JAX package
+    sends them with a ``ppermute``).  Windows crossing the dataset's end
+    are dropped, so the last partition takes no halo, and padding rows
+    never enter a window.  A partition before the last whose next one
+    holds fewer than w - 1 rows is an unscalable shortfall, as in the JAX
+    package.  Reads nothing on the host."""
+    w = p["w"]
+    halo = w - 1
+    dev = parts[0].device
+    if halo == 0:
+        return [b.map(lambda x: x[:, None]) for b in parts], _needs(dev)
+    P = len(parts)
+    needs = _needs(dev)
+    out = []
+    for q, b in enumerate(parts):
+        nxt = parts[(q + 1) % P]
+        cap = b.capacity
+        if q == P - 1:
+            avail = torch.zeros((), dtype=torch.int32, device=dev)
+        else:
+            avail = torch.clamp(nxt.count, max=halo)
+            needs = torch.maximum(needs, _needs(dev, torch.where(
+                nxt.count < halo, _UNSCALABLE, 0)))
+        # the halo lands at position count: rows past count are padding
+        ext = torch.arange(cap + halo, device=dev)
+        src = torch.where(ext < b.count, torch.clamp(ext, max=cap - 1),
+                          torch.clamp(cap + (ext - b.count),
+                                      max=cap + halo - 1))
+        widx = src.index_select(0, (
+            torch.arange(cap, device=dev)[:, None]
+            + torch.arange(w, device=dev)[None, :]).reshape(-1)).reshape(
+            cap, w)
+        cols = {}
+        for k, v in b.columns.items():
+            nv = nxt.columns[k]
+            if isinstance(v, StringColumn):
+                cols[k] = StringColumn(
+                    _window_take(v.data, nv.data, halo, widx),
+                    _window_take(v.lengths, nv.lengths, halo, widx))
+            else:
+                cols[k] = _window_take(v, nv, halo, widx)
+        out.append(Batch(cols, torch.clamp(b.count + avail - halo, 0, cap)
+                         .to(torch.int32)))
+    return out, needs
+
+
 # single-input ops over the whole partition list: (partitions, params) ->
 # partitions; each needs every partition's count or "clean" flag, and
 # none can overflow
@@ -328,24 +449,29 @@ def _fuse_stage_ops(ops: List[StageOp]) -> List[StageOp]:
 
 
 def _apply_exchange(parts: List[Batch], ex: Exchange, scale: int,
-                    slack: int, bounds: Optional[torch.Tensor]
-                    ) -> Tuple[List[Batch], torch.Tensor]:
-    """Returns (batches, needs[2])."""
+                    slack: int, bounds: Optional[torch.Tensor],
+                    slot_rows: Optional[int] = None
+                    ) -> Tuple[List[Batch], torch.Tensor, torch.Tensor]:
+    """Returns (batches, needs[2], slot_used): the exchange's measured
+    max send-slot rows (0 for a broadcast), fed back to later runs of the
+    stage."""
     cap = ex.out_capacity * scale
+    slot = torch.zeros((), dtype=torch.int32, device=parts[0].device)
     if ex.kind == "hash":
         # empty keys = whole row; sorted so both legs of a set op agree
         keys = list(ex.keys) or sorted(parts[0].names)
-        out, nr, nsl, _slot = shuffle.hash_exchange(
-            parts, keys, cap, send_slack=slack)
+        out, nr, nsl, slot = shuffle.hash_exchange(
+            parts, keys, cap, send_slack=slack, slot_rows=slot_rows)
     elif ex.kind == "range":
-        out, nr, nsl, _slot = shuffle.range_exchange(
+        out, nr, nsl, slot = shuffle.range_exchange(
             parts, ex.bounds_key, bounds, cap, descending=ex.descending,
-            send_slack=slack)
+            send_slack=slack, slot_rows=slot_rows)
     elif ex.kind == "broadcast":
         out, nr, nsl = shuffle.broadcast_gather(parts, cap)
     else:
         raise ValueError(ex.kind)
-    return out, _needs(nr.device, _scale_need(nr, ex.out_capacity), nsl)
+    return (out, _needs(nr.device, _scale_need(nr, ex.out_capacity), nsl),
+            slot.to(torch.int32))
 
 
 class Executor:
@@ -357,6 +483,105 @@ class Executor:
         self.config = config or JobConfig()
         # per stage of the last run: label, attempts, final scale / slack
         self.stage_log: List[Dict] = []
+        # (stage fingerprint, leg) -> the max send-slot rows the leg's
+        # exchange last measured (LRU)
+        self._slot_feedback: "collections.OrderedDict" = \
+            collections.OrderedDict()
+        # probe results over live input tensors (LRU), and the number of
+        # probes that ran (each one batched hist_buckets launch)
+        self._slot_probe_cache: "collections.OrderedDict" = \
+            collections.OrderedDict()
+        self.probes_run = 0
+
+    def _probe_slot_rows(self, pd: PData, keys, slack: int) -> int:
+        """Counts-only pre-hop of a first-wave pure hash exchange: every
+        partition's destination counts in ONE batched ``hist_buckets``
+        over the [P, cap] destinations, their max, one scalar read.  The
+        exchange then ships the measured slot instead of the structural
+        slack.  Quantized up to C_struct / 16 rows (at least 16), where
+        C_struct = ceil(slack * cap / P); cached by the input's live
+        tensors, so probing the same data again reads nothing."""
+        b0 = pd.batch
+        cap, D = pd.capacity, self.nparts
+        # the same live tensors (ids whose objects are all still alive)
+        leaves = _leaves(b0)
+        rkey = (tuple(keys), slack, tuple(id(x) for x in leaves))
+        hit = self._slot_probe_cache.get(rkey)
+        if hit is not None:
+            rows, refs = hit
+            if all(r() is not None for r in refs):
+                self._slot_probe_cache.move_to_end(rkey)
+                return rows
+            del self._slot_probe_cache[rkey]    # a recycled id: no hit
+        # every partition's rows hashed at once, as one [P * cap] batch
+        flat = Batch({k: map_column(b0.columns[k], lambda x: x.reshape(
+            (D * cap,) + tuple(x.shape[2:]))) for k in keys}, b0.count)
+        lo = hash_batch_keys(flat, keys)[1].reshape(D, cap)
+        valid = (torch.arange(cap, device=lo.device)[None, :]
+                 < b0.count[:, None])
+        dest = torch.where(valid, (lo % D).to(torch.int32), D)
+        slot = int(hist_buckets_batched(dest, D).max())  # the one read
+        self.probes_run += 1
+        c_struct = max(1, -(-slack * cap // D))
+        q = max(16, c_struct // 16)
+        rows = max(1, min(c_struct, -(-slot // q) * q))
+        self._slot_probe_cache[rkey] = (
+            rows, tuple(weakref.ref(x) for x in leaves))
+        while len(self._slot_probe_cache) > 256:
+            self._slot_probe_cache.popitem(last=False)
+        return rows
+
+    def _note_slot_feedback(self, stage: Stage, slots: List[int]) -> None:
+        """Keep each hash / range leg's measured send-slot rows from an
+        attempt's info read (``slots``: one per leg, 0 where nothing was
+        measured), for the next attempt and the next run of the stage."""
+        fp = stage.fingerprint()
+        for li, leg in enumerate(stage.legs[:_SLOT_FEEDBACK_LEGS]):
+            ex = leg.exchange
+            if ex is None or ex.kind == "broadcast" or slots[li] <= 0:
+                continue
+            self._slot_feedback[(fp, li)] = slots[li]
+            self._slot_feedback.move_to_end((fp, li))
+        while len(self._slot_feedback) > 512:
+            self._slot_feedback.popitem(last=False)
+
+    def _slot_hints(self, stage: Stage, inputs: List[PData], slack: int,
+                    salted: bool
+                    ) -> List[Tuple[Optional[int], Optional[str]]]:
+        """(send-slot rows or None, source) per leg; None, None for a leg
+        without a hash or range exchange.  The sources, in order:
+
+        1. "feedback": the slot this leg's exchange measured in an earlier
+           attempt or run of the same stage (any hash or range leg);
+        2. "probe": ``_probe_slot_rows`` for a pure hash leg (no ops)
+           whose input holds at least ``exchange_probe_min_mb`` MB;
+        3. "slack": None, the structural ceil(slack * cap / P).
+
+        A salted attempt, one partition, or ``exchange_probe_min_mb < 0``
+        ships the structural slack on every leg."""
+        thresh = self.config.exchange_probe_min_mb
+        measured = not (thresh < 0 or salted or self.nparts < 2)
+        fp = stage.fingerprint() if measured else None
+        hints = []
+        for li, (leg, inp) in enumerate(zip(stage.legs, inputs)):
+            ex = leg.exchange
+            if ex is None or ex.kind not in ("hash", "range"):
+                hints.append((None, None))
+                continue
+            fb = (self._slot_feedback.get((fp, li))
+                  if measured and li < _SLOT_FEEDBACK_LEGS else None)
+            if fb is not None:
+                hints.append((_quantize_slot_rows(fb), "feedback"))
+            elif (measured and ex.kind == "hash" and not leg.ops
+                  and sum(t.numel() * t.element_size()
+                          for t in _leaves(inp.batch)) / (1 << 20)
+                  >= thresh):
+                keys = list(ex.keys) or sorted(inp.batch.names)
+                hints.append((self._probe_slot_rows(inp, keys, slack),
+                              "probe"))
+            else:
+                hints.append((None, "slack"))
+        return hints
 
     def _range_bounds(self, src: PData, key: str) -> torch.Tensor:
         """[P-1] split points over the ordering lane of ``key``, on the
@@ -386,6 +611,10 @@ class Executor:
             if op.kind in _POSITIONAL:
                 parts = _POSITIONAL[op.kind](parts, op.params)
                 continue
+            if op.kind == "sliding_window":
+                parts, nd = _sliding_window_global(parts, op.params)
+                needs = torch.maximum(needs, nd)
+                continue
             if op.kind == "zip":
                 parts, nr, nsl = shuffle.zip_exchange(
                     parts, others.pop(0), op.params["suffix"], slack)
@@ -404,30 +633,39 @@ class Executor:
                          for b, o in zip(parts, others.pop(0))]
                 continue
             outs = []
-            for b in parts:
-                b, nd = _apply_op(b, op, scale)
+            for q, b in enumerate(parts):
+                b, nd = _apply_op(b, op, scale, q)
                 needs = torch.maximum(needs, nd)
                 outs.append(b)
             parts = outs
         return parts, needs
 
     def _run_once(self, stage: Stage, inputs: List[PData], scale: int,
-                  slack: int, bounds: Optional[torch.Tensor], salted: bool
-                  ) -> Tuple[PData, torch.Tensor]:
+                  slack: int, bounds: Optional[torch.Tensor], salted: bool,
+                  hints: List[Tuple[Optional[int], Optional[str]]]):
         """One attempt of a stage: (output, [need_scale, need_slack, the
-        exchanges' need_scale, then each exchanging leg's received rows
-        per destination] on the device).  The exchanges' need is kept
-        apart so that the salting trigger reacts to exchange skew only:
-        a join-output shortfall must scale, not salt."""
+        exchanges' need_scale, each leg's measured send-slot rows (0 where
+        none), then each exchanging leg's received rows per destination]
+        on the device, [(send-slot rows, source)] of each hash / range /
+        zip exchange).  The exchanges' need is kept apart so that the salting
+        trigger reacts to exchange skew only: a join-output shortfall must
+        scale, not salt."""
         dev = self.mesh.device
+        P = self.nparts
         needs = torch.zeros(2, dtype=torch.int32, device=dev)
         exch_need = torch.zeros((), dtype=torch.int32, device=dev)
+        slots = [torch.zeros((), dtype=torch.int32, device=dev)
+                 for _ in stage.legs]
+        shipped = []
         legs = []
         for leg, inp in zip(stage.legs, inputs):
             parts, needs = self._run_ops(split_partitions(inp), leg.ops,
                                          scale, slack, needs)
             legs.append(parts)
         if salted:
+            # both exchanges of the salted form ship the structural slack
+            shipped = [(shuffle.send_slot_rows(lg[0].capacity, P, slack),
+                        "slack") for lg in legs]
             # both legs' hash exchanges rewritten jointly: the left one
             # spreads hot keys, the right one replicates its hot rows
             lex, rex = stage.legs[0].exchange, stage.legs[1].exchange
@@ -448,16 +686,24 @@ class Executor:
             for i, leg in enumerate(stage.legs):
                 if leg.exchange is None:
                     continue
-                legs[i], nd = _apply_exchange(legs[i], leg.exchange, scale,
-                                              slack, bounds)
+                rows, source = hints[i]
+                if source is not None:
+                    shipped.append((shuffle.send_slot_rows(
+                        legs[i][0].capacity, P, slack, rows), source))
+                legs[i], nd, slots[i] = _apply_exchange(
+                    legs[i], leg.exchange, scale, slack, bounds, rows)
                 needs = torch.maximum(needs, nd)
                 exch_need = torch.maximum(exch_need, nd[0])
                 exchanged.append(legs[i])
+        if any(op.kind == "zip" for op in stage.body):
+            # the zip's own exchange sends the right leg's rows
+            shipped.append((shuffle.send_slot_rows(legs[1][0].capacity, P,
+                                                   slack), "slack"))
         parts, needs = self._run_ops(legs[0], stage.body, scale, slack,
                                      needs, legs[1:])
         recv = [b.count.to(torch.int32) for leg in exchanged for b in leg]
         return stack_partitions(parts), torch.stack(
-            [needs[0], needs[1], exch_need] + recv)
+            [needs[0], needs[1], exch_need] + slots + recv), shipped
 
     @staticmethod
     def _leg_input(leg, results: Dict[int, PData],
@@ -484,9 +730,10 @@ class Executor:
         if need_scale >= _UNSCALABLE or not _stage_overflow_scalable(stage):
             raise CapacityError(
                 f"stage {stage.id} ({stage.label}) overflowed a fixed "
-                f"capacity (a with_capacity truncation or a zip alignment "
-                f"shortfall): retrying at a larger scale cannot succeed; "
-                f"raise the declared capacity instead")
+                f"capacity (a with_capacity truncation, a sliding_window "
+                f"halo or a zip alignment shortfall): retrying at a larger "
+                f"scale cannot succeed; raise the declared capacity "
+                f"instead")
         slack = max(slack, min(need_slack, self.nparts))
         if (not salted and stage.salt_ok and self.nparts > 1
                 and need_exch >= self.config.salt_trigger_factor * scale):
@@ -518,11 +765,19 @@ class Executor:
         slack = stage._send_slack or self.config.initial_send_slack
         salted = stage._salted
         salted_attempts = 0
+        probes = self.probes_run
+        shipped = []
         retries = self.config.max_capacity_retries
+        L = len(stage.legs)
         for attempt in range(retries + 1):
-            out, info = self._run_once(stage, inputs, scale, slack, bounds,
-                                       salted)
+            hints = self._slot_hints(stage, inputs, slack, salted)
+            out, info, slots = self._run_once(stage, inputs, scale, slack,
+                                              bounds, salted, hints)
             info = info.tolist()   # the attempt's ONE host sync
+            # the measured slots ride that read back to later attempts
+            # and runs of this stage
+            self._note_slot_feedback(stage, info[3:3 + L])
+            shipped.append(slots)
             salted_attempts += salted
             retry = self._decide(stage, scale, slack, salted, *info[:3])
             if retry is None:
@@ -542,8 +797,14 @@ class Executor:
                     "slack": slack, "salted": salted,
                     # each salted attempt broadcast the hot right rows
                     "salted_attempts": salted_attempts,
+                    # per attempt, each hash / range / zip exchange's
+                    # send-slot rows and where they came from
+                    "slot_rows": [[c for c, _ in a] for a in shipped],
+                    "slot_source": [[s for _, s in a] for a in shipped],
+                    # slot probes run (one hist_buckets launch each)
+                    "probes": self.probes_run - probes,
                     "recv_rows": [info[i:i + P]
-                                  for i in range(3, len(info), P)]})
+                                  for i in range(3 + L, len(info), P)]})
                 return out
             scale, slack, salted = retry
         raise CapacityError(

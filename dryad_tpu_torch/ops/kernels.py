@@ -3,9 +3,11 @@
 and PageRank paths run: compaction (``where``), group aggregation in its
 three lowerings, user-defined decomposable aggregation, the sort lanes
 and ``sort_by_columns``, ``take``, ``distinct``, the group-contents
-operators ``group_top_k`` / ``group_rank_select``, the equi-join
-``hash_join`` (inner and left, with the lookup-table form), the set
-operators' ``semi_anti_join`` and ``concat2``, and ``scalar_aggregate``.
+operators ``group_top_k`` / ``group_rank_select`` and the general
+per-group selector ``group_regroup_apply``, the generic SelectMany
+``flat_map_expand``, the equi-join ``hash_join`` (inner and left, with
+the lookup-table form), the set operators' ``semi_anti_join`` and
+``concat2``, and ``scalar_aggregate``.
 
 Idioms carried over from the JAX package:
   * validity is a prefix: ``count`` valid rows, then padding;
@@ -43,7 +45,8 @@ __all__ = ["compact", "filter_rows", "permute_by_sort", "take",
            "group_aggregate", "group_decompose_partial",
            "group_decompose_merge", "group_decompose_local",
            "resolve_dec_spec", "distinct", "group_top_k",
-           "group_rank_select", "mean_finalize_columns", "AGG_KINDS",
+           "group_rank_select", "group_regroup_apply", "flat_map_expand",
+           "mean_finalize_columns", "AGG_KINDS",
            "canon_nan", "minimum", "maximum",
            "searchsorted_big", "hash_join", "lookup_join", "general_join",
            "semi_anti_join", "concat2", "zip2", "scalar_aggregate"]
@@ -1198,6 +1201,103 @@ def group_rank_select(batch: Batch, key_names: Sequence[str], by: str,
     out_cols[out or by] = map_column(sb.columns[by],
                                      lambda x: x.index_select(0, sel))
     return Batch(out_cols, num_groups)
+
+
+def _flat_take(col, perm: torch.Tensor):
+    """Rows ``perm`` of a [n, m, ...] column flattened to [n*m, ...]."""
+    if isinstance(col, StringColumn):
+        return StringColumn(
+            col.data.reshape((-1, col.data.shape[-1])).index_select(0, perm),
+            col.lengths.reshape(-1).index_select(0, perm))
+    return col.reshape((-1,) + tuple(col.shape[2:])).index_select(0, perm)
+
+
+def _unstring(cols: Dict[str, Any]) -> Dict[str, Any]:
+    """String columns as (data, lengths) tuples: ``torch.func.vmap`` maps
+    over tensors in tuples and dicts only."""
+    return {k: (v.data, v.lengths) if isinstance(v, StringColumn) else v
+            for k, v in cols.items()}
+
+
+def _restring(cols: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: StringColumn(*v) if isinstance(v, tuple) else v
+            for k, v in cols.items()}
+
+
+def group_regroup_apply(batch: Batch, key_names: Sequence[str], fn,
+                        max_groups: int, group_capacity: int,
+                        out_rows: int, out_capacity: int):
+    """The general per-group result selector: regroup the rows into a
+    dense [G, C] layout (G = min(max_groups, cap) groups of at most
+    C = min(group_capacity, cap) rows) and map ``fn`` over the groups
+    with ``torch.func.vmap`` (the JAX package's ``jax.vmap``).
+
+    ``fn(cols, count) -> (out_cols, mask)`` sees ONE group: its columns
+    as [C, ...] tensors / StringColumns (rows >= count unspecified) and
+    its row count, a 0-d int32 tensor; out_cols are [out_rows, ...] and
+    mask is [out_rows] bool.  The group's key columns are attached to
+    every emitted row unless ``fn`` emits a column of the same name.  The
+    emitted rows of all groups, in group order then row order, are
+    compacted into min(out_capacity, G * out_rows) rows.  Groups past G
+    and rows past C are not seen by ``fn``: the three measured needs
+    say so.
+
+    Returns (batch, num_groups, max_group_size, total_out_rows).  Memory:
+    the regroup holds G x C cells per column."""
+    sb, _seg, is_start, num_groups = _group_segments(batch, key_names)
+    cap = batch.capacity
+    dev = batch.device
+    start_pos, end_excl = _segment_bounds(is_start, num_groups, batch.count)
+    idx = torch.arange(cap, device=dev)
+    sizes = torch.where(idx < num_groups, end_excl - start_pos, 0)
+    max_size = sizes.max().to(torch.int32)
+
+    # a partition cannot hold more groups (or a larger group) than rows
+    G, C, R = min(max_groups, cap), min(group_capacity, cap), out_rows
+    gstart = start_pos[:G]
+    gsizes = torch.clamp(sizes[:G], max=C).to(torch.int32)
+    gvalid = torch.arange(G, device=dev) < num_groups
+    gidx = torch.clamp(gstart[:, None] + torch.arange(C, device=dev)[None],
+                       0, cap - 1).reshape(-1)
+    group_cols = {k: map_column(v, lambda x: x.index_select(0, gidx).reshape(
+        (G, C) + tuple(x.shape[1:]))) for k, v in sb.columns.items()}
+
+    def one_group(cols, count):
+        out, mask = fn(_restring(cols), count)
+        return _unstring(out), mask
+
+    out_cols, mask = torch.func.vmap(one_group)(_unstring(group_cols), gsizes)
+    out_cols = _restring(out_cols)              # [G, R, ...]
+    flat_mask = (mask & gvalid[:, None]).reshape(-1)
+    total = flat_mask.sum(dtype=torch.int32)
+    perm = _stable_front(flat_mask)[:out_capacity]
+    # an emitted row's group is its flat position // R: the key columns
+    # come straight from the group's first sorted row
+    key_rows = torch.where(gvalid, gstart, 0).index_select(
+        0, torch.div(perm, R, rounding_mode="floor"))
+    cols: Dict[str, Any] = {
+        k: map_column(sb.columns[k], lambda x: x.index_select(0, key_rows))
+        for k in key_names if k not in out_cols}
+    cols.update({k: _flat_take(v, perm) for k, v in out_cols.items()})
+    out = Batch(cols, torch.clamp(total, max=out_capacity))
+    return out, num_groups, max_size, total
+
+
+def flat_map_expand(batch: Batch, fn, out_capacity: int
+                    ) -> Tuple[Batch, torch.Tensor]:
+    """Generic SelectMany: ``fn(cols) -> (out_cols, mask)`` with every
+    output column [cap, m, ...] and mask [cap, m]; the valid rows' masked
+    cells, flattened row-major, compacted into min(out_capacity, cap * m)
+    rows.  Returns (batch, need): need is the total when it exceeds
+    ``out_capacity``, else 0."""
+    out_cols, mask = fn(dict(batch.columns))
+    mask = mask & batch.valid_mask()[:, None]
+    flat_mask = mask.reshape(-1)
+    total = flat_mask.sum(dtype=torch.int32)
+    perm = _stable_front(flat_mask)[:out_capacity]
+    out = Batch({k: _flat_take(v, perm) for k, v in out_cols.items()},
+                torch.clamp(total, max=out_capacity))
+    return out, torch.where(total > out_capacity, total, 0).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

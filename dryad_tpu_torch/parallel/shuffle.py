@@ -53,7 +53,8 @@ from dryad_tpu_torch.ops.kernels import (_pack_columns_u32,
                                          concat2, searchsorted_small,
                                          sort_lanes_for, zip2)
 
-__all__ = ["exchange_by_dest", "hash_exchange", "range_dest_lane",
+__all__ = ["send_slot_rows", "exchange_by_dest", "hash_exchange",
+           "range_dest_lane",
            "range_dest", "range_exchange", "broadcast_gather",
            "skew_join_exchange", "zip_exchange"]
 
@@ -64,25 +65,37 @@ def _canonical_hash_dest(lo: torch.Tensor, nparts: int) -> torch.Tensor:
     return (lo % nparts).to(torch.int32)
 
 
+def send_slot_rows(cap: int, D: int, send_slack: int,
+                   slot_rows: int | None = None) -> int:
+    """The rows C of each (source, destination) send slot: a measured
+    ``slot_rows`` where one is given, else the structural slack x the
+    fair share (sized for a whole partition going to one destination, the
+    buffer would be squared); never more than the partition's capacity."""
+    if slot_rows is not None:
+        return max(1, min(cap, slot_rows))
+    return max(1, min(cap, -(-send_slack * cap // D)))
+
+
 def exchange_by_dest(parts: List[Batch], dests: List[torch.Tensor],
-                     out_capacity: int, send_slack: int = 2
+                     out_capacity: int, send_slack: int = 2,
+                     slot_rows: int | None = None
                      ) -> Tuple[List[Batch], torch.Tensor, torch.Tensor,
                                 torch.Tensor]:
     """Send each valid row of partition p to partition ``dests[p][row]``
     (1-D mesh: one hop — the pack form of the JAX package's
-    ``_exchange_one_axis``).
+    ``_exchange_one_axis``).  The send slots hold ``send_slot_rows``
+    rows: a measured ``slot_rows`` (the executor's probe or the feedback
+    of an earlier run) or the structural slack; a measured slot that
+    falls short comes back as ``need_slack`` like the slack's.
 
     Returns ``(batches, need_recv_rows, need_slack, slot_used)`` as 0-d
     int32 tensors: the NEEDs are 0 when everything fit, else the measured
     requirement (max rows a destination must hold / the send-slot slack
     factor that would fit); ``slot_used`` is the max rows any source sent
-    one destination."""
+    one destination (the measured slot an executor feeds back)."""
     D = len(parts)
     cap = parts[0].capacity
-    # per-destination send slots: sized for the whole batch going to one
-    # destination would square the buffer, so slack x the fair share,
-    # raised by the executor's retry from the measured need
-    C = max(1, min(cap, -(-send_slack * cap // D)))
+    C = send_slot_rows(cap, D, send_slack, slot_rows)
 
     # invalid rows go to the sentinel bucket D, which nothing counts
     dest = torch.stack([torch.where(b.valid_mask(), d.to(torch.int32), D)
@@ -123,13 +136,15 @@ def exchange_by_dest(parts: List[Batch], dests: List[torch.Tensor],
 
 
 def hash_exchange(parts: List[Batch], keys: Sequence[str],
-                  out_capacity: int, send_slack: int = 2):
+                  out_capacity: int, send_slack: int = 2,
+                  slot_rows: int | None = None):
     """Repartition rows by key hash (HashPartition / shuffle for GroupBy):
     row r goes to partition lo(hash(keys[r])) % P."""
     D = len(parts)
     dests = [_canonical_hash_dest(hash_batch_keys(b, keys)[1], D)
              for b in parts]
-    return exchange_by_dest(parts, dests, out_capacity, send_slack)
+    return exchange_by_dest(parts, dests, out_capacity, send_slack,
+                            slot_rows)
 
 
 def range_dest_lane(col) -> torch.Tensor:
@@ -152,11 +167,12 @@ def range_dest(col, bounds: torch.Tensor,
 
 def range_exchange(parts: List[Batch], key: str, bounds: torch.Tensor,
                    out_capacity: int, descending: bool = False,
-                   send_slack: int = 2):
+                   send_slack: int = 2, slot_rows: int | None = None):
     """Repartition by ranges of ``key`` (``range_dest``), with ``bounds``
     from the executor's sampling (``Executor._range_bounds``)."""
     dests = [range_dest(b.columns[key], bounds, descending) for b in parts]
-    return exchange_by_dest(parts, dests, out_capacity, send_slack)
+    return exchange_by_dest(parts, dests, out_capacity, send_slack,
+                            slot_rows)
 
 
 def broadcast_gather(parts: List[Batch], out_capacity: int

@@ -1,13 +1,15 @@
 """Logical query expression DAG — the subset of ``dryad_tpu/plan/expr.py``
 that the ported slices plan: sources, Select / Where, the tokenizing
-SelectMany, GroupBy with builtin or user-defined decomposable aggregates,
-the group-contents operators (top-k, rank select), OrderBy, Distinct,
-Take, explicit hash and range repartition, partitioning claims
-(AssumePartitioning), the equi-Join, the set operators (SetOp, Concat),
-Broadcast, the two-input CrossApply, the positional operators (Zip,
-WithRowIndex, SkipTake), WithCapacity and the do_while loop's
-Placeholder.  A ``Dataset`` method chain builds this DAG lazily;
-the planner (``plan/planner.py``) lowers it to stages."""
+SelectMany and the generic one (FlatMap), the per-partition escape hatch
+(ApplyPerPartition), GroupBy with builtin or user-defined decomposable
+aggregates, the group-contents operators (top-k, rank select, the
+general GroupApply), OrderBy, Distinct, Take, explicit hash and range
+repartition, partitioning claims (AssumePartitioning), the equi-Join,
+the set operators (SetOp, Concat), Broadcast, the two-input CrossApply,
+the positional operators (Zip, WithRowIndex, SkipTake, SlidingWindow),
+WithCapacity and the do_while loop's Placeholder.  A ``Dataset`` method
+chain builds this DAG lazily; the planner (``plan/planner.py``) lowers it
+to stages."""
 
 from __future__ import annotations
 
@@ -16,11 +18,12 @@ import itertools
 from typing import Any, Callable, Dict, Optional, Tuple
 
 __all__ = ["Partitioning", "Node", "Source", "Placeholder", "Map", "Filter",
-           "FlatTokens", "Decomposable", "GroupByAgg", "GroupTopK",
-           "GroupRankSelect", "Join", "OrderBy", "Distinct", "SetOp",
-           "Concat", "HashRepartition", "RangeRepartition", "Broadcast",
+           "FlatTokens", "FlatMap", "ApplyPerPartition", "Decomposable",
+           "GroupByAgg", "GroupApply", "GroupTopK", "GroupRankSelect",
+           "Join", "OrderBy", "Distinct", "SetOp", "Concat",
+           "HashRepartition", "RangeRepartition", "Broadcast",
            "Take", "WithCapacity", "CrossApply", "AssumePartitioning",
-           "Zip", "WithRowIndex", "SkipTake", "walk"]
+           "Zip", "WithRowIndex", "SkipTake", "SlidingWindow", "walk"]
 
 _ids = itertools.count()
 
@@ -133,6 +136,44 @@ class FlatTokens(Node):
         return Partitioning.none()
 
 
+@_node
+class FlatMap(Node):
+    """Generic SelectMany: fn(cols) -> (out_cols each [cap, m, ...],
+    mask [cap, m]); rows flattened in row-major order, then compacted
+    into ``out_capacity`` rows."""
+
+    parents: Tuple[Node, ...]
+    fn: Callable
+    out_capacity: int
+    label: str = "flat_map"
+
+    @property
+    def partitioning(self) -> Partitioning:
+        return Partitioning.none()
+
+
+@_node
+class ApplyPerPartition(Node):
+    """An arbitrary per-partition Batch -> Batch function (the escape
+    hatch): fn(batch), or fn(batch, partition_index) with ``with_index``.
+    The partitioning claim survives only when the fn preserves it.
+    ``host_fn`` (table -> table) is the same function on host tables,
+    kept with the node."""
+
+    parents: Tuple[Node, ...]
+    fn: Callable
+    label: str = "apply"
+    preserves_partitioning: bool = False
+    with_index: bool = False
+    host_fn: Any = None
+
+    @property
+    def partitioning(self) -> Partitioning:
+        if self.preserves_partitioning:
+            return self.parents[0].partitioning
+        return Partitioning.none()
+
+
 @dataclasses.dataclass(frozen=True)
 class Decomposable:
     """User-defined decomposable aggregate (IDecomposable parity):
@@ -158,6 +199,27 @@ class GroupByAgg(Node):
     parents: Tuple[Node, ...]
     keys: Tuple[str, ...]
     aggs: Dict[str, Any]
+
+    @property
+    def partitioning(self) -> Partitioning:
+        return Partitioning("hash", tuple(self.keys))
+
+
+@_node
+class GroupApply(Node):
+    """GroupBy yielding group CONTENTS to an arbitrary per-group fn (the
+    general result selector): fn(cols, count) -> (out_cols [out_rows,
+    ...], mask [out_rows]), mapped over groups; group keys are attached
+    to the output.  None capacities resolve to the input capacity at plan
+    time."""
+
+    parents: Tuple[Node, ...]
+    keys: Tuple[str, ...]
+    fn: Callable
+    group_capacity: int
+    max_groups: Optional[int] = None
+    out_rows: int = 1
+    out_capacity: Optional[int] = None
 
     @property
     def partitioning(self) -> Partitioning:
@@ -364,6 +426,17 @@ class SkipTake(Node):
     op: str  # "skip" | "take_while" | "skip_while"
     n: int = 0
     fn: Any = None
+
+
+@_node
+class SlidingWindow(Node):
+    """Each row becomes the window of ``w`` consecutive rows starting at
+    it (windows crossing the dataset's end are dropped); columns gain a
+    window axis.  Partition p takes the first w - 1 rows of partition
+    p + 1 as its halo."""
+
+    parents: Tuple[Node, ...]
+    w: int
 
 
 @_node

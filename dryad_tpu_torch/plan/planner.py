@@ -1,28 +1,29 @@
 """Logical -> physical lowering — the subset of
 ``dryad_tpu/plan/planner.py`` that the ported slices need.
 
-Row-local ops (select, where, tokenize, take) grow a fragment along each
-edge; stages are cut at exchanges and at fan-out (a node consumed twice
-is materialized once).  GroupBy lowers to partial group -> hash exchange
--> final group (the IDecomposable / PARTIALAGGR pattern); with a
-user-defined ``Decomposable`` among the aggregates, to seed + merge ->
-exchange of the flattened states -> merge + finalize.  Distinct is a
-partial distinct -> hash exchange -> distinct; the group-contents
-operators co-locate by hash and run once.  OrderBy materializes its
+Row-local ops (select, where, tokenize, flat_map, apply_per_partition,
+sliding_window, take) grow a fragment along each edge; stages are cut at
+exchanges and at fan-out (a node consumed twice is materialized once).
+GroupBy lowers to partial group -> hash exchange -> final group (the
+IDecomposable / PARTIALAGGR pattern); with a user-defined
+``Decomposable`` among the aggregates, to seed + merge -> exchange of
+the flattened states -> merge + finalize. Distinct is a partial distinct
+-> hash exchange -> distinct; the group-contents operators (group_apply
+among them) co-locate by hash and run once. OrderBy materializes its
 input, samples split points from it, range-exchanges on the primary key
-and sorts locally by all keys.  A Join is one stage of two legs, each
+and sorts locally by all keys. A Join is one stage of two legs, each
 hash-exchanged on its keys unless already placed by them, and a body
 ``join`` op, or, for a broadcast join, the right leg is replicated to
-every partition and the left one stays put.  CrossApply is the same
+every partition and the left one stays put. CrossApply is the same
 two-leg shape (a broadcast right leg, the user's ``apply2``); the set
 operators hash-exchange whole rows on both legs; Concat and Zip are two
 legs and no exchange (the zip body realigns the right side itself).
 WithRowIndex and SkipTake are row-local ops that read every partition's
-count.  A do_while Placeholder is a leg source bound at run time;
-WithCapacity is a ``recap`` op.  An exchange is elided where the input is
+count. A do_while Placeholder is a leg source bound at run time;
+WithCapacity is a ``recap`` op. An exchange is elided where the input is
 already placed as needed (partition elimination); the stages whose
 placement was trusted are marked ``placement_relied`` (and never
-salted).  P = 8 plans exactly as the JAX package plans on its 8-device
+salted). P = 8 plans exactly as the JAX package plans on its 8-device
 mesh.
 """
 
@@ -217,20 +218,24 @@ class Planner:
         return Fragment(f.src, list(f.ops), f.capacity, f.partitioning)
 
     def _colocate_then(self, f: Fragment, keys: Tuple[str, ...],
-                       op: StageOp, label: str) -> Fragment:
+                       op: StageOp, label: str,
+                       out_capacity: Optional[int] = None) -> Fragment:
         """Hash-co-locate rows by ``keys``, then apply ``op`` — the shared
         lowering of the group-contents operators; no exchange when the
-        input already hashes on the same keys."""
+        input already hashes on the same keys.  ``out_capacity`` is the
+        op's output capacity (default: its input's)."""
+        cap = out_capacity or f.capacity
         if self.nparts == 1 or (f.partitioning.kind == "hash"
                                 and f.partitioning.keys == keys and keys):
             if self.nparts > 1:
                 self._rely_on_placement(f)
             f.ops.append(op)
+            f.capacity = cap
             f.partitioning = E.Partitioning("hash", keys)
             return f
         ex = Exchange("hash", keys=keys, out_capacity=f.capacity)
         st = self._new_stage([Leg(f.src, f.ops, ex)], [op], label)
-        return Fragment(st.id, [], f.capacity, E.Partitioning("hash", keys))
+        return Fragment(st.id, [], cap, E.Partitioning("hash", keys))
 
     def _lower(self, n: E.Node) -> Fragment:
         if isinstance(n, E.Source):
@@ -261,6 +266,28 @@ class Planner:
                 "lower": n.lower,
                 "max_tokens_per_row": n.max_tokens_per_row}))
             f.capacity = n.out_capacity
+            f.partitioning = E.Partitioning.none()
+            return f
+
+        if isinstance(n, E.FlatMap):
+            f = self._frag(n.parents[0])
+            f.ops.append(StageOp("flat_map", {
+                "fn": n.fn, "out_capacity": n.out_capacity,
+                "label": n.label}))
+            f.capacity = n.out_capacity
+            f.partitioning = E.Partitioning.none()
+            return f
+
+        if isinstance(n, E.ApplyPerPartition):
+            f = self._frag(n.parents[0])
+            f.ops.append(StageOp("apply", {"fn": n.fn, "label": n.label,
+                                           "with_index": n.with_index}))
+            f.partitioning = n.partitioning
+            return f
+
+        if isinstance(n, E.SlidingWindow):
+            f = self._frag(n.parents[0])
+            f.ops.append(StageOp("sliding_window", {"w": n.w}))
             f.partitioning = E.Partitioning.none()
             return f
 
@@ -387,6 +414,18 @@ class Planner:
                 [StageOp("concat", {})], "concat")
             return Fragment(st.id, [], lf.capacity + rf.capacity,
                             E.Partitioning.none())
+
+        if isinstance(n, E.GroupApply):
+            f = self._frag(n.parents[0])
+            keys = tuple(n.keys)
+            oc = n.out_capacity or f.capacity
+            op = StageOp("group_apply", {
+                "keys": keys, "fn": n.fn,
+                "max_groups": n.max_groups or f.capacity,
+                "group_capacity": n.group_capacity,
+                "out_rows": n.out_rows, "out_capacity": oc})
+            return self._colocate_then(f, keys, op, "group_apply",
+                                       out_capacity=oc)
 
         if isinstance(n, E.GroupTopK):
             f = self._frag(n.parents[0])

@@ -75,6 +75,34 @@ class Stage:
     # later runs of the same plan (sticky)
     _salted: bool = False
 
+    def fingerprint(self) -> str:
+        """Structural identity: the legs' ops and exchanges and the body
+        ops, callables by object id (a fresh lambda is another stage).
+        The executor keys each exchange's measured send-slot feedback by
+        (fingerprint, leg index), so a re-planned identical query or a
+        do_while body's next superstep finds the slots the last run
+        measured."""
+
+        def val_fp(v) -> str:
+            return "fn%x" % id(v) if callable(v) else repr(v)
+
+        def op_fp(op: StageOp) -> str:
+            items = [f"{k}={val_fp(op.params[k])}" for k in sorted(op.params)]
+            return f"{op.kind}({','.join(items)})"
+
+        def ex_fp(ex: Optional[Exchange]) -> str:
+            if ex is None:
+                return "-"
+            return (f"{ex.kind}[{','.join(ex.keys)}]cap{ex.out_capacity}"
+                    f"{'desc' if ex.descending else ''}"
+                    f"{ex.bounds_key or ''}")
+
+        legs = ";".join(
+            ",".join(op_fp(o) for o in leg.ops) + "=>" + ex_fp(leg.exchange)
+            for leg in self.legs)
+        body = ",".join(op_fp(o) for o in self.body)
+        return f"legs:{legs}|body:{body}"
+
 
 @dataclasses.dataclass
 class StageGraph:

@@ -17,6 +17,12 @@ class JobConfig:
     max_capacity_retries: int = 3
     # initial send-slot slack factor for exchanges (C = ceil(slack*cap/D))
     initial_send_slack: int = 2
+    # measured send slots: a pure hash repartition leg (no ops) whose
+    # input holds at least this many MB runs a counts-only probe first,
+    # so its first attempt ships the measured slot instead of the
+    # structural slack; later runs of a stage ship the slot the last one
+    # measured.  -1 disables both; 0 always probes
+    exchange_probe_min_mb: float = 8.0
     # range exchange split points: ordering lanes sampled per partition
     # (evenly spread over its valid rows) before the bounds are picked
     range_samples_per_partition: int = 4096
@@ -54,6 +60,8 @@ class JobConfig:
         checks = [
             (self.max_capacity_retries >= 0, "max_capacity_retries >= 0"),
             (self.initial_send_slack >= 1, "initial_send_slack >= 1"),
+            (self.exchange_probe_min_mb >= -1,
+             "exchange_probe_min_mb >= -1"),
             (self.range_samples_per_partition >= 2,
              "range_samples_per_partition >= 2"),
             (self.salt_trigger_factor >= 2, "salt_trigger_factor >= 2"),
