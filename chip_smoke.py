@@ -28,13 +28,20 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      every histogram route, sources misaligned for 16-byte loads (W = 7),
      C*W not a multiple of 4, run starts at and past cap and negative,
      the main paths' shapes, and 50 histograms of mixed sizes queued with
-     no sync, each then held, the kept tickets zero afterwards;
+     no sync, each then held, the kept tickets zero afterwards.  The
+     batched compaction (``slot_compact_batched``, ``check_compact``) at
+     Dd = 1, 3, 8 and 8 at S = 4096; W = 1, 2, 7, 8, 46; counts negative,
+     0, C and above C; out_rows 0, below the total and far above it;
+     C = 1; sources misaligned; the main paths' shapes; 50 calls of mixed
+     sizes queued with no sync; each output allocated over a freed block
+     of 0x7F bytes, so an unwritten word shows;
   3. WordCount through ``Context(device="cuda", nparts=8)`` on two
      corpora of N lines (default 1,000,000: the JAX bench's 12-word
      vocabulary corpus, and 50,000 synthetic words sampled Zipf(1.1)),
      held exactly against a ``collections.Counter`` oracle; every launch
      counter of the WordCount path must have risen during each run, and
-     hist_buckets and slot_expand exactly once per exchange;
+     hist_buckets, slot_expand and slot_compact exactly once per
+     exchange;
   4. GroupByReduce through the same entry points at the JAX bench's size
      for BASELINE config 3 (default 2,000,000 rows, seed 0): the app's
      query on 10,000 keys, the same aggregates as one user Decomposable,
@@ -42,7 +49,8 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      against a numpy oracle (keys, counts, min, max exact; f32 sums and
      means within the group bound); every launch counter must rise in the
      app's run, prefix_sum2 once per partition, and the exchange's four
-     in every run (hist_buckets and slot_expand once per exchange);
+     in every run (hist_buckets, slot_expand and slot_compact once per
+     exchange);
   6. the sort paths through the same entry points: TeraSort on
      1,000,000 records (``terasort.gen_records(N, seed=0)``, the JAX
      bench's in-memory size, ``str_max_len=10``: a range exchange of
@@ -53,8 +61,8 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      them (one run, two queries) against numpy as multisets of (k, v)
      and exact lower medians; ``distinct(["k"])`` on them, each key's v
      that of its first row in input order.  Each run's exchange kernels
-     must all launch, hist_buckets and slot_expand once per exchange
-     attempt (a capacity retry is an attempt: the counts must equal the
+     must all launch, hist_buckets, slot_expand and slot_compact once
+     per exchange attempt (a capacity retry is an attempt: the counts must equal the
      executor's own attempt log); its stages' retries and final capacity
      scales are printed;
   7. PageRank (``pagerank100k``) through the same entry points at the JAX
@@ -63,9 +71,9 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      damping 0.85: ``from_columns -> join -> cache -> do_while ->
      collect``.  The node set must be 0..n-1 exactly, every rank within
      rtol 2e-3 of ``pagerank_numpy`` (float64), the ranks' sum within
-     1e-2 of 1; all five launch counters must rise, and hist_buckets and
-     slot_expand launch once per exchanging leg and attempt (the
-     executor's own log over every run of the job).  One cold and one
+     1e-2 of 1; all five launch counters must rise, and hist_buckets,
+     slot_expand and slot_compact launch once per exchanging leg and
+     attempt (the executor's own log over every run of the job).  One cold and one
      warm run, each split into load (``from_columns``) and query; time
      per superstep; edges per second per iteration over the query wall
      and over the summed executor runs (the JAX bench's
@@ -81,7 +89,7 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      collect``.  Every cid present and every centroid within rtol and
      atol 1e-3 of ``kmeans_numpy`` (float64); the exchange's four
      kernels must launch, hist_buckets and slot_expand once per hash
-     exchange and slot_compact 8 times per hash exchange plus ONCE per
+     exchange and slot_compact once per hash exchange plus ONCE per
      broadcast (the executor's own log).  One cold and one warm run,
      load and query, time per iteration, points per second per
      iteration, attempts per stage.  Then, each one main-path run held
@@ -153,7 +161,13 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      Per kernel at its timed shape also: the device time per call and the
      device events (kernels, memsets) per call from a profiler window
      around 20 calls, and the host's enqueue time per call (200 calls, no
-     sync).  The exchange's pack side per exchange in the three profiles
+     sync); for slot_compact, whose call is one exchange's unpack, also a
+     loop of one-destination calls on the same tensors (``loop_ms``,
+     its device µs per exchange and host enqueue).  Per kernel and path
+     (the timed paths, pagerank100k, unnest6m's warm run): the bound of
+     the path's captured calls summed beside the path's profiled device
+     time (``path_bound`` lines).  The exchange's pack side per exchange
+     in the three profiles
      (hist_buckets, slot_expand, copy kernels, the rest of the pack
      range), against its bound, beside the send-buffer copies that the
      batched slot_expand removed, replayed at the same shape.  A kernel
@@ -208,18 +222,22 @@ TIMED_ON = {"hist_buckets": "zipf50k", "prefix_sum": "zipf50k",
             "prefix_sum2": "app10k", "slot_expand": "zipf50k",
             "slot_compact": "zipf50k"}
 EXCHANGE = ("hist_buckets", "prefix_sum", "slot_expand", "slot_compact")
-# once per exchange: the pack side's two batched kernels
-PER_EXCHANGE = ("hist_buckets", "slot_expand")
-# the wrapper a kernel's captured calls go through: the exchange's two
+# the pack side's two batched kernels
+PACK = ("hist_buckets", "slot_expand")
+# once per hash, range or zip exchange: the two pack kernels and the
+# batched unpack
+PER_EXCHANGE = PACK + ("slot_compact",)
+# the wrapper a kernel's captured calls go through: the exchange's three
 # kernels are captured with their batched arguments
 CALLS = {"hist_buckets": "hist_buckets_batched",
-         "slot_expand": "slot_expand_batched"}
+         "slot_expand": "slot_expand_batched",
+         "slot_compact": "slot_compact_batched"}
 DEVICE_NAMES = {  # substrings of the compiled kernels' names
     "hist_buckets": ("hist_small", "hist_shared", "hist_global"),
     "prefix_sum": ("scan_lookback",),
     "prefix_sum2": ("scan2_lookback",),
     "slot_expand": ("slot_expand_v4",),
-    "slot_compact": ("slot_compact_k",),
+    "slot_compact": ("slot_compact_v2",),
 }
 PACK_RANGE = "dryad.exchange.pack"   # parallel/shuffle.py's profiler range
 # the runs whose calls are kept for a pack_side line
@@ -310,6 +328,7 @@ def check_kernels(hk, dev) -> None:
     check_cancellation(hk, t)
     check_lookback(hk, t, rng)
     check_batched(hk, t, rng)
+    check_compact(hk, t, rng)
 
     for cap, W, D, C in [(64, 3, 1, 5), (500, 8, 8, 3), (65_536, 8, 8, 16_384),
                          (10_000, 7, 16, 700), (300, 2, 8, 300)]:
@@ -416,6 +435,86 @@ def check_batched(hk, t, rng) -> None:
         if tickets.any():
             raise AssertionError("hist_buckets: kept tickets are not zero "
                                  "after their kernels ran")
+
+
+def _compact_counts(rng, Dd, S, C):
+    """[Dd, S] send counts in [-3, C + 3], with the edges set in every
+    destination: negative, 0, C and above C."""
+    cnt = rng.randint(-3, C + 4, (Dd, S))
+    for i, v in enumerate((-2, 0, C, C + 5)):
+        cnt[:, (3 * i + 1) % S] = v
+    return cnt.astype(np.int32)
+
+
+def check_compact(hk, t, rng) -> None:
+    """The batched compaction against its plain version (each
+    destination's ``slot_compact_plain``, stacked), exactly: Dd = 1, 3, 8
+    with S = 8 sources, and Dd = 8 at S = 4096; W = 1, 2, 7, 8, 46; C = 1
+    and 13; counts negative, 0, C and above C (clamped); out_rows 0,
+    below the largest total (truncation), at it and far above it; sources
+    misaligned for 16-byte loads (a contiguous ``recv[1:]`` view, W = 7
+    and 46); the main paths' shapes (WordCount's token exchange, phase
+    10's orders repartition); then 50 calls of mixed sizes queued on one
+    stream with no sync, each held afterwards.  Before every call a
+    tensor of the output's size filled with 0x7F bytes is allocated and
+    freed, so the caching allocator hands that block to the wrapper's
+    ``torch.empty``: a word the kernel leaves unwritten shows."""
+    import torch
+
+    def recv_of(Dd, S, C, W, skip=0):
+        w = rng.randint(-2**31, 2**31 - 1, Dd * S * C * W + skip)
+        return t(w.astype(np.int32))[skip:].view(Dd, S * C, W)
+
+    def call(recv, cnt, C, out_rows):
+        Dd, _rows, W = recv.shape
+        junk = torch.full((Dd, out_rows, W), 0x7F7F7F7F, dtype=torch.int32,
+                          device=recv.device)
+        del junk
+        return hk.slot_compact_batched(recv, cnt, C, out_rows)
+
+    def same(got, want, what):
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"slot_compact {what}: kernel != plain")
+
+    cases = [(Dd, 8, C, W, skip) for Dd in (1, 3, 8) for W in (1, 2, 7, 8, 46)
+             for C in (1, 13) for skip in ((0, 1) if W in (7, 46) else (0,))]
+    cases += [(8, 4096, 3, 7, 0), (8, 4096, 1, 2, 1)]
+    for Dd, S, C, W, skip in cases:
+        recv = recv_of(Dd, S, C, W, skip)
+        cnt = t(_compact_counts(rng, Dd, S, C))
+        top = int(cnt.long().clamp(0, C).sum(1).max())
+        for out_rows in (0, top // 2, top, 3 * top + 17):
+            same(call(recv, cnt, C, out_rows),
+                 hk.slot_compact_batched_plain(recv, cnt, C, out_rows),
+                 f"Dd={Dd} S={S} C={C} W={W} skip={skip} "
+                 f"out_rows={out_rows}")
+
+    # the main paths' shapes: WordCount's token exchange (8 sources of
+    # C = 16,384 rows of 8 words into 1,250,000 rows), phase 10's orders
+    # repartition (C = 24,576 rows of 46 words, truncated and not)
+    for Dd, S, C, W, out_rows in [(8, 8, 16_384, 8, 1_250_000),
+                                  (8, 8, 24_576, 46, 187_500),
+                                  (8, 8, 24_576, 46, 150_001)]:
+        recv = recv_of(Dd, S, C, W)
+        cnt = t(rng.randint(C // 2, C + 1, (Dd, S)).astype(np.int32))
+        same(call(recv, cnt, C, out_rows),
+             hk.slot_compact_batched_plain(recv, cnt, C, out_rows),
+             f"Dd={Dd} S={S} C={C} W={W} out_rows={out_rows}")
+        del recv
+
+    sizes = [(8, 8, 700, 7, 4000), (1, 8, 13, 46, 100), (3, 8, 1, 1, 5),
+             (8, 4096, 2, 3, 9000), (2, 8, 5000, 8, 0)]
+    ins = {}
+    for Dd, S, C, W, out_rows in sizes:
+        ins[(Dd, S, C, W, out_rows)] = (recv_of(Dd, S, C, W, 1), t(
+            _compact_counts(rng, Dd, S, C)), C, out_rows)
+    torch.cuda.synchronize()
+    queued = [(k, call(*ins[k])) for k in sizes * 10]
+    torch.cuda.synchronize()
+    for i, (k, got) in enumerate(queued):
+        same(got, hk.slot_compact_batched_plain(*ins[k]),
+             f"queued call {i} {k}")
 
 
 def check_lookback(hk, t, rng) -> None:
@@ -579,24 +678,25 @@ def check_cancellation(hk, t) -> None:
 
 def check_per_exchange(run, launches, attempts=None,
                        broadcasts: int = 0, probes: int = 0) -> None:
-    """hist_buckets and slot_expand launch once per hash or range
-    exchange: as often as the exchange's unpack runs (slot_compact once
-    per destination).  A broadcast launches exactly one slot_compact and
-    nothing else, so ``broadcasts`` (the executor's count of broadcast
-    legs times attempts) come off slot_compact's launches first.  A slot
-    probe launches one hist_buckets and nothing else, so ``probes`` (the
-    executor's count) come off hist_buckets' launches.  A capacity retry
-    runs the stage's exchanges again, and a join stage has up to two
-    exchanging legs, so ``attempts``, where given, is the executor's own
-    count of hash / range exchanging legs times attempts over its
-    ``stage_log`` (``exchange_attempts``), which must agree."""
-    exchanges, rest = divmod(launches["slot_compact"] - broadcasts, NPARTS)
-    apart = {"hist_buckets": probes}
+    """hist_buckets, slot_expand and slot_compact launch once per hash,
+    range or zip exchange; the exchanges are counted from slot_expand,
+    which nothing else launches.  A broadcast launches exactly one
+    slot_compact and nothing else, so slot_compact must equal the
+    exchanges plus ``broadcasts`` (the executor's count of broadcast legs
+    times attempts).  A slot probe launches one hist_buckets and nothing
+    else, so hist_buckets must equal the exchanges plus ``probes`` (the
+    executor's count).  A capacity retry runs the stage's exchanges
+    again, and a join stage has up to two exchanging legs, so
+    ``attempts``, where given, is the executor's own count of hash /
+    range exchanging legs times attempts over its ``stage_log``
+    (``exchange_attempts``), which must agree."""
+    exchanges = launches["slot_expand"]
+    apart = {"hist_buckets": probes, "slot_compact": broadcasts}
     bad = {k: launches[k] for k in PER_EXCHANGE
            if launches[k] - apart.get(k, 0) != exchanges}
     if attempts is not None and attempts != exchanges:
         bad["executor_attempts"] = attempts
-    if rest or exchanges < 0 or not (exchanges or broadcasts) or bad:
+    if not (exchanges or broadcasts) or bad:
         raise AssertionError(f"{run}: {exchanges} exchanges, {broadcasts} "
                              f"broadcasts and {probes} probes (slot_compact "
                              f"{launches['slot_compact']}) but launches "
@@ -1890,10 +1990,57 @@ def work(name: str, args) -> tuple:
                 real += max(e - s, 0)
                 reach = max(reach, e)
         return 4 * W * (real + offs.numel() * C) + 4 * offs.numel(), 0
-    words, counts, C, out_rows = args
-    W = words.shape[1]
-    valid = min(int(counts.long().clamp(0, C).sum()), out_rows)
-    return 4 * W * (valid + out_rows) + 4 * counts.numel(), 0
+    # every destination's out_rows written, its valid rows (at most
+    # out_rows) read
+    recv, counts, C, out_rows = args    # [Dd, S*C, W], [Dd, S]
+    W = recv.shape[2]
+    valid = int(counts.long().clamp(0, C).sum(1).clamp(max=out_rows).sum())
+    return (4 * W * (valid + counts.shape[0] * out_rows)
+            + 4 * counts.numel()), 0
+
+
+def path_work(captured) -> dict:
+    """Per kernel, over one run's captured calls: the calls, the bytes
+    and operations ``work`` counts, and their bound in ms (each call's
+    larger of bytes over the memory rate and operations over the peak
+    rate, summed)."""
+    out = {}
+    for name, calls in captured.items():
+        ws = [work(name, a) for _s, a in calls]
+        out[name] = {
+            "calls": len(ws), "bytes": sum(b for b, _o in ws),
+            "ops": sum(o for _b, o in ws),
+            "bound_ms": sum(max(b / PEAK_BYTES_PER_S, o / PEAK_OPS_PER_S)
+                            for b, o in ws) * 1e3}
+    return out
+
+
+def per_launch_us(prof: dict, name: str):
+    """A kernel's device µs per launch in a path's profile: the mean of
+    its recorded device events (a profile may record fewer events than
+    the run launched), or None where none was recorded."""
+    ms = (prof.get("port_kernels_ms") or {}).get(name, 0.0)
+    n = (prof.get("port_kernel_events") or {}).get(name, 0)
+    return ms * 1e3 / n if n else None
+
+
+def path_bound(pwork: dict, prof: dict) -> dict:
+    """A path's bound per kernel (``path_work`` of a run with the
+    profiled run's shapes) beside the profiled run's device time (its
+    launches times the mean of its recorded events): the roofline share
+    is bound / device time."""
+    out = {}
+    for name in TPU_KERNEL:
+        w, n = pwork.get(name), prof["launches"].get(name, 0)
+        us = per_launch_us(prof, name)
+        if not w or not n or us is None:
+            continue
+        dev = us * n / 1e3
+        out[name] = {**w, "profiled_launches": n,
+                     "profiled_events": prof["port_kernel_events"][name],
+                     "device_us_per_launch": us, "path_device_ms": dev,
+                     "bound_share": w["bound_ms"] / dev}
+    return out
 
 
 def library_call(name: str, args):
@@ -1903,7 +2050,8 @@ def library_call(name: str, args):
     rows (ids in [0, B] at the timed shape).  The slot kernels have no
     one-call counterpart: theirs is the gather index built from the
     offsets/counts, then one ``index_select`` (into the receive layout
-    for ``slot_expand``, into a zeroed output for ``slot_compact``), all
+    for ``slot_expand``; for ``slot_compact`` each destination's valid
+    rows by ``nonzero``, ``index_copy_`` into a zeroed output), all
     inside the timed call.
     ``prefix_sum2``'s is the JAX fallback's x64 recipe: a float64 cumsum
     split into its f32 head and the f32 rounding of the rest."""
@@ -1941,16 +2089,21 @@ def library_call(name: str, args):
             return xp.view(-1, W).index_select(0, src.reshape(-1)).view(
                 D, P * C, W)
         return expand
-    words, counts, C, out_rows = args
+    recv, counts, C, out_rows = args
+    Dd, rows, W = recv.shape
 
     def compact():
-        cnt = counts.long().clamp(0, C)
-        idx = torch.arange(words.shape[0], device=words.device)
-        keep = (idx % C) < cnt[idx // C]
-        src = torch.nonzero(keep).squeeze(1)[:out_rows]
-        out = words.new_zeros((out_rows, words.shape[1]))
-        torch.index_select(words, 0, src, out=out[:src.numel()])
-        return out
+        cnt = counts.long().clamp(0, C)                      # [Dd, S]
+        idx = torch.arange(rows, device=recv.device)
+        keep = (idx % C) < cnt[:, idx // C]                  # [Dd, S*C]
+        rank = torch.cumsum(keep, 1) - 1
+        keep &= rank < out_rows
+        src = torch.nonzero(keep.view(-1)).squeeze(1)
+        dst = (rank + torch.arange(Dd, device=recv.device)[:, None]
+               * out_rows).view(-1)[src]
+        out = recv.new_zeros((Dd * out_rows, W))
+        out.index_copy_(0, dst, recv.view(-1, W).index_select(0, src))
+        return out.view(Dd, out_rows, W)
     return compact
 
 
@@ -1978,26 +2131,30 @@ def profile_window(fn, calls: int = 20) -> list:
             and not ev.key.startswith("ProfilerStep")]
 
 
-def profile_calls(name: str, fn, calls: int = 20, tries: int = 3) -> dict:
+def profile_calls(name: str, fn, calls: int = 20, tries: int = 3,
+                  per_call: int = 1) -> dict:
     """The row's kernel time per call at the timed shape, and the device
     events (kernels and memsets) per call, in all and by name.  A window
-    that recorded none of the kernel's events (seen once on the H100: a
-    measurement miss, not a launch miss) is taken again, up to
-    ``tries`` windows."""
+    records only some of its events (16 of 20 on the H100 in PR 9's run
+    Q), so the time per call is the mean of the kernel's recorded events
+    times ``per_call``, the kernel's launches in one call of ``fn``.  A
+    window that recorded none of the kernel's events is taken again, up
+    to ``tries`` windows."""
     for _ in range(tries):
-        ours = events = 0
+        ours = n_ours = events = 0
         by_name = {}
         for key, count, us in profile_window(fn, calls):
             events += count
             by_name[key[:80]] = count / calls
             if any(s in key for s in DEVICE_NAMES[name]):
                 ours += us
+                n_ours += count
         if ours:
             break
     if not ours:
         raise AssertionError(f"{name}: no profiled device time under "
                              f"{DEVICE_NAMES[name]} at the timed shape")
-    return {"device_us_at_timed_shape": ours / calls,
+    return {"device_us_at_timed_shape": ours / n_ours * per_call,
             "device_kernels_per_call": events / calls,
             "device_events_per_call": by_name}
 
@@ -2066,7 +2223,7 @@ def pack_side(prof: dict, captured) -> dict:
     if not n or not by:
         raise AssertionError(f"no device time in the {PACK_RANGE} ranges "
                              f"({n} ranges)")
-    for name in PER_EXCHANGE:
+    for name in PACK:
         if prof["launches"][name] != n:
             raise AssertionError(f"{name}: {prof['launches'][name]} "
                                  f"launches for {n} exchanges")
@@ -2076,7 +2233,7 @@ def pack_side(prof: dict, captured) -> dict:
                  if any(s in k for s in ("copy", "Copy", "CatArray",
                                          "Memcpy"))) / n
     bound = 0.0
-    for name in PER_EXCHANGE:
+    for name in PACK:
         calls = captured[name]
         bound += sum(max(b / PEAK_BYTES_PER_S, o / PEAK_OPS_PER_S)
                      for b, o in (work(name, a) for _s, a in calls)
@@ -2160,6 +2317,7 @@ def time_kernels(hk, runs, timed, card) -> list:
                    for r, (l, e) in runs.items() if l[name]}
         prof_launches = prof["launches"][name]
         prof_ms = (prof.get("port_kernels_ms") or {}).get(name, 0.0)
+        prof_per_launch = per_launch_us(prof, name)
         if prof_launches and not prof_ms:
             raise AssertionError(
                 f"{name}: {prof_launches} launches in the profiled {label} "
@@ -2168,6 +2326,19 @@ def time_kernels(hk, runs, timed, card) -> list:
         nbytes, ops = work(name, args)
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS_PER_S * 1e3
+        loop = {}
+        if name == "slot_compact":
+            # the same exchange's unpack as Dd one-destination calls
+            recv, counts, C, out_rows = args
+
+            def each():
+                for d in range(recv.shape[0]):
+                    hk.slot_compact(recv[d], counts[d], C, out_rows)
+            loop = {"loop_ms": cuda_ms(each),
+                    "loop_device_us_per_exchange": profile_calls(
+                        name, each, per_call=recv.shape[0]
+                    )["device_us_at_timed_shape"],
+                    "loop_host_enqueue_us": host_enqueue_us(each)}
         rows.append({
             "name": name, "route": "cuda",
             "source": f"dryad_tpu_torch/ops/csrc/{name}.cu",
@@ -2183,10 +2354,11 @@ def time_kernels(hk, runs, timed, card) -> list:
             # device time alone, per launch, from the profiled warm run
             # of the timed path (ms above also holds the host's gaps)
             "profiled_device_ms_per_launch": (
-                prof_ms / prof_launches if prof_launches else None),
+                prof_per_launch / 1e3 if prof_per_launch else None),
             # the same at the timed shape alone, and the host's side
             **profile_calls(name, lambda: wrapper(*args)),
             "host_enqueue_us": host_enqueue_us(lambda: wrapper(*args)),
+            **loop,
             "timed_on": label,
             "shape": [list(a.shape) if hasattr(a, "shape") else a
                       for a in args],
@@ -2215,13 +2387,14 @@ def profile_run(run, label, out_dir, pack: bool = True) -> dict:
     avgs = prof.key_averages()
     with open(os.path.join(out_dir, f"profile_{label}.txt"), "w") as f:
         f.write(avgs.table(sort_by="self_cuda_time_total", row_limit=60))
-    dev_ms = collections.Counter()
+    dev_ms, dev_n = collections.Counter(), collections.Counter()
     for ev in avgs:
         # the pack range shows on the device timeline too, as a span
         # over its kernels: not device time of its own
         if (ev.device_type == torch.autograd.DeviceType.CUDA
                 and ev.key != PACK_RANGE):
             dev_ms[ev.key] += ev.self_device_time_total / 1e3
+            dev_n[ev.key] += ev.count
     if not dev_ms:
         return {"device_ms": None, "wall_s": wall, "load_s": load,
                 "query_s": query, "launches": launches}
@@ -2229,11 +2402,17 @@ def profile_run(run, label, out_dir, pack: bool = True) -> dict:
     ours = {k: sum(v for key, v in dev_ms.items()
                    if any(s in key for s in subs))
             for k, subs in DEVICE_NAMES.items()}
+    events = {k: sum(n for key, n in dev_n.items()
+                     if any(s in key for s in subs))
+              for k, subs in DEVICE_NAMES.items()}
     total = sum(dev_ms.values())
     return {"wall_s": wall, "load_s": load, "query_s": query,
             "launches": launches, "device_ms": total,
             "device_busy_share": total / 1e3 / wall,
             "port_kernels_ms": ours,
+            # recorded device events per kernel: a profile may record
+            # fewer than the launches
+            "port_kernel_events": events,
             "rest_ms": total - sum(ours.values()),
             "pack_exchanges": pack_n, "pack_kernels_us": pack_by,
             "top": [[k[:120], v] for k, v in dev_ms.most_common(12)]}
@@ -2424,6 +2603,8 @@ def main(argv=None) -> int:
     sizes = check_pagerank(out, edges, a.nodes, pr)
     del out
     held("pagerank100k", launches, captured)
+    # a fresh context: the warm, profiled run makes these calls again
+    pr_work = path_work(captured)
     del captured
     zero = [k for k in TPU_KERNEL if launches[k] == 0]
     if zero:
@@ -2593,13 +2774,21 @@ def main(argv=None) -> int:
                     "cold_wall_s": load + qs, "cold_load_s": load,
                     "cold_query_s": qs, "card": card}
             if warm_app is not None:
+                if label == "unnest6m":
+                    # the warm run's calls: the profiled run's shapes (its
+                    # slots come from the feedback, the cold run's not)
+                    hk.capture = {}
                 wout, wlaunches, wload, wquery, wruns = run_app(
                     port, hk, warm_app, ctx=ctx)
+                if hk.capture is not None:
+                    un_work, hk.capture = path_work(hk.capture), None
                 wsizes = check(wout, wruns, True)
                 del wout
                 prof = profile_path(lambda: run_app(
                     port, hk, warm_app, ctx=ctx)[:4], label, a.out,
                     pack=False)
+                if label == "unnest6m":
+                    un_prof = prof
                 pl = prof["launches"]
                 line.update({
                     "warm": wsizes, "warm_launches": wlaunches,
@@ -2614,8 +2803,7 @@ def main(argv=None) -> int:
                     "port_kernels_ms": prof.get("port_kernels_ms"),
                     # device µs per launch at the measured slots
                     "device_us_per_launch": {
-                        k: v * 1e3 / pl[k] for k, v in
-                        (prof.get("port_kernels_ms") or {}).items()
+                        k: per_launch_us(prof, k) for k in TPU_KERNEL
                         if pl.get(k)},
                     "top": prof.get("top")})
                 ten[label] = wquery
@@ -2657,6 +2845,13 @@ def main(argv=None) -> int:
         emit({"pack_side": label,
                           **pack_side(prof, timed_calls[label]),
                           "card": card})
+    for label, pwork, prof in (
+            ("zipf50k", path_work(timed_calls["zipf50k"]), wc_prof),
+            ("app10k", path_work(timed_calls["app10k"]), gbr_prof),
+            ("pagerank100k", pr_work, pr_prof),
+            ("unnest6m", un_work, un_prof)):
+        emit({"path_bound": label, "kernels": path_bound(pwork, prof),
+              "card": card})
     emit({"phase": "held", "ok": True, "runs": {
         r: {k: {"launches": l[k], "max_abs_err": e[k]} for k in e}
         for r, (l, e) in runs.items()}, "card": card})

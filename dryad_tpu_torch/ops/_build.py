@@ -40,8 +40,8 @@ KERNELS = {
     "prefix_sum2": {"dryad_prefix_sum2_f32": [_P, _P, _P, _LL, _P, _P]},
     "slot_expand": {"dryad_slot_expand": [_P, _I, _LL, _I, _P, _I, _I, _P,
                                           _P]},
-    "slot_compact": {"dryad_slot_compact": [_P, _P, _I, _I, _I, _LL, _P,
-                                            _P]},
+    "slot_compact": {"dryad_slot_compact": [_P, _P, _I, _I, _I, _I, _LL,
+                                            _P, _P]},
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -13,7 +13,9 @@ The port's counterparts of the five TPU kernels in
     returning a (hi, lo) pair per prefix (boundary-carry f32 group sums);
   * ``slot_expand`` / ``slot_compact`` — the exchange's send-slot grid
     and receive-side compaction; ``slot_expand_batched`` expands all P
-    source partitions in one launch, straight into the receive layout.
+    source partitions in one launch, straight into the receive layout,
+    and ``slot_compact_batched`` compacts every destination's receive
+    buffer in one launch.
 
 A one-row (one-partition) call of a batched kernel is the batched call
 with P = 1: one kernel, one launch counter, one capture name.
@@ -43,10 +45,12 @@ from dryad_tpu_torch.ops.scan import associative_scan
 
 __all__ = ["hist_buckets", "hist_buckets_batched", "prefix_sum",
            "prefix_sum2", "slot_expand", "slot_expand_batched",
-           "slot_compact", "hist_buckets_plain", "hist_buckets_batched_plain",
-           "prefix_sum_plain", "prefix_sum2_plain", "slot_expand_plain",
-           "slot_expand_batched_plain", "slot_compact_plain", "dd_add",
-           "launches", "reset_launches"]
+           "slot_compact", "slot_compact_batched", "hist_buckets_plain",
+           "hist_buckets_batched_plain", "prefix_sum_plain",
+           "prefix_sum2_plain", "slot_expand_plain",
+           "slot_expand_batched_plain", "slot_compact_plain",
+           "slot_compact_batched_plain", "dd_add", "launches",
+           "reset_launches"]
 
 launches = {"hist_buckets": 0, "prefix_sum": 0, "prefix_sum2": 0,
             "slot_expand": 0, "slot_compact": 0}
@@ -58,7 +62,7 @@ _SCAN_SCRATCH_WORDS = {"prefix_sum": 1, "prefix_sum2": 2}
 _HIST_SMALL_BUCKETS = 32     # kMaxSmallBuckets of csrc/hist_buckets.cu
 _HIST_IDS_PER_BLOCK = 4096   # its kThreads x kVecs x 4 ids a block pass
 _HIST_MAX_BLOCKS = 132 * 8   # one wave of 256-thread blocks on an H100
-_MAX_COMPACT_SOURCES = 4096  # starts[D + 1] of csrc/slot_compact.cu in
+_MAX_COMPACT_SOURCES = 4096  # starts[S + 1] of csrc/slot_compact.cu in
                              # shared memory (8 bytes each, under 48 KB)
 
 
@@ -421,33 +425,59 @@ def slot_compact_plain(words: torch.Tensor, counts: torch.Tensor, C: int,
     return out[:out_rows]
 
 
+def slot_compact_batched_plain(recv: torch.Tensor, counts: torch.Tensor,
+                               C: int, out_rows: int) -> torch.Tensor:
+    """``slot_compact_plain`` of each destination, stacked."""
+    return torch.stack([slot_compact_plain(recv[d], counts[d], C, out_rows)
+                        for d in range(recv.shape[0])])
+
+
+def slot_compact_batched(recv: torch.Tensor, counts: torch.Tensor, C: int,
+                         out_rows: int) -> torch.Tensor:
+    """Receive-slot compaction of Dd destinations at once.  ``recv`` is
+    the receive grid [Dd, S*C, W] (32-bit words as int32, as
+    ``slot_expand_batched`` writes it); in destination d, source block
+    s's valid rows are the prefix min(counts[d, s], C) of rows
+    [s*C, (s+1)*C) (counts i32 [Dd, S]).  Returns [Dd, out_rows, W]:
+    slice d holds destination d's valid rows dense at the front in source
+    order and zeros after its total; rows past ``out_rows`` are
+    dropped."""
+    _check("slot_compact", recv, (torch.int32,), 3)
+    _check("slot_compact", counts, (torch.int32,), 2)
+    Dd, rows, W = recv.shape
+    S = counts.shape[1]
+    if counts.shape[0] != Dd or not 1 <= Dd <= 65535:
+        raise ValueError(f"slot_compact: counts {tuple(counts.shape)} is "
+                         f"not [Dd, S] for Dd={Dd} (1 to 65535)")
+    if not 1 <= S <= _MAX_COMPACT_SOURCES:
+        raise ValueError(f"slot_compact: 1 to {_MAX_COMPACT_SOURCES} "
+                         f"source blocks, got {S}")
+    if C < 1 or rows != S * C:
+        raise ValueError(f"slot_compact: recv {tuple(recv.shape)} is not "
+                         f"[Dd, S*C, W] for S={S}, C={C}")
+    if out_rows < 0:
+        raise ValueError(f"slot_compact: out_rows {out_rows} < 0")
+    _capture("slot_compact", Dd * out_rows * W, recv, counts, C, out_rows)
+    if not _on_card("slot_compact", recv, counts):
+        return slot_compact_batched_plain(recv, counts, C, out_rows)
+    out = torch.empty((Dd, out_rows, W), dtype=torch.int32,
+                      device=recv.device)
+    lib = _build.library("slot_compact")
+    _ok("slot_compact", lib.dryad_slot_compact(
+        recv.data_ptr(), counts.data_ptr(), Dd, S, C, W, out_rows,
+        out.data_ptr(), _stream(recv)))
+    launches["slot_compact"] += 1
+    return out
+
+
 def slot_compact(words: torch.Tensor, counts: torch.Tensor, C: int,
                  out_rows: int) -> torch.Tensor:
     """Receive-slot compaction: ``words`` is the received slot buffer
-    [D*C, W] where source block s's valid rows are the prefix
+    [S*C, W] where source block s's valid rows are the prefix
     min(counts[s], C) of rows [s*C, (s+1)*C).  Returns [out_rows, W] with
     the valid rows dense at the front in source order and zeros after the
-    total; rows past ``out_rows`` are dropped."""
+    total; rows past ``out_rows`` are dropped.  The one-destination call
+    of ``slot_compact_batched``."""
     _check("slot_compact", words, (torch.int32,), 2)
     _check_offsets("slot_compact", counts)
-    D = counts.shape[0]
-    if C < 1 or words.shape[0] != D * C:
-        raise ValueError(f"slot_compact: words {tuple(words.shape)} is not "
-                         f"[D*C, W] for D={D}, C={C}")
-    if out_rows < 0:
-        raise ValueError(f"slot_compact: out_rows {out_rows} < 0")
-    if D > _MAX_COMPACT_SOURCES:
-        raise ValueError(f"slot_compact: at most {_MAX_COMPACT_SOURCES} "
-                         f"source blocks")
-    _capture("slot_compact", out_rows * words.shape[1], words, counts, C,
-             out_rows)
-    if not _on_card("slot_compact", words, counts):
-        return slot_compact_plain(words, counts, C, out_rows)
-    W = words.shape[1]
-    out = torch.empty((out_rows, W), dtype=torch.int32, device=words.device)
-    lib = _build.library("slot_compact")
-    _ok("slot_compact", lib.dryad_slot_compact(
-        words.data_ptr(), counts.data_ptr(), D, C, W, out_rows,
-        out.data_ptr(), _stream(words)))
-    launches["slot_compact"] += 1
-    return out
+    return slot_compact_batched(words[None], counts[None], C, out_rows)[0]

@@ -112,7 +112,10 @@ def _unpack_columns_u32(words: torch.Tensor, spec: List) -> Dict[str, Any]:
             dtype, tail = meta
             size = torch.empty((), dtype=dtype).element_size()
             if size in (4, 8):
-                flat = w.contiguous().view(dtype)
+                # an empty slice keeps its offset (odd for a 64-bit
+                # column after an odd number of words): fresh storage
+                flat = (w.contiguous() if n else w.new_empty(w.shape)
+                        ).view(dtype)
             elif size == 2:
                 flat = w.to(torch.int16).view(dtype)
             else:

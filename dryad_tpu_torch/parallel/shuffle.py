@@ -16,8 +16,10 @@ an exchange takes the list of per-partition Batches:
   ALL_TO_ALL: none on one device — ``slot_expand`` stores each (source,
   destination) block straight at its place in the receive layout
   [P_dst, P_src*C, W];
-  UNPACK (per destination): the valid prefix of every source block,
-  densely (``slot_compact`` kernel), unpacked into columns.
+  UNPACK (all P destinations at once): the valid prefix of every source
+  block, densely (ONE ``slot_compact`` launch into [P_dst, out_cap, W]),
+  unpacked into columns once; each destination's Batch holds views [d]
+  of them.
 
 A hash exchange sends row r to lo(hash(keys[r])) % P; a range exchange
 to the partition whose sampled split points bracket the row's first sort
@@ -43,10 +45,11 @@ from typing import List, Sequence, Tuple
 import torch
 from torch.profiler import record_function
 
-from dryad_tpu_torch.data.columnar import Batch, StringColumn
+from dryad_tpu_torch.data.columnar import Batch, StringColumn, map_column
 from dryad_tpu_torch.ops.hashing import hash_batch_keys
 from dryad_tpu_torch.ops.hopper_kernels import (hist_buckets_batched,
-                                                prefix_sum, slot_compact,
+                                                prefix_sum,
+                                                slot_compact_batched,
                                                 slot_expand_batched)
 from dryad_tpu_torch.ops.kernels import (_pack_columns_u32,
                                          _unpack_columns_u32, compact,
@@ -120,11 +123,9 @@ def exchange_by_dest(parts: List[Batch], dests: List[torch.Tensor],
     recv_counts = send_counts.t().contiguous()             # [dst, src]
     totals = recv_counts.sum(dim=1, dtype=torch.int32)
 
-    out = []
-    for d in range(D):
-        ow = slot_compact(recv[d], recv_counts[d], C, out_capacity)
-        out.append(Batch(_unpack_columns_u32(ow, spec),
-                         torch.clamp(totals[d], max=out_capacity)))
+    out = _unpack_dests(slot_compact_batched(recv, recv_counts, C,
+                                             out_capacity), spec,
+                        torch.clamp(totals, max=out_capacity))
 
     # measured requirements, pre-truncation so they are exact even when
     # this run dropped rows
@@ -133,6 +134,18 @@ def exchange_by_dest(parts: List[Batch], dests: List[torch.Tensor],
     max_cnt = counts_m.max().to(torch.int32)
     need_slack = torch.where(max_cnt > C, -(-max_cnt * D // cap), 0)
     return out, need_recv, need_slack.to(torch.int32), max_cnt
+
+
+def _unpack_dests(ow: torch.Tensor, spec, counts: torch.Tensor
+                  ) -> List[Batch]:
+    """One Batch per destination from a compaction's [Dd, rows, W] words:
+    the columns unpacked once from the [Dd*rows, W] view, destination d's
+    Batch holding their views [d] and the count ``counts[d]``."""
+    Dd, rows, W = ow.shape
+    cols = _unpack_columns_u32(ow.view(Dd * rows, W), spec)
+    return [Batch({k: map_column(v, lambda x, d=d: x.view(
+        (Dd, rows) + tuple(x.shape[1:]))[d]) for k, v in cols.items()},
+        counts[d]) for d in range(Dd)]
 
 
 def hash_exchange(parts: List[Batch], keys: Sequence[str],
@@ -184,9 +197,10 @@ def broadcast_gather(parts: List[Batch], out_capacity: int
     The JAX package all-gathers the P partitions and compacts them with a
     2-key sort on (invalid flag, row index).  Here the P partitions lie
     stacked on one card, so the compaction is ONE ``slot_compact`` over
-    their packed words [P*cap, W] with each partition a source block of
-    C = cap rows: it packs each block's valid prefix in source order,
-    which is that sort's order.  Every partition gets the same Batch.
+    their packed words [1, P*cap, W] (one destination) with each
+    partition a source block of C = cap rows: it packs each block's
+    valid prefix in source order, which is that sort's order.  Every
+    partition gets the same Batch.
 
     Returns ``(batches, need_recv_rows, need_slack = 0)``: the need is the
     total when it exceeds ``out_capacity``, else 0."""
@@ -196,9 +210,9 @@ def broadcast_gather(parts: List[Batch], out_capacity: int
          for k in parts[0].names})
     counts = torch.stack([b.count.to(torch.int32) for b in parts])
     total = counts.sum(dtype=torch.int32)
-    out = slot_compact(words, counts, cap, out_capacity)
-    batch = Batch(_unpack_columns_u32(out, spec),
-                  torch.clamp(total, max=out_capacity))
+    (batch,) = _unpack_dests(slot_compact_batched(
+        words[None], counts[None], cap, out_capacity), spec,
+        torch.clamp(total, max=out_capacity)[None])
     need = torch.where(total > out_capacity, total, 0).to(torch.int32)
     return [batch] * len(parts), need, torch.zeros_like(need)
 

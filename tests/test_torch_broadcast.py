@@ -127,15 +127,15 @@ def test_broadcast_gather_matches_jax(devices8, monkeypatch, case, out_cap):
     tpd = TContext(device="cpu", nparts=P).from_columns(
         cols, str_max_len=12).where(keep)._materialize()
     calls = []
-    real = hk.slot_compact_plain
-    monkeypatch.setattr(hk, "slot_compact_plain",
+    real = hk.slot_compact_batched_plain
+    monkeypatch.setattr(hk, "slot_compact_batched_plain",
                         lambda *a: calls.append(a) or real(*a))
     parts, need, slack = shuffle.broadcast_gather(split_partitions(tpd),
                                                   out_cap)
     assert len(calls) == 1
     words, counts, C, out_rows = calls[0]
-    assert (words.shape[0], C, out_rows) == (P * tpd.capacity,
-                                             tpd.capacity, out_cap)
+    assert (words.shape[:2], counts.shape, C, out_rows) == (
+        (1, P * tpd.capacity), (1, P), tpd.capacity, out_cap)
     assert int(slack) == 0
     first = parts[0]
     for b in parts:

@@ -28,6 +28,21 @@ def test_slot_expand_plain_is_contiguous_at_one_row_slots():
     assert torch.equal(out[1, 2], words[2, 2])
 
 
+@pytest.mark.parametrize("dtype", [torch.int64, torch.float64])
+def test_unpack_of_no_rows_keeps_64bit_columns(dtype):
+    """Unpacking zero rows (an exchange or broadcast into capacity 0)
+    gives empty columns, also for a 64-bit column that starts after an
+    odd number of words (its empty slice has an odd storage offset)."""
+    from dryad_tpu_torch.ops.kernels import (_pack_columns_u32,
+                                             _unpack_columns_u32)
+    cols = {"a": torch.zeros(4, dtype=torch.int32),
+            "b": torch.zeros((4, 2), dtype=dtype)}
+    words, spec = _pack_columns_u32(cols)
+    out = _unpack_columns_u32(words[:0], spec)
+    assert out["a"].shape == (0,) and out["b"].shape == (0, 2)
+    assert out["b"].dtype == dtype
+
+
 def _rows(t, cols):
     return collections.Counter(zip(*[np.asarray(t[c]).tolist()
                                      for c in cols]))

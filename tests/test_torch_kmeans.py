@@ -152,8 +152,8 @@ def test_chip_smoke_kmeans_rehearsal(devices8, monkeypatch):
     """chip_smoke.py's k-means run at 20,000 points on the CPU: its oracle
     accepts the run and rejects a moved centroid or a lost cid; each
     iteration broadcasts once and hash-exchanges once; slot_compact
-    launches 8 per hash exchange plus 1 per broadcast, which the check
-    holds (and refuses one off either way)."""
+    launches once per hash exchange plus once per broadcast, which the
+    check holds (and refuses one off either way)."""
     import chip_smoke
     _counting_plain(monkeypatch)
     pts, _ = tkm.gen_points(20_000, chip_smoke.KM_DIM, chip_smoke.KM_K,
@@ -168,7 +168,7 @@ def test_chip_smoke_kmeans_rehearsal(devices8, monkeypatch):
     assert stages["broadcast_attempts"] == chip_smoke.KM_ITERS
     attempts = stages["exchange_attempts"]
     assert attempts >= chip_smoke.KM_ITERS
-    assert launches["slot_compact"] == P * attempts + chip_smoke.KM_ITERS
+    assert launches["slot_compact"] == attempts + chip_smoke.KM_ITERS
     chip_smoke.check_per_exchange("kmeans", launches, attempts,
                                   chip_smoke.KM_ITERS)
     for b in (chip_smoke.KM_ITERS - 1, chip_smoke.KM_ITERS + 1):
@@ -211,7 +211,7 @@ def test_chip_smoke_phase8_rehearsal(devices8, monkeypatch):
     st = chip_smoke.loop_stages(runs)
     assert st["broadcast_attempts"] == 1 and st["exchange_attempts"] == 0
     assert launches["slot_compact"] == 1
-    assert all(launches[k] == 0 for k in chip_smoke.PER_EXCHANGE)
+    assert all(launches[k] == 0 for k in chip_smoke.PACK)
     chip_smoke.check_per_exchange("bcastjoin", launches, 0, 1)
     hashed = chip_smoke.run_app(port, hk, lambda ctx: chip_smoke.bcast_join(
         ctx, bleft, bright, broadcast=False), device="cpu")[0]

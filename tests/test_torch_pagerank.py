@@ -130,7 +130,7 @@ def _counting_plain(monkeypatch):
                         ("prefix_sum", "prefix_sum_plain"),
                         ("prefix_sum2", "prefix_sum2_plain"),
                         ("slot_expand", "slot_expand_batched_plain"),
-                        ("slot_compact", "slot_compact_plain")):
+                        ("slot_compact", "slot_compact_batched_plain")):
         real = getattr(hk, plain)
 
         def bump(*a, _real=real, _name=name):
@@ -184,7 +184,7 @@ def test_chip_smoke_profile_path_refuses_a_kernel_without_device_time(
     def fake(run, label, out_dir, pack):
         takes.append(label)
         seen = len(takes) >= 2
-        return {"launches": {"slot_compact": 8, "prefix_sum2": 0},
+        return {"launches": {"slot_compact": 1, "prefix_sum2": 0},
                 "port_kernels_ms": {"slot_compact": 0.1 if seen else 0.0}}
 
     monkeypatch.setattr(chip_smoke, "profile_run", fake)

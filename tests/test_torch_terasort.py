@@ -246,7 +246,7 @@ def test_chip_smoke_sort_oracles(name):
         check(bad, data)
     attempts = sum(st["retries"] + 1 for st in stages)
     launches = {"hist_buckets": attempts, "slot_expand": attempts,
-                "slot_compact": P * attempts}
+                "slot_compact": attempts}
     chip_smoke.check_per_exchange(name, launches, attempts)
     with pytest.raises(AssertionError):
         chip_smoke.check_per_exchange(name, launches, attempts + 1)
