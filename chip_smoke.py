@@ -148,7 +148,31 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      run's launches match the executor's log, slot probes apart, and
      PageRank's and k-means' supersteps from the second on ship the
      feedback slot;
-  3-10. after each of those main-path runs, every kernel call it made
+ 11. recovery and storage through the same entry points: pagerank100k
+     in the deferred (default) and the synchronous form
+     (``JobConfig(deferred_needs=False)``), each warm: ranks bit-identical
+     between them and within rtol 2e-3 of ``pagerank_numpy``, launches
+     equal, and per form the host syncs of a run (``torch.cuda.
+     set_sync_debug_mode("warn")``, by Python call site), its NEED reads
+     (``Executor.host_reads``: one per executor run when deferred), warm
+     wall and busy share; terasort1m and skewjoin6m with an event log,
+     exactly numpy's, the ``settle_replay`` events naming exactly the
+     stages the log flags ``settle_replayed``, launches equal to the
+     executor's exchange attempts with the replays, and
+     ``max_capacity_retries=0`` raising CapacityError at the settle; a
+     ``Run`` over skewjoin6m's plan with every stage invalidated giving
+     the same rows bit for bit (one ``stage_replay`` each) and
+     ``failure_budget=2`` raising at the third invalidation; a TPC-H
+     Q1-shaped fork over the 6,000,000 lineitems with ``spill_dir``
+     (every stage spilled; a fresh executor restores the output with no
+     stage recomputed; ``invalidate(out, drop_spill=True)`` recomputes
+     only it; write and read GB/s and the checksum's time); the lineitem
+     table through ``to_store`` / ``from_store``, the orders
+     hash-partitioned and reloaded with their claim, the orders with
+     gzip, a flipped byte raising StoreIntegrityError; ``read_text`` of
+     the bench12 corpus written to a file, WordCount equal to phase 3's
+     counts.  Stores live in a temporary directory, deleted after;
+  3-11. after each of those main-path runs, every kernel call it made
      is made again through the kernel and through its plain version on
      the very tensors the run passed (integers exactly, prefix_sum2
      within twice its bound);
@@ -177,8 +201,8 @@ Phases, each failing the run (non-zero exit, no result line) on error:
 Output: one JSON line per corpus, per GroupByReduce variant, per sort
 path, for PageRank and the NaN hold, for k-means and each phase-8,
 phase-9 and phase-10 run (each exchanging stage's send-slot rows and
-their source per attempt among them), per profile, per pack side and per
-kernel, then
+their source per attempt among them), one for phase 11 (``{"phase":
+"recovery", ...}``), per profile, per pack side and per kernel, then
 the card line, then the
 ``{"kernels": [...]}`` line, then the result line
 ``{"ok": true, "device": {...}}`` last.
@@ -193,8 +217,10 @@ import argparse
 import collections
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -1013,9 +1039,9 @@ def run_app(port, hk, app, device="cuda", ctx=None):
         load[0] += time.perf_counter() - t0
         return ds
 
-    def logged_run(graph, bindings=None):
+    def logged_run(graph, bindings=None, **kw):
         t0 = time.perf_counter()
-        out = run(graph, bindings)
+        out = run(graph, bindings, **kw)
         sync()
         runs.append({"superstep": bindings is not None,
                      "s": time.perf_counter() - t0,
@@ -1381,14 +1407,20 @@ def skew_join_query(ctx, li, orders, by: str) -> dict:
     query: the group-by trusts the join's placement, so it must not).
     The group-by is cached, then collected whole and as its top 10 by
     revenue (ties by key)."""
-    j = ctx.from_columns(li).join(ctx.from_columns(orders), ["okey"]).where(
-        lambda c: c["flag"] == 0).select(
-        lambda c: {by: c[by], "rev": c["price"] * c["qty"]})
-    g = j.group_by([by], {"revenue": ("sum", "rev"),
-                          "n": ("count", None)}).cache()
+    g = skew_join_groups(ctx, li, orders, by).cache()
     return {"groups": g.collect(),
             "top": g.order_by([("revenue", True), (by, False)]).take(
                 10).collect()}
+
+
+def skew_join_groups(ctx, li, orders, by: str):
+    """``skew_join_query``'s revenue and count per ``by`` key, before
+    the cache."""
+    j = ctx.from_columns(li).join(ctx.from_columns(orders), ["okey"]).where(
+        lambda c: c["flag"] == 0).select(
+        lambda c: {by: c[by], "rev": c["price"] * c["qty"]})
+    return j.group_by([by], {"revenue": ("sum", "rev"),
+                             "n": ("count", None)})
 
 
 def join_stage(runs) -> dict:
@@ -1945,6 +1977,518 @@ def phase10_runs(orders, li) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: recovery and storage
+
+
+SYNC_WARNING = "synchronizing CUDA operation"   # set_sync_debug_mode's text
+
+
+def counted_syncs(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: (its
+    result, the synchronizing CUDA calls it made, {the Python caller
+    file:line: count}, the sites most common first)."""
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sites = collections.Counter(
+        f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
+        for w in caught if SYNC_WARNING in str(w.message))
+    return out, sum(sites.values()), sites.most_common()
+
+
+def pagerank_forms(port, hk, pr, edges, n_nodes, out_dir, held) -> dict:
+    """pagerank100k in both forms, each in a context of its own: a cold
+    run, a warm run (its kernel calls held, its launches counted), a warm
+    run counting host syncs (``counted_syncs``) and NEED reads
+    (``Executor.host_reads``), and a warm run under the profiler (busy
+    share); then four timed warm runs in turns (deferred, sync, sync,
+    deferred), each form's wall their mean.  The ranks must be
+    bit-identical between the forms, every
+    rank within PR_RTOL of ``pagerank_numpy``, and the launches equal
+    but for the exchanges of the stages that the deferred settle re-ran
+    because a stage before them overflowed (``settle_extra``): stage by
+    stage the deferred form runs exactly one attempt more there and the
+    same attempts elsewhere."""
+    import torch
+    forms, ranks, launched, entries, probes, ctxs = {}, {}, {}, {}, {}, {}
+
+    def app(c):
+        return pr.pagerank(c, edges, n_nodes, n_iters=PR_ITERS)
+
+    for form, cfg in (("deferred", port.JobConfig()),
+                      ("sync", port.JobConfig(deferred_needs=False))):
+        ctx = ctxs[form] = port.Context(device="cuda", nparts=NPARTS,
+                                        config=cfg)
+        app(ctx)
+        hk.capture = {}
+        reads0 = ctx.executor.host_reads
+        out, launches, load, qs, runs = run_app(port, hk, app, ctx=ctx)
+        reads = ctx.executor.host_reads - reads0
+        captured, hk.capture = hk.capture, None
+        held(f"pagerank100k_{form}", launches, captured)
+        del captured
+        stages = loop_stages(runs)
+        check_per_exchange(f"pagerank100k_{form}", launches,
+                           stages["exchange_attempts"],
+                           probes=stages["probes"])
+        sizes = check_pagerank(out, edges, n_nodes, pr)
+        o = np.argsort(out["node"])
+        ranks[form] = np.asarray(out["rank"])[o]
+        launched[form] = launches
+        probes[form] = stages["probes"]
+        entries[form] = [st for r in runs for st in r["stages"]]
+        # one read per executor run and replayed attempt when deferred,
+        # one per attempt when not
+        want = (len(runs) + sum(st["attempts"] - 1 for st in entries[form]
+                                if st["settle_replayed"])
+                if form == "deferred" else
+                sum(st["attempts"] for st in entries[form]))
+        if reads != want:
+            raise AssertionError(f"pagerank100k {form}: {reads} NEED reads, "
+                                 f"not {want}")
+        reads0 = ctx.executor.host_reads
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, syncs, sites = counted_syncs(lambda: app(ctx))
+        torch.cuda.synchronize()
+        counted_s = time.perf_counter() - t0
+        counted_reads = ctx.executor.host_reads - reads0
+        prof = profile_path(lambda: run_app(port, hk, app, ctx=ctx)[:4],
+                            f"pagerank100k_{form}", out_dir, pack=False)
+        forms[form] = {
+            "host_syncs_per_run": syncs, "sync_sites": sites,
+            "need_reads_per_run": reads,
+            "need_reads_counted_run": counted_reads,
+            "executor_runs": len(runs),
+            "stage_attempts": sum(st["attempts"] for r in runs
+                                  for st in r["stages"]),
+            "warm_wall_s": load + qs, "warm_load_s": load,
+            "warm_query_s": qs, "counted_run_s": counted_s,
+            "profiled_wall_s": prof["wall_s"],
+            "profiled_device_ms": prof["device_ms"],
+            "device_busy_share": prof.get("device_busy_share"),
+            "launches": launches, **sizes}
+    if ranks["deferred"].tobytes() != ranks["sync"].tobytes():
+        raise AssertionError("pagerank100k: deferred and synchronous ranks "
+                             "differ")
+    extra = [(d["label"], d["attempts"] - s["attempts"],
+              d["exchanges"] - d["broadcasts"])
+             for d, s in zip(entries["deferred"], entries["sync"])]
+    if (len(entries["deferred"]) != len(entries["sync"]) or any(
+            x not in (0, 1) or x and not d["settle_replayed"]
+            for (_, x, _), d in zip(extra, entries["deferred"]))):
+        raise AssertionError(f"pagerank100k: attempts per stage differ "
+                             f"between the forms beyond the settle's "
+                             f"replays: {extra}")
+    more = sum(x * legs for _, x, legs in extra)
+    diff = {k: launched["deferred"][k] - launched["sync"][k]
+            for k in TPU_KERNEL}
+    # a replayed pure hash leg may probe its new input again
+    diff["hist_buckets"] -= probes["deferred"] - probes["sync"]
+    if any(diff[k] != more for k in PER_EXCHANGE) or (
+            not more and any(diff.values())):
+        raise AssertionError(f"pagerank100k: launches {launched} differ "
+                             f"by other than the {more} exchanges the "
+                             f"settle re-ran")
+    forms["settle_extra"] = {"replayed": [(lbl, legs) for lbl, x, legs
+                                          in extra if x],
+                             "exchanges": more, "launch_diff": diff}
+    turns = collections.defaultdict(list)
+    for form in ("deferred", "sync", "sync", "deferred"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        app(ctxs[form])
+        torch.cuda.synchronize()
+        turns[form].append(time.perf_counter() - t0)
+    for form, walls in turns.items():
+        forms[form]["turn_walls_s"] = walls
+        forms[form]["turn_wall_mean_s"] = sum(walls) / len(walls)
+    return forms
+
+
+def settle_runs(port, hk, ts, tera, li, orders, held) -> dict:
+    """terasort1m and skewjoin6m in the default (deferred) form with an
+    event log: the results exactly numpy's, the ``settle_replay`` events
+    naming exactly the stages whose log entry says ``settle_replayed``
+    (each of them one attempt more), the launches equal to the
+    executor's exchange attempts, replays included; with
+    ``max_capacity_retries=0`` the overflow raises CapacityError at the
+    settle."""
+    from dryad_tpu_torch.exec.executor import CapacityError
+    from dryad_tpu_torch.utils.events import EventLog
+    data, sml = tera
+
+    def tera_app(c):
+        return ts.terasort_query(c.from_columns(data, str_max_len=sml)) \
+            .collect()
+
+    def tera_ok(out, runs):
+        keys = np.array(data["key"], dtype="S10")
+        order = np.lexsort((data["payload"], keys))
+        if (out["key"] != keys[order].tolist()
+                or not np.array_equal(out["payload"],
+                                      data["payload"][order])):
+            raise AssertionError("terasort1m settle: not the sorted pairs")
+        return {"rows": len(out["key"])}
+
+    apps = {
+        "terasort1m": (tera_app, tera_ok),
+        "skewjoin6m": (
+            lambda c: skew_join_query(c, li, orders, "custkey"),
+            lambda out, runs: check_skew_join(out, li, orders, "custkey",
+                                              runs, salted=True)),
+    }
+    res = {}
+    for label, (app, check) in apps.items():
+        log = EventLog()
+        ctx = port.Context(device="cuda", nparts=NPARTS, event_log=log)
+        hk.capture = {}
+        out, launches, load, qs, runs = run_app(port, hk, app, ctx=ctx)
+        captured, hk.capture = hk.capture, None
+        held(f"{label}_settle", launches, captured)
+        del captured
+        sizes = check(out, runs)
+        del out
+        stages = loop_stages(runs)
+        check_per_exchange(f"{label}_settle", launches,
+                           stages["exchange_attempts"],
+                           stages["broadcast_attempts"], stages["probes"])
+        named = sorted(sid for e in log.of_type("settle_replay")
+                       for sid in e["stages"])
+        entries = [st for r in runs for st in r["stages"]]
+        flagged = sorted(st["stage"] for st in entries
+                         if st["settle_replayed"])
+        if not named or named != flagged or any(
+                st["attempts"] < 2 for st in entries
+                if st["settle_replayed"]):
+            raise AssertionError(f"{label}: settle_replay names {named}, "
+                                 f"the stage log flags {flagged}")
+        cfg = port.JobConfig(max_capacity_retries=0)
+        try:
+            app(port.Context(device="cuda", nparts=NPARTS, config=cfg))
+        except CapacityError as e:
+            if "deferred settle" not in str(e):
+                raise
+            raised = str(e)
+        else:
+            raise AssertionError(f"{label}: no CapacityError at the settle "
+                                 f"with max_capacity_retries=0")
+        res[label] = {
+            **sizes, "launches": launches,
+            "settle_replays": [e["stages"] for e in
+                               log.of_type("settle_replay")],
+            "replayed": [(st["label"], st["attempts"]) for st in entries
+                         if st["settle_replayed"]],
+            "exchange_attempts": stages["exchange_attempts"],
+            "need_reads": ctx.executor.host_reads, "load_s": load,
+            "query_s": qs, "zero_retries": raised}
+    return res
+
+
+def lineage_run(port, hk, li, orders, held) -> dict:
+    """A Run over skewjoin6m's plan (the revenue per customer, before the
+    cache): every stage invalidated, then the output again: the same rows
+    bit for bit, one ``stage_replay`` event per stage, ``failures`` the
+    stage count; with ``failure_budget=2`` the third invalidation raises
+    FailureBudgetExceeded."""
+    from dryad_tpu_torch.exec.data import pdata_to_host
+    from dryad_tpu_torch.exec.recovery import FailureBudgetExceeded, Run
+    from dryad_tpu_torch.utils.events import EventLog
+    log = EventLog()
+    ctx = port.Context(device="cuda", nparts=NPARTS)
+    graph = skew_join_groups(ctx, li, orders, "custkey").plan()
+    hk.reset_launches()
+    hk.capture = {}
+    run = Run(ctx.executor, graph, event=log)
+    first = pdata_to_host(run.output())
+    n = len(graph.stages)
+    for sid in range(n):
+        run.invalidate(sid)
+    again = pdata_to_host(run.output())
+    captured, hk.capture = hk.capture, None
+    held("skewjoin6m_lineage", dict(hk.launches), captured)
+    del captured
+
+    replays = log.of_type("stage_replay")
+    if not _rows_equal(first, again) or [e["stage"] for e in replays] != \
+            list(range(n)) or run.failures != n or \
+            [e["failures"] for e in replays] != list(range(1, n + 1)):
+        raise AssertionError(f"skewjoin6m lineage: replay of {n} stages "
+                             f"not exact, or events {replays}")
+    budget = Run(ctx.executor, graph, failure_budget=2)
+    budget.output()
+    for i in range(1, 4):
+        try:
+            budget.invalidate(graph.out_stage)
+        except FailureBudgetExceeded:
+            if i != 3:
+                raise
+            break
+    else:
+        raise AssertionError("skewjoin6m lineage: no FailureBudgetExceeded "
+                             "at the third invalidation")
+    return {"stages": n, "failures": run.failures,
+            "rows": len(first["custkey"]), "budget_raised_at": i}
+
+
+def q1_columns(c):
+    """TPC-H Q1's columns from tpch_tables' lineitems: flag = okey % 3,
+    status = qty % 2, disc = (price % 11) / 100 and net = price x
+    (1 - disc) in f32."""
+    import torch
+    disc = (c["price"] % 11).to(torch.float32) / 100
+    return dict(c, flag=c["okey"] % 3, status=c["qty"] % 2, disc=disc,
+                net=c["price"].to(torch.float32) * (1 - disc))
+
+
+def q1_store_query(ctx, li):
+    """Q1's shape as phase 10 computes it, over the flat lineitems: one
+    materialized scan (the Tee), forked by flag, each branch grouped by
+    status (sums, a mean, a count), tagged and concatenated."""
+    import torch
+    branches = ctx.from_columns(li).select(q1_columns).fork_on(
+        "flag", [0, 1, 2])
+    outs = [b.group_by(["status"], Q1_AGGS).select(
+        lambda c, f=f: dict(c, flag=torch.full_like(c["status"], f)))
+        for f, b in enumerate(branches)]
+    return outs[0].concat(outs[1]).concat(outs[2])
+
+
+def check_q1_store(out, li) -> int:
+    """Counts and integer sums exactly; f32 sums within 16 eps sum|v|
+    over the group, the mean within that over its count."""
+    price = li["price"]
+    disc = ((price % 11) / 100).astype(np.float32)
+    cols = {"qty": li["qty"], "price": price, "disc": disc,
+            "net": price.astype(np.float32) * (np.float32(1) - disc)}
+    flag, status = li["okey"] % 3, li["qty"] % 2
+    got = {(int(f), int(s)): i for i, (f, s) in enumerate(zip(
+        np.asarray(out["flag"]).tolist(), np.asarray(out["status"]).tolist()))}
+    if sorted(got) != [(f, s) for f in range(3) for s in range(2)]:
+        raise AssertionError(f"q1 store: groups {sorted(got)}")
+    for (f, s), i in got.items():
+        g = (flag == f) & (status == s)
+        n = int(g.sum())
+        if (int(out["count_order"][i]) != n
+                or int(out["sum_qty"][i]) != int(cols["qty"][g].sum())
+                or int(out["sum_base_price"][i]) != int(price[g].sum())):
+            raise AssertionError(f"q1 store: group {(f, s)} counts or "
+                                 f"integer sums differ from numpy")
+        for col, src in (("sum_disc_price", "net"), ("avg_disc", "disc")):
+            v = cols[src][g].astype(np.float64)
+            bound, want = 16 * EPS * np.abs(v).sum(), v.sum()
+            if col == "avg_disc":
+                want, bound = want / n, bound / n
+            if not abs(float(out[col][i]) - want) <= bound:
+                raise AssertionError(f"q1 store: {col} of {(f, s)}")
+    return len(got)
+
+
+def _dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def spill_runs(port, hk, li, tmp, held) -> dict:
+    """Spill and resume at full size: run 1 of the Q1-shaped plan with
+    ``spill_dir`` spills every stage (``stage_spilled``); a fresh
+    executor and Run over the same graph return the same rows with zero
+    ``stage_done`` and one ``stage_restored`` (the output stage);
+    ``invalidate(out, drop_spill=True)`` recomputes only the output
+    stage.  Store writes and reads are timed where they happen (the
+    store module's functions wrapped for the phase)."""
+    import torch
+    from dryad_tpu_torch.exec.data import pdata_to_host
+    from dryad_tpu_torch.exec.executor import Executor
+    from dryad_tpu_torch.exec.recovery import Run
+    from dryad_tpu_torch.io import store
+    from dryad_tpu_torch.utils.events import EventLog
+    spent = collections.Counter()
+    originals = {n: getattr(store, n) for n in ("write_store", "read_store",
+                                                "verify_checksums")}
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t0
+            return out
+        return call
+
+    spill = os.path.join(tmp, "spill")
+    for n, fn in originals.items():
+        setattr(store, n, timed(n, fn))
+    try:
+        ctx = port.Context(device="cuda", nparts=NPARTS)
+        graph = q1_store_query(ctx, li).plan()
+        out_sid = graph.out_stage
+        log1, log2, log3 = EventLog(), EventLog(), EventLog()
+        hk.reset_launches()
+        hk.capture = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out1 = pdata_to_host(Run(ctx.executor, graph, spill_dir=spill,
+                                 event=log1).output())
+        run1_s = time.perf_counter() - t0
+        captured, hk.capture = hk.capture, None
+        held("q1spill6m", dict(hk.launches), captured)
+        del captured
+        groups = check_q1_store(out1, li)
+        write_s = spent["write_store"]
+        spill_bytes = _dir_bytes(spill)
+        out2 = pdata_to_host(Run(Executor(ctx.mesh), graph,
+                                 spill_dir=spill, event=log2).output())
+        run3 = Run(Executor(ctx.mesh), graph, spill_dir=spill, event=log3)
+        run3.invalidate(out_sid, count_failure=False, drop_spill=True)
+        out3 = pdata_to_host(run3.output())
+        biggest = max((os.path.join(spill, d) for d in os.listdir(spill)),
+                      key=_dir_bytes)
+        spent["read_store"] = spent["verify_checksums"] = 0.0
+        store.read_store(biggest, ctx.mesh)
+    finally:
+        for n, fn in originals.items():
+            setattr(store, n, fn)
+    n = len(graph.stages)
+    spilled = sorted(e["stage"] for e in log1.of_type("stage_spilled"))
+    rest = [e["stage"] for e in log2.of_type("stage_restored")]
+    redone = [e["stage"] for e in log3.of_type("stage_done")]
+    same = all(_rows_equal(out1, o) for o in (out2, out3))
+    if (spilled != list(range(n)) or log2.of_type("stage_done")
+            or rest != [out_sid] or redone != [out_sid] or not same):
+        raise AssertionError(f"q1 spill: spilled {spilled}, restored "
+                             f"{rest}, recomputed {redone}, rows equal "
+                             f"{same}")
+    big = _dir_bytes(biggest)
+    return {"lineitems": len(li["okey"]), "groups": groups, "stages": n,
+            "spilled": len(spilled), "spill_bytes": spill_bytes,
+            "run1_s": run1_s, "write_s": write_s,
+            "write_gb_s": spill_bytes / write_s / 1e9,
+            "read_store": os.path.basename(biggest), "read_bytes": big,
+            "read_s": spent["read_store"],
+            "read_gb_s": big / spent["read_store"] / 1e9,
+            "checksum_s": spent["verify_checksums"],
+            "checksum_gb_s": big / spent["verify_checksums"] / 1e9,
+            "restored": rest, "recomputed": redone}
+
+
+def _rows_equal(a, b) -> bool:
+    """Two collected tables equal column for column, in order."""
+    return sorted(a) == sorted(b) and all(
+        (a[k] == b[k]) if isinstance(a[k], list)
+        else np.asarray(a[k]).tobytes() == np.asarray(b[k]).tobytes()
+        for k in a)
+
+
+def store_round_trips(port, hk, li, orders, tmp, held) -> dict:
+    """The lineitem table through ``to_store`` / ``from_store`` (equal
+    rows, in order); the orders hash-partitioned by custkey, reloaded
+    with its claim (no ``=>hash`` in the plan, the group-by numpy's);
+    the orders with gzip (smaller than raw, equal rows); one flipped
+    byte raises StoreIntegrityError naming partition 3."""
+    import torch
+    from dryad_tpu_torch.io.store import StoreIntegrityError
+    ctx = port.Context(device="cuda", nparts=NPARTS)
+    paths = {k: os.path.join(tmp, k) for k in ("li", "hashed", "gz", "raw")}
+    hk.reset_launches()
+    hk.capture = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ctx.from_columns(li).to_store(paths["li"])
+    li_write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = ctx.from_store(paths["li"]).collect()
+    li_read_s = time.perf_counter() - t0
+    if not _rows_equal(back, li):
+        raise AssertionError("store: the lineitem table came back other")
+    del back
+    ctx.from_columns(orders).hash_partition(["custkey"]).to_store(
+        paths["hashed"])
+    q = ctx.from_store(paths["hashed"]).group_by(
+        ["custkey"], {"n": ("count", None), "p": ("sum", "prio")})
+    plan = q.explain()
+    got = q.collect()
+    ck = orders["custkey"]
+    keys = np.flatnonzero(np.bincount(ck))
+    o = np.argsort(got["custkey"])
+    if "=>hash" in plan or not (
+            np.array_equal(got["custkey"][o], keys)
+            and np.array_equal(got["n"][o], np.bincount(ck)[keys])
+            and np.array_equal(got["p"][o], np.bincount(
+                ck, weights=orders["prio"]).astype(np.int64)[keys])):
+        raise AssertionError(f"store: the hash-partitioned reload lost its "
+                             f"claim or its groups:\n{plan}")
+    ods = ctx.from_columns(orders)
+    ods.to_store(paths["gz"], compression="gzip")
+    ods.to_store(paths["raw"])
+    gz, raw = _dir_bytes(paths["gz"]), _dir_bytes(paths["raw"])
+    if not (gz < raw and _rows_equal(ctx.from_store(paths["gz"]).collect(),
+                                     orders)):
+        raise AssertionError(f"store: gzip {gz} against raw {raw} bytes")
+    captured, hk.capture = hk.capture, None
+    held("store_rt", dict(hk.launches), captured)
+    del captured
+    part = os.path.join(paths["raw"], "part-00003.bin")
+    with open(part, "r+b") as f:
+        f.seek(os.path.getsize(part) // 2)
+        b = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([b[0] ^ 0xFF]))
+    try:
+        ctx.from_store(paths["raw"])
+    except StoreIntegrityError as e:
+        if "partition 3" not in str(e):
+            raise
+        flipped = str(e)
+    else:
+        raise AssertionError("store: a flipped byte went unnoticed")
+    li_bytes = _dir_bytes(paths["li"])
+    return {"lineitem_bytes": li_bytes, "lineitem_write_s": li_write_s,
+            "lineitem_write_gb_s": li_bytes / li_write_s / 1e9,
+            "lineitem_read_s": li_read_s,
+            "lineitem_read_gb_s": li_bytes / li_read_s / 1e9,
+            "hashed_plan": plan, "customers": len(keys),
+            "orders_gzip_bytes": gz, "orders_raw_bytes": raw,
+            "flipped_byte": flipped[:120]}
+
+
+def read_text_run(port, hk, wc, lines, want, tmp, held) -> dict:
+    """The bench12 corpus written to a file, read back by ``read_text``
+    (96-byte lines, as phase 3 loads it) and counted by WordCount: the
+    counts must equal phase 3's in-memory run's."""
+    import torch
+    path = os.path.join(tmp, "bench12.txt")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    ctx = port.Context(device="cuda", nparts=NPARTS)
+    per_part = -(-len(lines) // NPARTS)
+    hk.reset_launches()
+    hk.capture = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = ctx.read_text(path, max_line_len=96)
+    torch.cuda.synchronize()
+    load = time.perf_counter() - t0
+    out = wc.wordcount_query(ds, tokens_per_partition=per_part * 10).collect()
+    query = time.perf_counter() - t0 - load
+    captured, hk.capture = hk.capture, None
+    held("readtext1m", dict(hk.launches), captured)
+    del captured
+    got = dict(zip(out["line"], (int(v) for v in out["n"])))
+    if got != want:
+        raise AssertionError("read_text: WordCount over the file differs "
+                             "from the in-memory run")
+    return {"lines": len(lines), "file_bytes": os.path.getsize(path),
+            "words": len(got), "load_s": load, "query_s": query}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: timing
 
 
@@ -2489,6 +3033,7 @@ def main(argv=None) -> int:
     # every main-path run: label -> (launches, {kernel: max |kernel -
     # plain|} over all its calls); the TIMED_ON runs keep their calls
     runs, timed_calls = {}, {}
+    wc_counts = {}   # phase 3's in-memory WordCount counts by corpus
 
     def held(label, launches, captured):
         runs[label] = (launches, hold_run(hk, label, captured))
@@ -2505,6 +3050,7 @@ def main(argv=None) -> int:
         captured, hk.capture = hk.capture, None
         held(cname, launches, captured)
         got = dict(zip(out["line"], (int(v) for v in out["n"])))
+        wc_counts[cname] = got
         if got != want:
             diff = [(k, got.get(k), want.get(k)) for k in
                     set(got) | set(want) if got.get(k) != want.get(k)]
@@ -2813,6 +3359,34 @@ def main(argv=None) -> int:
           "warm_query_s_shuffled_less_claimed":
               ten["unnest6m_shuffled"] - ten["unnest6m"]})
     del orders, li_np
+
+    # phase 11: recovery and storage; stores in a temporary directory on
+    # local disk, deleted at the end of the phase
+    li9, orders9, _ = tpch_tables(a.lineitems)
+    before = set(runs)
+    tmp = tempfile.mkdtemp(prefix="dryad-phase11-")
+    t11 = time.perf_counter()
+    try:
+        eleven = {
+            "pagerank100k": pagerank_forms(port, hk, pr, edges, a.nodes,
+                                           a.out, held),
+            "settle": settle_runs(port, hk, ts, (tera_data, tera_sml), li9,
+                                  orders9, held),
+            "lineage": lineage_run(port, hk, li9, orders9, held),
+            "spill": spill_runs(port, hk, li9, tmp, held),
+            "store": store_round_trips(port, hk, li9, orders9, tmp, held),
+            "read_text": read_text_run(port, hk, wc, corpora["bench12"],
+                                       wc_counts["bench12"], tmp, held),
+        }
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    unheld = set(TPU_KERNEL) - {k for r in set(runs) - before
+                                for k in runs[r][1]}
+    if unheld:
+        raise AssertionError(f"phase 11: no call of {sorted(unheld)} held")
+    emit({"phase": "recovery", **eleven,
+          "seconds": time.perf_counter() - t11, "card": card})
+    del li9, orders9
 
     wc_prof = profile_path(
         lambda: run_wordcount(port, hk, wc, corpora["zipf50k"])[:4],

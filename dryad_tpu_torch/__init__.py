@@ -29,6 +29,16 @@ assume_hash_partition, apply_per_partition / apply_with_partition_index,
 group_apply mapped over groups with torch.func.vmap, fork / fork_by /
 fork_on, sliding_window), with measured exchange send slots (a slot
 probe on big pure hash legs, slot feedback on every later run).
+
+Every query runs through a lineage-tracked ``exec.recovery.Run``: stage
+needs are read back once per job (the deferred settle, which replays an
+overflowed stage and its dependents), lost outputs are recomputed from
+their ancestors, and with ``Context(spill_dir=...)`` every stage output
+is spilled as a store and a later run resumes from it.  Events go to
+``Context(event_log=utils.events.EventLog(...))``.  Stores
+(``Context.from_store``, ``Dataset.to_store``, ``io/store.py``) are the
+JAX package's layout byte for byte, checksummed by the port's own host C
+FNV-1a; ``Context.read_text`` reads local text files.
 """
 
 __version__ = "0.1.0"

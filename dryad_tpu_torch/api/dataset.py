@@ -18,7 +18,12 @@ full, hash or broadcast, hot-key salted on skew), ``group_join``,
 ``Context(device="cuda", nparts=8)`` runs ``nparts`` logical partitions
 on one CUDA card (``parallel/mesh.py``).  The device is CUDA unless the
 caller asks for the CPU; on a machine without CUDA the default raises
-rather than quietly running on the CPU.
+rather than quietly running on the CPU.  ``event_log`` receives the
+executor's events (``utils/events.EventLog``), and ``spill_dir`` makes
+every query spill each stage's output as a store and resume from it
+(``exec/recovery.py``).  Stores: ``Context.from_store``,
+``Dataset.to_store`` (``io/store.py``), and ``Context.read_text`` (one
+row per line of local text files, ``io/providers.py``).
 """
 
 from __future__ import annotations
@@ -29,7 +34,8 @@ import numpy as np
 import torch
 
 from dryad_tpu_torch.exec.data import PData, maybe_shrink_for_collect, \
-    pdata_from_host, pdata_to_host, split_partitions
+    pdata_from_host, pdata_from_packed_strings, pdata_to_host, \
+    split_partitions
 from dryad_tpu_torch.exec.executor import Executor
 from dryad_tpu_torch.ops.kernels import scalar_aggregate
 from dryad_tpu_torch.parallel.mesh import Mesh, resolve_device
@@ -58,11 +64,15 @@ class Context:
     """Owns the mesh + executor and creates root Datasets."""
 
     def __init__(self, device="cuda", nparts: int = 8,
-                 config: JobConfig | None = None):
+                 config: JobConfig | None = None,
+                 event_log: Optional[Callable[[dict], None]] = None,
+                 spill_dir: Optional[str] = None):
         self.config = config or JobConfig()
         self.mesh = Mesh(resolve_device(device), nparts)
         self.nparts = nparts
-        self.executor = Executor(self.mesh, config=self.config)
+        self.spill_dir = spill_dir
+        self.executor = Executor(self.mesh, event_log=event_log,
+                                 config=self.config)
 
     @property
     def device(self):
@@ -90,6 +100,37 @@ class Context:
                                       _npartitions=self.nparts,
                                       _partitioning=partitioning))
 
+    def read_text(self, path, column: str = "line",
+                  max_line_len: int | None = None) -> "Dataset":
+        """One row per line of text (LineRecord): ``path`` is a file, a
+        glob, a directory or a list of those, read and packed in
+        parallel, the lines block-partitioned in file order.  Lines are
+        cut at ``max_line_len`` bytes (default
+        ``JobConfig.text_max_line_len``)."""
+        from dryad_tpu_torch.io.providers import expand_paths, \
+            read_text_files
+        max_line_len = max_line_len or self.config.text_max_line_len
+        data, lens, _ = read_text_files(expand_paths(path), max_line_len)
+        return self.from_pdata(pdata_from_packed_strings(
+            data, lens, self.mesh, column=column))
+
+    def from_store(self, path: str, capacity: int | None = None
+                   ) -> "Dataset":
+        """Load a store (FromStore), written by this package or the JAX
+        one.  Its persisted partitioning is claimed (a later group-by or
+        join on those keys skips the exchange) only when it has as many
+        partitions as this context: re-blocking breaks the placement."""
+        from dryad_tpu_torch.io.store import read_store, store_meta
+        meta = store_meta(path)
+        pmeta = meta.get("partitioning", {"kind": "none"})
+        part = E.Partitioning(pmeta.get("kind", "none"),
+                              tuple(pmeta.get("keys", ())))
+        if meta["npartitions"] != self.nparts:
+            part = E.Partitioning.none()
+        pdata = read_store(path, self.mesh, capacity=capacity,
+                           verify=self.config.store_verify_checksums)
+        return self.from_pdata(pdata, partitioning=part)
+
     def do_while(self, init: "Dataset",
                  body: Callable[["Dataset"], "Dataset"], n_iters: int,
                  cond: Optional[Callable[[Dict[str, Any]], bool]] = None
@@ -111,6 +152,7 @@ class Context:
         ph = E.Placeholder(parents=(), name="__loop",
                            _npartitions=self.nparts, capacity=cur.capacity)
         graph = plan_query(body(Dataset(self, ph)).node, self.nparts)
+        # one Run per iteration (its own deferred settle)
         for _ in range(n_iters):
             nxt = self.executor.run(graph, bindings={"__loop": cur})
             if nxt.capacity != cur.capacity:
@@ -457,7 +499,7 @@ class Dataset:
     def _run(self):
         """(output, whether any stage ran salted)."""
         graph = self.plan()
-        return (self.ctx.executor.run(graph),
+        return (self.ctx.executor.run(graph, spill_dir=self.ctx.spill_dir),
                 any(st._salted for st in graph.stages))
 
     def _materialize(self):
@@ -470,6 +512,22 @@ class Dataset:
         if isinstance(self.node, E.Take):
             out = {k: v[:self.node.n] for k, v in out.items()}
         return out
+
+    def to_store(self, path: str, compression: str | None = None) -> None:
+        """Execute and persist as a store (ToStore), with this dataset's
+        partitioning claim (dropped when a join salted).
+        ``compression="gzip"`` (default ``JobConfig.store_compression``)
+        writes level-1 gzip part files."""
+        from dryad_tpu_torch.io.store import write_store
+        if compression is None:
+            compression = self.ctx.config.store_compression
+        if compression not in (None, "gzip"):
+            raise ValueError(f"unknown compression {compression!r}")
+        pd, salted = self._run()
+        part = E.Partitioning.none() if salted else self.node.partitioning
+        write_store(path, pd, partitioning={"kind": part.kind,
+                                            "keys": list(part.keys)},
+                    compression=compression)
 
     def explain(self) -> str:
         return self.plan().explain()

@@ -28,7 +28,8 @@ import torch
 from dryad_tpu_torch.parallel.mesh import resolve_device
 
 __all__ = ["StringColumn", "Batch", "batch_from_numpy", "batch_to_numpy",
-           "pack_bytes_list", "unpack_rows", "string_column_from_list"]
+           "pack_bytes_list", "pack_lines", "unpack_rows",
+           "string_column_from_list"]
 
 
 @dataclasses.dataclass
@@ -153,6 +154,35 @@ def pack_bytes_list(items: Sequence[bytes], max_len: int, capacity: int
     data[row[keep], col[keep]] = flat[keep]
     lens[:n] = np.minimum(full, max_len)
     return data, lens
+
+
+def pack_lines(buf: bytes, max_len: int,
+               rows_per_chunk: int = 1 << 18
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """Split a newline-delimited buffer into (data [n, max_len] u8,
+    lengths [n] i32), the JAX package's ``native.pack_lines``: split on
+    b"\\n" only, a trailing b"\\r" trimmed (CRLF), the final empty piece
+    dropped, lines cut at ``max_len``.  Vectorized, ``rows_per_chunk``
+    lines at a time."""
+    src = np.frombuffer(buf, np.uint8)
+    nl = np.flatnonzero(src == 10)
+    starts = np.concatenate([[0], nl + 1]).astype(np.int64)
+    ends = np.append(nl, src.shape[0]).astype(np.int64)
+    if starts[-1] == src.shape[0]:      # no trailing empty line
+        starts, ends = starts[:-1], ends[:-1]
+    lens = ends - starts
+    crlf = lens > 0
+    crlf[crlf] = src[ends[crlf] - 1] == 13
+    keep = np.minimum(lens - crlf, max_len)
+    n = starts.shape[0]
+    data = np.zeros((n, max_len), np.uint8)
+    for r0 in range(0, n, rows_per_chunk):
+        k = keep[r0:r0 + rows_per_chunk]
+        row = np.repeat(np.arange(r0, r0 + k.shape[0]), k)
+        base = np.concatenate([[0], np.cumsum(k)[:-1]])
+        col = np.arange(row.shape[0]) - np.repeat(base, k)
+        data[row, col] = src[np.repeat(starts[r0:r0 + k.shape[0]], k) + col]
+    return data, keep.astype(np.int32)
 
 
 def unpack_rows(data: np.ndarray, lens: np.ndarray) -> List[bytes]:

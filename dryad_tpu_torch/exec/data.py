@@ -23,7 +23,8 @@ from dryad_tpu_torch.data.columnar import (Batch, StringColumn, _as_bytes,
                                            _is_string_list, map_column,
                                            pack_bytes_list, unpack_rows)
 
-__all__ = ["PData", "pdata_from_host", "pdata_to_host", "shrink_pdata",
+__all__ = ["PData", "pdata_from_host", "pdata_from_packed_strings",
+           "pdata_to_host", "shrink_pdata",
            "maybe_shrink_for_collect", "pdata_from_numpy", "pdata_to_numpy",
            "split_partitions", "stack_partitions"]
 
@@ -117,6 +118,28 @@ def pdata_from_host(columns: Mapping[str, Any], mesh,
             cols[k] = stacked.reshape((nparts, cap) + arr.shape[1:])
     counts = np.asarray([e - s for s, e in slices], np.int32)
     return pdata_from_numpy(cols, counts, mesh.device)
+
+
+def pdata_from_packed_strings(data: np.ndarray, lens: np.ndarray, mesh,
+                              column: str = "line",
+                              capacity: int | None = None) -> PData:
+    """A one-string-column PData from an already packed [n, max_len] byte
+    matrix (``columnar.pack_lines``), block-partitioned like
+    ``pdata_from_host``, with no per-row Python work."""
+    nparts = mesh.nparts
+    n, max_len = data.shape
+    slices = _block_slices(n, nparts)
+    max_block = max(1, max(e - s for s, e in slices))
+    cap = capacity or max_block
+    if cap < max_block:
+        raise ValueError(f"capacity {cap} < max block {max_block}")
+    sd = np.zeros((nparts, cap, max_len), np.uint8)
+    sl = np.zeros((nparts, cap), np.int32)
+    for p, (s, e) in enumerate(slices):
+        sd[p, : e - s] = data[s:e]
+        sl[p, : e - s] = lens[s:e]
+    counts = np.asarray([e - s for s, e in slices], np.int32)
+    return pdata_from_numpy({column: (sd, sl)}, counts, mesh.device)
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:

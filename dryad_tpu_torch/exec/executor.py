@@ -9,8 +9,8 @@ across all of them, then a loop for the body ops; a two-input body op
 (``join``, ``zip``, ``apply2``, ``semi_anti``, ``concat``) takes the
 other legs' partitions.  Every op returns a NEED
 vector ``[need_scale, need_slack]`` that stays on the device; the
-executor reads it once per stage attempt (the one host sync, with the
-exchanges' own share of the need beside it) and, on overflow, re-runs the
+executor reads it with the stage's info vector (the exchanges' own share
+of the need beside it; see below for when) and, on overflow, re-runs the
 stage at the measured scale and send-slot slack instead of dropping rows.
 An overflow no scale can fix (a ``with_capacity`` truncation, a zip
 alignment shortfall) raises ``CapacityError``.  A saltable join stage
@@ -29,9 +29,10 @@ fingerprint and the leg), else, for a first-wave pure hash leg of at
 least ``JobConfig.exchange_probe_min_mb``, a counts-only probe (ONE
 batched ``hist_buckets`` over the [P, cap] destinations and one scalar
 read, ``_probe_slot_rows``), else the structural slack.  Every attempt
-feeds its exchanges' measured slots back through the attempt's one host
-read.  A measured slot that meets other data and falls short is a
-send-slack shortfall like any other, and the stage retries.
+feeds its exchanges' measured slots back through the attempt's info read
+(the settle's, under deferral).  A measured slot that meets other data
+and falls short is a send-slack shortfall like any other, and the stage
+retries.
 
 A range exchange splits on bounds sampled from the output of its
 ``bounds_from`` stage (``_range_bounds``), once per stage before the
@@ -49,16 +50,27 @@ each partition with the other leg's same partition.  A broadcast leg
 hands every partition the same replicated Batch.  ``run`` binds a
 do_while body's placeholder to the previous iteration's output.
 
-Not ported yet (later slices, see ROADMAP.md): lineage recovery and the
-deferred settle, adaptivity, the cost cross-check and remembered capacity
-scales.
+``run`` executes a graph through a lineage-tracked ``exec.recovery.Run``.
+With ``JobConfig.deferred_needs`` (the default) a stage's first attempt
+reads nothing back: its info vector stays on the device, and the Run
+reads every stage's in ONE batched read at job end (``Run._settle``),
+then replays an overflowed stage and every stage computed from it
+synchronously.  Without it, or with ``spill_dir``, each attempt reads its
+info at once (``host_reads`` counts the reads of either kind).  Each
+stage's attempts, the settle's among them, fold into ONE ``stage_log``
+entry; ``settle_replayed`` marks a stage the settle re-ran.
+
+Not ported yet (later slices, see ROADMAP.md): adaptivity, the cost
+cross-check, remembered capacity scales, and the run's profile,
+checkpoint and pause hooks.
 """
 
 from __future__ import annotations
 
 import collections
+import time
 import weakref
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -77,6 +89,10 @@ from dryad_tpu_torch.utils.config import JobConfig
 __all__ = ["Executor", "CapacityError"]
 
 class CapacityError(RuntimeError):
+    pass
+
+
+def _no_event(_e: dict) -> None:
     pass
 
 
@@ -477,12 +493,21 @@ def _apply_exchange(parts: List[Batch], ex: Exchange, scale: int,
 class Executor:
     """Executes StageGraphs on a logical mesh."""
 
-    def __init__(self, mesh, config: JobConfig | None = None):
+    def __init__(self, mesh, event_log: Optional[Callable[[dict], None]]
+                 = None, config: JobConfig | None = None):
         self.mesh = mesh
         self.nparts = mesh.nparts
         self.config = config or JobConfig()
-        # per stage of the last run: label, attempts, final scale / slack
+        # the process-default event sink; a Run may pass its own
+        self._event = event_log or _no_event
+        # one entry per stage the last Run.output() ran: label, attempts
+        # (the deferred one and the settle's replays among them), final
+        # scale / slack (``_log_attempt`` / ``_log_settled``)
         self.stage_log: List[Dict] = []
+        self._log_at: Dict[int, Dict] = {}
+        # host reads of stages' info vectors: one per synchronous attempt,
+        # one per deferred settle
+        self.host_reads = 0
         # (stage fingerprint, leg) -> the max send-slot rows the leg's
         # exchange last measured (LRU)
         self._slot_feedback: "collections.OrderedDict" = \
@@ -645,11 +670,12 @@ class Executor:
                   hints: List[Tuple[Optional[int], Optional[str]]]):
         """One attempt of a stage: (output, [need_scale, need_slack, the
         exchanges' need_scale, each leg's measured send-slot rows (0 where
-        none), then each exchanging leg's received rows per destination]
-        on the device, [(send-slot rows, source)] of each hash / range /
-        zip exchange).  The exchanges' need is kept apart so that the salting
-        trigger reacts to exchange skew only: a join-output shortfall must
-        scale, not salt."""
+        none), the output's rows per partition, then each exchanging leg's
+        received rows per destination] on the device (the info vector),
+        [(send-slot rows, source)] of each hash / range / zip exchange).
+        The exchanges' need is kept apart so that the salting trigger
+        reacts to exchange skew only: a join-output shortfall must scale,
+        not salt."""
         dev = self.mesh.device
         P = self.nparts
         needs = torch.zeros(2, dtype=torch.int32, device=dev)
@@ -701,9 +727,11 @@ class Executor:
                                                    slack), "slack"))
         parts, needs = self._run_ops(legs[0], stage.body, scale, slack,
                                      needs, legs[1:])
+        out = stack_partitions(parts)
         recv = [b.count.to(torch.int32) for leg in exchanged for b in leg]
-        return stack_partitions(parts), torch.stack(
-            [needs[0], needs[1], exch_need] + slots + recv), shipped
+        return out, torch.cat([torch.stack(
+            [needs[0], needs[1], exch_need] + slots), out.counts,
+            torch.stack(recv) if recv else out.counts[:0]]), shipped
 
     @staticmethod
     def _leg_input(leg, results: Dict[int, PData],
@@ -722,11 +750,12 @@ class Executor:
 
     def _decide(self, stage: Stage, scale: int, slack: int, salted: bool,
                 need_scale: int, need_slack: int, need_exch: int):
-        """The JAX package's retry policy (``_decide_needs``): None when
-        the attempt fit, else the (scale, slack, salted) of the retry;
-        raises CapacityError for an overflow no scale fixes."""
+        """The JAX package's retry policy (``_decide_needs``), shared by
+        the attempt loop and ``Run._settle``: ``("ok",)`` when the attempt
+        fit, else ``("retry", scale, slack, salted)``; raises
+        CapacityError for an overflow no scale fixes."""
         if need_scale <= 0 and need_slack <= 0:
-            return None
+            return ("ok",)
         if need_scale >= _UNSCALABLE or not _stage_overflow_scalable(stage):
             raise CapacityError(
                 f"stage {stage.id} ({stage.label}) overflowed a fixed "
@@ -744,80 +773,138 @@ class Executor:
                             -(-need_exch * 2 // self.nparts))
             if need_scale > need_exch:
                 new_scale = max(new_scale, need_scale)
-            return new_scale, slack, True
+            return "retry", new_scale, slack, True
         # right-size from the measured requirement: ONE retry at the exact
         # need instead of a blind doubling ladder
-        return max(scale, need_scale), slack, salted
+        return "retry", max(scale, need_scale), slack, salted
+
+    def _log_attempt(self, stage: Stage, shipped, salted: bool,
+                     probes: int, job) -> None:
+        """Fold one attempt into the stage's ``stage_log`` entry (made at
+        its first attempt of the current Run.output())."""
+        ent = self._log_at.get(stage.id)
+        if ent is None:
+            # a zip body op runs an exchange of its own
+            kinds = [leg.exchange.kind for leg in stage.legs
+                     if leg.exchange is not None] + [
+                "zip" for op in stage.body if op.kind == "zip"]
+            ent = {"stage": stage.id, "label": stage.label,
+                   "exchange": kinds[0] if kinds else None,
+                   "exchanges": len(kinds),
+                   "broadcasts": kinds.count("broadcast"),
+                   "attempts": 0, "scale": None, "slack": None,
+                   "salted": salted,
+                   # each salted attempt broadcast the hot right rows
+                   "salted_attempts": 0,
+                   # per attempt, each hash / range / zip exchange's
+                   # send-slot rows and where they came from
+                   "slot_rows": [], "slot_source": [],
+                   # slot probes run (one hist_buckets launch each)
+                   "probes": 0, "recv_rows": [],
+                   # the deferred settle dropped and re-ran this stage
+                   # (it overflowed, or an input of it did)
+                   "settle_replayed": False, "job": job}
+            self._log_at[stage.id] = ent
+            self.stage_log.append(ent)
+        ent["attempts"] += 1
+        ent["salted_attempts"] += salted
+        ent["slot_rows"].append([c for c, _ in shipped])
+        ent["slot_source"].append([src for _, src in shipped])
+        ent["probes"] += probes
+
+    def _log_settled(self, stage: Stage, scale: int, slack: int,
+                     salted: bool, info: List[int]) -> None:
+        """The knobs of the stage's attempt that stands, and its
+        exchanging legs' received rows per destination (from ``info``)."""
+        P, L = self.nparts, len(stage.legs)
+        self._log_at[stage.id].update(
+            scale=scale, slack=slack, salted=salted,
+            recv_rows=[info[i:i + P]
+                       for i in range(3 + L + P, len(info), P)])
 
     def _run_stage(self, stage: Stage, results: Dict[int, PData],
-                   bindings: Dict[str, PData]) -> PData:
+                   bindings: Dict[str, PData], defer: Optional[list] = None,
+                   event=None, job=None) -> PData:
+        """Run one stage whose inputs are materialized.  With ``defer`` (a
+        list) the first attempt reads nothing back: its record (the stage,
+        its info vector on the device, its knobs, the enqueue time) is
+        appended for ``Run._settle``.  Otherwise every attempt reads its
+        info once, emits ``stage_done`` to ``event`` (the executor's sink
+        by default) and retries right-sized on overflow.  ``job`` tags the
+        stage's ``stage_log`` entry."""
+        ev = event if event is not None else self._event
         inputs = [self._leg_input(leg, results, bindings)
                   for leg in stage.legs]
-        exchanges = [leg.exchange for leg in stage.legs
-                     if leg.exchange is not None]
         bounds = None
-        for ex in exchanges:
-            if ex.kind == "range":
+        for leg in stage.legs:
+            ex = leg.exchange
+            if ex is not None and ex.kind == "range":
                 bounds = self._range_bounds(results[ex.bounds_from],
                                             ex.bounds_key)
                 break
         scale = stage._capacity_scale
         slack = stage._send_slack or self.config.initial_send_slack
         salted = stage._salted
-        salted_attempts = 0
-        probes = self.probes_run
-        shipped = []
         retries = self.config.max_capacity_retries
         L = len(stage.legs)
+        P = self.nparts
         for attempt in range(retries + 1):
+            probes = self.probes_run
+            t0 = time.perf_counter()
             hints = self._slot_hints(stage, inputs, slack, salted)
-            out, info, slots = self._run_once(stage, inputs, scale, slack,
-                                              bounds, salted, hints)
-            info = info.tolist()   # the attempt's ONE host sync
-            # the measured slots ride that read back to later attempts
-            # and runs of this stage
-            self._note_slot_feedback(stage, info[3:3 + L])
-            shipped.append(slots)
-            salted_attempts += salted
-            retry = self._decide(stage, scale, slack, salted, *info[:3])
-            if retry is None:
+            out, info, shipped = self._run_once(stage, inputs, scale, slack,
+                                                bounds, salted, hints)
+            self._log_attempt(stage, shipped, salted,
+                              self.probes_run - probes, job)
+            if defer is not None and attempt == 0:
+                # optimistic: the info vector stays on the device until
+                # the settle reads every stage's at once
+                defer.append({"stage": stage, "info": info, "scale": scale,
+                              "slack": slack, "salted": salted,
+                              "enqueue_s": round(time.perf_counter() - t0,
+                                                 4)})
                 stage._capacity_scale = scale
                 stage._send_slack = slack
                 stage._salted = salted
-                P = self.nparts
-                # a zip body op runs an exchange of its own
-                kinds = [ex.kind for ex in exchanges] + [
-                    "zip" for op in stage.body if op.kind == "zip"]
-                self.stage_log.append({
-                    "stage": stage.id, "label": stage.label,
-                    "exchange": kinds[0] if kinds else None,
-                    "exchanges": len(kinds),
-                    "broadcasts": kinds.count("broadcast"),
-                    "attempts": attempt + 1, "scale": scale,
-                    "slack": slack, "salted": salted,
-                    # each salted attempt broadcast the hot right rows
-                    "salted_attempts": salted_attempts,
-                    # per attempt, each hash / range / zip exchange's
-                    # send-slot rows and where they came from
-                    "slot_rows": [[c for c, _ in a] for a in shipped],
-                    "slot_source": [[s for _, s in a] for a in shipped],
-                    # slot probes run (one hist_buckets launch each)
-                    "probes": self.probes_run - probes,
-                    "recv_rows": [info[i:i + P]
-                                  for i in range(3 + L, len(info), P)]})
                 return out
-            scale, slack, salted = retry
+            info = info.tolist()   # the attempt's ONE read of its info
+            self.host_reads += 1
+            # the measured slots ride that read back to later attempts
+            # and runs of this stage
+            self._note_slot_feedback(stage, info[3:3 + L])
+            need_scale, need_slack, need_exch = info[:3]
+            of = need_scale > 0 or need_slack > 0
+            ev({"event": "stage_done", "stage": stage.id,
+                "label": stage.label, "attempt": attempt, "scale": scale,
+                "slack": slack, "overflow": of, "need_scale": need_scale,
+                "need_slack": need_slack, "need_exchange": need_exch,
+                "salted": salted, "rows": info[3 + L:3 + L + P],
+                "wall_s": round(time.perf_counter() - t0, 4)})
+            decision = self._decide(stage, scale, slack, salted,
+                                    need_scale, need_slack, need_exch)
+            if decision[0] == "ok":
+                stage._capacity_scale = scale
+                stage._send_slack = slack
+                stage._salted = salted
+                self._log_settled(stage, scale, slack, salted, info)
+                return out
+            _, scale, slack, salted = decision
         raise CapacityError(
             f"stage {stage.id} ({stage.label}) still overflowing after "
             f"{retries} capacity retries (scale={scale}, slack={slack})")
 
     def run(self, graph: StageGraph,
-            bindings: Optional[Dict[str, PData]] = None) -> PData:
-        """Run every stage in order; ``bindings`` maps a placeholder's
-        name to its data (a do_while body's loop-carried input)."""
-        results: Dict[int, PData] = {}
-        self.stage_log = []
-        for stage in graph.topo_order():
-            results[stage.id] = self._run_stage(stage, results,
-                                                bindings or {})
-        return results[graph.out_stage]
+            bindings: Optional[Dict[str, PData]] = None,
+            spill_dir: Optional[str] = None, event_log=None, job=None,
+            failure_budget: Optional[int] = None) -> PData:
+        """Execute a graph with lineage-tracked recovery
+        (``exec.recovery.Run``); ``bindings`` maps a placeholder's name to
+        its data (a do_while body's loop-carried input).  With
+        ``spill_dir`` every stage output is also written as a store, and a
+        later Run over the same plan resumes from it.  ``event_log`` /
+        ``job`` / ``failure_budget`` are the run's own: its events go to
+        ``event_log`` (else the executor's sink), tagged with ``job``."""
+        from dryad_tpu_torch.exec.recovery import Run
+        return Run(self, graph, bindings, spill_dir=spill_dir,
+                   failure_budget=failure_budget, event=event_log,
+                   job=job).output()

@@ -8,6 +8,12 @@ library's file name carries a digest of its source, the shared
 loads a stale build.  ``build()`` starts one ``nvcc`` per
 missing library, all at once, and waits for them together; nothing is
 built at import time.
+
+The host side has C sources of its own (``csrc/*.c``, ``HOST``: the
+store's FNV-1a checksum).  ``host_library`` compiles one with the host C
+compiler (``$CC``, else ``cc``) into ``build/host/`` at first use, named
+by the same kind of digest, and loads it with ``ctypes``.  A failed
+build raises with the compiler's message.
 """
 
 from __future__ import annotations
@@ -17,13 +23,16 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
-__all__ = ["build", "library", "KERNELS", "BUILD_DIR", "NVCC_FLAGS"]
+__all__ = ["build", "library", "host_library", "KERNELS", "HOST",
+           "BUILD_DIR", "HOST_BUILD_DIR", "NVCC_FLAGS", "CC_FLAGS"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+HOST_BUILD_DIR = BUILD_DIR.parent / "host"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -44,7 +53,18 @@ KERNELS = {
                                             _P, _P]},
 }
 
+# host C library -> {entry point: (argtypes, restype)}
+HOST = {
+    "host_fnv": {"dryad_fnv64": ([_P, _LL, ctypes.c_uint64],
+                                 ctypes.c_uint64)},
+}
+CC_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c11")
+
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_HOST_LOADED: Dict[str, ctypes.CDLL] = {}
+# the store checksums partitions on a thread pool, so the first use of a
+# host library can come from several threads at once: one builds
+_HOST_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -118,3 +138,52 @@ def library(name: str) -> ctypes.CDLL:
         f.restype = ctypes.c_int
     _LOADED[name] = lib
     return lib
+
+
+def _cc() -> str:
+    cc = os.environ.get("CC") or shutil.which("cc") or shutil.which("gcc")
+    if cc is None:
+        raise RuntimeError("no host C compiler (set CC, or put cc on "
+                           "PATH); the store's checksum builds on first "
+                           "use")
+    return cc
+
+
+def _host_lib_path(name: str) -> Path:
+    h = hashlib.sha256((_CSRC / f"{name}.c").read_bytes())
+    h.update(" ".join(CC_FLAGS).encode())
+    return HOST_BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """The loaded host C library ``name`` (a key of ``HOST``), compiled
+    first if it has no current build.  Raises RuntimeError with the
+    compiler's output when the build fails."""
+    lib = _HOST_LOADED.get(name)
+    if lib is not None:
+        return lib
+    with _HOST_LOCK:
+        lib = _HOST_LOADED.get(name)
+        if lib is not None:
+            return lib
+        path = _host_lib_path(name)
+        if not path.exists():
+            HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            # another process may build the same library at once: each
+            # writes its own temp file and renames it into place
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run(
+                [_cc(), *CC_FLAGS, "-o", str(tmp),
+                 str(_CSRC / f"{name}.c")],
+                capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"building {name}.c failed:\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp, path)
+        lib = ctypes.CDLL(str(path))
+        for fn, (argtypes, restype) in HOST[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = restype
+        _HOST_LOADED[name] = lib
+        return lib

@@ -75,6 +75,15 @@ class Stage:
     # later runs of the same plan (sticky)
     _salted: bool = False
 
+    def input_stage_ids(self) -> List[int]:
+        """The stages this one reads: its legs' producers, then the stages
+        its range exchanges sample their bounds from (the lineage a
+        recovery replay walks)."""
+        out = [leg.src for leg in self.legs if isinstance(leg.src, int)]
+        out.extend({leg.exchange.bounds_from for leg in self.legs
+                    if leg.exchange and leg.exchange.bounds_from is not None})
+        return out
+
     def fingerprint(self) -> str:
         """Structural identity: the legs' ops and exchanges and the body
         ops, callables by object id (a fresh lambda is another stage).
@@ -108,6 +117,9 @@ class Stage:
 class StageGraph:
     stages: List[Stage]
     out_stage: int
+
+    def stage(self, sid: int) -> Stage:
+        return self.stages[sid]
 
     def topo_order(self) -> List[Stage]:
         # stages are created in topo order by the planner

@@ -5,6 +5,7 @@ JAX package, so one set of overrides means the same thing to both."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 __all__ = ["JobConfig"]
 
@@ -35,6 +36,17 @@ class JobConfig:
     salt_hot_factor: float = 4.0
     # per-partition heavy-hitter candidates nominated for the hot set
     salt_topk: int = 8
+    # optimistic stage execution (exec/recovery.Run._settle): stages run
+    # with no per-stage host read of their needs; every stage's needs are
+    # read back in ONE batched read at job end, and an overflow replays
+    # the overflowed stages and their dependents synchronously
+    deferred_needs: bool = True
+
+    # -- fault tolerance (exec/recovery.py) --------------------------------
+    # lineage replays allowed before FailureBudgetExceeded
+    failure_budget: int = 16
+    # spilled stage outputs: None = raw part files, "gzip" = level-1 gzip
+    spill_compression: Optional[str] = None
 
     # -- planner (plan/planner.py) -----------------------------------------
     # default fan-out allowance for join output capacity (out = expansion *
@@ -51,10 +63,17 @@ class JobConfig:
     collect_shrink_min_capacity: int = 1024
     collect_shrink_waste_factor: int = 4
 
-    # -- text (api split_words / ops/text.py) ------------------------------
+    # -- text (api read_text / split_words / ops/text.py) ------------------
+    text_max_line_len: int = 256
     token_delims: bytes = b" \t\r\n.,;:!?\"'()[]{}<>"
     token_max_len: int = 24
     string_max_len: int = 64          # from_columns string payload bytes
+
+    # -- store (io/store.py) -----------------------------------------------
+    # default compression of to_store (None | "gzip")
+    store_compression: Optional[str] = None
+    # verify the fnv64 partition checksums on read
+    store_verify_checksums: bool = True
 
     def __post_init__(self):
         checks = [
@@ -68,9 +87,15 @@ class JobConfig:
             (self.salt_hot_factor >= 1.0, "salt_hot_factor >= 1.0"),
             (self.salt_topk >= 1, "salt_topk >= 1"),
             (self.join_expansion > 0, "join_expansion > 0"),
+            (self.failure_budget >= 0, "failure_budget >= 0"),
+            (self.spill_compression in (None, "gzip"),
+             "spill_compression in (None, 'gzip')"),
+            (self.store_compression in (None, "gzip"),
+             "store_compression in (None, 'gzip')"),
             (self.broadcast_join_threshold >= 0,
              "broadcast_join_threshold >= 0"),
             (self.max_loop_iterations >= 1, "max_loop_iterations >= 1"),
+            (self.text_max_line_len >= 1, "text_max_line_len >= 1"),
             (self.token_max_len >= 1, "token_max_len >= 1"),
             (self.string_max_len >= 1, "string_max_len >= 1"),
             (len(self.token_delims) >= 1, "token_delims non-empty"),

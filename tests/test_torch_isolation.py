@@ -68,3 +68,26 @@ def test_context_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert dryad_tpu_torch.Context(device="cpu").device.type == "cpu"
+
+
+def test_store_and_text_never_load_the_jax_native_library(tmp_path):
+    """A store round trip and read_text in a fresh interpreter map the
+    port's own checksum library, never the JAX package's
+    native/libdryad_io.so."""
+    code = (
+        "import numpy as np\n"
+        "from dryad_tpu_torch import Context\n"
+        "ctx = Context(device='cpu', nparts=4)\n"
+        f"p = {str(tmp_path)!r}\n"
+        "ctx.from_columns({'k': np.arange(50, dtype=np.int32), "
+        "'s': ['x%d' % i for i in range(50)]}).to_store(p + '/st')\n"
+        "assert len(ctx.from_store(p + '/st').collect()['k']) == 50\n"
+        "open(p + '/t.txt', 'w').write('a\\nb\\n')\n"
+        "assert ctx.read_text(p + '/t.txt').collect()['line'] == "
+        "[b'a', b'b']\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "print('libdryad_io' in maps, 'libhost_fnv' in maps)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "True"]
