@@ -172,7 +172,32 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      gzip, a flipped byte raising StoreIntegrityError; ``read_text`` of
      the bench12 corpus written to a file, WordCount equal to phase 3's
      counts.  Stores live in a temporary directory, deleted after;
-  3-11. after each of those main-path runs, every kernel call it made
+ 12. adaptive execution, the static cost model and the oracle through
+     the same entry points.  Three cells, each in two contexts of its
+     own, ``JobConfig(adaptive="off")`` and ``"on"``, with an event log:
+     ``adaptshrink6m`` (bench.py's ``smoke_adapt`` shape at 6,000,000
+     rows: 90 % on key 0, group_by sum -> with_capacity(131,072) ->
+     order_by s descending; on must record ``repartition_shrink``),
+     ``q17promote6m`` (TPC-H Q17's shape: 6,000,000 lineitems' quantity
+     sum and count per part joined with the ~200 parts of one brand and
+     container of a 200,000-row PART; ``broadcast_promote``) and
+     ``demote1m`` (1,500,000 orders per customer joined with
+     ``broadcast=True`` to 150,000 customers' largest balance;
+     ``broadcast_demote``).  Each: a cold run per mode (off first, its
+     runs given ``analysis.cost.estimate_graph``'s report), its calls
+     held and its launches against the executor's log; rows equal
+     between the modes and numpy's (f32 sums within 16 eps sum|v|); three
+     warm runs per mode in turns, NEED reads per run, one profiled warm
+     run per mode (busy share), the order_by stage's output bytes.  The
+     cost model on the card: zipf50k, app10k, terasort1m, pagerank100k
+     and kmeans500k once each with every executor run cost-checked, plus
+     the three cells' off runs: any ``cost_model_miss`` is printed and
+     fails the phase, and an estimate that launches a port kernel or
+     allocates on the card fails it too.  The oracle: the three cells at
+     20,000 rows and WordCount over bench12's first 2,000 lines, on the
+     card and through ``Context(device="cuda", local_debug=True)``,
+     equal as row multisets (f32 within the bound);
+  3-12. after each of those main-path runs, every kernel call it made
      is made again through the kernel and through its plain version on
      the very tensors the run passed (integers exactly, prefix_sum2
      within twice its bound);
@@ -202,7 +227,9 @@ Output: one JSON line per corpus, per GroupByReduce variant, per sort
 path, for PageRank and the NaN hold, for k-means and each phase-8,
 phase-9 and phase-10 run (each exchanging stage's send-slot rows and
 their source per attempt among them), one for phase 11 (``{"phase":
-"recovery", ...}``), per profile, per pack side and per kernel, then
+"recovery", ...}``), one per phase-12 cell and one each for its cost
+model and oracle runs (``{"phase12": ...}``), per profile, per pack side
+and per kernel, then
 the card line, then the
 ``{"kernels": [...]}`` line, then the result line
 ``{"ok": true, "device": {...}}`` last.
@@ -480,7 +507,8 @@ def check_compact(hk, t, rng) -> None:
     below the largest total (truncation), at it and far above it; sources
     misaligned for 16-byte loads (a contiguous ``recv[1:]`` view, W = 7
     and 46); the main paths' shapes (WordCount's token exchange, phase
-    10's orders repartition); then 50 calls of mixed sizes queued on one
+    10's orders repartition, phase 12's promoted broadcast with empty and
+    one-row sources); then 50 calls of mixed sizes queued on one
     stream with no sync, each held afterwards.  Before every call a
     tensor of the output's size filled with 0x7F bytes is allocated and
     freed, so the caching allocator hands that block to the wrapper's
@@ -528,6 +556,16 @@ def check_compact(hk, t, rng) -> None:
              hk.slot_compact_batched_plain(recv, cnt, C, out_rows),
              f"Dd={Dd} S={S} C={C} W={W} out_rows={out_rows}")
         del recv
+    # phase 12's promoted broadcast: a build side of about 200 rows over
+    # 8 sources of C = 25,000 rows (2 words) into 256 rows, with empty
+    # and one-row sources
+    recv = recv_of(1, 8, 25_000, 2)
+    for cnt in ([0, 1, 0, 23, 1, 24, 22, 25], [1] * 8, [0] * 8):
+        c = t(np.asarray([cnt], np.int32))
+        same(call(recv, c, 25_000, 256),
+             hk.slot_compact_batched_plain(recv, c, 25_000, 256),
+             f"promoted broadcast counts={cnt}")
+    del recv
 
     sizes = [(8, 8, 700, 7, 4000), (1, 8, 13, 46, 100), (3, 8, 1, 1, 5),
              (8, 4096, 2, 3, 9000), (2, 8, 5000, 8, 0)]
@@ -2489,6 +2527,396 @@ def read_text_run(port, hk, wc, lines, want, tmp, held) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: adaptive execution, the static cost model, the oracle
+
+
+SHRINK_CAP = 1 << 17        # smoke_adapt's declared bound (bench.py:277)
+Q17_PARTS = 200_000         # TPC-H SF1 PART
+Q17_BRANDS, Q17_CONTAINERS = 25, 40    # TPC-H spec 4.2.3: P_BRAND x
+                                       # P_CONTAINER, 1,000 combinations
+Q17_BRAND, Q17_CONTAINER = 12, 7       # the one pair Q17 filters on
+ORACLE_ROWS, ORACLE_LINES = 20_000, 2_000
+
+
+def shrink_table(n: int, seed: int = 0) -> dict:
+    """bench.py's ``smoke_adapt`` table: 90 % of rows on key 0, the rest
+    uniform over keys 1-999, ``v`` in [0, 10), numpy seed ``seed``."""
+    rng = np.random.RandomState(seed)
+    k = np.where(rng.rand(n) < 0.9, 0,
+                 rng.randint(1, 1000, n)).astype(np.int32)
+    return {"k": k, "v": rng.randint(0, 10, n).astype(np.int32)}
+
+
+def shrink_query(ctx, t):
+    """``smoke_adapt``'s query: the group-by's ~1,000 rows carry the
+    declared 131,072-row bound into the range exchange of a global sort,
+    by s descending."""
+    return (ctx.from_columns(t).group_by(["k"], {"s": ("sum", "v")})
+            .with_capacity(SHRINK_CAP).order_by([("s", True)]))
+
+
+def check_shrink(out, t) -> dict:
+    """The (k, s) rows exactly numpy's per-key sums, s non-increasing."""
+    keys, inv = np.unique(t["k"], return_inverse=True)
+    sums = np.bincount(inv, weights=t["v"]).astype(np.int64)
+    got = sorted(zip(out["k"].tolist(), out["s"].tolist()))
+    if got != sorted(zip(keys.tolist(), sums.tolist())) or np.any(
+            np.diff(np.asarray(out["s"], np.int64)) > 0):
+        raise AssertionError("adaptshrink: not numpy's per-key sums by s "
+                             "descending")
+    return {"rows": len(t["k"]), "groups": len(got)}
+
+
+def q17_tables(n_items: int, seed: int = 0):
+    """TPC-H Q17's two tables: LINEITEM's ``partkey`` uniform over the
+    200,000 parts and ``qty`` (f32) in [1, 50]; PART's ``partkey`` =
+    1..200,000 with ``brand`` in [0, 25) and ``container`` in [0, 40)
+    (numpy seed ``seed``): one (brand, container) holds about 200 parts."""
+    rng = np.random.RandomState(seed)
+    li = {"partkey": rng.randint(1, Q17_PARTS + 1, n_items).astype(
+              np.int32),
+          "qty": rng.randint(1, 51, n_items).astype(np.float32)}
+    part = {"partkey": np.arange(1, Q17_PARTS + 1, dtype=np.int32),
+            "brand": rng.randint(0, Q17_BRANDS, Q17_PARTS).astype(np.int32),
+            "container": rng.randint(0, Q17_CONTAINERS, Q17_PARTS).astype(
+                np.int32)}
+    return li, part
+
+
+def _q17_big(c):
+    return {"pk": c["partkey"], "qsum": c["qsum"], "n": c["n"]}
+
+
+def _q17_small(c):
+    return {"ppk": c["partkey"], "np": c["np"]}
+
+
+def _q17_part(c):
+    return (c["brand"] == Q17_BRAND) & (c["container"] == Q17_CONTAINER)
+
+
+def q17_query(ctx, li, part):
+    """Q17's shape (tests/test_adapt.py:492-517): lineitem's quantity sum
+    and count per part, joined with the parts of one brand and container
+    grouped by part key; each side renamed by a select, so both legs
+    hash-exchange as planned."""
+    big = ctx.from_columns(li).group_by(
+        ["partkey"], {"qsum": ("sum", "qty"), "n": ("count", None)}) \
+        .select(_q17_big, label="ren")
+    small = ctx.from_columns(part).where(_q17_part, label="brand").group_by(
+        ["partkey"], {"np": ("count", None)}).select(_q17_small,
+                                                     label="ren")
+    return big.join(small, ["pk"], ["ppk"])
+
+
+def check_q17(out, tables) -> dict:
+    """Against numpy: the parts of the brand and container that have
+    lineitems, each with its lineitem count exactly and its f32 quantity
+    sum within 16 eps sum|qty|."""
+    li, part = tables
+    keep = part["partkey"][(part["brand"] == Q17_BRAND)
+                           & (part["container"] == Q17_CONTAINER)]
+    sel = np.isin(li["partkey"], keep)
+    pk, inv = np.unique(li["partkey"][sel], return_inverse=True)
+    n = np.bincount(inv)
+    q = np.bincount(inv, weights=li["qty"][sel].astype(np.float64))
+    o = np.argsort(out["pk"])
+    if not (np.array_equal(out["pk"][o], pk)
+            and np.array_equal(out["n"][o], n)
+            and np.all(out["np"] == 1)):
+        raise AssertionError("q17promote: parts or counts differ from numpy")
+    err = np.abs(out["qsum"][o] - q)
+    if not np.all(err <= 16 * EPS * q):
+        raise AssertionError("q17promote: a quantity sum is outside the "
+                             "f32 bound")
+    return {"lineitems": len(li["partkey"]), "parts": len(keep),
+            "rows": len(pk), "max_abs_err": float(err.max(initial=0))}
+
+
+def demote_tables(n_orders: int, seed: int = 0):
+    """ORDERS' ``custkey`` (as ``tpch_tables``: uniform over the
+    customers not divisible by 3) and f32 ``totalprice``; CUSTOMER's
+    ``custkey`` = 1..n_orders / 10 and f32 ``acctbal`` in
+    [-999.99, 9999.99) (TPC-H's ranges; numpy seed ``seed``)."""
+    rng = np.random.RandomState(seed)
+    ck = np.arange(1, n_orders // 10 + 1, dtype=np.int32)
+    allowed = ck[ck % 3 != 0]
+    orders = {"custkey": allowed[rng.randint(0, len(allowed), n_orders)],
+              "totalprice": rng.uniform(850, 550_000, n_orders).astype(
+                  np.float32)}
+    cust = {"custkey": ck, "acctbal": rng.uniform(
+        -999.99, 9999.99, len(ck)).astype(np.float32)}
+    return orders, cust
+
+
+def _demote_left(c):
+    return {"ck": c["custkey"], "n": c["n"], "spend": c["spend"]}
+
+
+def _demote_right(c):
+    return {"cck": c["custkey"], "bal": c["bal"]}
+
+
+def demote_query(ctx, orders, cust):
+    """Orders per customer (count, f32 spend) joined with
+    ``broadcast=True`` to the customers' largest balance
+    (tests/test_adapt.py:520-550): the planner broadcasts a build side
+    that measures larger than the probe side."""
+    left = ctx.from_columns(orders).group_by(
+        ["custkey"], {"n": ("count", None), "spend": ("sum", "totalprice")}
+    ).select(_demote_left, label="ren")
+    right = ctx.from_columns(cust).group_by(
+        ["custkey"], {"bal": ("max", "acctbal")}).select(_demote_right,
+                                                         label="ren")
+    return left.join(right, ["ck"], ["cck"], broadcast=True)
+
+
+def check_demote(out, tables) -> dict:
+    """Against numpy: every customer with orders, its order count and
+    balance exactly, its f32 spend within 16 eps sum|price|."""
+    orders, cust = tables
+    ck, inv = np.unique(orders["custkey"], return_inverse=True)
+    n = np.bincount(inv)
+    spend = np.bincount(inv, weights=orders["totalprice"].astype(
+        np.float64))
+    o = np.argsort(out["ck"])
+    if not (np.array_equal(out["ck"][o], ck)
+            and np.array_equal(out["n"][o], n)
+            and np.array_equal(out["bal"][o], cust["acctbal"][ck - 1])):
+        raise AssertionError("demote: customers, counts or balances differ "
+                             "from numpy")
+    err = np.abs(out["spend"][o] - spend)
+    if not np.all(err <= 16 * EPS * spend):
+        raise AssertionError("demote: a spend is outside the f32 bound")
+    return {"orders": len(orders["custkey"]), "customers": len(ck),
+            "rows": len(ck), "max_abs_err": float(err.max(initial=0))}
+
+
+def phase12_cells(shrink_rows: int, q17_items: int, demote_orders: int
+                  ) -> dict:
+    """label -> (tables, query(ctx, tables) -> Dataset, check(out,
+    tables), the rewrite adaptation must record)."""
+    return {
+        "adaptshrink6m": (shrink_table(shrink_rows), shrink_query,
+                          check_shrink, "repartition_shrink"),
+        "q17promote6m": (q17_tables(q17_items),
+                         lambda c, t: q17_query(c, *t), check_q17,
+                         "broadcast_promote"),
+        "demote1m": (demote_tables(demote_orders),
+                     lambda c, t: demote_query(c, *t), check_demote,
+                     "broadcast_demote"),
+    }
+
+
+def cost_checked(port, hk, ctx, reports) -> None:
+    """``ctx.executor.run`` estimates each graph it is given
+    (``analysis.cost.estimate_graph``) and runs it with the report, so the
+    run cross-checks every stage (``cost_model_miss`` events in the
+    context's log).  The estimate must launch no port kernel and allocate
+    nothing on the card.  Lasts until ``run_app`` restores the method."""
+    import torch
+    from dryad_tpu_torch.analysis.cost import estimate_graph
+    run = ctx.executor.run
+
+    def checked(graph, bindings=None, **kw):
+        launches = dict(hk.launches)
+        allocs = torch.cuda.memory_stats().get("allocation.all.allocated")
+        rep = estimate_graph(graph, NPARTS, config=ctx.config)
+        if (dict(hk.launches) != launches or torch.cuda.memory_stats().get(
+                "allocation.all.allocated") != allocs):
+            raise AssertionError("the cost model launched a kernel or "
+                                 "allocated on the card")
+        reports.append(rep)
+        return run(graph, bindings, cost_report=rep, **kw)
+
+    ctx.executor.run = checked
+
+
+def cost_summary(label, log, reports) -> dict:
+    """A cost-checked run's misses (each printed with its stage and what
+    was measured against what was predicted), its reports' stage and
+    approximate-stage counts; a miss fails the phase."""
+    misses = log.of_type("cost_model_miss")
+    for m in misses:
+        print(f"cost_model_miss {label}: stage {m['stage']} ({m['label']}) "
+              f"{m['what']} measured {m['measured']} predicted "
+              f"{m['predicted']}", flush=True)
+    if misses:
+        raise AssertionError(f"{label}: {len(misses)} cost_model_miss")
+    return {"misses": 0, "reports": len(reports),
+            "stages": sum(len(r.stages) for r in reports),
+            "approx_stages": sum(s.approx for r in reports
+                                 for s in r.stages)}
+
+
+def adapt_cells(port, hk, cells, out_dir, held) -> dict:
+    """Each cell adaptive off and on, each in a context of its own with
+    an event log: a cold run of each (off first, cost-checked), its
+    kernel calls held, its launches against the executor's log; then
+    three warm runs of each in turns (off, on, ...), one profiled warm
+    run of each (busy share).  On must record the cell's rewrite, off
+    none; the rows of both and of numpy agree.  Per mode: cold and warm
+    walls, NEED reads per run, launches, rewrites, the order_by stage's
+    output bytes (``shuffle_bytes``)."""
+    import torch
+    from dryad_tpu_torch.utils.events import EventLog
+    res = {}
+    for label, (tables, query, check, kind) in cells.items():
+        ctxs, logs, per = {}, {}, {}
+        for mode in ("off", "on"):
+            logs[mode] = EventLog()
+            ctxs[mode] = port.Context(
+                device="cuda", nparts=NPARTS, event_log=logs[mode],
+                config=port.JobConfig(adaptive=mode))
+        outs = {}
+        reports = []
+        for mode in ("off", "on"):
+            ctx = ctxs[mode]
+            if mode == "off":
+                cost_checked(port, hk, ctx, reports)
+            reads0 = ctx.executor.host_reads
+            hk.capture = {}
+            out, launches, load, qs, runs = run_app(
+                port, hk, lambda c: query(c, tables).collect(), ctx=ctx)
+            captured, hk.capture = hk.capture, None
+            held(f"{label}_{mode}", launches, captured)
+            del captured
+            stages = loop_stages(runs)
+            check_per_exchange(f"{label}_{mode}", launches,
+                               stages["exchange_attempts"],
+                               stages["broadcast_attempts"],
+                               stages["probes"])
+            sizes = check(out, tables)
+            outs[mode] = out
+            rw = logs[mode].of_type("graph_rewrite")
+            per[mode] = {"launches": launches, "cold_wall_s": load + qs,
+                         "cold_load_s": load, "cold_query_s": qs,
+                         "need_reads_cold": ctx.executor.host_reads - reads0,
+                         "exchanging_stages": stages["outside_loop"],
+                         "rewrites": [{k: e.get(k) for k in (
+                             "kind", "stage", "cap_before", "cap_after",
+                             "slack_before", "slack_after", "left_rows",
+                             "right_rows")} for e in rw]}
+            if mode == "off":
+                per[mode]["cost"] = cost_summary(label, logs[mode], reports)
+        kinds = [e["kind"] for e in per["on"]["rewrites"]]
+        if kind not in kinds or per["off"]["rewrites"]:
+            raise AssertionError(f"{label}: rewrites on {kinds}, off "
+                                 f"{per['off']['rewrites']}")
+        if _row_set(outs["on"]) != _row_set(outs["off"]):
+            raise AssertionError(f"{label}: adaptive on and off differ")
+        del outs
+        walls = collections.defaultdict(list)
+        reads = collections.defaultdict(list)
+        for mode in ("off", "on") * 3:
+            ctx = ctxs[mode]
+            reads0 = ctx.executor.host_reads
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            query(ctx, tables).collect()
+            torch.cuda.synchronize()
+            walls[mode].append(time.perf_counter() - t0)
+            reads[mode].append(ctx.executor.host_reads - reads0)
+        for mode in ("off", "on"):
+            ctx = ctxs[mode]
+            n0 = len(logs[mode].events)
+            prof = profile_path(lambda: run_app(
+                port, hk, lambda c: query(c, tables).collect(),
+                ctx=ctx)[:4], f"{label}_{mode}", out_dir, pack=False)
+            sort_bytes = [e["out_bytes"] for e in logs[mode].events[n0:]
+                          if e["event"] == "stage_done"
+                          and e["label"] == "orderby"]
+            per[mode].update({
+                "warm_walls_s": walls[mode],
+                "warm_wall_mean_s": sum(walls[mode]) / len(walls[mode]),
+                "need_reads_warm": reads[mode],
+                "profiled_wall_s": prof["wall_s"],
+                "profiled_device_ms": prof["device_ms"],
+                "device_busy_share": prof.get("device_busy_share"),
+                "orderby_out_bytes": sort_bytes})
+        res[label] = {**sizes, "nparts": NPARTS, **per}
+    return res
+
+
+def cost_runs(port, hk, apps, held) -> dict:
+    """Each BASELINE app once at its phase size, every executor run it
+    makes given ``estimate_graph``'s report of its graph
+    (``cost_checked``): no ``cost_model_miss``, and each app's result
+    held by its own check."""
+    from dryad_tpu_torch.utils.events import EventLog
+    res = {}
+    for label, (app, check) in apps.items():
+        log, reports = EventLog(), []
+        ctx = port.Context(device="cuda", nparts=NPARTS, event_log=log)
+        cost_checked(port, hk, ctx, reports)
+        hk.capture = {}
+        out, launches, load, qs, runs = run_app(port, hk, app, ctx=ctx)
+        captured, hk.capture = hk.capture, None
+        held(f"{label}_cost", launches, captured)
+        del captured
+        check(out)
+        res[label] = {**cost_summary(label, log, reports),
+                      "executor_runs": len(runs), "load_s": load,
+                      "query_s": qs}
+    return res
+
+
+def _row_set(t) -> list:
+    """A table's rows as a sorted list of tuples, columns in name order
+    (strings as bytes)."""
+    return sorted(zip(*[[bytes(x) for x in t[c]] if isinstance(t[c], list)
+                        else np.asarray(t[c]).tolist() for c in sorted(t)]))
+
+
+def _rows_within(a, b, f32) -> bool:
+    """Two tables as row multisets: every column exact but those in
+    ``f32``, within 16 eps x the column's sum |v| (in each cell a float
+    column sorts after a unique key column, so rows pair up)."""
+    if sorted(a) != sorted(b):
+        return False
+    ra, rb = _row_set(a), _row_set(b)
+    tol = [16 * EPS * float(np.abs(np.asarray(b[c], np.float64)).sum())
+           if c in f32 else None for c in sorted(b)]
+    return len(ra) == len(rb) and all(
+        u == w if t is None else abs(u - w) <= t
+        for x, y in zip(ra, rb) for u, w, t in zip(x, y, tol))
+
+
+def oracle_runs(port, hk, cells, wc, lines, held) -> dict:
+    """The three cells at ORACLE_ROWS rows and WordCount over the first
+    ORACLE_LINES lines of bench12, each on the card and again through
+    ``Context(device="cuda", local_debug=True)`` (the sequential oracle
+    over the sources' host tables): equal as row multisets, f32 columns
+    within the bound."""
+    import torch
+    f32 = {"adaptshrink6m": (), "q17promote6m": ("qsum",),
+           "demote1m": ("spend",)}
+    res = {}
+    apps = {label: (lambda c, q=q, t=t: q(c, t).collect(), f32[label])
+            for label, (t, q, _chk, _k) in cells.items()}
+    apps["wordcount_bench12"] = (lambda c: wc.wordcount_query(
+        c.from_columns({"line": lines}, str_max_len=96),
+        tokens_per_partition=10 * len(lines)).collect(), ())
+    for label, (app, cols) in apps.items():
+        hk.capture = {}
+        card, launches, _load, qs, _runs = run_app(port, hk, app)
+        captured, hk.capture = hk.capture, None
+        held(f"{label}_oracle", launches, captured)
+        del captured
+        dbg = port.Context(device="cuda", nparts=NPARTS, local_debug=True)
+        t0 = time.perf_counter()
+        want = app(dbg)
+        oracle_s = time.perf_counter() - t0
+        if dbg.executor.stage_log or not _rows_within(card, want, cols):
+            raise AssertionError(f"{label}: the card and local_debug "
+                                 f"disagree")
+        torch.cuda.synchronize()
+        res[label] = {"rows": len(next(iter(card.values()))),
+                      "card_query_s": qs, "oracle_s": oracle_s}
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 5: timing
 
 
@@ -3387,6 +3815,56 @@ def main(argv=None) -> int:
     emit({"phase": "recovery", **eleven,
           "seconds": time.perf_counter() - t11, "card": card})
     del li9, orders9
+
+    # phase 12: adaptive execution (each cell on and off), the cost model
+    # cross-checking eight runs, the card against the oracle
+    before = set(runs)
+    t12 = time.perf_counter()
+    for label, line in adapt_cells(port, hk, phase12_cells(
+            a.lineitems, a.lineitems, a.orders), a.out, held).items():
+        emit({"phase12": label, **line, "card": card})
+    per_part = -(-len(corpora["zipf50k"]) // NPARTS)
+    tera_keys = np.array(tera_data["key"], dtype="S10")
+    tera_order = np.lexsort((tera_data["payload"], tera_keys))
+
+    def tera_ok(out):
+        if (out["key"] != tera_keys[tera_order].tolist()
+                or not np.array_equal(out["payload"],
+                                      tera_data["payload"][tera_order])):
+            raise AssertionError("terasort1m: not the sorted pairs")
+
+    def wc_ok(out):
+        if dict(zip(out["line"], (int(v) for v in out["n"]))) != \
+                wc_counts["zipf50k"]:
+            raise AssertionError("zipf50k: counts differ from phase 3's")
+
+    emit({"phase12": "cost_model", "card": card, **cost_runs(port, hk, {
+        "zipf50k": (lambda c: wc.wordcount_query(
+            c.from_columns({"line": corpora["zipf50k"]}, str_max_len=96),
+            tokens_per_partition=per_part * 10).collect(), wc_ok),
+        "app10k": (lambda c: variants["app10k"][1](
+            c.from_columns(gbr_data)).collect(),
+            lambda out: check_gbr("app10k", out, gbr_data,
+                                  variants["app10k"][2])),
+        "terasort1m": (lambda c: ts.terasort_query(c.from_columns(
+            tera_data, str_max_len=tera_sml)).collect(), tera_ok),
+        "pagerank100k": (lambda c: pr.pagerank(c, edges, a.nodes,
+                                               n_iters=PR_ITERS),
+                         lambda out: check_pagerank(out, edges, a.nodes,
+                                                    pr)),
+        "kmeans500k": (lambda c: km.kmeans(c, km_pts, KM_K,
+                                           n_iters=KM_ITERS),
+                       lambda out: check_kmeans(out, km_pts, km)),
+    }, held)})
+    emit({"phase12": "oracle", "card": card, **oracle_runs(
+        port, hk, phase12_cells(ORACLE_ROWS, ORACLE_ROWS, ORACLE_ROWS), wc,
+        corpora["bench12"][:ORACLE_LINES], held)})
+    unheld = set(TPU_KERNEL) - {k for r in set(runs) - before
+                                for k in runs[r][1]}
+    if unheld:
+        raise AssertionError(f"phase 12: no call of {sorted(unheld)} held")
+    emit({"phase": "adaptive", "seconds": time.perf_counter() - t12,
+          "card": card})
 
     wc_prof = profile_path(
         lambda: run_wordcount(port, hk, wc, corpora["zipf50k"])[:4],

@@ -24,6 +24,15 @@ every query spill each stage's output as a store and resume from it
 (``exec/recovery.py``).  Stores: ``Context.from_store``,
 ``Dataset.to_store`` (``io/store.py``), and ``Context.read_text`` (one
 row per line of local text files, ``io/providers.py``).
+
+``Context(local_debug=True)`` is the reference's LocalDebug: the
+terminal calls (``collect``, ``count``, the scalars, ``cache``,
+``do_while``) run the sequential oracle (``oracle.run_oracle``) over
+the sources' host tables instead of the executor; the sources are still
+built on the Context's device.  ``Dataset.cost()`` is the static cost
+model's report for the plan a terminal call would run
+(``analysis/cost.py``); ``JobConfig(adaptive="on")`` lets the executor
+rewrite the plan's remaining stages from measured rows (``adapt/``).
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from dryad_tpu_torch import oracle as _oracle
 from dryad_tpu_torch.exec.data import PData, maybe_shrink_for_collect, \
     pdata_from_host, pdata_from_packed_strings, pdata_to_host, \
     split_partitions
@@ -66,8 +76,10 @@ class Context:
     def __init__(self, device="cuda", nparts: int = 8,
                  config: JobConfig | None = None,
                  event_log: Optional[Callable[[dict], None]] = None,
-                 spill_dir: Optional[str] = None):
+                 spill_dir: Optional[str] = None,
+                 local_debug: bool = False):
         self.config = config or JobConfig()
+        self.local_debug = local_debug
         self.mesh = Mesh(resolve_device(device), nparts)
         self.nparts = nparts
         self.spill_dir = spill_dir
@@ -82,23 +94,28 @@ class Context:
                      capacity: int | None = None,
                      str_max_len: int | None = None) -> "Dataset":
         """A partitioned dataset from host columns (block-partitioned
-        rows; lists of str/bytes become string columns)."""
+        rows; lists of str/bytes become string columns).  The source
+        keeps the caller's columns for the oracle (by reference)."""
         str_max_len = str_max_len or self.config.string_max_len
         pdata = pdata_from_host(columns, self.mesh, capacity=capacity,
                                 str_max_len=str_max_len)
         return Dataset(self, E.Source(parents=(), data=pdata,
-                                      _npartitions=self.nparts))
+                                      _npartitions=self.nparts,
+                                      host=dict(columns)))
 
     def from_pdata(self, pdata: PData,
-                   partitioning: E.Partitioning = E.Partitioning.none()
+                   partitioning: E.Partitioning = E.Partitioning.none(),
+                   host: Optional[Mapping[str, Any]] = None
                    ) -> "Dataset":
         """A dataset over data already on the mesh, with the partitioning
         it is claimed to have (a cached or loop-carried result keeps its
         hash placement, so later joins and group-bys skip the
-        exchange)."""
+        exchange); ``host``, the same rows on the host, for the
+        oracle."""
         return Dataset(self, E.Source(parents=(), data=pdata,
                                       _npartitions=self.nparts,
-                                      _partitioning=partitioning))
+                                      _partitioning=partitioning,
+                                      host=host))
 
     def read_text(self, path, column: str = "line",
                   max_line_len: int | None = None) -> "Dataset":
@@ -111,8 +128,12 @@ class Context:
             read_text_files
         max_line_len = max_line_len or self.config.text_max_line_len
         data, lens, _ = read_text_files(expand_paths(path), max_line_len)
+        # the lines as host bytes only for the oracle: a per-line Python
+        # object is what read_text otherwise avoids
+        host = ({column: [bytes(r[:n]) for r, n in zip(data, lens)]}
+                if self.local_debug else None)
         return self.from_pdata(pdata_from_packed_strings(
-            data, lens, self.mesh, column=column))
+            data, lens, self.mesh, column=column), host=host)
 
     def from_store(self, path: str, capacity: int | None = None
                    ) -> "Dataset":
@@ -148,6 +169,18 @@ class Context:
                 f"n_iters={n_iters} exceeds JobConfig.max_loop_iterations="
                 f"{self.config.max_loop_iterations}; raise the knob "
                 f"explicitly for longer loops")
+        if self.local_debug:
+            cur_host = _oracle.run_oracle(init.node)
+            body_node = body(Dataset(self, E.Placeholder(
+                parents=(), name="__loop", _npartitions=self.nparts))).node
+            for _ in range(n_iters):
+                cur_host = _oracle.run_oracle(
+                    body_node, bindings={"__loop": cur_host})
+                if cond is not None and not cond(cur_host):
+                    break
+            return Dataset(self, E.Source(parents=(), data=None,
+                                          _npartitions=self.nparts,
+                                          host=cur_host))
         cur = init._materialize()
         ph = E.Placeholder(parents=(), name="__loop",
                            _npartitions=self.nparts, capacity=cur.capacity)
@@ -486,8 +519,14 @@ class Dataset:
         loop-invariant work out of a do_while body).  The in-memory form:
         the result stays on the card and keeps its partitioning claim.
         The store-backed re-streaming tiers come with the out-of-core
-        slice.  A run that salted a join drops the claim: its rows no
-        longer lie where the key's hash says."""
+        slice.  A run that salted a join, or whose adaptive rewrites
+        flipped a join's broadcast, drops the claim: its rows no longer
+        lie where the key's hash says.  Under ``local_debug`` the oracle's
+        table is cached on the host."""
+        if self.ctx.local_debug:
+            return Dataset(self.ctx, E.Source(
+                parents=(), data=None, _npartitions=self.ctx.nparts,
+                host=_oracle.run_oracle(self.node)))
         pd, salted = self._run()
         return self.ctx.from_pdata(
             pd, partitioning=(E.Partitioning.none() if salted
@@ -496,17 +535,32 @@ class Dataset:
     def plan(self):
         return plan_query(self.node, self.ctx.nparts, config=self.ctx.config)
 
+    def cost(self):
+        """The static cost model's report (``analysis.cost.CostReport``)
+        for the plan a terminal call would run: per-stage row intervals,
+        exact output bytes, per-partition working-set bounds.  Runs
+        nothing and allocates nothing on the card."""
+        from dryad_tpu_torch.analysis.cost import estimate_query
+        return estimate_query(self.node, self.ctx.nparts,
+                              config=self.ctx.config)
+
     def _run(self):
-        """(output, whether any stage ran salted)."""
+        """(output, whether the output's placement left the plan's: a
+        stage ran salted, or an adaptive rewrite flipped a join's
+        broadcast)."""
         graph = self.plan()
-        return (self.ctx.executor.run(graph, spill_dir=self.ctx.spill_dir),
-                any(st._salted for st in graph.stages))
+        ex = self.ctx.executor
+        out = ex.run(graph, spill_dir=self.ctx.spill_dir)
+        return out, (any(st._salted for st in graph.stages)
+                     or ex._last_run_placement_changed)
 
     def _materialize(self):
         return self._run()[0]
 
     def collect(self) -> Dict[str, Any]:
         """Execute and pull all rows to the host."""
+        if self.ctx.local_debug:
+            return _oracle.run_oracle(self.node)
         out = pdata_to_host(maybe_shrink_for_collect(self._materialize(),
                                                      self.ctx.config))
         if isinstance(self.node, E.Take):
@@ -515,7 +569,7 @@ class Dataset:
 
     def to_store(self, path: str, compression: str | None = None) -> None:
         """Execute and persist as a store (ToStore), with this dataset's
-        partitioning claim (dropped when a join salted).
+        partitioning claim (dropped where ``cache`` drops it).
         ``compression="gzip"`` (default ``JobConfig.store_compression``)
         writes level-1 gzip part files."""
         from dryad_tpu_torch.io.store import write_store
@@ -535,13 +589,20 @@ class Dataset:
     # -- terminal scalars --------------------------------------------------
 
     def count(self) -> int:
+        if self.ctx.local_debug:
+            t = _oracle.run_oracle(self.node)
+            return len(next(iter(t.values()), ()))
         return int(self._materialize().counts.sum())
 
     def _scalar(self, kind: str, column: str):
         """A terminal scalar aggregate: per-partition partials on the
         device (``scalar_aggregate``), combined on the host as the JAX
         package does: min / max over the non-empty partitions, the mean
-        weighted by the counts, None for an empty dataset."""
+        weighted by the counts, None for an empty dataset.  Under
+        ``local_debug``, the oracle's aggregate of the column."""
+        if self.ctx.local_debug:
+            t = _oracle.run_oracle(self.node)
+            return _oracle._agg(kind, list(t[column]))
         pd = self._materialize()
         parts = [scalar_aggregate(b, {"out": (kind, column),
                                       "cnt": ("count", None)})

@@ -60,9 +60,19 @@ info at once (``host_reads`` counts the reads of either kind).  Each
 stage's attempts, the settle's among them, fold into ONE ``stage_log``
 entry; ``settle_replayed`` marks a stage the settle re-ran.
 
-Not ported yet (later slices, see ROADMAP.md): adaptivity, the cost
-cross-check, remembered capacity scales, and the run's profile,
-checkpoint and pause hooks.
+Every attempt's output has a static byte size, ``out_bytes`` (each
+leaf's ``numel * element_size``, no device read).  A run given a cost
+report (``run(..., cost_report=)``, ``analysis/cost.py``) cross-checks
+each stage that settled without overflow against its prediction and
+emits ``cost_model_miss`` for rows or bytes outside it.  With
+``JobConfig(adaptive="on")`` each accepted synchronous attempt leaves
+its measured rows as ``adapt.stats.StageStats`` in the run's one-slot
+box, for the rewrite rules.  The executor counts stage runs, their
+wall, their output bytes and capacity retries in ``obs.metrics``'s
+registry.
+
+Not ported yet (later slices, see ROADMAP.md): remembered capacity
+scales, and the run's profile, checkpoint and pause hooks.
 """
 
 from __future__ import annotations
@@ -77,6 +87,7 @@ import torch
 from dryad_tpu_torch.data.columnar import Batch, StringColumn, map_column
 from dryad_tpu_torch.exec.data import PData, split_partitions, \
     stack_partitions
+from dryad_tpu_torch.obs.metrics import REGISTRY, family_counter
 from dryad_tpu_torch.ops import kernels
 from dryad_tpu_torch.ops.hashing import M32, hash_batch_keys
 from dryad_tpu_torch.ops.hopper_kernels import hist_buckets_batched
@@ -87,6 +98,13 @@ from dryad_tpu_torch.plan.stages import Exchange, Stage, StageGraph, StageOp
 from dryad_tpu_torch.utils.config import JobConfig
 
 __all__ = ["Executor", "CapacityError"]
+
+# stage-loop metrics, resolved once (get-or-create handles are stable)
+_M_STAGE_RUNS = family_counter(REGISTRY, "stage_runs")
+_M_RUN_S = family_counter(REGISTRY, "run_seconds")
+_M_SHUFFLE_B = family_counter(REGISTRY, "shuffle_bytes")
+_M_CAP_RETRIES = family_counter(REGISTRY, "cap_retries")
+
 
 class CapacityError(RuntimeError):
     pass
@@ -122,6 +140,13 @@ def _leaves(b: Batch) -> List[torch.Tensor]:
         out.extend((v.data, v.lengths) if isinstance(v, StringColumn)
                    else (v,))
     return out + [b.count]
+
+
+def _out_bytes(pd: PData) -> int:
+    """Bytes of a stage output on the device: every leaf's numel x
+    element size, the [P] count vector included (shape metadata, no
+    device read)."""
+    return sum(t.numel() * t.element_size() for t in _leaves(pd.batch))
 
 
 def _stage_overflow_scalable(stage: Stage) -> bool:
@@ -471,6 +496,9 @@ def _apply_exchange(parts: List[Batch], ex: Exchange, scale: int,
     """Returns (batches, needs[2], slot_used): the exchange's measured
     max send-slot rows (0 for a broadcast), fed back to later runs of the
     stage."""
+    if ex.axis is not None:
+        raise ValueError(f"exchange over mesh axis {ex.axis!r}: the port's "
+                         f"mesh has one axis, so only global exchanges run")
     cap = ex.out_capacity * scale
     slot = torch.zeros((), dtype=torch.int32, device=parts[0].device)
     if ex.kind == "hash":
@@ -517,6 +545,11 @@ class Executor:
         self._slot_probe_cache: "collections.OrderedDict" = \
             collections.OrderedDict()
         self.probes_run = 0
+        # the last Run.output()'s adaptive rewrites, and whether one of
+        # them flipped a join's broadcast (the output's placement then is
+        # not the planned one: Dataset drops a persisted claim)
+        self._last_run_rewrites = 0
+        self._last_run_placement_changed = False
 
     def _probe_slot_rows(self, pd: PData, keys, slack: int) -> int:
         """Counts-only pre-hop of a first-wave pure hash exchange: every
@@ -822,17 +855,48 @@ class Executor:
             recv_rows=[info[i:i + P]
                        for i in range(3 + L + P, len(info), P)])
 
+    def _check_cost(self, stage: Stage, scale: int, rows_total: int,
+                    out_bytes: int, report=None, event=None) -> None:
+        """Cross-check one settled (non-overflowing) stage against the
+        calling run's static cost prediction: ``cost_model_miss`` events
+        for rows or bytes outside it (``analysis.cost.
+        check_stage_measurement``).  ``report`` and ``event`` are the
+        run's own, never the executor's; the run passes no report for a
+        stage that read a rescaled one.  The prediction describes the
+        PLANNED capacities, which bound every op's rows: a stage that
+        settled at a larger scale, or read one that did, ran past them on
+        purpose and is not checked (the JAX package checks its rows and
+        reports a join that retried past its planned capacity as a miss:
+        ROADMAP Queue 3)."""
+        if report is None or scale != 1:
+            return
+        est = report.stage(stage.id)
+        if est is None:
+            return
+        from dryad_tpu_torch.analysis.cost import check_stage_measurement
+        ev = event if event is not None else self._event
+        for miss in check_stage_measurement(est, scale, rows_total,
+                                            out_bytes, self.nparts):
+            ev(miss)
+
     def _run_stage(self, stage: Stage, results: Dict[int, PData],
                    bindings: Dict[str, PData], defer: Optional[list] = None,
-                   event=None, job=None) -> PData:
+                   event=None, job=None, cost_report=None,
+                   stats_box: Optional[list] = None) -> PData:
         """Run one stage whose inputs are materialized.  With ``defer`` (a
         list) the first attempt reads nothing back: its record (the stage,
-        its info vector on the device, its knobs, the enqueue time) is
-        appended for ``Run._settle``.  Otherwise every attempt reads its
-        info once, emits ``stage_done`` to ``event`` (the executor's sink
-        by default) and retries right-sized on overflow.  ``job`` tags the
-        stage's ``stage_log`` entry."""
+        its info vector on the device, its knobs, its output bytes, the
+        enqueue time) is appended for ``Run._settle``.  Otherwise every
+        attempt reads its info once, emits ``stage_done`` to ``event``
+        (the executor's sink by default) and retries right-sized on
+        overflow; the accepted attempt is cross-checked against
+        ``cost_report`` and, with ``JobConfig(adaptive="on")``, leaves its
+        ``StageStats`` in ``stats_box[0]`` (cleared first, so a deferred
+        or failed attempt leaves None).  ``job`` tags the stage's
+        ``stage_log`` entry."""
         ev = event if event is not None else self._event
+        if stats_box is not None:
+            stats_box[0] = None
         inputs = [self._leg_input(leg, results, bindings)
                   for leg in stage.legs]
         bounds = None
@@ -856,13 +920,19 @@ class Executor:
                                                 bounds, salted, hints)
             self._log_attempt(stage, shipped, salted,
                               self.probes_run - probes, job)
+            nbytes = _out_bytes(out)
+            _M_STAGE_RUNS.inc()
+            _M_SHUFFLE_B.inc(nbytes)
             if defer is not None and attempt == 0:
                 # optimistic: the info vector stays on the device until
-                # the settle reads every stage's at once
+                # the settle reads every stage's at once (which counts a
+                # capacity retry, if any)
+                enqueue_s = round(time.perf_counter() - t0, 4)
+                _M_RUN_S.inc(enqueue_s)
                 defer.append({"stage": stage, "info": info, "scale": scale,
                               "slack": slack, "salted": salted,
-                              "enqueue_s": round(time.perf_counter() - t0,
-                                                 4)})
+                              "out_bytes": nbytes, "cost_report": cost_report,
+                              "enqueue_s": enqueue_s})
                 stage._capacity_scale = scale
                 stage._send_slack = slack
                 stage._salted = salted
@@ -874,12 +944,17 @@ class Executor:
             self._note_slot_feedback(stage, info[3:3 + L])
             need_scale, need_slack, need_exch = info[:3]
             of = need_scale > 0 or need_slack > 0
+            rows = info[3 + L:3 + L + P]
+            wall = time.perf_counter() - t0
+            _M_RUN_S.inc(wall)
+            if of:
+                _M_CAP_RETRIES.inc()
             ev({"event": "stage_done", "stage": stage.id,
                 "label": stage.label, "attempt": attempt, "scale": scale,
                 "slack": slack, "overflow": of, "need_scale": need_scale,
                 "need_slack": need_slack, "need_exchange": need_exch,
-                "salted": salted, "rows": info[3 + L:3 + L + P],
-                "wall_s": round(time.perf_counter() - t0, 4)})
+                "salted": salted, "rows": rows, "out_bytes": nbytes,
+                "wall_s": round(wall, 4)})
             decision = self._decide(stage, scale, slack, salted,
                                     need_scale, need_slack, need_exch)
             if decision[0] == "ok":
@@ -887,6 +962,14 @@ class Executor:
                 stage._send_slack = slack
                 stage._salted = salted
                 self._log_settled(stage, scale, slack, salted, info)
+                self._check_cost(stage, scale, sum(rows), nbytes,
+                                 report=cost_report, event=ev)
+                if stats_box is not None and \
+                        self.config.adaptive == "on":
+                    from dryad_tpu_torch.adapt.stats import StageStats
+                    stats_box[0] = StageStats(
+                        stage.id, tuple(rows), capacity=out.capacity,
+                        out_bytes=nbytes, wall_s=round(wall, 4))
                 return out
             _, scale, slack, salted = decision
         raise CapacityError(
@@ -895,16 +978,20 @@ class Executor:
 
     def run(self, graph: StageGraph,
             bindings: Optional[Dict[str, PData]] = None,
-            spill_dir: Optional[str] = None, event_log=None, job=None,
+            spill_dir: Optional[str] = None,
+            cost_report=None, event_log=None, job=None,
             failure_budget: Optional[int] = None) -> PData:
         """Execute a graph with lineage-tracked recovery
         (``exec.recovery.Run``); ``bindings`` maps a placeholder's name to
         its data (a do_while body's loop-carried input).  With
         ``spill_dir`` every stage output is also written as a store, and a
-        later Run over the same plan resumes from it.  ``event_log`` /
-        ``job`` / ``failure_budget`` are the run's own: its events go to
-        ``event_log`` (else the executor's sink), tagged with ``job``."""
+        later Run over the same plan resumes from it.  ``cost_report``
+        (``analysis.cost.estimate_graph`` of this graph) arms the
+        per-stage cross-check and seeds the adaptive rules' priors.
+        ``event_log`` / ``job`` / ``failure_budget`` are the run's own:
+        its events go to ``event_log`` (else the executor's sink), tagged
+        with ``job``."""
         from dryad_tpu_torch.exec.recovery import Run
         return Run(self, graph, bindings, spill_dir=spill_dir,
-                   failure_budget=failure_budget, event=event_log,
-                   job=job).output()
+                   failure_budget=failure_budget, cost_report=cost_report,
+                   event=event_log, job=job).output()

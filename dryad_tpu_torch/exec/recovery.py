@@ -20,12 +20,25 @@ end, emits the ``stage_done`` events, feeds the measured send slots back,
 and, where a stage overflowed, sets its right-sized knobs, drops it and
 every stage computed from it, and replays them synchronously.
 
+With ``JobConfig(adaptive="on")`` a Run builds an
+``adapt.manager.AdaptiveManager`` and takes the synchronous path (each
+stage's rows are needed on the host when it materializes): after each
+stage it computes, the manager may rewrite the stages not yet run, and
+the walk re-reads the graph's edges at every step.  An adaptive run
+writes a ``.fp`` file (the stage's fingerprint) beside each spill and
+loads no spill without one; every run loads a spill with a ``.fp`` only
+when it names the stage's current fingerprint.  ``cost_report`` (an
+``analysis.cost.CostReport`` of the graph) is cross-checked at each
+stage that settles without overflow, the settle's included; a rewrite
+drops the predictions of the stages it reshaped.
+
 A Run is the per-job state: the event sink (``event=``, else the
-executor's), tagged with ``job=`` when given, the failure budget and the
-memo all live on it, never on the shared executor.  Left out until their
-ROADMAP items come: adaptive rewrites and the cost report (Queue 1 item
-8); the plan event, spans, the resource sampler and the metrics snapshot
-in ``job_done``, checkpoint and pause (item 10).
+executor's), tagged with ``job=`` when given, the failure budget, the
+memo, the adaptive manager, the cost report and the one-slot stats box
+all live on it, never on the shared executor.  Left out until their
+ROADMAP items come: the plan event, spans, the resource sampler and the
+metrics snapshot in ``job_done``, checkpoint and pause (Queue 1 item
+10).
 """
 
 from __future__ import annotations
@@ -39,7 +52,7 @@ from typing import Dict, Optional
 import torch
 
 from dryad_tpu_torch.exec.data import PData
-from dryad_tpu_torch.exec.executor import CapacityError
+from dryad_tpu_torch.exec.executor import _M_CAP_RETRIES, CapacityError
 from dryad_tpu_torch.plan.stages import StageGraph
 
 __all__ = ["Run", "FailureBudgetExceeded"]
@@ -65,15 +78,27 @@ class Run:
                  spill_dir: Optional[str] = None,
                  failure_budget: Optional[int] = None,
                  spill_compression: Optional[str] = None,
-                 event=None, job=None):
+                 cost_report=None, event=None, job=None):
         cfg = executor.config
         self.ex = executor
         self.graph = graph
         self.bindings = bindings or {}
         self.spill_dir = spill_dir
+        self.cost_report = cost_report
         self.job = job
         sink = event if event is not None else executor._event
         self._event = _tagged(sink, job) if job is not None else sink
+        # the adaptive boundary hook's measured stats: a one-slot box of
+        # THIS run (a concurrent run on the same executor has its own)
+        self._stats_box = [None]
+        self.adapt = None
+        if cfg.adaptive == "on":
+            from dryad_tpu_torch.adapt.manager import (AdaptiveManager,
+                                                       levels_of_mesh)
+            self.adapt = AdaptiveManager(
+                graph, cfg, executor.nparts,
+                levels=levels_of_mesh(executor.mesh), event=self._event,
+                cost_report=cost_report)
         self.spill_compression = (spill_compression
                                   if spill_compression is not None
                                   else cfg.spill_compression)
@@ -81,8 +106,10 @@ class Run:
                                else cfg.failure_budget)
         self.failures = 0
         self._results: Dict[int, PData] = {}
+        # an adaptive run needs each stage's rows when it materializes:
+        # the synchronous path, for this run only
         self._defer = ([] if cfg.deferred_needs and not spill_dir
-                       else None)
+                       and self.adapt is None else None)
         if spill_dir:
             os.makedirs(spill_dir, exist_ok=True)
 
@@ -95,9 +122,20 @@ class Run:
         t0 = time.time()
         self.ex._log_at = {}
         self.ex.stage_log = []
-        out = self.result(self.graph.out_stage)
+        # an adaptive rewrite may redirect the output to an appended
+        # stage mid-walk: walk until the output stage stands still
+        while True:
+            out_sid = self.graph.out_stage
+            out = self.result(out_sid)
+            if self.graph.out_stage == out_sid:
+                break
         if self._defer:
             out = self._settle()
+        applied = self.adapt.applied if self.adapt is not None else []
+        self.ex._last_run_rewrites = len(applied)
+        self.ex._last_run_placement_changed = any(
+            e.get("kind") in ("broadcast_promote", "broadcast_demote")
+            for e in applied)
         reach, frontier = set(), [self.graph.out_stage]
         while frontier:
             sid = frontier.pop()
@@ -131,7 +169,7 @@ class Run:
         self.ex.host_reads += 1
         P = self.ex.nparts
         bad: Dict[int, tuple] = {}
-        slots = []
+        slots, clean = [], []
         off = 0
         for rec in deferred:
             stage = rec["stage"]
@@ -147,11 +185,15 @@ class Run:
                 "slack": rec["slack"], "overflow": of,
                 "need_scale": need_scale, "need_slack": need_slack,
                 "need_exchange": need_exch, "salted": rec["salted"],
-                "rows": info[3 + L:3 + L + P], "deferred": True,
+                "rows": info[3 + L:3 + L + P],
+                "out_bytes": rec["out_bytes"], "deferred": True,
                 "wall_s": rec["enqueue_s"]})
             self.ex._log_settled(stage, rec["scale"], rec["slack"],
                                  rec["salted"], info)
-            if of:
+            if not of:
+                clean.append((rec, sum(info[3 + L:3 + L + P])))
+            else:
+                _M_CAP_RETRIES.inc()
                 decision = self.ex._decide(
                     stage, rec["scale"], rec["slack"], rec["salted"],
                     need_scale, need_slack, need_exch)
@@ -176,6 +218,14 @@ class Run:
         for stage, measured in slots:
             if not any(d in dirty for d in stage.input_stage_ids()):
                 self.ex._note_slot_feedback(stage, measured)
+        # the cost cross-check of every stage that settled clean on whole
+        # inputs (a dirty one is checked on its synchronous replay)
+        for rec, rows in clean:
+            if rec["stage"].id not in dirty:
+                self.ex._check_cost(rec["stage"], rec["scale"], rows,
+                                    rec["out_bytes"],
+                                    report=rec["cost_report"],
+                                    event=self._event)
         if bad:
             # the settle replay IS a capacity retry: a zero budget means
             # the first overflow is surfaced, not healed
@@ -218,17 +268,46 @@ class Run:
         return self._results[sid]
 
     def _compute(self, sid: int) -> None:
-        """Run one ready stage (every input materialized)."""
+        """Run one ready stage (every input materialized), then the
+        adaptive boundary hook: the stages not yet run may be rewritten
+        from this one's measured rows before any of them runs (Dryad's
+        ``NotifyUpstreamVertexCompleted``)."""
         stage = self.graph.stage(sid)
+        # a stage is cross-checked only on planned inputs: none of its
+        # ancestors ran rescaled (their outputs exceed the prediction's
+        # capacities, on purpose)
+        planned, todo, seen = True, stage.input_stage_ids(), set()
+        while todo and planned:
+            a = todo.pop()
+            if a not in seen:
+                seen.add(a)
+                up = self.graph.stage(a)
+                planned = up._capacity_scale == 1
+                todo.extend(up.input_stage_ids())
         out = self.ex._run_stage(stage, self._results, self.bindings,
                                  defer=self._defer, event=self._event,
-                                 job=self.job)
+                                 job=self.job, stats_box=self._stats_box,
+                                 cost_report=(self.cost_report if planned
+                                              else None))
         self._results[sid] = out
         self._save_spill(sid, out)
         total = len(self.graph.stages)
         self._event({"event": "progress", "done": len(self._results),
                      "total": total, "stage": sid,
                      "pct": round(100.0 * len(self._results) / total, 1)})
+        st = self._stats_box[0]
+        if self.adapt is not None and st is not None and st.stage == sid:
+            n_before = len(self.adapt.applied)
+            self.adapt.on_stage_materialized(st, set(self._results))
+            # a rewrite reshapes stages the static model never saw: drop
+            # their predictions, so the cross-check cannot miss against
+            # pre-rewrite bounds
+            if self.cost_report is not None:
+                for ev in self.adapt.applied[n_before:]:
+                    for rid in ([ev.get("stage")]
+                                + list(ev.get("new_stages", ()))
+                                + list(ev.get("orphaned", ()))):
+                        self.cost_report._by_stage.pop(rid, None)
 
     def invalidate(self, sid: int, count_failure: bool = True,
                    drop_spill: bool = False) -> None:
@@ -265,13 +344,21 @@ class Run:
         from dryad_tpu_torch.io.store import write_store
         write_store(self._spill_path(sid), pd,
                     compression=self.spill_compression)
+        if self.adapt is not None:
+            # an adaptive run may have reshaped this stage; a resume
+            # replans without the rewrite, so record the shape that ran
+            with open(self._spill_path(sid) + ".fp", "w") as f:
+                f.write(self._stage_fp(sid))
         self._event({"event": "stage_spilled", "stage": sid})
 
     def _load_spill(self, sid: int) -> Optional[PData]:
         """The spilled output of ``sid``, or None.  A spill that carries a
-        ``.fp`` file (the JAX package writes one for an adaptively
-        rewritten stage) loads only when it names this stage's
-        fingerprint; a miss recomputes, never wrong rows."""
+        ``.fp`` file (an adaptive run writes one) loads only when it names
+        this stage's current fingerprint, and an adaptive run loads no
+        spill without one (this run may already have rewritten the
+        stage); a refusal recomputes, never wrong rows.  Fingerprints of
+        stages with UDFs name the callables by object id, so a resume in
+        a new process recomputes those."""
         if not self.spill_dir:
             return None
         p = self._spill_path(sid)
@@ -281,10 +368,13 @@ class Run:
         if os.path.exists(fp_file):
             try:
                 with open(fp_file) as f:
-                    if f.read().strip() != self._stage_fp(sid):
-                        return None
+                    ok = f.read().strip() == self._stage_fp(sid)
             except OSError:
-                return None
+                ok = False
+        else:
+            ok = self.adapt is None
+        if not ok:
+            return None
         from dryad_tpu_torch.io.store import read_store
         pd = read_store(p, self.ex.mesh)
         self._event({"event": "stage_restored", "stage": sid})

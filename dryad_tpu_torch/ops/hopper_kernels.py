@@ -38,6 +38,9 @@ kernel's own name with its batched arguments.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 
 from dryad_tpu_torch.ops import _build
@@ -76,8 +79,28 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
+# set inside ``shape_only()``: meta tensors may take the plain versions
+_shape_only = threading.local()
+
+
+@contextlib.contextmanager
+def shape_only():
+    """Within this block (the static cost model's shape-only run,
+    ``analysis/cost.py``) a wrapper given meta tensors runs its plain
+    version on them: shapes and dtypes only, no data, nothing computed and
+    nothing launched.  Outside it a meta tensor is refused like any other
+    device but cpu and cuda."""
+    prev = getattr(_shape_only, "on", False)
+    _shape_only.on = True
+    try:
+        yield
+    finally:
+        _shape_only.on = prev
+
+
 def _capture(name: str, size: int, *args) -> None:
-    if capture is not None:
+    # a shape-only call launches nothing: there is no call to hold
+    if capture is not None and not getattr(_shape_only, "on", False):
         capture.setdefault(name, []).append((size, args))
 
 
@@ -92,12 +115,14 @@ def _check(name: str, t: torch.Tensor, dtypes, ndim: int) -> None:
 
 def _on_card(name: str, *ts: torch.Tensor) -> bool:
     """True for CUDA tensors (launch the kernel), False for CPU tensors
-    (plain version); anything else, or a mix, raises."""
+    (plain version) and, inside ``shape_only()``, for meta tensors;
+    anything else, or a mix, raises."""
     devs = {t.device for t in ts}
     if len(devs) != 1:
         raise ValueError(f"{name}: tensors on different devices {devs}")
     kind = next(iter(devs)).type
-    if kind == "cpu":
+    if kind == "cpu" or (kind == "meta"
+                         and getattr(_shape_only, "on", False)):
         return False
     if kind == "cuda":
         return True

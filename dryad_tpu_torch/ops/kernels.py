@@ -667,7 +667,9 @@ def _group_aggregate_smallkey(batch: Batch, key_names: Sequence[str],
     # wrapped i32 span lands negative and takes the same fallback)
     span = kmax - kmin + 1
     use = (batch.count > 0) & (span >= 1) & (span <= S)
-    if not bool(use):
+    # meta tensors (the cost model's shape-only run) hold no span to
+    # read: both lowerings give the same schema and capacity
+    if batch.device.type == "meta" or not bool(use):
         return fallback(batch)
 
     slot = torch.clamp(kcol.to(torch.int64) - kmin, 0, S - 1)
@@ -1488,7 +1490,9 @@ def hash_join(left: Batch, right: Batch, left_keys: Sequence[str],
     if right_unique and how in ("inner", "left"):
         out, need, dups = lookup_join(left, right, left_keys, right_keys,
                                       out_capacity, suffix, how)
-        if not bool(dups):
+        # on meta tensors (the cost model's shape-only run) there is no
+        # flag to read: both joins give the same schema and capacity
+        if dups.device.type == "meta" or not bool(dups):
             return out, need
     return general_join(left, right, left_keys, right_keys, out_capacity,
                         suffix, how)

@@ -64,12 +64,16 @@ def _node(cls):
 
 @_node
 class Source(Node):
-    """Materialized input (a ``PData``)."""
+    """Materialized input (a ``PData``).  ``host`` is the host table the
+    sequential oracle reads (``oracle.run_oracle``): the caller's columns
+    by reference for ``from_columns``, never a copy; None where there is
+    none."""
 
     parents: Tuple[Node, ...]
     data: Any
     _npartitions: int
     _partitioning: Partitioning = Partitioning.none()
+    host: Any = None
 
     @property
     def npartitions(self) -> int:

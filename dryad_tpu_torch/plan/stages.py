@@ -27,11 +27,13 @@ class StageOp:
 
 @dataclasses.dataclass
 class Exchange:
-    """Repartition at a leg boundary (kind hash | range).  out_capacity is
-    resolved by the planner and scaled by the executor on overflow.  A
-    range exchange splits on bounds sampled from stage ``bounds_from``'s
-    output column ``bounds_key``; ``descending`` reverses the partition
-    order."""
+    """Repartition at a leg boundary (kind hash | range | broadcast).
+    out_capacity is resolved by the planner and scaled by the executor on
+    overflow.  A range exchange splits on bounds sampled from stage
+    ``bounds_from``'s output column ``bounds_key``; ``descending``
+    reverses the partition order.  ``axis`` names one mesh axis of a
+    multi-level mesh (a hierarchical aggregation hop); the port's
+    one-axis mesh runs only ``axis=None``, the global exchange."""
 
     kind: str
     keys: tuple = ()
@@ -39,6 +41,7 @@ class Exchange:
     descending: bool = False
     bounds_from: Optional[int] = None
     bounds_key: Optional[str] = None
+    axis: Optional[str] = None
 
 
 @dataclasses.dataclass

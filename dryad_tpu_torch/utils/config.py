@@ -7,6 +7,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+from dryad_tpu_torch.adapt.thresholds import \
+    SKEW_SIBLING_MEDIAN_FACTOR as _SKEW_FACTOR
+
 __all__ = ["JobConfig"]
 
 
@@ -41,6 +44,36 @@ class JobConfig:
     # read back in ONE batched read at job end, and an overflow replays
     # the overflowed stages and their dependents synchronously
     deferred_needs: bool = True
+
+    # -- adaptive execution (adapt/) ---------------------------------------
+    # stage-boundary graph rewriting from measured per-partition rows (the
+    # connection managers of adapt/rules.py).  "off": nothing is built and
+    # the plan runs as planned.  "on": the not-yet-executed stages may be
+    # rewritten after each stage materializes; that needs each stage's
+    # rows on the host, so the run takes the synchronous path (no
+    # deferred settle)
+    adaptive: str = "off"
+    # a partition is skewed at >= this multiple of its sibling median
+    # (adapt/thresholds.py)
+    adapt_skew_factor: float = _SKEW_FACTOR
+    # collapse a hierarchical aggregation tree to one global exchange at
+    # most this many measured upstream rows
+    adapt_agg_collapse_rows: int = 4096
+    # expand a flat merge into per-axis hops (multi-level meshes) from
+    # this many measured upstream rows
+    adapt_agg_expand_rows: int = 1 << 20
+    # shrink a downstream exchange's capacity when it exceeds this
+    # multiple of the measured row bound
+    adapt_shrink_factor: float = 2.0
+    # a broadcast join's measured build side must stay within this
+    # fraction of the probe side's rows: above it a planned broadcast
+    # demotes to hash exchanges, below it a saltable hash join promotes
+    adapt_broadcast_max_ratio: float = 0.25
+
+    # -- static cost model (analysis/cost.py) ------------------------------
+    # per-device memory budget the DTA2xx findings compare the predicted
+    # working set with; 0 = unknown (no budget finding)
+    device_hbm_bytes: int = 0
 
     # -- fault tolerance (exec/recovery.py) --------------------------------
     # lineage replays allowed before FailureBudgetExceeded
@@ -99,6 +132,18 @@ class JobConfig:
             (self.token_max_len >= 1, "token_max_len >= 1"),
             (self.string_max_len >= 1, "string_max_len >= 1"),
             (len(self.token_delims) >= 1, "token_delims non-empty"),
+            (self.device_hbm_bytes >= 0, "device_hbm_bytes >= 0"),
+            (self.adaptive in ("off", "on"),
+             "adaptive in ('off', 'on')"),
+            (self.adapt_skew_factor >= 1.0, "adapt_skew_factor >= 1.0"),
+            (self.adapt_agg_collapse_rows >= 1,
+             "adapt_agg_collapse_rows >= 1"),
+            (self.adapt_agg_expand_rows >= 1,
+             "adapt_agg_expand_rows >= 1"),
+            (self.adapt_shrink_factor >= 1.0,
+             "adapt_shrink_factor >= 1.0"),
+            (self.adapt_broadcast_max_ratio > 0,
+             "adapt_broadcast_max_ratio > 0"),
         ]
         bad = [msg for ok, msg in checks if not ok]
         if bad:

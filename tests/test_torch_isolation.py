@@ -91,3 +91,48 @@ def test_store_and_text_never_load_the_jax_native_library(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["False", "True"]
+
+
+NEW_MODULES = ("dryad_tpu_torch.oracle", "dryad_tpu_torch.adapt",
+               "dryad_tpu_torch.adapt.thresholds",
+               "dryad_tpu_torch.adapt.stats", "dryad_tpu_torch.adapt.rewrite",
+               "dryad_tpu_torch.adapt.rules", "dryad_tpu_torch.adapt.manager",
+               "dryad_tpu_torch.analysis",
+               "dryad_tpu_torch.analysis.diagnostics",
+               "dryad_tpu_torch.analysis.domain",
+               "dryad_tpu_torch.analysis.cost", "dryad_tpu_torch.obs",
+               "dryad_tpu_torch.obs.metrics")
+
+
+def test_oracle_adapt_cost_modules_are_checked():
+    """The oracle, adaptive-execution, cost-model and metrics modules are
+    among those the two checks above import and scan."""
+    assert set(NEW_MODULES) <= set(_modules())
+
+
+def test_oracle_cost_and_adaptive_runs_load_no_jax():
+    """A local_debug collect, a cost report with its cross-checked run
+    and an adaptive run, in a fresh interpreter: neither jax nor
+    dryad_tpu is loaded."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "from dryad_tpu_torch import Context, JobConfig\n"
+        "from dryad_tpu_torch.analysis.cost import estimate_graph\n"
+        "cols = {'k': np.arange(4000, dtype=np.int32) % 9,\n"
+        "        'v': np.arange(4000, dtype=np.int32)}\n"
+        "def q(c):\n"
+        "    return c.from_columns(cols).group_by(['k'], {'s': ('sum', 'v')})"
+        ".hash_partition(['s'])\n"
+        "dbg = Context(device='cpu', local_debug=True)\n"
+        "assert len(q(dbg).collect()['k']) == 9\n"
+        "ctx = Context(device='cpu', config=JobConfig(adaptive='on'))\n"
+        "g = q(ctx).plan()\n"
+        "ctx.executor.run(g, cost_report=estimate_graph(g, 8))\n"
+        "assert ctx.executor._last_run_rewrites == 1\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'dryad_tpu')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
