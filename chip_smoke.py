@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--lines N] [--rows N] [--records N] [--nodes N]
                           [--points N] [--lineitems N] [--orders N]
-                          [--out DIR]
+                          [--stream-scale F] [--out DIR]
 
 Phases, each failing the run (non-zero exit, no result line) on error:
 
@@ -197,7 +197,33 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      20,000 rows and WordCount over bench12's first 2,000 lines, on the
      card and through ``Context(device="cuda", local_debug=True)``,
      equal as row multisets (f32 within the bound);
-  3-12. after each of those main-path runs, every kernel call it made
+ 13. out-of-core streaming through the streamed entry points
+     (``read_store_stream``, ``read_text_stream``, ``cache()``,
+     ``terasort_ooc``; inputs written under ``--out``, deleted after;
+     ``--stream-scale F`` scales its data, the chunks stay):
+     ``terasortooc10m`` (10,000,000 TeraGen records written chunk
+     by chunk to a store, ``order_by(key).to_store`` in 262,144-row
+     chunks, read back: the count, keys non-decreasing as bytes, the
+     (key, payload) multiset; ``ooc_inflight`` 1 once, 2 cold, warm and
+     profiled, the in-core tier once, the depth-2 query at 1,000,000
+     records (the big warm run's peak device memory above its start
+     must be at most 1.5 times this run's), and the ``terasort_ooc``
+     app at 2,000,000; ``hist_buckets`` once per chunk scattered, the
+     in-core tier none), ``pagerankstream100k`` (phase 7's graph from a store,
+     ``pagerank_stream`` over its ``cache()``: ranks within rtol 2e-3,
+     two cache writes cold, at least two hits a superstep),
+     ``kmeansstream500k`` (phase 8's points from a store,
+     ``kmeans_stream``: within 1e-3), ``q13stream1m5_right`` /
+     ``_full`` (the SF1 orders streamed, right / full joined with the
+     150,000 customers, orders per customer exactly numpy's, the 50,000
+     without an order present) and ``readtextstream1m`` (the bench12
+     corpus from a file, WordCount equal to phase 3's counts).  Each
+     cold (held, host syncs counted), warm (wall, rows/s, chunks and
+     bytes copied each way, prefetch stalls, peak device memory) and
+     profiled warm (busy share); no exchange kernel launches; then the
+     scatter's histogram at its shapes against ``bincount`` and its
+     bound (``scatter_hist``);
+  3-13. after each of those main-path runs, every kernel call it made
      is made again through the kernel and through its plain version on
      the very tensors the run passed (integers exactly, prefix_sum2
      within twice its bound);
@@ -228,7 +254,8 @@ path, for PageRank and the NaN hold, for k-means and each phase-8,
 phase-9 and phase-10 run (each exchanging stage's send-slot rows and
 their source per attempt among them), one for phase 11 (``{"phase":
 "recovery", ...}``), one per phase-12 cell and one each for its cost
-model and oracle runs (``{"phase12": ...}``), per profile, per pack side
+model and oracle runs (``{"phase12": ...}``), one per phase-13 cell and
+its scatter line (``{"phase13": ...}``), per profile, per pack side
 and per kernel, then
 the card line, then the
 ``{"kernels": [...]}`` line, then the result line
@@ -242,6 +269,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import os
 import shutil
@@ -249,6 +277,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 
 import numpy as np
@@ -2917,6 +2946,583 @@ def oracle_runs(port, hk, cells, wc, lines, held) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: out-of-core streaming at full size
+
+
+@dataclasses.dataclass(frozen=True)
+class Phase13Sizes:
+    """Phase 13's sizes: the streamed TeraSort's records (and the small
+    run its peak device memory is held against), its chunk, the
+    ``terasort_ooc`` app's records; PageRank's nodes (edges 10x), k-means'
+    points, the TPC-H lineitems whose orders and customers Q13 joins, the
+    chunk of those three, the text stream's chunk."""
+
+    records: int = 10_000_000
+    small_records: int = 1_000_000
+    record_chunk: int = 262_144
+    app_records: int = 2_000_000
+    nodes: int = 100_000
+    points: int = 500_000
+    point_chunk: int = 65_536
+    lineitems: int = 6_000_000
+    stream_chunk: int = 65_536
+    text_chunk: int = 65_536
+
+
+PEAK_RATIO = 1.5     # peak device memory at 10x the records, at most
+# the kernels each phase-13 cell must launch (a one-partition plan has no
+# exchange: slot_expand and slot_compact never launch); k-means' f32
+# group sums take the small-key lowering (a one-hot product), not the
+# compensated scan
+STREAM_MUST = {"terasortooc10m": ("hist_buckets",),
+               "pagerankstream100k": ("hist_buckets", "prefix_sum",
+                                      "prefix_sum2"),
+               "kmeansstream500k": ("hist_buckets",),
+               "q13stream1m5": ("hist_buckets", "prefix_sum"),
+               "readtextstream1m": ("hist_buckets", "prefix_sum")}
+
+
+def teragen_chunk(i: int, rows: int, seed: int = 0):
+    """Chunk i of a chunk-wise TeraGen (``terasort_ooc``'s chunk seeds):
+    the records of ``terasort.gen_records(rows, seed * 1_000_003 + i)``
+    as a (keys [rows, 10] u8, payload [rows] i32) pair, with no Python
+    bytes per record."""
+    rng = np.random.RandomState(seed * 1_000_003 + i)
+    keys = rng.randint(ord(" "), ord("~") + 1, (rows, 10), dtype=np.uint8)
+    return keys, rng.randint(0, 2**31, rows).astype(np.int32)
+
+
+def write_teragen(ooc, path: str, n: int, chunk: int):
+    """n TeraGen records written chunk by chunk with
+    ``write_chunks_to_store``; returns the input (keys, payload) for the
+    oracle."""
+    schema = {"key": {"kind": "str", "max_len": 10},
+              "payload": {"kind": "dense", "dtype": "int32", "shape": []}}
+    keys = np.empty((n, 10), np.uint8)
+    pay = np.empty(n, np.int32)
+
+    def chunks():
+        for i in range(-(-n // chunk)):
+            s = i * chunk
+            rows = min(chunk, n - s)
+            keys[s:s + rows], pay[s:s + rows] = teragen_chunk(i, rows)
+            yield ooc.HChunk({"key": (keys[s:s + rows],
+                                      np.full(rows, 10, np.int32)),
+                              "payload": pay[s:s + rows]}, rows)
+    ooc.write_chunks_to_store(path, chunks(), schema)
+    return keys, pay
+
+
+def _key_lanes(keys):
+    """10-byte keys as (first 8 bytes, last 2) big-endian integers: their
+    lexicographic order is the keys' byte order."""
+    k = np.ascontiguousarray(keys)
+    return (k[:, :8].copy().view(">u8")[:, 0].astype(np.uint64),
+            k[:, 8:].copy().view(">u2")[:, 0].astype(np.uint64))
+
+
+def read_sorted(ooc, path: str):
+    """A sorted store read back: (keys [n, 10] u8, payload)."""
+    src = ooc.ChunkSource.from_store(path, 1 << 22)
+    out = ooc._concat_hchunks(src.schema, list(src))
+    if out.n and not (out.cols["key"][1] == 10).all():
+        raise AssertionError("terasort: a key lost its 10 bytes")
+    return out.cols["key"][0], out.cols["payload"]
+
+
+def check_terasort_store(label, got, want) -> dict:
+    """The output rows against the input's: the count, keys
+    non-decreasing as bytes, and the (key, payload) multiset equal
+    (both sorted by key then payload, numpy's lexsort)."""
+    gk, gp = got
+    wk, wp = want
+    if len(gp) != len(wp):
+        raise AssertionError(f"{label}: {len(gp)} rows, not {len(wp)}")
+    hi, lo = _key_lanes(gk)
+    if not ((hi[:-1] < hi[1:]) | ((hi[:-1] == hi[1:])
+                                  & (lo[:-1] <= lo[1:]))).all():
+        raise AssertionError(f"{label}: keys not non-decreasing")
+    whi, wlo = _key_lanes(wk)
+    # sorted by key already: only rows of equal keys (rare for 10 random
+    # bytes) need ordering by payload before the comparison
+    tie = (hi[:-1] == hi[1:]) & (lo[:-1] == lo[1:])
+    go = np.lexsort((gp, lo, hi)) if tie.any() else slice(None)
+    wo = np.lexsort((wp, wlo, whi))
+    if not (np.array_equal(hi[go], whi[wo]) and np.array_equal(lo[go],
+                                                               wlo[wo])
+            and np.array_equal(gp[go], wp[wo])):
+        raise AssertionError(f"{label}: not the input's (key, payload) "
+                             f"multiset")
+    return {"rows": len(gp), "equal_key_pairs": int(tie.sum())}
+
+
+def stream_run(port, hk, ooc, app, config, device="cuda", capture=False,
+               syncs=False) -> dict:
+    """One run of ``app(ctx)`` in a new ``Context`` with an event log:
+    launch counters, the streamed path's copy counters and the peak device
+    memory reset just before (the peak also as allocated above the bytes
+    held before the run), read just after.  ``capture`` records the
+    kernel calls (for ``hold_run``), ``syncs`` counts the host syncs
+    (``counted_syncs``).  The streamed jobs' ``stream_stage_done`` events
+    give the prefetch counters and each external sort's shape."""
+    import torch
+    from dryad_tpu_torch.utils.events import EventLog
+    log = EventLog(level=2)
+    ctx = port.Context(device=device, nparts=NPARTS, config=config,
+                       event_log=log)
+    cuda = device == "cuda"
+    hk.reset_launches()
+    ooc.reset_transfers()
+    if capture:
+        hk.capture = {}
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if cuda else 0
+
+    def go():
+        t0 = time.perf_counter()
+        out = app(ctx)
+        if cuda:
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    if syncs:
+        (out, wall), n_syncs, sites = counted_syncs(go)
+    else:
+        (out, wall), n_syncs, sites = go(), None, None
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    captured = hk.capture
+    hk.capture = None
+    done = [e for e in log.events if e["event"] == "stream_stage_done"]
+    kinds = collections.Counter(e["event"] for e in log.events)
+    chunks = ooc.transfers["h2d_chunks"]
+    return {"out": out, "captured": captured, "launches": dict(hk.launches),
+            "wall_s": wall, "chunks_to_device": chunks,
+            "chunks_to_host": ooc.transfers["d2h_chunks"],
+            "h2d_bytes": ooc.transfers["h2d_bytes"],
+            "d2h_bytes": ooc.transfers["d2h_bytes"],
+            "prefetched_chunks": sum(e["prefetch_chunks"] for e in done),
+            "prefetch_stalls": sum(e["prefetch_stalls"] for e in done),
+            "prefetch_stall_s": sum(e["prefetch_stall_s"] for e in done),
+            "stream_jobs": len(done),
+            "sorts": [s for e in done for s in e["sorts"]],
+            "cache_writes": kinds["ooc_cache_write"],
+            "cache_hits": kinds["ooc_cache_hit"],
+            "peak_bytes": peak, "base_bytes": base,
+            "run_peak_bytes": peak - base,
+            "host_syncs": n_syncs,
+            "host_syncs_per_chunk": (n_syncs / chunks
+                                     if n_syncs is not None and chunks
+                                     else None),
+            "sync_sites": sites[:8] if sites else sites}
+
+
+def stream_profile(run, label, tries: int = 3) -> dict:
+    """Device time and busy share of one warm run, summed from the
+    profiler's raw device events (a streamed PageRank launches hundreds
+    of thousands of kernels, and building the per-op tables over them
+    took most of phase 13's time); taken again, up to
+    ``tries`` times, while a kernel the run launched shows no device
+    time.  ``run()`` returns (table, launches, load_s, query_s)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _out, launches, load, query = run()
+        by = collections.Counter()
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == torch.autograd.DeviceType.CUDA:
+                by[e.name()] += (e.duration_ns() / 1e6
+                                 if hasattr(e, "duration_ns")
+                                 else e.duration_us() / 1e3)
+        ours = {k: sum(v for n, v in by.items()
+                       if any(s in n for s in subs))
+                for k, subs in DEVICE_NAMES.items()}
+        missing = [k for k, n in launches.items() if n and not ours[k]]
+        if not missing:
+            break
+    if missing:
+        raise AssertionError(f"{label}: {missing} launched but show no "
+                             f"profiled device time in {tries} profiles")
+    total = sum(by.values())
+    return {"wall_s": load + query, "device_ms": total,
+            "device_busy_share": total / 1e3 / (load + query),
+            "port_kernels_ms": ours, "profile_takes": attempt + 1,
+            "top": [[k[:120], v] for k, v in by.most_common(6)]}
+
+
+def _line(r: dict, rows: int) -> dict:
+    """A run's printable numbers (no table, no captured calls)."""
+    line = {k: v for k, v in r.items() if k not in ("out", "captured")}
+    line["rows_per_s"] = rows / r["wall_s"]
+    return line
+
+
+def stream_cell(port, hk, ooc, label, app, check, config, rows, held,
+                device="cuda") -> dict:
+    """A phase-13 cell: a cold run (its kernel calls held, its host syncs
+    counted, its result checked), a warm run (wall, copies, peak memory,
+    checked) and one profiled warm run (device busy share).  ``cell_s``:
+    the seconds the cell took, holds and profile included."""
+    t0 = time.perf_counter()
+    steps = {}
+    cold = stream_run(port, hk, ooc, app, config, device, capture=True,
+                      syncs=True)
+    must = STREAM_MUST[label.split("_")[0]]
+    lc = cold["launches"]
+    if any(lc[k] == 0 for k in must) or lc["slot_expand"] or \
+            lc["slot_compact"]:
+        raise AssertionError(f"{label}: launches {lc}, must launch {must} "
+                             f"and no exchange kernel")
+    t1 = time.perf_counter()
+    held(label, lc, cold["captured"])
+    steps["hold_s"] = time.perf_counter() - t1
+    sizes = check(cold["out"])
+    steps["cold_s"] = time.perf_counter() - t0
+    warm = stream_run(port, hk, ooc, app, config, device)
+    check(warm["out"])
+    line = {"cold": _line(cold, rows), "warm": _line(warm, rows), **sizes}
+
+    def profiled():
+        r = stream_run(port, hk, ooc, app, config, device)
+        return None, r["launches"], 0.0, r["wall_s"]
+    t1 = time.perf_counter()
+    if device == "cuda":
+        line["profiled"] = stream_profile(profiled, label)
+    steps["profile_s"] = time.perf_counter() - t1
+    line["cell_s"] = time.perf_counter() - t0
+    line["steps"] = steps
+    return line, cold, warm
+
+
+def terasort_ooc_runs(port, hk, ooc, ts, sizes, tmp, held,
+                      device="cuda") -> dict:
+    """terasortooc10m: TeraGen records written chunk by chunk, then
+    ``read_store_stream(chunk_rows).order_by(key).to_store(out)``, read
+    back and held (count, byte order, the input's multiset): ooc_inflight
+    1 once, 2 cold / warm / profiled, the in-core tier once, the same
+    depth-2 query at ``small_records`` (its peak device memory against the
+    big run's), and the ``terasort_ooc`` app."""
+    chunk = sizes.record_chunk
+    src = os.path.join(tmp, "teragen")
+    small = os.path.join(tmp, "teragen_small")
+    out = os.path.join(tmp, "sorted")
+    t0 = time.perf_counter()
+    want = write_teragen(ooc, src, sizes.records, chunk)
+    gen_s = time.perf_counter() - t0
+    want_small = write_teragen(ooc, small, sizes.small_records, chunk)
+
+    def query(path):
+        def app(ctx):
+            ctx.read_store_stream(path, chunk_rows=chunk).order_by(
+                [("key", False)]).to_store(out)
+            return read_sorted(ooc, out)
+        return app
+
+    def ooc_cfg(depth, incore=0):
+        return port.JobConfig(ooc_inflight=depth, ooc_incore_bytes=incore)
+
+    first = {}
+
+    def check(got):
+        # the first read-back is held to the input's multiset; later runs
+        # must give the very same rows
+        if not first:
+            first.update(check_terasort_store("terasortooc10m", got, want))
+            first["out"] = got
+        elif not (np.array_equal(got[0], first["out"][0])
+                  and np.array_equal(got[1], first["out"][1])):
+            raise AssertionError("terasortooc10m: a run's rows differ from "
+                                 "the first run's")
+        return {"rows": first["rows"]}
+
+    def sort_launches(label, r):
+        """hist_buckets: one launch per chunk scattered (pass B and any
+        re-bucketing), and no exchange kernel."""
+        (s,) = r["sorts"]
+        want_hist = s["scattered"] + s["rebucketed"]
+        if r["launches"]["hist_buckets"] != want_hist or \
+                r["launches"]["slot_expand"] or r["launches"]["slot_compact"]:
+            raise AssertionError(
+                f"{label}: launches {r['launches']} for {s}")
+        return s
+
+    res = {"records": sizes.records, "chunk_rows": chunk,
+           "teragen_write_s": gen_s, "started_s": time.perf_counter()}
+    line, cold, warm = stream_cell(port, hk, ooc, "terasortooc10m",
+                                   query(src), check, ooc_cfg(2),
+                                   sizes.records, held, device)
+    res["depth2"] = {**line, "sort": sort_launches("terasortooc10m", cold)}
+    scatter = scatter_hist_calls("terasortooc10m", cold.pop("captured"),
+                                 (res["depth2"]["sort"]["n_buckets"],))
+    sort_launches("terasortooc10m warm", warm)
+    if res["depth2"]["sort"]["scattered"] != -(-sizes.records // chunk):
+        raise AssertionError("terasortooc10m: pass B scattered "
+                             f"{res['depth2']['sort']} chunks")
+    d1 = stream_run(port, hk, ooc, query(src), ooc_cfg(1), device,
+                    capture=True)
+    held("terasortooc10m_depth1", d1["launches"], d1.pop("captured"))
+    check(d1["out"])
+    res["depth1"] = {**_line(d1, sizes.records),
+                     "sort": sort_launches("terasortooc10m depth 1", d1)}
+    inc = stream_run(port, hk, ooc, query(src), ooc_cfg(2, 1 << 30),
+                     device)
+    check(inc["out"])
+    (s,) = inc["sorts"]
+    if not s["incore"] or inc["launches"]["hist_buckets"]:
+        raise AssertionError(f"terasortooc10m in-core: {s}, "
+                             f"{inc['launches']}")
+    res["incore"] = _line(inc, sizes.records)
+    first.clear()
+    want = want_small
+    sm = stream_run(port, hk, ooc, query(small), ooc_cfg(2), device)
+    check(sm["out"])
+    sort_launches("terasortooc1m", sm)
+    res["small"] = _line(sm, sizes.small_records)
+    big, little = warm["run_peak_bytes"], sm["run_peak_bytes"]
+    res["peak"] = {
+        "records": [sizes.records, sizes.small_records],
+        "peak_bytes": [warm["peak_bytes"], sm["peak_bytes"]],
+        "run_peak_bytes": [big, little],
+        "run_peak_bytes_per_chunk_row": [big / chunk, little / chunk],
+        "ratio": big / max(little, 1), "limit": PEAK_RATIO}
+    if device == "cuda" and not big <= PEAK_RATIO * little:
+        raise AssertionError(f"terasortooc10m: peak device memory "
+                             f"{res['peak']} grows with the data")
+    # the app: records generated chunk by chunk inside external_sort
+    app_out = os.path.join(tmp, "sorted_app")
+    info = {}
+
+    def app(ctx):
+        ts.terasort_ooc(sizes.app_records, chunk, out_store=app_out,
+                        device=device, info=info)
+        return read_sorted(ooc, app_out)
+    ar = stream_run(port, hk, ooc, app, None, device, capture=True)
+    held("terasort_ooc2m", ar["launches"], ar.pop("captured"))
+    keys = np.concatenate([teragen_chunk(i, min(chunk, sizes.app_records
+                                                - i * chunk))[0]
+                           for i in range(-(-sizes.app_records // chunk))])
+    pays = np.concatenate([teragen_chunk(i, min(chunk, sizes.app_records
+                                                - i * chunk))[1]
+                           for i in range(-(-sizes.app_records // chunk))])
+    check_terasort_store("terasort_ooc", ar["out"], (keys, pays))
+    ar["sorts"] = [info]
+    sort_launches("terasort_ooc", ar)
+    res["app"] = {**_line(ar, sizes.app_records), "sort": info}
+    for p in (src, small, out, app_out):
+        shutil.rmtree(p, ignore_errors=True)
+    res["cell_s"] = time.perf_counter() - res.pop("started_s")
+    return res, scatter
+
+
+def scatter_hist_calls(label, captured, n_buckets_of) -> dict:
+    """Per (ids, B) shape at a wanted bucket count, out of a run's
+    captured ``hist_buckets`` calls: one call and the number of calls at
+    that shape."""
+    out = {}
+    for _size, args in captured.get("hist_buckets", []):
+        bid, nb = args
+        if nb in n_buckets_of:
+            ent = out.setdefault((label, bid.shape[1], nb),
+                                 {"args": args, "calls": 0})
+            ent["calls"] += 1
+    return out
+
+
+def scatter_hist_rows(hk, scatter, card) -> list:
+    """The streamed scatter's histogram at its shapes (one id row of a
+    whole chunk: the sort's 262,144 ids at B = 78 range buckets,
+    PageRank's joined 262,144-row chunks and k-means' 65,536 at B = 64
+    hash buckets): the kernel, its plain version and ``bincount`` (CUDA
+    events, ms per call over 20 calls), the device kernels a call runs
+    (the route: ``hist_shared`` past 32 buckets, after a memset of the
+    counts), and the bound (each id read once, each count written once,
+    over the memory rate)."""
+    rows = []
+    for (label, _n, nb), ent in sorted(scatter.items()):
+        args = ent["args"]
+        wrapper, plain = fns(hk, "hist_buckets")
+        nbytes, ops = work("hist_buckets", args)
+        for _ in range(3):    # a profiler window may record no event
+            names = sorted({k[:40] for k, _c, _us in profile_window(
+                lambda: wrapper(*args))})
+            if any(n in k for k in names
+                   for n in DEVICE_NAMES["hist_buckets"]):
+                break
+        rows.append({
+            "run": label, "ids": list(args[0].shape), "n_buckets": nb,
+            "calls_in_run": ent["calls"],
+            "ms": cuda_ms(lambda: wrapper(*args)),
+            "plain_ms": cuda_ms(lambda: plain(*args)),
+            "library_ms": cuda_ms(library_call("hist_buckets", args)),
+            "bound_ms": max(nbytes / PEAK_BYTES_PER_S,
+                            ops / PEAK_OPS_PER_S) * 1e3,
+            "bound_by": ("bytes" if nbytes / PEAK_BYTES_PER_S
+                         >= ops / PEAK_OPS_PER_S else "operations"),
+            "device_kernels": names, "card": card})
+    return rows
+
+
+def phase13_runs(port, hk, sizes, tmp, lines, want_counts, held,
+                 device="cuda") -> dict:
+    """Phase 13's runs through the public streamed entry points, each
+    held to its oracle (see the module docstring).  Stores and files live
+    under ``tmp`` and are deleted.  Returns one line per cell, and under
+    ``"scatter_calls"`` one captured scatter histogram per (run, ids,
+    buckets): the sort's range scatter, PageRank's and k-means' hash
+    scatters."""
+    from dryad_tpu_torch.apps import kmeans as km
+    from dryad_tpu_torch.apps import pagerank as pr
+    from dryad_tpu_torch.apps import terasort as ts
+    from dryad_tpu_torch.exec import ooc
+    tera, scatter = terasort_ooc_runs(port, hk, ooc, ts, sizes, tmp,
+                                      held, device)
+    res = {"terasortooc10m": tera}
+    chunk = sizes.stream_chunk
+
+    def store_of(name, cols):
+        path = os.path.join(tmp, name)
+        src = ooc.ChunkSource.from_arrays(cols, chunk)
+        ooc.write_chunks_to_store(path, iter(src), src.schema)
+        return path
+
+    # PageRank over a cached edge stream
+    n_edges = PR_EDGES * sizes.nodes // 100_000
+    edges = pr.gen_graph(sizes.nodes, n_edges, seed=0)
+    epath = store_of("edges", edges)
+    cache_dir = os.path.join(tmp, "cache")
+    cfg = port.JobConfig(ooc_cache_dir=cache_dir)
+
+    def pagerank(ctx):
+        return pr.pagerank_stream(ctx, ctx.read_store_stream(
+            epath, chunk_rows=chunk).cache(), sizes.nodes,
+            n_iters=PR_ITERS)
+
+    # the float64 references, computed once for the cell's three checks
+    pr_ref = types.SimpleNamespace(pagerank_numpy=lambda *_a, _r=(
+        pr.pagerank_numpy(edges, sizes.nodes, PR_ITERS)): _r)
+    line, cold, warm = stream_cell(
+        port, hk, ooc, "pagerankstream100k", pagerank,
+        lambda out: check_pagerank(out, edges, sizes.nodes, pr_ref), cfg,
+        len(edges["src"]) * PR_ITERS, held, device)
+    scatter.update(scatter_hist_calls("pagerankstream100k",
+                                      cold.pop("captured"), (64,)))
+    # the cold run writes the edges' entry and the out-degrees' once;
+    # every pass of every superstep re-streams them
+    if cold["cache_writes"] != 2 or warm["cache_writes"] or \
+            min(cold["cache_hits"], warm["cache_hits"]) < 2 * PR_ITERS:
+        raise AssertionError(f"pagerankstream100k: cache events cold "
+                             f"{cold['cache_writes']} writes / "
+                             f"{cold['cache_hits']} hits, warm "
+                             f"{warm['cache_writes']} / "
+                             f"{warm['cache_hits']}")
+    res["pagerankstream100k"] = {"edges": len(edges["src"]),
+                                 "iters": PR_ITERS, "chunk_rows": chunk,
+                                 **line}
+    shutil.rmtree(cache_dir, ignore_errors=True)
+
+    # k-means over a point stream
+    pts, _ = km.gen_points(sizes.points, KM_DIM, KM_K, seed=0)
+    ppath = store_of("points", pts)
+    init = np.asarray(pts["x"])[:KM_K].copy()
+    km_ref = types.SimpleNamespace(kmeans_numpy=lambda *_a, _r=(
+        km.kmeans_numpy(pts, KM_K, KM_ITERS)): _r)
+    line, cold, _ = stream_cell(
+        port, hk, ooc, "kmeansstream500k",
+        lambda ctx: km.kmeans_stream(ctx, ctx.read_store_stream(
+            ppath, chunk_rows=sizes.point_chunk), KM_K, init,
+            n_iters=KM_ITERS),
+        lambda out: check_kmeans(out, pts, km_ref), None,
+        sizes.points * KM_ITERS, held, device)
+    scatter.update(scatter_hist_calls("kmeansstream500k",
+                                      cold.pop("captured"), (64,)))
+    res["kmeansstream500k"] = {"chunk_rows": sizes.point_chunk, **line}
+
+    # TPC-H Q13's shape: the orders streamed, the customers the
+    # materialized side of a right and a full join, orders per customer
+    _li, orders, cust = tpch_tables(sizes.lineitems)
+    del _li
+    opath = store_of("orders", orders)
+    n_cust = len(cust["custkey"])
+    n_per, _s, _b = _per_customer(orders, np.ones(len(orders["okey"]),
+                                                  bool), n_cust)
+
+    def q13(how):
+        def app(ctx):
+            return (ctx.read_store_stream(opath, chunk_rows=chunk)
+                    .select(_q13_hit)
+                    .join(ctx.from_columns(cust), ["custkey"], how=how)
+                    .group_by(["custkey"], {"n": ("sum", "hit"),
+                                            "rows": ("count", None)})
+                    .collect())
+        return app
+
+    def check_q13_stream(out):
+        o = np.argsort(out["custkey"])
+        k = np.asarray(out["custkey"])[o]
+        n = np.asarray(out["n"])[o]
+        if not (np.array_equal(k, cust["custkey"])
+                and np.array_equal(n, n_per[k])
+                and np.array_equal(np.asarray(out["rows"])[o],
+                                   np.maximum(n_per[k], 1))):
+            raise AssertionError("q13stream1m5: orders per customer differ "
+                                 "from numpy")
+        return {"customers": n_cust, "orders": len(orders["okey"]),
+                "unmatched_customers": int((n == 0).sum())}
+
+    res["q13stream1m5"] = {}
+    for how in ("right", "full"):
+        line, _, _ = stream_cell(
+            port, hk, ooc, f"q13stream1m5_{how}", q13(how),
+            check_q13_stream, None, len(orders["okey"]), held,
+            device)
+        if line["unmatched_customers"] != n_cust - len(
+                np.unique(orders["custkey"])):
+            raise AssertionError("q13stream1m5: customers with no order "
+                                 "missing")
+        res["q13stream1m5"][how] = line
+
+    # WordCount over a text stream
+    tpath = os.path.join(tmp, "bench12.txt")
+    with open(tpath, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+    def wordcount(ctx):
+        return (ctx.read_text_stream(tpath, chunk_rows=sizes.text_chunk,
+                                     max_line_len=96)
+                .split_words("line", out_capacity=sizes.text_chunk * 10,
+                             lower=True)
+                .group_by(["line"], {"n": ("count", None)}).collect())
+
+    def check_wc(out):
+        got = dict(zip(out["line"], (int(v) for v in out["n"])))
+        if got != want_counts:
+            raise AssertionError("readtextstream1m: counts differ from "
+                                 "phase 3's")
+        return {"lines": len(lines), "words": len(got)}
+
+    line, _, _ = stream_cell(port, hk, ooc, "readtextstream1m", wordcount,
+                             check_wc, None, len(lines), held,
+                             device)
+    res["readtextstream1m"] = line
+    res["scatter_calls"] = scatter
+    for name in ("edges", "points", "orders", "bench12.txt"):
+        p = os.path.join(tmp, name)
+        shutil.rmtree(p, ignore_errors=True) if os.path.isdir(p) \
+            else os.remove(p)
+    return res
+
+
+def _q13_hit(c):
+    """The orders' columns plus ``hit`` = 1: summed per customer it counts
+    the customer's orders (0 for a customer no order matched, whose row
+    the right / full join synthesizes)."""
+    import torch
+    return dict(c, hit=torch.ones_like(c["okey"]))
+
+
+# ---------------------------------------------------------------------------
 # phase 5: timing
 
 
@@ -3408,6 +4014,10 @@ def main(argv=None) -> int:
     ap.add_argument("--orders", type=int, default=1_500_000,
                     help="phase 10's orders, each with 1 to 7 nested "
                     "lineitems (TPC-H SF1: 1,500,000)")
+    ap.add_argument("--stream-scale", type=float, default=1.0,
+                    help="phase 13's data sizes times this (the chunks "
+                    "stay): 10,000,000 TeraSort records, 100,000 PageRank "
+                    "nodes, 500,000 points, 6,000,000 lineitems' orders")
     ap.add_argument("--out", default=os.path.join(HERE, "chiprun_out"))
     a = ap.parse_args(argv)
 
@@ -3864,6 +4474,36 @@ def main(argv=None) -> int:
     if unheld:
         raise AssertionError(f"phase 12: no call of {sorted(unheld)} held")
     emit({"phase": "adaptive", "seconds": time.perf_counter() - t12,
+          "card": card})
+
+    # phase 13: out-of-core streaming through the streamed entry points,
+    # the kernel calls of every run held; the scatter's histogram at its
+    # shapes.  Its stores and files go to a directory under --out,
+    # deleted at the end of the phase so that --out stays small
+    before = set(runs)
+    sc = a.stream_scale
+    sizes13 = Phase13Sizes(
+        records=int(10_000_000 * sc), small_records=int(1_000_000 * sc),
+        app_records=int(2_000_000 * sc), nodes=int(100_000 * sc),
+        points=int(500_000 * sc), lineitems=int(6_000_000 * sc))
+    tmp = tempfile.mkdtemp(prefix="phase13-", dir=a.out)
+    t13 = time.perf_counter()
+    try:
+        thirteen = phase13_runs(port, hk, sizes13, tmp, corpora["bench12"],
+                                wc_counts["bench12"], held)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    scatter = thirteen.pop("scatter_calls")
+    for label, line in thirteen.items():
+        emit({"phase13": label, **line, "card": card})
+    emit({"phase13": "scatter_hist",
+          "rows": scatter_hist_rows(hk, scatter, card), "card": card})
+    del scatter
+    unheld = {"hist_buckets", "prefix_sum", "prefix_sum2"} - {
+        k for r in set(runs) - before for k in runs[r][1]}
+    if unheld:
+        raise AssertionError(f"phase 13: no call of {sorted(unheld)} held")
+    emit({"phase": "streaming", "seconds": time.perf_counter() - t13,
           "card": card})
 
     wc_prof = profile_path(

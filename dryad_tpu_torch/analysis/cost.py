@@ -115,6 +115,9 @@ class CostReport:
     stages: List[StageCostEstimate] = dataclasses.field(
         default_factory=list)
     device_hbm_bytes: int = 0
+    # the plan reads a chunk-streamed source: the device holds
+    # O(chunk_rows) rows by construction, so the model has no stages
+    streamed: bool = False
 
     def __post_init__(self):
         self._by_stage = {s.stage: s for s in self.stages}
@@ -142,6 +145,7 @@ class CostReport:
     def to_payload(self) -> dict:
         return {"nparts": self.nparts,
                 "device_hbm_bytes": self.device_hbm_bytes,
+                "streamed": self.streamed,
                 "stages": [s.to_payload() for s in self.stages]}
 
     @staticmethod
@@ -150,9 +154,12 @@ class CostReport:
             d.get("nparts", 1),
             [StageCostEstimate.from_payload(s)
              for s in d.get("stages", ())],
-            d.get("device_hbm_bytes", 0))
+            d.get("device_hbm_bytes", 0), d.get("streamed", False))
 
     def render(self) -> str:
+        if self.streamed:
+            return ("streamed plan: device working set is O(chunk_rows)"
+                    " — the in-memory cost model does not apply")
         lines = [f"{'stage':>6} {'label':<16} {'cap':>9} "
                  f"{'rows':>19} {'out_bytes':>15} {'work/dev':>15}"]
         for s in self.stages:
@@ -180,10 +187,20 @@ class CostReport:
 # source seeding
 
 
+class _Streamed(Exception):
+    """The plan reads a chunk-streamed source: the device holds
+    O(chunk_rows) rows by construction, so the in-memory model does not
+    apply."""
+
+
 def _source_state(data: Any, nparts: int) -> AbsState:
     """Abstract value of a bound source: a PData's real row count (one
     copy of its [P] counts to the host, no kernel) and schema; anything
-    else widens to approximate."""
+    else widens to approximate.  A chunk-streamed source (a
+    ``StreamSource``, which wraps its ChunkSource as ``.cs``) ends the
+    pass."""
+    if getattr(data, "cs", None) is not None:
+        raise _Streamed()
     batch = getattr(data, "batch", None)
     if batch is not None:                       # PData
         schema = schema_from_columns(batch.columns, lead_dims=2)
@@ -491,12 +508,25 @@ def estimate_graph(graph, nparts: int, config=None) -> CostReport:
     deterministic — any re-plan of the same query).  Runs every op on
     meta tensors (``hopper_kernels.shape_only``: a kernel wrapper takes
     its plain version on them): nothing is computed, and nothing is
-    allocated or launched on the card."""
-    from dryad_tpu_torch.exec.executor import _fuse_stage_ops
-    from dryad_tpu_torch.ops.hopper_kernels import shape_only
+    allocated or launched on the card.  A plan over a chunk-streamed
+    source gets a report with ``streamed`` set and no stages."""
     hbm = int(getattr(config, "device_hbm_bytes", 0) or 0)
     slack = int(getattr(config, "initial_send_slack", 2) or 2)
     report = CostReport(nparts, [], device_hbm_bytes=hbm)
+    try:
+        _estimate_stages(graph, nparts, config, report, slack)
+    except _Streamed:
+        return CostReport(nparts, [], device_hbm_bytes=hbm, streamed=True)
+    report.__post_init__()
+    return report
+
+
+def _estimate_stages(graph, nparts: int, config, report: CostReport,
+                     slack: int) -> None:
+    """``estimate_graph``'s walk: every stage's estimate appended to
+    ``report``."""
+    from dryad_tpu_torch.exec.executor import _fuse_stage_ops
+    from dryad_tpu_torch.ops.hopper_kernels import shape_only
     states: Dict[int, AbsState] = {}
     with torch.no_grad(), shape_only():
         for st in graph.topo_order():
@@ -560,8 +590,6 @@ def estimate_graph(graph, nparts: int, config=None) -> CostReport:
                 cur.capacity, out_iv,
                 Interval(work_lo, work_hi), approx=cur.approx
                 or ob is None, notes=tuple(dict.fromkeys(notes))))
-    report.__post_init__()
-    return report
 
 
 def estimate_query(node, nparts: int, config=None) -> CostReport:
@@ -585,6 +613,8 @@ def cost_diagnostics(report: CostReport, config=None) -> List[Diagnostic]:
     card the P partitions' outputs sit side by side, so the findings hold
     for the JAX package's mesh, as its own gate computes them."""
     out: List[Diagnostic] = []
+    if report.streamed:
+        return out
     hbm = report.device_hbm_bytes
     worst: Optional[StageCostEstimate] = None
     for s in report.stages:
@@ -639,23 +669,38 @@ def cache_diagnostic(report: CostReport, config=None
     """DTA204: ``cache()`` of edge-scale data (more than
     ``CACHE_HBM_FRACTION`` of the device budget).  Applies to the
     MATERIALIZED bytes of the cached dataset (the last stage's output),
-    not a transient working set.  The port's ``cache()`` keeps its result
-    on the card for the Context's lifetime (the JAX package's
-    store-backed re-streaming tier comes with out-of-core execution), so
-    the finding warns, as the JAX package's does with that tier off."""
+    not a transient working set.
+
+    The severity follows ``JobConfig.ooc_restream_cache``, as in the JAX
+    package: with the store-backed re-streaming tier on (the default)
+    ``cache()`` LOWERS to a local chunked store instead of pinning the
+    card, so the finding is informational; with the tier off it warns,
+    the result pinning device memory for the Context's lifetime."""
     hbm = int(getattr(config, "device_hbm_bytes", 0) or 0)
-    if not hbm or not report.stages:
+    if not hbm or report.streamed or not report.stages:
         return None
     last = report.stages[-1]
     ob = last.out_bytes.hi
     if ob is None or ob <= CACHE_HBM_FRACTION * hbm:
         return None
+    scale = (f"{fmt_bytes(ob)} ({100.0 * ob / hbm:.0f}% of "
+             f"device_hbm_bytes={fmt_bytes(hbm)})")
+    if getattr(config, "ooc_restream_cache", False):
+        return Diagnostic(
+            "DTA204", "info",
+            f"edge-scale cache(): {scale} lowers to the store-backed "
+            f"re-streaming cache tier (local chunked cache, per-chunk "
+            f"fingerprints; iterations re-stream local sequential "
+            f"reads) — set JobConfig.ooc_cache_dir for restart reuse, "
+            f"or ooc_restream_cache=False to pin device-resident",
+            node=f"stage{last.stage}:{last.label}")
     return Diagnostic(
         "DTA204", "warn",
-        f"cache() would pin {fmt_bytes(ob)} ({100.0 * ob / hbm:.0f}% of "
-        f"device_hbm_bytes={fmt_bytes(hbm)}) in device memory for the "
-        f"Context's lifetime — persist with to_store() instead at this "
-        f"scale",
+        f"cache() would pin {scale} in device memory for the Context's "
+        f"lifetime (ooc_restream_cache is off) — re-enable the "
+        f"re-streaming cache tier, or persist with to_store() and "
+        f"read_store_stream() (the >HBM path) instead of cache() at "
+        f"this scale",
         node=f"stage{last.stage}:{last.label}")
 
 

@@ -25,6 +25,18 @@ every query spill each stage's output as a store and resume from it
 ``Dataset.to_store`` (``io/store.py``), and ``Context.read_text`` (one
 row per line of local text files, ``io/providers.py``).
 
+Streamed (out-of-core) data: ``Context.from_stream`` (an
+``exec.ooc.ChunkSource``), ``read_store_stream``, ``read_text_stream``,
+and ``from_store`` of a store with at least
+``JobConfig.ooc_auto_stream_rows`` rows.  A query over a streamed source
+is planned with ONE logical partition and runs over chunk streams
+(``exec/stream_exec.py``), the device holding O(chunk_rows) rows whatever
+the data size; ``collect``, ``count``, the scalars, ``to_store``,
+``cache`` and ``do_while`` take it.  ``cache()`` of streamed data (and of
+edge-scale in-memory data, DTA204) writes a local chunked store keyed by
+the query's stable fingerprint and re-streams it on later passes (the
+re-streaming cache tier, ``JobConfig.ooc_restream_cache``).
+
 ``Context(local_debug=True)`` is the reference's LocalDebug: the
 terminal calls (``collect``, ``count``, the scalars, ``cache``,
 ``do_while``) run the sequential oracle (``oracle.run_oracle``) over
@@ -37,6 +49,15 @@ rewrite the plan's remaining stages from measured rows (``adapt/``).
 
 from __future__ import annotations
 
+import dataclasses as _dc
+import hashlib
+import itertools
+import os
+import shutil
+import tempfile
+import types
+import uuid
+import weakref
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -70,6 +91,154 @@ def _first_if_one(v):
     return v[0] if v.shape and v.shape[0] == 1 else v
 
 
+# ---------------------------------------------------------------------------
+# stable query fingerprints (the re-streaming cache's keys)
+
+# the fallback salt of values with no restart-stable identity (device
+# data, opaque closures): an entry keyed through it stays valid within
+# THIS process (warm do_while iterations still hit), and a restarted job
+# re-streams cold (a miss, never a stale hit)
+_PROCESS_SALT = uuid.uuid4().hex
+
+# id() reuse guard of the salt fallback: a monotonic sequence pinned to
+# each object through a weakref, so a garbage-collected object's id
+# reused by a new one cannot alias its key; objects without weakrefs get
+# a fresh sequence per call (always a miss)
+_LOCAL_ID_SEQ = itertools.count()
+_LOCAL_IDS: Dict[int, Any] = {}     # id -> (weakref, seq)
+
+
+def _local_identity(v) -> str:
+    ent = _LOCAL_IDS.get(id(v))
+    if ent is not None and ent[0]() is v:
+        return f"local:{_PROCESS_SALT}:{ent[1]}"
+    seq = next(_LOCAL_ID_SEQ)
+    try:
+        def _drop(ref, k=id(v)):
+            cur = _LOCAL_IDS.get(k)
+            if cur is not None and cur[0] is ref:
+                del _LOCAL_IDS[k]
+        _LOCAL_IDS[id(v)] = (weakref.ref(v, _drop), seq)
+    except TypeError:
+        pass
+    return f"local:{_PROCESS_SALT}:{seq}"
+
+
+def _code_const_fp(c) -> str:
+    """repr() of a code constant, except nested code objects (whose repr
+    holds a memory address) recurse into bytecode and constants, and
+    frozensets list in sorted order (their iteration order depends on
+    PYTHONHASHSEED)."""
+    if isinstance(c, types.CodeType):
+        inner = ",".join(_code_const_fp(x) for x in c.co_consts)
+        return f"code({c.co_name},{c.co_code.hex()},[{inner}])"
+    if isinstance(c, frozenset):
+        return "frozenset{" + ",".join(sorted(map(repr, c))) + "}"
+    if isinstance(c, tuple):
+        return "(" + ",".join(_code_const_fp(x) for x in c) + ")"
+    return repr(c)
+
+
+def _stable_fn_fp(fn) -> Optional[str]:
+    """Restart-stable identity of a user callable: module / qualname,
+    bytecode, constants and hashable closure / default values; None when
+    its behavior hangs on values that do not hash byte-exactly (bound
+    objects, large arrays), and the caller falls back to the process
+    salt (a miss, never a stale hit)."""
+    code = getattr(fn, "__code__", None)
+    if code is None:
+        return None
+    parts = [getattr(fn, "__module__", "") or "", fn.__qualname__,
+             code.co_code.hex()]
+    try:
+        parts.append(_code_const_fp(code.co_consts))
+    except Exception:
+        return None
+    captured = []
+    if getattr(fn, "__closure__", None):
+        try:
+            captured.extend(c.cell_contents for c in fn.__closure__)
+        except ValueError:          # empty cell
+            return None
+    captured.extend(getattr(fn, "__defaults__", None) or ())
+    for v in captured:
+        if isinstance(v, (int, float, complex, str, bytes, bool,
+                          type(None))):
+            parts.append(repr(v))
+        elif isinstance(v, np.ndarray) and v.nbytes <= (1 << 20):
+            parts.append(hashlib.sha256(
+                np.ascontiguousarray(v).tobytes()).hexdigest())
+        else:
+            return None
+    return hashlib.sha256("|".join(parts).encode()).hexdigest()
+
+
+def _stable_value_fp(v) -> str:
+    if callable(v):
+        return _stable_fn_fp(v) or _local_identity(v)
+    if isinstance(v, E.Decomposable):
+        return "dec(" + ",".join(
+            _stable_value_fp(getattr(v, part))
+            for part in ("seed", "merge", "finalize")) + ")"
+    if isinstance(v, np.ndarray):
+        if v.nbytes <= (1 << 20):
+            return hashlib.sha256(
+                np.ascontiguousarray(v).tobytes()).hexdigest()
+        return _local_identity(v)
+    if isinstance(v, dict):
+        return "{" + ",".join(
+            f"{k!r}:{_stable_value_fp(v[k])}" for k in sorted(v)) + "}"
+    if isinstance(v, (list, tuple)):
+        return "[" + ",".join(_stable_value_fp(x) for x in v) + "]"
+    if isinstance(v, (int, float, complex, str, bytes, bool,
+                      type(None))):
+        return repr(v)
+    if _dc.is_dataclass(v) and not isinstance(v, type):
+        inner = ",".join(
+            f"{f.name}={_stable_value_fp(getattr(v, f.name))}"
+            for f in _dc.fields(v))
+        return f"{type(v).__name__}({inner})"
+    return _local_identity(v)
+
+
+def _stable_source_fp(data) -> str:
+    """Content identity of a Source node's data: a stored or text-file
+    stream carries a fingerprint over its path and checksums
+    (``ChunkSource.from_store`` / ``from_text``), so changed source
+    bytes change the key; anything else takes the process salt."""
+    from dryad_tpu_torch.exec.stream_exec import StreamSource
+    cs = data.cs if isinstance(data, StreamSource) else data
+    fp = getattr(cs, "fingerprint", None)
+    if fp:
+        return fp
+    return _local_identity(data)
+
+
+def _stable_node_fp(root: E.Node) -> str:
+    """Restart-stable structural fingerprint of a query DAG, the
+    re-streaming cache key: the logical nodes parents-first, each as its
+    type and every dataclass field (callables by bytecode and captures,
+    sources by content identity); anything unhashable folds in the
+    process salt, so an uncertain key can only MISS across restarts."""
+    parts = []
+    ids: Dict[int, int] = {}
+    for i, n in enumerate(E.walk(root)):
+        ids[n.id] = i
+        fields = []
+        for f in _dc.fields(n):
+            if f.name in ("parents", "host"):
+                continue
+            v = getattr(n, f.name)
+            if f.name == "data":
+                fields.append(f"data={_stable_source_fp(v)}"
+                              if v is not None else "data=None")
+            else:
+                fields.append(f"{f.name}={_stable_value_fp(v)}")
+        parents = ",".join(str(ids[p.id]) for p in n.parents)
+        parts.append(f"{type(n).__name__}({parents})[{';'.join(fields)}]")
+    return hashlib.sha256("\n".join(parts).encode()).hexdigest()
+
+
 class Context:
     """Owns the mesh + executor and creates root Datasets."""
 
@@ -83,6 +252,7 @@ class Context:
         self.mesh = Mesh(resolve_device(device), nparts)
         self.nparts = nparts
         self.spill_dir = spill_dir
+        self._event_log = event_log
         self.executor = Executor(self.mesh, event_log=event_log,
                                  config=self.config)
 
@@ -135,14 +305,118 @@ class Context:
         return self.from_pdata(pdata_from_packed_strings(
             data, lens, self.mesh, column=column), host=host)
 
+    # -- streamed (out-of-core) sources ------------------------------------
+
+    def from_stream(self, source) -> "Dataset":
+        """A streamed Dataset over an ``exec.ooc.ChunkSource``: a query
+        over it plans with one logical partition and runs over chunk
+        streams (``exec/stream_exec.py``), the device holding
+        O(chunk_rows) rows whatever the data size."""
+        from dryad_tpu_torch.exec.stream_exec import StreamSource
+        return Dataset(self, E.Source(parents=(), data=StreamSource(source),
+                                      _npartitions=1))
+
+    def read_store_stream(self, path: str,
+                          chunk_rows: int | None = None) -> "Dataset":
+        """Stream a local store (written by either package) through the
+        plain Dataset API, ``chunk_rows`` rows a chunk (default: the
+        autotuned size with ``JobConfig.ooc_chunk_autotune``, else
+        ``JobConfig.ooc_chunk_rows``)."""
+        from dryad_tpu_torch.exec.ooc import ChunkSource
+        cr = chunk_rows or self._auto_chunk_rows(path) \
+            or self.config.ooc_chunk_rows
+        return self.from_stream(ChunkSource.from_store(path, cr))
+
+    def _auto_chunk_rows(self, store_path: str) -> int | None:
+        """Measured chunk sizing (``JobConfig.ooc_chunk_autotune``): the
+        row width from the store's schema, the copy rate and dispatch
+        floor from a one-time probe on this context's device
+        (``exec/autotune``).  A heuristic: any failure gives None."""
+        if not self.config.ooc_chunk_autotune:
+            return None
+        try:
+            from dryad_tpu_torch.exec.autotune import pick_chunk_rows
+            from dryad_tpu_torch.io.store import store_meta
+            row_bytes = lanes = 0
+            for spec in store_meta(store_path)["schema"].values():
+                if spec["kind"] == "str":
+                    row_bytes += int(spec["max_len"]) + 4
+                    lanes += -(-int(spec["max_len"]) // 4) + 1
+                else:
+                    w = int(np.dtype(spec["dtype"]).itemsize)
+                    n_el = int(np.prod(spec.get("shape", ()),
+                                       dtype=np.int64))
+                    row_bytes += w * n_el
+                    lanes += max(1, w // 4) * n_el
+            return pick_chunk_rows(row_bytes, self.config, row_lanes=lanes,
+                                   device=self.device)
+        except Exception:
+            return None
+
+    def read_text_stream(self, path, column: str = "line",
+                         chunk_rows: int | None = None,
+                         max_line_len: int | None = None) -> "Dataset":
+        """Stream local text files line by line (a file is never held in
+        memory whole); ``path`` as for ``read_text``."""
+        from dryad_tpu_torch.exec.ooc import ChunkSource
+        from dryad_tpu_torch.io.providers import expand_paths
+        return self.from_stream(ChunkSource.from_text(
+            expand_paths(path), chunk_rows or self.config.ooc_chunk_rows,
+            max_line_len or self.config.text_max_line_len, column))
+
+    # -- re-streaming cache plumbing (exec/ooc.py's cache tier) ------------
+
+    def _ooc_cache_root(self) -> str:
+        """The directory of re-streaming cache entries:
+        ``JobConfig.ooc_cache_dir`` (persistent: a restarted job with an
+        intact directory skips the cold pass), else a temporary directory
+        made on first use and removed when the Context is collected."""
+        d = self.config.ooc_cache_dir
+        if d:
+            if "://" in d:
+                raise NotImplementedError(
+                    f"{d}: the port's cache directory is local only; "
+                    f"remote stores wait for ROADMAP Queue 1 item 10")
+            os.makedirs(d, exist_ok=True)
+            return d
+        root = getattr(self, "_ooc_cache_tmp", None)
+        if root is None:
+            root = tempfile.mkdtemp(prefix="dryad-ooc-cache-",
+                                    dir=self.spill_dir)
+            weakref.finalize(self, shutil.rmtree, root, ignore_errors=True)
+            self._ooc_cache_tmp = root
+        return root
+
+    def _cache_event(self):
+        """The sink of the cache's lifecycle events: the Context's event
+        log, with the ``dryad_ooc_cache_hits_total`` /
+        ``dryad_ooc_cache_writes_total`` counters kept current."""
+        from dryad_tpu_torch.obs.metrics import REGISTRY, family_counter
+        sink = self._event_log
+
+        def ev(e):
+            kind = e.get("event")
+            if kind in ("ooc_cache_hit", "ooc_cache_write"):
+                family_counter(REGISTRY, "ooc_cache_hits"
+                               if kind == "ooc_cache_hit"
+                               else "ooc_cache_writes").inc()
+            if sink is not None:
+                sink(e)
+        return ev
+
     def from_store(self, path: str, capacity: int | None = None
                    ) -> "Dataset":
         """Load a store (FromStore), written by this package or the JAX
         one.  Its persisted partitioning is claimed (a later group-by or
         join on those keys skips the exchange) only when it has as many
-        partitions as this context: re-blocking breaks the placement."""
+        partitions as this context: re-blocking breaks the placement.  A
+        store of at least ``JobConfig.ooc_auto_stream_rows`` rows (when
+        set) streams instead (``read_store_stream``)."""
         from dryad_tpu_torch.io.store import read_store, store_meta
         meta = store_meta(path)
+        auto = self.config.ooc_auto_stream_rows
+        if auto and sum(meta.get("counts", [])) >= auto:
+            return self.read_store_stream(path)
         pmeta = meta.get("partitioning", {"kind": "none"})
         part = E.Partitioning(pmeta.get("kind", "none"),
                               tuple(pmeta.get("keys", ())))
@@ -181,6 +455,21 @@ class Context:
             return Dataset(self, E.Source(parents=(), data=None,
                                           _npartitions=self.nparts,
                                           host=cur_host))
+        probe_ph = E.Placeholder(parents=(), name="__loop",
+                                 _npartitions=self.nparts, capacity=1)
+        if init._streaming() or body(Dataset(self, probe_ph))._streaming():
+            # a streamed body: the loop STATE is a small host table
+            # (ranks, centroids), and each iteration binds it as an
+            # in-memory source and runs the body through the streamed
+            # engine, re-reading its streamed inputs from their store or
+            # from the re-streaming cache (device working set
+            # O(chunk_rows))
+            cur_host = init.collect()
+            for _ in range(n_iters):
+                cur_host = body(self.from_columns(cur_host)).collect()
+                if cond is not None and not cond(cur_host):
+                    break
+            return self.from_columns(cur_host)
         cur = init._materialize()
         ph = E.Placeholder(parents=(), name="__loop",
                            _npartitions=self.nparts, capacity=cur.capacity)
@@ -516,21 +805,133 @@ class Dataset:
 
     def cache(self) -> "Dataset":
         """Materialize NOW and reuse the result in later queries (hoist
-        loop-invariant work out of a do_while body).  The in-memory form:
-        the result stays on the card and keeps its partitioning claim.
-        The store-backed re-streaming tiers come with the out-of-core
-        slice.  A run that salted a join, or whose adaptive rewrites
-        flipped a join's broadcast, drops the claim: its rows no longer
-        lie where the key's hash says.  Under ``local_debug`` the oracle's
-        table is cached on the host."""
+        loop-invariant work out of a do_while body).
+
+        In memory the result stays on the card and keeps its
+        partitioning claim; a run that salted a join, or whose adaptive
+        rewrites flipped a join's broadcast, drops the claim (its rows no
+        longer lie where the key's hash says).  Streamed data, and
+        in-memory data of edge scale (DTA204: more than a fraction of
+        ``JobConfig.device_hbm_bytes``), take the store-backed
+        RE-STREAMING tier (``JobConfig.ooc_restream_cache``, default on):
+        the cold pass writes a local chunked store keyed by the query's
+        stable fingerprint (``ooc_cache_write``), and every later pass,
+        or a new process with the same ``ooc_cache_dir``, re-streams it
+        (``ooc_cache_hit``); a corrupt or stale entry falls back to a
+        clean re-stream of the query, never wrong rows.  With the tier
+        off, streamed data is spooled once to an unvalidated temporary
+        store.  Under ``local_debug`` the oracle's table is cached on the
+        host."""
         if self.ctx.local_debug:
             return Dataset(self.ctx, E.Source(
                 parents=(), data=None, _npartitions=self.ctx.nparts,
                 host=_oracle.run_oracle(self.node)))
+        cfg = self.ctx.config
+        if self._streaming():
+            if cfg.ooc_restream_cache:
+                return self._cache_restream_local()
+            d = tempfile.mkdtemp(prefix="dryad-cache-",
+                                 dir=self.ctx.spill_dir)
+            weakref.finalize(self.ctx, shutil.rmtree, d, ignore_errors=True)
+            self.to_store(d + "/data")
+            return self.ctx.read_store_stream(d + "/data")
+        diag = self._cache_cost_diag()
+        if diag is not None and diag.severity == "info":
+            # edge-scale: a local store instead of device memory, streamed
+            # by later queries
+            return self._cache_restream_inmem()
         pd, salted = self._run()
         return self.ctx.from_pdata(
             pd, partitioning=(E.Partitioning.none() if salted
                               else self.node.partitioning))
+
+    def _cache_cost_diag(self):
+        """The DTA204 finding for caching this query (None when it is not
+        edge-scale, the budget is unknown or the tier is off, when
+        nothing would act on it).  Best effort: a cost-model failure
+        never blocks a cache()."""
+        cfg = self.ctx.config
+        if not cfg.device_hbm_bytes or not cfg.ooc_restream_cache:
+            return None
+        try:
+            from dryad_tpu_torch.analysis.cost import cache_diagnostic
+            return cache_diagnostic(self.cost(), cfg)
+        except Exception:
+            return None
+
+    def _cache_restream_local(self) -> "Dataset":
+        """Streamed cache(): the fingerprinted local chunk cache.  The
+        cold pass runs the query through the streamed engine once,
+        writing the entry; a warm entry (a new process with an intact
+        ``ooc_cache_dir`` too) skips it, and every later pass re-streams
+        local sequential reads."""
+        from dryad_tpu_torch.exec import ooc
+        root = self.ctx._ooc_cache_root()
+        key = _stable_node_fp(self.node)
+        ev = self.ctx._cache_event()
+        warm = ooc.cached_chunk_source(root, key)
+        if warm is None:
+            cs = self._stream_run()
+            sc = ooc.write_chunk_cache(root, key, cs)
+            ev({"event": "ooc_cache_write",
+                "path": ooc.cache_entry_paths(root, key)[0],
+                "rows": sc["rows"], "bytes": sc["bytes"]})
+            chunk_rows, schema = sc["chunk_rows"], cs.schema
+        else:
+            chunk_rows = int(warm[1]["chunk_rows"])
+            schema = warm[0].schema
+        return self.ctx.from_stream(ooc.cache_source(
+            root, key, chunk_rows, schema, make_producer=self._stream_run,
+            on_event=ev))
+
+    def _cache_restream_inmem(self) -> "Dataset":
+        """Edge-scale in-memory cache(): materialize once into a local
+        store (``to_store``, per-partition checksums) and hand back a
+        streamed read of it: the result no longer pins the card for the
+        Context's lifetime."""
+        from dryad_tpu_torch.exec import ooc
+        cfg = self.ctx.config
+        root = self.ctx._ooc_cache_root()
+        key = _stable_node_fp(self.node)
+        ev = self.ctx._cache_event()
+        warm = ooc.cached_chunk_source(root, key)
+        if warm is None:
+            entry, data, _side = ooc.cache_entry_paths(root, key)
+            os.makedirs(entry, exist_ok=True)
+            self.to_store(data)
+            sc = ooc.adopt_chunk_cache(root, key, cfg.ooc_chunk_rows)
+            ev({"event": "ooc_cache_write", "path": entry,
+                "rows": sc["rows"], "bytes": sc["bytes"]})
+            warm = ooc.cached_chunk_source(root, key)
+        chunk_rows = int(warm[1]["chunk_rows"])
+
+        def producer():
+            # after a mid-stream invalidation: materialize in memory
+            # again (it fit on the card) and cut it into chunks
+            from dryad_tpu_torch.exec.stream_exec import _resolve_source
+            return _resolve_source(self._materialize(), cfg)
+
+        return self.ctx.from_stream(ooc.cache_source(
+            root, key, chunk_rows, warm[0].schema, make_producer=producer,
+            on_event=ev))
+
+    def _streaming(self) -> bool:
+        """Does any source of the query stream?"""
+        from dryad_tpu_torch.exec.stream_exec import StreamSource
+        return any(isinstance(n, E.Source) and isinstance(n.data,
+                                                          StreamSource)
+                   for n in E.walk(self.node))
+
+    def _stream_run(self):
+        """Plan with ONE logical partition and run over chunk streams on
+        the context's device (``exec/stream_exec.py``); returns the lazy
+        output ChunkSource."""
+        from dryad_tpu_torch.exec.stream_exec import run_stream_graph
+        return run_stream_graph(plan_query(self.node, 1,
+                                           config=self.ctx.config),
+                                self.ctx.config, self.ctx.device,
+                                spill_dir=self.ctx.spill_dir,
+                                event_log=self.ctx.executor._event)
 
     def plan(self):
         return plan_query(self.node, self.ctx.nparts, config=self.ctx.config)
@@ -561,8 +962,12 @@ class Dataset:
         """Execute and pull all rows to the host."""
         if self.ctx.local_debug:
             return _oracle.run_oracle(self.node)
-        out = pdata_to_host(maybe_shrink_for_collect(self._materialize(),
-                                                     self.ctx.config))
+        if self._streaming():
+            from dryad_tpu_torch.exec.stream_exec import chunks_to_table
+            out = chunks_to_table(self._stream_run())
+        else:
+            out = pdata_to_host(maybe_shrink_for_collect(
+                self._materialize(), self.ctx.config))
         if isinstance(self.node, E.Take):
             out = {k: v[:self.node.n] for k, v in out.items()}
         return out
@@ -577,6 +982,17 @@ class Dataset:
             compression = self.ctx.config.store_compression
         if compression not in (None, "gzip"):
             raise ValueError(f"unknown compression {compression!r}")
+        if self._streaming():
+            # one partition file per output chunk, written as the chunks
+            # come
+            from dryad_tpu_torch.exec.ooc import write_chunks_to_store
+            part = self.node.partitioning
+            cs = self._stream_run()
+            write_chunks_to_store(
+                path, iter(cs), cs.schema,
+                partitioning={"kind": part.kind, "keys": list(part.keys)},
+                compression=compression)
+            return
         pd, salted = self._run()
         part = E.Partitioning.none() if salted else self.node.partitioning
         write_store(path, pd, partitioning={"kind": part.kind,
@@ -592,6 +1008,8 @@ class Dataset:
         if self.ctx.local_debug:
             t = _oracle.run_oracle(self.node)
             return len(next(iter(t.values()), ()))
+        if self._streaming():
+            return sum(c.n for c in self._stream_run())
         return int(self._materialize().counts.sum())
 
     def _scalar(self, kind: str, column: str):
@@ -603,6 +1021,10 @@ class Dataset:
         if self.ctx.local_debug:
             t = _oracle.run_oracle(self.node)
             return _oracle._agg(kind, list(t[column]))
+        if self._streaming():
+            # per-chunk host reductions, combined as they come
+            from dryad_tpu_torch.exec.stream_exec import stream_scalar
+            return stream_scalar(self._stream_run(), kind, column)
         pd = self._materialize()
         parts = [scalar_aggregate(b, {"out": (kind, column),
                                       "cnt": ("count", None)})

@@ -6,8 +6,9 @@ point to its nearest centroid with one [cap, k] distance product, and
 averages the points per centroid with a hash group-by (the partial means
 hash-exchanged, then merged), under ``Context.do_while``: the broadcast +
 all-reduce loop of the reference.  Same signatures and data as
-``dryad_tpu/apps/kmeans.py``; its out-of-core form (``kmeans_stream``) is
-not ported yet (ROADMAP.md).
+``dryad_tpu/apps/kmeans.py``.  ``kmeans_stream`` is the out-of-core
+form: the points stream, and the k-row centroid table iterates as a host
+table through the streamed ``do_while``.
 
 A cluster that loses every point drops out of the dataflow app's output
 (its group is empty), while ``kmeans_numpy`` keeps its old centroid; the
@@ -22,7 +23,7 @@ from dryad_tpu_torch.api.dataset import Context, Dataset
 from dryad_tpu_torch.data.columnar import Batch
 from dryad_tpu_torch.ops.kernels import _full_f32_matmul
 
-__all__ = ["gen_points", "kmeans", "kmeans_numpy"]
+__all__ = ["gen_points", "kmeans", "kmeans_stream", "kmeans_numpy"]
 
 
 def gen_points(n: int, dim: int, k: int, seed: int = 0):
@@ -84,6 +85,29 @@ def kmeans(ctx: Context, points: dict, k: int, n_iters: int = 10,
 
     out = ctx.do_while(cents0.with_capacity(k_cap), body, n_iters=n_iters)
     t = out.collect()
+    order = np.argsort(t["cid"])
+    return np.asarray(t["cx"])[order]
+
+
+def kmeans_stream(ctx: Context, pts_ds: Dataset, k: int,
+                  init_centers: np.ndarray, n_iters: int = 10
+                  ) -> np.ndarray:
+    """k-means over streamed points: ``pts_ds`` is a STREAMED dataset
+    (``read_store_stream``, optionally ``.cache()``-d); each iteration
+    streams the points through the assignment (the centroid table
+    materialized on the device as the build side) and a streamed
+    group-by mean.  The device holds O(chunk_rows) points whatever
+    their number."""
+    cents0 = ctx.from_columns(
+        {"cid": np.arange(k, dtype=np.int32),
+         "cx": np.asarray(init_centers, np.float32)})
+
+    def body(cents: Dataset) -> Dataset:
+        assigned = pts_ds.cross_apply(cents, _assign_fn,
+                                      host_fn=_assign_host, label="assign")
+        return assigned.group_by(["cid"], {"cx": ("mean", "x")})
+
+    t = ctx.do_while(cents0, body, n_iters=n_iters).collect()
     order = np.argsort(t["cid"])
     return np.asarray(t["cx"])[order]
 

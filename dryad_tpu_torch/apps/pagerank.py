@@ -6,8 +6,10 @@ join), turns each edge into a contribution ``rank / deg`` to its ``dst``,
 sums the contributions per node with a hash group-by and applies the
 damping, under ``Context.do_while``: the body is planned once over a
 placeholder and every iteration runs the same stages.  Same signatures
-and data as ``dryad_tpu/apps/pagerank.py``; its out-of-core form
-(``pagerank_stream``) is not ported yet (ROADMAP.md)."""
+and data as ``dryad_tpu/apps/pagerank.py``.  ``pagerank_stream`` is the
+out-of-core form: the edges stream (a streamed Dataset, ``.cache()``-d
+to re-stream a local chunk cache) and the rank table iterates as a
+small host table through the streamed ``do_while``."""
 
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import numpy as np
 
 from dryad_tpu_torch.api.dataset import Context, Dataset
 
-__all__ = ["gen_graph", "pagerank", "pagerank_numpy"]
+__all__ = ["gen_graph", "pagerank", "pagerank_stream", "pagerank_numpy"]
 
 
 def gen_graph(n_nodes: int, n_edges: int, seed: int = 0):
@@ -60,6 +62,39 @@ def pagerank(ctx: Context, edges: dict, n_nodes: int, n_iters: int = 10,
 
     out = ctx.do_while(ranks0.with_capacity(rank_cap), body, n_iters=n_iters)
     return out.collect()
+
+
+def pagerank_stream(ctx: Context, edges_ds: Dataset, n_nodes: int,
+                    n_iters: int = 10, damping: float = 0.85) -> dict:
+    """PageRank over streamed edges: ``edges_ds`` is a STREAMED dataset
+    (``ctx.read_store_stream(path)``, ``.cache()``-d so that supersteps
+    re-stream the local chunk cache).  The out-degrees are cached once;
+    each superstep streams the edges through two joins (out-degree, then
+    rank: both build sides materialized on the device) and a streamed
+    group-by.  The device holds O(chunk_rows) rows whatever the edge
+    count."""
+    deg = edges_ds.group_by(["src"], {"deg": ("count", None)}).cache()
+
+    nodes = {"node": np.arange(n_nodes, dtype=np.int32),
+             "rank": np.full(n_nodes, 1.0 / n_nodes, np.float32)}
+    ranks0 = ctx.from_columns(nodes)
+
+    def contrib(c):
+        return {"node": c["dst"], "c": c["rank"] / c["deg"]}
+
+    def damp(c):
+        return {"node": c["node"],
+                "rank": (1.0 - damping) / n_nodes + damping * c["s"]}
+
+    def body(ranks: Dataset) -> Dataset:
+        return (edges_ds
+                .join(deg, ["src"], ["src"], expansion=2.0)
+                .join(ranks, ["src"], ["node"], expansion=2.0)
+                .select(contrib)
+                .group_by(["node"], {"s": ("sum", "c")})
+                .select(damp))
+
+    return ctx.do_while(ranks0, body, n_iters=n_iters).collect()
 
 
 def pagerank_numpy(edges: dict, n_nodes: int, n_iters: int = 10,

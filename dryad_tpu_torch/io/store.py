@@ -249,15 +249,20 @@ def store_meta(path: str) -> Dict[str, Any]:
 
 
 def verify_checksums(path: str, meta: Dict[str, Any],
-                     segments: List[List[np.ndarray]]) -> None:
+                     segments: List[List[np.ndarray]],
+                     partitions: Optional[Sequence[int]] = None) -> None:
     """Hold freshly read partitions to their recorded fnv64 checksums;
     raise StoreIntegrityError naming the first partition that differs.
-    A store without checksums (before format 3) is accepted as is."""
+    ``segments[i]`` is partition ``partitions[i]`` (default: partition
+    i).  A store without checksums (before format 3) is accepted as
+    is."""
     recorded = meta.get("checksums")
     if not recorded:
         return
     got = ["%016x" % c for c in _parallel(checksum_segments, segments)]
-    for p, (g, r) in enumerate(zip(got, recorded)):
+    ids = range(len(got)) if partitions is None else partitions
+    for p, g in zip(ids, got):
+        r = recorded[p]
         if g != r:
             raise StoreIntegrityError(
                 f"partition {p} of {path}: checksum {g} != recorded {r} — "

@@ -21,8 +21,8 @@ __all__ = ["Counter", "Gauge", "Histogram", "Registry", "REGISTRY",
 _DEF_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
                 5.0, 10.0, 30.0, 60.0)
 
-# the metric families the port's executor and adaptive manager count,
-# name and help as in the JAX package's table
+# the metric families the port's executor, adaptive manager and
+# re-streaming cache count, name and help as in the JAX package's table
 FAMILIES = {
     "stage_runs": ("dryad_stage_runs_total", "stage executions"),
     "cap_retries": ("dryad_stage_capacity_retries_total",
@@ -32,6 +32,11 @@ FAMILIES = {
     "shuffle_bytes": ("dryad_shuffle_bytes_total",
                       "bytes materialized by stage outputs"),
     "run_seconds": ("dryad_run_seconds_total", "stage run wall"),
+    "ooc_cache_hits": ("dryad_ooc_cache_hits_total",
+                       "re-streaming cache passes served from the "
+                       "local chunk cache"),
+    "ooc_cache_writes": ("dryad_ooc_cache_writes_total",
+                         "re-streaming cache cold writes"),
 }
 
 

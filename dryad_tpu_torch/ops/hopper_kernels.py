@@ -222,8 +222,15 @@ def hist_buckets_plain(bid: torch.Tensor, n_buckets: int) -> torch.Tensor:
 
 def hist_buckets_batched_plain(bid: torch.Tensor,
                                n_buckets: int) -> torch.Tensor:
-    """``hist_buckets_plain`` of each row, stacked."""
-    return torch.stack([hist_buckets_plain(row, n_buckets) for row in bid])
+    """``hist_buckets_plain`` of each row, stacked: one bincount over the
+    rows' ids shifted to row p's own n_buckets + 1 bins."""
+    P = bid.shape[0]
+    oob = torch.where((bid < 0) | (bid > n_buckets),
+                      torch.full_like(bid, n_buckets), bid).long()
+    oob += torch.arange(P, device=bid.device)[:, None] * (n_buckets + 1)
+    return torch.bincount(oob.reshape(-1), minlength=P * (n_buckets + 1)
+                          ).view(P, n_buckets + 1)[:, :n_buckets].to(
+                              torch.int32)
 
 
 def hist_buckets_batched(bid: torch.Tensor, n_buckets: int) -> torch.Tensor:
@@ -366,25 +373,25 @@ def _check_offsets(name: str, t: torch.Tensor) -> None:
 def slot_expand_plain(words: torch.Tensor, offsets: torch.Tensor,
                       C: int) -> torch.Tensor:
     """Index gather from the source padded with C zero rows."""
-    cap, W = words.shape
     D = offsets.shape[0]
-    xp = torch.cat([words, words.new_zeros((C, W))])
-    start = offsets.long().clamp(0, cap)
-    src = (start[:, None] + torch.arange(C, device=words.device)[None, :])
-    return xp.index_select(0, src.reshape(-1)).reshape(D * C, W)
+    return slot_expand_batched_plain(words[None], offsets[None], C).view(
+        D * C, words.shape[1])
 
 
 def slot_expand_batched_plain(words: torch.Tensor, offsets: torch.Tensor,
                               C: int) -> torch.Tensor:
-    """``slot_expand_plain`` of each partition, stacked and permuted from
-    [P, D, C, W] to the receive layout [D, P*C, W], contiguous as the
-    kernel's output is (at C = 1 the permute alone would stay a view)."""
-    P, _cap, W = words.shape
+    """``slot_expand_plain`` of each partition, in the receive layout
+    [D, P*C, W]: one index gather from every partition padded with C zero
+    rows, straight in receive order, contiguous as the kernel's output
+    is."""
+    P, cap, W = words.shape
     D = offsets.shape[1]
-    send = torch.stack([slot_expand_plain(words[p], offsets[p], C)
-                        for p in range(P)])
-    return send.view(P, D, C, W).transpose(0, 1).reshape(
-        D, P * C, W).contiguous()
+    xp = torch.cat([words, words.new_zeros((P, C, W))], 1).view(
+        P * (cap + C), W)
+    start = offsets.long().clamp(0, cap) + torch.arange(
+        P, device=words.device)[:, None] * (cap + C)          # [P, D]
+    src = start.t()[:, :, None] + torch.arange(C, device=words.device)
+    return xp.index_select(0, src.reshape(-1)).view(D, P * C, W)
 
 
 def slot_expand_batched(words: torch.Tensor, offsets: torch.Tensor,
@@ -436,25 +443,31 @@ def slot_expand(words: torch.Tensor, offsets: torch.Tensor,
 
 def slot_compact_plain(words: torch.Tensor, counts: torch.Tensor, C: int,
                        out_rows: int) -> torch.Tensor:
-    """Index scatter of each block's valid prefix to its running start;
-    everything else, and the dump row for dropped rows, stays zero."""
-    S, W = words.shape
-    cnt = counts.long().clamp(0, C)
-    starts = torch.cumsum(cnt, 0) - cnt
-    idx = torch.arange(S, device=words.device)
-    blk, j = idx // C, idx % C
-    dest = starts[blk] + j
-    keep = (j < cnt[blk]) & (dest < out_rows)
-    out = words.new_zeros((out_rows + 1, W))
-    out[torch.where(keep, dest, torch.full_like(dest, out_rows))] = words
-    return out[:out_rows]
+    """Each block's valid prefix, in block order, written densely from row
+    0 (the kept rows' running starts are exactly 0, 1, 2, ...); rows past
+    ``out_rows`` are dropped and the rest stays zero."""
+    return slot_compact_batched_plain(words[None], counts[None], C,
+                                      out_rows)[0]
 
 
 def slot_compact_batched_plain(recv: torch.Tensor, counts: torch.Tensor,
                                C: int, out_rows: int) -> torch.Tensor:
-    """``slot_compact_plain`` of each destination, stacked."""
-    return torch.stack([slot_compact_plain(recv[d], counts[d], C, out_rows)
-                        for d in range(recv.shape[0])])
+    """``slot_compact_plain`` of each destination, stacked: one mask over
+    every destination's slots, the kept rows copied to their positions
+    (destination d's k-th kept row to row k of slice d)."""
+    Dd, SC, W = recv.shape
+    S = counts.shape[1]
+    cnt = counts.long().clamp(0, C)
+    j = torch.arange(C, device=recv.device)
+    keep = (j[None, None, :] < cnt[:, :, None]).reshape(Dd, S * C)[:, :SC]
+    if SC > S * C:      # rows past the last block are never valid
+        keep = torch.cat([keep, keep.new_zeros((Dd, SC - S * C))], 1)
+    pos = torch.cumsum(keep, 1) - 1
+    keep &= pos < out_rows
+    out = recv.new_zeros((Dd * out_rows, W))
+    dest = (pos + torch.arange(Dd, device=recv.device)[:, None] * out_rows)
+    out[dest[keep]] = recv[keep]
+    return out.view(Dd, out_rows, W)
 
 
 def slot_compact_batched(recv: torch.Tensor, counts: torch.Tensor, C: int,

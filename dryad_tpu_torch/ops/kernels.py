@@ -49,7 +49,8 @@ __all__ = ["compact", "filter_rows", "permute_by_sort", "take",
            "mean_finalize_columns", "AGG_KINDS",
            "canon_nan", "minimum", "maximum",
            "searchsorted_big", "hash_join", "lookup_join", "general_join",
-           "semi_anti_join", "concat2", "zip2", "scalar_aggregate"]
+           "semi_anti_join", "right_match_mask", "concat2", "zip2",
+           "scalar_aggregate"]
 
 AGG_KINDS = ("sum", "count", "min", "max", "mean", "any", "all")
 
@@ -1643,6 +1644,22 @@ def _hash_membership(hi: torch.Tensor, lo: torch.Tensor, flag: torch.Tensor,
     member = torch.empty(n, dtype=torch.bool, device=hi.device)
     member[order] = hit.index_select(0, seg) > 0
     return member
+
+
+def right_match_mask(left: Batch, right: Batch, left_keys: Sequence[str],
+                     right_keys: Sequence[str]) -> torch.Tensor:
+    """bool [right.capacity]: the valid right rows whose 64-bit key hash
+    appears among ``left``'s valid rows (a streamed right / full join
+    ORs it over the chunks to find the right rows no chunk matched);
+    ``semi_anti_join``'s membership with the sides' roles swapped."""
+    lhi, llo = hash_batch_keys(left, left_keys)
+    rhi, rlo = hash_batch_keys(right, right_keys)
+    lvalid, rvalid = left.valid_mask(), right.valid_mask()
+    member = _hash_membership(
+        torch.cat([rhi, lhi]), torch.cat([rlo, llo]),
+        torch.cat([torch.zeros_like(rvalid), lvalid]),
+        torch.cat([rvalid, lvalid]))[:right.capacity]
+    return member & rvalid
 
 
 def semi_anti_join(left: Batch, right: Batch, left_keys: Sequence[str],

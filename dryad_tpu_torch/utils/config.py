@@ -108,6 +108,41 @@ class JobConfig:
     # verify the fnv64 partition checksums on read
     store_verify_checksums: bool = True
 
+    # -- out-of-core streaming (exec/ooc.py, exec/stream_exec.py) ----------
+    # default chunk size of the ChunkSource constructors
+    ooc_chunk_rows: int = 1 << 16
+    # scatter fan-out of the streamed group-bys, distinct and top-k
+    ooc_hash_buckets: int = 64
+    # chunks in flight on the device (the double-buffered stream's depth)
+    ooc_inflight: int = 2
+    # a streamed sort whose whole data (counted by its sampling pass)
+    # fits this many bytes skips the bucket round trip: one copy to the
+    # device, one sort, one copy back.  0 always takes the out-of-core
+    # machinery
+    ooc_incore_bytes: int = 1 << 30
+    # from_store streams when the store holds at least this many rows
+    # (0 = never); read_store_stream always streams
+    ooc_auto_stream_rows: int = 0
+    # the most rows the materialized build side of a streamed join holds
+    ooc_join_build_rows: int = 1 << 18
+    # chunks a background thread reads ahead of the device (store reads,
+    # unpacking); 0 reads in the consumer's thread
+    ooc_prefetch_depth: int = 2
+    # cache() of streamed (or edge-scale in-memory) data writes a local
+    # chunked store keyed by the query's stable fingerprint and re-streams
+    # it on later passes; False spools streamed data to an unvalidated
+    # temporary store and keeps in-memory data on the card
+    ooc_restream_cache: bool = True
+    # where the re-streaming cache's entries live; None = a temporary
+    # directory of the Context, removed with it
+    ooc_cache_dir: Optional[str] = None
+    # the most raw rows one key bucket of a streamed group_apply /
+    # group_median holds on the device (whole groups do not compact)
+    ooc_group_bucket_rows: int = 1 << 21
+    # pick read_store_stream's chunk rows from measured copy and dispatch
+    # rates (exec/autotune.pick_chunk_rows); explicit chunk_rows wins
+    ooc_chunk_autotune: bool = False
+
     def __post_init__(self):
         checks = [
             (self.max_capacity_retries >= 0, "max_capacity_retries >= 0"),
@@ -144,6 +179,14 @@ class JobConfig:
              "adapt_shrink_factor >= 1.0"),
             (self.adapt_broadcast_max_ratio > 0,
              "adapt_broadcast_max_ratio > 0"),
+            (self.ooc_chunk_rows >= 1, "ooc_chunk_rows >= 1"),
+            (self.ooc_hash_buckets >= 1, "ooc_hash_buckets >= 1"),
+            (self.ooc_inflight >= 1, "ooc_inflight >= 1"),
+            (self.ooc_incore_bytes >= 0, "ooc_incore_bytes >= 0"),
+            (self.ooc_auto_stream_rows >= 0, "ooc_auto_stream_rows >= 0"),
+            (self.ooc_join_build_rows >= 1, "ooc_join_build_rows >= 1"),
+            (self.ooc_prefetch_depth >= 0, "ooc_prefetch_depth >= 0"),
+            (self.ooc_group_bucket_rows > 0, "ooc_group_bucket_rows > 0"),
         ]
         bad = [msg for ok, msg in checks if not ok]
         if bad:

@@ -42,6 +42,7 @@ from dryad_tpu_torch.plan import expr as TE
 from dryad_tpu_torch.plan import stages as tstages
 from dryad_tpu_torch.plan.planner import plan_query as tplan_query
 from dryad_tpu_torch.utils.events import EventLog
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 P = 8
 

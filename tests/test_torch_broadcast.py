@@ -31,6 +31,7 @@ from dryad_tpu_torch.data.columnar import Batch as TBatch
 from dryad_tpu_torch.exec.data import pdata_to_numpy, split_partitions
 from dryad_tpu_torch.ops import hopper_kernels as hk
 from dryad_tpu_torch.parallel import shuffle
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 P = 8
 

@@ -8,6 +8,7 @@ import re
 import pytest
 
 from dryad_tpu_torch.ops import _build
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

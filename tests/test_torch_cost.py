@@ -46,6 +46,7 @@ from dryad_tpu_torch.ops import hopper_kernels as hk
 from dryad_tpu_torch.plan import expr as E
 from dryad_tpu_torch.plan.planner import plan_query
 from dryad_tpu_torch.utils.events import EventLog
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 P = 8
 # a predicted byte bound may not exceed 4x the measured bytes on the
@@ -433,15 +434,17 @@ def test_dta203_unbounded_fanout_at_exchange(devices8):
     assert "DTA203" not in {d.code for d in clean}
 
 
-def test_dta204_edge_scale_cache(devices8):
-    """cache() of edge-scale data warns where the JAX package warns with
-    its re-streaming tier off (the port's cache always pins the card);
-    a small cache stays silent."""
-    def big(ctx):
-        return ctx.from_columns({"x": np.zeros((64, 4096), np.float32)})
+def _big_cache(ctx):
+    return ctx.from_columns({"x": np.zeros((64, 4096), np.float32)})
 
-    tr, jr, tc, jc = _both_reports(big, big, device_hbm_bytes=1 << 20)
-    jc = JJobConfig(device_hbm_bytes=1 << 20, ooc_restream_cache=False)
+
+def test_dta204_edge_scale_cache(devices8):
+    """cache() of edge-scale data with the re-streaming tier off warns in
+    both packages (the result would pin the card); a small cache stays
+    silent."""
+    tr, jr, tc, jc = _both_reports(_big_cache, _big_cache,
+                                   device_hbm_bytes=1 << 20,
+                                   ooc_restream_cache=False)
     td, jd = cache_diagnostic(tr, tc), jcache_diagnostic(jr, jc)
     assert (td.code, td.severity) == (jd.code, jd.severity) == \
         ("DTA204", "warn")
@@ -450,6 +453,25 @@ def test_dta204_edge_scale_cache(devices8):
         return ctx.from_columns(_kv(64))
     tr, jr, tc, jc = _both_reports(small, small, device_hbm_bytes=1 << 30)
     assert cache_diagnostic(tr, tc) is None is jcache_diagnostic(jr, jc)
+
+
+def test_dta204_restream_tier_on(devices8):
+    """With the re-streaming tier on (the default) the same cache() lowers
+    to the local chunked store, and both packages report it as info; a
+    streamed plan has no in-memory model and no finding."""
+    tr, jr, tc, jc = _both_reports(_big_cache, _big_cache,
+                                   device_hbm_bytes=1 << 20)
+    assert tc.ooc_restream_cache and jc.ooc_restream_cache
+    td, jd = cache_diagnostic(tr, tc), jcache_diagnostic(jr, jc)
+    assert (td.code, td.severity) == (jd.code, jd.severity) == \
+        ("DTA204", "info")
+    from dryad_tpu_torch.exec.ooc import ChunkSource
+    streamed = _tctx(device_hbm_bytes=1 << 20).from_stream(
+        ChunkSource.from_arrays({"x": np.zeros((64, 4096), np.float32)}))
+    rep = estimate_graph(streamed.plan(), P, config=tc)
+    assert rep.streamed and not rep.stages
+    assert cache_diagnostic(rep, tc) is None and \
+        cost_diagnostics(rep, tc) == []
 
 
 def test_dta205_cost_summary_info(devices8):

@@ -23,6 +23,7 @@ from dryad_tpu_torch.data import columnar as tcol
 from dryad_tpu_torch.ops import kernels as tkern
 from dryad_tpu_torch.ops.scan import associative_scan
 from dryad_tpu_torch.plan.expr import Decomposable as TDec
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 EPS = 2.0**-24
 N, CAP = 2_000, 2_100

@@ -15,6 +15,7 @@ import torch
 from dryad_tpu import Context as JContext
 from dryad_tpu_torch import Context as TContext
 from dryad_tpu_torch.ops import hopper_kernels as hk
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 P = 8
 

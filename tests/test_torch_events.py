@@ -16,6 +16,7 @@ from dryad_tpu_torch import Context as TContext
 import dryad_tpu_torch
 from dryad_tpu_torch.utils import events
 from dryad_tpu_torch.utils.events import EventLog, job_report
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 P = 8
 PKG = pathlib.Path(dryad_tpu_torch.__file__).resolve().parent

@@ -31,6 +31,7 @@ from dryad_tpu_torch.exec.data import split_partitions
 from dryad_tpu_torch.ops import hopper_kernels as tk
 from dryad_tpu_torch.ops.kernels import _pack_columns_u32, _unpack_columns_u32
 from dryad_tpu_torch.parallel import shuffle
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 MODES = ["fallback", "interpret"]
 CSRC = Path(tk.__file__).resolve().parent / "csrc"

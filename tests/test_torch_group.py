@@ -22,6 +22,7 @@ from dryad_tpu.data import columnar as jcol
 from dryad_tpu.ops import kernels as jkern
 from dryad_tpu_torch.data import columnar as tcol
 from dryad_tpu_torch.ops import kernels as tkern
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 N, CAP = 3_000, 3_200
 EPS = 2.0**-24

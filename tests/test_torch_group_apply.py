@@ -23,6 +23,7 @@ from dryad_tpu import Context as JContext
 from dryad_tpu_torch import Context as TContext
 from dryad_tpu_torch.data.columnar import Batch, StringColumn
 from dryad_tpu_torch.ops import kernels as tkern
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 P = 8
 

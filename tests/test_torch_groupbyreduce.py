@@ -22,6 +22,7 @@ from dryad_tpu.plan.planner import plan_query
 from dryad_tpu_torch import Context as TContext
 from dryad_tpu_torch import Decomposable as TDec
 from dryad_tpu_torch.apps import groupbyreduce as tgbr
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 N, KEYS = 20_000, 300
 EPS = 2.0**-24

@@ -13,6 +13,7 @@ from dryad_tpu.data import columnar as jcol
 from dryad_tpu.ops import hashing as jh
 from dryad_tpu_torch.data import columnar as tcol
 from dryad_tpu_torch.ops import hashing as th
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 N = 2_000
 

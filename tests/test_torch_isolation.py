@@ -13,6 +13,7 @@ import torch
 
 import dryad_tpu_torch
 from dryad_tpu_torch.parallel.mesh import resolve_device
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 PKG = pathlib.Path(dryad_tpu_torch.__file__).resolve().parent
 ROOT = PKG.parent
@@ -130,6 +131,44 @@ def test_oracle_cost_and_adaptive_runs_load_no_jax():
         "g = q(ctx).plan()\n"
         "ctx.executor.run(g, cost_report=estimate_graph(g, 8))\n"
         "assert ctx.executor._last_run_rewrites == 1\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'dryad_tpu')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+STREAM_MODULES = ("dryad_tpu_torch.exec.ooc",
+                  "dryad_tpu_torch.exec.stream_exec",
+                  "dryad_tpu_torch.exec.autotune")
+
+
+def test_streaming_modules_are_checked():
+    """The out-of-core modules are among those the checks above import
+    and scan."""
+    assert set(STREAM_MODULES) <= set(_modules())
+
+
+def test_streamed_runs_load_no_jax(tmp_path):
+    """A streamed sort, group-by and cache() over a store, and the
+    out-of-core TeraSort app, in a fresh interpreter: neither jax nor
+    dryad_tpu is loaded."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "from dryad_tpu_torch import Context, JobConfig\n"
+        "from dryad_tpu_torch.apps.terasort import terasort_ooc\n"
+        f"d = {str(tmp_path)!r}\n"
+        "Context(device='cpu', nparts=2).from_columns(\n"
+        "    {'k': np.arange(5000, dtype=np.int32) % 7}).to_store(d + '/s')\n"
+        "ctx = Context(device='cpu', config=JobConfig(ooc_cache_dir=d + '/c'))\n"
+        "ds = ctx.read_store_stream(d + '/s', chunk_rows=512).cache()\n"
+        "assert ds.order_by([('k', True)]).count() == 5000\n"
+        "assert len(ds.group_by(['k'], {'n': ('count', None)})"
+        ".collect()['k']) == 7\n"
+        "m = terasort_ooc(3000, 700, out_store=d + '/t', device='cpu')\n"
+        "assert sum(m['counts']) == 3000\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'dryad_tpu')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

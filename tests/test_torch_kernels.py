@@ -28,6 +28,7 @@ import jax.numpy as jnp
 
 from dryad_tpu.ops import pallas_kernels as jk
 from dryad_tpu_torch.ops import hopper_kernels as tk
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 MODES = ["fallback", "interpret"]
 

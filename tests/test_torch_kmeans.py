@@ -26,6 +26,7 @@ from dryad_tpu_torch.apps import kmeans as tkm
 from dryad_tpu_torch.data import columnar as tcol
 from dryad_tpu_torch.ops import hopper_kernels as hk
 from test_torch_pagerank import _counting_plain
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 P = 8
 

@@ -26,6 +26,7 @@ from dryad_tpu.exec.executor import CapacityError as JCapacityError
 from dryad_tpu.plan.planner import plan_query as jplan_query
 from dryad_tpu_torch import Context as TContext
 from dryad_tpu_torch.exec.executor import CapacityError
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 P = 8
 

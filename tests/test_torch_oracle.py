@@ -28,6 +28,7 @@ from dryad_tpu_torch import Decomposable, JobConfig
 from dryad_tpu_torch import oracle as toracle
 from dryad_tpu_torch.data.columnar import Batch
 from dryad_tpu_torch.oracle import run_oracle
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 P = 8
 EPS = 2.0 ** -24

@@ -20,6 +20,7 @@ from dryad_tpu.ops import kernels as jkern
 from dryad_tpu_torch import Context as TContext
 from dryad_tpu_torch.data import columnar as tcol
 from dryad_tpu_torch.ops import kernels as tkern
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 P = 8
 HOWS = ["right", "full"]

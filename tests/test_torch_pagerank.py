@@ -21,6 +21,7 @@ from dryad_tpu.apps import pagerank as jpr
 from dryad_tpu_torch import Context as TContext
 from dryad_tpu_torch.apps import pagerank as tpr
 from dryad_tpu_torch.ops import hopper_kernels as hk
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 P = 8
 SIZES = {"64x400": (64, 400), "2000x20000": (2000, 20_000)}

@@ -13,6 +13,7 @@ import pytest
 
 from dryad_tpu import Context as JContext
 from dryad_tpu_torch import Context as TContext
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 P = 8
 

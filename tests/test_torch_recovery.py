@@ -28,6 +28,7 @@ from dryad_tpu_torch.exec.executor import CapacityError
 from dryad_tpu_torch.exec.recovery import FailureBudgetExceeded, Run
 from dryad_tpu_torch.plan.planner import plan_query
 from dryad_tpu_torch.utils.events import EventLog
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 P = 8
 

@@ -17,6 +17,7 @@ from dryad_tpu_torch.exec.data import (pdata_from_numpy, pdata_to_host,
                                        pdata_to_numpy, split_partitions,
                                        stack_partitions)
 from dryad_tpu_torch.parallel import shuffle
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 P = 8
 

@@ -27,6 +27,7 @@ from dryad_tpu_torch import Context as TContext
 from dryad_tpu_torch.exec.data import split_partitions
 from dryad_tpu_torch.ops.hashing import hash_batch_keys
 from dryad_tpu_torch.parallel import shuffle
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 P = 8
 

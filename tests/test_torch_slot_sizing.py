@@ -24,6 +24,7 @@ from dryad_tpu_torch import JobConfig
 from dryad_tpu_torch.exec import executor as texec
 from dryad_tpu_torch.ops.hashing import hash_columns
 from dryad_tpu_torch.plan.stages import Exchange, Leg, Stage
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 P = 8
 

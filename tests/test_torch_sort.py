@@ -31,6 +31,7 @@ from dryad_tpu_torch.exec import executor as texec
 from dryad_tpu_torch.exec.data import pdata_from_numpy
 from dryad_tpu_torch.ops import kernels as tkern
 from dryad_tpu_torch.parallel import shuffle as tshuffle
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 M32 = 0xFFFFFFFF
 P = 8

@@ -27,6 +27,7 @@ from dryad_tpu_torch.io import fnv
 from dryad_tpu_torch.io.store import StoreIntegrityError, store_meta
 from dryad_tpu_torch.plan.planner import plan_query
 from dryad_tpu_torch.utils.events import EventLog
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 P = 8
 

@@ -19,6 +19,7 @@ from dryad_tpu.apps import terasort as jts
 from dryad_tpu_torch import Context as TContext
 from dryad_tpu_torch.apps import terasort as tts
 from dryad_tpu_torch.exec.data import pdata_to_numpy
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 P = 8
 

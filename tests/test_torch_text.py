@@ -17,6 +17,7 @@ from dryad_tpu.ops import pallas_kernels as jk
 from dryad_tpu.ops import text as jt
 from dryad_tpu_torch.data import columnar as tcol
 from dryad_tpu_torch.ops import text as tt
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 WORDS = ["alpha", "Beta", "GAMMA", "delta", "x",
          "averyveryverylongtokenthatgetstruncated", "it's", "(paren)",

@@ -27,6 +27,7 @@ from dryad_tpu_torch import Context as TContext
 from dryad_tpu_torch import JobConfig
 from dryad_tpu_torch.ops import hopper_kernels as hk
 from test_torch_pagerank import _counting_plain
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 P = 8
 EPS = 2.0 ** -24

@@ -16,6 +16,7 @@ from dryad_tpu.plan.planner import plan_query
 from dryad_tpu_torch import Context as TContext
 from dryad_tpu_torch.apps import wordcount as twc
 from dryad_tpu_torch.exec.executor import Executor
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 VOCAB = ["alpha", "beta", "gamma", "delta", "epsilon", "zeta", "eta",
          "theta", "iota", "kappa", "lam", "mu"]
