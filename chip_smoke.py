@@ -223,7 +223,23 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      profiled warm (busy share); no exchange kernel launches; then the
      scatter's histogram at its shapes against ``bincount`` and its
      bound (``scatter_hist``);
-  3-13. after each of those main-path runs, every kernel call it made
+  14. the SQL front end (``sql.query(ctx, catalog, text).collect()``,
+     ``JobConfig(lint="warn")``) over phase 9's SF1 lineitems with
+     ``price`` float32 and a ``tag`` string column, registered in a
+     ``sql.Catalog``: ``sqlq3_6m`` adaptive off and on (bench.py's
+     skewed join + filter + per-order revenue, ORDER BY revenue DESC
+     LIMIT 10; cold each, then three warm runs of each in turns),
+     ``sqlgolden_join6m`` / ``sqlgolden_scan6m`` (the committed
+     ``docs/plans/*.sql``; the second filters ``tag != 'void'`` on the
+     device) and ``sqlq1agg6m`` (GROUP BY qty with COUNT, SUM, AVG, MIN,
+     MAX).  Rows against numpy (top-k with ties: each key's revenue
+     within the f32 bound, the smallest at least the k-th less it); each
+     cold run has no error-severity ``lint_finding``, one
+     ``cost_report``, no ``cost_model_miss`` and one ``plan`` event that
+     round-trips through ``graph_from_json``; EXPLAIN COST launches no
+     kernel and predicts the run's capacities.  All five kernels must
+     launch in the phase;
+ 3-14. after each of those main-path runs, every kernel call it made
      is made again through the kernel and through its plain version on
      the very tensors the run passed (integers exactly, prefix_sum2
      within twice its bound);
@@ -255,7 +271,9 @@ phase-9 and phase-10 run (each exchanging stage's send-slot rows and
 their source per attempt among them), one for phase 11 (``{"phase":
 "recovery", ...}``), one per phase-12 cell and one each for its cost
 model and oracle runs (``{"phase12": ...}``), one per phase-13 cell and
-its scatter line (``{"phase13": ...}``), per profile, per pack side
+its scatter line (``{"phase13": ...}``), one per phase-14 cell
+(``{"phase14": ...}``) and the phase's launches, per profile, per pack
+side
 and per kernel, then
 the card line, then the
 ``{"kernels": [...]}`` line, then the result line
@@ -272,6 +290,7 @@ import collections
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -2756,7 +2775,7 @@ def cost_checked(port, hk, ctx, reports) -> None:
             raise AssertionError("the cost model launched a kernel or "
                                  "allocated on the card")
         reports.append(rep)
-        return run(graph, bindings, cost_report=rep, **kw)
+        return run(graph, bindings, **{**kw, "cost_report": rep})
 
     ctx.executor.run = checked
 
@@ -3520,6 +3539,337 @@ def _q13_hit(c):
     the right / full join synthesizes)."""
     import torch
     return dict(c, hit=torch.ones_like(c["okey"]))
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the SQL front end on the card
+
+# bench.py:370-374's skewed TPC-H-style query (the hot order key passes
+# its filter), the two committed golden queries, a Q1-shaped aggregate
+SQL_Q3 = ("SELECT l.okey, SUM(l.price * l.qty) AS revenue, COUNT(*) AS n "
+          "FROM lineitem l JOIN orders o ON l.okey = o.okey "
+          "WHERE o.flag = 0 GROUP BY l.okey ORDER BY revenue DESC LIMIT 10")
+SQL_Q1 = ("SELECT qty, COUNT(*) AS n, SUM(price) AS s, AVG(price) AS a, "
+          "MIN(price) AS lo, MAX(price) AS hi FROM lineitem "
+          "WHERE tag != 'void' GROUP BY qty ORDER BY qty")
+SQL_GOLDEN = ("sql_join_revenue", "sql_scan_topk")
+SQL_WARM_REPS = 3      # sqlq3's interleaved warm runs (bench.py:385-394)
+_COST_ROW = re.compile(r"^\s*(\d+)\s+(\S+)\s+(\d+)\s")
+
+
+def sql_tables(n_items: int):
+    """``tpch_tables(n_items)``'s lineitem with ``price`` cast to float32
+    (as docs/plans/sql_catalog.json declares it: an int32 SUM(price * qty)
+    wraps past 2^31 on the hot key) and a ``tag`` string column,
+    ``b"void"`` on every third row, else ``b"ok"`` (tests/test_sql.py's
+    catalog); its orders' ``okey`` and ``flag``."""
+    li, orders, _ = tpch_tables(n_items)
+    li["price"] = li["price"].astype(np.float32)
+    li["tag"] = ([b"void", b"ok", b"ok"] * (n_items // 3 + 1))[:n_items]
+    return li, {"okey": orders["okey"], "flag": orders["flag"]}
+
+
+def revenue_oracle(li, flag: int):
+    """Per order key whose order has ``flag`` (flag = okey % 2, and every
+    lineitem's key names an order): SUM(price * qty) in float64, the row
+    count and the sum of |price * qty| (the f32 bound's scale)."""
+    keep = li["okey"] % 2 == flag
+    ok = li["okey"][keep]
+    v = li["price"][keep].astype(np.float64) * li["qty"][keep]
+    nb = int(li["okey"].max()) + 1
+    return (np.bincount(ok, weights=v, minlength=nb),
+            np.bincount(ok, minlength=nb),
+            np.bincount(ok, weights=np.abs(v), minlength=nb))
+
+
+def check_topk_revenue(label, out, li, flag: int, k: int = 10) -> dict:
+    """ORDER BY revenue DESC LIMIT k against the oracle, ties allowed:
+    k distinct keys in descending order, each key's count exact and its
+    revenue within 16 eps sum|v| of the oracle's (PERF.md §2), and the
+    smallest revenue returned at least the oracle's k-th less that bound
+    (f32 sums differ in their last bits between packages and runs)."""
+    rev, cnt, absum = revenue_oracle(li, flag)
+    keys = np.asarray(out["okey"], np.int64)
+    got = np.asarray(out["revenue"], np.float64)
+    present = np.nonzero(cnt)[0]
+    kk = min(k, len(present))
+    tol = 16 * EPS * absum[keys] if len(keys) else np.zeros(0)
+    kth = np.sort(rev[present])[::-1][kk - 1]
+    kth_tol = 16 * EPS * float(absum[present][rev[present] == kth].max())
+    if (len(keys) != kk or len(set(keys.tolist())) != kk
+            or not np.array_equal(np.asarray(out["n"]), cnt[keys])
+            or not (np.abs(got - rev[keys]) <= tol).all()
+            or (np.diff(got) > 0).any() or got.min() < kth - kth_tol):
+        raise AssertionError(f"{label}: the top {k} revenues differ from "
+                             f"the oracle's: {list(zip(keys, got))}")
+    return {"rows": kk, "max_revenue": float(got[0]),
+            "max_rel_err": float((np.abs(got - rev[keys])
+                                  / np.maximum(rev[keys], 1)).max())}
+
+
+def check_scan_topk(label, out, li, k: int = 100) -> dict:
+    """sql_scan_topk: the k prices equal the oracle's top k exactly (f32
+    integral values), in descending order, and every returned
+    (okey, price, qty) is a qualifying row, no more often than the input
+    holds it."""
+    mask = (li["qty"] > 2) & (np.arange(len(li["qty"])) % 3 != 0)
+    want = np.sort(li["price"][mask])[::-1][:k]
+    got = np.asarray(out["price"])
+    if not np.array_equal(got, want):
+        raise AssertionError(f"{label}: prices differ from the oracle's "
+                             f"top {k}")
+    sel = mask & (li["price"] >= got.min())
+    have = collections.Counter(zip(li["okey"][sel].tolist(),
+                                   li["price"][sel].tolist(),
+                                   li["qty"][sel].tolist()))
+    rows = collections.Counter(zip(np.asarray(out["okey"]).tolist(),
+                                   got.tolist(),
+                                   np.asarray(out["qty"]).tolist()))
+    if any(n > have[r] for r, n in rows.items()):
+        raise AssertionError(f"{label}: a returned row is not a "
+                             f"qualifying input row")
+    return {"rows": len(got), "qualifying": int(mask.sum())}
+
+
+def check_q1agg(label, out, li) -> dict:
+    """SQL_Q1 against numpy: the qty keys in order and the counts, MIN and
+    MAX exactly; SUM within 16 eps sum|v| of the float64 sum, AVG within
+    that over the count."""
+    mask = np.arange(len(li["qty"])) % 3 != 0
+    q, p = li["qty"][mask], li["price"][mask]
+    keys = np.unique(q)
+    n = np.bincount(q)[keys]
+    s = np.bincount(q, weights=p.astype(np.float64))[keys]
+    tol = 16 * EPS * s                       # prices are positive
+    lo = np.array([p[q == x].min() for x in keys])
+    hi = np.array([p[q == x].max() for x in keys])
+    ok = (np.array_equal(np.asarray(out["qty"]), keys)
+          and np.array_equal(np.asarray(out["n"]), n)
+          and np.array_equal(np.asarray(out["lo"]), lo)
+          and np.array_equal(np.asarray(out["hi"]), hi)
+          and (np.abs(np.asarray(out["s"], np.float64) - s) <= tol).all()
+          and (np.abs(np.asarray(out["a"], np.float64) - s / n)
+               <= tol / n).all())
+    if not ok:
+        raise AssertionError(f"{label}: the aggregate differs from numpy")
+    return {"rows": len(keys), "qualifying": int(mask.sum())}
+
+
+def sql_events(label, ev) -> dict:
+    """A SQL run's events (lint "warn"): no error-severity lint_finding,
+    one cost_report, no cost_model_miss, and one plan event whose JSON
+    round-trips through graph_from_json -> graph_to_json byte for byte
+    (the row expressions rebuild from data, no fn_table) with the stage
+    ids of the run's stage events (an adaptive rewrite may append
+    stages)."""
+    from dryad_tpu_torch.plan.serialize import graph_from_json, \
+        graph_to_json
+    kinds = collections.Counter(e["event"] for e in ev)
+    for m in (e for e in ev if e["event"] == "cost_model_miss"):
+        print(f"cost_model_miss {label}: stage {m['stage']} "
+              f"({m['label']}) {m['what']} measured {m['measured']} "
+              f"predicted {m['predicted']}", flush=True)
+    errors = [e for e in ev if e["event"] == "lint_finding"
+              and e["severity"] == "error"]
+    plans = [e["plan"] for e in ev if e["event"] == "plan"]
+    if (errors or kinds["cost_report"] != 1 or kinds["cost_model_miss"]
+            or len(plans) != 1):
+        raise AssertionError(
+            f"{label}: lint errors {errors}, {kinds['cost_report']} "
+            f"cost_report, {kinds['cost_model_miss']} cost_model_miss, "
+            f"{len(plans)} plan events")
+    d = json.loads(plans[0])
+    slots = {f"{st['id']}:{i}": None for st in d["stages"]
+             for i, leg in enumerate(st["legs"]) if "source" in leg["src"]}
+    graph = graph_from_json(plans[0], fn_table={}, sources=slots)
+    ids = {st.id for st in graph.stages}
+    done = {e["stage"] for e in ev if e["event"] == "stage_done"}
+    if (graph_to_json(graph) != plans[0] or not done & ids
+            or (done - ids and not kinds["graph_rewrite"])):
+        raise AssertionError(f"{label}: the plan event does not round-trip "
+                             f"or name the run's stages ({sorted(ids)} "
+                             f"against {sorted(done)})")
+    return {"lint": sorted({e["code"] for e in ev
+                            if e["event"] == "lint_finding"}),
+            "plan_stages": len(ids), "stages_done": sorted(done),
+            "cost_report": [s["capacity"] for s in next(
+                e for e in ev if e["event"] == "cost_report")
+                ["report"]["stages"]]}
+
+
+def sql_explain_cost(label, hk, sql, ctx, cat, text, plan_json,
+                     run_caps) -> dict:
+    """``EXPLAIN COST`` through ``sql.explain`` on the card context: no
+    kernel launches (the counters stand still), no DTA error, and the
+    predicted capacities those of the executed plan: stage for stage the
+    cold run's cost report, and the plan's structural capacities
+    (``estimate_plan_json``) where the plan states them."""
+    import torch
+    from dryad_tpu_torch.analysis.cost import estimate_plan_json
+    before = dict(hk.launches)
+    from_columns, load = ctx.from_columns, [0.0]
+
+    def timed_from_columns(*args, **kw):
+        t0 = time.perf_counter()
+        ds = from_columns(*args, **kw)
+        torch.cuda.synchronize()
+        load[0] += time.perf_counter() - t0
+        return ds
+
+    ctx.from_columns = timed_from_columns
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        text_out = sql.explain(ctx, cat, "EXPLAIN COST " + text)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        del ctx.from_columns
+    table = text_out.split("predicted cost:\n", 1)[-1]
+    caps = [int(m.group(3)) for m in map(_COST_ROW.match,
+                                         table.splitlines()[1:]) if m]
+    structural = [s.capacity for s in
+                  estimate_plan_json(plan_json, NPARTS).stages]
+    if (dict(hk.launches) != before
+            or not re.search(r"^0 error\(s\)", text_out, re.M)
+            or caps != run_caps
+            or any(s and s != c for s, c in zip(structural, caps))):
+        raise AssertionError(f"{label}: EXPLAIN COST launched "
+                             f"{dict(hk.launches)} (from {before}), or its "
+                             f"capacities {caps} are not the run's "
+                             f"{run_caps} / the plan's {structural}:\n"
+                             f"{text_out}")
+    return {"explain_cost_s": secs, "explain_cost_load_s": load[0],
+            "capacities": caps, "structural": structural}
+
+
+def sql_cell(port, hk, sql, cat, label, text, check, held,
+             adaptive: str = "off", warm: int = 1):
+    """One phase-14 cell under ``JobConfig(lint="warn", adaptive=...)``
+    in a context of its own: the cold run (``sql.query -> collect``
+    through ``run_app``: kernel calls held, launches against the
+    executor's log, rows against the oracle, events by ``sql_events``),
+    then ``warm`` warm runs (walls; rows against the oracle), then EXPLAIN
+    COST.  Returns (line, context, the cold run's rows)."""
+    from dryad_tpu_torch.utils.events import EventLog
+    log = EventLog()
+    ctx = port.Context(device="cuda", nparts=NPARTS, event_log=log,
+                       config=port.JobConfig(lint="warn",
+                                             adaptive=adaptive))
+    app = (lambda c: sql.query(c, cat, text).collect())
+    hk.capture = {}
+    out, launches, load, qs, runs = run_app(port, hk, app, ctx=ctx)
+    captured, hk.capture = hk.capture, None
+    held(label, launches, captured)
+    del captured
+    stages = loop_stages(runs)
+    check_per_exchange(label, launches, stages["exchange_attempts"],
+                       stages["broadcast_attempts"], stages["probes"])
+    sizes = check(label, out)
+    ev = sql_events(label, log.events)
+    line = {**sizes, "nparts": NPARTS, "adaptive": adaptive,
+            "launches": launches, "exchanging_stages": stages["outside_loop"],
+            "exchange_attempts": stages["exchange_attempts"],
+            "rewrites": [e.get("kind") for e in log.of_type(
+                "graph_rewrite")],
+            "cold_wall_s": load + qs, "cold_load_s": load,
+            "cold_query_s": qs, **{k: v for k, v in ev.items()
+                                   if k != "cost_report"}}
+    plan_json = next(e["plan"] for e in log.events if e["event"] == "plan")
+    line["warm"] = [sql_warm(port, hk, app, ctx, check, label)
+                    for _ in range(warm)]
+    line.update(sql_explain_cost(label, hk, sql, ctx, cat, text, plan_json,
+                                 ev["cost_report"]))
+    return line, ctx, out
+
+
+def sql_warm(port, hk, app, ctx, check, label) -> dict:
+    """One warm run in the cold run's context: walls, the pre-submit
+    gate's share of the query (``lint_s``: the plan rules, the UDF lint
+    and the cost model), rows held to the oracle."""
+    gate, spent = ctx._pre_submit_lint, [0.0]
+
+    def timed_gate(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return gate(*args, **kw)
+        finally:
+            spent[0] += time.perf_counter() - t0
+
+    ctx._pre_submit_lint = timed_gate
+    try:
+        out, _launches, load, qs, _runs = run_app(port, hk, app, ctx=ctx)
+    finally:
+        del ctx._pre_submit_lint
+    check(label, out)
+    return {"wall_s": load + qs, "load_s": load, "query_s": qs,
+            "lint_s": spent[0]}
+
+
+def phase14_runs(port, hk, n_items: int, held, out_dir=None) -> dict:
+    """Phase 14's cells over ``sql_tables(n_items)`` registered in a
+    ``sql.Catalog``: sqlq3_6m adaptive off and on (cold each, then
+    ``SQL_WARM_REPS`` warm runs of each in turns, off first, then, with
+    ``out_dir``, one profiled warm run of each: device time and busy
+    share), the two committed golden queries and the Q1-shaped aggregate
+    (cold, one warm run).  Every cell under lint "warn", its EXPLAIN
+    COST launch-free."""
+    from dryad_tpu_torch import sql
+    li, orders = sql_tables(n_items)
+    cat = sql.Catalog()
+    cat.register_columns("lineitem", li)
+    cat.register_columns("orders", orders)
+    res = {}
+
+    def q3_check(label, out):
+        return check_topk_revenue(label, out, li, flag=0)
+
+    def q3_app(c):
+        return sql.query(c, cat, SQL_Q3).collect()
+
+    cells, outs = {}, {}
+    for mode in ("off", "on"):
+        line, ctx, outs[mode] = sql_cell(
+            port, hk, sql, cat, f"sqlq3_6m_{mode}", SQL_Q3, q3_check, held,
+            adaptive=mode, warm=0)
+        cells[mode] = (line, ctx)
+    walls = collections.defaultdict(list)
+    for mode in ("off", "on") * SQL_WARM_REPS:
+        walls[mode].append(sql_warm(port, hk, q3_app, cells[mode][1],
+                                    q3_check, f"sqlq3_6m_{mode}"))
+    for mode in ("off", "on"):
+        line, ctx = cells[mode]
+        line["warm"] = walls[mode]
+        w = sorted(x["wall_s"] for x in walls[mode])
+        line["warm_wall_median_s"] = w[len(w) // 2]
+        if out_dir is not None:
+            prof = profile_path(
+                lambda: run_app(port, hk, q3_app, ctx=ctx)[:4],
+                f"sqlq3_6m_{mode}", out_dir, pack=False)
+            line.update({"profiled_wall_s": prof["wall_s"],
+                         "profiled_device_ms": prof["device_ms"],
+                         "device_busy_share": prof.get("device_busy_share"),
+                         "port_kernels_ms": prof.get("port_kernels_ms"),
+                         "top": prof.get("top")})
+        res[f"sqlq3_6m_{mode}"] = line
+    res["sqlq3_6m_on"]["rows_equal_off"] = (_row_set(outs["on"])
+                                            == _row_set(outs["off"]))
+    del outs, cells
+    plans = os.path.join(HERE, "docs", "plans")
+    golden = {"sql_join_revenue": lambda label, out:
+              check_topk_revenue(label, out, li, flag=1),
+              "sql_scan_topk": lambda label, out:
+              check_scan_topk(label, out, li)}
+    for name, label in zip(SQL_GOLDEN, ("sqlgolden_join6m",
+                                        "sqlgolden_scan6m")):
+        with open(os.path.join(plans, name + ".sql")) as f:
+            text = f.read()
+        res[label] = sql_cell(port, hk, sql, cat, label, text, golden[name],
+                              held)[0]
+    res["sqlq1agg6m"] = sql_cell(
+        port, hk, sql, cat, "sqlq1agg6m", SQL_Q1,
+        lambda label, out: check_q1agg(label, out, li), held)[0]
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -4506,6 +4856,22 @@ def main(argv=None) -> int:
     emit({"phase": "streaming", "seconds": time.perf_counter() - t13,
           "card": card})
 
+    # phase 14: the SQL front end (sql.query -> collect, lint "warn") over
+    # the SF1 lineitems and orders; every kernel call of each cold run held
+    before = set(runs)
+    t14 = time.perf_counter()
+    for label, line in phase14_runs(port, hk, a.lineitems, held,
+                                    a.out).items():
+        emit({"phase14": label, **line, "card": card})
+    new = set(runs) - before
+    launches14 = {k: sum(runs[r][0][k] for r in new) for k in TPU_KERNEL}
+    unheld = set(TPU_KERNEL) - {k for r in new for k in runs[r][1]}
+    if unheld or not all(launches14.values()):
+        raise AssertionError(f"phase 14: launches {launches14}, no call of "
+                             f"{sorted(unheld)} held")
+    emit({"phase": "sql", "launches": launches14,
+          "seconds": time.perf_counter() - t14, "card": card})
+
     wc_prof = profile_path(
         lambda: run_wordcount(port, hk, wc, corpora["zipf50k"])[:4],
         "wordcount_zipf50k", a.out)
@@ -4552,6 +4918,8 @@ def main(argv=None) -> int:
         "app10k": (timed_calls["app10k"], gbr_prof)}, card)
     for row in rows:
         emit({"kernel": row})
+    emit({"phase": "script", "seconds": time.perf_counter() - started,
+          "card": card})
     print(card)
     emit({"kernels": rows})
     print(json.dumps({"ok": True, "device": {

@@ -39,6 +39,11 @@ is spilled as a store and a later run resumes from it.  Events go to
 (``Context.from_store``, ``Dataset.to_store``, ``io/store.py``) are the
 JAX package's layout byte for byte, checksummed by the port's own host C
 FNV-1a; ``Context.read_text`` reads local text files.
+
+``dryad_tpu_torch.sql`` compiles SQL text into the same Dataset calls
+(``sql.query(Context(), catalog, text)``); ``Dataset.check()`` and
+``JobConfig(lint=...)`` run the static checker (``analysis/``), and
+``plan/serialize.py`` is the JSON plan every run emits as an event.
 """
 
 __version__ = "0.1.0"

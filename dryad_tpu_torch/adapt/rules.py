@@ -192,7 +192,7 @@ class DynamicAggregationTree(ConnectionManager):
         """A merge level applied on top of another merge level: builtin
         final aggs (out -> (sum|min|max|any|all, out)) are idempotent
         under re-application, so the op clones as-is."""
-        return StageOp(op.kind, dict(op.params))
+        return StageOp(op.kind, dict(op.params), span=op.span)
 
     def _expand(self, ctx: RuleContext, st: StageStats) -> List[dict]:
         out = []

@@ -26,18 +26,19 @@ time through ``Executor.run(..., cost_report=)``, which emits a
 ``cost_model_miss`` event for a stage outside its prediction; read by
 ``adapt/`` as priors) and the DTA2xx findings
 (:func:`cost_diagnostics`, :func:`cache_diagnostic`).  The serialized-
-plan pass (``estimate_plan_json``) waits for ``plan/serialize.py``
-(ROADMAP Queue 1 item 10).
+plan pass (:func:`estimate_plan_json`) needs no callables and no sources:
+the capacity / row table of a ``graph_to_json`` plan.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from dryad_tpu_torch.analysis.diagnostics import Diagnostic
+from dryad_tpu_torch.analysis.diagnostics import Diagnostic, Span
 from dryad_tpu_torch.analysis.domain import (AbsState, ColSpec, Interval,
                                              abstract_batch, fmt_bytes,
                                              out_bytes, schema_from_columns,
@@ -45,7 +46,7 @@ from dryad_tpu_torch.analysis.domain import (AbsState, ColSpec, Interval,
 
 __all__ = ["StageCostEstimate", "CostReport", "estimate_graph",
            "estimate_query", "cost_diagnostics", "cache_diagnostic",
-           "check_stage_measurement", "COST_CODES"]
+           "check_stage_measurement", "estimate_plan_json", "COST_CODES"]
 
 # DTA2xx codes this model emits (a subset of diagnostics.CODES)
 COST_CODES = ("DTA200", "DTA201", "DTA202", "DTA203", "DTA204",
@@ -84,6 +85,9 @@ class StageCostEstimate:
     out_bytes: Interval               # materialized output bytes (total)
     work_bytes: Interval              # peak per-DEVICE working set
     approx: bool = False
+    # the query line of the stage's first op with a span (the anchor of
+    # its DTA2xx findings)
+    span: Optional[Tuple[str, int, str]] = None
     notes: Tuple[str, ...] = ()
 
     def to_payload(self) -> dict:
@@ -100,7 +104,7 @@ class StageCostEstimate:
             d["stage"], d.get("label", ""),
             Interval(*d["rows"]), d.get("capacity", 0),
             Interval(*d["out_bytes"]), Interval(*d["work_bytes"]),
-            d.get("approx", False), tuple(d.get("notes", ())))
+            d.get("approx", False), None, tuple(d.get("notes", ())))
 
 
 @dataclasses.dataclass
@@ -585,11 +589,15 @@ def _estimate_stages(graph, nparts: int, config, report: CostReport,
                 out_iv = Interval.upto(None)
             if exchange_unbounded:
                 notes.append("unbounded rows reach an exchange")
+            span = next((op.span for op in
+                         [o for leg in st.legs for o in leg.ops] + st.body
+                         if op.span is not None), None)
             report.stages.append(StageCostEstimate(
                 st.id, st.label, cur.rows_clamped(nparts),
                 cur.capacity, out_iv,
                 Interval(work_lo, work_hi), approx=cur.approx
-                or ob is None, notes=tuple(dict.fromkeys(notes))))
+                or ob is None, span=span,
+                notes=tuple(dict.fromkeys(notes))))
 
 
 def estimate_query(node, nparts: int, config=None) -> CostReport:
@@ -618,6 +626,7 @@ def cost_diagnostics(report: CostReport, config=None) -> List[Diagnostic]:
     hbm = report.device_hbm_bytes
     worst: Optional[StageCostEstimate] = None
     for s in report.stages:
+        sp = Span.of(s.span)
         if hbm and s.work_bytes.lo > hbm:
             out.append(Diagnostic(
                 "DTA201", "error",
@@ -626,7 +635,7 @@ def cost_diagnostics(report: CostReport, config=None) -> List[Diagnostic]:
                 f"{fmt_bytes(s.work_bytes.lo)} > device_hbm_bytes="
                 f"{fmt_bytes(hbm)} — repartition over more devices, "
                 f"or lower capacities",
-                node=f"stage{s.stage}:{s.label}"))
+                sp, node=f"stage{s.stage}:{s.label}"))
         elif hbm and (s.work_bytes.hi is None
                       or s.work_bytes.hi > hbm):
             bound = (fmt_bytes(s.work_bytes.hi)
@@ -636,7 +645,7 @@ def cost_diagnostics(report: CostReport, config=None) -> List[Diagnostic]:
                 f"stage {s.stage} ({s.label}) may exceed the device "
                 f"HBM budget (predicted spill): per-device working set "
                 f"up to {bound} vs device_hbm_bytes={fmt_bytes(hbm)}",
-                node=f"stage{s.stage}:{s.label}"))
+                sp, node=f"stage{s.stage}:{s.label}"))
         if "unbounded rows reach an exchange" in s.notes:
             out.append(Diagnostic(
                 "DTA203", "warn",
@@ -644,7 +653,7 @@ def cost_diagnostics(report: CostReport, config=None) -> List[Diagnostic]:
                 f"row bound feeds an exchange — the exchange buffer is "
                 f"sized blind; bound it with with_capacity()/assume_* "
                 f"or seed the source with real statistics",
-                node=f"stage{s.stage}:{s.label}"))
+                sp, node=f"stage{s.stage}:{s.label}"))
         if worst is None or (s.work_bytes.hi is not None
                              and (worst.work_bytes.hi is None
                                   or s.work_bytes.hi
@@ -693,7 +702,7 @@ def cache_diagnostic(report: CostReport, config=None
             f"fingerprints; iterations re-stream local sequential "
             f"reads) — set JobConfig.ooc_cache_dir for restart reuse, "
             f"or ooc_restream_cache=False to pin device-resident",
-            node=f"stage{last.stage}:{last.label}")
+            Span.of(last.span), node=f"stage{last.stage}:{last.label}")
     return Diagnostic(
         "DTA204", "warn",
         f"cache() would pin {scale} in device memory for the Context's "
@@ -701,7 +710,7 @@ def cache_diagnostic(report: CostReport, config=None
         f"re-streaming cache tier, or persist with to_store() and "
         f"read_store_stream() (the >HBM path) instead of cache() at "
         f"this scale",
-        node=f"stage{last.stage}:{last.label}")
+        Span.of(last.span), node=f"stage{last.stage}:{last.label}")
 
 
 # ---------------------------------------------------------------------------
@@ -737,3 +746,47 @@ def check_stage_measurement(est: StageCostEstimate, scale: int,
                     "measured": int(out_bytes), "scale": int(scale),
                     "predicted": list(est.out_bytes.as_tuple())})
     return out
+
+
+# ---------------------------------------------------------------------------
+# offline (serialized-plan) capacity model — no callables, no device
+
+
+def estimate_plan_json(plan_json: str, nparts: int = 1,
+                       config=None) -> CostReport:
+    """Row/capacity cost pass over a SERIALIZED plan (graph_to_json
+    output): callables and sources are gone, so schemas (and therefore
+    bytes) are unknown — but every capacity in the plan is structural,
+    so the per-stage capacity/row-bound table still computes.  Used by
+    ``python -m dryad_tpu_torch.analysis plan.json --cost``."""
+    d = json.loads(plan_json)
+    report = CostReport(nparts, [])
+    caps: Dict[int, int] = {}
+    for st in d.get("stages", []):
+        cap = 0
+        for leg in st.get("legs", []):
+            src = leg.get("src", {})
+            leg_cap = caps.get(src.get("stage"), 0) \
+                if "stage" in src else 0
+            for op in leg.get("ops", []):
+                pc = op.get("params", {})
+                for key in ("out_capacity", "vocab_capacity",
+                            "capacity"):
+                    if isinstance(pc.get(key), int):
+                        leg_cap = pc[key]
+            ex = leg.get("exchange")
+            if ex is not None:
+                leg_cap = int(ex.get("out_capacity", leg_cap))
+            cap = max(cap, leg_cap)
+        for op in st.get("body", []):
+            pc = op.get("params", {})
+            for key in ("out_capacity", "vocab_capacity", "capacity"):
+                if isinstance(pc.get(key), int):
+                    cap = pc[key]
+        caps[st["id"]] = cap
+        report.stages.append(StageCostEstimate(
+            st["id"], st.get("label", ""),
+            Interval.upto(cap * nparts if cap else None), cap,
+            Interval.upto(None), Interval.upto(None), approx=True))
+    report.__post_init__()
+    return report

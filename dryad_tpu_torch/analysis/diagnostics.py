@@ -2,11 +2,10 @@
 of ``dryad_tpu/analysis/diagnostics.py``.
 
 Every finding is a ``Diagnostic`` with a stable ``DTAxxx`` code, so
-tooling (CI gates, tests) can key off it.  The port emits the DTA2xx
-codes of its cost model (``analysis/cost.py``); the code table is the
-JAX package's whole, so the other families keep their meaning for the
-layers still to come (the plan verifier, the UDF lint, the SQL front
-end: ROADMAP Queue 1 item 10).
+tooling (CI gates, tests) can key off it.  The code table is the JAX
+package's whole, so a code means the same thing to both packages; the
+port emits the plan verifier's (DTA0xx), the UDF lint's (DTA1xx), the
+cost model's (DTA2xx) and the SQL front end's (DTA3xx).
 
 Code space: DTA0xx plan verifier, DTA1xx UDF lint, DTA2xx cost and
 resource model, DTA3xx SQL front end, DTA4xx incremental execution,
@@ -16,10 +15,10 @@ DTA5xx plan equivalence and reuse, DTA9xx runtime-only conditions.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Iterable, List, Optional
+from typing import Any, Dict, Iterable, List, Optional
 
-__all__ = ["Span", "Diagnostic", "DiagnosticReport", "LintError",
-           "SEVERITIES", "CODES"]
+__all__ = ["Span", "Diagnostic", "DiagnosticReport", "DiagnosticError",
+           "LintError", "SEVERITIES", "CODES", "RUNTIME_ONLY_CODES"]
 
 # severity rank for sorting/gating (error first)
 SEVERITIES = {"error": 0, "warn": 1, "info": 2}
@@ -120,6 +119,14 @@ CODES = {
               "version unsupported — recovery refused",
 }
 
+# codes with NO static-analyzer rule, by design: data-dependent
+# overflows, internal invariants, worker-side deploy failures and the
+# service's admission refusals
+RUNTIME_ONLY_CODES = frozenset({"DTA901", "DTA902", "DTA903", "DTA904",
+                                "DTA905", "DTA910", "DTA911", "DTA912",
+                                "DTA913", "DTA914"})
+
+
 @dataclasses.dataclass(frozen=True)
 class Span:
     """Source provenance: where the user wrote the offending construct.
@@ -212,6 +219,23 @@ class DiagnosticReport:
     def by_code(self, code: str) -> List[Diagnostic]:
         return [d for d in self.diagnostics if d.code == code]
 
+    def dedup(self) -> "DiagnosticReport":
+        """Collapse findings that differ only by the consumer path that
+        reached them: a construct consumed by N Tee'd branches reports
+        once, annotated with the path count.  The message is part of
+        the identity (two different defects at one span both stay).  In
+        place; returns self."""
+        groups: Dict[tuple, List[Diagnostic]] = {}
+        for d in self.diagnostics:
+            groups.setdefault((d.code, d.severity, d.span, d.node,
+                               d.message), []).append(d)
+        self.diagnostics = [
+            g[0] if len(g) == 1 else dataclasses.replace(
+                g[0], message=f"{g[0].message} [x{len(g)} consumer "
+                              f"paths]")
+            for g in groups.values()]
+        return self
+
     def render(self) -> str:
         if not self.diagnostics:
             return "no findings"
@@ -222,13 +246,29 @@ class DiagnosticReport:
         return "\n".join(lines)
 
 
+class DiagnosticError(RuntimeError):
+    """A runtime error that mirrors a static diagnostic: it carries the
+    stable ``code`` and the offending construct's ``span``, so the
+    message points at the user's query line (the SQL front end's
+    ``SqlError`` is one)."""
+
+    def __init__(self, message: str, code: Optional[str] = None,
+                 span: Any = None):
+        self.code = code
+        self.span = Span.of(span)
+        full = f"[{code}] {message}" if code else message
+        if self.span is not None:
+            full += f" (at {self.span})"
+        super().__init__(full)
+
+
 class LintError(RuntimeError):
-    """A report with error-severity findings, raised before any work
-    starts (the JAX package's pre-submit gate, ``JobConfig.lint``, raises
-    it; the port's gate comes with the plan verifier)."""
+    """Raised by the pre-submit gate (``JobConfig.lint="error"``) when
+    the static analyzer reports error-severity findings: the job never
+    reaches the executor."""
 
     def __init__(self, report: DiagnosticReport):
         self.report = report
         super().__init__(
-            "static analysis found error-severity diagnostics:\n"
-            + report.render())
+            "static analysis found error-severity diagnostics "
+            "(JobConfig.lint='error'):\n" + report.render())

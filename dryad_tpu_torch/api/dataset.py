@@ -45,6 +45,14 @@ built on the Context's device.  ``Dataset.cost()`` is the static cost
 model's report for the plan a terminal call would run
 (``analysis/cost.py``); ``JobConfig(adaptive="on")`` lets the executor
 rewrite the plan's remaining stages from measured rows (``adapt/``).
+
+``Dataset.check()`` is the static checker's report (the plan rules and
+the UDF lint, ``analysis/``), ``Dataset.explain(verify=, cost=)`` the
+plan with it and the cost table; ``JobConfig(lint="warn" | "error")``
+runs both before every in-memory or streamed submission
+(``Context._pre_submit_lint``).  ``Context(fn_table=)`` names callables
+registered for shipping.  The SQL front end (``sql/``) lowers a query
+into these same calls.
 """
 
 from __future__ import annotations
@@ -246,9 +254,14 @@ class Context:
                  config: JobConfig | None = None,
                  event_log: Optional[Callable[[dict], None]] = None,
                  spill_dir: Optional[str] = None,
-                 local_debug: bool = False):
+                 local_debug: bool = False,
+                 fn_table: Optional[Mapping[str, Any]] = None):
         self.config = config or JobConfig()
         self.local_debug = local_debug
+        # names of callables registered for shipping: the analyzer's
+        # cluster rules treat them as shippable, and a serialized plan
+        # (plan/serialize.py) re-binds them by name
+        self.fn_table = dict(fn_table or {})
         self.mesh = Mesh(resolve_device(device), nparts)
         self.nparts = nparts
         self.spill_dir = spill_dir
@@ -259,6 +272,48 @@ class Context:
     @property
     def device(self):
         return self.mesh.device
+
+    # -- pre-submit static analysis (analysis/) ----------------------------
+
+    def _pre_submit_lint(self, node, cluster: bool = False, graph=None):
+        """The ``JobConfig.lint`` gate: verify the plan and lint its UDFs
+        BEFORE any executor work starts.  "warn" logs the findings
+        (``lint_finding`` events); "error" refuses to submit on
+        error-severity findings (``analysis.LintError``).
+
+        With ``graph`` (the already-planned StageGraph: planning is
+        deterministic, so it is what the executor runs) the static cost
+        pass runs too: its DTA2xx findings join the report, and a
+        ``cost_report`` event carries the machine-readable report the
+        executor cross-checks (``cost_model_miss``).  Returns the
+        CostReport, or None."""
+        mode = self.config.lint
+        if mode == "off":
+            return None
+        from dryad_tpu_torch.analysis import LintError, check_plan
+        report = check_plan(node, cluster=cluster, fn_table=self.fn_table)
+        cost_rep = None
+        if graph is not None:
+            from dryad_tpu_torch.analysis.cost import (cost_diagnostics,
+                                                       estimate_graph)
+            cost_rep = estimate_graph(graph, self.nparts,
+                                      config=self.config)
+            report.diagnostics.extend(cost_diagnostics(cost_rep,
+                                                       self.config))
+        report.dedup()
+        ev = self._event_log
+        if ev is not None:
+            for d in report:
+                ev({"event": "lint_finding", "code": d.code,
+                    "severity": d.severity, "message": d.message,
+                    "node": d.node,
+                    "span": str(d.span) if d.span else None})
+            if cost_rep is not None:
+                ev({"event": "cost_report",
+                    "report": cost_rep.to_payload()})
+        if mode == "error" and report.errors:
+            raise LintError(report)
+        return cost_rep
 
     def from_columns(self, columns: Mapping[str, Any],
                      capacity: int | None = None,
@@ -927,9 +982,9 @@ class Dataset:
         the context's device (``exec/stream_exec.py``); returns the lazy
         output ChunkSource."""
         from dryad_tpu_torch.exec.stream_exec import run_stream_graph
-        return run_stream_graph(plan_query(self.node, 1,
-                                           config=self.ctx.config),
-                                self.ctx.config, self.ctx.device,
+        graph = plan_query(self.node, 1, config=self.ctx.config)
+        self.ctx._pre_submit_lint(self.node, graph=graph)
+        return run_stream_graph(graph, self.ctx.config, self.ctx.device,
                                 spill_dir=self.ctx.spill_dir,
                                 event_log=self.ctx.executor._event)
 
@@ -950,8 +1005,10 @@ class Dataset:
         stage ran salted, or an adaptive rewrite flipped a join's
         broadcast)."""
         graph = self.plan()
+        cost_rep = self.ctx._pre_submit_lint(self.node, graph=graph)
         ex = self.ctx.executor
-        out = ex.run(graph, spill_dir=self.ctx.spill_dir)
+        out = ex.run(graph, spill_dir=self.ctx.spill_dir,
+                     cost_report=cost_rep)
         return out, (any(st._salted for st in graph.stages)
                      or ex._last_run_placement_changed)
 
@@ -999,8 +1056,43 @@ class Dataset:
                                             "keys": list(part.keys)},
                     compression=compression)
 
-    def explain(self) -> str:
-        return self.plan().explain()
+    # -- static analysis ---------------------------------------------------
+
+    def check(self, cluster: bool = False, cost: bool = False):
+        """Statically verify this query — plan rules + UDF determinism /
+        shippability lint — WITHOUT executing anything.  Returns an
+        ``analysis.DiagnosticReport`` with every finding at once (stable
+        DTA0xx / DTA1xx codes, source spans).  ``cluster`` turns the
+        cluster-shipping rules on (the port runs on one process, so they
+        are off by default).  ``cost=True`` adds the DTA2xx resource findings (the
+        cost model runs the ops on meta tensors: nothing on the card)."""
+        from dryad_tpu_torch.analysis import check_plan
+        report = check_plan(self.node, cluster=cluster,
+                            fn_table=self.ctx.fn_table)
+        if cost:
+            from dryad_tpu_torch.analysis.cost import cost_diagnostics
+            report.diagnostics.extend(
+                cost_diagnostics(self.cost(), self.ctx.config))
+            report.dedup()
+        return report
+
+    def explain(self, verify: bool = False, cost: bool = False) -> str:
+        """The plan as text; ``verify`` appends the diagnostics of
+        ``check()``, ``cost`` the static cost table (with its DTA2xx
+        findings among the diagnostics).  Runs nothing."""
+        text = self.plan().explain()
+        cost_rep = self.cost() if cost else None
+        if verify:
+            report = self.check()
+            if cost_rep is not None:
+                from dryad_tpu_torch.analysis.cost import cost_diagnostics
+                report.diagnostics.extend(
+                    cost_diagnostics(cost_rep, self.ctx.config))
+                report.dedup()
+            text += "\n\ndiagnostics:\n" + report.render()
+        if cost_rep is not None:
+            text += "\n\npredicted cost:\n" + cost_rep.render()
+        return text
 
     # -- terminal scalars --------------------------------------------------
 

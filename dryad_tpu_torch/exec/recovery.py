@@ -35,10 +35,11 @@ drops the predictions of the stages it reshaped.
 A Run is the per-job state: the event sink (``event=``, else the
 executor's), tagged with ``job=`` when given, the failure budget, the
 memo, the adaptive manager, the cost report and the one-slot stats box
-all live on it, never on the shared executor.  Left out until their
-ROADMAP items come: the plan event, spans, the resource sampler and the
-metrics snapshot in ``job_done``, checkpoint and pause (Queue 1 item
-10).
+all live on it, never on the shared executor.  A Run with an event
+sink emits the executed plan first (a ``plan`` event,
+``plan/serialize.graph_to_json``).  Left out until their ROADMAP items
+come: spans, the resource sampler and the metrics snapshot in
+``job_done``, checkpoint and pause.
 """
 
 from __future__ import annotations
@@ -52,7 +53,9 @@ from typing import Dict, Optional
 import torch
 
 from dryad_tpu_torch.exec.data import PData
-from dryad_tpu_torch.exec.executor import _M_CAP_RETRIES, CapacityError
+from dryad_tpu_torch.exec.executor import _M_CAP_RETRIES, CapacityError, \
+    _no_event
+from dryad_tpu_torch.plan.serialize import graph_to_json
 from dryad_tpu_torch.plan.stages import StageGraph
 
 __all__ = ["Run", "FailureBudgetExceeded"]
@@ -112,6 +115,18 @@ class Run:
                        and self.adapt is None else None)
         if spill_dir:
             os.makedirs(spill_dir, exist_ok=True)
+        # the EXECUTED plan in the event stream, so a viewer draws the
+        # DAG that actually ran (a re-planned graph gets fresh stage ids,
+        # and a separately serialized plan would not match the stage
+        # events).  Serialization never blocks execution: only the
+        # serializer's own failures are dropped.
+        if sink is not _no_event:
+            try:
+                plan_json = graph_to_json(graph)
+            except (TypeError, ValueError, RecursionError):
+                plan_json = None
+            if plan_json is not None:
+                self._event({"event": "plan", "plan": plan_json})
 
     # -- public ------------------------------------------------------------
 

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import os
+import sys
 from typing import Any, Callable, Dict, Optional, Tuple
 
 __all__ = ["Partitioning", "Node", "Source", "Placeholder", "Map", "Filter",
@@ -26,6 +28,28 @@ __all__ = ["Partitioning", "Node", "Source", "Placeholder", "Map", "Filter",
            "Zip", "WithRowIndex", "SkipTake", "SlidingWindow", "walk"]
 
 _ids = itertools.count()
+
+# creation-site provenance: every Node captures the first stack frame
+# outside the package (dryad_tpu_torch/* except apps/, which are
+# user-shaped samples), so diagnostics (``analysis/``) and runtime errors
+# point at the user's query line
+_PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_APPS_DIR = os.path.join(_PKG_ROOT, "apps")
+
+
+def _creation_span() -> Optional[Tuple[str, int, str]]:
+    f = sys._getframe(1)
+    depth = 0
+    while f is not None and depth < 32:
+        fn = f.f_code.co_filename
+        internal = (fn.startswith("<")
+                    or (fn.startswith(_PKG_ROOT + os.sep)
+                        and not fn.startswith(_APPS_DIR + os.sep)))
+        if not internal:
+            return (fn, f.f_lineno, f.f_code.co_name)
+        f = f.f_back
+        depth += 1
+    return None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,9 +69,13 @@ class Node:
 
     id: int
     parents: Tuple["Node", ...]
+    # (file, line, function) of the user call that created the node —
+    # not a dataclass field (set in __post_init__, excluded from eq/repr)
+    span: Optional[Tuple[str, int, str]]
 
     def __post_init__(self):
         object.__setattr__(self, "id", next(_ids))
+        object.__setattr__(self, "span", _creation_span())
 
     @property
     def npartitions(self) -> int:

@@ -162,11 +162,24 @@ class Planner:
             for p in n.parents:
                 self.consumers[p.id] = self.consumers.get(p.id, 0) + 1
         for n in order:
+            pre_stages = len(self.stages)
             frag = self._lower(n)
             if self.consumers.get(n.id, 0) > 1:
                 _, frag = self._materialize(
                     frag, label=f"tee:{type(n).__name__}")
             self.frags[n.id] = frag
+            # provenance: ops made lowering THIS node (in the pending
+            # fragment or in the stages it cut) take its creation span;
+            # ops carried over from earlier fragments keep their own
+            span = getattr(n, "span", None)
+            if span is not None:
+                ops = list(frag.ops)
+                for st in self.stages[pre_stages:]:
+                    ops.extend(op for leg in st.legs for op in leg.ops)
+                    ops.extend(st.body)
+                for op in ops:
+                    if op.span is None:
+                        op.span = span
         out_id, _ = self._materialize(self.frags[root.id], label="output")
         # a placement claim flows back through exchange-less legs, so the
         # whole ancestor chain carrying it is relied upon
@@ -348,7 +361,7 @@ class Planner:
 
         if isinstance(n, E.Take):
             f = self._frag(n.parents[0])
-            f.ops.append(StageOp("take", {"n": n.n}))
+            f.ops.append(StageOp("take", {"n": n.n, "global": True}))
             return f
 
         if isinstance(n, E.WithRowIndex):

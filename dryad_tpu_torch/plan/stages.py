@@ -11,7 +11,8 @@ batched exchange.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+import json
+from typing import Any, Dict, List, Optional, Tuple
 
 __all__ = ["StageOp", "Exchange", "Leg", "Stage", "StageGraph"]
 
@@ -23,6 +24,10 @@ class StageOp:
 
     kind: str
     params: Dict[str, Any]
+    # user-source provenance of the logical node this op lowers
+    # ((file, line, func), plan/expr._creation_span): diagnostics and
+    # runtime errors cite the query line.  Not part of fingerprint().
+    span: Optional[Tuple[str, int, str]] = None
 
 
 @dataclasses.dataclass
@@ -96,6 +101,13 @@ class Stage:
         measured."""
 
         def val_fp(v) -> str:
+            # shippable values (plan/serialize.ship_ref_of: the SQL front
+            # end's row-expression programs) by content: a re-lowered
+            # query builds fresh objects computing the same function
+            if (hasattr(v, "__ship_payload__")
+                    and hasattr(type(v), "__from_payload__")):
+                return (f"ship:{type(v).__qualname__}:"
+                        f"{json.dumps(v.__ship_payload__(), sort_keys=True)}")
             return "fn%x" % id(v) if callable(v) else repr(v)
 
         def op_fp(op: StageOp) -> str:

@@ -70,6 +70,15 @@ class JobConfig:
     # demotes to hash exchanges, below it a saltable hash join promotes
     adapt_broadcast_max_ratio: float = 0.25
 
+    # -- pre-submit static analysis (analysis/) ----------------------------
+    # gate every in-memory and streamed submission through the plan
+    # verifier and the UDF lint: "off" = no checking, "warn" = run the
+    # job and log the findings (``lint_finding`` events, with the cost
+    # pass's ``cost_report``), "error" = refuse to submit when
+    # error-severity findings exist (analysis.LintError).
+    # ``Dataset.check()`` is the interactive form.
+    lint: str = "off"
+
     # -- static cost model (analysis/cost.py) ------------------------------
     # per-device memory budget the DTA2xx findings compare the predicted
     # working set with; 0 = unknown (no budget finding)
@@ -168,6 +177,8 @@ class JobConfig:
             (self.string_max_len >= 1, "string_max_len >= 1"),
             (len(self.token_delims) >= 1, "token_delims non-empty"),
             (self.device_hbm_bytes >= 0, "device_hbm_bytes >= 0"),
+            (self.lint in ("off", "warn", "error"),
+             "lint in ('off', 'warn', 'error')"),
             (self.adaptive in ("off", "on"),
              "adaptive in ('off', 'on')"),
             (self.adapt_skew_factor >= 1.0, "adapt_skew_factor >= 1.0"),

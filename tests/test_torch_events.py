@@ -58,8 +58,10 @@ def test_level_filter(devices8, level, monkeypatch):
     ctx = TContext(device="cpu", nparts=P, event_log=log)
     _query(ctx).collect()
     kinds = {e["event"] for e in log.events}
-    want = {0: set(), 1: {"stage_done", "settle_replay", "job_done"},
-            2: {"stage_done", "settle_replay", "job_done", "progress"}}
+    want = {0: set(),
+            1: {"plan", "stage_done", "settle_replay", "job_done"},
+            2: {"plan", "stage_done", "settle_replay", "job_done",
+                "progress"}}
     assert kinds == want[level]
     assert log.admits("stage_replay") and log.admits("an_unknown_kind")
     assert log.admits("progress") == (level == 2)

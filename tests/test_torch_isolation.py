@@ -175,3 +175,64 @@ def test_streamed_runs_load_no_jax(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+SQL_MODULES = ("dryad_tpu_torch.sql", "dryad_tpu_torch.sql.__main__",
+               "dryad_tpu_torch.sql.binder", "dryad_tpu_torch.sql.catalog",
+               "dryad_tpu_torch.sql.errors", "dryad_tpu_torch.sql.lexer",
+               "dryad_tpu_torch.sql.lower", "dryad_tpu_torch.sql.nodes",
+               "dryad_tpu_torch.sql.parser", "dryad_tpu_torch.sql.rowexpr",
+               "dryad_tpu_torch.plan.serialize",
+               "dryad_tpu_torch.analysis.__main__",
+               "dryad_tpu_torch.analysis.plan_rules",
+               "dryad_tpu_torch.analysis.udf_lint")
+
+
+def test_sql_and_analysis_modules_are_checked():
+    """The SQL front end, the JSON plan and the static checker are among
+    the modules the two checks above import and scan."""
+    assert set(SQL_MODULES) <= set(_modules())
+
+
+def test_sql_cli_and_checker_load_no_jax(tmp_path):
+    """``python -m dryad_tpu_torch.sql`` (an offline EXPLAIN and a SELECT
+    on the CPU), a lint-gated query with its plan event, ``check()`` and
+    ``python -m dryad_tpu_torch.analysis`` in a fresh interpreter: neither
+    jax nor dryad_tpu is loaded."""
+    cat = str(tmp_path / "cat.json")
+    plan = str(tmp_path / "plan.json")
+    code = (
+        "import runpy, sys\n"
+        "import numpy as np\n"
+        "from dryad_tpu_torch import Context, JobConfig, sql\n"
+        "from dryad_tpu_torch.utils.events import EventLog\n"
+        "c = sql.Catalog().register_columns('t', {\n"
+        "    'k': np.arange(300, dtype=np.int32) % 7,\n"
+        "    's': [b'a' if i % 2 else b'b' for i in range(300)]})\n"
+        f"c.save({cat!r})\n"
+        "def cli(mod, *args):\n"
+        "    sys.argv = [mod, *args]\n"
+        "    try:\n"
+        "        runpy.run_module(mod, run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert not e.code, e.code\n"
+        f"cli('dryad_tpu_torch.sql', '--catalog', {cat!r}, '-e',\n"
+        "    'EXPLAIN SELECT k, COUNT(*) AS n FROM t GROUP BY k')\n"
+        f"cli('dryad_tpu_torch.sql', '--catalog', {cat!r}, '--device',\n"
+        "    'cpu', '-e', \"SELECT k FROM t WHERE s = 'a' ORDER BY k "
+        "LIMIT 2\")\n"
+        "log = EventLog()\n"
+        "ctx = Context(device='cpu', event_log=log,\n"
+        "              config=JobConfig(lint='warn'))\n"
+        "q = sql.query(ctx, c, 'SELECT k, COUNT(*) AS n FROM t GROUP BY k')\n"
+        "assert len(q.collect()['k']) == 7 and q.check().clean\n"
+        "p = log.of_type('plan')[0]['plan']\n"
+        f"open({plan!r}, 'w').write(p)\n"
+        f"cli('dryad_tpu_torch.analysis', {plan!r}, '--cost')\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'dryad_tpu')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+    assert "k | n" not in out.stdout and "output: stage" in out.stdout
