@@ -239,7 +239,32 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      round-trips through ``graph_from_json``; EXPLAIN COST launches no
      kernel and predicts the run's capacities.  All five kernels must
      launch in the phase;
- 3-14. after each of those main-path runs, every kernel call it made
+  15. observability, over phase 14's catalog and phase 7's graph:
+     ``obs_sqlq3_6m`` (``sql.explain(ctx, catalog, "EXPLAIN ANALYZE " +
+     SQL_Q3)``, adaptive off: the report's settled stages' rows equal to
+     the rows the run's ``stage_done`` events carry, every scale-1 stage
+     inside its predicted rows and, where no stage upstream of it was
+     rescaled, its predicted bytes, zero ``cost_model_miss``, the join's
+     unsalted retry: 2 runs); ``obs_pagerank100k`` (PageRank three times
+     with telemetry off, no event log, and three times on,
+     ``EventLog(level=2, history_dir=..., app="pagerank")`` with
+     ``JobConfig(resource_sample_s=0.1)``, in turns: ranks bit-equal
+     across all six and within rtol 2e-3 of ``pagerank_numpy``,
+     ``Executor.host_reads`` equal on and off, per executor run one
+     ``run`` job span, a ``stage`` span for each stage computed under
+     it and one ``job_done`` with its trace id and metrics, resource
+     samples with ``0 < device_bytes <= max_memory_allocated()``, the
+     critical path of each run equal to its job span's wall, three
+     history archives with events / plan / metrics / summary, ``python
+     -m dryad_tpu_torch.obs`` trace / critical-path / metrics / analyze
+     / history exiting 0 on the last archive, no thread left behind;
+     warm-wall medians on and off); ``obs_profile_pagerank100k`` (one
+     more run with ``JobConfig(profile_dir=...)``: one Chrome trace per
+     executor run, whose kernel events name every port kernel the run
+     launched with nonzero device time; its wall beside the unprofiled
+     median).  The history archives stay under ``--out``/phase15, the
+     traces are deleted once read.  All five kernels must launch;
+ 3-15. after each of those main-path runs, every kernel call it made
      is made again through the kernel and through its plain version on
      the very tensors the run passed (integers exactly, prefix_sum2
      within twice its bound);
@@ -272,7 +297,8 @@ their source per attempt among them), one for phase 11 (``{"phase":
 "recovery", ...}``), one per phase-12 cell and one each for its cost
 model and oracle runs (``{"phase12": ...}``), one per phase-13 cell and
 its scatter line (``{"phase13": ...}``), one per phase-14 cell
-(``{"phase14": ...}``) and the phase's launches, per profile, per pack
+(``{"phase14": ...}``) and the phase's launches, one per phase-15 cell
+(``{"phase15": ...}``) and the phase's launches, per profile, per pack
 side
 and per kernel, then
 the card line, then the
@@ -3806,19 +3832,28 @@ def sql_warm(port, hk, app, ctx, check, label) -> dict:
             "lint_s": spent[0]}
 
 
-def phase14_runs(port, hk, n_items: int, held, out_dir=None) -> dict:
+def sql_catalog(port_sql, n_items: int):
+    """(lineitem, orders, a ``sql.Catalog`` holding both) over
+    ``sql_tables(n_items)``."""
+    li, orders = sql_tables(n_items)
+    cat = port_sql.Catalog()
+    cat.register_columns("lineitem", li)
+    cat.register_columns("orders", orders)
+    return li, orders, cat
+
+
+def phase14_runs(port, hk, n_items: int, held, out_dir=None,
+                 tables=None) -> dict:
     """Phase 14's cells over ``sql_tables(n_items)`` registered in a
-    ``sql.Catalog``: sqlq3_6m adaptive off and on (cold each, then
+    ``sql.Catalog`` (``tables``: ``sql_catalog``'s triple, made here when
+    None): sqlq3_6m adaptive off and on (cold each, then
     ``SQL_WARM_REPS`` warm runs of each in turns, off first, then, with
     ``out_dir``, one profiled warm run of each: device time and busy
     share), the two committed golden queries and the Q1-shaped aggregate
     (cold, one warm run).  Every cell under lint "warn", its EXPLAIN
     COST launch-free."""
     from dryad_tpu_torch import sql
-    li, orders = sql_tables(n_items)
-    cat = sql.Catalog()
-    cat.register_columns("lineitem", li)
-    cat.register_columns("orders", orders)
+    li, orders, cat = tables or sql_catalog(sql, n_items)
     res = {}
 
     def q3_check(label, out):
@@ -3870,6 +3905,370 @@ def phase14_runs(port, hk, n_items: int, held, out_dir=None) -> dict:
         port, hk, sql, cat, "sqlq1agg6m", SQL_Q1,
         lambda label, out: check_q1agg(label, out, li), held)[0]
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 15: observability on the card
+
+OBS_REPS = 3             # warm PageRank runs with telemetry off and on each
+OBS_SAMPLE_S = 0.1       # the telemetry-on runs' resource sampler period
+OBS_CLI = ("trace", "critical-path", "metrics", "analyze", "history")
+# the Chrome trace categories of device records
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def obs_sqlq3(port, hk, sql, cat, held, device="cuda") -> dict:
+    """obs_sqlq3_6m: ``sql.explain(ctx, cat, "EXPLAIN ANALYZE " + SQL_Q3)``
+    (adaptive off, lint off: ANALYZE runs the cost model itself) in a
+    context with an event log, through ``run_app`` (kernel calls held,
+    launches against the executor's log).  The report (the log's
+    ``analyze_report``) against the run's own capture (the event log the
+    executor ran with): each settled stage's rows equal to the rows its
+    last settled ``stage_done`` carries, every settled stage at scale 1
+    inside its predicted rows, and inside its predicted bytes where every
+    stage upstream of it (by the run's ``plan`` event) ran at scale 1 as
+    well; zero ``cost_model_miss``; and the join stage's unsalted retry
+    (2 runs, 1 retry).  A stage downstream of the rescaled join may carry
+    the join's larger capacity, so its exact byte prediction (made for
+    planned capacities) does not apply; the runtime cross-check skips it
+    too, and the line lists such stages (``bytes_on_rescaled_input``)."""
+    from dryad_tpu_torch.utils.events import EventLog
+    log = EventLog()
+    ctx = port.Context(device=device, nparts=NPARTS, event_log=log)
+    caps, run = [], ctx.executor.run
+
+    def recording_run(graph, bindings=None, **kw):
+        caps.append(kw.get("event_log"))
+        return run(graph, bindings, **kw)
+
+    # run_app wraps this and removes both wrappers when it returns
+    ctx.executor.run = recording_run
+    hk.capture = {}
+    text, launches, load, qs, runs = run_app(
+        port, hk, lambda c: sql.explain(c, cat, "EXPLAIN ANALYZE " + SQL_Q3),
+        device, ctx=ctx)
+    captured, hk.capture = hk.capture, None
+    held("obs_sqlq3_6m", launches, captured)
+    del captured
+    stages = loop_stages(runs)
+    check_per_exchange("obs_sqlq3_6m", launches,
+                       stages["exchange_attempts"],
+                       stages["broadcast_attempts"], stages["probes"])
+    (rep,) = [e["report"] for e in log.of_type("analyze_report")]
+    (cap,) = caps
+    done = {}
+    for e in cap.of_type("stage_done"):
+        if not e["overflow"]:
+            done[e["stage"]] = e
+    misses = cap.of_type("cost_model_miss")
+    settled = [st for st in rep["stages"] if st["settled"]]
+    bad = [st["stage"] for st in settled
+           if st["rows"] != sum(done[st["stage"]]["rows"])
+           or st["out_bytes"] != done[st["stage"]]["out_bytes"]]
+    (plan,) = [json.loads(e["plan"]) for e in cap.of_type("plan")]
+    ups = {st["id"]: [leg["src"]["stage"] for leg in st["legs"]
+                      if "stage" in leg["src"]] for st in plan["stages"]}
+    scale = {st["stage"]: st["scale"] for st in rep["stages"]}
+
+    def planned(sid):
+        return scale[sid] == 1 and all(planned(u) for u in ups[sid])
+
+    checked = [st for st in settled
+               if st["scale"] == 1 and st["pred_rows"] is not None]
+    unbounded = [st["stage"] for st in checked if not st["rows_in_bounds"]
+                 or (planned(st["stage"]) and not st["bytes_in_bounds"])]
+    rescaled_input = [st["stage"] for st in checked
+                      if not planned(st["stage"])]
+    checked = [st["stage"] for st in checked]
+    (join,) = [st for st in rep["stages"] if st["label"] == "join"]
+    if (bad or unbounded or not checked or misses or rep["misses"]
+            or not rep["predicted"]
+            or len(settled) != len(rep["stages"])
+            or (join["runs"], join["retries"]) != (2, 1)
+            or "EXPLAIN ANALYZE (executed):" not in text):
+        raise AssertionError(
+            f"obs_sqlq3_6m: rows differ from stage_done at {bad}, outside "
+            f"the prediction at {unbounded}, {len(misses)} misses, join "
+            f"{join['runs']} runs / {join['retries']} retries:\n{text}")
+    return {"nparts": NPARTS, "launches": launches,
+            "exchanging_stages": stages["outside_loop"],
+            "exchange_attempts": stages["exchange_attempts"],
+            "wall_s": load + qs, "load_s": load, "query_s": qs,
+            "report_wall_s": rep["wall_s"], "report_run_s": rep["run_s"],
+            "report_compile_s": rep["compile_s"],
+            "cost_model_miss": len(misses), "checked_stages": checked,
+            "bytes_on_rescaled_input": rescaled_input,
+            "stages": [{k: st[k] for k in (
+                "stage", "label", "runs", "retries", "rows", "out_bytes",
+                "pred_rows", "pred_bytes", "rows_in_bounds",
+                "bytes_in_bounds", "scale", "wall_s", "compile_s")}
+                for st in rep["stages"]]}
+
+
+def check_telemetry(label, log, runs, device) -> dict:
+    """One telemetry-on run's events: per executor run one ``run`` job
+    span, and a ``stage`` span for each stage the run computed, every
+    one parented to that job span; one ``job_done`` per run carrying the
+    job span's trace id and the metrics snapshot; at least one
+    ``resource_sample``, with ``0 < device_bytes <=
+    torch.cuda.max_memory_allocated()`` on the card; and the critical
+    path of each run's spans covering its job span's wall (segments
+    summing to it)."""
+    import torch
+
+    from dryad_tpu_torch.obs.critical_path import critical_path
+    spans = log.of_type("span")
+    jobs = [s for s in spans if s["kind"] == "job"]
+    done = log.of_type("job_done")
+    errors = []
+    if len(jobs) != len(runs) or len(done) != len(runs):
+        errors.append(f"{len(jobs)} job spans and {len(done)} job_done for "
+                      f"{len(runs)} runs")
+    worst = 0.0
+    for job, r, d in zip(jobs, runs, done):
+        mine = [s for s in spans if s["trace"] == job["trace"]]
+        st = [s for s in mine if s["kind"] == "stage"]
+        if (len(mine) != len(st) + 1
+                or any(s.get("parent") != job["span"] for s in st)
+                or {s["attrs"]["stage"] for s in st}
+                != {e["stage"] for e in r["stages"]}):
+            errors.append(f"run {job['trace']}: stage spans "
+                          f"{[s['name'] for s in st]}")
+        if d.get("trace") != job["trace"] or not d.get("metrics"):
+            errors.append(f"job_done {d.get('trace')} for {job['trace']}")
+        cp = critical_path(mine)
+        seg = sum(x["self_s"] for x in cp["segments"])
+        worst = max(worst, abs(cp["total_s"] - job["dur_s"]),
+                    abs(seg - cp["total_s"]))
+    if worst > 1e-5:
+        errors.append(f"critical path off its job span's wall by {worst}")
+    samples = log.of_type("resource_sample")
+    dev = [e["device_bytes"] for e in samples if "device_bytes" in e]
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    if not samples or (device == "cuda" and (
+            len(dev) != len(samples) or not all(0 < b <= peak
+                                                for b in dev))) or (
+            device != "cuda" and dev):
+        errors.append(f"{len(samples)} samples, device_bytes {dev[:4]}..., "
+                      f"peak {peak}")
+    if errors:
+        raise AssertionError(f"{label}: " + "; ".join(errors))
+    return {"job_spans": len(jobs), "stage_spans": sum(
+        s["kind"] == "stage" for s in spans), "job_done": len(done),
+        "samples": len(samples), "device_bytes_max": max(dev, default=None),
+        "max_memory_allocated": peak, "critical_path_off_s": worst}
+
+
+def obs_cli(history, events_path, out_dir) -> dict:
+    """``python -m dryad_tpu_torch.obs`` trace / critical-path / metrics /
+    analyze on one archived job's events.jsonl and history on the
+    directory, each in its own process, all started together; each must
+    exit 0 with output.  Returns {subcommand: seconds}."""
+    args = {"trace": [events_path, "-o", os.path.join(out_dir,
+                                                      "trace.json")],
+            "critical-path": [events_path, "--json"],
+            "metrics": [events_path], "analyze": [events_path, "--json"],
+            "history": [history]}
+    t0 = time.perf_counter()
+    procs = {c: subprocess.Popen(
+        [sys.executable, "-m", "dryad_tpu_torch.obs", c, *args[c]],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for c in OBS_CLI}
+    out, bad = {}, {}
+    for c, proc in procs.items():
+        so, se = proc.communicate(timeout=300)
+        out[c] = time.perf_counter() - t0
+        if proc.returncode != 0 or not so.strip():
+            bad[c] = (proc.returncode, se[-2000:])
+    if bad:
+        raise AssertionError(f"obs CLI: {bad}")
+    return out
+
+
+def obs_pagerank(port, hk, pr, edges, n_nodes, out_dir, held,
+                 device="cuda") -> dict:
+    """obs_pagerank100k: PageRank (``PR_ITERS`` supersteps) ``OBS_REPS``
+    times each way in turns, off first, each in a new context: telemetry
+    off (no event log) and on (``EventLog(level=2,
+    history_dir=<out_dir>/history, app="pagerank")``,
+    ``JobConfig(resource_sample_s=OBS_SAMPLE_S)``).  Every run's kernel
+    calls held and launches checked; the ranks bit-equal across every
+    run (the path is deterministic) and within PR_RTOL of
+    ``pagerank_numpy``; ``Executor.host_reads`` equal on and off (the
+    telemetry reads nothing back from the card); ``check_telemetry`` on
+    each on run; the history directory's three archives with their four
+    files; the obs CLI on the last archive; no sampler thread left
+    behind.  Returns (line, the off runs' ranks)."""
+    import threading
+
+    from dryad_tpu_torch.utils.events import EventLog
+    history = os.path.join(out_dir, "history")
+
+    def app(c):
+        return pr.pagerank(c, edges, n_nodes, n_iters=PR_ITERS)
+
+    threads = threading.active_count()
+    walls, reads, tele = (collections.defaultdict(list) for _ in range(3))
+    ranks = None
+    for i, mode in enumerate(("off", "on") * OBS_REPS):
+        log = (EventLog(level=2, history_dir=history, app="pagerank")
+               if mode == "on" else None)
+        ctx = port.Context(device=device, nparts=NPARTS, event_log=log,
+                           config=port.JobConfig(
+                               resource_sample_s=OBS_SAMPLE_S))
+        label = f"obs_pagerank100k_{mode}{i // 2}"
+        hk.capture = {}
+        out, launches, load, qs, runs = run_app(port, hk, app, device,
+                                                ctx=ctx)
+        captured, hk.capture = hk.capture, None
+        held(label, launches, captured)
+        del captured
+        stages = loop_stages(runs)
+        check_per_exchange(label, launches, stages["exchange_attempts"],
+                           probes=stages["probes"])
+        sizes = check_pagerank(out, edges, n_nodes, pr)
+        r = np.asarray(out["rank"])[np.argsort(out["node"])]
+        if ranks is None:
+            ranks = r
+        elif r.tobytes() != ranks.tobytes():
+            raise AssertionError(f"{label}: ranks differ from the first "
+                                 f"off run's")
+        walls[mode].append(load + qs)
+        reads[mode].append(ctx.executor.host_reads)
+        if log is not None:
+            log.close()
+            tele[mode].append(check_telemetry(label, log, runs, device))
+    if threading.active_count() != threads:
+        raise AssertionError(f"obs_pagerank100k: {threading.active_count()} "
+                             f"threads after the runs, {threads} before")
+    if len(set(reads["off"] + reads["on"])) != 1:
+        raise AssertionError(f"obs_pagerank100k: host reads off "
+                             f"{reads['off']}, on {reads['on']}")
+    jobs = sorted(os.listdir(history))
+    files = {j: sorted(os.listdir(os.path.join(history, j))) for j in jobs}
+    want = ["events.jsonl", "metrics.json", "plan.json", "summary.json"]
+    if len(jobs) != OBS_REPS or any(
+            not set(want) <= set(f) for f in files.values()):
+        raise AssertionError(f"obs_pagerank100k: history {files}")
+    cli = obs_cli(history, os.path.join(history, jobs[-1], "events.jsonl"),
+                  out_dir)
+    med = {m: sorted(w)[len(w) // 2] for m, w in walls.items()}
+    return {"nodes": n_nodes, "iters": PR_ITERS, "nparts": NPARTS,
+            **sizes, "ranks_bit_equal": True,
+            "warm_walls_s": dict(walls),
+            "warm_wall_median_off_s": med["off"],
+            "warm_wall_median_on_s": med["on"],
+            "on_over_off": med["on"] / med["off"],
+            "host_reads": reads["off"][0], "telemetry": tele["on"],
+            "history_jobs": jobs, "history_files": want,
+            "cli_s": cli}, ranks
+
+
+def obs_profile_pagerank(port, hk, pr, edges, n_nodes, ranks, out_dir,
+                         held) -> dict:
+    """obs_profile_pagerank100k: one more warm PageRank run, in a context
+    with ``JobConfig(profile_dir=...)`` (the executor profiles each of
+    its runs and raises if a kernel launch in a profile has no device
+    record; no other profiler is active), taken once.  Its kernel calls
+    held, its ranks bit-equal to the unprofiled runs'; one Chrome trace
+    per executor run, whose kernel events name the ``__global__`` kernel
+    of every port kernel the run's launch counters counted
+    (``DEVICE_NAMES``), each with nonzero device time summed over the
+    traces and no more kernel events than launches.  Each trace's
+    kernel launches are matched to their device records by correlation
+    id: the first ``_PROFILE_PAD_LAUNCHES`` (the executor's pad, left
+    out of every other count here) may lack one, and the line gives how
+    many did per trace; the run's own launches without a record must be
+    0 in every trace.  The traces are deleted once read."""
+    from dryad_tpu_torch.exec.executor import _PROFILE_PAD_LAUNCHES
+    def app(c):
+        return pr.pagerank(c, edges, n_nodes, n_iters=PR_ITERS)
+
+    prof_dir = tempfile.mkdtemp(prefix="profile-", dir=out_dir)
+    try:
+        ctx = port.Context(device="cuda", nparts=NPARTS,
+                           config=port.JobConfig(profile_dir=prof_dir))
+        hk.capture = {}
+        out, launches, load, qs, runs = run_app(port, hk, app, ctx=ctx)
+        captured, hk.capture = hk.capture, None
+        held("obs_profile_pagerank100k", launches, captured)
+        del captured
+        r = np.asarray(out["rank"])[np.argsort(out["node"])]
+        if r.tobytes() != ranks.tobytes():
+            raise AssertionError("obs_profile_pagerank100k: ranks "
+                                 "differ from the unprofiled runs'")
+        paths = ctx.executor.profile_paths
+        dev, seen = collections.Counter(), collections.Counter()
+        n_ev, size, per_trace, pad_lost, lost = 0, 0, [], [], []
+        for path in paths:
+            size += os.path.getsize(path)
+            with open(path) as f:
+                events = json.load(f).get("traceEvents", ())
+            calls, recs = [], set()
+            for e in events:
+                cat, name = e.get("cat"), e.get("name", "")
+                corr = (e.get("args") or {}).get("correlation")
+                if cat in DEVICE_CATS:
+                    recs.add(corr)
+                elif (cat in ("cuda_runtime", "cuda_driver")
+                      and "Launch" in name and "Kernel" in name):
+                    calls.append(corr)
+            calls.sort()
+            pad = set(calls[:_PROFILE_PAD_LAUNCHES])
+            pad_lost.append(len(pad - recs))
+            lost.append(sum(c not in recs
+                            for c in calls[_PROFILE_PAD_LAUNCHES:]))
+            per_trace.append(len(recs - pad))
+            for e in events:
+                if (e.get("cat") != "kernel" or (e.get("args") or {}).get(
+                        "correlation") in pad):
+                    continue
+                dev[e["name"]] += float(e.get("dur", 0.0))
+                n_ev += 1
+                for k, subs in DEVICE_NAMES.items():
+                    if any(sub in e["name"] for sub in subs):
+                        seen[k] += 1
+    finally:
+        shutil.rmtree(prof_dir, ignore_errors=True)
+    ours = {k: sum(v for n, v in dev.items()
+                   if any(sub in n for sub in subs)) / 1e3
+            for k, subs in DEVICE_NAMES.items()}
+    missing = [k for k, n in launches.items() if n and not ours[k]]
+    extra = [k for k in launches if seen[k] > launches[k]]
+    if len(paths) != len(runs) or missing or extra or any(lost):
+        raise AssertionError(
+            f"obs_profile_pagerank100k: {len(paths)} traces for "
+            f"{len(runs)} runs; {missing} launched but not in the traces' "
+            f"kernels; {extra} with more kernel events than launches; "
+            f"launches without a device record per trace {lost}")
+    return {"profiled_wall_s": load + qs, "profiled_load_s": load,
+            "profiled_query_s": qs, "traces": len(paths),
+            "trace_bytes": size, "kernel_events": n_ev,
+            "device_records_per_trace": per_trace,
+            "pad_launches_without_record_per_trace": pad_lost,
+            "launches_without_record_per_trace": lost,
+            "device_ms": sum(dev.values()) / 1e3,
+            "port_kernels_ms": ours, "launches": launches,
+            "port_kernel_events": dict(seen),
+            "top": [[k[:120], v / 1e3] for k, v in dev.most_common(6)]}
+
+
+def phase15_runs(port, hk, cat, pr, edges, n_nodes, out_dir, held,
+                 device="cuda", profile=True):
+    """Phase 15's cells, each yielded as (label, line) when it is done:
+    obs_sqlq3_6m over phase 14's catalog, then obs_pagerank100k and (with
+    ``profile``, on the card) obs_profile_pagerank100k over phase 7's
+    graph."""
+    from dryad_tpu_torch import sql
+    yield "obs_sqlq3_6m", obs_sqlq3(port, hk, sql, cat, held, device)
+    line, ranks = obs_pagerank(port, hk, pr, edges, n_nodes, out_dir, held,
+                               device)
+    yield "obs_pagerank100k", line
+    if profile:
+        prof = obs_profile_pagerank(port, hk, pr, edges, n_nodes, ranks,
+                                    out_dir, held)
+        prof["unprofiled_wall_median_s"] = line["warm_wall_median_off_s"]
+        yield "obs_profile_pagerank100k", prof
 
 
 # ---------------------------------------------------------------------------
@@ -4037,37 +4436,48 @@ def library_call(name: str, args):
 
 def profile_window(fn, calls: int = 20) -> list:
     """torch.profiler over ``calls`` calls of ``fn`` and nothing else:
-    [(kernel or memset name, count, device µs in all)]."""
+    [(kernel or memset name, count, device µs in all)].  One call runs
+    before the window.  The window opens with the executor's pad
+    (``_PROFILE_PAD_LAUNCHES`` launches of a one-element add, then a
+    sync), since the profiler can drop a window's first device records;
+    the pad's records are left out by correlation id."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
-    # one warm-up step first: a window's first device event goes
-    # unrecorded (20 calls showed as 19 events on the H100)
-    avgs = []
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1),
-                 on_trace_ready=lambda p: avgs.append(p.key_averages())
-                 ) as prof:
-        fn()
+    from torch.profiler import ProfilerActivity, profile
+
+    from dryad_tpu_torch.exec.executor import _PROFILE_PAD_LAUNCHES
+    fn()
+    pad = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(_PROFILE_PAD_LAUNCHES):
+            pad.add_(1)
         torch.cuda.synchronize()
-        prof.step()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-        prof.step()
-    return [(ev.key, ev.count, ev.self_device_time_total) for ev in avgs[0]
-            if ev.device_type == torch.autograd.DeviceType.CUDA
-            and not ev.key.startswith("ProfilerStep")]
+    events = prof.profiler.kineto_results.events()
+    launched = sorted(e.correlation_id() for e in events
+                      if e.device_type() != torch.autograd.DeviceType.CUDA
+                      and "Launch" in e.name() and "Kernel" in e.name())
+    skip = set(launched[:_PROFILE_PAD_LAUNCHES])
+    count, us = collections.Counter(), collections.Counter()
+    for e in events:
+        if (e.device_type() == torch.autograd.DeviceType.CUDA
+                and e.correlation_id() not in skip):
+            count[e.name()] += 1
+            us[e.name()] += e.duration_ns() / 1e3
+    return [(k, count[k], us[k]) for k in count]
 
 
 def profile_calls(name: str, fn, calls: int = 20, tries: int = 3,
                   per_call: int = 1) -> dict:
     """The row's kernel time per call at the timed shape, and the device
-    events (kernels and memsets) per call, in all and by name.  A window
-    records only some of its events (16 of 20 on the H100 in PR 9's run
-    Q), so the time per call is the mean of the kernel's recorded events
-    times ``per_call``, the kernel's launches in one call of ``fn``.  A
-    window that recorded none of the kernel's events is taken again, up
-    to ``tries`` windows."""
+    events (kernels and memsets) per call, in all and by name.  The time
+    per call is the mean of the kernel's recorded events times
+    ``per_call``, the kernel's launches in one call of ``fn``.  A window
+    that recorded none of the kernel's events is taken again, up to
+    ``tries`` windows."""
     for _ in range(tries):
         ours = n_ours = events = 0
         by_name = {}
@@ -4858,10 +5268,12 @@ def main(argv=None) -> int:
 
     # phase 14: the SQL front end (sql.query -> collect, lint "warn") over
     # the SF1 lineitems and orders; every kernel call of each cold run held
+    from dryad_tpu_torch import sql
+    tables14 = sql_catalog(sql, a.lineitems)
     before = set(runs)
     t14 = time.perf_counter()
     for label, line in phase14_runs(port, hk, a.lineitems, held,
-                                    a.out).items():
+                                    a.out, tables14).items():
         emit({"phase14": label, **line, "card": card})
     new = set(runs) - before
     launches14 = {k: sum(runs[r][0][k] for r in new) for k in TPU_KERNEL}
@@ -4871,6 +5283,27 @@ def main(argv=None) -> int:
                              f"{sorted(unheld)} held")
     emit({"phase": "sql", "launches": launches14,
           "seconds": time.perf_counter() - t14, "card": card})
+
+    # phase 15: observability: EXPLAIN ANALYZE over phase 14's catalog,
+    # PageRank on phase 7's graph with telemetry off and on (the history
+    # archive and the obs CLI), then under JobConfig.profile_dir
+    before = set(runs)
+    t15 = time.perf_counter()
+    obs_dir = os.path.join(a.out, "phase15")
+    shutil.rmtree(obs_dir, ignore_errors=True)
+    os.makedirs(obs_dir)
+    for label, line in phase15_runs(port, hk, tables14[2], pr, edges,
+                                    a.nodes, obs_dir, held):
+        emit({"phase15": label, **line, "card": card})
+    del tables14
+    new = set(runs) - before
+    launches15 = {k: sum(runs[r][0][k] for r in new) for k in TPU_KERNEL}
+    unheld = set(TPU_KERNEL) - {k for r in new for k in runs[r][1]}
+    if unheld or not all(launches15.values()):
+        raise AssertionError(f"phase 15: launches {launches15}, no call of "
+                             f"{sorted(unheld)} held")
+    emit({"phase": "observability", "launches": launches15,
+          "seconds": time.perf_counter() - t15, "card": card})
 
     wc_prof = profile_path(
         lambda: run_wordcount(port, hk, wc, corpora["zipf50k"])[:4],

@@ -1,21 +1,30 @@
 """Pre-submit static analysis — the port of ``dryad_tpu/analysis``: the
 plan verifier and the UDF determinism lint (``plan_rules.py``,
-``udf_lint.py``), the diagnostics (``diagnostics.py``) and the static
-cost model (``domain.py``, ``cost.py``).  Entry points:
+``udf_lint.py``), the diagnostics (``diagnostics.py``), the static
+cost model (``domain.py``, ``cost.py``) and plan equivalence
+(``canon.py``, ``subsume.py``).  Entry points:
 
 * ``Dataset.check()`` / ``Dataset.explain(verify=True)`` — interactive
 * ``JobConfig.lint = "warn" | "error"`` — the pre-submit gate of every
   in-memory and streamed submission (``lint_finding`` and
   ``cost_report`` events; "error" blocks the job with ``LintError``)
 * ``python -m dryad_tpu_torch.analysis plan.json [--cost]`` — lint a
-  serialized plan offline (``check_plan_json``)
+  serialized plan offline (``check_plan_json``); ``--selfcheck`` lints
+  the analyzer itself against the committed docs and goldens
 """
+
+from dryad_tpu_torch.analysis.canon import (  # noqa: F401
+    canon_prog, canonical_form_json, canonical_select, conjuncts_of,
+    dag_fingerprints, node_fingerprint, scan_prefix,
+    semantic_fingerprint)
 
 from dryad_tpu_torch.analysis.diagnostics import (  # noqa: F401
     CODES, RUNTIME_ONLY_CODES, Diagnostic, DiagnosticError,
     DiagnosticReport, LintError, Span)
 from dryad_tpu_torch.analysis.plan_rules import (  # noqa: F401
     RULES, STATIC_RULE_CODES, PlanCheck, check_plan)
+from dryad_tpu_torch.analysis.subsume import (  # noqa: F401
+    Verdict, compare, dataset_share_verdict, implies)
 from dryad_tpu_torch.analysis.udf_lint import (  # noqa: F401
     fn_def_site, lint_udf, shippability_of)
 
@@ -24,6 +33,10 @@ __all__ = [
     "DiagnosticReport", "LintError", "Span",
     "RULES", "STATIC_RULE_CODES", "PlanCheck", "check_plan",
     "fn_def_site", "lint_udf", "shippability_of", "check_plan_json",
+    "canon_prog", "canonical_form_json", "canonical_select",
+    "conjuncts_of", "dag_fingerprints", "node_fingerprint",
+    "scan_prefix", "semantic_fingerprint",
+    "Verdict", "compare", "dataset_share_verdict", "implies",
 ]
 
 

@@ -18,7 +18,8 @@ import dataclasses
 from typing import Any, Dict, Iterable, List, Optional
 
 __all__ = ["Span", "Diagnostic", "DiagnosticReport", "DiagnosticError",
-           "LintError", "SEVERITIES", "CODES", "RUNTIME_ONLY_CODES"]
+           "LintError", "SEVERITIES", "CODES", "RUNTIME_ONLY_CODES",
+           "render_code_table"]
 
 # severity rank for sorting/gating (error first)
 SEVERITIES = {"error": 0, "warn": 1, "info": 2}
@@ -244,6 +245,49 @@ class DiagnosticReport:
         n_i = len(self.diagnostics) - n_e - n_w
         lines.append(f"{n_e} error(s), {n_w} warning(s), {n_i} info")
         return "\n".join(lines)
+
+
+_CODE_FAMILIES = (
+    ("DTA0", "plan verifier (structural rules over the logical DAG)"),
+    ("DTA1", "UDF lint (determinism / shippability / capture)"),
+    ("DTA2", "cost & resource analyzer (pre-submit OOM/spill "
+             "forecasts)"),
+    ("DTA3", "SQL front end (parse / bind / type errors with "
+             "line:column spans into the query text)"),
+    ("DTA4", "incremental execution (standing-query refresh verdicts: "
+             "incremental merge vs full re-run)"),
+    ("DTA5", "plan equivalence & cross-job reuse (canonical-fingerprint "
+             "and subsumption verdicts: what may share cached work, "
+             "and why sharing is refused)"),
+    ("DTA9", "runtime-only (no static rule can predict these)"),
+)
+
+
+def render_code_table() -> str:
+    """The DTA code table as markdown, generated from :data:`CODES`.
+    ``docs/diagnostics.md`` is the JAX package's rendering of the same
+    table, generator comment included, and this function's output must
+    equal it byte for byte (``python -m dryad_tpu_torch.analysis
+    --selfcheck`` compares them): one code table for both packages."""
+    lines = [
+        "# Diagnostic codes (DTA)",
+        "",
+        "<!-- GENERATED from dryad_tpu/analysis/diagnostics.py::CODES"
+        " by `python -m dryad_tpu.analysis --selfcheck --write-docs`;"
+        " do not edit by hand — the selfcheck drift-gates this file."
+        " -->",
+        "",
+    ]
+    for prefix, family in _CODE_FAMILIES:
+        lines.append(f"**{family}**")
+        lines.append("")
+        lines.append("| Code | Meaning |")
+        lines.append("|---|---|")
+        for code in sorted(c for c in CODES if c.startswith(prefix)):
+            meaning = " ".join(CODES[code].split())
+            lines.append(f"| `{code}` | {meaning} |")
+        lines.append("")
+    return "\n".join(lines).rstrip() + "\n"
 
 
 class DiagnosticError(RuntimeError):

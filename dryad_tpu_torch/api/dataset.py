@@ -53,6 +53,14 @@ runs both before every in-memory or streamed submission
 (``Context._pre_submit_lint``).  ``Context(fn_table=)`` names callables
 registered for shipping.  The SQL front end (``sql/``) lowers a query
 into these same calls.
+
+Telemetry (``obs/``): a Context installs its ``event_log`` as the
+process's span sink (the latest Context owns it; ``install_trace=False``
+opts out), and ``JobConfig.history_dir`` makes that log archive the job
+when it closes.  ``Dataset.analyze()`` / ``explain(analyze=True)`` is
+EXPLAIN ANALYZE: the query runs once under its own level-2 capture and
+the measured per-stage actuals come back against the cost model
+(``obs/analyze.py``).
 """
 
 from __future__ import annotations
@@ -255,7 +263,8 @@ class Context:
                  event_log: Optional[Callable[[dict], None]] = None,
                  spill_dir: Optional[str] = None,
                  local_debug: bool = False,
-                 fn_table: Optional[Mapping[str, Any]] = None):
+                 fn_table: Optional[Mapping[str, Any]] = None,
+                 install_trace: bool = True):
         self.config = config or JobConfig()
         self.local_debug = local_debug
         # names of callables registered for shipping: the analyzer's
@@ -268,6 +277,17 @@ class Context:
         self._event_log = event_log
         self.executor = Executor(self.mesh, event_log=event_log,
                                  config=self.config)
+        # the process span sink is the LATEST Context's log, a log-less
+        # Context's None included: a later job's spans never leak into an
+        # earlier job's JSONL
+        if install_trace:
+            from dryad_tpu_torch.obs import trace
+            trace.install(event_log)
+        # JobConfig.history_dir makes the attached EventLog archive the
+        # job on close; an explicit EventLog(history_dir=) wins
+        if (self.config.history_dir and event_log is not None
+                and getattr(event_log, "history_dir", "absent") is None):
+            event_log.history_dir = self.config.history_dir
 
     @property
     def device(self):
@@ -1076,10 +1096,70 @@ class Dataset:
             report.dedup()
         return report
 
-    def explain(self, verify: bool = False, cost: bool = False) -> str:
+    def analyze(self):
+        """EXPLAIN ANALYZE: run this query ONCE under an explicit event
+        capture (an ``EventLog(level=2)`` of its own, whatever
+        ``DRYAD_LOGGING_LEVEL`` says) and return the measured per-stage
+        actuals against the static cost model
+        (``obs.analyze.AnalyzeReport``: rows, output bytes, wall and
+        compile split, retries, replays, spills, adaptive rewrites, and
+        predicted-vs-actual verdicts with the runtime cross-check's
+        ``cost_model_miss`` inline).
+
+        The pre-submit lint gate applies as in ``collect()`` (a
+        ``lint="error"`` refusal raises LintError here too); with
+        ``lint="off"`` the cost pass still runs for the predictions, and
+        its failure leaves the report with actuals only.  A context with
+        an event log records the report there (``analyze_report``).
+        In-memory execution only: local_debug and streamed plans raise
+        ValueError (record a JSONL and use ``python -m
+        dryad_tpu_torch.obs analyze`` instead)."""
+        if self.ctx.local_debug:
+            raise ValueError(
+                "EXPLAIN ANALYZE needs the executor: a local_debug context "
+                "runs the oracle — record a JSONL and use `python -m "
+                "dryad_tpu_torch.obs analyze` instead")
+        if self._streaming():
+            raise ValueError(
+                "EXPLAIN ANALYZE does not cover streamed (>RAM) plans — "
+                "per-stage device actuals do not apply; use `python -m "
+                "dryad_tpu_torch.obs analyze` over the recorded stream")
+        from dryad_tpu_torch.obs.analyze import analyze_events
+        from dryad_tpu_torch.utils.events import EventLog
+        graph = self.plan()
+        # the gate _run runs: "error" findings refuse to submit, "warn"
+        # logs them to the context's log; its cost pass feeds the report
+        cost_rep = self.ctx._pre_submit_lint(self.node, graph=graph)
+        cap = EventLog(level=2)
+        if cost_rep is None:
+            # lint="off": the report still wants predictions, but the
+            # model never blocks ANALYZE (the cost model raises
+            # NotImplementedError on an op it cannot shape)
+            from dryad_tpu_torch.analysis.cost import estimate_graph
+            try:
+                cost_rep = estimate_graph(graph, self.ctx.nparts,
+                                          config=self.ctx.config)
+            except (NotImplementedError, ValueError, TypeError,
+                    RuntimeError):
+                cost_rep = None
+        if cost_rep is not None:
+            cap({"event": "cost_report", "report": cost_rep.to_payload()})
+        self.ctx.executor.run(graph, spill_dir=self.ctx.spill_dir,
+                              cost_report=cost_rep, event_log=cap)
+        cap.close()
+        rep = analyze_events(cap.events)
+        if self.ctx._event_log is not None:
+            self.ctx._event_log({"event": "analyze_report",
+                                 "report": rep.to_payload()})
+        return rep
+
+    def explain(self, verify: bool = False, cost: bool = False,
+                analyze: bool = False) -> str:
         """The plan as text; ``verify`` appends the diagnostics of
         ``check()``, ``cost`` the static cost table (with its DTA2xx
-        findings among the diagnostics).  Runs nothing."""
+        findings among the diagnostics).  Runs nothing, but with
+        ``analyze``, which runs the query once and appends its measured
+        actuals (``analyze()``)."""
         text = self.plan().explain()
         cost_rep = self.cost() if cost else None
         if verify:
@@ -1092,6 +1172,9 @@ class Dataset:
             text += "\n\ndiagnostics:\n" + report.render()
         if cost_rep is not None:
             text += "\n\npredicted cost:\n" + cost_rep.render()
+        if analyze:
+            text += ("\n\nEXPLAIN ANALYZE (executed):\n"
+                     + self.analyze().render())
         return text
 
     # -- terminal scalars --------------------------------------------------

@@ -71,8 +71,19 @@ box, for the rewrite rules.  The executor counts stage runs, their
 wall, their output bytes and capacity retries in ``obs.metrics``'s
 registry.
 
+Each ``stage_done`` carries ``compile_s``: the seconds the attempt
+spent compiling kernels at their first use (``ops/_build.py``), 0.0
+once they are built.  The port has no compiled-stage cache, so there is
+no ``cache_hit``.  With ``JobConfig.profile_dir`` every ``run`` is
+wrapped in ``torch.profiler.profile`` (host activity, and CUDA activity
+on a CUDA device) and writes a Chrome trace under that directory.  On
+CUDA the window opens with ``_PROFILE_PAD_LAUNCHES`` launches of a
+one-element kernel, and a profile in which one of the run's own kernel
+launches has no device record raises rather than write a trace with
+records missing.
+
 Not ported yet (later slices, see ROADMAP.md): remembered capacity
-scales, and the run's profile, checkpoint and pause hooks.
+scales, and the run's checkpoint and pause hooks.
 """
 
 from __future__ import annotations
@@ -88,7 +99,7 @@ from dryad_tpu_torch.data.columnar import Batch, StringColumn, map_column
 from dryad_tpu_torch.exec.data import PData, split_partitions, \
     stack_partitions
 from dryad_tpu_torch.obs.metrics import REGISTRY, family_counter
-from dryad_tpu_torch.ops import kernels
+from dryad_tpu_torch.ops import _build, kernels
 from dryad_tpu_torch.ops.hashing import M32, hash_batch_keys
 from dryad_tpu_torch.ops.hopper_kernels import hist_buckets_batched
 from dryad_tpu_torch.ops.text import lower_ascii, split_tokens, \
@@ -104,6 +115,7 @@ _M_STAGE_RUNS = family_counter(REGISTRY, "stage_runs")
 _M_RUN_S = family_counter(REGISTRY, "run_seconds")
 _M_SHUFFLE_B = family_counter(REGISTRY, "shuffle_bytes")
 _M_CAP_RETRIES = family_counter(REGISTRY, "cap_retries")
+_M_COMPILE_S = family_counter(REGISTRY, "compile_seconds")
 
 
 class CapacityError(RuntimeError):
@@ -112,6 +124,34 @@ class CapacityError(RuntimeError):
 
 def _no_event(_e: dict) -> None:
     pass
+
+
+# the no-op sink admits no level: spans and the resource sampler skip all
+# their work for a run with no event log
+_no_event.level = -1
+
+
+# torch.profiler on the H100 can drop the first device records of a
+# window (a contiguous run of them, more after many profiler sessions in
+# one process).  A profiled run on CUDA opens its window with this many
+# launches of a one-element kernel, which take that loss, and is held to
+# a device record for each of its own launches
+_PROFILE_PAD_LAUNCHES = 1024
+
+
+def _launches_without_record(events, skip: int = 0) -> Tuple[int, int]:
+    """A profile's device records, and how many of its kernel launches
+    (host-side runtime or driver calls), past the first ``skip`` in
+    launch (correlation id) order, have no device record with their
+    correlation id: records the profiler dropped."""
+    launched, recorded = [], set()
+    for e in events:
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            recorded.add(e.correlation_id())
+        elif "Launch" in e.name() and "Kernel" in e.name():
+            launched.append(e.correlation_id())
+    return len(recorded), sum(c not in recorded
+                              for c in sorted(launched)[skip:])
 
 
 # sentinel need: the overflow source cannot be fixed by scaling
@@ -550,6 +590,9 @@ class Executor:
         # not the planned one: Dataset drops a persisted claim)
         self._last_run_rewrites = 0
         self._last_run_placement_changed = False
+        # the Chrome traces of the runs profiled under
+        # JobConfig.profile_dir, in run order
+        self.profile_paths: List[str] = []
 
     def _probe_slot_rows(self, pd: PData, keys, slack: int) -> int:
         """Counts-only pre-hop of a first-wave pure hash exchange: every
@@ -914,15 +957,19 @@ class Executor:
         P = self.nparts
         for attempt in range(retries + 1):
             probes = self.probes_run
+            c0 = _build.compile_seconds()
             t0 = time.perf_counter()
             hints = self._slot_hints(stage, inputs, slack, salted)
             out, info, shipped = self._run_once(stage, inputs, scale, slack,
                                                 bounds, salted, hints)
             self._log_attempt(stage, shipped, salted,
                               self.probes_run - probes, job)
+            compile_s = round(_build.compile_seconds() - c0, 4)
             nbytes = _out_bytes(out)
             _M_STAGE_RUNS.inc()
             _M_SHUFFLE_B.inc(nbytes)
+            if compile_s:
+                _M_COMPILE_S.inc(compile_s)
             if defer is not None and attempt == 0:
                 # optimistic: the info vector stays on the device until
                 # the settle reads every stage's at once (which counts a
@@ -932,6 +979,7 @@ class Executor:
                 defer.append({"stage": stage, "info": info, "scale": scale,
                               "slack": slack, "salted": salted,
                               "out_bytes": nbytes, "cost_report": cost_report,
+                              "compile_s": compile_s,
                               "enqueue_s": enqueue_s})
                 stage._capacity_scale = scale
                 stage._send_slack = slack
@@ -954,7 +1002,7 @@ class Executor:
                 "slack": slack, "overflow": of, "need_scale": need_scale,
                 "need_slack": need_slack, "need_exchange": need_exch,
                 "salted": salted, "rows": rows, "out_bytes": nbytes,
-                "wall_s": round(wall, 4)})
+                "compile_s": compile_s, "wall_s": round(wall, 4)})
             decision = self._decide(stage, scale, slack, salted,
                                     need_scale, need_slack, need_exch)
             if decision[0] == "ok":
@@ -990,8 +1038,60 @@ class Executor:
         per-stage cross-check and seeds the adaptive rules' priors.
         ``event_log`` / ``job`` / ``failure_budget`` are the run's own:
         its events go to ``event_log`` (else the executor's sink), tagged
-        with ``job``."""
+        with ``job``.  With ``JobConfig.profile_dir`` the run is profiled
+        (``_profiled``)."""
         from dryad_tpu_torch.exec.recovery import Run
-        return Run(self, graph, bindings, spill_dir=spill_dir,
-                   failure_budget=failure_budget, cost_report=cost_report,
-                   event=event_log, job=job).output()
+        run = Run(self, graph, bindings, spill_dir=spill_dir,
+                  failure_budget=failure_budget, cost_report=cost_report,
+                  event=event_log, job=job)
+        if self.config.profile_dir:
+            return self._profiled(run.output)
+        return run.output()
+
+    def _profiled(self, fn):
+        """``fn()`` under ``torch.profiler.profile`` — host activity, and
+        CUDA activity on a CUDA device — with the Chrome trace written to
+        ``JobConfig.profile_dir/run-<pid>-<n>.trace.json`` (``n`` counts
+        this executor's profiled runs, whose paths ``profile_paths``
+        keeps).  On CUDA the window opens with ``_PROFILE_PAD_LAUNCHES``
+        launches of a one-element add (in a ``dryad.profile.pad``
+        range), synchronized, and a profile in which a launch of the run
+        has no device record (``_launches_without_record``) raises
+        RuntimeError instead of writing the trace.  Profilers do not
+        nest: no other ``torch.profiler`` may be active around the
+        call."""
+        import os
+
+        from torch.profiler import ProfilerActivity, profile, \
+            record_function
+        acts = [ProfilerActivity.CPU]
+        on_cuda = self.mesh.device.type == "cuda"
+        if on_cuda:
+            acts.append(ProfilerActivity.CUDA)
+            pad = torch.zeros(1, device=self.mesh.device)
+        with profile(activities=acts) as prof:
+            if on_cuda:
+                with record_function("dryad.profile.pad"):
+                    for _ in range(_PROFILE_PAD_LAUNCHES):
+                        pad.add_(1)
+                    torch.cuda.synchronize(self.mesh.device)
+            out = fn()
+            if on_cuda:
+                torch.cuda.synchronize(self.mesh.device)
+        if on_cuda:
+            n, lost = _launches_without_record(
+                prof.profiler.kineto_results.events(),
+                skip=_PROFILE_PAD_LAUNCHES)
+            if lost or not n:
+                raise RuntimeError(
+                    f"JobConfig.profile_dir: the profile of a run on the "
+                    f"card lacks device records ({lost} of the run's "
+                    f"kernel launches without one; is another profiler "
+                    f"active?); no trace written")
+        os.makedirs(self.config.profile_dir, exist_ok=True)
+        path = os.path.join(self.config.profile_dir,
+                            f"run-{os.getpid()}-"
+                            f"{len(self.profile_paths) + 1}.trace.json")
+        prof.export_chrome_trace(path)
+        self.profile_paths.append(path)
+        return out

@@ -37,9 +37,20 @@ executor's), tagged with ``job=`` when given, the failure budget, the
 memo, the adaptive manager, the cost report and the one-slot stats box
 all live on it, never on the shared executor.  A Run with an event
 sink emits the executed plan first (a ``plan`` event,
-``plan/serialize.graph_to_json``).  Left out until their ROADMAP items
-come: spans, the resource sampler and the metrics snapshot in
-``job_done``, checkpoint and pause.
+``plan/serialize.graph_to_json``).
+
+Telemetry (``obs/``): ``output()`` runs inside a ``run`` job span, and
+each stage computed inside a ``stage <id>:<label>`` span (kind
+``stage``) parented to it; on the deferred path a stage span covers the
+host's enqueue only, as in the JAX package (the device's time is in the
+``JobConfig.profile_dir`` trace).  Spans are recorded when the sink's
+level is 2.  A resource sampler (``obs/profile.py``, every
+``JobConfig.resource_sample_s``) runs for the duration of ``output()``
+and is joined before it returns; it reads the device's allocated bytes
+without synchronizing.  ``job_done`` carries the metrics registry's
+snapshot (``metrics``: cumulative process counters) and, at level 2, the
+job span's trace id (``trace``).  Left out until their ROADMAP items
+come: checkpoint and pause.
 """
 
 from __future__ import annotations
@@ -55,6 +66,9 @@ import torch
 from dryad_tpu_torch.exec.data import PData
 from dryad_tpu_torch.exec.executor import _M_CAP_RETRIES, CapacityError, \
     _no_event
+from dryad_tpu_torch.obs import profile as _profile
+from dryad_tpu_torch.obs import trace
+from dryad_tpu_torch.obs.metrics import REGISTRY
 from dryad_tpu_torch.plan.serialize import graph_to_json
 from dryad_tpu_torch.plan.stages import StageGraph
 
@@ -66,11 +80,13 @@ class FailureBudgetExceeded(RuntimeError):
 
 
 def _tagged(sink, job):
-    """``sink`` with every event tagged ``"job": job``."""
+    """``sink`` with every event tagged ``"job": job``, carrying the
+    sink's level (``trace.leveled``), so spans and the sampler gate on
+    the wrapped log's level as they would on the log itself."""
     def tag(e):
         e.setdefault("job", job)
         sink(e)
-    return tag
+    return trace.leveled(tag, getattr(sink, "level", None))
 
 
 class Run:
@@ -90,7 +106,9 @@ class Run:
         self.cost_report = cost_report
         self.job = job
         sink = event if event is not None else executor._event
-        self._event = _tagged(sink, job) if job is not None else sink
+        self._event = (_tagged(sink, job)
+                       if job is not None and sink is not _no_event
+                       else sink)
         # the adaptive boundary hook's measured stats: a one-slot box of
         # THIS run (a concurrent run on the same executor has its own)
         self._stats_box = [None]
@@ -137,15 +155,28 @@ class Run:
         t0 = time.time()
         self.ex._log_at = {}
         self.ex.stage_log = []
-        # an adaptive rewrite may redirect the output to an appended
-        # stage mid-walk: walk until the output stage stands still
-        while True:
-            out_sid = self.graph.out_stage
-            out = self.result(out_sid)
-            if self.graph.out_stage == out_sid:
-                break
-        if self._defer:
-            out = self._settle()
+        # the sampler starts no thread without a level-2 consumer
+        sampler = _profile.start(self._event,
+                                 self.ex.config.resource_sample_s,
+                                 device=self.ex.mesh.device, role="driver")
+        try:
+            # the job span: every stage span of this run parents into it;
+            # it stays bound past the with-block, so job_done can carry
+            # its trace id (the null span below level 2 has none)
+            with trace.span("run", "job", sink=self._event,
+                            stages=len(self.graph.stages)) as jsp:
+                # an adaptive rewrite may redirect the output to an
+                # appended stage mid-walk: walk until the output stage
+                # stands still
+                while True:
+                    out_sid = self.graph.out_stage
+                    out = self.result(out_sid)
+                    if self.graph.out_stage == out_sid:
+                        break
+                if self._defer:
+                    out = self._settle()
+        finally:
+            _profile.stop(sampler)
         applied = self.adapt.applied if self.adapt is not None else []
         self.ex._last_run_rewrites = len(applied)
         self.ex._last_run_placement_changed = any(
@@ -160,10 +191,15 @@ class Run:
         self._event({"event": "progress",
                      "done": len(reach & set(self._results)),
                      "total": len(reach), "pct": 100.0})
-        self._event({"event": "job_done",
-                     "wall_s": round(time.time() - t0, 4),
-                     "stages": len(self.graph.stages),
-                     "replays": self.failures})
+        # "metrics" are the process's cumulative counters (the Prometheus
+        # model), not this job's deltas
+        done = {"event": "job_done", "wall_s": round(time.time() - t0, 4),
+                "stages": len(self.graph.stages), "replays": self.failures,
+                "metrics": REGISTRY.snapshot()}
+        trace_id = getattr(jsp, "trace_id", None)
+        if trace_id:
+            done["trace"] = trace_id
+        self._event(done)
         return out
 
     def _settle(self) -> PData:
@@ -201,8 +237,8 @@ class Run:
                 "need_scale": need_scale, "need_slack": need_slack,
                 "need_exchange": need_exch, "salted": rec["salted"],
                 "rows": info[3 + L:3 + L + P],
-                "out_bytes": rec["out_bytes"], "deferred": True,
-                "wall_s": rec["enqueue_s"]})
+                "out_bytes": rec["out_bytes"], "compile_s": rec["compile_s"],
+                "deferred": True, "wall_s": rec["enqueue_s"]})
             self.ex._log_settled(stage, rec["scale"], rec["slack"],
                                  rec["salted"], info)
             if not of:
@@ -299,11 +335,16 @@ class Run:
                 up = self.graph.stage(a)
                 planned = up._capacity_scale == 1
                 todo.extend(up.input_stage_ids())
-        out = self.ex._run_stage(stage, self._results, self.bindings,
-                                 defer=self._defer, event=self._event,
-                                 job=self.job, stats_box=self._stats_box,
-                                 cost_report=(self.cost_report if planned
-                                              else None))
+        # one span per stage computed (its attempts; on the deferred path
+        # the host's enqueue only: the device time lands in the settle)
+        with trace.span(f"stage {stage.id}:{stage.label}", "stage",
+                        sink=self._event, stage=stage.id,
+                        label=stage.label,
+                        deferred=self._defer is not None):
+            out = self.ex._run_stage(
+                stage, self._results, self.bindings, defer=self._defer,
+                event=self._event, job=self.job, stats_box=self._stats_box,
+                cost_report=self.cost_report if planned else None)
         self._results[sid] = out
         self._save_spill(sid, out)
         total = len(self.graph.stages)

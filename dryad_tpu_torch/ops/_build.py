@@ -13,7 +13,9 @@ The host side has C sources of its own (``csrc/*.c``, ``HOST``: the
 store's FNV-1a checksum).  ``host_library`` compiles one with the host C
 compiler (``$CC``, else ``cc``) into ``build/host/`` at first use, named
 by the same kind of digest, and loads it with ``ctypes``.  A failed
-build raises with the compiler's message.
+build raises with the compiler's message.  ``compile_seconds()`` is the
+process's total wall spent compiling (nvcc and cc): the executor reports
+each stage attempt's share as its ``compile_s``.
 """
 
 from __future__ import annotations
@@ -24,11 +26,13 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable
 
-__all__ = ["build", "library", "host_library", "KERNELS", "HOST",
-           "BUILD_DIR", "HOST_BUILD_DIR", "NVCC_FLAGS", "CC_FLAGS"]
+__all__ = ["build", "library", "host_library", "compile_seconds",
+           "KERNELS", "HOST", "BUILD_DIR", "HOST_BUILD_DIR", "NVCC_FLAGS",
+           "CC_FLAGS"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -65,6 +69,20 @@ _HOST_LOADED: Dict[str, ctypes.CDLL] = {}
 # the store checksums partitions on a thread pool, so the first use of a
 # host library can come from several threads at once: one builds
 _HOST_LOCK = threading.Lock()
+# seconds this process has spent waiting for compilers
+_COMPILE_S = [0.0]
+_COMPILE_LOCK = threading.Lock()
+
+
+def compile_seconds() -> float:
+    """Total wall this process has spent compiling kernels and host
+    libraries (0.0 while every library was already built)."""
+    return _COMPILE_S[0]
+
+
+def _add_compile_s(seconds: float) -> None:
+    with _COMPILE_LOCK:
+        _COMPILE_S[0] += seconds
 
 
 def _nvcc() -> str:
@@ -96,6 +114,7 @@ def build(names: Iterable[str] = tuple(KERNELS)) -> Dict[str, str]:
     read from the build log when the library already existed."""
     names = list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
     procs = {}
     for name in names:
         out = _lib_path(name)
@@ -114,6 +133,8 @@ def build(names: Iterable[str] = tuple(KERNELS)) -> Dict[str, str]:
             failed.append(f"{name}:\n{log}")
             continue
         os.replace(tmp, out)
+    if procs:
+        _add_compile_s(time.perf_counter() - t0)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     logs = {}
@@ -172,10 +193,12 @@ def host_library(name: str) -> ctypes.CDLL:
             # another process may build the same library at once: each
             # writes its own temp file and renames it into place
             tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            t0 = time.perf_counter()
             proc = subprocess.run(
                 [_cc(), *CC_FLAGS, "-o", str(tmp),
                  str(_CSRC / f"{name}.c")],
                 capture_output=True, text=True)
+            _add_compile_s(time.perf_counter() - t0)
             if proc.returncode != 0:
                 raise RuntimeError(f"building {name}.c failed:\n"
                                    f"{proc.stdout}{proc.stderr}")

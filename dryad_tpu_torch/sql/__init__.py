@@ -5,7 +5,9 @@ A dependency-free SQL compiler — lexer -> recursive-descent parser ->
 binder / catalog -> lowering — whose output is ordinary
 :class:`api.Dataset` calls, so a query inherits the pre-submit lint,
 ``EXPLAIN [COST]``, adaptive rewrites and every kernel of the joins,
-group-bys and sorts it lowers to.
+group-bys and sorts it lowers to.  ``EXPLAIN ANALYZE`` runs the query
+once and appends its measured per-stage actuals against the cost model
+(``Dataset.explain(analyze=True)``, ``obs/analyze.py``).
 
 Entry points::
 
@@ -24,10 +26,9 @@ The Context runs on the CUDA card unless it is given ``device="cpu"``;
 Compile errors raise :class:`SqlError` — ONE exception carrying every
 DTA3xx finding with line:column spans into the query text.  Every
 successful lowering emits ``sql_query`` (normalized query text + catalog
-fingerprint) and ``sql_lowered`` events.  ``EXPLAIN ANALYZE`` (needs
-``obs/analyze.py``) and ``EMIT EVERY`` (needs ``inc/``) parse and bind
-but are refused with ``NotImplementedError``: those layers are not
-ported yet.
+fingerprint) and ``sql_lowered`` events.  ``EMIT EVERY`` (a standing
+query: it needs ``inc/``) parses and binds but is refused with
+``NotImplementedError``: that layer is not ported yet.
 """
 
 from __future__ import annotations
@@ -67,11 +68,6 @@ def compile_query(catalog: Catalog, text: str,
 
 
 def _refuse_unported(mode: str, bound: BoundSelect) -> None:
-    if mode == "explain_analyze":
-        raise NotImplementedError(
-            "EXPLAIN ANALYZE needs the measured-actuals layer "
-            "(dryad_tpu_torch/obs/analyze.py), which is not ported yet; "
-            "use EXPLAIN COST")
     if bound.emit_every is not None:
         raise NotImplementedError(
             "EMIT EVERY (a standing query) needs the incremental-"
@@ -111,15 +107,19 @@ def _emit(ctx, event, text: str, catalog: Catalog,
 def explain(ctx, catalog: Catalog, text: str, origin: str = "<sql>",
             event=None) -> str:
     """EXPLAIN text for a query (with or without a leading EXPLAIN
-    [COST] keyword).  COST adds the DTA2xx predicted-cost table and the
-    static diagnostics; it runs nothing and launches no kernel (the cost
-    model runs the ops on meta tensors)."""
+    [COST | ANALYZE] keyword).  COST adds the DTA2xx predicted-cost
+    table and the static diagnostics; it runs nothing and launches no
+    kernel (the cost model runs the ops on meta tensors).  ANALYZE
+    **runs the query once** under an event capture and appends the
+    measured per-stage actuals against the cost model (it needs a
+    Context with loadable tables, as running the query does)."""
     mode, bound = compile_query(catalog, text, origin=origin)
     _refuse_unported(mode, bound)
     ds, _ = lower(ctx, catalog, bound)
     _emit(ctx, event, text, catalog, bound)
     cost = mode == "explain_cost"
-    return ds.explain(verify=cost, cost=cost)
+    return ds.explain(verify=cost, cost=cost,
+                      analyze=mode == "explain_analyze")
 
 
 def _offline_graph(catalog: Catalog, text: str, nparts: int,

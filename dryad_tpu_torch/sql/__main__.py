@@ -1,18 +1,21 @@
 """SQL CLI — ``python -m dryad_tpu_torch.sql --catalog cat.json [...]``
 (the port of ``python -m dryad_tpu.sql``).
 
-* one-shot: ``-e "EXPLAIN [COST] SELECT ..."`` or ``-f query.sql``
-  prints the plan (EXPLAIN) or executes and prints rows (plain SELECT,
-  when the catalog's tables are loadable);
+* one-shot: ``-e "EXPLAIN [COST | ANALYZE] SELECT ..."`` or ``-f
+  query.sql`` prints the plan (EXPLAIN; ANALYZE runs the query once and
+  appends measured per-stage actuals against the cost model) or
+  executes and prints rows (plain SELECT, when the catalog's tables are
+  loadable);
 * REPL (default): reads ``;``-terminated statements; ``\\d`` lists
   catalog tables, ``\\q`` quits.
 
-``--device`` (default ``cuda``) is the device a SELECT or an EXPLAIN
-COST runs on; ``--nparts`` the partition count.  Plain ``EXPLAIN``
-works against SCHEMA-ONLY serialized catalogs with no data and no
-device at all.  DTA3xx compile errors print with their line:column
-spans and exit 2 (one-shot mode); malformed invocations and statements
-the port refuses (EXPLAIN ANALYZE, EMIT EVERY) exit 3.
+``--device`` (default ``cuda``) is the device a SELECT, an EXPLAIN
+COST or an EXPLAIN ANALYZE runs on; ``--nparts`` the partition count.
+Plain ``EXPLAIN`` works against SCHEMA-ONLY serialized catalogs with no
+data and no device at all.  DTA3xx compile errors print with their
+line:column spans and exit 2 (one-shot mode); malformed invocations,
+statements the port refuses (EMIT EVERY) and execution over a
+schema-only table exit 3.
 """
 
 from __future__ import annotations
@@ -79,10 +82,14 @@ class _Session:
             print(plan_query(ds.node, self.nparts,
                              config=sctx.config).explain())
             return 0
-        # cost needs real source statistics -> a real Context
+        # cost needs real source statistics -> a real Context; ANALYZE
+        # also runs the query once (obs/analyze.py)
         ds, _ = lower(self.ctx(), self.catalog, bound)
         if mode == "explain_cost":
             print(ds.explain(verify=True, cost=True))
+            return 0
+        if mode == "explain_analyze":
+            print(ds.explain(analyze=True))
             return 0
         _print_table(ds.collect())
         return 0
@@ -137,15 +144,16 @@ def main(argv=None) -> int:
     ap.add_argument("--catalog", required=True,
                     help="serialized catalog JSON (sql.Catalog.save)")
     ap.add_argument("-e", "--execute", default=None, metavar="QUERY",
-                    help="one-shot statement (EXPLAIN [COST] ... or "
-                         "SELECT ...)")
+                    help="one-shot statement (EXPLAIN [COST | ANALYZE]"
+                         " ... or SELECT ...)")
     ap.add_argument("-f", "--file", default=None,
                     help="read the one-shot statement from a .sql file")
     ap.add_argument("--nparts", type=int, default=8,
                     help="partition count of plans and runs (default 8)")
     ap.add_argument("--device", default="cuda",
-                    help="device a SELECT or EXPLAIN COST runs on "
-                         "(default cuda; plain EXPLAIN needs none)")
+                    help="device a SELECT, EXPLAIN COST or EXPLAIN "
+                         "ANALYZE runs on (default cuda; plain EXPLAIN "
+                         "needs none)")
     ap.add_argument("--plan-json", action="store_true",
                     help="with -e/-f EXPLAIN: print the lowered plan "
                          "JSON instead of the textual plan")

@@ -90,6 +90,22 @@ class JobConfig:
     # spilled stage outputs: None = raw part files, "gzip" = level-1 gzip
     spill_compression: Optional[str] = None
 
+    # -- observability (obs/) ---------------------------------------------
+    # device-time profiling: when set, every executor run is wrapped in a
+    # torch.profiler trace (host and CUDA activity) written under this
+    # directory as Chrome trace JSON (open in Perfetto)
+    profile_dir: Optional[str] = None
+    # background resource sampler period (obs/profile.py): a Run emits
+    # periodic resource_sample events (RSS, CPU%, the device's allocated
+    # bytes, gc counts; level 2) while it computes.  0 disables.  The
+    # sampler only runs when an event consumer at level 2 exists (the
+    # same no-consumer-no-work contract as spans)
+    resource_sample_s: float = 0.5
+    # job history archive (obs/history.py): when set, the Context's
+    # EventLog snapshots {events, plan, metrics} here on close; browse
+    # with `python -m dryad_tpu_torch.obs history <dir>`
+    history_dir: Optional[str] = None
+
     # -- planner (plan/planner.py) -----------------------------------------
     # default fan-out allowance for join output capacity (out = expansion *
     # left capacity); per-join override via Dataset.join(expansion=...)
@@ -198,6 +214,7 @@ class JobConfig:
             (self.ooc_join_build_rows >= 1, "ooc_join_build_rows >= 1"),
             (self.ooc_prefetch_depth >= 0, "ooc_prefetch_depth >= 0"),
             (self.ooc_group_bucket_rows > 0, "ooc_group_bucket_rows > 0"),
+            (self.resource_sample_s >= 0, "resource_sample_s >= 0"),
         ]
         bad = [msg for ok, msg in checks if not ok]
         if bad:

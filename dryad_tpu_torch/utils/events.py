@@ -1,10 +1,11 @@
 """Job event log — the port of ``dryad_tpu/utils/events.py``.
 
 Structured JSONL in the role of the reference's Calypso reporter: every
-stage execution, settle replay, lineage replay, spill and restore is an
-event, and ``job_report`` renders the per-stage summary.  The JAX
-package's job-history archiving (``history_dir``) and its span-sink
-teardown wait for the observability layer (ROADMAP Queue 1 item 10).
+stage execution, settle replay, lineage replay, spill, restore, span and
+resource sample is an event, and ``job_report`` renders the per-stage
+summary.  With ``history_dir`` a log archives its job on ``close()``
+(``obs/history.archive_job``: events, plan, metrics, summary), and a
+closed log stops being the process's span sink.
 """
 
 from __future__ import annotations
@@ -71,14 +72,22 @@ class EventLog:
     """
 
     def __init__(self, path: Optional[str] = None,
-                 level: Optional[int] = None):
+                 level: Optional[int] = None,
+                 history_dir: Optional[str] = None,
+                 app: Optional[str] = None):
         # the append and the write happen under one lock, so two threads'
-        # JSONL lines never interleave
+        # JSONL lines (a run's and its resource sampler's) never
+        # interleave
         self._lock = threading.Lock()
         self.events: List[Dict[str, Any]] = []
         self.path = path
         self._f = open(path, "a") if path else None
         self.closed = False
+        # job-history archiving (obs/history.py): close() snapshots the
+        # job into history_dir under the app's name
+        # (JobConfig.history_dir wires this through the Context)
+        self.history_dir = history_dir
+        self.app = app
         self.level = (level if level is not None
                       else int(os.environ.get("DRYAD_LOGGING_LEVEL", "2")))
 
@@ -99,13 +108,30 @@ class EventLog:
                 self._f.flush()
 
     def close(self) -> None:
+        if self.closed:
+            return
+        if self.history_dir:
+            # archive BEFORE closing, so the job_archived pointer lands in
+            # this log's own JSONL too.  An archive that cannot be written
+            # (a full disk, a bad path) never fails the finished job: the
+            # log records why instead
+            from dryad_tpu_torch.obs.history import archive_job
+            try:
+                self({"event": "job_archived",
+                      "path": archive_job(self.history_dir, self.events,
+                                          app=self.app)})
+            except (OSError, TypeError, ValueError) as e:
+                self({"event": "job_archived", "path": None,
+                      "error": repr(e)})
         with self._lock:
-            if self.closed:
-                return
             self.closed = True
             if self._f is not None:
                 self._f.close()
                 self._f = None
+        # a closed log stops being the process span sink, or later jobs'
+        # spans would pile into this dead in-memory list
+        from dryad_tpu_torch.obs import trace
+        trace.uninstall(self)
 
     def __enter__(self) -> "EventLog":
         return self

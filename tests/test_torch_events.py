@@ -61,7 +61,7 @@ def test_level_filter(devices8, level, monkeypatch):
     want = {0: set(),
             1: {"plan", "stage_done", "settle_replay", "job_done"},
             2: {"plan", "stage_done", "settle_replay", "job_done",
-                "progress"}}
+                "progress", "span", "resource_sample"}}
     assert kinds == want[level]
     assert log.admits("stage_replay") and log.admits("an_unknown_kind")
     assert log.admits("progress") == (level == 2)

@@ -530,9 +530,13 @@ def test_offline_plans_need_no_device(monkeypatch):
 # -- refusals: what is not ported, and no CPU fallback -------------------------
 
 def test_unported_statements_refuse():
+    """EMIT EVERY waits for inc/; EXPLAIN ANALYZE runs (it executes the
+    query once and appends the measured actuals); a plain EXPLAIN builds
+    no dataset."""
     cat = _catalog(sql)
-    with pytest.raises(NotImplementedError, match="obs/analyze"):
-        sql.explain(_tctx(), cat, "EXPLAIN ANALYZE " + JOIN_Q)
+    text = sql.explain(_tctx(), cat, "EXPLAIN ANALYZE " + JOIN_Q)
+    assert "EXPLAIN ANALYZE (executed):" in text
+    assert "0 cost-model miss(es)" in text
     d = cat.tables["lineitem"]
     cat.tables["s"] = sql.CatalogTable("s", d.schema, path="/nonexistent",
                                        rows=d.rows)
@@ -589,9 +593,13 @@ def test_cli_offline_explain_needs_no_device(tmp_path):
                 os.path.join(ROOT, "docs", "plans", "sql_scan_topk.sql")])
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout)["stages"][1]["label"] == "orderby"
-    out = _cli(["--catalog", cat, "-e", "EXPLAIN ANALYZE SELECT okey "
-                "FROM lineitem"])
-    assert out.returncode == 3 and "not ported" in out.stderr
+    # EXPLAIN ANALYZE executes: over a schema-only table it has no data
+    # to run on (exit 3, the table named), never "not ported"
+    out = _cli(["--catalog", cat, "--device", "cpu", "-e",
+                "EXPLAIN ANALYZE SELECT okey FROM lineitem"],
+               env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode == 3 and "lineitem" in out.stderr
+    assert "not ported" not in out.stderr
 
 
 def test_cli_executes_with_device_cpu(tmp_path):
@@ -610,6 +618,12 @@ def test_cli_executes_with_device_cpu(tmp_path):
         f"{k} | {n}" for k, n in zip(want["okey"], want["n"])]
     out = _cli(["--catalog", p, "--device", "cpu", "-e", "EXPLAIN COST " + q])
     assert out.returncode == 0 and "predicted cost:" in out.stdout
+    out = _cli(["--catalog", p, "--device", "cpu", "-e",
+                "EXPLAIN ANALYZE " + q],
+               env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode == 0, out.stderr
+    assert "EXPLAIN ANALYZE (executed):" in out.stdout
+    assert "0 cost-model miss(es)" in out.stdout
     if not torch.cuda.is_available():
         out = _cli(["--catalog", p, "-e", q])
         assert out.returncode != 0 and "CUDA is not available" in out.stderr
