@@ -243,8 +243,9 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      ``obs_sqlq3_6m`` (``sql.explain(ctx, catalog, "EXPLAIN ANALYZE " +
      SQL_Q3)``, adaptive off: the report's settled stages' rows equal to
      the rows the run's ``stage_done`` events carry, every scale-1 stage
-     inside its predicted rows and, where no stage upstream of it was
-     rescaled, its predicted bytes, zero ``cost_model_miss``, the join's
+     inside its predicted rows and its predicted bytes (predicted at the
+     rescaled join's capacity where that capacity reaches the stage),
+     zero ``cost_model_miss``, the join's
      unsalted retry: 2 runs); ``obs_pagerank100k`` (PageRank three times
      with telemetry off, no event log, and three times on,
      ``EventLog(level=2, history_dir=..., app="pagerank")`` with
@@ -264,6 +265,27 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      launched with nonzero device time; its wall beside the unprofiled
      median).  The history archives stay under ``--out``/phase15, the
      traces are deleted once read.  All five kernels must launch;
+  16. incremental queries and the network stores over phase 14's
+     lineitems (``tag`` 8 bytes), each store under ``--out``, deleted
+     after: ``remote_s3_6m`` (``to_store("s3://...")`` on the loopback
+     ``tests/torch_fakes.FakeS3``, which verifies every SigV4 signature,
+     with 8 MiB multipart puts; ``read_store``; SQL_Q1 over it equal to
+     a local store's table; ``ctx.read("s3://bkt/text/")`` of bench12's
+     text in four objects counted by WordCount equal to phase 3's
+     counts), ``remote_hdfs_6m`` (the same on ``tests/webhdfs_fake``,
+     then ``read_store_stream`` by ranged reads with
+     ``ChunkSource.RANGED_STREAM_MIN_BYTES`` at the smallest partition's
+     bytes, a streamed ``to_store`` to ``hdfs://`` and ``hdfs://`` text,
+     each equal to its local run), ``remote_http_text`` (``ctx.read``
+     of a ``/`` listing on ``tests/torch_fakes.RangeServer`` by 2 MiB
+     ranged GETs), then ``inc_q1_6m`` and ``inc_okey_6m`` (a store of
+     NPARTS partitions; three rounds of one RF1-sized ``append_store``
+     of one partition, ``run_refresh`` and the full ``sql.query`` of the
+     same EMIT EVERY statement: integers bit-equal, f32 sums and means
+     within 16 eps sum |v|, one delta partition of the appended rows)
+     and ``inc_modes`` (DTA402 rescans, the append shape, a crashed
+     commit that changes nothing, a noop, a DTA403 rebuild).  Byte rates
+     measure loopback.  All five kernels must launch;
  3-15. after each of those main-path runs, every kernel call it made
      is made again through the kernel and through its plain version on
      the very tensors the run passed (integers exactly, prefix_sum2
@@ -272,8 +294,11 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      largest call of one main-path run (``TIMED_ON``; CUDA events), the
      bound the card's memory rate sets for the same bytes, and a
      torch.profiler breakdown of one warm run of each timed path and of
-     TeraSort, PageRank and k-means (a kernel launched in any of them
-     that shows no profiled device time in three takes fails the run).
+     TeraSort, PageRank and k-means (each window opens with the
+     executor's 1,024-launch pad and closes with 1,024 more; a window in
+     which a launch of the run has no device record, or a launched
+     kernel shows no device time, fails the run: no window is taken
+     again).
      Per kernel at its timed shape also: the device time per call and the
      device events (kernels, memsets) per call from a profiler window
      around 20 calls, and the host's enqueue time per call (200 calls, no
@@ -298,7 +323,8 @@ their source per attempt among them), one for phase 11 (``{"phase":
 model and oracle runs (``{"phase12": ...}``), one per phase-13 cell and
 its scatter line (``{"phase13": ...}``), one per phase-14 cell
 (``{"phase14": ...}``) and the phase's launches, one per phase-15 cell
-(``{"phase15": ...}``) and the phase's launches, per profile, per pack
+(``{"phase15": ...}``) and the phase's launches, one per phase-16 cell
+(``{"phase16": ...}``) and the phase's launches, per profile, per pack
 side
 and per kernel, then
 the card line, then the
@@ -3163,37 +3189,34 @@ def stream_run(port, hk, ooc, app, config, device="cuda", capture=False,
             "sync_sites": sites[:8] if sites else sites}
 
 
-def stream_profile(run, label, tries: int = 3) -> dict:
+def stream_profile(run, label) -> dict:
     """Device time and busy share of one warm run, summed from the
     profiler's raw device events (a streamed PageRank launches hundreds
     of thousands of kernels, and building the per-op tables over them
-    took most of phase 13's time); taken again, up to
-    ``tries`` times, while a kernel the run launched shows no device
-    time.  ``run()`` returns (table, launches, load_s, query_s)."""
+    took most of phase 13's time), in a padded window
+    (``padded_profile``): a window with a missing record fails, and so
+    does a kernel the run launched that shows no device time.  ``run()``
+    returns (table, launches, load_s, query_s)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    for attempt in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            _out, launches, load, query = run()
-        by = collections.Counter()
-        for e in prof.profiler.kineto_results.events():
-            if e.device_type() == torch.autograd.DeviceType.CUDA:
-                by[e.name()] += (e.duration_ns() / 1e6
-                                 if hasattr(e, "duration_ns")
-                                 else e.duration_us() / 1e3)
-        ours = {k: sum(v for n, v in by.items()
-                       if any(s in n for s in subs))
-                for k, subs in DEVICE_NAMES.items()}
-        missing = [k for k, n in launches.items() if n and not ours[k]]
-        if not missing:
-            break
+    from torch.profiler import ProfilerActivity
+    prof, (_out, launches, load, query), pad = padded_profile(
+        run, [ProfilerActivity.CUDA], label)
+    by = collections.Counter()
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() == torch.autograd.DeviceType.CUDA
+                and e.correlation_id() not in pad):
+            by[e.name()] += e.duration_ns() / 1e6
+    ours = {k: sum(v for n, v in by.items()
+                   if any(s in n for s in subs))
+            for k, subs in DEVICE_NAMES.items()}
+    missing = [k for k, n in launches.items() if n and not ours[k]]
     if missing:
         raise AssertionError(f"{label}: {missing} launched but show no "
-                             f"profiled device time in {tries} profiles")
+                             f"profiled device time")
     total = sum(by.values())
     return {"wall_s": load + query, "device_ms": total,
             "device_busy_share": total / 1e3 / (load + query),
-            "port_kernels_ms": ours, "profile_takes": attempt + 1,
+            "port_kernels_ms": ours,
             "top": [[k[:120], v] for k, v in by.most_common(6)]}
 
 
@@ -3925,13 +3948,10 @@ def obs_sqlq3(port, hk, sql, cat, held, device="cuda") -> dict:
     ``analyze_report``) against the run's own capture (the event log the
     executor ran with): each settled stage's rows equal to the rows its
     last settled ``stage_done`` carries, every settled stage at scale 1
-    inside its predicted rows, and inside its predicted bytes where every
-    stage upstream of it (by the run's ``plan`` event) ran at scale 1 as
-    well; zero ``cost_model_miss``; and the join stage's unsalted retry
-    (2 runs, 1 retry).  A stage downstream of the rescaled join may carry
-    the join's larger capacity, so its exact byte prediction (made for
-    planned capacities) does not apply; the runtime cross-check skips it
-    too, and the line lists such stages (``bytes_on_rescaled_input``)."""
+    inside its predicted rows and its predicted bytes (a stage fed the
+    rescaled join's capacity is predicted at that capacity,
+    ``obs/analyze.py``); zero ``cost_model_miss``; and the join stage's
+    unsalted retry (2 runs, 1 retry)."""
     from dryad_tpu_torch.utils.events import EventLog
     log = EventLog()
     ctx = port.Context(device=device, nparts=NPARTS, event_log=log)
@@ -3965,20 +3985,10 @@ def obs_sqlq3(port, hk, sql, cat, held, device="cuda") -> dict:
     bad = [st["stage"] for st in settled
            if st["rows"] != sum(done[st["stage"]]["rows"])
            or st["out_bytes"] != done[st["stage"]]["out_bytes"]]
-    (plan,) = [json.loads(e["plan"]) for e in cap.of_type("plan")]
-    ups = {st["id"]: [leg["src"]["stage"] for leg in st["legs"]
-                      if "stage" in leg["src"]] for st in plan["stages"]}
-    scale = {st["stage"]: st["scale"] for st in rep["stages"]}
-
-    def planned(sid):
-        return scale[sid] == 1 and all(planned(u) for u in ups[sid])
-
     checked = [st for st in settled
                if st["scale"] == 1 and st["pred_rows"] is not None]
     unbounded = [st["stage"] for st in checked if not st["rows_in_bounds"]
-                 or (planned(st["stage"]) and not st["bytes_in_bounds"])]
-    rescaled_input = [st["stage"] for st in checked
-                      if not planned(st["stage"])]
+                 or not st["bytes_in_bounds"]]
     checked = [st["stage"] for st in checked]
     (join,) = [st for st in rep["stages"] if st["label"] == "join"]
     if (bad or unbounded or not checked or misses or rep["misses"]
@@ -3997,7 +4007,6 @@ def obs_sqlq3(port, hk, sql, cat, held, device="cuda") -> dict:
             "report_wall_s": rep["wall_s"], "report_run_s": rep["run_s"],
             "report_compile_s": rep["compile_s"],
             "cost_model_miss": len(misses), "checked_stages": checked,
-            "bytes_on_rescaled_input": rescaled_input,
             "stages": [{k: st[k] for k in (
                 "stage", "label", "runs", "retries", "rows", "out_bytes",
                 "pred_rows", "pred_bytes", "rows_in_bounds",
@@ -4272,6 +4281,558 @@ def phase15_runs(port, hk, cat, pr, edges, n_nodes, out_dir, held,
 
 
 # ---------------------------------------------------------------------------
+# phase 16: incremental queries over a growing store, and the network stores
+
+
+INC_Q1 = ("SELECT qty, COUNT(*) AS n, SUM(qty) AS sq, SUM(price) AS s, "
+          "AVG(price) AS a, MIN(price) AS lo, MAX(price) AS hi "
+          "FROM lineitem WHERE tag != 'void' GROUP BY qty EMIT EVERY 1")
+INC_OKEY = ("SELECT okey, COUNT(*) AS n, SUM(qty) AS sq, MIN(price) AS lo, "
+            "MAX(price) AS hi FROM lineitem GROUP BY okey EMIT EVERY 1")
+INC_APPEND = ("SELECT okey, qty, price FROM lineitem WHERE tag = 'ok' "
+              "EMIT EVERY 1")
+INC_ROUNDS = 3
+INC_SMALL = 200_000        # inc_modes' store (the DTA403 rebuild)
+TAG_LEN = 8                # the stores' tag width (tags are 2-4 bytes)
+REMOTE_CHUNK = 1 << 19     # rows a chunk of the streamed hdfs:// read
+TEXT_PARTS = 4             # bench12's text as this many remote files
+S3_PART_BYTES = 8 << 20    # remote_s3_6m's multipart part size
+
+
+def rf1_batch(n_items: int, rnd: int, seed: int = 16) -> dict:
+    """TPC-H RF1 at the lineitems' scale factor (SF = n_items /
+    6,000,000): SF x 1,500 new orders (0.1 % of ORDERS), each with 1-7
+    lineitems, their order keys following the existing ones (round
+    ``rnd`` after ``rnd`` earlier batches); ``price`` f32 in [1, 100),
+    ``qty`` in [1, 10), every third row's tag ``b"void"``."""
+    rng = np.random.RandomState(seed + rnd)
+    n_new = max(1, round(1_500 * n_items / 6_000_000))
+    first = n_items // 4 + rnd * n_new
+    per = rng.randint(1, 8, n_new)
+    n = int(per.sum())
+    return {"okey": np.repeat(np.arange(first, first + n_new,
+                                        dtype=np.int32), per),
+            "price": rng.randint(1, 100, n).astype(np.float32),
+            "qty": rng.randint(1, 10, n).astype(np.int32),
+            "tag": ([b"void", b"ok", b"ok"] * (n // 3 + 1))[:n]}
+
+
+def _concat_tables(a: dict, b: dict) -> dict:
+    return {k: (list(a[k]) + list(b[k]) if isinstance(a[k], list)
+                else np.concatenate([a[k], b[k]])) for k in a}
+
+
+def _by_key(out: dict, key: str) -> dict:
+    """{group key: {column: value}} of a collected table."""
+    cols = [c for c in out if c != key]
+    return {k: {c: out[c][i] for c in cols}
+            for i, k in enumerate(np.asarray(out[key]).tolist())}
+
+
+def check_inc_round(label, got: dict, full: dict, key: str, f32: tuple,
+                    scale: dict) -> None:
+    """An incremental refresh's table against the full rescan's: the same
+    groups, every column bit-equal but those in ``f32``, which lie within
+    16 eps x ``scale[group]`` (sum |v| of the group's values; a mean's
+    bound over the group's count)."""
+    g, w = _by_key(got, key), _by_key(full, key)
+    if set(g) != set(w):
+        raise AssertionError(f"{label}: groups differ "
+                             f"({len(g)} against {len(w)})")
+    for k, row in w.items():
+        for c, v in row.items():
+            x = g[k][c]
+            if c in f32:
+                tol = 16 * EPS * scale[k] / (row["n"] if c == "a" else 1)
+                if not abs(float(x) - float(v)) <= tol:
+                    raise AssertionError(f"{label}: {key}={k} {c} {x} vs "
+                                         f"{v} (bound {tol})")
+            elif np.asarray(x).tobytes() != np.asarray(v).tobytes():
+                raise AssertionError(f"{label}: {key}={k} {c} {x} != {v}")
+
+
+def inc_store(port, li: dict, path: str, device: str) -> None:
+    """The lineitems as a local store of NPARTS partitions."""
+    port.Context(device=device, nparts=NPARTS).from_columns(
+        li, str_max_len=TAG_LEN).to_store(path)
+
+
+def inc_append(port, path: str, batch: dict, device: str) -> int:
+    """One append of ``batch`` as ONE new store partition."""
+    from dryad_tpu_torch.io.store import append_store
+    ds = port.Context(device=device, nparts=1).from_columns(
+        batch, str_max_len=TAG_LEN)
+    return append_store(path, ds.node.data)
+
+
+def inc_refresh(port, hk, ctx, sql, cat, text, state_dir, label, held,
+                device):
+    """One ``run_refresh`` through ``run_app`` (kernel calls held):
+    (result, launches, seconds)."""
+    from dryad_tpu_torch.inc import run_refresh
+    bound = sql.compile_query(cat, text)[1]
+    hk.capture = {}
+    res, launches, load, qs, _runs = run_app(
+        port, hk, lambda c: run_refresh(c, cat, bound,
+                                        sql.normalize_query(text),
+                                        state_dir), device, ctx=ctx)
+    captured, hk.capture = hk.capture, None
+    held(label, launches, captured)
+    return res, launches, load + qs
+
+
+def inc_full(port, hk, ctx, sql, cat, text, device):
+    """The same statement as one batch query (``sql.query`` runs an EMIT
+    EVERY statement once): (table, seconds)."""
+    out, _l, load, qs, _r = run_app(
+        port, hk, lambda c: sql.query(c, cat, text).collect(), device,
+        ctx=ctx)
+    return out, load + qs
+
+
+def inc_runs(port, hk, li: dict, tmp: str, held, device="cuda") -> dict:
+    """inc_q1_6m and inc_okey_6m: the lineitems as a local store of
+    NPARTS partitions, one first refresh of each standing query (its
+    state from the full scan), then INC_ROUNDS rounds of one RF1-sized
+    ``append_store`` (one partition), ``run_refresh`` and the full
+    ``sql.query`` of the same statement, held to each other: Q1's
+    integer columns bit-equal, ``s`` and ``a`` within 16 eps sum |price|
+    of the group; every okey column bit-equal; each refresh
+    incremental, one delta partition of exactly the appended rows."""
+    from dryad_tpu_torch import sql
+    from dryad_tpu_torch.io.store import store_meta
+    path = os.path.join(tmp, "lineitem")
+    inc_store(port, li, path, device)
+    cat = sql.Catalog().register_store("lineitem", path)
+    ctx = port.Context(device=device, nparts=NPARTS)
+    cells = {"inc_q1_6m": (INC_Q1, "qty", ("s", "a")),
+             "inc_okey_6m": (INC_OKEY, "okey", ())}
+    out = {label: {"rounds": []} for label in cells}
+    rows = li
+    for label, (text, _key, _f) in cells.items():
+        res, launches, wall = inc_refresh(
+            port, hk, ctx, sql, cat, text, os.path.join(tmp, label),
+            f"{label}_r0", held, device)
+        out[label]["first"] = {"mode": res.mode, "wall_s": wall,
+                               "state_rows": res.rows,
+                               "launches": launches}
+    for rnd in range(INC_ROUNDS):
+        batch = rf1_batch(len(li["okey"]), rnd)
+        gen = inc_append(port, path, batch, device)
+        rows = _concat_tables(rows, batch)
+        scale = q1_scale(rows, void=False)
+        for label, (text, key, f32) in cells.items():
+            sd = os.path.join(tmp, label)
+            res, launches, wall = inc_refresh(
+                port, hk, ctx, sql, cat, text, sd,
+                f"{label}_r{rnd + 1}", held, device)
+            full, full_s = inc_full(port, hk, ctx, sql, cat, text, device)
+            if (res.mode != "incremental" or len(res.delta_parts) != 1
+                    or res.delta_rows != len(batch["okey"])
+                    or res.generation != gen):
+                raise AssertionError(
+                    f"{label} round {rnd + 1}: {res.mode}, delta "
+                    f"{res.delta_parts} / {res.delta_rows} rows, appended "
+                    f"{len(batch['okey'])} at generation {gen}")
+            check_inc_round(f"{label} round {rnd + 1}", res.table, full,
+                            key, f32, scale)
+            (sp,) = [os.path.join(sd, f) for f in os.listdir(sd)]
+            out[label]["rounds"].append({
+                "appended": len(batch["okey"]), "generation": gen,
+                "incremental_s": wall, "full_s": full_s,
+                "merge_s": res.merge_s, "state_rows": res.rows,
+                "state_bytes": os.path.getsize(sp),
+                "changed_rows": res.changed_rows, "launches": launches})
+    meta = store_meta(path)
+    for label in cells:
+        out[label].update(store_rows=sum(meta["counts"]),
+                          store_parts=meta["npartitions"])
+    shutil.rmtree(path)
+    return out
+
+
+def q1_scale(rows: dict, void: bool) -> dict:
+    """{qty: sum |price|} over ``rows`` (without the ``void`` rows unless
+    ``void``): the f32 bound's scale of each group."""
+    keep = (np.ones(len(rows["qty"]), bool) if void else
+            np.asarray([t != b"void" for t in rows["tag"]]))
+    return {int(q): float(np.abs(rows["price"][keep
+                                               & (rows["qty"] == q)]).sum())
+            for q in np.unique(rows["qty"])}
+
+
+def inc_modes(port, hk, li: dict, tmp: str, held, device="cuda") -> dict:
+    """inc_modes over the first INC_SMALL lineitems as a local store:
+    DTA402 (Q1 with its ORDER BY reruns every round: ``rescan``, rows
+    equal to ``sql.query``'s); the append shape (INC_APPEND emits exactly
+    the appended batch's ``tag = 'ok'`` rows); a crash (``commit_state``
+    raises once in round 2: state file and watermark unchanged, and the
+    retry counts that delta once, equal to the full query); a ``noop``
+    refresh with nothing appended; and DTA403 (an append larger than the
+    store rebuilds, equal to the full query)."""
+    from dryad_tpu_torch import sql
+    from dryad_tpu_torch.inc import run_refresh
+    from dryad_tpu_torch.inc import state as inc_state
+    from dryad_tpu_torch.inc.refresh import table_payload
+    from dryad_tpu_torch.io.store import store_meta
+    path = os.path.join(tmp, "small")
+    small = {k: v[:INC_SMALL] for k, v in li.items()}
+    inc_store(port, small, path, device)
+    cat = sql.Catalog().register_store("lineitem", path)
+    ctx = port.Context(device=device, nparts=NPARTS)
+    sd = os.path.join(tmp, "modes")
+    order_q = SQL_Q1 + " EMIT EVERY 1"
+    agg = INC_Q1.replace("WHERE tag != 'void' ", "")
+    agg_bound = sql.compile_query(cat, agg)[1]
+    sp = inc_state.state_path(sd, inc_state.state_key(
+        sql.normalize_query(agg), "lineitem", path,
+        store_meta(path)["schema"]))
+    out = {"store_rows": INC_SMALL, "rounds": []}
+
+    def rows(t):
+        pay = table_payload(t)["table"]
+        return sorted(zip(*[pay[c] for c in sorted(pay)]))
+
+    def agg_round(label, rows_now, mode):
+        res, _l, wall = inc_refresh(port, hk, ctx, sql, cat, agg, sd,
+                                    label, held, device)
+        full, _s = inc_full(port, hk, ctx, sql, cat, agg, device)
+        if res.mode != mode:
+            raise AssertionError(f"{label}: {res.mode}, not {mode}")
+        check_inc_round(label, res.table, full, "qty", ("s", "a"),
+                        q1_scale(rows_now, void=True))
+        return res, wall
+
+    for text in (order_q, INC_APPEND, agg):
+        inc_refresh(port, hk, ctx, sql, cat, text, sd, "inc_modes_r0",
+                    held, device)
+    now = small
+    for rnd in range(INC_ROUNDS):
+        batch = rf1_batch(INC_SMALL, rnd)
+        inc_append(port, path, batch, device)
+        now = _concat_tables(now, batch)
+        res, _l, dta402_s = inc_refresh(
+            port, hk, ctx, sql, cat, order_q, sd,
+            f"inc_modes_dta402_r{rnd + 1}", held, device)
+        full, _s = inc_full(port, hk, ctx, sql, cat, SQL_Q1, device)
+        if (res.mode, res.code) != ("rescan", "DTA402") \
+                or rows(res.table) != rows(full):
+            raise AssertionError(f"inc_modes DTA402 round {rnd + 1}: "
+                                 f"{res.mode} {res.code}")
+        res, _l, _w = inc_refresh(port, hk, ctx, sql, cat, INC_APPEND, sd,
+                                  f"inc_modes_append_r{rnd + 1}", held,
+                                  device)
+        ok = np.asarray([t == b"ok" for t in batch["tag"]])
+        want = sorted(zip(batch["okey"][ok].tolist(),
+                          batch["price"][ok].tolist(),
+                          batch["qty"][ok].tolist()))
+        if res.mode != "incremental" or rows(res.table) != want:
+            raise AssertionError(f"inc_modes append round {rnd + 1}: "
+                                 f"{res.mode}, {res.rows} rows, want "
+                                 f"{len(want)}")
+        crashed = False
+        if rnd == 1:
+            before = open(sp, "rb").read()
+            real = inc_state.commit_state
+
+            def crash(*a, **kw):
+                raise OSError("commit_state: simulated crash")
+
+            inc_state.commit_state = crash
+            try:
+                run_refresh(ctx, cat, agg_bound, sql.normalize_query(agg),
+                            sd)
+            except OSError:
+                crashed = True
+            finally:
+                inc_state.commit_state = real
+            if (not crashed or open(sp, "rb").read() != before
+                    or inc_state.load_state(sp)[0]
+                    != cat.watermark("lineitem") - 1):
+                raise AssertionError("inc_modes: the crashed refresh "
+                                     "changed the committed state")
+        res, _w = agg_round(f"inc_modes_agg_r{rnd + 1}", now,
+                            "incremental")
+        if len(res.delta_parts) != 1 or res.delta_rows != len(
+                batch["okey"]):
+            raise AssertionError(f"inc_modes round {rnd + 1}: delta "
+                                 f"{res.delta_parts} / {res.delta_rows}")
+        out["rounds"].append({"appended": len(batch["okey"]),
+                              "crashed_first": crashed,
+                              "dta402_s": dta402_s})
+    res, _l, noop_s = inc_refresh(port, hk, ctx, sql, cat, agg, sd,
+                                  "inc_modes_noop", held, device)
+    if res.mode != "noop" or res.delta_parts or res.changed_rows:
+        raise AssertionError(f"inc_modes noop: {res.mode}")
+    big = {k: v[INC_SMALL:INC_SMALL + INC_SMALL + INC_SMALL // 4]
+           for k, v in li.items()}
+    inc_append(port, path, big, device)
+    res, rebuild_s = agg_round("inc_modes_dta403", _concat_tables(now, big),
+                               "rebuild")
+    if res.code != "DTA403":
+        raise AssertionError(f"inc_modes DTA403: {res.code}")
+    out.update(noop_s=noop_s, rebuild={"appended": len(big["okey"]),
+                                       "wall_s": rebuild_s,
+                                       "scanned_parts": len(
+                                           res.delta_parts)})
+    shutil.rmtree(path)
+    return out
+
+
+def loopback_fakes():
+    """(``tests/torch_fakes``, ``tests/webhdfs_fake``) of this checkout,
+    imported by path: another ``tests`` package on the machine may shadow
+    the checkout's directory."""
+    d = os.path.join(HERE, "tests")
+    if d not in sys.path:
+        sys.path.insert(0, d)
+    import torch_fakes
+    import webhdfs_fake
+    for m in (torch_fakes, webhdfs_fake):
+        if os.path.dirname(os.path.abspath(m.__file__)) != d:
+            raise RuntimeError(f"{m.__name__} imported from {m.__file__}")
+    return torch_fakes, webhdfs_fake
+
+
+def _sync(device: str) -> None:
+    import torch
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def remote_wordcount(port, hk, wc, uri, n_lines, label, held, device,
+                     **kw):
+    """WordCount over ``ctx.read(uri)`` (96-byte lines, as phase 3 loads
+    bench12) through ``run_app``, kernel calls held: (counts, seconds)."""
+    per_part = -(-n_lines // NPARTS)
+    hk.capture = {}
+    out, launches, load, qs, _r = run_app(
+        port, hk, lambda c: wc.wordcount_query(
+            c.read(uri, max_line_len=96, **kw),
+            tokens_per_partition=per_part * 10).collect(), device)
+    captured, hk.capture = hk.capture, None
+    held(label, launches, captured)
+    return dict(zip(out["line"], (int(v) for v in out["n"]))), load + qs
+
+
+def remote_q1(port, hk, sql, path, label, held, device):
+    """SQL_Q1 over the store at ``path`` through ``run_app`` (kernel calls
+    held): (table, seconds)."""
+    cat = sql.Catalog().register_store("lineitem", path)
+    hk.capture = {}
+    out, launches, load, qs, _r = run_app(
+        port, hk, lambda c: sql.query(c, cat, SQL_Q1).collect(), device)
+    captured, hk.capture = hk.capture, None
+    held(label, launches, captured)
+    return out, load + qs
+
+
+def _same_table(label, got, want) -> None:
+    for k in want:
+        if np.asarray(got[k]).tobytes() != np.asarray(want[k]).tobytes():
+            raise AssertionError(f"{label}: column {k} differs from the "
+                                 f"local store's")
+
+
+def text_parts(lines) -> list:
+    """bench12's lines as TEXT_PARTS newline-terminated files' bytes."""
+    per = -(-len(lines) // TEXT_PARTS)
+    return [("\n".join(lines[i:i + per]) + "\n").encode()
+            for i in range(0, len(lines), per)]
+
+
+def store_write_read(port, li, url, device) -> dict:
+    """``to_store`` of the lineitems at ``url``, then ``read_store`` of it:
+    seconds and rates over the store's payload bytes."""
+    from dryad_tpu_torch.io.store import read_store, store_meta
+    ctx = port.Context(device=device, nparts=NPARTS)
+    ds = ctx.from_columns(li, str_max_len=TAG_LEN)
+    _sync(device)
+    t0 = time.perf_counter()
+    ds.to_store(url)
+    write_s = time.perf_counter() - t0
+    nbytes = sum(store_meta(url)["bytes"])
+    t0 = time.perf_counter()
+    read_store(url, ctx.mesh)
+    _sync(device)
+    read_s = time.perf_counter() - t0
+    return {"store_bytes": nbytes, "write_s": write_s, "read_s": read_s,
+            "write_gbps_loopback": nbytes / write_s / 1e9,
+            "read_gbps_loopback": nbytes / read_s / 1e9}
+
+
+def remote_s3(port, hk, wc, sql, li, local, q1_local, lines, want, held,
+              device="cuda") -> dict:
+    """remote_s3_6m on ``tests/torch_fakes.FakeS3`` (loopback; every
+    request's SigV4 signature verified): the lineitems written to
+    ``s3://`` with multipart puts (8 MiB parts) and read back, SQL_Q1
+    over it equal to the local store's table, ``ctx.read("s3://...")`` of
+    bench12's text counted by WordCount equal to phase 3's counts."""
+    from dryad_tpu_torch.io import s3_store
+    from dryad_tpu_torch.io.s3 import S3Client
+    FakeS3 = loopback_fakes()[0].FakeS3
+    keep_env, keep_client = dict(os.environ), s3_store._CLIENT
+    with FakeS3() as fake:
+        try:
+            os.environ.update(fake.environ())
+            s3_store._CLIENT = S3Client(fake.config(
+                multipart_bytes=S3_PART_BYTES))
+            url = "s3://bkt/lineitem"
+            line = store_write_read(port, li, url, device)
+            out, q1_s = remote_q1(port, hk, sql, url, "remote_s3_q1", held,
+                                  device)
+            _same_table("remote_s3_6m Q1", out, q1_local)
+            for i, blob in enumerate(text_parts(lines)):
+                s3_store._CLIENT.put_object("bkt", f"text/part-{i}.txt",
+                                            blob)
+            got, wc_s = remote_wordcount(port, hk, wc, "s3://bkt/text/",
+                                         len(lines), "remote_s3_text", held,
+                                         device)
+        finally:
+            os.environ.clear()
+            os.environ.update(keep_env)
+            s3_store._CLIENT = keep_client
+        if got != want:
+            raise AssertionError("remote_s3_6m: WordCount over s3:// "
+                                 "differs from the in-memory run")
+        if fake.bad_auth or not fake.uploads:
+            raise AssertionError(f"remote_s3_6m: {len(fake.bad_auth)} "
+                                 f"refused signatures, {len(fake.uploads)} "
+                                 f"multipart uploads")
+        return {**line, "q1_s": q1_s, "wordcount_s": wc_s,
+                "multipart_uploads": len(fake.uploads),
+                "requests": len(fake.requests), "signatures_refused": 0,
+                "rates": "loopback"}
+
+
+def remote_hdfs(port, hk, wc, sql, li, local, q1_local, lines, want, held,
+                device="cuda") -> dict:
+    """remote_hdfs_6m on ``tests/webhdfs_fake.FakeWebHdfs`` (loopback):
+    ``to_store`` / ``from_store`` over ``hdfs://`` (SQL_Q1 equal to the
+    local store's table); ``read_store_stream`` by ranged reads
+    (``ChunkSource.RANGED_STREAM_MIN_BYTES`` set to the smallest
+    partition's bytes) grouped by qty, equal to the same over the local
+    store; a streamed ``to_store`` to ``hdfs://`` equal to the same to a
+    local path; ``ctx.read("hdfs://...")`` of bench12's text counted by
+    WordCount equal to phase 3's counts."""
+    from dryad_tpu_torch.exec.ooc import ChunkSource
+    from dryad_tpu_torch.io.store import store_meta
+    from dryad_tpu_torch.io.webhdfs import hdfs_client
+    FakeWebHdfs = loopback_fakes()[1].FakeWebHdfs
+
+    def streamed(c, path):
+        return c.read_store_stream(path, chunk_rows=REMOTE_CHUNK).group_by(
+            ["qty"], {"n": ("count", None), "s": ("sum", "price"),
+                      "k": ("max", "okey")}).collect()
+
+    def small(c, src, dst):
+        c.read_store_stream(src, chunk_rows=REMOTE_CHUNK).where(
+            lambda t: t["qty"] < 3).to_store(dst)
+        back = c.from_store(dst).collect()
+        order = np.lexsort((back["price"], back["qty"], back["okey"]))
+        return {k: np.asarray(back[k])[order]
+                for k in ("okey", "qty", "price")}
+
+    srv = FakeWebHdfs(block_size=64 << 20)
+    keep = ChunkSource.RANGED_STREAM_MIN_BYTES
+    try:
+        url = srv.url + "/stores/lineitem"
+        line = store_write_read(port, li, url, device)
+        out, q1_s = remote_q1(port, hk, sql, url, "remote_hdfs_q1", held,
+                              device)
+        _same_table("remote_hdfs_6m Q1", out, q1_local)
+        ranged_min = min(store_meta(url)["bytes"])
+        ChunkSource.RANGED_STREAM_MIN_BYTES = ranged_min
+        before = len(srv.datanode_hits)
+        hk.capture = {}
+        got, launches, load, qs, _r = run_app(
+            port, hk, lambda c: streamed(c, url), device)
+        captured, hk.capture = hk.capture, None
+        held("remote_hdfs_stream", launches, captured)
+        stream_s = load + qs
+        opens = [q for m, _p, q in srv.datanode_hits[before:]
+                 if q.get("op") == "OPEN"]
+        ChunkSource.RANGED_STREAM_MIN_BYTES = keep
+        ctx = port.Context(device=device, nparts=NPARTS)
+        _same_table("remote_hdfs_6m stream", got, streamed(ctx, local))
+        if len(opens) < NPARTS * 5 or not all("length" in q for q in opens):
+            raise AssertionError(f"remote_hdfs_6m: {len(opens)} ranged "
+                                 f"reads")
+        t0 = time.perf_counter()
+        remote_small = small(ctx, local, srv.url + "/stores/small")
+        streamed_write_s = time.perf_counter() - t0
+        _same_table("remote_hdfs_6m streamed write", remote_small,
+                    small(ctx, local, local + "_small"))
+        shutil.rmtree(local + "_small")
+        c, _p = hdfs_client(srv.url + "/")
+        for i, blob in enumerate(text_parts(lines)):
+            c.create(f"/text/part-{i}.txt", blob)
+        got, wc_s = remote_wordcount(port, hk, wc, srv.url + "/text/",
+                                     len(lines), "remote_hdfs_text", held,
+                                     device)
+        if got != want:
+            raise AssertionError("remote_hdfs_6m: WordCount over hdfs:// "
+                                 "differs from the in-memory run")
+    finally:
+        ChunkSource.RANGED_STREAM_MIN_BYTES = keep
+        srv.close()
+    return {**line, "q1_s": q1_s, "ranged_stream_min_bytes": ranged_min,
+            "stream_s": stream_s, "ranged_reads": len(opens),
+            "streamed_write_s": streamed_write_s,
+            "streamed_write_rows": len(remote_small["okey"]),
+            "wordcount_s": wc_s, "rates": "loopback"}
+
+
+def remote_http(port, hk, wc, lines, want, held, device="cuda") -> dict:
+    """remote_http_text on ``tests/torch_fakes.RangeServer`` (loopback):
+    ``ctx.read("http://127.0.0.1:<port>/")`` enumerates bench12's text
+    files and fetches them by 2 MiB ranged GETs; WordCount equal to phase
+    3's counts."""
+    RangeServer = loopback_fakes()[0].RangeServer
+    files = {f"bench12-{i}.txt": b
+             for i, b in enumerate(text_parts(lines))}
+    with RangeServer(files) as web:
+        got, wc_s = remote_wordcount(port, hk, wc, f"http://{web.base}/",
+                                     len(lines), "remote_http_text", held,
+                                     device)
+        ranged = sum(1 for _p, r in web.requests if r)
+    if got != want:
+        raise AssertionError("remote_http_text: WordCount over http:// "
+                             "differs from the in-memory run")
+    nbytes = sum(len(b) for b in files.values())
+    return {"text_bytes": nbytes, "files": len(files),
+            "ranged_gets": ranged, "wordcount_s": wc_s,
+            "read_gbps_loopback_incl_wordcount": nbytes / wc_s / 1e9,
+            "rates": "loopback"}
+
+
+def phase16_runs(port, hk, wc, n_items: int, tmp: str, lines, want, held,
+                 device="cuda") -> dict:
+    """Phase 16's cells over ``sql_tables(n_items)``'s lineitems (``tag``
+    as an 8-byte string): the remote stores first (remote_s3_6m,
+    remote_hdfs_6m against a local store of the same rows,
+    remote_http_text), then the incremental cells (inc_q1_6m,
+    inc_okey_6m, inc_modes), each store under ``tmp``."""
+    from dryad_tpu_torch import sql
+    li, _orders = sql_tables(n_items)
+    local = os.path.join(tmp, "local")
+    inc_store(port, li, local, device)
+    q1_local, _s = remote_q1(port, hk, sql, local, "remote_local_q1", held,
+                             device)
+    res = {"remote_s3_6m": remote_s3(port, hk, wc, sql, li, local, q1_local,
+                                     lines, want, held, device),
+           "remote_hdfs_6m": remote_hdfs(port, hk, wc, sql, li, local,
+                                         q1_local, lines, want, held,
+                                         device),
+           "remote_http_text": remote_http(port, hk, wc, lines, want, held,
+                                           device)}
+    shutil.rmtree(local)
+    res.update(inc_runs(port, hk, li, tmp, held, device))
+    res["inc_modes"] = inc_modes(port, hk, li, tmp, held, device)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 5: timing
 
 
@@ -4434,61 +4995,97 @@ def library_call(name: str, args):
     return compact
 
 
-def profile_window(fn, calls: int = 20) -> list:
-    """torch.profiler over ``calls`` calls of ``fn`` and nothing else:
-    [(kernel or memset name, count, device µs in all)].  One call runs
-    before the window.  The window opens with the executor's pad
-    (``_PROFILE_PAD_LAUNCHES`` launches of a one-element add, then a
-    sync), since the profiler can drop a window's first device records;
-    the pad's records are left out by correlation id."""
+# launches of the one-element add that close a padded profile window:
+# the profiler drops a window's last device records too (the run's last
+# 218 and a 64-launch pad's all in one window)
+PROFILE_TAIL_PAD = 1024
+
+
+def padded_profile(run, activities, label: str):
+    """``run()`` under torch.profiler with ``activities`` (CUDA among
+    them): ``(profiler, run's result, the pads' correlation ids)``.  The
+    window opens with the executor's pad (``_PROFILE_PAD_LAUNCHES``
+    launches of a one-element add, then a sync), since the profiler can
+    drop a window's first device records, and closes with
+    ``PROFILE_TAIL_PAD`` more after the run's sync; the pads' records are
+    left out by correlation id.  A window in which a kernel launch of the
+    run has no device record fails, naming the first such launches: it is
+    not taken again."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
     from dryad_tpu_torch.exec.executor import _PROFILE_PAD_LAUNCHES
-    fn()
     pad = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
         for _ in range(_PROFILE_PAD_LAUNCHES):
             pad.add_(1)
         torch.cuda.synchronize()
-        for _ in range(calls):
-            fn()
+        out = run()
+        torch.cuda.synchronize()
+        for _ in range(PROFILE_TAIL_PAD):
+            pad.add_(1)
         torch.cuda.synchronize()
     events = prof.profiler.kineto_results.events()
-    launched = sorted(e.correlation_id() for e in events
-                      if e.device_type() != torch.autograd.DeviceType.CUDA
-                      and "Launch" in e.name() and "Kernel" in e.name())
-    skip = set(launched[:_PROFILE_PAD_LAUNCHES])
-    count, us = collections.Counter(), collections.Counter()
+    recorded, launched = set(), []
     for e in events:
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            recorded.add(e.correlation_id())
+        elif "Launch" in e.name() and "Kernel" in e.name():
+            launched.append((e.correlation_id(), e.name()))
+    launched.sort()
+    own = launched[_PROFILE_PAD_LAUNCHES:len(launched) - PROFILE_TAIL_PAD]
+    lost = [(i, name) for i, (c, name) in enumerate(own)
+            if c not in recorded]
+    if lost or not own:
+        raise AssertionError(
+            f"{label}: the profile window lacks records: {len(lost)} of "
+            f"the run's {len(own)} kernel launches have no device record, "
+            f"the first (index, launch) {lost[:5]}")
+    return prof, out, {c for c, _ in launched[:_PROFILE_PAD_LAUNCHES]
+                       + launched[len(launched) - PROFILE_TAIL_PAD:]}
+
+
+def profile_window(fn, calls: int = 20, label: str = "window") -> list:
+    """torch.profiler over ``calls`` calls of ``fn`` and nothing else, in
+    a padded window (``padded_profile``): [(kernel or memset name,
+    count, device µs in all)].  One call runs before the window."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    fn()
+
+    def calls_of():
+        for _ in range(calls):
+            fn()
+
+    prof, _, pad = padded_profile(
+        calls_of, [ProfilerActivity.CPU, ProfilerActivity.CUDA], label)
+    count, us = collections.Counter(), collections.Counter()
+    for e in prof.profiler.kineto_results.events():
         if (e.device_type() == torch.autograd.DeviceType.CUDA
-                and e.correlation_id() not in skip):
+                and e.correlation_id() not in pad):
             count[e.name()] += 1
             us[e.name()] += e.duration_ns() / 1e3
     return [(k, count[k], us[k]) for k in count]
 
 
-def profile_calls(name: str, fn, calls: int = 20, tries: int = 3,
+def profile_calls(name: str, fn, calls: int = 20,
                   per_call: int = 1) -> dict:
     """The row's kernel time per call at the timed shape, and the device
-    events (kernels and memsets) per call, in all and by name.  The time
-    per call is the mean of the kernel's recorded events times
-    ``per_call``, the kernel's launches in one call of ``fn``.  A window
-    that recorded none of the kernel's events is taken again, up to
-    ``tries`` windows."""
-    for _ in range(tries):
-        ours = n_ours = events = 0
-        by_name = {}
-        for key, count, us in profile_window(fn, calls):
-            events += count
-            by_name[key[:80]] = count / calls
-            if any(s in key for s in DEVICE_NAMES[name]):
-                ours += us
-                n_ours += count
-        if ours:
-            break
+    events (kernels and memsets) per call, in all and by name, from one
+    padded window.  The time per call is the mean of the kernel's
+    recorded events times ``per_call``, the kernel's launches in one
+    call of ``fn``.  A window that recorded none of the kernel's events
+    fails."""
+    ours = n_ours = events = 0
+    by_name = {}
+    for key, count, us in profile_window(fn, calls, label=name):
+        events += count
+        by_name[key[:80]] = count / calls
+        if any(s in key for s in DEVICE_NAMES[name]):
+            ours += us
+            n_ours += count
     if not ours:
         raise AssertionError(f"{name}: no profiled device time under "
                              f"{DEVICE_NAMES[name]} at the timed shape")
@@ -4591,24 +5188,19 @@ def pack_side(prof: dict, captured) -> dict:
     }
 
 
-def profile_path(run, label, out_dir, tries: int = 3,
-                 pack: bool = True) -> dict:
-    """``profile_run``, taken again (up to ``tries`` times) while a port
-    kernel launched in the run shows no profiled device time or (with
-    ``pack``) the pack ranges show none: the profiler can miss a window's
-    events.  Fails when the last take still misses a launched kernel."""
-    for attempt in range(tries):
-        prof = profile_run(run, label, out_dir, pack)
-        ours = prof.get("port_kernels_ms") or {}
-        missing = [k for k, n in prof["launches"].items()
-                   if n and not ours.get(k)]
-        if not missing and (not pack or prof.get("pack_kernels_us")):
-            break
-    if missing:
+def profile_path(run, label, out_dir, pack: bool = True) -> dict:
+    """``profile_run`` (one padded window), failing when a port kernel
+    launched in the run shows no profiled device time or (with ``pack``)
+    the pack ranges show none."""
+    prof = profile_run(run, label, out_dir, pack)
+    ours = prof.get("port_kernels_ms") or {}
+    missing = [k for k, n in prof["launches"].items()
+               if n and not ours.get(k)]
+    if missing or (pack and not prof.get("pack_kernels_us")):
         raise AssertionError(
-            f"{label}: {missing} launched but show no profiled device "
-            f"time in {tries} profiles")
-    return {**prof, "profile_takes": attempt + 1}
+            f"{label}: {missing or 'the pack ranges'} show no profiled "
+            f"device time")
+    return prof
 
 
 def _no_pack(prof: dict) -> dict:
@@ -4707,32 +5299,34 @@ def time_kernels(hk, runs, timed, card) -> list:
 
 
 def profile_run(run, label, out_dir, pack: bool = True) -> dict:
-    """Device time by kernel over one warm run of a path (kernel-level
-    events only: the operator-level rows repeat their kernels' time).
+    """Device time by kernel over one warm run of a path, in a padded
+    window (``padded_profile``; the written table includes the pad's
+    adds, the numbers leave them out).
     ``run()`` returns (table, launches, load_s, query_s).  ``pack``
     also traces the host side, which the pack-side ranges need; without
     it only the device is traced (PageRank's warm run issues hundreds of
     thousands of host ops, whose events the profiler is slow to
     process)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     acts = [ProfilerActivity.CUDA]
     if pack:
         acts.insert(0, ProfilerActivity.CPU)
-    with profile(activities=acts) as prof:
-        _out, launches, load, query = run()
+    prof, (_out, launches, load, query), pad = padded_profile(
+        run, acts, label)
     wall = load + query
-    avgs = prof.key_averages()
     with open(os.path.join(out_dir, f"profile_{label}.txt"), "w") as f:
-        f.write(avgs.table(sort_by="self_cuda_time_total", row_limit=60))
+        f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                          row_limit=60))
     dev_ms, dev_n = collections.Counter(), collections.Counter()
-    for ev in avgs:
+    for e in prof.profiler.kineto_results.events():
         # the pack range shows on the device timeline too, as a span
         # over its kernels: not device time of its own
-        if (ev.device_type == torch.autograd.DeviceType.CUDA
-                and ev.key != PACK_RANGE):
-            dev_ms[ev.key] += ev.self_device_time_total / 1e3
-            dev_n[ev.key] += ev.count
+        if (e.device_type() == torch.autograd.DeviceType.CUDA
+                and e.correlation_id() not in pad
+                and e.name() != PACK_RANGE):
+            dev_ms[e.name()] += e.duration_ns() / 1e6
+            dev_n[e.name()] += 1
     if not dev_ms:
         return {"device_ms": None, "wall_s": wall, "load_s": load,
                 "query_s": query, "launches": launches}
@@ -5304,6 +5898,29 @@ def main(argv=None) -> int:
                              f"{sorted(unheld)} held")
     emit({"phase": "observability", "launches": launches15,
           "seconds": time.perf_counter() - t15, "card": card})
+
+    # phase 16: incremental queries over a growing local store and the
+    # network stores on loopback fakes; stores under --out, deleted at
+    # the end of the phase
+    before = set(runs)
+    t16 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase16-", dir=a.out)
+    try:
+        sixteen = phase16_runs(port, hk, wc, a.lineitems, tmp,
+                               corpora["bench12"], wc_counts["bench12"],
+                               held)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for label, line in sixteen.items():
+        emit({"phase16": label, **line, "card": card})
+    new = set(runs) - before
+    launches16 = {k: sum(runs[r][0][k] for r in new) for k in TPU_KERNEL}
+    unheld = set(TPU_KERNEL) - {k for r in new for k in runs[r][1]}
+    if unheld or not all(launches16.values()):
+        raise AssertionError(f"phase 16: launches {launches16}, no call of "
+                             f"{sorted(unheld)} held")
+    emit({"phase": "incremental_remote", "launches": launches16,
+          "seconds": time.perf_counter() - t16, "card": card})
 
     wc_prof = profile_path(
         lambda: run_wordcount(port, hk, wc, corpora["zipf50k"])[:4],

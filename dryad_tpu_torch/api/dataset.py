@@ -393,9 +393,10 @@ class Context:
 
     def read_store_stream(self, path: str,
                           chunk_rows: int | None = None) -> "Dataset":
-        """Stream a local store (written by either package) through the
-        plain Dataset API, ``chunk_rows`` rows a chunk (default: the
-        autotuned size with ``JobConfig.ooc_chunk_autotune``, else
+        """Stream a store (written by either package; local, ``s3://`` or
+        ``hdfs://``) through the plain Dataset API, ``chunk_rows`` rows a
+        chunk (default: the autotuned size with
+        ``JobConfig.ooc_chunk_autotune``, else
         ``JobConfig.ooc_chunk_rows``)."""
         from dryad_tpu_torch.exec.ooc import ChunkSource
         cr = chunk_rows or self._auto_chunk_rows(path) \
@@ -431,13 +432,24 @@ class Context:
     def read_text_stream(self, path, column: str = "line",
                          chunk_rows: int | None = None,
                          max_line_len: int | None = None) -> "Dataset":
-        """Stream local text files line by line (a file is never held in
-        memory whole); ``path`` as for ``read_text``."""
+        """Stream text files line by line (a file is never held in
+        memory whole); ``path`` as for ``read_text``, or a ``http://``,
+        ``s3://`` or ``hdfs://`` URI (a listing URL, an ``s3://`` prefix
+        ending in ``/`` or an ``hdfs://`` directory streams every file in
+        it), read by ranged requests."""
         from dryad_tpu_torch.exec.ooc import ChunkSource
-        from dryad_tpu_torch.io.providers import expand_paths
+        from dryad_tpu_torch.io.providers import expand_uris
         return self.from_stream(ChunkSource.from_text(
-            expand_paths(path), chunk_rows or self.config.ooc_chunk_rows,
+            expand_uris(path), chunk_rows or self.config.ooc_chunk_rows,
             max_line_len or self.config.text_max_line_len, column))
+
+    def read(self, uri: str, **kw) -> "Dataset":
+        """URI-scheme dispatch: ``file://`` text, ``store://`` a
+        partitioned store, ``http://`` ranged GETs, ``s3://`` objects,
+        ``hdfs://`` WebHDFS, and any scheme registered with
+        ``io.providers.register_provider``."""
+        from dryad_tpu_torch.io.providers import open_uri
+        return open_uri(self, uri, **kw)
 
     # -- re-streaming cache plumbing (exec/ooc.py's cache tier) ------------
 
@@ -445,13 +457,13 @@ class Context:
         """The directory of re-streaming cache entries:
         ``JobConfig.ooc_cache_dir`` (persistent: a restarted job with an
         intact directory skips the cold pass), else a temporary directory
-        made on first use and removed when the Context is collected."""
+        made on first use and removed when the Context is collected.  A
+        remote ``ooc_cache_dir`` (``scheme://``) gets the temporary
+        directory too: an entry's sidecar is written with local file
+        semantics, and making the URL a local directory would split the
+        entry (data remote, sidecar in a literal ``scheme:/`` path)."""
         d = self.config.ooc_cache_dir
-        if d:
-            if "://" in d:
-                raise NotImplementedError(
-                    f"{d}: the port's cache directory is local only; "
-                    f"remote stores wait for ROADMAP Queue 1 item 10")
+        if d and "://" not in d:
             os.makedirs(d, exist_ok=True)
             return d
         root = getattr(self, "_ooc_cache_tmp", None)
@@ -482,8 +494,10 @@ class Context:
     def from_store(self, path: str, capacity: int | None = None
                    ) -> "Dataset":
         """Load a store (FromStore), written by this package or the JAX
-        one.  Its persisted partitioning is claimed (a later group-by or
-        join on those keys skips the exchange) only when it has as many
+        one, local, ``s3://`` or ``hdfs://`` (as for ``to_store`` and
+        ``read_store_stream``).  Its persisted partitioning is claimed (a
+        later group-by or join on those keys skips the exchange) only
+        when it has as many
         partitions as this context: re-blocking breaks the placement.  A
         store of at least ``JobConfig.ooc_auto_stream_rows`` rows (when
         set) streams instead (``read_store_stream``)."""
@@ -1050,8 +1064,10 @@ class Dataset:
         return out
 
     def to_store(self, path: str, compression: str | None = None) -> None:
-        """Execute and persist as a store (ToStore), with this dataset's
-        partitioning claim (dropped where ``cache`` drops it).
+        """Execute and persist as a store (ToStore) at a local,
+        ``s3://`` or ``hdfs://`` path (a streamed dataset: local or
+        ``hdfs://``), with this dataset's partitioning claim (dropped
+        where ``cache`` drops it).
         ``compression="gzip"`` (default ``JobConfig.store_compression``)
         writes level-1 gzip part files."""
         from dryad_tpu_torch.io.store import write_store

@@ -29,8 +29,8 @@ and chunks every host <-> device copy of this module moves.
 
 The re-streaming cache tier at the end (``cache_source`` and its
 helpers) is ``Dataset.cache()``'s store-backed form for streamed data.
-Remote stores (``s3://``, ``hdfs://``, ranged reads) wait for ROADMAP
-Queue 1 item 10: a ``scheme://`` path raises.
+Stores may be local, ``s3://`` or ``hdfs://`` (``io/store.py``'s
+dispatch); text may be local, ``http://``, ``s3://`` or ``hdfs://``.
 """
 
 from __future__ import annotations
@@ -53,9 +53,9 @@ import torch
 from dryad_tpu_torch.data.columnar import Batch, StringColumn, _as_bytes, \
     pack_bytes_list, pack_lines
 from dryad_tpu_torch.io.fnv import checksum_segments
-from dryad_tpu_torch.io.store import _alloc_part, _local, _part_path, \
-    _read_part, _write_part, build_meta, chunk_segments, schema_row_bytes, \
-    store_meta, verify_checksums
+from dryad_tpu_torch.io.store import _alloc_part, _part_path, _read_part, \
+    _write_part, build_meta, chunk_segments, is_remote_store, \
+    remote_read_part_views, schema_row_bytes, store_meta, verify_checksums
 from dryad_tpu_torch.ops import hopper_kernels as hk
 from dryad_tpu_torch.ops import kernels
 from dryad_tpu_torch.ops.hashing import hash_batch_keys
@@ -275,25 +275,57 @@ class ChunkSource:
 
         return ChunkSource(it, chunk_schema(whole), chunk_rows)
 
+    # an uncompressed hdfs:// partition of at least this many bytes
+    # streams by ranged reads (unverified) instead of the verified
+    # whole-part read: anything that fits host memory comfortably keeps
+    # its checksum
+    RANGED_STREAM_MIN_BYTES = 256 << 20
+
     @staticmethod
     def from_store(path: str, chunk_rows: int,
                    partitions: Optional[Sequence[int]] = None
                    ) -> "ChunkSource":
-        """Stream a local store (``io/store.py`` layout, written by either
-        package) partition by partition, each checksummed when read and
-        sliced into chunks: a partition must fit host memory, the store
-        need not.  ``partitions`` restricts to those store partitions."""
+        """Stream a store (``io/store.py`` layout, written by either
+        package; local, ``s3://`` or ``hdfs://``) partition by partition,
+        each checksummed when read and sliced into chunks: a partition
+        must fit host memory, the store need not.  The exception is an
+        uncompressed ``hdfs://`` partition past
+        ``RANGED_STREAM_MIN_BYTES``: it streams by one ranged read per
+        column segment per chunk, so it need not fit either, and its
+        checksum (over whole segments) goes unverified.  A remote
+        partition's read is issued again on a transient failure
+        (``io/providers.retry_transient``).  ``partitions`` restricts to
+        those store partitions."""
         meta = store_meta(path)
         schema = meta["schema"]
         part_ids = (list(range(meta["npartitions"]))
                     if partitions is None else list(partitions))
         comp = meta.get("compression")
+        ranged = set()
+        if path.startswith("hdfs://") and comp != "gzip":
+            rb = schema_row_bytes(schema)
+            ranged = {p for p in part_ids if int(meta["counts"][p]) * rb
+                      >= ChunkSource.RANGED_STREAM_MIN_BYTES}
 
         def it():
             for p in part_ids:
                 cnt = int(meta["counts"][p])
-                segs, cols = _alloc_part(schema, cnt)
-                _read_part((_part_path(path, p), segs, comp))
+                if p in ranged:
+                    from dryad_tpu_torch.io.webhdfs import hdfs_part_chunks
+                    for cols, n in hdfs_part_chunks(path, meta, p,
+                                                    chunk_rows):
+                        yield HChunk(cols, n)
+                    continue
+                if is_remote_store(path):
+                    # the provider clients retry each request already:
+                    # two more tries of the whole part bound the stack
+                    from dryad_tpu_torch.io.providers import retry_transient
+                    segs, cols = retry_transient(
+                        lambda p=p: remote_read_part_views(path, meta, p),
+                        what=f"remote part {p} of {path}", retries=2)
+                else:
+                    segs, cols = _alloc_part(schema, cnt)
+                    _read_part((_part_path(path, p), segs, comp))
                 verify_checksums(path, meta, [segs], partitions=[p])
                 whole = HChunk(cols, cnt)
                 for s in range(0, cnt, chunk_rows):
@@ -308,17 +340,14 @@ class ChunkSource:
     @staticmethod
     def from_text(paths, chunk_rows: int, max_line_len: int = 256,
                   column: str = "line") -> "ChunkSource":
-        """Stream local text files line by line, ``chunk_rows`` lines a
-        chunk, 4 MB of a file in memory at a time (``pack_lines`` on each
+        """Stream text files line by line, ``chunk_rows`` lines a chunk,
+        4 MB of a file in memory at a time (``pack_lines`` on each
         block's whole lines: split on b"\\n", a trailing b"\\r" trimmed,
         lines cut at ``max_line_len``).  A trailing unterminated line
-        counts."""
+        counts.  A ``http://``, ``s3://`` or ``hdfs://`` path arrives by
+        ranged reads of the same 4 MB (``io/providers.open_blocks``)."""
+        from dryad_tpu_torch.io.providers import open_blocks
         paths = [paths] if isinstance(paths, str) else list(paths)
-        for p in paths:
-            if "://" in p:
-                raise NotImplementedError(
-                    f"{p}: the port streams local files only; remote "
-                    f"providers wait for ROADMAP Queue 1 item 10")
         schema = {column: {"kind": "str", "max_len": max_line_len}}
 
         def it():
@@ -335,21 +364,17 @@ class ChunkSource:
 
             for path in paths:
                 rem = b""
-                with open(path, "rb") as f:
-                    while True:
-                        blk = f.read(1 << 22)
-                        if not blk:
-                            break
-                        cut = blk.rfind(b"\n")
-                        if cut < 0:
-                            rem += blk
-                            continue
-                        d, ln = pack_lines(rem + blk[:cut + 1], max_line_len)
-                        rem = blk[cut + 1:]
-                        pend.append((d, ln))
-                        have += d.shape[0]
-                        while have >= chunk_rows:
-                            yield take(chunk_rows)
+                for blk in open_blocks(path, 1 << 22):
+                    cut = blk.rfind(b"\n")
+                    if cut < 0:
+                        rem += blk
+                        continue
+                    d, ln = pack_lines(rem + blk[:cut + 1], max_line_len)
+                    rem = blk[cut + 1:]
+                    pend.append((d, ln))
+                    have += d.shape[0]
+                    while have >= chunk_rows:
+                        yield take(chunk_rows)
                 if rem:
                     d, ln = pack_lines(rem, max_line_len)
                     pend.append((d, ln))
@@ -1187,13 +1212,14 @@ def write_chunks_to_store(path: str, chunks: Iterable[HChunk],
                           partitioning: Optional[Dict[str, Any]] = None,
                           compression: Optional[str] = None
                           ) -> Dict[str, Any]:
-    """Stream chunks to a local store (``io/store.py`` layout), one
-    partition file per chunk, committed atomically by a temp-dir rename;
-    host memory stays O(chunk_rows) on the write side too.  Returns the
-    store's meta."""
+    """Stream chunks to a store (``io/store.py`` layout), one partition
+    file per chunk, committed atomically by a temp-dir rename (an
+    ``hdfs://`` store by WebHDFS's rename, each chunk uploaded as it is
+    drained); host memory stays O(chunk_rows) on the write side too.
+    ``s3://`` is refused: an unbounded chunk stream has no atomic
+    multi-object commit.  Returns the store's meta."""
     if compression not in (None, "gzip"):
         raise ValueError(f"unknown compression {compression!r}")
-    _local(path)
     store_schema: Dict[str, Any] = {}
     for k, spec in schema.items():
         if spec["kind"] == "str":
@@ -1201,6 +1227,16 @@ def write_chunks_to_store(path: str, chunks: Iterable[HChunk],
         else:
             store_schema[k] = {"kind": "dense", "dtype": spec["dtype"],
                                "shape": list(spec.get("shape", ()))}
+    if path.startswith("hdfs://"):
+        from dryad_tpu_torch.io.webhdfs import _write_chunks_hdfs
+        return _write_chunks_hdfs(path, chunks, store_schema,
+                                  partitioning=partitioning,
+                                  compression=compression)
+    if path.startswith("s3://"):
+        raise OOCError(
+            "streamed writes to s3:// are not supported (no atomic "
+            "multi-object commit for an unbounded chunk stream); "
+            "to_store to a local or hdfs:// path instead")
     tmp = path + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)

@@ -19,8 +19,15 @@ to the host once and slices the partitions there; a read builds each
 column's ``[P, cap, ...]`` array on the host and copies it to the card
 once.  Partition files are written, read and checksummed in parallel on
 a thread pool (file IO, zlib and the C checksum release the interpreter
-lock).  ``s3://`` and ``hdfs://`` stores, ``append_store`` and store
-generations wait for ROADMAP Queue 1 item 10.
+lock).
+
+A manifest is append-aware: ``generation`` counts the ``append_store``
+commits of a local store, and ``part_generations[p]`` the generation that
+added partition p, so an incremental refresh holding watermark W scans
+``parts_since(meta, W)`` only.  ``s3://`` paths go to ``io/s3_store.py``
+(the same layout as objects, committed by writing ``meta.json`` last) and
+``hdfs://`` paths to ``io/webhdfs.py`` (committed by a rename); both
+append nothing.
 """
 
 from __future__ import annotations
@@ -44,7 +51,9 @@ from dryad_tpu_torch.utils.atomic import atomic_write_json
 __all__ = ["write_store", "read_store", "store_meta", "build_meta",
            "schema_row_bytes", "pdata_schema", "chunk_segments",
            "segments_blob", "fill_segments", "verify_checksums",
-           "StoreIntegrityError"]
+           "StoreIntegrityError", "is_remote_store",
+           "remote_read_part_views", "append_store", "store_generation",
+           "parts_since", "pdata_part_segments"]
 
 _FORMAT_VERSION = 3
 _REMOTE_SCHEMES = ("s3://", "hdfs://")
@@ -58,12 +67,21 @@ class StoreIntegrityError(RuntimeError):
     (fnv64 chained over the partition's segments)."""
 
 
-def _local(path: str) -> str:
-    if path.startswith(_REMOTE_SCHEMES):
-        raise NotImplementedError(
-            f"{path}: the port's store is local only; the s3:// and "
-            f"hdfs:// adapters wait for ROADMAP Queue 1 item 10")
-    return path
+def is_remote_store(path: str) -> bool:
+    """True for a store served by a remote adapter (``s3://`` objects,
+    ``hdfs://`` WebHDFS) rather than the local filesystem."""
+    return path.startswith(_REMOTE_SCHEMES)
+
+
+def remote_read_part_views(path: str, meta: Dict[str, Any], p: int):
+    """(segments, column views) of one remote partition, as
+    ``_alloc_part`` gives them, filled: the building block of
+    ``read_store`` and ``ooc.ChunkSource.from_store``."""
+    if path.startswith("s3://"):
+        from dryad_tpu_torch.io.s3_store import s3_read_part_views
+        return s3_read_part_views(path, meta, p)
+    from dryad_tpu_torch.io.webhdfs import hdfs_read_part_views
+    return hdfs_read_part_views(path, meta, p)
 
 
 def _part_path(path: str, p: int) -> str:
@@ -97,9 +115,13 @@ def build_meta(schema: Dict[str, Any], counts: List[int],
                checksums: List[str],
                partitioning: Optional[Dict[str, Any]] = None,
                compression: Optional[str] = None,
-               capacity: Optional[int] = None) -> Dict[str, Any]:
-    """The meta.json of a freshly written store, key for key the JAX
-    package's (generation 0: the port does not append)."""
+               capacity: Optional[int] = None,
+               generation: int = 0,
+               part_generations: Optional[List[int]] = None
+               ) -> Dict[str, Any]:
+    """The meta.json of a store, key for key the JAX package's.  A fresh
+    write is generation 0; ``append_store`` passes the bumped generation
+    and the generation that added each partition."""
     rb = schema_row_bytes(schema)
     return {
         "format_version": _FORMAT_VERSION,
@@ -114,9 +136,25 @@ def build_meta(schema: Dict[str, Any], counts: List[int],
         "checksum_algo": "fnv64",
         "checksums": checksums,
         "native_io": _ENGINE,
-        "generation": 0,
-        "part_generations": [0] * len(counts),
+        "generation": int(generation),
+        "part_generations": (list(part_generations)
+                             if part_generations is not None
+                             else [0] * len(counts)),
     }
+
+
+def store_generation(meta: Dict[str, Any]) -> int:
+    """The append watermark of a manifest (0 for a store written before
+    the field existed: it was never appended to)."""
+    return int(meta.get("generation", 0))
+
+
+def parts_since(meta: Dict[str, Any], watermark: int) -> List[int]:
+    """Store partitions committed AFTER ``watermark``: the delta an
+    incremental refresh scans.  ``-1`` (no state yet) gives every
+    partition, ``store_generation(meta)`` none."""
+    gens = meta.get("part_generations") or [0] * int(meta["npartitions"])
+    return [p for p, g in enumerate(gens) if int(g) > watermark]
 
 
 def _col_order(schema: Dict[str, Any]) -> List[str]:
@@ -210,6 +248,17 @@ def _host_rows(v, p: int, n: int):
     return v[p, :n]
 
 
+def pdata_part_segments(pd: PData, schema: Dict[str, Any]
+                        ) -> Tuple[List[List[np.ndarray]], List[int]]:
+    """Each partition's valid rows as file-order segments, and the
+    counts: one device-to-host copy per column, then host views."""
+    cols, counts = pdata_to_numpy(pd)
+    counts = [int(n) for n in counts]
+    return [chunk_segments(schema, {k: _host_rows(v, p, n)
+                                    for k, v in cols.items()})
+            for p, n in enumerate(counts)], counts
+
+
 def write_store(path: str, pd: PData,
                 partitioning: Optional[Dict[str, Any]] = None,
                 compression: Optional[str] = None) -> None:
@@ -219,22 +268,25 @@ def write_store(path: str, pd: PData,
     are over the uncompressed segments."""
     if compression not in (None, "gzip"):
         raise ValueError(f"unknown compression {compression!r}")
-    _local(path)
+    if path.startswith("s3://"):
+        from dryad_tpu_torch.io.s3_store import s3_write_store
+        return s3_write_store(path, pd, partitioning=partitioning,
+                              compression=compression)
+    if path.startswith("hdfs://"):
+        from dryad_tpu_torch.io.webhdfs import hdfs_write_store
+        return hdfs_write_store(path, pd, partitioning=partitioning,
+                                compression=compression)
     tmp = path + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
     schema = pdata_schema(pd)
-    # one device-to-host copy per column, then host views per partition
-    cols, counts = pdata_to_numpy(pd)
-    segments = [chunk_segments(schema, {k: _host_rows(v, p, int(n))
-                                        for k, v in cols.items()})
-                for p, n in enumerate(counts)]
+    segments, counts = pdata_part_segments(pd, schema)
     _parallel(_write_part, [(_part_path(tmp, p), segs, compression)
                             for p, segs in enumerate(segments)])
     checksums = ["%016x" % c for c in _parallel(checksum_segments,
                                                 segments)]
-    meta = build_meta(schema, [int(c) for c in counts], checksums,
+    meta = build_meta(schema, counts, checksums,
                       partitioning=partitioning, compression=compression,
                       capacity=pd.capacity)
     atomic_write_json(os.path.join(tmp, "meta.json"), meta, indent=1)
@@ -243,8 +295,65 @@ def write_store(path: str, pd: PData,
     os.rename(tmp, path)
 
 
+def append_store(path: str, pd: PData) -> int:
+    """Append a PData to an EXISTING local store as a new generation;
+    returns the committed generation.
+
+    The non-empty partitions land as part files past the current
+    ``npartitions`` under their final names, then ONE atomic replace of
+    ``meta.json`` publishes the extended manifest at ``generation + 1``:
+    a crash before it leaves orphan part files that no manifest names
+    (a retry overwrites them), so no reader or watermark sees a torn
+    append.  The schema must equal the store's (string widths too); a
+    hash or range claim drops to ``none``, as the appended rows were not
+    placed."""
+    if is_remote_store(path):
+        raise NotImplementedError(
+            "append_store supports local stores only (remote adapters "
+            "commit whole stores; re-write via write_store)")
+    meta = store_meta(path)
+    schema = pdata_schema(pd)
+    if schema != meta["schema"]:
+        raise ValueError(
+            f"append schema mismatch for {path}: store has "
+            f"{meta['schema']}, appended data has {schema}")
+    compression = meta.get("compression")
+    base = int(meta["npartitions"])
+    segments, counts = pdata_part_segments(pd, schema)
+    # empty partitions would lengthen the manifest forever
+    kept = [(segs, n) for segs, n in zip(segments, counts) if n]
+    if not kept:
+        return store_generation(meta)
+    segments = [segs for segs, _ in kept]
+    new_counts = [n for _, n in kept]
+    _parallel(_write_part, [(_part_path(path, base + i), segs, compression)
+                            for i, segs in enumerate(segments)])
+    checksums = ["%016x" % c for c in _parallel(checksum_segments,
+                                                segments)]
+    gen = store_generation(meta) + 1
+    gens = list(meta.get("part_generations") or [0] * base)
+    part = meta.get("partitioning") or {"kind": "none"}
+    new_meta = build_meta(
+        meta["schema"], list(meta["counts"]) + new_counts,
+        list(meta.get("checksums") or []) + checksums,
+        partitioning=part if part.get("kind") == "none"
+        else {"kind": "none"},
+        compression=compression,
+        capacity=max(int(meta.get("capacity", 1)), max(new_counts)),
+        generation=gen,
+        part_generations=gens + [gen] * len(new_counts))
+    atomic_write_json(os.path.join(path, "meta.json"), new_meta, indent=1)
+    return gen
+
+
 def store_meta(path: str) -> Dict[str, Any]:
-    with open(os.path.join(_local(path), "meta.json")) as f:
+    if path.startswith("s3://"):
+        from dryad_tpu_torch.io.s3_store import s3_store_meta
+        return s3_store_meta(path)
+    if path.startswith("hdfs://"):
+        from dryad_tpu_torch.io.webhdfs import hdfs_store_meta
+        return hdfs_store_meta(path)
+    with open(os.path.join(path, "meta.json")) as f:
         return json.load(f)
 
 
@@ -313,28 +422,38 @@ def _stack(schema: Dict[str, Any], parts: List[Dict[str, Any]],
 
 
 def read_store(path: str, mesh, capacity: Optional[int] = None,
+               partitions: Optional[Sequence[int]] = None,
                verify: bool = True) -> PData:
     """Load a store as a PData on the mesh's device (FromStore).
 
-    When the store has as many partitions as the mesh, store partition p
-    becomes partition p VERBATIM, so a persisted hash or range placement
-    stays true (``Context.from_store`` keeps the claim then).  Otherwise
-    the rows are concatenated and re-blocked evenly, and the claim is
-    dropped."""
+    When the partitions read are as many as the mesh's, store partition
+    p becomes partition p VERBATIM, so a persisted hash or range
+    placement stays true (``Context.from_store`` keeps the claim then).
+    Otherwise the rows are concatenated and re-blocked evenly, and the
+    claim is dropped.  ``partitions`` reads only those store partitions
+    (an incremental refresh's delta)."""
     meta = store_meta(path)
     schema = meta["schema"]
-    counts = [int(c) for c in meta["counts"]]
+    part_ids = (list(range(int(meta["npartitions"]))) if partitions is None
+                else list(partitions))
+    counts = [int(meta["counts"][p]) for p in part_ids]
     nparts = mesh.nparts
-    segments, parts = [], []
-    for n in counts:
-        segs, cols = _alloc_part(schema, n)
-        segments.append(segs)
-        parts.append(cols)
-    comp = meta.get("compression")
-    _parallel(_read_part, [(_part_path(path, p), segs, comp)
-                           for p, segs in enumerate(segments)])
+    if is_remote_store(path):
+        views = _parallel(lambda p: remote_read_part_views(path, meta, p),
+                          part_ids)
+        segments = [segs for segs, _ in views]
+        parts = [cols for _, cols in views]
+    else:
+        segments, parts = [], []
+        for n in counts:
+            segs, cols = _alloc_part(schema, n)
+            segments.append(segs)
+            parts.append(cols)
+        comp = meta.get("compression")
+        _parallel(_read_part, [(_part_path(path, p), segs, comp)
+                               for p, segs in zip(part_ids, segments)])
     if verify:
-        verify_checksums(path, meta, segments)
+        verify_checksums(path, meta, segments, partitions=part_ids)
     if len(counts) == nparts:
         cap = capacity or max(int(meta.get("capacity", 0)),
                               max(counts or [0]), 1)

@@ -25,6 +25,13 @@ device's time is in the ``JobConfig.profile_dir`` trace.  A stage's
 ``compile_s`` is the kernel build at first use (``ops/_build.py``); the
 port has no compiled-stage cache, so ``cache_hits`` stays 0.
 
+The cost model predicts bytes for the PLANNED capacities.  A stage that
+settled at a larger scale is not compared; a stage computed at scale 1
+from one that did, whose capacity is its input's passed through, is
+compared with the prediction scaled by that input's realized capacity
+factor (the JAX package compares it with the planned bytes and reads it
+out of bounds).  Every other field is the JAX package's.
+
 Totals (``run_s``/``compile_s``/``out_bytes_total``/``stage_runs``) are
 accumulated in EVENT ORDER with the same truthiness rules as
 ``obs/metrics.metrics_from_events`` — bit-identical float sums, so a
@@ -118,8 +125,8 @@ class AnalyzeReport:
     ooc_cache_writes: int = 0     # cold cache writes
     prefetch_stalls: int = 0      # host-IO-bound waits in the pipeline
     prefetch_stall_s: float = 0.0
-    # continuous queries (inc/, not ported yet): standing-query refreshes
-    # in the stream, and how many fell back to a full re-run
+    # continuous queries (inc/): standing-query refreshes in the stream,
+    # and how many fell back to a full re-run
     inc_refreshes: int = 0        # == dryad_inc_refreshes_total
     inc_fallbacks: int = 0        # == dryad_inc_fallbacks_total
 
@@ -235,6 +242,60 @@ def _contains(iv: Tuple[int, Optional[int]], v: int) -> bool:
     return lo <= v and (hi is None or v <= hi)
 
 
+# a partition's row count in a stage's output bytes
+# (analysis/domain._COUNT_BYTES_PER_PART)
+_COUNT_BYTES = 4
+
+
+def _plan_inputs(plan_json: str) -> Dict[int, List[int]]:
+    """Each stage's input stages read with no exchange, from a ``plan``
+    event's plan (an exchange declares its own capacity)."""
+    import json
+    return {st["id"]: [leg["src"]["stage"] for leg in st["legs"]
+                       if isinstance(leg["src"], dict)
+                       and "stage" in leg["src"]
+                       and leg.get("exchange") is None]
+            for st in json.loads(plan_json)["stages"]}
+
+
+def _capacity_factor(est: Optional[dict], scale: int, out_bytes: int,
+                     nparts: int, inputs) -> float:
+    """A settled stage's realized capacity over its planned one.  At a
+    scale above 1 it is measured: the stage's bytes past the count words
+    over the predicted ones.  At scale 1 the stage carries the factor of
+    an input read with no exchange whose planned capacity equals its own
+    (a capacity passed through unchanged: the rescaled join's rows reach
+    a sort at the join's realized capacity); otherwise it is 1.
+    ``inputs`` pairs each such input's estimate with its factor."""
+    if scale > 1:
+        hi = None if est is None else est["out_bytes"][1]
+        per = None if hi is None else hi - _COUNT_BYTES * nparts
+        if not per or per <= 0:
+            return float(scale)
+        return (out_bytes - _COUNT_BYTES * nparts) / per
+    f = 1.0
+    for u_est, u_f in inputs:
+        if (u_f != 1 and est is not None and u_est is not None
+                and u_est.get("capacity") == est.get("capacity")):
+            f = max(f, u_f)
+    return f
+
+
+def _rescaled(iv: Tuple[int, Optional[int]], f: float, nparts: int
+              ) -> Tuple[int, Optional[int]]:
+    """A byte prediction for planned capacities at ``f`` times them:
+    the row bytes scale, the count words do not."""
+    lo, hi = iv
+    if f == 1 or hi is None:
+        return iv
+    c = _COUNT_BYTES * nparts
+
+    def g(v):
+        return v if v <= c else int(round((v - c) * f)) + c
+
+    return g(lo), g(hi)
+
+
 def analyze_events(events, job: Optional[str] = None) -> AnalyzeReport:
     """Build the :class:`AnalyzeReport` for one recorded stream.
 
@@ -254,7 +315,11 @@ def analyze_events(events, job: Optional[str] = None) -> AnalyzeReport:
     rep._events = events
     by_id: Dict[Any, StageActuals] = {}
     pred: Dict[int, dict] = {}          # current run's cost_report stages
+    nparts = 1                          # ... and its partition count
     rewrites: Dict[Any, List[str]] = {}  # stage -> rewrite kinds
+    ups: Dict[int, List[int]] = {}      # current run's plan: input stages
+    # each settled stage's realized capacity over its planned one
+    factor: Dict[Any, float] = {}
 
     def entry(e) -> StageActuals:
         sid = e.get("stage")
@@ -272,6 +337,10 @@ def analyze_events(events, job: Optional[str] = None) -> AnalyzeReport:
             rep.predicted = True
             pred = {s["stage"]: s
                     for s in (e.get("report") or {}).get("stages", ())}
+            nparts = int((e.get("report") or {}).get("nparts") or 1)
+        elif k == "plan" and e.get("plan"):
+            ups = _plan_inputs(e["plan"])
+            factor = {}
         elif k in ("stage_done", "stream_stage_done"):
             s = entry(e)
             s.runs += 1
@@ -306,10 +375,16 @@ def analyze_events(events, job: Optional[str] = None) -> AnalyzeReport:
                 s.rows = int(sum(e["rows"]))
             s.out_bytes = int(e.get("out_bytes") or 0)
             est = pred.get(s.stage)
-            if est is not None and int(e.get("scale") or 1) == 1:
+            scale = int(e.get("scale") or 1)
+            f = _capacity_factor(est, scale, s.out_bytes, nparts,
+                                 [(pred.get(u), factor.get(u, 1))
+                                  for u in ups.get(s.stage, ())])
+            factor[s.stage] = f
+            if est is not None and scale == 1:
                 s.approx = bool(est.get("approx"))
                 s.pred_rows = tuple(est["rows"])
-                s.pred_bytes = tuple(est["out_bytes"])
+                s.pred_bytes = _rescaled(tuple(est["out_bytes"]), f,
+                                         nparts)
                 s.rows_in_bounds = _contains(s.pred_rows, s.rows)
                 s.bytes_in_bounds = _contains(s.pred_bytes, s.out_bytes)
                 hi = s.pred_bytes[1]

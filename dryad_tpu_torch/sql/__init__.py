@@ -27,8 +27,10 @@ Compile errors raise :class:`SqlError` — ONE exception carrying every
 DTA3xx finding with line:column spans into the query text.  Every
 successful lowering emits ``sql_query`` (normalized query text + catalog
 fingerprint) and ``sql_lowered`` events.  ``EMIT EVERY`` (a standing
-query: it needs ``inc/``) parses and binds but is refused with
-``NotImplementedError``: that layer is not ported yet.
+query) lowers to the same batch plan, so ``query`` runs it once as a
+batch query; ``explain`` and ``offline_explain`` append its refresh
+verdict (DTA401 incremental / DTA402 full re-run, ``inc/delta_plan.py``),
+and ``inc.run_refresh`` runs its refreshes.
 """
 
 from __future__ import annotations
@@ -67,12 +69,13 @@ def compile_query(catalog: Catalog, text: str,
     return mode, bind(catalog, stmt)
 
 
-def _refuse_unported(mode: str, bound: BoundSelect) -> None:
-    if bound.emit_every is not None:
-        raise NotImplementedError(
-            "EMIT EVERY (a standing query) needs the incremental-"
-            "execution layer (dryad_tpu_torch/inc), which is not ported "
-            "yet")
+def _verdict(catalog: Catalog, bound: BoundSelect) -> str:
+    """A standing query's refresh verdict for EXPLAIN ("" for a batch
+    query): whether each refresh pays O(delta) or O(store)."""
+    if bound.emit_every is None:
+        return ""
+    from dryad_tpu_torch.inc.delta_plan import plan_delta, render_verdict
+    return "\n" + render_verdict(catalog, bound, plan_delta(catalog, bound))
 
 
 def query(ctx, catalog: Catalog, text: str, origin: str = "<sql>",
@@ -80,7 +83,6 @@ def query(ctx, catalog: Catalog, text: str, origin: str = "<sql>",
     """Compile ``text`` to a lazy :class:`api.Dataset` under ``ctx``.
     A leading EXPLAIN is rejected here (use :func:`explain`)."""
     mode, bound = compile_query(catalog, text, origin=origin)
-    _refuse_unported(mode, bound)
     if mode != "run":
         raise ValueError(
             "EXPLAIN statements build no dataset — use sql.explain()")
@@ -114,29 +116,30 @@ def explain(ctx, catalog: Catalog, text: str, origin: str = "<sql>",
     measured per-stage actuals against the cost model (it needs a
     Context with loadable tables, as running the query does)."""
     mode, bound = compile_query(catalog, text, origin=origin)
-    _refuse_unported(mode, bound)
     ds, _ = lower(ctx, catalog, bound)
     _emit(ctx, event, text, catalog, bound)
     cost = mode == "explain_cost"
     return ds.explain(verify=cost, cost=cost,
-                      analyze=mode == "explain_analyze")
+                      analyze=mode == "explain_analyze") \
+        + _verdict(catalog, bound)
 
 
 def _offline_graph(catalog: Catalog, text: str, nparts: int,
                    origin: str):
+    """(the lowered plan with no device, the bound statement)."""
     from dryad_tpu_torch.plan.planner import plan_query
-    mode, bound = compile_query(catalog, text, origin=origin)
-    _refuse_unported(mode, bound)
+    _mode, bound = compile_query(catalog, text, origin=origin)
     ctx = SchemaContext(nparts=nparts)
     ds, _ = lower(ctx, catalog, bound)
-    return plan_query(ds.node, nparts, config=ctx.config)
+    return plan_query(ds.node, nparts, config=ctx.config), bound
 
 
 def offline_explain(catalog: Catalog, text: str, nparts: int = 8,
                     origin: str = "<sql>") -> str:
     """Textual EXPLAIN with NO device and no data (schema-only catalogs
     suffice) — the CLI's offline mode."""
-    return _offline_graph(catalog, text, nparts, origin).explain()
+    graph, bound = _offline_graph(catalog, text, nparts, origin)
+    return graph.explain() + _verdict(catalog, bound)
 
 
 def offline_plan_json(catalog: Catalog, text: str, nparts: int = 8,
@@ -148,4 +151,4 @@ def offline_plan_json(catalog: Catalog, text: str, nparts: int = 8,
     (``__shipped__``), so the output round-trips through
     graph_from_json."""
     from dryad_tpu_torch.plan.serialize import graph_to_json
-    return graph_to_json(_offline_graph(catalog, text, nparts, origin))
+    return graph_to_json(_offline_graph(catalog, text, nparts, origin)[0])

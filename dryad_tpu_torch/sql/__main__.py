@@ -70,10 +70,8 @@ class _Session:
 
     def run(self, text: str) -> int:
         from dryad_tpu_torch.plan.planner import plan_query
-        from dryad_tpu_torch.sql import (SchemaContext, _refuse_unported,
-                                         compile_query, lower)
+        from dryad_tpu_torch.sql import SchemaContext, compile_query, lower
         mode, bound = compile_query(self.catalog, text)  # compile ONCE
-        _refuse_unported(mode, bound)
         if mode == "explain":
             # plain EXPLAIN stays fully offline (schema-only catalogs,
             # no device)

@@ -74,8 +74,7 @@ class BoundSelect:
     having_span: Optional[Span] = None
     # standing query (EMIT EVERY <n>): refresh cadence in seconds; the
     # lowered batch plan is IDENTICAL — the cadence drives a standing-
-    # query scheduler and the incremental refresh planner (``inc/``,
-    # not yet ported: the port binds the clause and refuses to run it)
+    # query scheduler and the incremental refresh planner (``inc/``)
     emit_every: Optional[float] = None
     emit_span: Optional[Span] = None
 

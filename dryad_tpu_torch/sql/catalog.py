@@ -210,21 +210,24 @@ class Catalog:
         return self.tables.get(name)
 
     def watermark(self, name: str) -> int:
-        """The append generation of a store-backed table: it needs the
-        incremental layer's store generations (``inc/``), which the
-        port does not have yet."""
-        raise NotImplementedError(
-            f"Catalog.watermark({name!r}) needs the incremental-execution "
-            f"layer (dryad_tpu_torch/inc: store generations), which is "
-            f"not ported yet")
+        """The append generation of a store-backed table, read from its
+        live manifest (a refresh has something to scan when it is past
+        the committed watermark)."""
+        from dryad_tpu_torch.io.store import store_generation, store_meta
+        return store_generation(store_meta(self._store_path(name)))
 
     def parts_since(self, name: str, watermark: int) -> List[int]:
-        """Store partitions appended after ``watermark``: needs the
-        incremental layer (``inc/``), not ported yet."""
-        raise NotImplementedError(
-            f"Catalog.parts_since({name!r}, {watermark}) needs the "
-            f"incremental-execution layer (dryad_tpu_torch/inc: store "
-            f"generations), which is not ported yet")
+        """Store partitions of ``name`` appended after ``watermark``: the
+        delta an incremental refresh scans."""
+        from dryad_tpu_torch.io.store import parts_since, store_meta
+        return parts_since(store_meta(self._store_path(name)), watermark)
+
+    def _store_path(self, name: str) -> str:
+        t = self.tables[name]
+        if t.kind != "store":
+            raise ValueError(f"table {name!r} is {t.kind}-backed — only "
+                             f"store tables carry an append watermark")
+        return t.path
 
     def refresh_store(self, name: str) -> "Catalog":
         """Re-read a store table's manifest statistics (row counts grow

@@ -236,3 +236,74 @@ def test_sql_cli_and_checker_load_no_jax(tmp_path):
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
     assert "k | n" not in out.stdout and "output: stage" in out.stdout
+
+
+INC_REMOTE_MODULES = ("dryad_tpu_torch.inc", "dryad_tpu_torch.inc.state",
+                      "dryad_tpu_torch.inc.delta_plan",
+                      "dryad_tpu_torch.inc.refresh",
+                      "dryad_tpu_torch.io.providers",
+                      "dryad_tpu_torch.io.http_provider",
+                      "dryad_tpu_torch.io.s3", "dryad_tpu_torch.io.s3_store",
+                      "dryad_tpu_torch.io.webhdfs")
+
+
+def test_inc_and_remote_modules_are_checked():
+    """The incremental layer and the network stores are among the modules
+    the two checks above import and scan."""
+    assert set(INC_REMOTE_MODULES) <= set(_modules())
+
+
+@pytest.mark.parametrize("name", ["tests/torch_fakes.py",
+                                  "tests/webhdfs_fake.py", "chip_smoke.py"])
+def test_chip_smoke_and_its_fakes_import_no_jax(name):
+    """chip_smoke.py and the loopback fakes it starts import neither jax
+    nor dryad_tpu."""
+    tree = ast.parse((ROOT / name).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(_forbidden(n) for n in names), (name, names)
+
+
+def test_refresh_and_remote_stores_load_no_jax(tmp_path):
+    """A refresh over an appended store, an s3:// and an hdfs:// store
+    round trip on the loopback fakes, in a fresh interpreter: neither jax
+    nor dryad_tpu is loaded."""
+    code = (
+        "import os, sys\n"
+        "import numpy as np\n"
+        "from dryad_tpu_torch import Context, sql\n"
+        "from dryad_tpu_torch.inc import run_refresh\n"
+        "from dryad_tpu_torch.io.store import append_store\n"
+        "from tests.torch_fakes import FakeS3\n"
+        "sys.path.insert(0, 'tests')\n"
+        "from webhdfs_fake import FakeWebHdfs\n"
+        f"d = {str(tmp_path)!r}\n"
+        "ctx = Context(device='cpu', nparts=2)\n"
+        "cols = {'k': np.arange(50, dtype=np.int32) % 3}\n"
+        "ctx.from_columns(cols).to_store(d + '/s')\n"
+        "cat = sql.Catalog().register_store('t', d + '/s')\n"
+        "q = 'SELECT k, COUNT(*) AS n FROM t GROUP BY k EMIT EVERY 1'\n"
+        "b = sql.compile_query(cat, q)[1]\n"
+        "run_refresh(ctx, cat, b, q, d + '/st')\n"
+        "append_store(d + '/s', ctx.from_columns(cols).node.data)\n"
+        "r = run_refresh(ctx, cat, b, q, d + '/st')\n"
+        "assert r.mode == 'incremental' and sum(r.table['n']) == 100\n"
+        "with FakeS3() as f:\n"
+        "    os.environ.update(f.environ())\n"
+        "    ctx.from_columns(cols).to_store('s3://b/s')\n"
+        "    assert ctx.from_store('s3://b/s').count() == 50\n"
+        "h = FakeWebHdfs()\n"
+        "ctx.from_columns(cols).to_store(h.url + '/s')\n"
+        "assert ctx.from_store(h.url + '/s').count() == 50\n"
+        "h.close()\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'dryad_tpu')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"

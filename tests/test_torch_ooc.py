@@ -137,10 +137,23 @@ def test_stores_cross_between_packages(tmp_path):
     for a, b in zip(ooc.ChunkSource.from_store(str(tmp_path / "j"), 100),
                     jooc.ChunkSource.from_store(str(tmp_path / "t"), 100)):
         _same_chunk(a, b)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        ooc.write_chunks_to_store("hdfs://nn/x", iter(tsrc), tsrc.schema)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        ooc.ChunkSource.from_store("s3://bucket/x", 10)
+    # the remote stores (ROADMAP Queue 1 item 10.4): a chunk stream
+    # written to hdfs:// (on the loopback fake) streams back in both
+    # packages; s3:// refuses a streamed write in both
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(__file__))
+    from webhdfs_fake import FakeWebHdfs
+    hdfs = FakeWebHdfs()
+    try:
+        ooc.write_chunks_to_store(hdfs.url + "/x", iter(tsrc), tsrc.schema)
+        for a, b in zip(ooc.ChunkSource.from_store(hdfs.url + "/x", 100),
+                        jooc.ChunkSource.from_store(hdfs.url + "/x", 100)):
+            _same_chunk(a, b)
+    finally:
+        hdfs.close()
+    with pytest.raises(ooc.OOCError, match="s3://"):
+        ooc.write_chunks_to_store("s3://bucket/x", iter(tsrc), tsrc.schema)
 
 
 def test_store_corruption_raises(tmp_path):

@@ -529,23 +529,37 @@ def test_offline_plans_need_no_device(monkeypatch):
 
 # -- refusals: what is not ported, and no CPU fallback -------------------------
 
-def test_unported_statements_refuse():
-    """EMIT EVERY waits for inc/; EXPLAIN ANALYZE runs (it executes the
-    query once and appends the measured actuals); a plain EXPLAIN builds
-    no dataset."""
+def test_unported_statements_refuse(devices8, tmp_path):
+    """EMIT EVERY runs through ``sql.query`` as one batch query, as in the
+    JAX package (its rows equal the JAX package's), and ``sql.explain`` /
+    ``offline_explain`` append the JAX package's refresh verdict; the
+    catalog's watermark surface answers as the JAX package's; EXPLAIN
+    ANALYZE runs (it executes the query once and appends the measured
+    actuals); a plain EXPLAIN builds no dataset."""
     cat = _catalog(sql)
     text = sql.explain(_tctx(), cat, "EXPLAIN ANALYZE " + JOIN_Q)
     assert "EXPLAIN ANALYZE (executed):" in text
     assert "0 cost-model miss(es)" in text
-    d = cat.tables["lineitem"]
-    cat.tables["s"] = sql.CatalogTable("s", d.schema, path="/nonexistent",
-                                       rows=d.rows)
-    with pytest.raises(NotImplementedError, match="inc"):
-        sql.query(_tctx(), cat, "SELECT okey FROM s EMIT EVERY 5")
-    with pytest.raises(NotImplementedError, match="inc"):
-        cat.watermark("s")
-    with pytest.raises(NotImplementedError, match="inc"):
-        cat.parts_since("s", 0)
+    path = str(tmp_path / "s")
+    _tctx().from_columns(_tpch_cols()[0]).to_store(path)
+    cat.register_store("s", path)
+    jcat = _catalog(jsql).register_store("s", path)
+    q = "SELECT okey, SUM(qty) AS q FROM s GROUP BY okey EMIT EVERY 5"
+    got = sql.query(_tctx(), cat, q).collect()
+    want = jsql.query(JContext(), jcat, q).collect()
+    assert sorted(zip(got["okey"].tolist(), got["q"].tolist())) == \
+        sorted(zip(np.asarray(want["okey"]).tolist(),
+                   np.asarray(want["q"]).tolist()))
+    for ex in (lambda pkg, c: pkg.offline_explain(c, q),
+               lambda pkg, c: pkg.explain(
+                   _tctx() if pkg is sql else JContext(), c, q)):
+        t, j = ex(sql, cat), ex(jsql, jcat)
+        assert t[t.index("standing query:"):] == j[j.index(
+            "standing query:"):]
+        assert "DTA401" in t
+    assert cat.watermark("s") == jcat.watermark("s") == 0
+    assert cat.parts_since("s", -1) == jcat.parts_since("s", -1) == \
+        list(range(P))
     with pytest.raises(ValueError, match="explain"):
         sql.query(_tctx(), cat, "EXPLAIN " + JOIN_Q)
 

@@ -315,11 +315,32 @@ def test_host_library_builds_once_under_concurrent_first_use(
         _build._host_lib_path("host_fnv").name]
 
 
-def test_remote_paths_wait_for_their_item(devices8):
-    ds = _tctx().from_columns(_cols(n=16))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ds.to_store("s3://bucket/t")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        _tctx().from_store("hdfs://nn/t")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        _tctx().read_text("http://host/t.txt")
+def test_remote_paths_wait_for_their_item(devices8, monkeypatch):
+    """The remote stores have come (ROADMAP Queue 1 item 10.4): an
+    ``s3://`` and an ``hdfs://`` store round trip on the loopback fakes,
+    readable by the JAX package, and ``read_text`` of a URL is a missing
+    file, as in the JAX package (``Context.read`` reads URLs)."""
+    import sys
+
+    from dryad_tpu_torch.io import s3_store
+    from tests.torch_fakes import FakeS3
+    sys.path.insert(0, os.path.dirname(__file__))
+    from webhdfs_fake import FakeWebHdfs
+    cols = _cols(n=16)
+    ds = _tctx().from_columns(cols)
+    hdfs = FakeWebHdfs()
+    try:
+        with FakeS3() as fake:
+            for k, v in fake.environ().items():
+                monkeypatch.setenv(k, v)
+            monkeypatch.setattr(s3_store, "_CLIENT", None)
+            for url in ("s3://bucket/t", hdfs.url + "/t"):
+                ds.to_store(url)
+                assert _rows(_tctx().from_store(url).collect()) == \
+                    _want(cols)
+                assert _rows(JContext().from_store(url).collect()) == \
+                    _want(cols)
+    finally:
+        hdfs.close()
+    with pytest.raises(FileNotFoundError):
+        _tctx().read_text("http://127.0.0.1:1/t.txt")
