@@ -44,10 +44,43 @@ FNV-1a; ``Context.read_text`` reads local text files.
 (``sql.query(Context(), catalog, text)``); ``Dataset.check()`` and
 ``JobConfig(lint=...)`` run the static checker (``analysis/``), and
 ``plan/serialize.py`` is the JSON plan every run emits as an event.
-"""
 
-__version__ = "0.1.0"
+``dryad_tpu_torch.service`` is the multi-tenant job service on the
+in-process fleet (``JobService``: fair-share admission, a durable
+journal, SQL submissions over a shared scan registry, standing queries,
+the HTTP front end; ``python -m dryad_tpu_torch.service``).
+"""
 
 from dryad_tpu_torch.api.dataset import Context, Dataset  # noqa: F401
 from dryad_tpu_torch.plan.expr import Decomposable  # noqa: F401
 from dryad_tpu_torch.utils.config import JobConfig  # noqa: F401
+
+# the release; ``__version__`` appends a digest of the package's sources
+_RELEASE = "0.17.0"
+
+
+def _source_digest() -> str:
+    """sha256 (12 hex digits) over every Python, CUDA and C source of the
+    package, with their relative paths."""
+    import hashlib
+    from pathlib import Path
+    root = Path(__file__).resolve().parent
+    h = hashlib.sha256()
+    for p in sorted(root.rglob("*")):
+        if p.suffix in (".py", ".cu", ".cuh", ".c") \
+                and "__pycache__" not in p.parts:
+            h.update(str(p.relative_to(root)).encode() + b"\0"
+                     + p.read_bytes())
+    return h.hexdigest()[:12]
+
+
+def __getattr__(name: str):
+    """``__version__`` is ``<release>+<source digest>``, computed at its
+    first read: any change to the port's code changes it, so the job
+    service's plan-cache keys and journal records, which carry it, never
+    match a plan lowered by other code."""
+    if name == "__version__":
+        v = f"{_RELEASE}+{_source_digest()}"
+        globals()["__version__"] = v
+        return v
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

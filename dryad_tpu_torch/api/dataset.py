@@ -1041,10 +1041,13 @@ class Dataset:
         graph = self.plan()
         cost_rep = self.ctx._pre_submit_lint(self.node, graph=graph)
         ex = self.ctx.executor
+        # this query's own run: another run on the same executor (a
+        # service fleet thread) must not decide this output's placement
+        runs = []
         out = ex.run(graph, spill_dir=self.ctx.spill_dir,
-                     cost_report=cost_rep)
+                     cost_report=cost_rep, runs=runs)
         return out, (any(st._salted for st in graph.stages)
-                     or ex._last_run_placement_changed)
+                     or runs[0].placement_changed)
 
     def _materialize(self):
         return self._run()[0]

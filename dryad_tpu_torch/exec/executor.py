@@ -82,13 +82,24 @@ one-element kernel, and a profile in which one of the run's own kernel
 launches has no device record raises rather than write a trace with
 records missing.
 
-Not ported yet (later slices, see ROADMAP.md): remembered capacity
-scales, and the run's checkpoint and pause hooks.
+Per-run state lives on the run (``exec.recovery.Run``): its stage log,
+its host reads and probes, its adaptive rewrites and whether one moved
+its output's placement.  Several runs may share one executor at once
+(the job service's fleet threads, a run started from another run's event
+sink): the executor's ``stage_log`` and ``_last_run_*`` are the values
+of the run that ended last, set when it ends; ``host_reads`` and
+``probes_run`` are totals over every run, added under ``_cache_lock``,
+which also guards the shared slot caches (``_slot_feedback``,
+``_slot_probe_cache``), as the JAX executor's ``_cache_lock`` does.
+
+Not ported yet (a later slice, see ROADMAP.md): remembered capacity
+scales.
 """
 
 from __future__ import annotations
 
 import collections
+import threading
 import time
 import weakref
 from typing import Callable, Dict, List, Optional, Tuple
@@ -568,33 +579,45 @@ class Executor:
         self.config = config or JobConfig()
         # the process-default event sink; a Run may pass its own
         self._event = event_log or _no_event
-        # one entry per stage the last Run.output() ran: label, attempts
-        # (the deferred one and the settle's replays among them), final
-        # scale / slack (``_log_attempt`` / ``_log_settled``)
+        # the stage log of the run that ended last (``Run.stage_log``: one
+        # entry per stage it ran, with its attempts, the deferred one and
+        # the settle's replays among them, and its final scale / slack),
+        # set when that run ends
         self.stage_log: List[Dict] = []
-        self._log_at: Dict[int, Dict] = {}
-        # host reads of stages' info vectors: one per synchronous attempt,
-        # one per deferred settle
+        # host reads of stages' info vectors over every run: one per
+        # synchronous attempt, one per deferred settle
         self.host_reads = 0
+        # guards the shared caches below and the totals: runs on other
+        # threads (the job service's fleet) share this executor
+        self._cache_lock = threading.RLock()
         # (stage fingerprint, leg) -> the max send-slot rows the leg's
         # exchange last measured (LRU)
         self._slot_feedback: "collections.OrderedDict" = \
             collections.OrderedDict()
         # probe results over live input tensors (LRU), and the number of
-        # probes that ran (each one batched hist_buckets launch)
+        # probes that ran over every run (each one batched hist_buckets
+        # launch)
         self._slot_probe_cache: "collections.OrderedDict" = \
             collections.OrderedDict()
         self.probes_run = 0
-        # the last Run.output()'s adaptive rewrites, and whether one of
-        # them flipped a join's broadcast (the output's placement then is
-        # not the planned one: Dataset drops a persisted claim)
+        # the adaptive rewrites of the run that ended last, and whether one
+        # of them flipped a join's broadcast (each run keeps its own:
+        # ``Run.rewrites`` / ``Run.placement_changed``)
         self._last_run_rewrites = 0
         self._last_run_placement_changed = False
         # the Chrome traces of the runs profiled under
         # JobConfig.profile_dir, in run order
         self.profile_paths: List[str] = []
 
-    def _probe_slot_rows(self, pd: PData, keys, slack: int) -> int:
+    def _tally(self, run, name: str) -> None:
+        """Count one ``name`` ("host_reads" or "probes_run") for ``run``
+        (a ``Run``) and in the executor's total."""
+        setattr(run, name, getattr(run, name) + 1)
+        with self._cache_lock:
+            setattr(self, name, getattr(self, name) + 1)
+
+    def _probe_slot_rows(self, pd: PData, keys, slack: int,
+                         run) -> int:
         """Counts-only pre-hop of a first-wave pure hash exchange: every
         partition's destination counts in ONE batched ``hist_buckets``
         over the [P, cap] destinations, their max, one scalar read.  The
@@ -607,13 +630,14 @@ class Executor:
         # the same live tensors (ids whose objects are all still alive)
         leaves = _leaves(b0)
         rkey = (tuple(keys), slack, tuple(id(x) for x in leaves))
-        hit = self._slot_probe_cache.get(rkey)
-        if hit is not None:
-            rows, refs = hit
-            if all(r() is not None for r in refs):
-                self._slot_probe_cache.move_to_end(rkey)
-                return rows
-            del self._slot_probe_cache[rkey]    # a recycled id: no hit
+        with self._cache_lock:
+            hit = self._slot_probe_cache.get(rkey)
+            if hit is not None:
+                rows, refs = hit
+                if all(r() is not None for r in refs):
+                    self._slot_probe_cache.move_to_end(rkey)
+                    return rows
+                del self._slot_probe_cache[rkey]  # a recycled id: no hit
         # every partition's rows hashed at once, as one [P * cap] batch
         flat = Batch({k: map_column(b0.columns[k], lambda x: x.reshape(
             (D * cap,) + tuple(x.shape[2:]))) for k in keys}, b0.count)
@@ -622,14 +646,15 @@ class Executor:
                  < b0.count[:, None])
         dest = torch.where(valid, (lo % D).to(torch.int32), D)
         slot = int(hist_buckets_batched(dest, D).max())  # the one read
-        self.probes_run += 1
+        self._tally(run, "probes_run")
         c_struct = max(1, -(-slack * cap // D))
         q = max(16, c_struct // 16)
         rows = max(1, min(c_struct, -(-slot // q) * q))
-        self._slot_probe_cache[rkey] = (
-            rows, tuple(weakref.ref(x) for x in leaves))
-        while len(self._slot_probe_cache) > 256:
-            self._slot_probe_cache.popitem(last=False)
+        with self._cache_lock:
+            self._slot_probe_cache[rkey] = (
+                rows, tuple(weakref.ref(x) for x in leaves))
+            while len(self._slot_probe_cache) > 256:
+                self._slot_probe_cache.popitem(last=False)
         return rows
 
     def _note_slot_feedback(self, stage: Stage, slots: List[int]) -> None:
@@ -637,17 +662,18 @@ class Executor:
         attempt's info read (``slots``: one per leg, 0 where nothing was
         measured), for the next attempt and the next run of the stage."""
         fp = stage.fingerprint()
-        for li, leg in enumerate(stage.legs[:_SLOT_FEEDBACK_LEGS]):
-            ex = leg.exchange
-            if ex is None or ex.kind == "broadcast" or slots[li] <= 0:
-                continue
-            self._slot_feedback[(fp, li)] = slots[li]
-            self._slot_feedback.move_to_end((fp, li))
-        while len(self._slot_feedback) > 512:
-            self._slot_feedback.popitem(last=False)
+        with self._cache_lock:
+            for li, leg in enumerate(stage.legs[:_SLOT_FEEDBACK_LEGS]):
+                ex = leg.exchange
+                if ex is None or ex.kind == "broadcast" or slots[li] <= 0:
+                    continue
+                self._slot_feedback[(fp, li)] = slots[li]
+                self._slot_feedback.move_to_end((fp, li))
+            while len(self._slot_feedback) > 512:
+                self._slot_feedback.popitem(last=False)
 
     def _slot_hints(self, stage: Stage, inputs: List[PData], slack: int,
-                    salted: bool
+                    salted: bool, run
                     ) -> List[Tuple[Optional[int], Optional[str]]]:
         """(send-slot rows or None, source) per leg; None, None for a leg
         without a hash or range exchange.  The sources, in order:
@@ -659,7 +685,8 @@ class Executor:
         3. "slack": None, the structural ceil(slack * cap / P).
 
         A salted attempt, one partition, or ``exchange_probe_min_mb < 0``
-        ships the structural slack on every leg."""
+        ships the structural slack on every leg.  A probe counts in
+        ``run`` (the calling ``Run``)."""
         thresh = self.config.exchange_probe_min_mb
         measured = not (thresh < 0 or salted or self.nparts < 2)
         fp = stage.fingerprint() if measured else None
@@ -669,8 +696,9 @@ class Executor:
             if ex is None or ex.kind not in ("hash", "range"):
                 hints.append((None, None))
                 continue
-            fb = (self._slot_feedback.get((fp, li))
-                  if measured and li < _SLOT_FEEDBACK_LEGS else None)
+            with self._cache_lock:
+                fb = (self._slot_feedback.get((fp, li))
+                      if measured and li < _SLOT_FEEDBACK_LEGS else None)
             if fb is not None:
                 hints.append((_quantize_slot_rows(fb), "feedback"))
             elif (measured and ex.kind == "hash" and not leg.ops
@@ -678,8 +706,8 @@ class Executor:
                           for t in _leaves(inp.batch)) / (1 << 20)
                   >= thresh):
                 keys = list(ex.keys) or sorted(inp.batch.names)
-                hints.append((self._probe_slot_rows(inp, keys, slack),
-                              "probe"))
+                hints.append((self._probe_slot_rows(inp, keys, slack,
+                                                    run), "probe"))
             else:
                 hints.append((None, "slack"))
         return hints
@@ -854,11 +882,12 @@ class Executor:
         # need instead of a blind doubling ladder
         return "retry", max(scale, need_scale), slack, salted
 
-    def _log_attempt(self, stage: Stage, shipped, salted: bool,
+    @staticmethod
+    def _log_attempt(run, stage: Stage, shipped, salted: bool,
                      probes: int, job) -> None:
-        """Fold one attempt into the stage's ``stage_log`` entry (made at
-        its first attempt of the current Run.output())."""
-        ent = self._log_at.get(stage.id)
+        """Fold one attempt into the stage's entry of ``run.stage_log``
+        (made at its first attempt of the current Run.output())."""
+        ent = run._log_at.get(stage.id)
         if ent is None:
             # a zip body op runs an exchange of its own
             kinds = [leg.exchange.kind for leg in stage.legs
@@ -880,20 +909,21 @@ class Executor:
                    # the deferred settle dropped and re-ran this stage
                    # (it overflowed, or an input of it did)
                    "settle_replayed": False, "job": job}
-            self._log_at[stage.id] = ent
-            self.stage_log.append(ent)
+            run._log_at[stage.id] = ent
+            run.stage_log.append(ent)
         ent["attempts"] += 1
         ent["salted_attempts"] += salted
         ent["slot_rows"].append([c for c, _ in shipped])
         ent["slot_source"].append([src for _, src in shipped])
         ent["probes"] += probes
 
-    def _log_settled(self, stage: Stage, scale: int, slack: int,
+    def _log_settled(self, run, stage: Stage, scale: int, slack: int,
                      salted: bool, info: List[int]) -> None:
         """The knobs of the stage's attempt that stands, and its
-        exchanging legs' received rows per destination (from ``info``)."""
+        exchanging legs' received rows per destination (from ``info``),
+        in ``run``'s stage log."""
         P, L = self.nparts, len(stage.legs)
-        self._log_at[stage.id].update(
+        run._log_at[stage.id].update(
             scale=scale, slack=slack, salted=salted,
             recv_rows=[info[i:i + P]
                        for i in range(3 + L + P, len(info), P)])
@@ -922,31 +952,28 @@ class Executor:
                                             out_bytes, self.nparts):
             ev(miss)
 
-    def _run_stage(self, stage: Stage, results: Dict[int, PData],
-                   bindings: Dict[str, PData], defer: Optional[list] = None,
-                   event=None, job=None, cost_report=None,
-                   stats_box: Optional[list] = None) -> PData:
-        """Run one stage whose inputs are materialized.  With ``defer`` (a
-        list) the first attempt reads nothing back: its record (the stage,
-        its info vector on the device, its knobs, its output bytes, the
+    def _run_stage(self, stage: Stage, run, cost_report=None) -> PData:
+        """Run one stage of ``run`` (an ``exec.recovery.Run``) whose inputs
+        are materialized.  With the run's deferral list (``run._defer``)
+        the first attempt reads nothing back: its record (the stage, its
+        info vector on the device, its knobs, its output bytes, the
         enqueue time) is appended for ``Run._settle``.  Otherwise every
-        attempt reads its info once, emits ``stage_done`` to ``event``
-        (the executor's sink by default) and retries right-sized on
-        overflow; the accepted attempt is cross-checked against
-        ``cost_report`` and, with ``JobConfig(adaptive="on")``, leaves its
-        ``StageStats`` in ``stats_box[0]`` (cleared first, so a deferred
-        or failed attempt leaves None).  ``job`` tags the stage's
-        ``stage_log`` entry."""
-        ev = event if event is not None else self._event
-        if stats_box is not None:
-            stats_box[0] = None
-        inputs = [self._leg_input(leg, results, bindings)
+        attempt reads its info once, emits ``stage_done`` to the run's
+        sink and retries right-sized on overflow; the accepted attempt is
+        cross-checked against ``cost_report`` and, with
+        ``JobConfig(adaptive="on")``, leaves its ``StageStats`` in the
+        run's one-slot box (cleared first, so a deferred or failed attempt
+        leaves None).  The attempts fold into the run's ``stage_log``
+        entry, tagged with the run's ``job``."""
+        ev, defer, stats_box = run._event, run._defer, run._stats_box
+        stats_box[0] = None
+        inputs = [self._leg_input(leg, run._results, run.bindings)
                   for leg in stage.legs]
         bounds = None
         for leg in stage.legs:
             ex = leg.exchange
             if ex is not None and ex.kind == "range":
-                bounds = self._range_bounds(results[ex.bounds_from],
+                bounds = self._range_bounds(run._results[ex.bounds_from],
                                             ex.bounds_key)
                 break
         scale = stage._capacity_scale
@@ -956,14 +983,14 @@ class Executor:
         L = len(stage.legs)
         P = self.nparts
         for attempt in range(retries + 1):
-            probes = self.probes_run
+            probes = run.probes_run
             c0 = _build.compile_seconds()
             t0 = time.perf_counter()
-            hints = self._slot_hints(stage, inputs, slack, salted)
+            hints = self._slot_hints(stage, inputs, slack, salted, run)
             out, info, shipped = self._run_once(stage, inputs, scale, slack,
                                                 bounds, salted, hints)
-            self._log_attempt(stage, shipped, salted,
-                              self.probes_run - probes, job)
+            self._log_attempt(run, stage, shipped, salted,
+                              run.probes_run - probes, run.job)
             compile_s = round(_build.compile_seconds() - c0, 4)
             nbytes = _out_bytes(out)
             _M_STAGE_RUNS.inc()
@@ -986,7 +1013,7 @@ class Executor:
                 stage._salted = salted
                 return out
             info = info.tolist()   # the attempt's ONE read of its info
-            self.host_reads += 1
+            self._tally(run, "host_reads")
             # the measured slots ride that read back to later attempts
             # and runs of this stage
             self._note_slot_feedback(stage, info[3:3 + L])
@@ -1009,11 +1036,10 @@ class Executor:
                 stage._capacity_scale = scale
                 stage._send_slack = slack
                 stage._salted = salted
-                self._log_settled(stage, scale, slack, salted, info)
+                self._log_settled(run, stage, scale, slack, salted, info)
                 self._check_cost(stage, scale, sum(rows), nbytes,
                                  report=cost_report, event=ev)
-                if stats_box is not None and \
-                        self.config.adaptive == "on":
+                if self.config.adaptive == "on":
                     from dryad_tpu_torch.adapt.stats import StageStats
                     stats_box[0] = StageStats(
                         stage.id, tuple(rows), capacity=out.capacity,
@@ -1028,7 +1054,9 @@ class Executor:
             bindings: Optional[Dict[str, PData]] = None,
             spill_dir: Optional[str] = None,
             cost_report=None, event_log=None, job=None,
-            failure_budget: Optional[int] = None) -> PData:
+            failure_budget: Optional[int] = None,
+            checkpoint=None, pause=None,
+            runs: Optional[list] = None) -> PData:
         """Execute a graph with lineage-tracked recovery
         (``exec.recovery.Run``); ``bindings`` maps a placeholder's name to
         its data (a do_while body's loop-carried input).  With
@@ -1038,12 +1066,21 @@ class Executor:
         per-stage cross-check and seeds the adaptive rules' priors.
         ``event_log`` / ``job`` / ``failure_budget`` are the run's own:
         its events go to ``event_log`` (else the executor's sink), tagged
-        with ``job``.  With ``JobConfig.profile_dir`` the run is profiled
-        (``_profiled``)."""
+        with ``job``.  ``checkpoint`` / ``pause`` are the job service's
+        stage-boundary hooks (``Run``).  ``runs``, a list, gets the Run
+        appended, for a caller that reads the run's own state afterwards
+        (another run may end on this executor meanwhile); ``Dataset``
+        runs through here and not through a Run of its own, since this
+        method is the hook that wraps every run (timing, logging, the
+        cost cross-check).  With ``JobConfig.profile_dir`` the run is
+        profiled (``_profiled``)."""
         from dryad_tpu_torch.exec.recovery import Run
         run = Run(self, graph, bindings, spill_dir=spill_dir,
                   failure_budget=failure_budget, cost_report=cost_report,
-                  event=event_log, job=job)
+                  event=event_log, job=job, checkpoint=checkpoint,
+                  pause=pause)
+        if runs is not None:
+            runs.append(run)
         if self.config.profile_dir:
             return self._profiled(run.output)
         return run.output()

@@ -49,8 +49,23 @@ level is 2.  A resource sampler (``obs/profile.py``, every
 and is joined before it returns; it reads the device's allocated bytes
 without synchronizing.  ``job_done`` carries the metrics registry's
 snapshot (``metrics``: cumulative process counters) and, at level 2, the
-job span's trace id (``trace``).  Left out until their ROADMAP items
-come: checkpoint and pause.
+job span's trace id (``trace``).
+
+The run also owns its stage log (``stage_log``, one entry per stage it
+ran), its counts of host reads and slot probes (added to the executor's
+totals as they happen), its adaptive rewrites (``rewrites``) and whether
+one of them moved its output's placement (``placement_changed``).  When
+``output()`` ends, returning or raising, the executor's ``stage_log``
+and ``_last_run_*`` take this run's values, so several runs may share
+one executor at once.
+
+The job service's hooks (``service/durable``): ``checkpoint(run, sid)``
+is called after each stage this run computes, once its spill is written;
+``pause`` (a ``threading.Event``) is checked before each stage is
+computed, and when it is set the run raises ``HandoffPause`` at that
+boundary, its settled stages spilled and checkpointed for a successor
+to resume.  Spill writes and reads hold the process-wide
+``_SPILL_IO_LOCK``: fleet threads spill at once.
 """
 
 from __future__ import annotations
@@ -58,8 +73,9 @@ from __future__ import annotations
 import hashlib
 import os
 import shutil
+import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -72,11 +88,27 @@ from dryad_tpu_torch.obs.metrics import REGISTRY
 from dryad_tpu_torch.plan.serialize import graph_to_json
 from dryad_tpu_torch.plan.stages import StageGraph
 
-__all__ = ["Run", "FailureBudgetExceeded"]
+__all__ = ["Run", "FailureBudgetExceeded", "HandoffPause"]
+
+# spill writes and reads from several fleet threads at once take turns:
+# they are disk-bound, and each one's host staging is large
+_SPILL_IO_LOCK = threading.Lock()
 
 
 class FailureBudgetExceeded(RuntimeError):
     pass
+
+
+class HandoffPause(RuntimeError):
+    """Raised at a stage boundary when the run's ``pause`` event is set
+    (the job service hands off to a successor): every settled stage is
+    already spilled and checkpointed, so the successor resumes from this
+    boundary."""
+
+    def __init__(self, sid: int):
+        self.stage = sid
+        super().__init__(f"run paused at stage {sid} boundary for "
+                         f"daemon handoff")
 
 
 def _tagged(sink, job):
@@ -97,7 +129,8 @@ class Run:
                  spill_dir: Optional[str] = None,
                  failure_budget: Optional[int] = None,
                  spill_compression: Optional[str] = None,
-                 cost_report=None, event=None, job=None):
+                 cost_report=None, event=None, job=None,
+                 checkpoint=None, pause=None):
         cfg = executor.config
         self.ex = executor
         self.graph = graph
@@ -105,6 +138,15 @@ class Run:
         self.spill_dir = spill_dir
         self.cost_report = cost_report
         self.job = job
+        self.checkpoint = checkpoint
+        self.pause = pause
+        # this run's own state (see the module docstring)
+        self.stage_log: List[Dict] = []
+        self._log_at: Dict[int, Dict] = {}
+        self.host_reads = 0
+        self.probes_run = 0
+        self.rewrites = 0
+        self.placement_changed = False
         sink = event if event is not None else executor._event
         self._event = (_tagged(sink, job)
                        if job is not None and sink is not _no_event
@@ -150,11 +192,12 @@ class Run:
 
     def output(self) -> PData:
         """The graph's output, computed (or restored) as needed, then
-        settled.  The executor's ``stage_log`` holds this call's
-        stages."""
+        settled.  ``stage_log`` holds this call's stages; when the call
+        ends the executor's ``stage_log`` and ``_last_run_*`` are this
+        run's."""
         t0 = time.time()
-        self.ex._log_at = {}
-        self.ex.stage_log = []
+        self._log_at = {}
+        self.stage_log = []
         # the sampler starts no thread without a level-2 consumer
         sampler = _profile.start(self._event,
                                  self.ex.config.resource_sample_s,
@@ -177,11 +220,16 @@ class Run:
                     out = self._settle()
         finally:
             _profile.stop(sampler)
-        applied = self.adapt.applied if self.adapt is not None else []
-        self.ex._last_run_rewrites = len(applied)
-        self.ex._last_run_placement_changed = any(
-            e.get("kind") in ("broadcast_promote", "broadcast_demote")
-            for e in applied)
+            applied = self.adapt.applied if self.adapt is not None else []
+            self.rewrites = len(applied)
+            self.placement_changed = any(
+                e.get("kind") in ("broadcast_promote", "broadcast_demote")
+                for e in applied)
+            with self.ex._cache_lock:
+                self.ex.stage_log = self.stage_log
+                self.ex._last_run_rewrites = self.rewrites
+                self.ex._last_run_placement_changed = \
+                    self.placement_changed
         reach, frontier = set(), [self.graph.out_stage]
         while frontier:
             sid = frontier.pop()
@@ -217,7 +265,7 @@ class Run:
         truncated."""
         deferred, self._defer = self._defer, None    # the replay is sync
         flat = torch.cat([r["info"] for r in deferred]).tolist()
-        self.ex.host_reads += 1
+        self.ex._tally(self, "host_reads")
         P = self.ex.nparts
         bad: Dict[int, tuple] = {}
         slots, clean = [], []
@@ -239,7 +287,7 @@ class Run:
                 "rows": info[3 + L:3 + L + P],
                 "out_bytes": rec["out_bytes"], "compile_s": rec["compile_s"],
                 "deferred": True, "wall_s": rec["enqueue_s"]})
-            self.ex._log_settled(stage, rec["scale"], rec["slack"],
+            self.ex._log_settled(self, stage, rec["scale"], rec["slack"],
                                  rec["salted"], info)
             if not of:
                 clean.append((rec, sum(info[3 + L:3 + L + P])))
@@ -292,7 +340,7 @@ class Run:
                 st._salted = salted
             for sid in dirty:
                 self._results.pop(sid, None)
-                ent = self.ex._log_at.get(sid)
+                ent = self._log_at.get(sid)
                 if ent is not None:
                     ent["settle_replayed"] = True
             self._event({"event": "settle_replay", "stages": sorted(dirty)})
@@ -322,7 +370,11 @@ class Run:
         """Run one ready stage (every input materialized), then the
         adaptive boundary hook: the stages not yet run may be rewritten
         from this one's measured rows before any of them runs (Dryad's
-        ``NotifyUpstreamVertexCompleted``)."""
+        ``NotifyUpstreamVertexCompleted``).  A set ``pause`` raises
+        ``HandoffPause`` before the stage runs; ``checkpoint`` is called
+        once it is spilled."""
+        if self.pause is not None and self.pause.is_set():
+            raise HandoffPause(sid)
         stage = self.graph.stage(sid)
         # a stage is cross-checked only on planned inputs: none of its
         # ancestors ran rescaled (their outputs exceed the prediction's
@@ -342,11 +394,12 @@ class Run:
                         label=stage.label,
                         deferred=self._defer is not None):
             out = self.ex._run_stage(
-                stage, self._results, self.bindings, defer=self._defer,
-                event=self._event, job=self.job, stats_box=self._stats_box,
+                stage, self,
                 cost_report=self.cost_report if planned else None)
         self._results[sid] = out
         self._save_spill(sid, out)
+        if self.checkpoint is not None:
+            self.checkpoint(self, sid)
         total = len(self.graph.stages)
         self._event({"event": "progress", "done": len(self._results),
                      "total": total, "stage": sid,
@@ -398,8 +451,9 @@ class Run:
         if not self.spill_dir:
             return
         from dryad_tpu_torch.io.store import write_store
-        write_store(self._spill_path(sid), pd,
-                    compression=self.spill_compression)
+        with _SPILL_IO_LOCK:
+            write_store(self._spill_path(sid), pd,
+                        compression=self.spill_compression)
         if self.adapt is not None:
             # an adaptive run may have reshaped this stage; a resume
             # replans without the rewrite, so record the shape that ran
@@ -432,6 +486,7 @@ class Run:
         if not ok:
             return None
         from dryad_tpu_torch.io.store import read_store
-        pd = read_store(p, self.ex.mesh)
+        with _SPILL_IO_LOCK:
+            pd = read_store(p, self.ex.mesh)
         self._event({"event": "stage_restored", "stage": sid})
         return pd

@@ -16,9 +16,10 @@ analysis), the port of ``dryad_tpu/obs``.
   (load in Perfetto) and ``python -m dryad_tpu_torch.obs critical-path
   events.jsonl``.
 
-The forensics bundles and their replay (``obs/flight.py``) and the SLO
-tracker (``obs/slo.py``) come with the layers that use them (ROADMAP
-Queue 1 items 11 and 10.5).
+``obs.slo`` — the per-tenant SLO tracker of the job service (not
+imported here, as in the JAX package).  The forensics bundles and their
+replay (``obs/flight.py``) come with the cluster runtime (ROADMAP Queue
+1 item 11).
 """
 
 from dryad_tpu_torch.obs import history  # noqa: F401

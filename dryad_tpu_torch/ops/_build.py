@@ -13,7 +13,12 @@ The host side has C sources of its own (``csrc/*.c``, ``HOST``: the
 store's FNV-1a checksum).  ``host_library`` compiles one with the host C
 compiler (``$CC``, else ``cc``) into ``build/host/`` at first use, named
 by the same kind of digest, and loads it with ``ctypes``.  A failed
-build raises with the compiler's message.  ``compile_seconds()`` is the
+build raises with the compiler's message.  Each library is built and
+loaded once per process, under a lock (the job service's fleet threads
+may be the first to need a kernel at once), and every compiler writes a
+temp file of its own (process, thread and a counter in its name) that is
+renamed into place, so two processes building at once never load a torn
+file.  ``compile_seconds()`` is the
 process's total wall spent compiling (nvcc and cc): the executor reports
 each stage attempt's share as its ``compile_s``.
 """
@@ -22,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
@@ -66,9 +72,13 @@ CC_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c11")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _HOST_LOADED: Dict[str, ctypes.CDLL] = {}
+# the first use of a kernel can come from several threads at once (the
+# job service's fleet): one builds and loads it, the others wait
+_LIB_LOCK = threading.RLock()
 # the store checksums partitions on a thread pool, so the first use of a
 # host library can come from several threads at once: one builds
 _HOST_LOCK = threading.Lock()
+_TMP_SEQ = itertools.count()
 # seconds this process has spent waiting for compilers
 _COMPILE_S = [0.0]
 _COMPILE_LOCK = threading.Lock()
@@ -107,12 +117,23 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def _tmp_of(path: Path) -> Path:
+    """A temp path beside ``path`` that no other process, thread or call
+    uses."""
+    return path.with_suffix(f".{os.getpid()}-{threading.get_ident()}-"
+                            f"{next(_TMP_SEQ)}.tmp")
+
+
 def build(names: Iterable[str] = tuple(KERNELS)) -> Dict[str, str]:
     """Compile the named kernels that have no current library, one nvcc
     process per source, all running together.  Returns kernel -> the
     compiler's output (register and shared-memory use from -Xptxas -v),
     read from the build log when the library already existed."""
-    names = list(names)
+    with _LIB_LOCK:
+        return _build(list(names))
+
+
+def _build(names) -> Dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
@@ -120,7 +141,7 @@ def build(names: Iterable[str] = tuple(KERNELS)) -> Dict[str, str]:
         out = _lib_path(name)
         if out.exists():
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        tmp = _tmp_of(out)
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
@@ -145,20 +166,25 @@ def build(names: Iterable[str] = tuple(KERNELS)) -> Dict[str, str]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of one kernel, built first if needed."""
+    """The loaded library of one kernel, built first if needed (once
+    per process: concurrent first callers wait for one build)."""
     lib = _LOADED.get(name)
     if lib is not None:
         return lib
-    path = _lib_path(name)
-    if not path.exists():
-        build([name])
-    lib = ctypes.CDLL(str(path))
-    for fn, argtypes in KERNELS[name].items():
-        f = getattr(lib, fn)
-        f.argtypes = argtypes
-        f.restype = ctypes.c_int
-    _LOADED[name] = lib
-    return lib
+    with _LIB_LOCK:
+        lib = _LOADED.get(name)
+        if lib is not None:
+            return lib
+        path = _lib_path(name)
+        if not path.exists():
+            build([name])
+        lib = ctypes.CDLL(str(path))
+        for fn, argtypes in KERNELS[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        _LOADED[name] = lib
+        return lib
 
 
 def _cc() -> str:
@@ -192,7 +218,7 @@ def host_library(name: str) -> ctypes.CDLL:
             HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
             # another process may build the same library at once: each
             # writes its own temp file and renames it into place
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            tmp = _tmp_of(path)
             t0 = time.perf_counter()
             proc = subprocess.run(
                 [_cc(), *CC_FLAGS, "-o", str(tmp),

@@ -74,9 +74,20 @@ _MAX_COMPACT_SOURCES = 4096  # starts[S + 1] of csrc/slot_compact.cu in
 capture = None
 
 
+# the service's fleet threads launch at once: a count, and a capture's
+# append, is taken under this lock so that none is lost
+_COUNT_LOCK = threading.Lock()
+
+
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _COUNT_LOCK:
+        for k in launches:
+            launches[k] = 0
+
+
+def _launched(name: str) -> None:
+    with _COUNT_LOCK:
+        launches[name] += 1
 
 
 # set inside ``shape_only()``: meta tensors may take the plain versions
@@ -101,7 +112,8 @@ def shape_only():
 def _capture(name: str, size: int, *args) -> None:
     # a shape-only call launches nothing: there is no call to hold
     if capture is not None and not getattr(_shape_only, "on", False):
-        capture.setdefault(name, []).append((size, args))
+        with _COUNT_LOCK:
+            capture.setdefault(name, []).append((size, args))
 
 
 def _check(name: str, t: torch.Tensor, dtypes, ndim: int) -> None:
@@ -261,7 +273,7 @@ def hist_buckets_batched(bid: torch.Tensor, n_buckets: int) -> torch.Tensor:
         bid.data_ptr(), P, n, n_buckets, bpr, out.data_ptr(),
         None if tickets is None else tickets.data_ptr(),
         None if partials is None else partials.data_ptr(), stream))
-    launches["hist_buckets"] += 1
+    _launched("hist_buckets")
     return out
 
 
@@ -308,7 +320,7 @@ def prefix_sum(x: torch.Tensor) -> torch.Tensor:
     _ok("prefix_sum", fn(x.data_ptr(), y.data_ptr(), n,
                          scratch if scratch is None else scratch.data_ptr(),
                          stream))
-    launches["prefix_sum"] += 1
+    _launched("prefix_sum")
     return y
 
 
@@ -356,7 +368,7 @@ def prefix_sum2(x: torch.Tensor):
     _ok("prefix_sum2", lib.dryad_prefix_sum2_f32(
         x.data_ptr(), hi.data_ptr(), lo.data_ptr(), n,
         scratch if scratch is None else scratch.data_ptr(), stream))
-    launches["prefix_sum2"] += 1
+    _launched("prefix_sum2")
     return hi, lo
 
 
@@ -423,7 +435,7 @@ def slot_expand_batched(words: torch.Tensor, offsets: torch.Tensor,
     _ok("slot_expand", lib.dryad_slot_expand(
         words.data_ptr(), P, cap, W, offsets.data_ptr(), D, C,
         out.data_ptr(), _stream(words)))
-    launches["slot_expand"] += 1
+    _launched("slot_expand")
     return out
 
 
@@ -504,7 +516,7 @@ def slot_compact_batched(recv: torch.Tensor, counts: torch.Tensor, C: int,
     _ok("slot_compact", lib.dryad_slot_compact(
         recv.data_ptr(), counts.data_ptr(), Dd, S, C, W, out_rows,
         out.data_ptr(), _stream(recv)))
-    launches["slot_compact"] += 1
+    _launched("slot_compact")
     return out
 
 

@@ -67,10 +67,20 @@ def normalize_schema(schema: Dict[str, Any]
 
 def _inline_content_hash(t: "CatalogTable") -> str:
     """Content hash of an inline table's columns (column-order
-    insensitive: iterates sorted names)."""
+    insensitive: iterates sorted names), computed once per registration:
+    the columns are the catalog's own copies, never written
+    (``register_columns``), and every submission to the job service
+    reads it three times (the catalog and semantic fingerprints, the scan
+    registry's key)."""
+    if t._content_hash is None:
+        t._content_hash = _hash_columns(t.columns)
+    return t._content_hash
+
+
+def _hash_columns(columns: Dict[str, Any]) -> str:
     h = hashlib.sha256()
-    for col in sorted(t.columns):
-        v = t.columns[col]
+    for col in sorted(columns):
+        v = columns[col]
         h.update(col.encode())
         if isinstance(v, (list, tuple)):
             # every value then a NUL, hashed as one buffer (the JAX
@@ -127,6 +137,8 @@ class CatalogTable:
         self.columns = columns
         self.rows = int(rows)
         self.str_max_len = str_max_len
+        # an inline table's content hash, at its first use
+        self._content_hash: Optional[str] = None
 
     @property
     def kind(self) -> str:
@@ -163,7 +175,9 @@ class Catalog:
     def register_columns(self, name: str, columns: Dict[str, Any],
                          str_max_len: Optional[int] = None) -> "Catalog":
         """Register in-memory host columns (numpy arrays / lists;
-        lists of bytes|str are string columns)."""
+        lists of bytes|str are string columns).  The catalog keeps its
+        own copy of every column (numeric ones read-only): a later write
+        to the caller's arrays does not reach it."""
         import numpy as np
         schema: Dict[str, Any] = {}
         cols: Dict[str, Any] = {}
@@ -186,10 +200,13 @@ class Catalog:
                 rows = len(v)
                 cols[col] = list(v)
             else:
-                arr = np.asarray(v)
+                # the catalog's own read-only copy: the content hash is
+                # taken once, so the rows must not change under it
+                arr = np.array(v)
+                arr.setflags(write=False)
                 schema[col] = {"kind": "num", "dtype": str(arr.dtype)}
                 rows = arr.shape[0]
-                cols[col] = v
+                cols[col] = arr
         self.tables[name] = CatalogTable(name, schema,
                                          columns=cols, rows=rows,
                                          str_max_len=str_max_len)

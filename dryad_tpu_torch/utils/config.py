@@ -101,6 +101,10 @@ class JobConfig:
     # sampler only runs when an event consumer at level 2 exists (the
     # same no-consumer-no-work contract as spans)
     resource_sample_s: float = 0.5
+    # where a job's failure forensics land: the job service sets its
+    # job's bundles/ directory here (service/job.py); the bundles
+    # themselves come with obs/flight.py (ROADMAP item 11)
+    forensics_dir: Optional[str] = None
     # job history archive (obs/history.py): when set, the Context's
     # EventLog snapshots {events, plan, metrics} here on close; browse
     # with `python -m dryad_tpu_torch.obs history <dir>`
@@ -219,3 +223,7 @@ class JobConfig:
         bad = [msg for ok, msg in checks if not ok]
         if bad:
             raise ValueError("invalid JobConfig: " + "; ".join(bad))
+
+    def replace(self, **kw) -> "JobConfig":
+        """A copy with ``kw``'s fields changed (validated again)."""
+        return dataclasses.replace(self, **kw)

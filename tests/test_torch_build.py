@@ -52,3 +52,61 @@ def test_every_include_of_the_sources_is_a_digested_header():
         src = (_build._CSRC / f"{name}.cu").read_text()
         for inc in re.findall(r'#include "([^"]+)"', src):
             assert inc in headers, (name, inc)
+
+
+def test_concurrent_first_library_calls_build_once(csrc, tmp_path,
+                                                   monkeypatch):
+    """Eight threads released together ask for a kernel that has no
+    library yet: one builds it (``build`` and ``ctypes.CDLL`` replaced by
+    fakes), the rest wait and get the same loaded library."""
+    import threading
+    import time
+
+    built, loaded = [], []
+    out = tmp_path / "out"
+    monkeypatch.setattr(_build, "BUILD_DIR", out)
+    monkeypatch.setattr(_build, "KERNELS", {"k": {"dryad_k": []}})
+    monkeypatch.setattr(_build, "_LOADED", {})
+
+    def fake_build(names):
+        built.append(list(names))
+        time.sleep(0.05)          # a slow nvcc: the others arrive now
+        out.mkdir(parents=True, exist_ok=True)
+        _build._lib_path("k").write_bytes(b"lib")
+
+    class FakeLib:
+        def __init__(self, path):
+            loaded.append(path)
+            self.dryad_k = type("F", (), {})()
+
+    monkeypatch.setattr(_build, "build", fake_build)
+    monkeypatch.setattr(_build.ctypes, "CDLL", FakeLib)
+    barrier = threading.Barrier(8)
+    libs = []
+
+    def first_use():
+        barrier.wait(timeout=30)
+        libs.append(_build.library("k"))
+
+    threads = [threading.Thread(target=first_use) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    assert built == [["k"]] and len(loaded) == 1
+    assert len(libs) == 8 and all(lib is libs[0] for lib in libs)
+
+
+def test_temp_names_differ_across_threads_and_calls(tmp_path):
+    """Two builders of one library, in one process or two, never write
+    the same temp file."""
+    import threading
+
+    path = tmp_path / "libk-0.so"
+    names = [_build._tmp_of(path), _build._tmp_of(path)]
+    t = threading.Thread(target=lambda: names.append(_build._tmp_of(path)))
+    t.start()
+    t.join(timeout=30)
+    assert len(set(names)) == 3
+    assert all(n.parent == tmp_path and n.suffix == ".tmp" for n in names)

@@ -158,6 +158,49 @@ def test_cpu_batched_calls_count_nothing_and_are_captured():
         [(4 * 2 * 5 * 3, (2, 6, 3), (2, 4)), (4 * 5 * 3, (1, 6, 3), (1, 4))]
 
 
+def test_counts_and_captures_from_threads_lose_nothing():
+    """The service's fleet threads launch at once: every launch each
+    thread counts (``_launched``, which a wrapper calls where it launches
+    its kernel) and every call it captures (a CPU call through the plain
+    dispatch) is in the totals.  The switch interval is cut to a
+    microsecond so that the threads interleave as finely as CPython
+    lets them."""
+    import sys
+    import threading
+    n_threads, n_calls = 4, 2000
+    counted = ("hist_buckets", "slot_compact")
+    bid = torch.zeros((1, 8), dtype=torch.int32)
+    start = threading.Barrier(n_threads)
+
+    def work():
+        start.wait()
+        for _ in range(n_calls):
+            for name in counted:
+                tk._launched(name)
+            tk.hist_buckets_batched(bid, 2)
+
+    tk.reset_launches()
+    tk.capture = {}
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        cap = tk.capture
+    finally:
+        sys.setswitchinterval(interval)
+        tk.capture = None
+    want = {k: (n_threads * n_calls if k in counted else 0)
+            for k in tk.launches}
+    assert dict(tk.launches) == want
+    assert len(cap["hist_buckets"]) == n_threads * n_calls
+    tk.reset_launches()
+    assert sum(tk.launches.values()) == 0
+
+
 _BAD = {
     "hist_buckets_batched": [
         (lambda: (torch.zeros((2, 4), dtype=torch.int64), 3), TypeError),

@@ -486,6 +486,114 @@ def test_inc_events_fold_into_metrics_and_analyze(tctx, jctx, tmp_path):
                     if ln.startswith("continuous:")] and cont
 
 
+# -- standing queries on the port's job service -------------------------------
+
+STANDING_Q = ("SELECT k, SUM(v) AS s, COUNT(*) AS c, MAX(v) AS m FROM t "
+              "GROUP BY k EMIT EVERY 0.05")
+
+
+def _service(tmp, cat):
+    from dryad_tpu_torch.service import JobService, ServiceConfig
+    return JobService(ServiceConfig(service_dir=str(tmp / "svc"), slots=2,
+                                    journal_fsync=False),
+                      device="cpu", catalog=cat)
+
+
+def _refreshed(sq, n, timeout=60.0):
+    """The standing query's first ``n`` inc_refresh events, once it has
+    refreshed ``n`` times."""
+    import time
+    t0 = time.time()
+    while sq.refreshes < n:
+        assert time.time() - t0 < timeout, f"{sq.id}: no refresh {n}"
+        time.sleep(0.01)
+    return [e for e in sq.log.events if e["event"] == "inc_refresh"][:n]
+
+
+def _no_stamp(e):
+    """An inc_refresh event but its time and the service's stamps."""
+    return {k: v for k, v in e.items()
+            if k not in ("wall_s", "ts", "job", "tenant", "refresh")}
+
+
+def test_service_standing_deltas_match_jax(tctx, jctx, tmp_path):
+    """A standing query registered through the port's ``submit_sql``: its
+    first refresh and one after each of two appends, as ``inc_refresh``
+    events on the standing stream, equal the JAX ``run_refresh`` of the
+    same statement on the JAX package's copy of the store (mode,
+    generation, delta partitions and rows, changed rows, the delta
+    itself), each refresh a fair-share ``inc-refresh`` job of the
+    tenant, its final table equal to a full rescan."""
+    pair = _Pair(tctx, jctx, tmp_path, _cols(40, 1))
+    jb = jsql.compile_query(pair.jcat, STANDING_Q)[1]
+    svc = _service(tmp_path, pair.tcat)
+    try:
+        sid = svc.submit_sql(STANDING_Q, tenant="alice")
+        sq = svc.standing.get(sid)
+        assert sid.startswith("alice-standing-")
+        assert svc.status(sid)["standing"] is True
+        for step, cols in enumerate((None, _cols(16, 2), _cols(24, 3))):
+            if cols is not None:
+                pair.append(cols)
+            got = _refreshed(sq, step + 1)[step]
+            jlog = JEventLog()
+            j_run_refresh(pair.jctx, pair.jcat, jb,
+                          jsql.normalize_query(STANDING_Q), pair.jsd,
+                          event=jlog)
+            (want,) = [e for e in jlog.events
+                       if e["event"] == "inc_refresh"]
+            assert _no_stamp(got) == _no_stamp(want)
+            assert got["job"] == sid
+        assert got["mode"] == "incremental" and got["delta_rows"] == 24
+        jobs = [j for j in svc.list_jobs() if j["app"] == "inc-refresh"]
+        assert len(jobs) == 3
+        assert all(j["tenant"] == "alice" for j in jobs)
+        last = svc.wait(jobs[-1]["job"], timeout=60)["result"]
+        assert sorted(zip(*[last["table"][c] for c in sorted(
+            last["table"])])) == _rows(pair.full(STANDING_Q.replace(
+                " EMIT EVERY 0.05", " EMIT EVERY 1")))
+        assert svc.standing_rows()[0]["job"] == sid
+    finally:
+        svc.close()
+
+
+def test_service_standing_restart_cancel(tctx, tmp_path):
+    """The idle store schedules no refresh; ``crash()`` and an append
+    while the daemon is down: the successor restores the registration
+    from the journal and its first refresh scans exactly that append;
+    ``cancel`` unregisters it for good."""
+    import time
+    p = str(tmp_path / "s")
+    tctx.from_columns(_cols(32, 1)).to_store(p)
+    cat = sql.Catalog().register_store("t", p)
+    svc = _service(tmp_path, cat)
+    sid = svc.submit_sql(STANDING_Q, tenant="bob")
+    sq = svc.standing.get(sid)
+    _refreshed(sq, 1)
+    time.sleep(0.3)
+    assert sq.refreshes == 1                    # idle: nothing submitted
+    svc.crash()
+    append_store(p, tctx.from_columns(_cols(12, 7)).node.data)
+    svc2 = _service(tmp_path, sql.Catalog().register_store("t", p))
+    try:
+        assert svc2.recovery["standing"] == 1
+        sq2 = svc2.standing.get(sid)
+        (first,) = _refreshed(sq2, 1)
+        assert first["mode"] == "incremental"
+        assert first["delta_rows"] == 12 and first["delta_parts"] >= 1
+        reg = os.path.join(svc2.standing.dir, sid + ".json")
+        assert os.path.exists(reg)
+        assert svc2.cancel(sid) is True and sq2.log.closed
+        assert not os.path.exists(reg) and svc2.cancel(sid) is False
+    finally:
+        svc2.close()
+    svc3 = _service(tmp_path, sql.Catalog().register_store("t", p))
+    try:
+        assert svc3.standing.get(sid) is None
+    finally:
+        svc3.close()
+
+
 def test_chip_smoke_phase16_rehearsal(monkeypatch, tmp_path):
     """chip_smoke.py's phase 16 on the CPU at 8,000 lineitems (the card's
     synchronize stubbed) with every plain kernel version bumping its

@@ -307,3 +307,57 @@ def test_refresh_and_remote_stores_load_no_jax(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+SERVICE_MODULES = ("dryad_tpu_torch.service", "dryad_tpu_torch.service.daemon",
+                   "dryad_tpu_torch.service.http",
+                   "dryad_tpu_torch.service.__main__",
+                   "dryad_tpu_torch.service.durable",
+                   "dryad_tpu_torch.service.durable.journal",
+                   "dryad_tpu_torch.service.durable.recover",
+                   "dryad_tpu_torch.inc.standing", "dryad_tpu_torch.obs.slo",
+                   "dryad_tpu_torch.utils.compile_cache",
+                   "dryad_tpu_torch.runtime.shiplan")
+
+
+def test_service_modules_are_checked():
+    """The job service, its durable journal, the standing queries, the SLO
+    tracker, the FileCache and the shipping helpers are among the modules
+    the two checks above import and scan."""
+    assert set(SERVICE_MODULES) <= set(_modules())
+
+
+def test_service_cli_help_and_a_cpu_daemon_load_no_jax(tmp_path):
+    """``python -m dryad_tpu_torch.service --help`` in a fresh interpreter,
+    then a CPU daemon running one wordcount job and one SQL job: neither
+    jax nor dryad_tpu is loaded."""
+    help_out = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "dryad_tpu_torch.service",
+         "--help"], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert help_out.returncode == 0, help_out.stderr
+    assert "serve" in help_out.stdout
+    loaded = [line.rsplit("|", 1)[-1].strip()
+              for line in help_out.stderr.splitlines()
+              if line.startswith("import time:")]
+    assert "dryad_tpu_torch.service" in loaded
+    assert not [m for m in loaded if _forbidden(m)]
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "from dryad_tpu_torch import sql\n"
+        "from dryad_tpu_torch.service import JobService, ServiceConfig\n"
+        "cat = sql.Catalog().register_columns(\n"
+        "    't', {'k': np.arange(40, dtype=np.int32) % 3})\n"
+        f"svc = JobService(ServiceConfig({str(tmp_path)!r}), device='cpu',\n"
+        "                 catalog=cat)\n"
+        "a = svc.submit('wordcount', {'n_lines': 16})\n"
+        "b = svc.submit_sql('SELECT k, COUNT(*) AS n FROM t GROUP BY k')\n"
+        "assert svc.wait(a, 120)['state'] == 'done'\n"
+        "assert svc.wait(b, 120)['result']['rows'] == 3\n"
+        "svc.close()\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'dryad_tpu')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"

@@ -361,3 +361,101 @@ def test_chip_smoke_phase11_rehearsal(devices8, monkeypatch, tmp_path):
     assert {k for _, errs in runs.values() for k in errs} == \
         set(chip_smoke.TPU_KERNEL)
     assert all(e == 0.0 for _, errs in runs.values() for e in errs.values())
+
+
+def _group_then_order(ctx):
+    """Job A of the concurrency cases: a group_by stage, then an order_by
+    stage."""
+    return ctx.from_columns(_data()).group_by(
+        ["s"], {"n": ("count", None), "t": ("sum", "v")}).order_by(
+        [("t", True), ("s", False)])
+
+
+def _one_stage(ctx, n=640):
+    """Job B: one group_by stage."""
+    return ctx.from_columns(
+        {"k": np.arange(n, dtype=np.int32) % 7,
+         "v": np.ones(n, dtype=np.int32)}).group_by(["k"],
+                                                    {"s": ("sum", "v")})
+
+
+def test_run_started_from_another_runs_sink_keeps_its_own_log(devices8):
+    """Job B runs on the same executor from job A's event sink, at A's
+    last ``progress`` before A's deferred settle.  A still settles and
+    finishes with the rows of a run on its own, and A's stage log holds
+    A's stages only, each tagged with A's job, as the executor's log does
+    once A (the run that ended last) returns."""
+    ctx = _tctx()
+    ex = ctx.executor
+    a_graph = plan_query(_group_then_order(ctx).node, P)
+    b_graph = plan_query(_one_stage(ctx).node, P)
+    assert len(a_graph.stages) == 2 and len(b_graph.stages) == 1
+    b_out = []
+
+    def sink(e):
+        if (e["event"] == "progress" and "stage" in e
+                and e["done"] == e["total"] and not b_out):
+            b_out.append(pdata_to_host(ex.run(b_graph, job="b")))
+
+    a = pdata_to_host(ex.run(a_graph, event_log=sink, job="a"))
+    assert b_out and sorted(b_out[0]["k"].tolist()) == list(range(7))
+    alone = pdata_to_host(_tctx().executor.run(
+        plan_query(_group_then_order(_tctx()).node, P)))
+    assert _rows(a) == _rows(alone)
+    log = ex.stage_log
+    assert sorted(st["stage"] for st in log) == sorted(
+        st.id for st in a_graph.stages)
+    assert all(st["job"] == "a" for st in log)
+    assert [st["label"] for st in log] == [
+        a_graph.stage(st["stage"]).label for st in log]
+
+
+def test_barrier_started_runs_on_one_executor_stay_apart(devices8):
+    """Two runs released together on two threads over ONE port Executor
+    (mirrors tests/test_service.py's concurrency case): each event lands
+    in its own log tagged with its own job, one ``job_done`` each, span
+    trees that resolve locally with disjoint trace ids, each run's stage
+    log holds its own stages, and the executor's host-read total is the
+    sum of the runs'."""
+    import threading
+
+    ctx = _tctx()
+    ex = ctx.executor
+    graphs = {"job-a": plan_query(_group_then_order(ctx).node, P),
+              "job-b": plan_query(_one_stage(ctx).node, P)}
+    logs = {jid: EventLog() for jid in graphs}
+    runs = {jid: Run(ex, graphs[jid], event=logs[jid], job=jid)
+            for jid in graphs}
+    barrier = threading.Barrier(2)
+    errs = {}
+    reads0 = ex.host_reads
+
+    def job(jid):
+        try:
+            barrier.wait(timeout=60)
+            runs[jid].output()
+        except Exception as e:        # reported below
+            errs[jid] = e
+
+    threads = [threading.Thread(target=job, args=(jid,), daemon=True)
+               for jid in graphs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and not errs, errs
+    for jid, log in logs.items():
+        assert log.events and all(e.get("job") == jid for e in log.events)
+        assert len(log.of_type("job_done")) == 1
+        spans = log.of_type("span")
+        ids = {s["span"] for s in spans}
+        assert spans and all(not s.get("parent") or s["parent"] in ids
+                             for s in spans)
+        run = runs[jid]
+        assert sorted(st["stage"] for st in run.stage_log) == sorted(
+            st.id for st in graphs[jid].stages)
+        assert all(st["job"] == jid for st in run.stage_log)
+    ta, tb = ({s["trace"] for s in logs[j].of_type("span")} for j in graphs)
+    assert ta and tb and not (ta & tb)
+    assert ex.host_reads - reads0 == sum(
+        r.host_reads for r in runs.values()) == 2

@@ -22,8 +22,9 @@ from dryad_tpu.utils.config import JobConfig as JJobConfig
 from dryad_tpu_torch import Context as TContext
 from dryad_tpu_torch import JobConfig
 from dryad_tpu_torch.exec import executor as texec
+from dryad_tpu_torch.exec.recovery import Run
 from dryad_tpu_torch.ops.hashing import hash_columns
-from dryad_tpu_torch.plan.stages import Exchange, Leg, Stage
+from dryad_tpu_torch.plan.stages import Exchange, Leg, Stage, StageGraph
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 P = 8
@@ -39,6 +40,12 @@ def _rows(t):
 def _ctx(mb=0.0, nparts=P):
     return TContext(device="cpu", nparts=nparts,
                     config=JobConfig(exchange_probe_min_mb=mb))
+
+
+def _run(ctx):
+    """A Run of an empty graph on ``ctx``'s executor: the calling run the
+    slot helpers count their probes in."""
+    return Run(ctx.executor, StageGraph([], 0))
 
 
 def _log(ctx, label="hashpartition"):
@@ -77,13 +84,14 @@ def test_probe_matches_jax(devices8, hot, keys, slack, n, cap):
     t, j = _ctx(), JContext(config=JJobConfig(exchange_probe_min_mb=0))
     tpd = t.from_columns(cols, capacity=cap).node.data
     jpd = j.from_columns(cols, capacity=cap).node.data
-    got = t.executor._probe_slot_rows(tpd, list(keys), slack)
+    run = _run(t)
+    got = t.executor._probe_slot_rows(tpd, list(keys), slack, run)
     want = j.executor._probe_slot_rows(jpd, list(keys), slack)
     assert got == want
-    assert t.executor.probes_run == 1
+    assert t.executor.probes_run == run.probes_run == 1
     # probing the same live tensors again reads nothing
-    assert t.executor._probe_slot_rows(tpd, list(keys), slack) == got
-    assert t.executor.probes_run == 1
+    assert t.executor._probe_slot_rows(tpd, list(keys), slack, run) == got
+    assert t.executor.probes_run == run.probes_run == 1
 
 
 def _hash_query(ctx, cols, where=None):
@@ -133,16 +141,16 @@ def test_no_hints_salted_or_one_partition(devices8):
     stage = Stage(0, [Leg(("source", pd), [], Exchange("hash", ("k",), 200)),
                       Leg(("source", pd), [], Exchange("broadcast",
                                                         out_capacity=1600))])
-    assert t.executor._slot_hints(stage, [pd, pd], 2, True) == [
-        (None, "slack"), (None, None)]
-    assert t.executor._slot_hints(stage, [pd, pd], 2, False)[0][1] == \
-        "probe"
+    assert t.executor._slot_hints(stage, [pd, pd], 2, True,
+                                  _run(t)) == [(None, "slack"), (None, None)]
+    assert t.executor._slot_hints(stage, [pd, pd], 2, False,
+                                  _run(t))[0][1] == "probe"
     one = _ctx(nparts=1)
     pd1 = one.from_columns(_skewed(800, 3, 0.5)).node.data
     stage1 = Stage(0, [Leg(("source", pd1), [],
                            Exchange("hash", ("k",), 800))])
-    assert one.executor._slot_hints(stage1, [pd1], 2, False) == [
-        (None, "slack")]
+    assert one.executor._slot_hints(stage1, [pd1], 2, False,
+                                    _run(one)) == [(None, "slack")]
     assert one.executor.probes_run == 0
 
 
