@@ -314,6 +314,30 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      dryad_tpu_torch.service submit --wait`` subprocess).  The launch
      counters are process-wide, so the phase reads per-cell totals; all
      five kernels must launch;
+  18. worker processes on the card: one ``runtime.LocalCluster(2, 8)``
+     (two ``python -m dryad_tpu_torch.runtime.worker`` processes, each
+     with its own CUDA context and 8 logical partitions) serves
+     ``farm_groupsum_8m`` (``runtime.farm.TaskFarm``: 8,000,000 rows,
+     4,096 keys, 16 tasks, merged sums against numpy exactly; a plain
+     run, a ``delay_hook`` straggler duplicated exactly once with the
+     copy winning, and a last run SIGKILLing worker 1 mid-farm, its task
+     reassigned), ``svc_cluster_wordcount`` (phase 17's six 1,000,000-line
+     jobs through ``JobService(cluster=...)``, counts against
+     ``collections.Counter``, ``fleet_s`` / ``submit_s`` beside phase
+     17's), ``svc_cluster_sql_6m`` (SQL_Q1 and SQL_Q3 twice each over
+     phase 14's tables written as stores that each task's worker reads:
+     numpy's checks, DTA501 on the second of each, each equal to its
+     tasks replayed here) and ``forensics_replay`` (a poison wordcount task's
+     bundle replayed by ``python -m dryad_tpu_torch.obs replay --device
+     cuda``: REPRODUCED); then ``chaos_seed3``
+     (``chaos.run_scenario(seed=3, device="cuda")``: ok, a settled stage
+     spilled before the SIGKILL and restored after it, the standing query
+     recovered).  The farm and service cells' launches are the workers'
+     (each reply's ``launches``, summed from ``task_done``); their calls
+     are held on every task run the workers reported, replayed in this
+     process in each worker's order through an executor per worker kept
+     for the phase; chaos_seed3's are its successor's, here.  All five
+     kernels must launch;
  3-15. after each of those main-path runs, every kernel call it made
      is made again through the kernel and through its plain version on
      the very tensors the run passed (integers exactly, prefix_sum2
@@ -354,8 +378,10 @@ its scatter line (``{"phase13": ...}``), one per phase-14 cell
 (``{"phase14": ...}``) and the phase's launches, one per phase-15 cell
 (``{"phase15": ...}``) and the phase's launches, one per phase-16 cell
 (``{"phase16": ...}``) and the phase's launches, one per phase-17 cell
-(``{"phase17": ...}``) and the phase's launches, per profile, per pack
-side
+(``{"phase17": ...}``) and the phase's launches, one per phase-18 cell
+(``{"phase18": ...}``) and the phase's launches (``{"phase":
+"cluster", ...}``, with each cell's worker launches), per profile, per
+pack side
 and per kernel, then
 the card line, then the
 ``{"kernels": [...]}`` line, then the result line
@@ -5090,7 +5116,8 @@ def svc_wordcount(root, device) -> dict:
             "submit_s": submit_s,
             "fleet_phase_s": {k: v / 1e6 for k, v in phase_us.items()},
             "seq_pack_s": seq_pack_s, "seq_query_s": seq_s - seq_pack_s,
-            "total_words": fleet[0]["total_words"]}
+            "total_words": fleet[0]["total_words"],
+            "word_counts": [f["words"] for f in fleet]}
 
 
 def pause_after_first_stage(svc):
@@ -5373,6 +5400,540 @@ def phase17_runs(port, hk, tables, n_items: int, root: str, held,
         "svc_http": lambda: svc_http(cat, li, root, device)}
     return {label: svc_cell(hk, label, held, fn)
             for label, fn in cells.items()}
+
+
+# ---------------------------------------------------------------------------
+# phase 18: worker processes on the card (the task farm, the job service's
+# cluster fleet, forensics) and the chaos harness
+
+FARM_ROWS = 8_000_000
+FARM_KEYS = 4096
+FARM_TASKS = 16
+CLUSTER_WORKERS = 2
+STRAGGLER_S = 6.0          # the delay_hook straggler's one slow copy
+KILL_DELAY_S = 3.0         # worker 1's tasks in the kill run...
+KILL_AT_S = 1.0            # ...and the SIGKILL after its first dispatch
+TESTS = os.path.join(HERE, "tests")
+# one replayed task's captured kernel inputs, at most: the replays run
+# one at a time, after the workers' runs, so a task's calls may pin more
+# than a phase-17 cell's overlapping jobs could
+REPLAY_HOLD_BYTES = 16 << 30
+
+
+def worker_launches(events) -> dict:
+    """Kernel launches the workers reported for a run's tasks (every
+    copy's: ``task_done`` and ``task_duplicate_ignored`` carry their
+    reply's ``launches``)."""
+    total = dict.fromkeys(TPU_KERNEL, 0)
+    for e in events:
+        if e.get("event") in ("task_done", "task_duplicate_ignored"):
+            for k, n in (e.get("launches") or {}).items():
+                total[k] += n
+    return total
+
+
+def add_launches(*parts) -> dict:
+    return {k: sum(p[k] for p in parts) for k in TPU_KERNEL}
+
+
+def reported_runs(pairs) -> list:
+    """[(worker, key)] of every task run the workers reported, from
+    ``pairs`` = [(key, event)]: ``task_done`` and
+    ``task_duplicate_ignored`` (a losing copy ran too), in the order of
+    their events' ``ts`` (emission order where there is none).  A worker
+    runs one task at a time, so this is each worker's own order."""
+    done = [(k, e) for k, e in pairs if e.get("event") in
+            ("task_done", "task_duplicate_ignored")]
+    done.sort(key=lambda ke: ke[1].get("ts", 0.0))
+    return [(e["worker"], k) for k, e in done]
+
+
+def replay_run(hk, executors, pid, msg, capture, device="cuda"):
+    """One task run the workers reported, made again in THIS process
+    through the worker's own ``run_task`` on worker ``pid``'s replay
+    executor (``executors``: worker -> executor, made at its first task
+    and kept for the phase, so its slot feedback and probe caches evolve
+    as that worker's did), its kernel calls into ``capture``.  Returns
+    (host table, the replay's launches): the hold's, not the path's."""
+    from dryad_tpu_torch.exec.data import pdata_to_host
+    from dryad_tpu_torch.parallel.mesh import resolve_device
+    from dryad_tpu_torch.runtime import worker
+    ex = executors.get(pid)
+    if ex is None:
+        ex = executors[pid] = worker.task_executor(resolve_device(device),
+                                                   NPARTS)
+    before = dict(hk.launches)
+    hk.capture = capture
+    try:
+        table = pdata_to_host(worker.run_task(msg, ex,
+                                              ("torch_cluster_fns",)))
+    finally:
+        hk.capture = None
+    return table, {k: hk.launches[k] - before[k] for k in TPU_KERNEL}
+
+
+def hold_replayed(hk, label, held, launches, executors, runs,
+                  device="cuda") -> tuple:
+    """A cell's reported task runs ``runs`` = [(worker, envelope)], in
+    each worker's order, replayed (``replay_run``) one at a time; each
+    task's calls are captured within REPLAY_HOLD_BYTES and held against
+    the plain versions before the next, and the largest errors recorded
+    under ``label`` with the workers' ``launches``.  Every kernel the
+    workers launched must have been replayed.  Returns (the replay's
+    figures for the cell's line, with the card's free memory before it
+    and this process's peak allocation during it; the host tables)."""
+    import torch
+    on_card = device == "cuda"
+    if on_card:
+        free_gib = torch.cuda.mem_get_info()[0] / 2**30
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tables, errs = [], {}
+    replayed = dict.fromkeys(TPU_KERNEL, 0)
+    n_held = n_unheld = 0
+    for i, (pid, msg) in enumerate(runs):
+        capture = BoundedCapture(REPLAY_HOLD_BYTES)
+        table, got = replay_run(hk, executors, pid, msg, capture, device)
+        tables.append(table)
+        replayed = add_launches(replayed, got)
+        for k, e in hold_run(hk, f"{label} task run {i}", capture).items():
+            errs[k] = max(errs.get(k, 0.0), e)
+        n_held += sum(len(c) for c in capture.values())
+        n_unheld += capture.dropped
+    held(label, launches, errs=errs)
+    missed = [k for k in TPU_KERNEL if launches[k] and not replayed[k]]
+    if missed:
+        raise AssertionError(f"{label}: the replay launched no {missed}")
+    line = {"replayed_tasks": len(runs), "replay_launches": replayed,
+            "held_calls": n_held, "unheld_calls": n_unheld,
+            "replay_s": time.perf_counter() - t0}
+    if on_card:
+        line.update(free_gib_before=free_gib,
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return line, tables
+
+
+def farm_envelope(plan_json, task: dict) -> dict:
+    return {"plan": plan_json, "sources": task, "config": None}
+
+
+def sent(svc, jid) -> tuple:
+    """A fleet job's (payload, config), taken just after its submission:
+    a job drops its payload when it ends."""
+    job = svc.job(jid)
+    if job.payload is None:
+        raise AssertionError(f"job {jid} ended before its payload was read")
+    return job.payload, job.config
+
+
+def job_runs(svc, jobs: dict) -> tuple:
+    """([(worker, envelope)], [(job, task)]) of the reported task runs
+    of the fleet jobs ``jobs`` (job -> ``sent``), in each worker's
+    order: each envelope is the one the fleet sent."""
+    pairs = []
+    for j in jobs:
+        pairs += [((j, e.get("task")), e) for e in svc.job(j).log.events]
+    runs, keys = [], []
+    for pid, (j, idx) in reported_runs(pairs):
+        payload, config = jobs[j]
+        runs.append((pid, {"plan": payload["plan"],
+                           "sources": payload["sources"][idx],
+                           "config": config}))
+        keys.append((j, idx))
+    return runs, keys
+
+
+def farm_tables(seed: int = 18):
+    rng = np.random.default_rng(seed)
+    return {"k": rng.integers(0, FARM_KEYS, FARM_ROWS).astype(np.int32),
+            "v": rng.integers(0, 100, FARM_ROWS).astype(np.int32)}
+
+
+def check_farm_groupsum(label, results, cols) -> None:
+    """The per-task group sums merged on the host against numpy's
+    bincounts over all rows, exactly."""
+    s = np.zeros(FARM_KEYS, np.int64)
+    n = np.zeros(FARM_KEYS, np.int64)
+    for t in results:
+        k = np.asarray(t["k"], np.int64)
+        np.add.at(s, k, np.asarray(t["s"], np.int64))
+        np.add.at(n, k, np.asarray(t["n"], np.int64))
+    want_s = np.bincount(cols["k"], weights=cols["v"].astype(np.float64),
+                         minlength=FARM_KEYS).astype(np.int64)
+    want_n = np.bincount(cols["k"], minlength=FARM_KEYS)
+    if not (np.array_equal(s, want_s) and np.array_equal(n, want_n)):
+        raise AssertionError(f"{label}: group sums differ from numpy")
+
+
+def farm_plan(port, cl, cols):
+    """The groupsum plan (one source leg: k, v int32 -> group_by k with
+    SUM and COUNT) serialized for the cluster, and its per-task specs."""
+    from dryad_tpu_torch.plan.planner import plan_query
+    from dryad_tpu_torch.runtime.shiplan import serialize_for_cluster
+    from dryad_tpu_torch.runtime.sources import columns_spec
+    ctx = port.Context(cluster=cl)
+    cap = -(-FARM_ROWS // (FARM_TASKS * NPARTS))
+    ds = ctx.from_columns({"k": cols["k"][:1], "v": cols["v"][:1]},
+                          capacity=cap).group_by(
+        ["k"], {"s": ("sum", "v"), "n": ("count", None)})
+    plan_json, specs = serialize_for_cluster(plan_query(ds.node, NPARTS))
+    (src,) = specs
+    bounds = np.linspace(0, FARM_ROWS, FARM_TASKS + 1).astype(np.int64)
+    tasks = [{src: columns_spec({"k": cols["k"][a:b], "v": cols["v"][a:b]},
+                                NPARTS, capacity=cap)}
+             for a, b in zip(bounds[:-1], bounds[1:])]
+    return plan_json, tasks
+
+
+def farm_run(cl, plan_json, tasks, **kw):
+    from dryad_tpu_torch.runtime.farm import TaskFarm
+    farm = TaskFarm(cl, **kw)
+    t0 = time.perf_counter()
+    results = farm.run(plan_json, tasks)
+    return farm, results, time.perf_counter() - t0
+
+
+def farm_groupsum_8m(hk, cl, cols, plan_json, tasks, held, executors,
+                     device="cuda"):
+    """farm_groupsum_8m's first two runs: a plain one and one whose task
+    3 is a straggler on its first copy (``delay_hook``): exactly one
+    duplicate, which wins.  Each equal to numpy.  Both runs' task runs,
+    the straggler's losing copy too, replayed here and held.  Returns
+    the cell's line, with the workers' launches summed."""
+    label = "farm_groupsum_8m"
+    farm, res, plain_s = farm_run(cl, plan_json, tasks)
+    check_farm_groupsum(label, res, cols)
+    launches = worker_launches(farm.events)
+    runs = reported_runs([(e.get("task"), e) for e in farm.events])
+    slow = {"left": 1}
+
+    def straggle(task, pid):
+        if task == 3 and slow["left"]:
+            slow["left"], slow["pid"] = 0, pid
+            return STRAGGLER_S
+        return 0.0
+
+    cl.wait_quiescent()
+    farm, res, strag_s = farm_run(cl, plan_json, tasks,
+                                  delay_hook=straggle)
+    check_farm_groupsum(f"{label} straggler", res, cols)
+    dups = [e for e in farm.events if e["event"] == "task_duplicated"]
+    won = [e for e in farm.events if e["event"] == "task_done"
+           and e["task"] == 3]
+    if (len(dups) != 1 or dups[0]["task"] != 3 or len(won) != 1
+            or not won[0].get("dup_won")):
+        raise AssertionError(f"{label}: straggler: duplicates {dups}, "
+                             f"task 3 done {won}")
+    launches = add_launches(launches, worker_launches(farm.events))
+    # the slow first copy of task 3 runs last on its worker, after the
+    # farm has returned: no event reports it
+    runs += reported_runs([(e.get("task"), e) for e in farm.events])
+    runs.append((slow["pid"], 3))
+    replay, _tables = hold_replayed(
+        hk, label, held, launches, executors,
+        [(pid, farm_envelope(plan_json, tasks[t])) for pid, t in runs],
+        device)
+    return {"rows": FARM_ROWS, "keys": FARM_KEYS, "tasks": FARM_TASKS,
+            "workers": CLUSTER_WORKERS, "nparts_per_worker": NPARTS,
+            "plain_s": plain_s, "straggler_s": strag_s,
+            "duplicated": dups[0], "dup_won": won[0]["worker"],
+            "task_walls_s": sorted(e["wall_s"] for e in farm.events
+                                   if e["event"] == "task_done"),
+            "launches": launches, **replay}
+
+
+def farm_kill_run(hk, cl, cols, plan_json, tasks, held, executors,
+                  device="cuda") -> dict:
+    """farm_groupsum_8m's last run: worker 1's tasks sleep KILL_DELAY_S
+    first, and KILL_AT_S after its first dispatch the run SIGKILLs
+    worker 1, speculation off: its in-flight task is reassigned and the
+    result equals numpy.  Its reported task runs are replayed here and
+    held as ``farm_groupsum_8m_kill`` (the killed copy, asleep, ran
+    nothing)."""
+    import signal
+    import threading
+    cl.wait_quiescent()
+    victim = cl.worker_procs()[1].pid
+    killer = threading.Timer(KILL_AT_S,
+                             lambda: os.kill(victim, signal.SIGKILL))
+
+    def delay(task, pid):
+        if pid == 1 and killer.ident is None:     # not started yet
+            killer.start()
+        return KILL_DELAY_S if pid == 1 else 0.0
+
+    try:
+        farm, res, wall = farm_run(cl, plan_json, tasks,
+                                   min_samples=10**6, delay_hook=delay)
+    finally:
+        killer.cancel()
+    check_farm_groupsum("farm_groupsum_8m kill", res, cols)
+    moved = [e for e in farm.events if e["event"] == "task_reassigned"]
+    if not moved or cl.alive():
+        raise AssertionError(f"farm_groupsum_8m kill: reassigned {moved}, "
+                             f"cluster alive {cl.alive()}")
+    launches = worker_launches(farm.events)
+    runs = reported_runs([(e.get("task"), e) for e in farm.events])
+    replay, _tables = hold_replayed(
+        hk, "farm_groupsum_8m_kill", held, launches, executors,
+        [(pid, farm_envelope(plan_json, tasks[t])) for pid, t in runs],
+        device)
+    return {"kill_s": wall, "reassigned": [e["task"] for e in moved],
+            "launches": launches, "kill_replay": replay}
+
+
+def svc_cluster_wordcount(hk, cl, root, seventeen, held, executors,
+                          device="cuda") -> dict:
+    """phase 17's six wordcount jobs (SVC_WC_LINES lines, seeds 0-5)
+    through ``JobService(cluster=...)``: each task's lines are packed in
+    its worker (``build_source``); counts equal to phase 17's
+    ``svc_wordcount`` (held there to ``collections.Counter``);
+    ``fleet_s`` / ``submit_s`` beside phase 17's."""
+    from dryad_tpu_torch.service import JobService
+    label = "svc_cluster_wordcount"
+    params = [{"n_lines": SVC_WC_LINES, "words_per_line": 6, "seed": s}
+              for s in range(SVC_WC_JOBS)]
+    svc = JobService(svc_config(root, "cwc"), cluster=cl, device=device)
+    try:
+        t0 = time.perf_counter()
+        jids, payloads = [], {}
+        for p, t in zip(params, list(SVC_SHARES) * SVC_WC_JOBS):
+            jids.append(svc.submit("wordcount", p, tenant=t))
+            payloads[jids[-1]] = sent(svc, jids[-1])
+        submit_s = time.perf_counter() - t0
+        fleet = [svc_done(svc, j, label)["result"] for j in jids]
+        fleet_s = time.perf_counter() - t0
+        events = [e for j in jids for e in svc.job(j).log.events]
+        runs, _keys = job_runs(svc, payloads)
+    finally:
+        svc.close()
+    p17 = seventeen["svc_wordcount"]
+    for i, want in enumerate(p17["word_counts"]):
+        if fleet[i]["words"] != want:
+            raise AssertionError(f"{label} seed {i}: counts differ from "
+                                 f"phase 17's")
+    launches = worker_launches(events)
+    replay, _tables = hold_replayed(hk, label, held, launches, executors,
+                                    runs, device)
+    return {"jobs": SVC_WC_JOBS, "lines": SVC_WC_LINES,
+            "tasks": sum(1 for e in events if e["event"] == "task_done"),
+            "fleet_s": fleet_s, "submit_s": submit_s,
+            "phase17_fleet_s": p17["fleet_s"],
+            "phase17_submit_s": p17["submit_s"],
+            "total_words": fleet[0]["total_words"], "launches": launches,
+            **replay}
+
+
+def svc_cluster_sql_6m(port, hk, cl, li, orders, root, held, executors,
+                       device="cuda") -> dict:
+    """SQL_Q1 and SQL_Q3 over phase 14's lineitems and orders registered
+    as STORES (each task's worker reads them), each submitted twice:
+    the second is DTA501 (its plan and deferred specs from the pickled
+    FileCache entry).  Results against numpy (phase 14's checks), and
+    each job's equal to its own task runs replayed here (integers
+    exactly, f32 within 16 eps |v|)."""
+    from dryad_tpu_torch import sql
+    from dryad_tpu_torch.analysis.canon import semantic_fingerprint
+    from dryad_tpu_torch.service import JobService
+    label = "svc_cluster_sql_6m"
+    stores = {n: os.path.join(root, "stores", n)
+              for n in ("lineitem", "orders")}
+    t0 = time.perf_counter()
+    ctx = port.Context(device=device, nparts=NPARTS)
+    ctx.from_columns(li).to_store(stores["lineitem"])
+    ctx.from_columns(orders).to_store(stores["orders"])
+    del ctx
+    if device == "cuda":
+        import torch
+        torch.cuda.empty_cache()
+    store_s = time.perf_counter() - t0
+    cat = sql.Catalog()
+    for n, p in stores.items():
+        cat.register_store(n, p)
+    checks = {SQL_Q1: lambda lb, out: check_q1agg(lb, out, li),
+              SQL_Q3: lambda lb, out: check_topk_revenue(lb, out, li,
+                                                          flag=0)}
+    svc = JobService(svc_config(root, "csql"), cluster=cl, device=device,
+                     catalog=cat)
+    try:
+        t0 = time.perf_counter()
+        jobs, payloads = [], {}
+        for q, t in ((SQL_Q1, "dash"), (SQL_Q3, "adhoc"),
+                     (SQL_Q1, "batch"), (SQL_Q3, "dash")):
+            jobs.append((svc.submit_sql(q, tenant=t), q))
+            payloads[jobs[-1][0]] = sent(svc, jobs[-1][0])
+        for jid, q in jobs:
+            out = svc_table(svc_done(svc, jid, label)["result"])
+            checks[q](f"{label} {jid}", out)
+        all_s = time.perf_counter() - t0
+        reuse = svc.log.of_type("reuse_verdict")
+        if ([r["job"] for r in reuse] != [jobs[2][0], jobs[3][0]]
+                or any(r["code"] != "DTA501" for r in reuse)):
+            raise AssertionError(f"{label}: reuse verdicts {reuse}")
+        events = [e for j, _ in jobs for e in svc.job(j).log.events]
+        for q in (SQL_Q1, SQL_Q3):
+            bound = sql.compile_query(cat, q)[1]
+            payload, _limit, hit = svc._build_sql_farm_payload(
+                bound, semantic_fingerprint(cat, bound), cat.fingerprint())
+            if not hit or {s["kind"] for s in payload["sources"][0]
+                           .values()} != {"store"}:
+                raise AssertionError(f"{label}: the cached payload is not "
+                                     f"the store specs")
+        runs, keys = job_runs(svc, payloads)
+        got = {j: svc_done(svc, j, label)["result"] for j, _ in jobs}
+    finally:
+        svc.close()
+    launches = worker_launches(events)
+    replay, tables = hold_replayed(hk, label, held, launches, executors,
+                                   runs, device)
+    from dryad_tpu_torch.service.daemon import _sql_combine
+    for jid, q in jobs:
+        mine = sorted((idx, t) for (j, idx), t in zip(keys, tables)
+                      if j == jid)
+        here = svc_table(_sql_combine(None if q == SQL_Q1 else 10)(
+            [t for _idx, t in mine]))
+        there = svc_table(got[jid])
+        for c in here:
+            a = np.asarray(there[c])
+            b = np.asarray(here[c])
+            if a.dtype.kind == "f":
+                ok = np.allclose(a, b, rtol=16 * EPS, atol=0)
+            else:
+                ok = np.array_equal(a, b)
+            if not ok:
+                raise AssertionError(f"{label} {jid}: column {c} differs "
+                                     f"from its replayed tasks'")
+    shutil.rmtree(os.path.join(root, "stores"), ignore_errors=True)
+    return {"jobs": len(jobs), "dta501": len(reuse), "store_s": store_s,
+            "all_done_s": all_s, "launches": launches, **replay}
+
+
+def forensics_replay(port, cl, root, device="cuda") -> dict:
+    """A farm wordcount whose UDF raises on its one wide task: FarmError
+    naming the persisted bundle, which ``python -m dryad_tpu_torch.obs
+    replay <bundle> --device cuda`` reproduces in a fresh interpreter."""
+    import torch_cluster_fns as fns
+    from dryad_tpu_torch.apps.wordcount import wordcount_query
+    from dryad_tpu_torch.plan.planner import plan_query
+    from dryad_tpu_torch.runtime.farm import FarmError, TaskFarm
+    from dryad_tpu_torch.runtime.shiplan import serialize_for_cluster
+    from dryad_tpu_torch.runtime.sources import columns_spec
+    ctx = port.Context(cluster=cl)
+    q = wordcount_query(ctx.from_columns({"line": ["a"]})
+                        .select(fns.poison_wide_lines),
+                        tokens_per_partition=4096)
+    plan_json, specs = serialize_for_cluster(plan_query(q.node, NPARTS))
+    (src,) = specs
+    lines = bench_corpus(4000)
+    tasks = [{src: columns_spec({"line": lines[i::4]}, NPARTS,
+                                str_max_len=128 if i == 3 else 64)}
+             for i in range(4)]
+    bundles = os.path.join(root, "bundles")
+    port_cfg = port.JobConfig(forensics_dir=bundles)
+    try:
+        TaskFarm(cl, min_samples=10**9, config=port_cfg).run(plan_json,
+                                                             tasks)
+    except FarmError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("forensics_replay: the poison task passed")
+    (name,) = os.listdir(bundles)
+    bpath = os.path.join(bundles, name)
+    if f"forensics bundle: {bpath}" not in msg:
+        raise AssertionError(f"forensics_replay: {msg[-500:]}")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "dryad_tpu_torch.obs", "replay", bpath,
+         "--device", device], cwd=HERE, capture_output=True, text=True,
+        timeout=300, env=dict(os.environ, PYTHONPATH=TESTS + os.pathsep
+                              + HERE))
+    if res.returncode != 0 or "verdict  : REPRODUCED" not in res.stdout:
+        raise AssertionError(f"forensics_replay: replay rc "
+                             f"{res.returncode}:\n{res.stdout[-2000:]}"
+                             f"\n{res.stderr[-2000:]}")
+    return {"bundle": name, "replay_s": time.perf_counter() - t0,
+            "verdict": "REPRODUCED"}
+
+
+def chaos_seed3(root, device="cuda") -> dict:
+    """``run_scenario(seed=3)`` on the card: the victim daemon process
+    SIGKILLed past its target job's first settled stage, the successor
+    (in this process) adopting the journal."""
+    from dryad_tpu_torch.chaos import run_scenario
+    t0 = time.perf_counter()
+    rep = run_scenario(seed=3, workdir=os.path.join(root, "chaos"),
+                       timeout=SVC_WAIT_S, device=device)
+    if not (rep["ok"] and rep["spills_at_kill"] >= 1
+            and rep["stages_restored"] >= 1 and rep["standing_recovered"]
+            and rep["recovery"]["resumed"] >= 1
+            and rep["recovery"]["readmitted"] >= 1):
+        raise AssertionError("chaos_seed3: " + json.dumps(rep, default=str)
+                             [-3000:])
+    inv = rep["invariants"]
+    return {"ok": True, "seconds": time.perf_counter() - t0,
+            "spills_at_kill": rep["spills_at_kill"],
+            "stages_restored": rep["stages_restored"],
+            "recovery": rep["recovery"], "lost": inv["lost"],
+            "dup_terminals": inv["dup_terminals"],
+            "diverged": inv["diverged"], "torn": rep["torn_injected"]}
+
+
+def phase18_runs(port, hk, tables, root: str, held, seventeen,
+                 device="cuda") -> dict:
+    """Phase 18's cells over phase 14's ``sql_catalog`` triple
+    ``tables``: one ``LocalCluster(CLUSTER_WORKERS, NPARTS)`` on the
+    card serves farm_groupsum_8m (its kill run last), the cluster
+    service's wordcount and SQL cells and forensics_replay; then
+    chaos_seed3.  The farm and service cells' launches are the workers'
+    (``task_done``), their calls held on every reported task run
+    replayed here, each worker's through an executor of its own kept
+    for the phase (``hold_replayed``; forensics_replay's runs are not
+    replayed); chaos_seed3's are its successor's, in this process."""
+    from dryad_tpu_torch.runtime import LocalCluster
+    li, orders, _cat = tables
+    if TESTS not in sys.path:
+        sys.path.insert(0, TESTS)
+    old = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = TESTS + (os.pathsep + old if old else "")
+    lines = {}
+    t0 = time.perf_counter()
+    cl = LocalCluster(n_processes=CLUSTER_WORKERS,
+                      devices_per_process=NPARTS,
+                      fn_modules=("torch_cluster_fns",), device=device,
+                      log_dir=os.path.join(root, "workers"))
+    try:
+        start_s = time.perf_counter() - t0
+        executors = {}      # worker -> its replay executor
+        cols = farm_tables()
+        plan_json, tasks = farm_plan(port, cl, cols)
+        line = farm_groupsum_8m(hk, cl, cols, plan_json, tasks, held,
+                                executors, device)
+        line["cluster_start_s"] = start_s
+        lines["svc_cluster_wordcount"] = svc_cluster_wordcount(
+            hk, cl, root, seventeen, held, executors, device)
+        lines["svc_cluster_sql_6m"] = svc_cluster_sql_6m(
+            port, hk, cl, li, orders, root, held, executors, device)
+        lines["forensics_replay"] = forensics_replay(port, cl, root,
+                                                     device)
+        kill = farm_kill_run(hk, cl, cols, plan_json, tasks, held,
+                             executors, device)
+        line.update(kill_s=kill["kill_s"], reassigned=kill["reassigned"],
+                    kill_replay=kill["kill_replay"])
+        line["launches"] = add_launches(line["launches"], kill["launches"])
+        lines["farm_groupsum_8m"] = line
+        del executors
+        if device == "cuda":
+            import torch
+            torch.cuda.empty_cache()
+    finally:
+        cl.shutdown()
+        if old is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = old
+    lines["chaos_seed3"] = svc_cell(hk, "chaos_seed3", held,
+                                    lambda: chaos_seed3(root, device))
+    return lines
 
 
 # ---------------------------------------------------------------------------
@@ -5990,8 +6551,13 @@ def main(argv=None) -> int:
     runs, timed_calls = {}, {}
     wc_counts = {}   # phase 3's in-memory WordCount counts by corpus
 
-    def held(label, launches, captured):
-        runs[label] = (launches, hold_run(hk, label, captured))
+    def held(label, launches, captured=None, errs=None):
+        """Record a main-path run: its launches and its calls held
+        (``captured``), or the largest errors of calls already held
+        (``errs``)."""
+        if errs is None:
+            errs = hold_run(hk, label, captured)
+        runs[label] = (launches, errs)
         if label in PROFILED:
             timed_calls[label] = captured
 
@@ -6495,7 +7061,6 @@ def main(argv=None) -> int:
             fourteen["sqlq3_6m_off"]["warm_wall_median_s"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    del tables14, fourteen
     for label, line in seventeen.items():
         emit({"phase17": label, **line, "card": card})
     new = set(runs) - before
@@ -6506,6 +7071,32 @@ def main(argv=None) -> int:
                              f"{sorted(unheld)} held")
     emit({"phase": "service", "launches": launches17,
           "seconds": time.perf_counter() - t17, "card": card})
+
+    # phase 18: worker processes on the card (the task farm, the job
+    # service's cluster fleet, forensics) and the chaos harness; the
+    # workers and the chaos victim share the card with this process, so
+    # its cached blocks go back first
+    torch.cuda.empty_cache()
+    before = set(runs)
+    t18 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase18-", dir=a.out)
+    try:
+        eighteen = phase18_runs(port, hk, tables14, tmp, held, seventeen)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del tables14, fourteen
+    for label, line in eighteen.items():
+        emit({"phase18": label, **line, "card": card})
+    new = set(runs) - before
+    launches18 = {k: sum(runs[r][0][k] for r in new) for k in TPU_KERNEL}
+    unheld = set(TPU_KERNEL) - {k for r in new for k in runs[r][1]}
+    if unheld or not all(launches18.values()):
+        raise AssertionError(f"phase 18: launches {launches18}, no call of "
+                             f"{sorted(unheld)} held")
+    emit({"phase": "cluster", "launches": launches18,
+          "worker_launches": {r: runs[r][0] for r in new
+                              if r != "chaos_seed3"},
+          "seconds": time.perf_counter() - t18, "card": card})
 
     wc_prof = profile_path(
         lambda: run_wordcount(port, hk, wc, corpora["zipf50k"])[:4],

@@ -45,10 +45,15 @@ FNV-1a; ``Context.read_text`` reads local text files.
 ``JobConfig(lint=...)`` run the static checker (``analysis/``), and
 ``plan/serialize.py`` is the JSON plan every run emits as an event.
 
-``dryad_tpu_torch.service`` is the multi-tenant job service on the
-in-process fleet (``JobService``: fair-share admission, a durable
-journal, SQL submissions over a shared scan registry, standing queries,
-the HTTP front end; ``python -m dryad_tpu_torch.service``).
+``dryad_tpu_torch.service`` is the multi-tenant job service
+(``JobService``: fair-share admission, a durable journal, SQL
+submissions over a shared scan registry, standing queries, the HTTP
+front end; ``python -m dryad_tpu_torch.service``), on the in-process
+fleet or on worker processes that share the card
+(``dryad_tpu_torch.runtime``: ``LocalCluster``, the ``TaskFarm`` with
+straggler speculation, forensics bundles replayed by ``python -m
+dryad_tpu_torch.obs replay``); ``python -m dryad_tpu_torch.chaos`` kills
+a durable daemon and checks what its successor recovers.
 """
 
 from dryad_tpu_torch.api.dataset import Context, Dataset  # noqa: F401

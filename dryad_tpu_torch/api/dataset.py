@@ -54,6 +54,17 @@ runs both before every in-memory or streamed submission
 registered for shipping.  The SQL front end (``sql/``) lowers a query
 into these same calls.
 
+``Context(cluster=LocalCluster(...))`` targets worker processes: the
+driver owns no device, and ``from_columns``, ``read_text`` and
+``from_store`` make deferred sources (``runtime/sources.py``) that a
+plan ships with (``runtime/shiplan.serialize_for_cluster``: the task
+farm and the job service's cluster fleet run such plans per task).  A
+terminal of a cluster Context (``collect``, ``count``, ``to_store``,
+``cache``, ``do_while`` and the others) is a gang SPMD job across the
+workers, which needs an exchange across processes: it raises
+``ValueError`` naming the gang half of ROADMAP Queue 1 item 11 before
+anything is sent, as do the streamed constructors.
+
 Telemetry (``obs/``): a Context installs its ``event_log`` as the
 process's span sink (the latest Context owns it; ``install_trace=False``
 opts out), and ``JobConfig.history_dir`` makes that log archive the job
@@ -264,19 +275,28 @@ class Context:
                  spill_dir: Optional[str] = None,
                  local_debug: bool = False,
                  fn_table: Optional[Mapping[str, Any]] = None,
-                 install_trace: bool = True):
+                 install_trace: bool = True, cluster=None):
         self.config = config or JobConfig()
         self.local_debug = local_debug
         # names of callables registered for shipping: the analyzer's
         # cluster rules treat them as shippable, and a serialized plan
         # (plan/serialize.py) re-binds them by name
         self.fn_table = dict(fn_table or {})
-        self.mesh = Mesh(resolve_device(device), nparts)
-        self.nparts = nparts
+        self.cluster = cluster
         self.spill_dir = spill_dir
         self._event_log = event_log
-        self.executor = Executor(self.mesh, event_log=event_log,
-                                 config=self.config)
+        if cluster is not None:
+            # the driver owns no device: sources are deferred specs that
+            # ship with the plan, and a farm task runs it on ONE worker's
+            # partitions
+            self.mesh = None
+            self.executor = None
+            self.nparts = cluster.devices_per_process
+        else:
+            self.mesh = Mesh(resolve_device(device), nparts)
+            self.nparts = nparts
+            self.executor = Executor(self.mesh, event_log=event_log,
+                                     config=self.config)
         # the process span sink is the LATEST Context's log, a log-less
         # Context's None included: a later job's spans never leak into an
         # earlier job's JSONL
@@ -291,7 +311,16 @@ class Context:
 
     @property
     def device(self):
-        return self.mesh.device
+        """The context's device (None on a cluster Context: its workers
+        hold the devices)."""
+        return self.mesh.device if self.mesh is not None else None
+
+    def _refuse_gang(self) -> None:
+        """A cluster Context's terminals (gang SPMD jobs) raise here,
+        before anything is sent (``runtime.cluster.GANG_LATER``)."""
+        if self.cluster is not None:
+            from dryad_tpu_torch.runtime.cluster import GANG_LATER
+            raise ValueError(GANG_LATER)
 
     # -- pre-submit static analysis (analysis/) ----------------------------
 
@@ -342,6 +371,15 @@ class Context:
         rows; lists of str/bytes become string columns).  The source
         keeps the caller's columns for the oracle (by reference)."""
         str_max_len = str_max_len or self.config.string_max_len
+        if self.cluster is not None:
+            from dryad_tpu_torch.runtime.sources import (DeferredSource,
+                                                         columns_spec)
+            spec = columns_spec(columns, self.nparts, capacity=capacity,
+                                str_max_len=str_max_len)
+            return Dataset(self, E.Source(parents=(),
+                                          data=DeferredSource(spec),
+                                          _npartitions=self.nparts,
+                                          host=dict(columns)))
         pdata = pdata_from_host(columns, self.mesh, capacity=capacity,
                                 str_max_len=str_max_len)
         return Dataset(self, E.Source(parents=(), data=pdata,
@@ -372,6 +410,14 @@ class Context:
         from dryad_tpu_torch.io.providers import expand_paths, \
             read_text_files
         max_line_len = max_line_len or self.config.text_max_line_len
+        if self.cluster is not None:
+            from dryad_tpu_torch.runtime.sources import (DeferredSource,
+                                                         text_spec)
+            spec = text_spec(expand_paths(path), self.nparts,
+                             column=column, max_line_len=max_line_len)
+            return Dataset(self, E.Source(parents=(),
+                                          data=DeferredSource(spec),
+                                          _npartitions=self.nparts))
         data, lens, _ = read_text_files(expand_paths(path), max_line_len)
         # the lines as host bytes only for the oracle: a per-line Python
         # object is what read_text otherwise avoids
@@ -388,6 +434,7 @@ class Context:
         streams (``exec/stream_exec.py``), the device holding
         O(chunk_rows) rows whatever the data size."""
         from dryad_tpu_torch.exec.stream_exec import StreamSource
+        self._refuse_gang()
         return Dataset(self, E.Source(parents=(), data=StreamSource(source),
                                       _npartitions=1))
 
@@ -399,6 +446,7 @@ class Context:
         ``JobConfig.ooc_chunk_autotune``, else
         ``JobConfig.ooc_chunk_rows``)."""
         from dryad_tpu_torch.exec.ooc import ChunkSource
+        self._refuse_gang()
         cr = chunk_rows or self._auto_chunk_rows(path) \
             or self.config.ooc_chunk_rows
         return self.from_stream(ChunkSource.from_store(path, cr))
@@ -439,6 +487,7 @@ class Context:
         it), read by ranged requests."""
         from dryad_tpu_torch.exec.ooc import ChunkSource
         from dryad_tpu_torch.io.providers import expand_uris
+        self._refuse_gang()
         return self.from_stream(ChunkSource.from_text(
             expand_uris(path), chunk_rows or self.config.ooc_chunk_rows,
             max_line_len or self.config.text_max_line_len, column))
@@ -504,13 +553,22 @@ class Context:
         from dryad_tpu_torch.io.store import read_store, store_meta
         meta = store_meta(path)
         auto = self.config.ooc_auto_stream_rows
-        if auto and sum(meta.get("counts", [])) >= auto:
+        if (auto and self.cluster is None
+                and sum(meta.get("counts", [])) >= auto):
             return self.read_store_stream(path)
         pmeta = meta.get("partitioning", {"kind": "none"})
         part = E.Partitioning(pmeta.get("kind", "none"),
                               tuple(pmeta.get("keys", ())))
         if meta["npartitions"] != self.nparts:
             part = E.Partitioning.none()
+        if self.cluster is not None:
+            from dryad_tpu_torch.runtime.sources import (DeferredSource,
+                                                         store_spec)
+            spec = store_spec(path, self.nparts, meta, capacity=capacity)
+            return Dataset(self, E.Source(parents=(),
+                                          data=DeferredSource(spec),
+                                          _npartitions=self.nparts,
+                                          _partitioning=part))
         pdata = read_store(path, self.mesh, capacity=capacity,
                            verify=self.config.store_verify_checksums)
         return self.from_pdata(pdata, partitioning=part)
@@ -527,6 +585,7 @@ class Context:
         keep the per-partition capacity (``with_capacity``).  ``cond``, a
         predicate on the current table collected to the host, stops the
         loop early when it returns False."""
+        self._refuse_gang()
         if n_iters > self.config.max_loop_iterations:
             raise ValueError(
                 f"n_iters={n_iters} exceeds JobConfig.max_loop_iterations="
@@ -911,6 +970,7 @@ class Dataset:
         off, streamed data is spooled once to an unvalidated temporary
         store.  Under ``local_debug`` the oracle's table is cached on the
         host."""
+        self.ctx._refuse_gang()
         if self.ctx.local_debug:
             return Dataset(self.ctx, E.Source(
                 parents=(), data=None, _npartitions=self.ctx.nparts,
@@ -1054,6 +1114,7 @@ class Dataset:
 
     def collect(self) -> Dict[str, Any]:
         """Execute and pull all rows to the host."""
+        self.ctx._refuse_gang()
         if self.ctx.local_debug:
             return _oracle.run_oracle(self.node)
         if self._streaming():
@@ -1074,6 +1135,7 @@ class Dataset:
         ``compression="gzip"`` (default ``JobConfig.store_compression``)
         writes level-1 gzip part files."""
         from dryad_tpu_torch.io.store import write_store
+        self.ctx._refuse_gang()
         if compression is None:
             compression = self.ctx.config.store_compression
         if compression not in (None, "gzip"):
@@ -1133,6 +1195,7 @@ class Dataset:
         In-memory execution only: local_debug and streamed plans raise
         ValueError (record a JSONL and use ``python -m
         dryad_tpu_torch.obs analyze`` instead)."""
+        self.ctx._refuse_gang()
         if self.ctx.local_debug:
             raise ValueError(
                 "EXPLAIN ANALYZE needs the executor: a local_debug context "
@@ -1199,6 +1262,7 @@ class Dataset:
     # -- terminal scalars --------------------------------------------------
 
     def count(self) -> int:
+        self.ctx._refuse_gang()
         if self.ctx.local_debug:
             t = _oracle.run_oracle(self.node)
             return len(next(iter(t.values()), ()))
@@ -1212,6 +1276,7 @@ class Dataset:
         package does: min / max over the non-empty partitions, the mean
         weighted by the counts, None for an empty dataset.  Under
         ``local_debug``, the oracle's aggregate of the column."""
+        self.ctx._refuse_gang()
         if self.ctx.local_debug:
             t = _oracle.run_oracle(self.node)
             return _oracle._agg(kind, list(t[column]))

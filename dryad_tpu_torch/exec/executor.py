@@ -608,6 +608,15 @@ class Executor:
         # the Chrome traces of the runs profiled under
         # JobConfig.profile_dir, in run order
         self.profile_paths: List[str] = []
+        # whether a Run ends with a job_done event: a farm worker's
+        # executor runs one task of a job, not a job (runtime/worker.py)
+        self._emit_job_done = True
+
+    def apply_config(self, config) -> None:
+        """Re-point a persistent executor at a new job's JobConfig (a
+        worker process keeps one executor across the tasks it runs; its
+        slot feedback and probe caches carry over)."""
+        self.config = config or JobConfig()
 
     def _tally(self, run, name: str) -> None:
         """Count one ``name`` ("host_reads" or "probes_run") for ``run``

@@ -240,14 +240,19 @@ class Run:
                      "done": len(reach & set(self._results)),
                      "total": len(reach), "pct": 100.0})
         # "metrics" are the process's cumulative counters (the Prometheus
-        # model), not this job's deltas
-        done = {"event": "job_done", "wall_s": round(time.time() - t0, 4),
-                "stages": len(self.graph.stages), "replays": self.failures,
-                "metrics": REGISTRY.snapshot()}
-        trace_id = getattr(jsp, "trace_id", None)
-        if trace_id:
-            done["trace"] = trace_id
-        self._event(done)
+        # model), not this job's deltas.  A farm worker's executor sets
+        # _emit_job_done=False (runtime/worker.py): a 16-task farm is one
+        # job, not 16
+        if getattr(self.ex, "_emit_job_done", True):
+            done = {"event": "job_done",
+                    "wall_s": round(time.time() - t0, 4),
+                    "stages": len(self.graph.stages),
+                    "replays": self.failures,
+                    "metrics": REGISTRY.snapshot()}
+            trace_id = getattr(jsp, "trace_id", None)
+            if trace_id:
+                done["trace"] = trace_id
+            self._event(done)
         return out
 
     def _settle(self) -> PData:

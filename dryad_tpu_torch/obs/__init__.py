@@ -16,12 +16,13 @@ analysis), the port of ``dryad_tpu/obs``.
   (load in Perfetto) and ``python -m dryad_tpu_torch.obs critical-path
   events.jsonl``.
 
+``obs.flight`` — the worker's flight recorder, its forensics bundles
+and their replay (``python -m dryad_tpu_torch.obs replay <bundle>``).
 ``obs.slo`` — the per-tenant SLO tracker of the job service (not
-imported here, as in the JAX package).  The forensics bundles and their
-replay (``obs/flight.py``) come with the cluster runtime (ROADMAP Queue
-1 item 11).
+imported here, as in the JAX package).
 """
 
+from dryad_tpu_torch.obs import flight  # noqa: F401
 from dryad_tpu_torch.obs import history  # noqa: F401
 from dryad_tpu_torch.obs import profile  # noqa: F401
 from dryad_tpu_torch.obs import trace  # noqa: F401
@@ -29,6 +30,8 @@ from dryad_tpu_torch.obs.analyze import analyze_events  # noqa: F401
 from dryad_tpu_torch.obs.chrome import chrome_trace  # noqa: F401
 from dryad_tpu_torch.obs.critical_path import critical_path, \
     render_text  # noqa: F401
+from dryad_tpu_torch.obs.flight import capture_bundle, load_bundle, \
+    persist_bundle, replay_bundle  # noqa: F401
 from dryad_tpu_torch.obs.history import archive_job, \
     history_index  # noqa: F401
 from dryad_tpu_torch.obs.metrics import REGISTRY, Registry, \
@@ -42,5 +45,6 @@ __all__ = ["trace", "Span", "span", "start", "finish", "tracing",
            "install", "current_ctx", "ctx_of", "tracing_enabled",
            "REGISTRY", "Registry", "metrics_dump", "metrics_from_events",
            "chrome_trace", "critical_path", "render_text",
-           "analyze_events", "profile", "ResourceSampler",
+           "analyze_events", "flight", "capture_bundle", "persist_bundle",
+           "load_bundle", "replay_bundle", "profile", "ResourceSampler",
            "diagnose_events", "history", "archive_job", "history_index"]

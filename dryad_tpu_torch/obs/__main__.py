@@ -15,14 +15,19 @@ The post-hoc tools over recorded telemetry:
                      ``latency_waterfall`` events (obs/latency.py);
                      with ``--job`` also renders that job's phase
                      waterfall bar
+* ``replay``         re-execute a task-failure forensics bundle
+                     (obs/flight.py) in-process — on the device type
+                     the task ran on, or ``--device`` — and print
+                     whether the recorded failure reproduced
 * ``history``        list a job-history directory with cross-run deltas
 
-``replay`` (re-executing a task-failure forensics bundle) comes with
-``obs/flight.py``.  ``trace`` / ``critical-path`` / ``metrics`` /
-``analyze`` / ``latency`` accept ``--job <id>``: a multi-job JSONL
-(every record job-tagged) is filtered to that one job's records first.
+``trace`` / ``critical-path`` / ``metrics`` / ``analyze`` / ``latency``
+accept ``--job <id>``: a multi-job JSONL (every record job-tagged) is
+filtered to that one job's records first.
 
-Exit codes: 0 success, 2 malformed input (missing/unreadable files,
+Exit codes: 0 success (for ``replay``: the recorded failure was
+REPRODUCED, or a bundle without a recorded error ran clean), 1 a replay
+that did not reproduce, 2 malformed input (missing/unreadable files,
 empty event streams, a --job id matching no records).
 """
 
@@ -36,7 +41,7 @@ import sys
 # the post-hoc tool surface (``python -m dryad_tpu_torch.analysis
 # --selfcheck`` checks that docs/observability.md names each)
 OBS_COMMANDS = ("trace", "critical-path", "metrics", "analyze",
-                "latency", "history")
+                "latency", "replay", "history")
 
 
 def _fail(msg: str) -> int:
@@ -52,6 +57,47 @@ def _load_events(path: str):
     from dryad_tpu_torch.utils.viewer import _read_jsonl
     events = _read_jsonl(path)
     return events or None
+
+
+def _cmd_replay(args) -> int:
+    from dryad_tpu_torch.obs import flight
+    try:
+        bundle = flight.load_bundle(args.bundle)
+    except Exception as e:
+        return _fail(f"cannot load bundle {args.bundle!r}: {e}")
+    device = args.device or bundle.get("device") or "cuda"
+    rec = bundle.get("error") or {}
+    print(f"replaying {bundle.get('kind', 'task')} "
+          f"{bundle.get('task')} of job {bundle.get('job')} "
+          f"(worker {bundle.get('worker')}, {bundle.get('nparts')} "
+          f"partition(s) on {device})")
+    if rec:
+        print(f"recorded : {rec.get('type')}: {rec.get('message')}")
+    try:
+        flight.replay_bundle(bundle, device=device)
+    except Exception as e:
+        if args.reraise:
+            raise
+        got_t, got_m = type(e).__name__, str(e)
+        print(f"replayed : {got_t}: {got_m}")
+        # message match: exact, or a NON-EMPTY substring either way — an
+        # empty side must not make every same-type exception count
+        rm = rec.get("message") or ""
+        same = (got_t == rec.get("type")
+                and (rm == got_m or (bool(rm) and rm in got_m)
+                     or (bool(got_m) and got_m in rm)))
+        print(f"verdict  : "
+              f"{'REPRODUCED' if same else 'DIFFERENT FAILURE'}")
+        if not same and rec:
+            import traceback
+            traceback.print_exc()
+        return 0 if same else 1
+    if rec:
+        print("replayed : task completed WITHOUT error — the recorded "
+              "failure did not reproduce (environment difference?)")
+        return 1
+    print("replayed : task completed without error")
+    return 0
 
 
 def _cmd_history(args) -> int:
@@ -113,6 +159,17 @@ def main(argv=None) -> int:
     la.add_argument("--json", action="store_true",
                     help="machine-readable snapshot payload")
 
+    r = sub.add_parser("replay",
+                       help="re-execute a task-failure forensics bundle "
+                            "in-process (obs/flight.py)")
+    r.add_argument("bundle", help="bundle path (from the raised error "
+                                  "or a task_forensics event)")
+    r.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                   help="replay on this device type (default: the one "
+                        "the task ran on)")
+    r.add_argument("--raise", dest="reraise", action="store_true",
+                   help="re-raise the reproduced exception (pdb)")
+
     h = sub.add_parser("history",
                        help="list a job-history directory "
                             "(obs/history.py) with cross-run deltas")
@@ -123,6 +180,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.cmd == "history":
         return _cmd_history(args)
+    if args.cmd == "replay":
+        return _cmd_replay(args)
 
     events = _load_events(args.events)
     if events is None:

@@ -15,17 +15,27 @@ compiler (``$CC``, else ``cc``) into ``build/host/`` at first use, named
 by the same kind of digest, and loads it with ``ctypes``.  A failed
 build raises with the compiler's message.  Each library is built and
 loaded once per process, under a lock (the job service's fleet threads
-may be the first to need a kernel at once), and every compiler writes a
-temp file of its own (process, thread and a counter in its name) that is
-renamed into place, so two processes building at once never load a torn
-file.  ``compile_seconds()`` is the
-process's total wall spent compiling (nvcc and cc): the executor reports
-each stage attempt's share as its ``compile_s``.
+may be the first to need a kernel at once), and once per build
+directory across processes: the compiling process holds an exclusive
+``flock`` on a ``.<directory>.lock`` file beside it, so the worker
+processes of a cluster started on a fresh checkout build each library
+once and the others load it.  Every compiler still writes a temp file
+of its own (process, thread and a counter in its name) that is renamed
+into place, so no process ever loads a torn file.  The names stay
+unique because the lock is advisory: where ``flock`` does not exclude
+(some network and FUSE file systems grant it to every caller), two
+processes may both compile a library, and each must rename a whole
+file of its own into place.
+``compile_seconds()`` is the process's total wall spent compiling (nvcc
+and cc): the executor reports each stage attempt's share as its
+``compile_s``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import itertools
 import os
@@ -124,17 +134,30 @@ def _tmp_of(path: Path) -> Path:
                             f"{next(_TMP_SEQ)}.tmp")
 
 
+@contextlib.contextmanager
+def _dir_lock(d: Path):
+    """One compiling process per directory: an exclusive flock on
+    ``.<name>.lock`` beside the directory ``d`` for the scope (released
+    when the file closes, a killed holder's too); ``d`` holds only the
+    libraries and their logs."""
+    d.mkdir(parents=True, exist_ok=True)
+    with open(d.parent / f".{d.name}.lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        yield
+
+
 def build(names: Iterable[str] = tuple(KERNELS)) -> Dict[str, str]:
     """Compile the named kernels that have no current library, one nvcc
     process per source, all running together.  Returns kernel -> the
     compiler's output (register and shared-memory use from -Xptxas -v),
     read from the build log when the library already existed."""
-    with _LIB_LOCK:
+    with _LIB_LOCK, _dir_lock(BUILD_DIR):
         return _build(list(names))
 
 
 def _build(names) -> Dict[str, str]:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    """Compile the missing ones (the caller holds the directory's
+    lock: a library another process built meanwhile exists now)."""
     t0 = time.perf_counter()
     procs = {}
     for name in names:
@@ -187,6 +210,19 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
+def _compile_host(name: str, path: Path) -> None:
+    tmp = _tmp_of(path)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_cc(), *CC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.c")],
+        capture_output=True, text=True)
+    _add_compile_s(time.perf_counter() - t0)
+    if proc.returncode != 0:
+        raise RuntimeError(f"building {name}.c failed:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, path)
+
+
 def _cc() -> str:
     cc = os.environ.get("CC") or shutil.which("cc") or shutil.which("gcc")
     if cc is None:
@@ -215,20 +251,9 @@ def host_library(name: str) -> ctypes.CDLL:
             return lib
         path = _host_lib_path(name)
         if not path.exists():
-            HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            # another process may build the same library at once: each
-            # writes its own temp file and renames it into place
-            tmp = _tmp_of(path)
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_cc(), *CC_FLAGS, "-o", str(tmp),
-                 str(_CSRC / f"{name}.c")],
-                capture_output=True, text=True)
-            _add_compile_s(time.perf_counter() - t0)
-            if proc.returncode != 0:
-                raise RuntimeError(f"building {name}.c failed:\n"
-                                   f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, path)
+            with _dir_lock(HOST_BUILD_DIR):
+                if not path.exists():   # another process built it
+                    _compile_host(name, path)
         lib = ctypes.CDLL(str(path))
         for fn, (argtypes, restype) in HOST[name].items():
             f = getattr(lib, fn)

@@ -1,4 +1,30 @@
-"""The port of ``dryad_tpu/runtime``, so far only the pure helpers of
-``shiplan.py`` that the job service's in-process plan cache uses.  The
-cluster runtime (the worker gang, the task farm, the cluster's streamed
-runtime) comes with ROADMAP Queue 1 item 11."""
+"""Multi-process runtime — the port of ``dryad_tpu/runtime``: the
+per-node worker service, the driver-side control plane, the task farm
+with straggler speculation, and plan shipping.
+
+The counterpart of the reference's layers 2/4/5 (SURVEY.md §1): job
+submission (LinqToDryad/LocalJobSubmission.cs:97-302), the cluster
+interface (ClusterInterface/Interfaces.cs:324,491), and the per-node
+daemon (ProcessService/ProcessService.cs:389).  Each worker runs farm
+tasks on its own device (the CUDA card by default; several workers
+time-share one card).  The gang half — SPMD jobs across the workers
+(``LocalCluster.execute``, a cluster Context's terminals), the SSH
+backend and the cluster's streamed runtime — needs an exchange across
+processes and comes with ROADMAP Queue 1 item 11.
+"""
+
+from dryad_tpu_torch.runtime.cluster import (ClusterJobError, LocalCluster,
+                                             WorkerFailure)
+from dryad_tpu_torch.runtime.interfaces import (ClusterBackend,
+                                                cluster_backends,
+                                                make_cluster,
+                                                register_cluster)
+from dryad_tpu_torch.runtime.sources import DeferredSource
+
+# the built-in backend registers here (Interfaces.cs:545 role): "local"
+# = worker processes on this box
+register_cluster("local", LocalCluster)
+
+__all__ = ["LocalCluster", "WorkerFailure", "ClusterJobError",
+           "DeferredSource", "ClusterBackend", "register_cluster",
+           "make_cluster", "cluster_backends"]

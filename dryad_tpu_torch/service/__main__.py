@@ -3,8 +3,10 @@ port of ``dryad_tpu/service/__main__.py``.
 
 * ``serve``    start the persistent daemon + HTTP front end and block
                (Ctrl-C drains and stops): the in-process fleet on the
-               CUDA card, or on the CPU with ``--device cpu`` (the
-               cluster fleet, ``--cluster``, comes with ROADMAP item 11)
+               CUDA card, or on the CPU with ``--device cpu``;
+               ``--cluster N`` runs the fleet on N worker processes
+               (``--devices-per-process`` partitions each, on
+               ``--device``)
 * ``submit``   submit a registered app — or a SQL query over the
                daemon's catalog with ``--sql "SELECT ..."`` (serve
                ``--catalog cat.json`` registers the tables) — to a
@@ -55,14 +57,24 @@ def _cmd_serve(args) -> int:
                 tenants = ServiceConfig.tenants_from_json(json.load(f))
         except (OSError, ValueError, TypeError) as e:
             return _fail(f"cannot load --tenants {args.tenants!r}: {e}")
+    cluster = None
+    if args.cluster:
+        from dryad_tpu_torch.runtime.cluster import LocalCluster
+        cluster = LocalCluster(
+            n_processes=args.cluster,
+            devices_per_process=args.devices_per_process,
+            device=args.device)
     cfg = ServiceConfig(service_dir=args.dir, slots=args.slots,
                         tenants=tenants,
+                        task_timeout_s=args.task_timeout_s,
                         catalog_path=args.catalog)
-    svc = JobService(cfg, device=args.device)
+    svc = JobService(cfg, cluster=cluster, own_cluster=cluster is not None,
+                     device=args.device)
     srv, port = serve(svc, port=args.port)
     print(f"dryad job service on http://127.0.0.1:{port}/ "
-          f"(fleet: in-process, device: {svc.device}, "
-          f"slots: {svc.slots}, dir: {svc.root})", flush=True)
+          f"(fleet: {'cluster' if cluster else 'in-process'}, "
+          f"device: {args.device}, slots: {svc.slots}, dir: {svc.root})",
+          flush=True)
     try:
         srv.serve_forever()
     except KeyboardInterrupt:
@@ -159,10 +171,16 @@ def main(argv=None) -> int:
                    help="service state root (jobs/, history/, cache/)")
     s.add_argument("--port", type=int, default=0)
     s.add_argument("--slots", type=int, default=2,
-                   help="in-process fleet concurrency")
+                   help="in-process fleet concurrency (no --cluster)")
+    s.add_argument("--cluster", type=int, default=0, metavar="N",
+                   help="run an N-process LocalCluster worker fleet")
+    s.add_argument("--devices-per-process", type=int, default=2,
+                   help="logical partitions of each worker (--cluster)")
+    s.add_argument("--task-timeout-s", type=float, default=600.0)
     s.add_argument("--device", default="cuda",
-                   help="the device the fleet runs on (default cuda; "
-                        "cpu runs the kernels' plain versions)")
+                   help="the device the fleet runs on, the workers' with "
+                        "--cluster (default cuda; cpu runs the kernels' "
+                        "plain versions)")
     s.add_argument("--tenants", default=None,
                    help='JSON file {"tenant": {"share": 2, ...}, ...}')
     s.add_argument("--catalog", default=None,

@@ -1,23 +1,33 @@
-"""The persistent job-service daemon on the in-process fleet — the
-port of ``dryad_tpu/service/daemon.py`` without its cluster fleet
-(``_ClusterFleet``, ``submit_tasks`` and ``cluster=`` come with ROADMAP
-Queue 1 item 11).
+"""The persistent job-service daemon — the port of
+``dryad_tpu/service/daemon.py``: one process, many concurrent jobs, one
+shared fleet.
 
-One process, many concurrent jobs, one shared device: ``JobService``
-admits jobs from many tenants through the fair-share
+``JobService`` admits jobs from many tenants through the fair-share
 :class:`~dryad_tpu_torch.service.admission.AdmissionQueue`, gives each
 job its own driver state (:class:`~dryad_tpu_torch.service.job.
 ServiceJob`, and the job's own ``exec/recovery.Run``), and shares what
-should be shared: ``slots`` fleet threads over ONE ``Executor`` on one
-mesh (its slot feedback and probe caches), the :class:`FileCache` of
-serialized SQL plans, and the scan registry (``_load_table``: one
-loaded PData per table and content fingerprint, the caller that
-``Catalog.dataset(loader=)`` was written for).  Every fleet thread
-launches on the device's default stream, so kernel launches from two
-jobs run in the stream's order.
+should be shared.  Two fleet shapes:
 
-``JobService(config, device="cuda")`` runs on the CUDA card; without
-CUDA it raises unless the caller passes ``device="cpu"`` (the tests do).
+* **in-process** (``cluster=None``): ``slots`` fleet threads over ONE
+  ``Executor`` on one mesh of ``device`` (its slot feedback and probe
+  caches), the :class:`FileCache` of serialized SQL plans, and the scan
+  registry (``_load_table``: one loaded PData per table and content
+  fingerprint, the caller that ``Catalog.dataset(loader=)`` was written
+  for).  Every fleet thread launches on the device's default stream, so
+  kernel launches from two jobs run in the stream's order.
+  ``JobService(config, device="cuda")`` runs on the CUDA card; without
+  CUDA it raises unless the caller passes ``device="cpu"``.
+* **cluster** (``cluster=LocalCluster(...)``): a single multiplexing
+  dispatch loop over the cluster's control sockets — tasks from MANY
+  jobs interleave on the shared worker processes (each on its own
+  device, their executors persisting across jobs), replies route back
+  to each job's driver state by the envelope's ``protocol.JOB_ID`` tag.
+  The daemon holds no device: a job's plan and deferred sources are
+  built here (``_build_farm_payload``, ``_build_sql_farm_payload``, the
+  serialized plan memoized in the FileCache) and its sources are
+  materialized by the workers.  ``submit_tasks`` submits a serialized
+  plan with per-task sources.  Standing queries and ``submit_callable``
+  need the in-process fleet.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import select
 import threading
 import time
 import traceback
@@ -33,7 +44,7 @@ from typing import Callable, Dict, List, Optional
 from dryad_tpu_torch.obs.metrics import (REGISTRY, family_counter,
                                          family_gauge, family_histogram)
 from dryad_tpu_torch.service.admission import AdmissionQueue
-from dryad_tpu_torch.service.apps import get_app
+from dryad_tpu_torch.service.apps import get_app, task_capacity
 from dryad_tpu_torch.service.job import ServiceJob
 from dryad_tpu_torch.service.tenancy import (MalformedJobError,
                                              ServiceConfig,
@@ -50,11 +61,6 @@ _NAME_RE = re.compile(r"^[A-Za-z0-9][A-Za-z0-9._-]{0,63}$")
 # the logical partitions of every job (a Context's default)
 NPARTS = 8
 
-# what a cluster argument is answered with
-_CLUSTER_LATER = ("the job service's cluster fleet is not ported yet "
-                  "(ROADMAP Queue 1 item 11): the port runs the "
-                  "in-process fleet only")
-
 
 def _now() -> float:
     return time.time()
@@ -66,23 +72,32 @@ def _pkg_version() -> str:
 
 
 class JobService:
-    """See module docstring.  ``config`` is a ServiceConfig; jobs run on
+    """See module docstring.  ``config`` is a ServiceConfig; ``cluster``
+    (optional) a started ClusterBackend whose workers serve the fleet —
+    pass ``own_cluster=True`` if the service should shut it down on
+    close; a job's tasks then run on ``cluster.devices_per_process``
+    partitions of one worker's device.  Without a cluster, jobs run on
     ``NPARTS`` logical partitions of ``device`` through one shared
-    executor; ``catalog`` (an ``sql.Catalog``) wins over
-    ``ServiceConfig.catalog_path``.  ``cluster`` is refused (ValueError):
-    the cluster fleet comes with ROADMAP item 11."""
+    executor.  ``catalog`` (an ``sql.Catalog``) wins over
+    ``ServiceConfig.catalog_path``."""
 
-    def __init__(self, config: ServiceConfig, device="cuda",
-                 catalog=None, cluster=None):
-        if cluster is not None:
-            raise ValueError(_CLUSTER_LATER)
+    def __init__(self, config: ServiceConfig, cluster=None,
+                 own_cluster: bool = False, device="cuda", catalog=None):
         from dryad_tpu_torch.exec.executor import Executor
         from dryad_tpu_torch.parallel.mesh import Mesh, resolve_device
         from dryad_tpu_torch.utils.config import JobConfig
-        # the device first: without CUDA nothing is created on disk
-        self.mesh = Mesh(resolve_device(device), NPARTS)
-        self.device = self.mesh.device
-        self.nparts = NPARTS
+        self.cluster = cluster
+        self._own_cluster = own_cluster
+        if cluster is not None:
+            # the workers hold the devices; a job's task runs on one
+            # worker's partitions
+            self.mesh = self.device = None
+            self.nparts = cluster.devices_per_process
+        else:
+            # the device first: without CUDA nothing is created on disk
+            self.mesh = Mesh(resolve_device(device), NPARTS)
+            self.device = self.mesh.device
+            self.nparts = NPARTS
         self.config = config
         self.job_config = config.job_config or JobConfig()
         # SQL front end: the table registry POST /sql resolves against
@@ -140,27 +155,40 @@ class JobService:
         self._jobs_lock = threading.Lock()
         self._seq = 0
         self._stopping = False
-        # ONE executor shared by every job (per-job state lives on each
-        # job's Run)
-        self.executor = Executor(self.mesh, config=self.job_config)
-        self._fleet = _LocalFleet(self, config.slots)
-        self.log({"event": "service_started", "fleet": "in-process",
+        if cluster is not None:
+            self.executor = None
+            self._fleet = _ClusterFleet(self)
+        else:
+            # ONE executor shared by every job (per-job state lives on
+            # each job's Run)
+            self.executor = Executor(self.mesh, config=self.job_config)
+            self._fleet = _LocalFleet(self, config.slots)
+        self.log({"event": "service_started",
+                  "fleet": ("cluster" if cluster is not None
+                            else "in-process"),
                   "slots": self.slots, "dir": root,
-                  "device": str(self.device)})
+                  "device": (cluster.device if cluster is not None
+                             else str(self.device))})
         self._fleet.start()
         # standing queries: each refresh is a fair-share job on the shared
-        # executor.  Started after the fleet, so resumed registrations
-        # refresh at once; with a journal they restore in the one
-        # recovery pass below
-        from dryad_tpu_torch.inc.standing import StandingManager
-        self.standing = StandingManager(self, load=self.journal is None)
-        self.standing.start()
+        # executor, so they ride the in-process fleet only.  Started after
+        # the fleet, so resumed registrations refresh at once; with a
+        # journal they restore in the one recovery pass below
+        if cluster is None:
+            from dryad_tpu_torch.inc.standing import StandingManager
+            self.standing = StandingManager(self,
+                                            load=self.journal is None)
+            self.standing.start()
+        else:
+            self.standing = None
         if self.journal is not None:
             from dryad_tpu_torch.service.durable import recover
             self.recovery = recover(self)
 
     @property
     def slots(self) -> int:
+        if self.cluster is not None:
+            return len(self.cluster.sockets)
         return self.config.slots
 
     def _context(self, config=None):
@@ -301,32 +329,53 @@ class JobService:
         clock.mark("precheck")
         params = dict(params or {})
         try:
-            # build (and so validate) the tasks NOW: bad params reject
-            # the SUBMISSION, not the running job
-            tasks = service_app.make_tasks(dict(params), self.nparts)
-            run_local = self._build_local_runner(service_app, params,
-                                                 tasks)
+            if self.cluster is not None:
+                payload = self._build_farm_payload(service_app, params)
+            else:
+                # build (and so validate) the tasks NOW: bad params
+                # reject the SUBMISSION, not the running job
+                tasks = service_app.make_tasks(dict(params), self.nparts)
+                run_local = self._build_local_runner(service_app, params,
+                                                     tasks)
         except (ServiceRejected, DiagnosticError, LintError):
             raise                        # already typed (DTA910/2xx/9xx)
         except (ValueError, TypeError, KeyError, IndexError) as e:
             # the app's builders choking on the PARAMS is a malformed job
             # spec (DTA910); anything else propagates untyped
             raise MalformedJobError(app, e)
-        clock.mark("bind")               # plan build + lint
-        job = self._new_job(app, tenant, priority, 1, params=params,
-                            run_local=run_local, clock=clock)
+        clock.mark("bind")               # plan/payload build + lint
+        if self.cluster is not None:
+            job = self._new_job(app, tenant, priority,
+                                len(payload["sources"]), params=params,
+                                payload=payload,
+                                combine=service_app.combine, clock=clock)
+        else:
+            job = self._new_job(app, tenant, priority, 1, params=params,
+                                run_local=run_local, clock=clock)
         return self._admit(job)
 
-    def submit_tasks(self, *args, **kw) -> str:
-        """Pre-serialized plans with per-task sources run on the cluster
-        fleet only: refused (ValueError) until ROADMAP item 11."""
-        raise ValueError(_CLUSTER_LATER)
+    def submit_tasks(self, plan_json: str, per_task_sources: List[dict],
+                     tenant: str = "default", priority: int = 0,
+                     app: str = "custom",
+                     combine: Optional[Callable] = None) -> str:
+        """Python-API submission of a pre-serialized plan + per-task
+        sources (cluster fleet only) — the raw TaskFarm surface behind
+        the admission queue."""
+        if self.cluster is None:
+            raise ValueError("submit_tasks needs a cluster fleet")
+        job = self._new_job(app, tenant, priority, len(per_task_sources),
+                            payload={"plan": plan_json,
+                                     "sources": list(per_task_sources)},
+                            combine=combine)
+        return self._admit(job, kind="tasks")
 
     def submit_callable(self, fn: Callable, tenant: str = "default",
                         priority: int = 0, app: str = "callable") -> str:
         """In-process submission of a driver callable ``fn(env)`` where
         ``env`` carries the shared ``executor``/``mesh`` and the job's
         ``event`` sink / ``job_id`` / ``config`` (tests and embedders)."""
+        if self.cluster is not None:
+            raise ValueError("submit_callable needs the in-process fleet")
 
         def run_local(service, job, _fn=fn):
             import types
@@ -376,6 +425,10 @@ class JobService:
         if bound.emit_every is not None:
             # continuous queries: an EMIT EVERY clause registers a
             # standing query instead of running once
+            if self.standing is None:
+                raise MalformedJobError("sql", ValueError(
+                    "standing queries (EMIT EVERY) need the "
+                    "in-process fleet"))
             return self.standing.register(query, norm, bound,
                                           tenant=tenant,
                                           priority=priority)
@@ -386,8 +439,12 @@ class JobService:
         semfp = semantic_fingerprint(self.catalog, bound)
         clock.mark("bind")               # parse + bind + fingerprints
         try:
-            run_local, cached = self._build_sql_local_runner(bound, semfp,
-                                                             fp)
+            if self.cluster is not None:
+                payload, limit, cached = \
+                    self._build_sql_farm_payload(bound, semfp, fp)
+            else:
+                run_local, cached = \
+                    self._build_sql_local_runner(bound, semfp, fp)
         except _sql.SchemaOnlyTableError as e:
             # querying a schema-only (EXPLAIN-only) table is a client
             # mistake — the documented DTA910 / HTTP 400, never a 500
@@ -396,9 +453,14 @@ class JobService:
         # a miss spent it on lower/plan/serialize — attribute the whole
         # builder wall to whichever actually dominated it
         clock.mark("cache_lookup" if cached else "bind")
-        job = self._new_job("sql", tenant, priority, 1,
-                            params={"sql": norm}, run_local=run_local,
-                            clock=clock)
+        if self.cluster is not None:
+            job = self._new_job("sql", tenant, priority, 1,
+                                params={"sql": norm}, payload=payload,
+                                combine=_sql_combine(limit), clock=clock)
+        else:
+            job = self._new_job("sql", tenant, priority, 1,
+                                params={"sql": norm}, run_local=run_local,
+                                clock=clock)
         job.event({"event": "sql_query", "query": norm, "catalog": fp,
                    "semantic": semfp, "cached_plan": cached})
         self.log({"event": "sql_query", "job": job.id, "tenant": tenant,
@@ -485,6 +547,48 @@ class JobService:
                                table=name).inc()
         return ent["pdata"]
 
+    def _cluster_context(self):
+        """A cluster Context for lowering and planning a fleet job: ONE
+        task runs on ONE worker's partitions, so its sources and plan
+        are sized to ``devices_per_process``, not the whole cluster."""
+        from dryad_tpu_torch.api.dataset import Context
+        return Context(cluster=self.cluster, config=self.job_config,
+                       install_trace=False)
+
+    def _build_sql_farm_payload(self, bound, semfp: str, fp: str):
+        """(payload, limit, cache_hit) for the cluster fleet.  The
+        FileCache entry holds the SERIALIZED plan plus its deferred
+        source specs verbatim — a warm submission does zero compile work
+        of any kind on the daemon."""
+        import pickle
+
+        from dryad_tpu_torch import sql as _sql
+        key = self._sql_cache_key(semfp, fp)
+        cached = self.plan_cache.get(key)
+        if cached is not None:
+            # pickled, not JSON: inline-table source specs carry numpy
+            # columns.  The cache dir is daemon-owned state (the job
+            # dirs' trust domain) and FileCache's magic + sha256 header
+            # already turns a torn or corrupt entry into a miss
+            meta = pickle.loads(cached)
+            return ({"plan": meta["plan"], "sources": [meta["sources"]]},
+                    meta["limit"], True)
+        from dryad_tpu_torch.plan.planner import plan_query
+        from dryad_tpu_torch.runtime.shiplan import serialize_for_cluster
+        ctx = self._cluster_context()
+        ds, _handles = _sql.lower(ctx, self.catalog, bound)
+        graph = plan_query(ds.node, self.nparts, config=self.job_config)
+        ctx._pre_submit_lint(ds.node, cluster=True, graph=graph)
+        plan_json, specs = serialize_for_cluster(graph, ctx.fn_table)
+        try:
+            self.plan_cache.put(key, pickle.dumps(
+                {"plan": plan_json, "sources": specs,
+                 "limit": bound.limit}))
+        except (pickle.PicklingError, TypeError, AttributeError):
+            pass     # an unpicklable source spec just skips the cache
+        return ({"plan": plan_json, "sources": [specs]}, bound.limit,
+                False)
+
     def _build_sql_local_runner(self, bound, semfp: str, fp: str):
         """(run_local, cache_hit) for the in-process fleet.  A cache
         hit rebuilds the StageGraph from the stored plan JSON
@@ -563,6 +667,51 @@ class JobService:
 
     # -- payload building --------------------------------------------------
 
+    def _plan_cache_key(self, app: str, params: dict) -> str:
+        """Restart-persistent plan-cache key of an app's farm plan: the
+        base JobConfig (planning reads it) and the package version salt
+        it, so a restarted daemon with other config or code never ships
+        an old lowering."""
+        return json.dumps(
+            {"app": app, "nparts": self.nparts, "params": params,
+             "config": repr(self.job_config), "ver": _pkg_version()},
+            sort_keys=True, default=str)
+
+    def _build_farm_payload(self, service_app, params: dict) -> dict:
+        """(plan, per-task sources) for the cluster fleet.  The
+        serialized plan is memoized in the shared FileCache keyed by
+        (app, nparts, params, config, version): the Nth same-shaped
+        submission — across daemon restarts too — pays zero planning
+        (the workers' persistent executors keep their caches).  A miss
+        runs the pre-submit lint/cost gate (JobConfig.lint) like every
+        other submission surface.  Each task's columns ride its source
+        spec; the worker packs them (``runtime/sources.build_source``)."""
+        from dryad_tpu_torch.runtime.sources import columns_spec
+        tasks = service_app.make_tasks(params, self.nparts)
+        cap = task_capacity(tasks, self.nparts)
+        key = self._plan_cache_key(service_app.name, params)
+        cached = self.plan_cache.get(key)
+        if cached is not None:
+            meta = json.loads(cached.decode())
+            plan_json, src_key = meta["plan"], meta["src_key"]
+        else:
+            from dryad_tpu_torch.plan.planner import plan_query
+            from dryad_tpu_torch.runtime.shiplan import \
+                serialize_for_cluster
+            ctx = self._cluster_context()
+            q = service_app.build_query(ctx, tasks[0], params,
+                                        capacity=cap)
+            graph = plan_query(q.node, self.nparts, config=self.job_config)
+            ctx._pre_submit_lint(q.node, cluster=True, graph=graph)
+            plan_json, specs = serialize_for_cluster(graph, ctx.fn_table)
+            (src_key,) = specs.keys()
+            self.plan_cache.put(key, json.dumps(
+                {"plan": plan_json, "src_key": src_key}).encode())
+        sources = [{src_key: columns_spec(
+            t, self.nparts, capacity=cap,
+            str_max_len=service_app.str_max_len)} for t in tasks]
+        return {"plan": plan_json, "sources": sources}
+
     def _build_local_runner(self, service_app, params: dict,
                             tasks: List[dict]) -> Callable:
         """In-process driver: the whole job is ONE admission unit run on
@@ -606,9 +755,10 @@ class JobService:
             j = self.jobs.get(job_id)
         if j is not None:
             return j
-        sq = self.standing.get(job_id)
-        if sq is not None:
-            return sq
+        if self.standing is not None:
+            sq = self.standing.get(job_id)
+            if sq is not None:
+                return sq
         raise KeyError(f"unknown job {job_id!r}")
 
     def status(self, job_id: str, with_result: bool = False) -> dict:
@@ -643,7 +793,8 @@ class JobService:
     def cancel(self, job_id: str) -> bool:
         # a standing id unregisters the continuous query (its persisted
         # registration goes away too — restart will not resume it)
-        if self.standing.get(job_id) is not None:
+        if self.standing is not None \
+                and self.standing.get(job_id) is not None:
             return self.standing.cancel(job_id)
         job = self.job(job_id)
         ok = job.cancel()
@@ -666,8 +817,8 @@ class JobService:
 
     def standing_rows(self) -> List[dict]:
         """Status rows of every registered standing query
-        (``GET /standing``)."""
-        return self.standing.rows()
+        (``GET /standing``); empty on the cluster fleet."""
+        return self.standing.rows() if self.standing is not None else []
 
     # -- durability (service/durable) --------------------------------------
 
@@ -686,6 +837,7 @@ class JobService:
         return kw
 
     def _restore_job(self, spec: dict, n_tasks: int, run_local=None,
+                     payload=None, combine=None,
                      admit: bool = True) -> ServiceJob:
         """Recovery: rebuild one journaled job under its ORIGINAL id
         and seq (fair-share order preserved) and re-admit it past the
@@ -697,7 +849,8 @@ class JobService:
                          os.path.join(self.jobs_dir, spec["id"]),
                          self.job_config, history_dir=self.history_dir,
                          params=dict(spec.get("params") or {}),
-                         run_local=run_local)
+                         run_local=run_local, payload=payload,
+                         combine=combine)
         job.journal = self.journal
         with self._jobs_lock:
             self.jobs[job.id] = job
@@ -721,7 +874,8 @@ class JobService:
             return {"paused": 0, "queued": 0, "already_stopped": True}
         self._stopping = True
         self.log({"event": "handoff_started", "ver": _pkg_version()})
-        self.standing.stop()
+        if self.standing is not None:
+            self.standing.stop()
         paused = queued = 0
         with self._jobs_lock:
             jobs = list(self.jobs.values())
@@ -753,7 +907,8 @@ class JobService:
         self._stopping = True
         if self.journal is not None:
             self.journal.close(clean=False, release_lock=False)
-        self.standing.stop()
+        if self.standing is not None:
+            self.standing.stop()
         for j in list(self.jobs.values()):
             j.pause.set()        # stop in-flight runs at a boundary
         # joined to completion: a successor daemon in the SAME process
@@ -920,7 +1075,8 @@ class JobService:
         # wind the standing scheduler down FIRST so no new refresh jobs
         # race the closing fleet (registrations stay on disk — the next
         # daemon resumes them from their committed watermarks)
-        self.standing.stop()
+        if self.standing is not None:
+            self.standing.stop()
         if cancel_pending:
             for job in self.list_jobs():
                 j = self.jobs.get(job["job"])
@@ -944,6 +1100,8 @@ class JobService:
             self.journal.close(clean=True)
         self.log({"event": "service_stopped"})
         self.log.close()
+        if self._own_cluster and self.cluster is not None:
+            self.cluster.shutdown()
 
     def __enter__(self) -> "JobService":
         return self
@@ -1077,3 +1235,285 @@ class _LocalFleet:
             else:
                 job.result = None
             svc._job_terminal(job)
+
+
+class _ClusterFleet:
+    """Cluster fleet: ONE dispatch loop multiplexing tasks from many
+    concurrent jobs over the shared worker processes (the multi-job
+    extension of runtime/farm.TaskFarm's single-run loop).  Frames route back to
+    their job by the envelope's ``protocol.JOB_ID`` tag; a worker loss
+    costs only its in-flight tasks (reassigned through the admission
+    queue, fair-share preserved); a task failure fails only ITS job —
+    forensics land under that job's directory and every other job keeps
+    running."""
+
+    def __init__(self, service: JobService):
+        self.service = service
+        self.cl = service.cluster
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._inflight: Dict[int, tuple] = {}      # pid -> (job, idx, t0)
+        self._idle: set = set()
+        self._ping_t: Dict[int, float] = {}
+        self._dead: set = set()
+
+    def wake(self) -> None:
+        pass                      # the loop polls at 100ms
+
+    def start(self) -> None:
+        from dryad_tpu_torch.runtime import protocol
+        job = self.cl.next_job_id()
+        for pid, sock in list(self.cl.sockets.items()):
+            try:
+                sock.setblocking(True)
+                protocol.send_msg(sock, {"cmd": "ping", "job": job})
+                sock.setblocking(False)
+                self._ping_t[pid] = _now()
+            except OSError:
+                self._dead.add(pid)
+        self._thread = threading.Thread(target=self._loop,
+                                        name="fleet-cluster", daemon=True)
+        self._thread.start()
+
+    def stop(self, timeout: Optional[float] = 15) -> None:
+        """``timeout=None`` joins to completion (``crash()``)."""
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=timeout)
+
+    # -- dispatch ----------------------------------------------------------
+
+    def _wire_of(self, job: ServiceJob) -> int:
+        """The job's wire id (the ``protocol.JOB_ID`` tag on its task
+        envelopes).  Reply routing goes through the per-worker in-flight
+        record — which holds the ServiceJob itself — so no wire-id→job
+        map needs to exist (or be pruned) daemon-side."""
+        w = getattr(job, "_wire", None)
+        if w is None:
+            w = self.cl.next_job_id()
+            job._wire = w
+        return w
+
+    def _dispatch(self, job: ServiceJob, idx: int, pid: int) -> bool:
+        from dryad_tpu_torch.obs import trace
+        from dryad_tpu_torch.runtime import protocol
+        wire = self._wire_of(job)
+        job.mark_started()
+        sp = getattr(job, "_span", None)
+        if sp is None and job.log.level >= 2:
+            sp = trace.start(f"job {job.id}", "farm", sink=job,
+                             job=job.id, tasks=job.n_tasks)
+            job._span = sp
+        sock = self.cl.sockets[pid]
+        msg = protocol.attach_trace(
+            protocol.attach_job(
+                {"cmd": "run_task", "plan": job.payload["plan"],
+                 "sources": job.payload["sources"][idx], "task": idx,
+                 "config": job.config}, wire),
+            trace.ctx_of(sp) if sp is not None else None)
+        try:
+            sock.setblocking(True)
+            protocol.send_msg(sock, msg)
+            sock.setblocking(False)
+        except OSError:
+            self._worker_lost(pid)
+            return False
+        self._inflight[pid] = (job, idx, _now())
+        self._idle.discard(pid)
+        job.mark_phase("dispatch")   # first send only (mark_once):
+        # later tasks' sends land inside the run segment, not carved out
+        family_gauge(REGISTRY, "queue_depth",
+                     job=job.id).set(len(job.pending))
+        return True
+
+    def _worker_lost(self, pid: int) -> None:
+        self._dead.add(pid)
+        self._idle.discard(pid)
+        self._ping_t.pop(pid, None)
+        unit = self._inflight.pop(pid, None)
+        if unit is not None:
+            job, idx, _t0 = unit
+            if job.state == "running":
+                job.event({"event": "task_reassigned", "task": idx,
+                           "worker": pid})
+                self.service.admission.requeue(job, idx)
+            else:
+                self.service.admission.on_done(job, idx, 0.0)
+
+    def _fail_job(self, job: ServiceJob, idx: int, pid: int,
+                  reply: dict, wall: float) -> None:
+        from dryad_tpu_torch.obs import flight
+        bpath = None
+        try:
+            bpath = flight.persist_reply_forensics(
+                reply, job.config, job.log, job.event)
+        except Exception:
+            pass
+        err = str(reply.get("error") or "task failed")
+        if bpath:
+            err += (f"\nforensics bundle: {bpath}\n  reproduce locally: "
+                    f"python -m dryad_tpu_torch.obs replay {bpath}")
+        self.service.admission.on_done(job, idx, wall, ok=False)
+        job.pending.clear()
+        job.mark_phase("run")
+        job.finish(False, error=f"task {idx} failed on worker {pid}:\n"
+                                + err)
+        self.service.admission.retire(job)
+        family_counter(REGISTRY, "jobs_failed", job=job.id).inc()
+        family_gauge(REGISTRY, "queue_depth", job=job.id).set(0)
+        self.service._job_terminal(job)
+
+    def _on_reply(self, pid: int, reply: dict) -> None:
+        from dryad_tpu_torch.obs import trace
+        from dryad_tpu_torch.runtime import protocol
+        if "pong" in reply:
+            self._ping_t.pop(pid, None)
+            # a stale pong (buffered from a pre-daemon epoch of a
+            # reused cluster) must not idle a worker that is BUSY with
+            # our task — the next dispatch would clobber its in-flight
+            # record and strand the task forever
+            if pid not in self._inflight:
+                self._idle.add(pid)
+            return
+        if "hb" in reply:
+            return
+        unit = self._inflight.get(pid)
+        if (unit is None or getattr(unit[0], "_wire", None)
+                != protocol.extract_job(reply)):
+            # stale frame from an earlier epoch of this cluster (e.g. a
+            # losing speculative duplicate of a pre-daemon TaskFarm
+            # run): ignore it WITHOUT touching the in-flight record or
+            # the idle set — popping here would silently discard a live
+            # task and double-book the still-busy worker
+            return
+        job, idx, t0 = unit
+        self._inflight.pop(pid)
+        self._idle.add(pid)
+        idx = reply.get("task", idx)
+        wall = _now() - t0
+        if job.state != "running":
+            # cancelled/failed mid-flight: charge fair-share, drop reply
+            self.service.admission.on_done(job, idx, wall,
+                                           ok=bool(reply.get("ok")))
+            return
+        for e in reply.get("events") or ():
+            job.event(dict(e, worker=pid))
+        if not reply.get("ok"):
+            self._fail_job(job, idx, pid, reply, wall)
+            return
+        if reply.get("rewrites"):
+            job.rewrites += int(reply["rewrites"])
+        done_ev = {"event": "task_done", "task": idx, "worker": pid,
+                   "wall_s": round(wall, 4)}
+        if reply.get("launches"):
+            # the kernels the task launched in its worker (a field of the
+            # port's: the workers' counters are in other processes)
+            done_ev["launches"] = reply["launches"]
+        job.event(done_ev)
+        family_histogram(REGISTRY, "task_seconds",
+                         job=job.id).observe(wall)
+        family_counter(REGISTRY, "tasks", job=job.id).inc()
+        self.service.admission.on_done(job, idx, wall, ok=True)
+        done = job.task_result(idx, reply.get("table"))
+        if done:
+            trace.finish(getattr(job, "_span", None),
+                         done=job.n_tasks)
+            job.mark_phase("run")    # last reply landed; finish() owns
+            job.finish(True)         # the fetch (combine) segment
+            self.service.admission.retire(job)
+            family_counter(REGISTRY, "jobs", job=job.id).inc()
+            family_gauge(REGISTRY, "queue_depth", job=job.id).set(0)
+            self.service._job_terminal(job)
+
+    # -- the loop ----------------------------------------------------------
+
+    def _live_pids(self) -> List[int]:
+        return [p for p in self.cl.sockets if p not in self._dead]
+
+    def _loop(self) -> None:
+        svc = self.service
+        while not self._stop.is_set():
+            try:
+                self._tick(svc)
+            except Exception:
+                # the ONE dispatch thread must survive anything — a
+                # transient error (full disk killing a log write, a
+                # socket edge case) wedging it would strand every job
+                # while submissions keep being accepted
+                try:
+                    svc.log({"event": "service_error", "error":
+                             "fleet loop error (recovered):\n"
+                             + traceback.format_exc()[-2000:]})
+                except Exception:
+                    pass
+                time.sleep(0.2)
+
+    def _tick(self, svc) -> None:
+        """One iteration of the dispatch loop: reap timeouts/deaths,
+        fill idle workers fair-share, drain replies (~100ms)."""
+        timeout_s = svc.config.task_timeout_s
+        now = _now()
+        # per-task timeout: a wedged worker is retired (its socket
+        # severed) and the task reassigns elsewhere — farm semantics
+        for pid, (job, idx, t0) in list(self._inflight.items()):
+            if now - t0 > timeout_s:
+                job.event({"event": "task_timeout", "task": idx,
+                           "worker": pid, "timeout_s": timeout_s})
+                self.cl.retire_worker(pid)
+                self._worker_lost(pid)
+        # startup-ping timeout: a worker that never pongs would
+        # otherwise just never enter the idle set — with every
+        # worker wedged that way jobs would queue forever with no
+        # verdict; retire it like a wedged task
+        for pid, t0 in list(self._ping_t.items()):
+            if now - t0 > min(30.0, timeout_s):
+                svc.log({"event": "worker_ping_timeout",
+                         "worker": pid})
+                self.cl.retire_worker(pid)
+                self._worker_lost(pid)
+        # process deaths
+        for pid, proc in self.cl.worker_procs().items():
+            if pid not in self._dead and proc.poll() is not None:
+                self._worker_lost(pid)
+        live = self._live_pids()
+        if not live:
+            for row in svc.list_jobs():
+                j = svc.jobs.get(row["job"])
+                if j is not None and j.state in ("queued", "running"):
+                    j.pending.clear()
+                    j.finish(False, error="all fleet workers died"
+                             + self.cl.log_tails())
+                    svc.admission.retire(j)
+                    svc._job_terminal(j)
+            time.sleep(0.5)
+            return
+        # fill idle workers from the fair-share queue (belt+braces:
+        # a worker with an in-flight task is never dispatch-eligible
+        # even if something wrongly idled it)
+        self._idle -= set(self._inflight)
+        while self._idle:
+            unit = svc.admission.next_unit()
+            if unit is None:
+                break
+            job, idx = unit
+            if job.state == "cancelled":
+                svc.admission.on_done(job, idx, 0.0)
+                svc.admission.retire(job)
+                continue
+            if not self._dispatch(job, idx, min(self._idle)):
+                svc.admission.requeue(job, idx)
+        # replies
+        socks = {self.cl.sockets[p]: p for p in self._live_pids()}
+        if not socks:
+            return
+        try:
+            ready, _, _ = select.select(list(socks), [], [], 0.1)
+        except (OSError, ValueError):
+            return
+        for sock in ready:
+            pid = socks[sock]
+            frames, ok = self.cl.recv_frames_any(pid)
+            for reply in frames:
+                self._on_reply(pid, reply)
+            if not ok:
+                self._worker_lost(pid)

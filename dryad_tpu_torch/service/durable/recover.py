@@ -1,7 +1,6 @@
 """Daemon-start recovery — the port of
-``dryad_tpu/service/durable/recover.py`` for the in-process fleet:
-replay the journal over the last checkpoint and restore everything the
-previous daemon was holding.
+``dryad_tpu/service/durable/recover.py``: replay the journal over the
+last checkpoint and restore everything the previous daemon was holding.
 
 One pass restores four kinds of state:
 
@@ -130,9 +129,10 @@ def _forensics(service, spec: Dict[str, Any]) -> str:
 
 
 def _rebuild_runner(service, spec: Dict[str, Any]):
-    """The job's ``run_local``, rebuilt from the spec through the paths
-    submission uses, so a recovered job is plan-cache-warm and
-    lint-gated like a fresh one."""
+    """(run_local, payload, combine, n_tasks) rebuilt from the spec
+    through the paths submission uses, so a recovered job is
+    plan-cache-warm and lint-gated like a fresh one (a cluster fleet's
+    job gets its farm payload, an in-process one its runner)."""
     from dryad_tpu_torch.service.apps import get_app
     params = dict(spec.get("params") or {})
     if spec["kind"] == "sql":
@@ -144,10 +144,21 @@ def _rebuild_runner(service, spec: Dict[str, Any]):
                              "standing query")
         fp = service.catalog.fingerprint()
         semfp = semantic_fingerprint(service.catalog, bound)
-        return service._build_sql_local_runner(bound, semfp, fp)[0]
+        if service.cluster is not None:
+            from dryad_tpu_torch.service.daemon import _sql_combine
+            payload, limit, _ = service._build_sql_farm_payload(
+                bound, semfp, fp)
+            return None, payload, _sql_combine(limit), 1
+        run_local, _ = service._build_sql_local_runner(bound, semfp, fp)
+        return run_local, None, None, 1
     service_app = get_app(spec["app"])
+    if service.cluster is not None:
+        payload = service._build_farm_payload(service_app, params)
+        return (None, payload, service_app.combine,
+                len(payload["sources"]))
     tasks = service_app.make_tasks(dict(params), service.nparts)
-    return service._build_local_runner(service_app, params, tasks)
+    return (service._build_local_runner(service_app, params, tasks),
+            None, None, 1)
 
 
 def recover(service) -> Dict[str, Any]:
@@ -202,7 +213,8 @@ def recover(service) -> Dict[str, Any]:
 
     # standing queries: one unified restore (journal net-of-cancels
     # merged with the persisted registration files)
-    summary["standing"] = service.standing.restore(state.standing)
+    if service.standing is not None:
+        summary["standing"] = service.standing.restore(state.standing)
 
     prior = jrn.prior_owner
     if jrn.was_handoff is not None:
@@ -238,7 +250,8 @@ def recover(service) -> Dict[str, Any]:
             _fail_forensics(service, jid, spec, why, summary)
             continue
         try:
-            run_local = _rebuild_runner(service, spec)
+            run_local, payload, combine, n_tasks = \
+                _rebuild_runner(service, spec)
         except Exception as e:
             # whatever stops the rebuild (a vanished app or table, a
             # query that no longer compiles) fails the job with forensics
@@ -246,7 +259,8 @@ def recover(service) -> Dict[str, Any]:
                             f"its plan no longer rebuilds: {e!r}",
                             summary)
             continue
-        job = service._restore_job(spec, 1, run_local=run_local)
+        job = service._restore_job(spec, n_tasks, run_local=run_local,
+                                   payload=payload, combine=combine)
         kind = "job_resumed" if was_running else "job_readmitted"
         ck = JobCheckpoint.load(os.path.join(job.dir,
                                              "checkpoint.json"))

@@ -139,6 +139,9 @@ class ServiceConfig:
     tenants: Dict[str, TenantQuota] = dataclasses.field(
         default_factory=dict)
     job_config: Optional[object] = None   # base JobConfig for jobs
+    # cluster fleet: a task running longer than this retires its worker
+    # (its socket severed) and the task reassigns elsewhere
+    task_timeout_s: float = 600.0
     # serialized sql.Catalog (Catalog.save JSON) the daemon loads at
     # startup: the tables POST /sql queries resolve FROM clauses
     # against (a Catalog object passed to JobService(...) wins)

@@ -101,14 +101,25 @@ class JobConfig:
     # sampler only runs when an event consumer at level 2 exists (the
     # same no-consumer-no-work contract as spans)
     resource_sample_s: float = 0.5
-    # where a job's failure forensics land: the job service sets its
-    # job's bundles/ directory here (service/job.py); the bundles
-    # themselves come with obs/flight.py (ROADMAP item 11)
+    # where a job's failure forensics bundles land (obs/flight.py): the
+    # job service sets its job's bundles/ directory here (service/job.py)
     forensics_dir: Optional[str] = None
     # job history archive (obs/history.py): when set, the Context's
     # EventLog snapshots {events, plan, metrics} here on close; browse
     # with `python -m dryad_tpu_torch.obs history <dir>`
     history_dir: Optional[str] = None
+
+    # -- task farm / speculation (runtime/farm.py) -------------------------
+    # EnableSpeculativeDuplication + DrStageStatistics caps (the gang's
+    # fields, cluster_* and gang_*, come with the gang half of ROADMAP
+    # Queue 1 item 11)
+    speculation_enabled: bool = True
+    speculation_duplication_budget: float = 0.2
+    speculation_outlier_sigma: float = 3.0
+    speculation_min_samples: int = 5
+    speculation_rel_margin: float = 0.5
+    speculation_abs_margin_s: float = 0.5
+    farm_task_timeout_s: float = 600.0
 
     # -- planner (plan/planner.py) -----------------------------------------
     # default fan-out allowance for join output capacity (out = expansion *
@@ -189,6 +200,10 @@ class JobConfig:
              "spill_compression in (None, 'gzip')"),
             (self.store_compression in (None, "gzip"),
              "store_compression in (None, 'gzip')"),
+            (0.0 <= self.speculation_duplication_budget <= 1.0,
+             "speculation_duplication_budget in [0, 1]"),
+            (self.speculation_min_samples >= 1,
+             "speculation_min_samples >= 1"),
             (self.broadcast_join_threshold >= 0,
              "broadcast_join_threshold >= 0"),
             (self.max_loop_iterations >= 1, "max_loop_iterations >= 1"),

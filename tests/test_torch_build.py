@@ -110,3 +110,65 @@ def test_temp_names_differ_across_threads_and_calls(tmp_path):
     t.join(timeout=30)
     assert len(set(names)) == 3
     assert all(n.parent == tmp_path and n.suffix == ".tmp" for n in names)
+
+
+FAKE_NVCC = """#!/bin/sh
+# records each compile, takes a while, writes the -o file
+out=""
+prev=""
+for a in "$@"; do
+  if [ "$prev" = "-o" ]; then out="$a"; fi
+  prev="$a"
+done
+echo "$out" >> "$FAKE_NVCC_CALLS"
+sleep 0.3
+echo lib > "$out"
+echo "ptxas info : fake"
+"""
+
+
+def test_two_processes_build_each_library_once(tmp_path):
+    """Two processes released together on an empty build directory (the
+    worker processes of a cluster started on a fresh checkout) both ask
+    for every kernel, ``nvcc`` a fake that records each compile: each
+    library is compiled once, by whichever process holds the directory's
+    lock, and both processes get the same libraries and logs."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    bindir = tmp_path / "cuda" / "bin"
+    bindir.mkdir(parents=True)
+    (bindir / "nvcc").write_text(FAKE_NVCC)
+    (bindir / "nvcc").chmod(0o755)
+    calls = tmp_path / "calls"
+    out = tmp_path / "kernels"
+    root = Path(_build.__file__).resolve().parents[2]
+    code = ("import sys, time\n"
+            "from pathlib import Path\n"
+            "from dryad_tpu_torch.ops import _build\n"
+            "_build.BUILD_DIR = Path(sys.argv[1])\n"
+            "while time.time() < float(sys.argv[2]):\n"
+            "    time.sleep(0.005)\n"
+            "logs = _build.build()\n"
+            "print(sorted((k, _build._lib_path(k).name, v) "
+            "for k, v in logs.items()))\n")
+    env = dict(os.environ, CUDA_HOME=str(tmp_path / "cuda"),
+               FAKE_NVCC_CALLS=str(calls),
+               PYTHONPATH=str(root))
+    import time
+    go = str(time.time() + 8.0)
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(out), go],
+                              cwd=root, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for _ in range(2)]
+    res = [p.communicate(timeout=120) for p in procs]
+    assert all(p.returncode == 0 for p in procs), [r[1] for r in res]
+    compiled = calls.read_text().split()
+    assert len(compiled) == len(_build.KERNELS)
+    assert len({Path(c).name.split("-")[0] for c in compiled}) == \
+        len(_build.KERNELS)
+    assert res[0][0] == res[1][0] and "ptxas info : fake" in res[0][0]
+    assert sorted(p.name for p in out.glob("*.so")) == sorted(
+        _build._lib_path(k).name for k in _build.KERNELS)

@@ -4,9 +4,11 @@ import scan of the source), and its entry points default to the CUDA
 card — refusing, not falling back to the CPU, where there is none."""
 
 import ast
+import os
 import pathlib
 import subprocess
 import sys
+import time
 
 import pytest
 import torch
@@ -254,10 +256,12 @@ def test_inc_and_remote_modules_are_checked():
 
 
 @pytest.mark.parametrize("name", ["tests/torch_fakes.py",
-                                  "tests/webhdfs_fake.py", "chip_smoke.py"])
+                                  "tests/webhdfs_fake.py",
+                                  "tests/torch_cluster_fns.py",
+                                  "chip_smoke.py"])
 def test_chip_smoke_and_its_fakes_import_no_jax(name):
-    """chip_smoke.py and the loopback fakes it starts import neither jax
-    nor dryad_tpu."""
+    """chip_smoke.py, the loopback fakes it starts and the UDFs its
+    workers import import neither jax nor dryad_tpu."""
     tree = ast.parse((ROOT / name).read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -361,3 +365,101 @@ def test_service_cli_help_and_a_cpu_daemon_load_no_jax(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+CLUSTER_MODULES = ("dryad_tpu_torch.runtime",
+                   "dryad_tpu_torch.runtime.protocol",
+                   "dryad_tpu_torch.runtime.interfaces",
+                   "dryad_tpu_torch.runtime.sources",
+                   "dryad_tpu_torch.runtime.shiplan",
+                   "dryad_tpu_torch.runtime.worker",
+                   "dryad_tpu_torch.runtime.cluster",
+                   "dryad_tpu_torch.runtime.farm",
+                   "dryad_tpu_torch.obs.flight", "dryad_tpu_torch.chaos",
+                   "dryad_tpu_torch.chaos.plan",
+                   "dryad_tpu_torch.chaos.faults",
+                   "dryad_tpu_torch.chaos.invariants",
+                   "dryad_tpu_torch.chaos._victim",
+                   "dryad_tpu_torch.chaos.harness",
+                   "dryad_tpu_torch.chaos.__main__")
+
+
+def test_cluster_and_chaos_modules_are_checked():
+    """The worker processes' runtime, the task farm, the forensics
+    bundles and the chaos harness are among the modules the two checks
+    above import and scan."""
+    assert set(CLUSTER_MODULES) <= set(_modules())
+
+
+def test_workers_farm_and_victim_load_no_jax(tmp_path):
+    """In a fresh interpreter, started in a directory that holds a decoy
+    ``dryad_tpu_torch`` (one that raises on import): a CPU
+    ``LocalCluster`` whose workers run as ``python -m
+    dryad_tpu_torch.runtime.worker`` (from that directory: they import the
+    driver's package, not the decoy) farms a task whose UDF raises if its
+    worker loaded jax or dryad_tpu, and the driver loads neither;
+    ``python -m dryad_tpu_torch.chaos._victim`` runs until its manifest
+    is written, with neither among its imports; ``python -m
+    dryad_tpu_torch.chaos --help`` exits 0."""
+    tests = str(ROOT / "tests")
+    decoy = tmp_path / "decoy"
+    (decoy / "dryad_tpu_torch").mkdir(parents=True)
+    (decoy / "dryad_tpu_torch" / "__init__.py").write_text(
+        "raise ImportError('the decoy package was imported')\n")
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "import numpy as np\n"
+        "import torch_cluster_fns as F\n"
+        "from dryad_tpu_torch import Context\n"
+        "from dryad_tpu_torch.plan.planner import plan_query\n"
+        "from dryad_tpu_torch.runtime import LocalCluster\n"
+        "from dryad_tpu_torch.runtime.farm import TaskFarm\n"
+        "from dryad_tpu_torch.runtime.shiplan import serialize_for_cluster\n"
+        "from dryad_tpu_torch.runtime.sources import columns_spec\n"
+        "cl = LocalCluster(n_processes=1, devices_per_process=2,\n"
+        "                  fn_modules=('torch_cluster_fns',), device='cpu')\n"
+        "try:\n"
+        "    ds = Context(cluster=cl).from_columns(\n"
+        "        {'v': np.arange(4, dtype=np.int32)}).select(F.no_jax_loaded)\n"
+        "    plan, specs = serialize_for_cluster(plan_query(ds.node, 2))\n"
+        "    (k,) = specs\n"
+        "    out = TaskFarm(cl).run(plan, [{k: columns_spec(\n"
+        "        {'v': np.arange(9, dtype=np.int32)}, 2)}])\n"
+        "    assert sorted(out[0]['v'].tolist()) == list(range(9))\n"
+        "finally:\n"
+        "    cl.shutdown()\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'dryad_tpu')))\n")
+    env = dict(os.environ, PYTHONPATH=tests + os.pathsep + str(ROOT),
+               OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code], cwd=decoy, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+    d = tmp_path / "victim"
+    d.mkdir()
+    with open(tmp_path / "victim.err", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-X", "importtime", "-m",
+             "dryad_tpu_torch.chaos._victim", "--dir", str(d), "--seed",
+             "3", "--device", "cpu"], cwd=ROOT, env=env,
+            stdout=subprocess.DEVNULL, stderr=err)
+        try:
+            deadline = time.time() + 240
+            while not (d / "manifest.json").exists():
+                assert proc.poll() is None and time.time() < deadline
+                time.sleep(0.1)
+        finally:
+            proc.kill()
+            proc.wait()
+    loaded = [line.rsplit("|", 1)[-1].strip()
+              for line in (tmp_path / "victim.err").read_text().splitlines()
+              if line.startswith("import time:")]
+    assert "dryad_tpu_torch.chaos.plan" in loaded
+    assert "dryad_tpu_torch.service.daemon" in loaded
+    assert not [m for m in loaded if _forbidden(m)]
+    help_out = subprocess.run(
+        [sys.executable, "-m", "dryad_tpu_torch.chaos", "--help"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert help_out.returncode == 0 and "--device" in help_out.stdout

@@ -467,9 +467,26 @@ def test_launches_without_record_past_the_pad():
 
 def test_obs_commands():
     assert OBS_COMMANDS == ("trace", "critical-path", "metrics",
-                            "analyze", "latency", "history")
+                            "analyze", "latency", "replay", "history")
     from dryad_tpu.obs.__main__ import OBS_COMMANDS as J
-    assert set(OBS_COMMANDS) == set(J) - {"replay"}
+    assert OBS_COMMANDS == J
+
+
+def _clean_bundle(d) -> str:
+    """A persisted forensics bundle of a healthy wordcount task with no
+    recorded error: its replay runs clean."""
+    from dryad_tpu_torch.obs import flight
+    from dryad_tpu_torch.plan.planner import plan_query
+    from dryad_tpu_torch.runtime.shiplan import serialize_for_cluster
+    ctx = TContext(cluster=types.SimpleNamespace(devices_per_process=2))
+    q = twc.wordcount_query(ctx.from_columns({"line": ["a b a"]}),
+                            tokens_per_partition=16)
+    plan, specs = serialize_for_cluster(plan_query(q.node, 2))
+    b = flight.capture_bundle({"plan": plan, "sources": specs},
+                              ValueError("unused"), device="cpu",
+                              nparts=2)
+    b["error"] = None
+    return flight.persist_bundle(b, str(d))
 
 
 @pytest.fixture(scope="module")
@@ -495,6 +512,8 @@ def test_obs_cli_subcommand(recorded, cmd, tmp_path, capsys):
     args = {"trace": [p, "-o", str(tmp_path / "t.json")],
             "critical-path": [p, "--json"], "metrics": [p],
             "analyze": [p, "--json"], "latency": [p, "--json"],
+            "replay": [_clean_bundle(tmp_path) if cmd == "replay" else "",
+                       "--device", "cpu"],
             "history": [hist, "--html", str(tmp_path / "i.html")]}[cmd]
     assert obs_main([cmd, *args]) == 0
     out = capsys.readouterr().out
@@ -509,6 +528,8 @@ def test_obs_cli_subcommand(recorded, cmd, tmp_path, capsys):
         assert json.loads(out)["predicted"] is True
     elif cmd == "latency":
         assert json.loads(out)["t"]["count"] == 1
+    elif cmd == "replay":
+        assert "task completed without error" in out
     else:
         assert "wc" in out and (tmp_path / "i.html").exists()
     # malformed input exits 2
@@ -525,7 +546,7 @@ def test_obs_cli_in_a_process(recorded):
     out = subprocess.run([sys.executable, "-m", "dryad_tpu_torch.obs",
                           "replay", p], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
-    assert out.returncode == 2 and "invalid choice" in out.stderr
+    assert out.returncode == 2 and "cannot load bundle" in out.stderr
 
 
 # -- chip_smoke.py's phase 15, rehearsed on the CPU ---------------------------

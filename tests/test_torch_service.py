@@ -1,6 +1,7 @@
 """The port's job service on the in-process fleet
 (``dryad_tpu_torch/service``) against the JAX package's, on the CPU
-(mirrors ``tests/test_service.py``; the cluster fleet is not ported).
+(mirrors ``tests/test_service.py``; the cluster fleet is held in
+``tests/test_torch_cluster_service.py``).
 
 * the FileCache: round trip, a torn entry read as a miss, entries that
   either package wrote read by the other;
@@ -14,7 +15,8 @@
   the float64 sums), DTA501 on equivalent queries, one scan per table,
   a cache hit planning the stages of a miss, the version salt;
 * concurrency: per-job logs, the dashboard; the HTTP routes and the CLI;
-  the daemon without CUDA, and the cluster arguments, refused;
+  the daemon without CUDA refused, and the surfaces that wait for the
+  gang half of ROADMAP item 11;
 * a CPU rehearsal of ``chip_smoke.py``'s phase 17.
 """
 
@@ -294,19 +296,32 @@ def test_submission_runs_the_lint_gate(tmp_path):
 def test_no_cuda_refuses_and_the_cluster_waits_for_item_11(tmp_path,
                                                            monkeypatch):
     """``JobService()`` runs on the card: without CUDA it raises before
-    creating anything; ``cluster=`` and ``submit_tasks`` name ROADMAP
-    item 11."""
+    creating anything, and so does a ``LocalCluster`` on the card before
+    spawning a worker.  ``submit_tasks`` needs the cluster fleet; a
+    cluster Context's terminal (a gang job) names the gang half of
+    ROADMAP item 11 before sending anything."""
+    from dryad_tpu_torch import Context
+    from dryad_tpu_torch.runtime import LocalCluster
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     d = tmp_path / "svc"
     with pytest.raises(RuntimeError, match="CUDA"):
         JobService(ServiceConfig(service_dir=str(d)))
     assert not d.exists()
-    with pytest.raises(ValueError, match="item 11"):
-        JobService(ServiceConfig(service_dir=str(d)), device="cpu",
-                   cluster=object())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LocalCluster(n_processes=1, log_dir=str(tmp_path / "logs"))
+    assert not (tmp_path / "logs" / "worker-0.log").exists()
+    sent = []
+    fake = types.SimpleNamespace(devices_per_process=4,
+                                 execute=sent.append)
+    ds = Context(cluster=fake).from_columns(
+        {"k": np.arange(10, dtype=np.int32)})
+    with pytest.raises(ValueError, match="gang half of ROADMAP Queue 1 "
+                                         "item 11"):
+        ds.collect()
+    assert sent == []
     svc = _svc(tmp_path, slots=1)
     try:
-        with pytest.raises(ValueError, match="item 11"):
+        with pytest.raises(ValueError, match="cluster fleet"):
             svc.submit_tasks("{}", [{}])
     finally:
         svc.close()
