@@ -111,7 +111,8 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      as in the JAX bench's skewed join, 1,500,000 orders, 150,000
      customers; ``--lineitems N``), each run cold (held, launches against
      the executor's log, where a salted join attempt counts two hash
-     exchanges and one broadcast), warm and profiled warm (busy share):
+     exchanges and one broadcast) and warm, the first also profiled
+     warm (busy share):
      ``skewjoin6m`` (lineitem joined with orders, flag == 0, revenue per
      customer, cached, collected whole and as its top 10): exactly
      numpy's, the join stage overflowing once unsalted and salted at
@@ -142,7 +143,8 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      over ship order: every window exactly numpy's on the held run, the
      moving sum of net within 7 eps sum|v| after); ``partidx6m`` (each
      lineitem's partition index is lo(hash(okey)) % 8).  Each cold, then
-     warm and profiled warm in the cold run's context: the orders
+     warm (unnest6m also profiled warm) in the cold run's context: the
+     orders
      repartition ships the probe's slot cold and the feedback slot warm.
      A vmap fallback to a Python loop over groups fails the phase.  Every
      run's launches match the executor's log, slot probes apart, and
@@ -155,10 +157,10 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      equal, and per form the host syncs of a run (``torch.cuda.
      set_sync_debug_mode("warn")``, by Python call site), its NEED reads
      (``Executor.host_reads``: one per executor run when deferred), warm
-     wall and busy share; terasort1m and skewjoin6m with an event log,
-     exactly numpy's, the ``settle_replay`` events naming exactly the
-     stages the log flags ``settle_replayed``, launches equal to the
-     executor's exchange attempts with the replays, and
+     wall, the deferred form's busy share; terasort1m and skewjoin6m with
+     an event log, exactly numpy's, the ``settle_replay`` events naming
+     exactly the stages the log flags ``settle_replayed``, launches equal
+     to the executor's exchange attempts with the replays, and
      ``max_capacity_retries=0`` raising CapacityError at the settle; a
      ``Run`` over skewjoin6m's plan with every stage invalidated giving
      the same rows bit for bit (one ``stage_replay`` each) and
@@ -186,9 +188,10 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      ``broadcast_demote``).  Each: a cold run per mode (off first, its
      runs given ``analysis.cost.estimate_graph``'s report), its calls
      held and its launches against the executor's log; rows equal
-     between the modes and numpy's (f32 sums within 16 eps sum|v|); three
-     warm runs per mode in turns, NEED reads per run, one profiled warm
-     run per mode (busy share), the order_by stage's output bytes.  The
+     between the modes and numpy's (f32 sums within 16 eps sum|v|); one
+     warm run per mode in turns, NEED reads per run, the order_by stage's
+     output bytes, one profiled warm run of the adaptive mode (busy
+     share).  The
      cost model on the card: zipf50k, app10k, terasort1m, pagerank100k
      and kmeans500k once each with every executor run cost-checked, plus
      the three cells' off runs: any ``cost_model_miss`` is printed and
@@ -204,7 +207,7 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      ``terasortooc10m`` (10,000,000 TeraGen records written chunk
      by chunk to a store, ``order_by(key).to_store`` in 262,144-row
      chunks, read back: the count, keys non-decreasing as bytes, the
-     (key, payload) multiset; ``ooc_inflight`` 1 once, 2 cold, warm and
+     (key, payload) multiset; ``ooc_inflight`` 2 cold, warm and
      profiled, the in-core tier once, the depth-2 query at 1,000,000
      records (the big warm run's peak device memory above its start
      must be at most 1.5 times this run's), and the ``terasort_ooc``
@@ -218,9 +221,10 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      150,000 customers, orders per customer exactly numpy's, the 50,000
      without an order present) and ``readtextstream1m`` (the bench12
      corpus from a file, WordCount equal to phase 3's counts).  Each
-     cold (held, host syncs counted), warm (wall, rows/s, chunks and
-     bytes copied each way, prefetch stalls, peak device memory) and
-     profiled warm (busy share); no exchange kernel launches; then the
+     cold (held, host syncs counted) and warm (wall, rows/s, chunks and
+     bytes copied each way, prefetch stalls, peak device memory),
+     terasortooc10m also profiled warm (busy share); no exchange kernel
+     launches; then the
      scatter's histogram at its shapes against ``bincount`` and its
      bound (``scatter_hist``);
   14. the SQL front end (``sql.query(ctx, catalog, text).collect()``,
@@ -228,7 +232,8 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      ``price`` float32 and a ``tag`` string column, registered in a
      ``sql.Catalog``: ``sqlq3_6m`` adaptive off and on (bench.py's
      skewed join + filter + per-order revenue, ORDER BY revenue DESC
-     LIMIT 10; cold each, then three warm runs of each in turns),
+     LIMIT 10; cold each, then one warm run of each in turns, the off
+     one also profiled),
      ``sqlgolden_join6m`` / ``sqlgolden_scan6m`` (the committed
      ``docs/plans/*.sql``; the second filters ``tag != 'void'`` on the
      device) and ``sqlq1agg6m`` (GROUP BY qty with COUNT, SUM, AVG, MIN,
@@ -246,11 +251,11 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      inside its predicted rows and its predicted bytes (predicted at the
      rescaled join's capacity where that capacity reaches the stage),
      zero ``cost_model_miss``, the join's
-     unsalted retry: 2 runs); ``obs_pagerank100k`` (PageRank three times
-     with telemetry off, no event log, and three times on,
+     unsalted retry: 2 runs); ``obs_pagerank100k`` (PageRank OBS_REPS
+     times with telemetry off, no event log, and as often on,
      ``EventLog(level=2, history_dir=..., app="pagerank")`` with
      ``JobConfig(resource_sample_s=0.1)``, in turns: ranks bit-equal
-     across all six and within rtol 2e-3 of ``pagerank_numpy``,
+     across all of them and within rtol 2e-3 of ``pagerank_numpy``,
      ``Executor.host_reads`` equal on and off, per executor run one
      ``run`` job span, a ``stage`` span for each stage computed under
      it and one ``job_done`` with its trace id and metrics, resource
@@ -279,7 +284,7 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      each equal to its local run), ``remote_http_text`` (``ctx.read``
      of a ``/`` listing on ``tests/torch_fakes.RangeServer`` by 2 MiB
      ranged GETs), then ``inc_q1_6m`` and ``inc_okey_6m`` (a store of
-     NPARTS partitions; three rounds of one RF1-sized ``append_store``
+     NPARTS partitions; INC_ROUNDS rounds of one RF1-sized ``append_store``
      of one partition, ``run_refresh`` and the full ``sql.query`` of the
      same EMIT EVERY statement: integers bit-equal, f32 sums and means
      within 16 eps sum |v|, one delta partition of the appended rows)
@@ -295,9 +300,9 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      against numpy, DTA501 on the 10 equivalent submissions, ONE ``scan``
      io span per table and ``scan_shared`` for every other use, each
      job's events tagged with its id; per-tenant p50 / p95 walls, a warm
-     Q3 job's wall beside phase 14's), ``svc_wordcount`` (six
-     ``wordcount`` app jobs of 1,000,000 lines through the fleet against
-     the same six run one after another without the service, counts
+     Q3 job's wall beside phase 14's), ``svc_wordcount`` (three
+     ``wordcount`` app jobs of 500,000 lines through the fleet against
+     the same three run one after another without the service, counts
      against ``collections.Counter``), ``svc_durable_6m``
      (``durable_spill``: SQL_Q3 paused by ``handoff()`` after its first
      settled stage and resumed by a successor from spill,
@@ -305,7 +310,7 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      one slot, ``crash()`` after the first, the other three re-admitted
      in ``seq`` order, each tenant charged once per job),
      ``svc_standing_6m`` (INC_Q1 registered through ``submit_sql`` over a
-     store of the lineitems, three RF1 appends, each refresh's merge
+     store of the lineitems, INC_ROUNDS RF1 appends, each refresh's merge
      against the full query; ``crash()``, an append while down, the
      successor's next refresh holding exactly it) and ``svc_http``
      (``service.http.serve`` on loopback: ``POST /sql`` through
@@ -321,7 +326,7 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      4,096 keys, 16 tasks, merged sums against numpy exactly; a plain
      run, a ``delay_hook`` straggler duplicated exactly once with the
      copy winning, and a last run SIGKILLing worker 1 mid-farm, its task
-     reassigned), ``svc_cluster_wordcount`` (phase 17's six 1,000,000-line
+     reassigned), ``svc_cluster_wordcount`` (phase 17's three 500,000-line
      jobs through ``JobService(cluster=...)``, counts against
      ``collections.Counter``, ``fleet_s`` / ``submit_s`` beside phase
      17's), ``svc_cluster_sql_6m`` (SQL_Q1 and SQL_Q3 twice each over
@@ -338,15 +343,42 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      process in each worker's order through an executor per worker kept
      for the phase; chaos_seed3's are its successor's, here.  All five
      kernels must launch;
- 3-15. after each of those main-path runs, every kernel call it made
+  19. the gang: one ``runtime.LocalCluster(2, 4)`` on the card (P = 8,
+     as in phases 3-7: each worker holds four partitions, the exchanges
+     cross the two processes host-staged over gloo) runs each cell as
+     gang jobs cold and warm, beside the same query in this process:
+     ``gang_zipf50k`` (WordCount over phase 3's zipf corpus: the
+     in-process table and the ``Counter`` oracle's counts),
+     ``gang_terasort1m`` (TeraSort on phase 6's 1,000,000 records: the
+     in-process rows in order, the range exchange's rows per partition
+     equal), ``gang_pagerank100k`` (phase 7's graph, 10 supersteps by
+     ``do_while`` with the loop state resident on the workers: ranks
+     within rtol 2e-3 of ``pagerank_numpy`` and within 1e-6 of the
+     in-process run's, every superstep's control message under
+     ``GANG_STEP_BYTES``), ``gang_skewjoin6m`` (phase 9's SF1 tables:
+     the join stage unsalted then salted at attempt 2, the same in
+     both workers' logs and in the in-process log), ``gang_store_cache``
+     (TeraSort's output through parallel gzip ``to_store``, read back by
+     ``from_store``, then a ``cache()`` healed through
+     ``MissingResidentToken`` after ``restart()``) and
+     ``gang_watchdog`` (a SIGSTOPped worker declared wedged and the job
+     replayed on a fresh gang whose slow worker 1, its heartbeats
+     flowing, is not).  Per cell: walls, the staged collectives' D2H /
+     gloo / H2D seconds and host syncs per exchange, each worker's
+     launches per kernel (hist_buckets, slot_expand and slot_compact
+     once per exchange in each worker, by its log); the workers' calls
+     held on a replay of TeraSort and two PageRank supersteps here as a
+     gang of two threads (``replay_gang``), at the workers' shapes, the
+     range bounds bit-equal to the in-process run's;
+ 3-19. after each of those main-path runs, every kernel call it made
      is made again through the kernel and through its plain version on
      the very tensors the run passed (integers exactly, prefix_sum2
      within twice its bound);
   5. timing: each kernel, its plain version and one library call at the
      largest call of one main-path run (``TIMED_ON``; CUDA events), the
      bound the card's memory rate sets for the same bytes, and a
-     torch.profiler breakdown of one warm run of each timed path and of
-     TeraSort, PageRank and k-means (each window opens with the
+     torch.profiler breakdown of one warm run of each timed path
+     (PageRank's is phase 11's deferred form; each window opens with the
      executor's 1,024-launch pad and closes with 8,192 more; a window in
      which a launch of the run has no device record is discarded, with
      a ``profile_window_discarded`` line, and taken again, at most
@@ -361,7 +393,7 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      (the timed paths, pagerank100k, unnest6m's warm run): the bound of
      the path's captured calls summed beside the path's profiled device
      time (``path_bound`` lines).  The exchange's pack side per exchange
-     in the three profiles
+     in the two timed paths' profiles
      (hist_buckets, slot_expand, copy kernels, the rest of the pack
      range), against its bound, beside the send-buffer copies that the
      batched slot_expand removed, replayed at the same shape.  A kernel
@@ -380,7 +412,9 @@ its scatter line (``{"phase13": ...}``), one per phase-14 cell
 (``{"phase16": ...}``) and the phase's launches, one per phase-17 cell
 (``{"phase17": ...}``) and the phase's launches, one per phase-18 cell
 (``{"phase18": ...}``) and the phase's launches (``{"phase":
-"cluster", ...}``, with each cell's worker launches), per profile, per
+"cluster", ...}``, with each cell's worker launches), one per phase-19
+cell (``{"phase19": ...}``) and the phase's (``{"phase": "gang",
+...}``), per profile, per
 pack side
 and per kernel, then
 the card line, then the
@@ -451,7 +485,7 @@ DEVICE_NAMES = {  # substrings of the compiled kernels' names
 }
 PACK_RANGE = "dryad.exchange.pack"   # parallel/shuffle.py's profiler range
 # the runs whose calls are kept for a pack_side line
-PROFILED = ("zipf50k", "app10k", "terasort1m")
+PROFILED = ("zipf50k", "app10k")
 
 
 def card_line() -> str:
@@ -2200,9 +2234,10 @@ def pagerank_forms(port, hk, pr, edges, n_nodes, out_dir, held) -> dict:
     """pagerank100k in both forms, each in a context of its own: a cold
     run, a warm run (its kernel calls held, its launches counted), a warm
     run counting host syncs (``counted_syncs``) and NEED reads
-    (``Executor.host_reads``), and a warm run under the profiler (busy
-    share); then four timed warm runs in turns (deferred, sync, sync,
-    deferred), each form's wall their mean.  The ranks must be
+    (``Executor.host_reads``), and for the deferred form a warm run
+    under the profiler (busy share; its profile under ``"_profile"``);
+    then one timed warm run of each in turns (deferred, sync), each
+    form's wall their mean.  The ranks must be
     bit-identical between the forms, every
     rank within PR_RTOL of ``pagerank_numpy``, and the launches equal
     but for the exchanges of the stages that the deferred settle re-ran
@@ -2253,8 +2288,14 @@ def pagerank_forms(port, hk, pr, edges, n_nodes, out_dir, held) -> dict:
         torch.cuda.synchronize()
         counted_s = time.perf_counter() - t0
         counted_reads = ctx.executor.host_reads - reads0
-        prof = profile_path(lambda: run_app(port, hk, app, ctx=ctx)[:4],
-                            f"pagerank100k_{form}", out_dir, pack=False)
+        # one profiled warm run, the default (deferred) form's: its
+        # profile also serves pagerank100k's path_bound line
+        prof = (profile_path(lambda: run_app(port, hk, app, ctx=ctx)[:4],
+                             f"pagerank100k_{form}", out_dir, pack=False)
+                if form == "deferred" else {"wall_s": None,
+                                            "device_ms": None})
+        if form == "deferred":
+            profiled = prof
         forms[form] = {
             "host_syncs_per_run": syncs, "sync_sites": sites,
             "need_reads_per_run": reads,
@@ -2294,7 +2335,7 @@ def pagerank_forms(port, hk, pr, edges, n_nodes, out_dir, held) -> dict:
                                           in extra if x],
                              "exchanges": more, "launch_diff": diff}
     turns = collections.defaultdict(list)
-    for form in ("deferred", "sync", "sync", "deferred"):
+    for form in ("deferred", "sync"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         app(ctxs[form])
@@ -2303,6 +2344,7 @@ def pagerank_forms(port, hk, pr, edges, n_nodes, out_dir, held) -> dict:
     for form, walls in turns.items():
         forms[form]["turn_walls_s"] = walls
         forms[form]["turn_wall_mean_s"] = sum(walls) / len(walls)
+    forms["_profile"] = profiled
     return forms
 
 
@@ -2906,15 +2948,18 @@ def cost_summary(label, log, reports) -> dict:
                                  for s in r.stages)}
 
 
+ADAPT_WARM_REPS = 1     # each cell's timed warm runs, off and on in turns
+
+
 def adapt_cells(port, hk, cells, out_dir, held) -> dict:
     """Each cell adaptive off and on, each in a context of its own with
     an event log: a cold run of each (off first, cost-checked), its
     kernel calls held, its launches against the executor's log; then
-    three warm runs of each in turns (off, on, ...), one profiled warm
-    run of each (busy share).  On must record the cell's rewrite, off
-    none; the rows of both and of numpy agree.  Per mode: cold and warm
-    walls, NEED reads per run, launches, rewrites, the order_by stage's
-    output bytes (``shuffle_bytes``)."""
+    ADAPT_WARM_REPS warm runs of each in turns (off, on, ...), one
+    profiled warm run of the adaptive one (busy share).  On must record the
+    cell's rewrite, off none; the rows of both and of numpy agree.  Per
+    mode: cold and warm walls, NEED reads per run, launches, rewrites,
+    the order_by stage's output bytes (``shuffle_bytes``)."""
     import torch
     from dryad_tpu_torch.utils.events import EventLog
     res = {}
@@ -2965,7 +3010,8 @@ def adapt_cells(port, hk, cells, out_dir, held) -> dict:
         del outs
         walls = collections.defaultdict(list)
         reads = collections.defaultdict(list)
-        for mode in ("off", "on") * 3:
+        n0 = {m: len(logs[m].events) for m in ("off", "on")}
+        for mode in ("off", "on") * ADAPT_WARM_REPS:
             ctx = ctxs[mode]
             reads0 = ctx.executor.host_reads
             torch.cuda.synchronize()
@@ -2976,21 +3022,24 @@ def adapt_cells(port, hk, cells, out_dir, held) -> dict:
             reads[mode].append(ctx.executor.host_reads - reads0)
         for mode in ("off", "on"):
             ctx = ctxs[mode]
-            n0 = len(logs[mode].events)
-            prof = profile_path(lambda: run_app(
-                port, hk, lambda c: query(c, tables).collect(),
-                ctx=ctx)[:4], f"{label}_{mode}", out_dir, pack=False)
-            sort_bytes = [e["out_bytes"] for e in logs[mode].events[n0:]
+            sort_bytes = [e["out_bytes"]
+                          for e in logs[mode].events[n0[mode]:]
                           if e["event"] == "stage_done"
                           and e["label"] == "orderby"]
             per[mode].update({
                 "warm_walls_s": walls[mode],
                 "warm_wall_mean_s": sum(walls[mode]) / len(walls[mode]),
                 "need_reads_warm": reads[mode],
-                "profiled_wall_s": prof["wall_s"],
-                "profiled_device_ms": prof["device_ms"],
-                "device_busy_share": prof.get("device_busy_share"),
                 "orderby_out_bytes": sort_bytes})
+            if mode == "on":
+                # one profiled warm run a cell: the rewritten plan's
+                prof = profile_path(lambda: run_app(
+                    port, hk, lambda c: query(c, tables).collect(),
+                    ctx=ctx)[:4], f"{label}_{mode}", out_dir, pack=False)
+                per[mode].update({
+                    "profiled_wall_s": prof["wall_s"],
+                    "profiled_device_ms": prof["device_ms"],
+                    "device_busy_share": prof.get("device_busy_share")})
         res[label] = {**sizes, "nparts": NPARTS, **per}
     return res
 
@@ -3286,11 +3335,12 @@ def _line(r: dict, rows: int) -> dict:
 
 
 def stream_cell(port, hk, ooc, label, app, check, config, rows, held,
-                device="cuda") -> dict:
+                device="cuda", profile: bool = False) -> dict:
     """A phase-13 cell: a cold run (its kernel calls held, its host syncs
     counted, its result checked), a warm run (wall, copies, peak memory,
-    checked) and one profiled warm run (device busy share).  ``cell_s``:
-    the seconds the cell took, holds and profile included."""
+    checked) and, with ``profile``, one profiled warm run (device busy
+    share).  ``cell_s``: the seconds the cell took, holds and profile
+    included."""
     t0 = time.perf_counter()
     steps = {}
     cold = stream_run(port, hk, ooc, app, config, device, capture=True,
@@ -3314,7 +3364,7 @@ def stream_cell(port, hk, ooc, label, app, check, config, rows, held,
         r = stream_run(port, hk, ooc, app, config, device)
         return None, r["launches"], 0.0, r["wall_s"]
     t1 = time.perf_counter()
-    if device == "cuda":
+    if device == "cuda" and profile:
         line["profiled"] = stream_profile(profiled, label)
     steps["profile_s"] = time.perf_counter() - t1
     line["cell_s"] = time.perf_counter() - t0
@@ -3327,7 +3377,8 @@ def terasort_ooc_runs(port, hk, ooc, ts, sizes, tmp, held,
     """terasortooc10m: TeraGen records written chunk by chunk, then
     ``read_store_stream(chunk_rows).order_by(key).to_store(out)``, read
     back and held (count, byte order, the input's multiset): ooc_inflight
-    1 once, 2 cold / warm / profiled, the in-core tier once, the same
+    2 cold / warm / profiled (one depth: depth 1 ran as fast, the
+    copies being pageable), the in-core tier once, the same
     depth-2 query at ``small_records`` (its peak device memory against the
     big run's), and the ``terasort_ooc`` app."""
     chunk = sizes.record_chunk
@@ -3378,7 +3429,8 @@ def terasort_ooc_runs(port, hk, ooc, ts, sizes, tmp, held,
            "teragen_write_s": gen_s, "started_s": time.perf_counter()}
     line, cold, warm = stream_cell(port, hk, ooc, "terasortooc10m",
                                    query(src), check, ooc_cfg(2),
-                                   sizes.records, held, device)
+                                   sizes.records, held, device,
+                                   profile=True)
     res["depth2"] = {**line, "sort": sort_launches("terasortooc10m", cold)}
     scatter = scatter_hist_calls("terasortooc10m", cold.pop("captured"),
                                  (res["depth2"]["sort"]["n_buckets"],))
@@ -3386,12 +3438,6 @@ def terasort_ooc_runs(port, hk, ooc, ts, sizes, tmp, held,
     if res["depth2"]["sort"]["scattered"] != -(-sizes.records // chunk):
         raise AssertionError("terasortooc10m: pass B scattered "
                              f"{res['depth2']['sort']} chunks")
-    d1 = stream_run(port, hk, ooc, query(src), ooc_cfg(1), device,
-                    capture=True)
-    held("terasortooc10m_depth1", d1["launches"], d1.pop("captured"))
-    check(d1["out"])
-    res["depth1"] = {**_line(d1, sizes.records),
-                     "sort": sort_launches("terasortooc10m depth 1", d1)}
     inc = stream_run(port, hk, ooc, query(src), ooc_cfg(2, 1 << 30),
                      device)
     check(inc["out"])
@@ -3660,7 +3706,7 @@ SQL_Q1 = ("SELECT qty, COUNT(*) AS n, SUM(price) AS s, AVG(price) AS a, "
           "MIN(price) AS lo, MAX(price) AS hi FROM lineitem "
           "WHERE tag != 'void' GROUP BY qty ORDER BY qty")
 SQL_GOLDEN = ("sql_join_revenue", "sql_scan_topk")
-SQL_WARM_REPS = 3      # sqlq3's interleaved warm runs (bench.py:385-394)
+SQL_WARM_REPS = 1      # sqlq3's interleaved warm runs (bench.py:385-394)
 _COST_ROW = re.compile(r"^\s*(\d+)\s+(\S+)\s+(\d+)\s")
 
 
@@ -3929,8 +3975,8 @@ def phase14_runs(port, hk, n_items: int, held, out_dir=None,
     ``sql.Catalog`` (``tables``: ``sql_catalog``'s triple, made here when
     None): sqlq3_6m adaptive off and on (cold each, then
     ``SQL_WARM_REPS`` warm runs of each in turns, off first, then, with
-    ``out_dir``, one profiled warm run of each: device time and busy
-    share), the two committed golden queries and the Q1-shaped aggregate
+    ``out_dir``, one profiled warm run of the off cell: device time and
+    busy share), the two committed golden queries and the Q1-shaped aggregate
     (cold, one warm run).  Every cell under lint "warn", its EXPLAIN
     COST launch-free."""
     from dryad_tpu_torch import sql
@@ -3958,7 +4004,7 @@ def phase14_runs(port, hk, n_items: int, held, out_dir=None,
         line["warm"] = walls[mode]
         w = sorted(x["wall_s"] for x in walls[mode])
         line["warm_wall_median_s"] = w[len(w) // 2]
-        if out_dir is not None:
+        if out_dir is not None and mode == "off":
             prof = profile_path(
                 lambda: run_app(port, hk, q3_app, ctx=ctx)[:4],
                 f"sqlq3_6m_{mode}", out_dir, pack=False)
@@ -3991,7 +4037,7 @@ def phase14_runs(port, hk, n_items: int, held, out_dir=None,
 # ---------------------------------------------------------------------------
 # phase 15: observability on the card
 
-OBS_REPS = 3             # warm PageRank runs with telemetry off and on each
+OBS_REPS = 1             # warm PageRank runs with telemetry off and on each
 OBS_SAMPLE_S = 0.1       # the telemetry-on runs' resource sampler period
 OBS_CLI = ("trace", "critical-path", "metrics", "analyze", "history")
 # the Chrome trace categories of device records
@@ -4349,7 +4395,7 @@ INC_OKEY = ("SELECT okey, COUNT(*) AS n, SUM(qty) AS sq, MIN(price) AS lo, "
             "MAX(price) AS hi FROM lineitem GROUP BY okey EMIT EVERY 1")
 INC_APPEND = ("SELECT okey, qty, price FROM lineitem WHERE tag = 'ok' "
               "EMIT EVERY 1")
-INC_ROUNDS = 3
+INC_ROUNDS = 2
 INC_SMALL = 200_000        # inc_modes' store (the DTA403 rebuild)
 TAG_LEN = 8                # the stores' tag width (tags are 2-4 bytes)
 REMOTE_CHUNK = 1 << 19     # rows a chunk of the streamed hdfs:// read
@@ -4904,8 +4950,8 @@ SQL_Q3_ALT = ("SELECT COUNT(*) AS n, x.okey, SUM(x.qty * x.price) AS revenue "
               "WHERE y.flag = 0 GROUP BY x.okey ORDER BY revenue DESC "
               "LIMIT 10")
 SVC_SHARES = {"dash": 2.0, "adhoc": 1.0, "batch": 1.0}
-SVC_WC_JOBS = 6
-SVC_WC_LINES = 1_000_000
+SVC_WC_JOBS = 3
+SVC_WC_LINES = 500_000
 SVC_WAIT_S = 900.0
 
 
@@ -5062,7 +5108,7 @@ def svc_sql_6m(li, cat, root, q3_phase14_s, device) -> dict:
 
 def svc_wordcount(root, device) -> dict:
     """SVC_WC_JOBS wordcount app jobs (SVC_WC_LINES lines of 6 words,
-    seeds 0-5) through the fleet, then the same six one after another
+    seeds 0, 1, ...) through the fleet, then the same jobs one after another
     without the service (the app's tasks, query and combine on one
     Context); both held to ``collections.Counter`` over the lines.
     Where the fleet's wall goes: ``submit_s``, the caller's thread until
@@ -5684,7 +5730,7 @@ def farm_kill_run(hk, cl, cols, plan_json, tasks, held, executors,
 
 def svc_cluster_wordcount(hk, cl, root, seventeen, held, executors,
                           device="cuda") -> dict:
-    """phase 17's six wordcount jobs (SVC_WC_LINES lines, seeds 0-5)
+    """phase 17's wordcount jobs (SVC_WC_LINES lines, seeds 0, 1, ...)
     through ``JobService(cluster=...)``: each task's lines are packed in
     its worker (``build_source``); counts equal to phase 17's
     ``svc_wordcount`` (held there to ``collections.Counter``);
@@ -5933,6 +5979,518 @@ def phase18_runs(port, hk, tables, root: str, held, seventeen,
             os.environ["PYTHONPATH"] = old
     lines["chaos_seed3"] = svc_cell(hk, "chaos_seed3", held,
                                     lambda: chaos_seed3(root, device))
+    return lines
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the gang (SPMD jobs across worker processes)
+
+GANG_PROCS, GANG_DPP = 2, NPARTS // 2     # P = 8, as in phases 3-7
+GANG_BARRIER_S = 600.0     # a replay thread waits this long at a collective
+GANG_WATCHDOG = dict(gang_heartbeat_s=0.5, gang_heartbeat_timeout_s=4.0,
+                     gang_straggler_rel_margin=0.0,
+                     gang_straggler_abs_margin_s=2.0)
+GANG_SLOW = "1:3"          # worker 1's replies 3 s late, its beats flowing
+GANG_STEP_BYTES = 64 << 10  # a superstep's control message, at most
+STAGED_KEYS = ("collectives", "host_syncs", "bytes", "wait_s", "d2h_s",
+               "gloo_s", "h2d_s")
+
+
+class _Rendezvous:
+    """The collectives of replay threads in one process: each rank puts
+    its tensor in its slot, and every rank reads all of them."""
+
+    def __init__(self, world: int):
+        import threading
+        self.slots = [None] * world
+        self.barrier = threading.Barrier(world, timeout=GANG_BARRIER_S)
+
+    def gather(self, rank: int, x):
+        self.slots[rank] = x
+        self.barrier.wait()
+        got = list(self.slots)
+        self.barrier.wait()
+        return got
+
+
+def thread_mesh(port_mesh, device, rank: int, world: int, rdv):
+    """A gang ``parallel.mesh.Mesh`` whose collectives meet other threads
+    of this process (``_Rendezvous``) instead of gloo: a gang job replayed
+    here launches every kernel at the workers' shapes, on tensors this
+    process can hold against the plain versions."""
+    import torch
+
+    @dataclasses.dataclass(frozen=True)
+    class ThreadMesh(port_mesh.Mesh):
+        def all_to_all(self, x):
+            return torch.stack([g[rank] for g in rdv.gather(rank, x)])
+
+        def all_gather(self, x):
+            return torch.stack(rdv.gather(rank, x))
+
+        def all_reduce_max(self, x):
+            return torch.stack(rdv.gather(rank, x)).amax(0)
+
+        def from_next(self, x):
+            got = rdv.gather(rank, x)
+            return (got[rank + 1].clone() if rank + 1 < world
+                    else torch.zeros_like(x))
+
+    return ThreadMesh(device, NPARTS, rank, world)
+
+
+def replay_gang(port, hk, apps, device="cuda") -> dict:
+    """Each ``app(ctx)`` of ``apps`` run as a gang of GANG_PROCS threads
+    of this process (``thread_mesh``), every kernel call captured; the
+    calls are held after the runs.  Returns (captured, launches)."""
+    import threading
+
+    import torch
+    from dryad_tpu_torch.exec.executor import Executor
+    from dryad_tpu_torch.parallel import mesh as port_mesh
+    dev = torch.device(device)
+    before = dict(hk.launches)
+    hk.capture = {}
+    errors = []
+    for app in apps:
+        rdv = _Rendezvous(GANG_PROCS)
+
+        def rank_run(r, app=app, rdv=rdv):
+            try:
+                ctx = port.Context(device=device, nparts=NPARTS)
+                ctx.mesh = thread_mesh(port_mesh, dev, r, GANG_PROCS, rdv)
+                ctx.executor = Executor(ctx.mesh, config=ctx.config)
+                app(ctx)
+            except BaseException as e:      # surfaced after the join
+                errors.append(e)
+                rdv.barrier.abort()
+        threads = [threading.Thread(target=rank_run, args=(r,))
+                   for r in range(GANG_PROCS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            hk.capture = None
+            raise errors[0]
+    captured, hk.capture = hk.capture, None
+    return captured, {k: hk.launches[k] - before[k] for k in TPU_KERNEL}
+
+
+class GangJobs:
+    """Wraps a cluster's ``execute``: every gang job's reply is kept, and
+    the control messages' pickled sizes (per job, worker 0's copy)."""
+
+    def __init__(self, cl):
+        import pickle
+
+        from dryad_tpu_torch.runtime import cluster as cluster_mod
+        self.replies, self.sent = [], []
+        real, send = cl.execute, cluster_mod.protocol.send_msg
+
+        def execute(*a, **kw):
+            r = real(*a, **kw)
+            self.replies.append(r)
+            return r
+
+        def counting_send(sock, obj):
+            if (isinstance(obj, dict) and obj.get("cmd") == "run"
+                    and sock is cl.sockets.get(0)):
+                self.sent.append(len(pickle.dumps(obj, protocol=4)))
+            return send(sock, obj)
+        cl.execute = execute
+        self._undo = lambda: (setattr(cluster_mod.protocol, "send_msg",
+                                      send), cl.__dict__.pop("execute"))
+        cluster_mod.protocol.send_msg = counting_send
+
+    def take(self) -> tuple:
+        r, s = self.replies, self.sent
+        self.replies, self.sent = [], []
+        return r, s
+
+    def close(self) -> None:
+        self._undo()
+
+
+def gang_figures(label, replies, device="cuda") -> dict:
+    """One cell run's figures from its jobs' replies: each worker's
+    launches, the staged collectives per worker, the exchanges (from
+    worker 0's stage logs, held to its launches by
+    ``check_per_exchange``; on the CPU the workers' plain versions count
+    nothing, so a rehearsal checks the logs only) and the host syncs per
+    exchange.  Both workers' stage logs must be equal (the mirrored
+    decisions)."""
+    workers = sorted(replies[0]["workers"])
+    launches = {w: dict.fromkeys(TPU_KERNEL, 0) for w in workers}
+    staged = {w: dict.fromkeys(STAGED_KEYS, 0) for w in workers}
+    logs = {w: [] for w in workers}
+    for r in replies:
+        for w, info in r["workers"].items():
+            for k in TPU_KERNEL:
+                launches[w][k] += info["launches"].get(k, 0)
+            for k in STAGED_KEYS:
+                staged[w][k] += info["staged"].get(k, 0)
+            logs[w].append(info["stage_log"])
+    keep = ("label", "attempts", "scale", "slack", "salted",
+            "salted_attempts", "slot_rows", "slot_source", "recv_rows")
+    same = [[{k: e[k] for k in keep} for log in logs[w] for e in log]
+            for w in workers]
+    if any(s != same[0] for s in same):
+        raise AssertionError(f"{label}: the workers' stage logs differ")
+    stages = exchanging_stages(logs[0])
+    for w in (workers if device == "cuda" else ()):
+        check_per_exchange(f"{label} worker {w}", launches[w],
+                           exchange_attempts(stages),
+                           broadcast_attempts(stages), probes_run(stages))
+    n_ex = exchange_attempts(stages) + broadcast_attempts(stages)
+    return {"jobs": len(replies), "worker_launches": launches,
+            "staged": staged, "exchanges": n_ex,
+            "host_syncs_per_exchange": staged[0]["host_syncs"] / max(n_ex, 1),
+            "stages": stages}
+
+
+def gang_cell(label, gj, gang_app, local_app, check,
+              device="cuda") -> dict:
+    """A phase-19 cell: ``gang_app`` on the gang cold, then warm, and
+    ``local_app`` in process (a warm run) beside them; ``check(gang,
+    local)`` holds the results.  Returns its line with the cold run's
+    figures (``gang_figures``) and the cold run's replies under
+    ``"_replies"``."""
+    import torch
+    gj.take()
+    t0 = time.perf_counter()
+    out = gang_app()
+    cold_s = time.perf_counter() - t0
+    replies, sent = gj.take()
+    t0 = time.perf_counter()
+    warm = gang_app()
+    warm_s = time.perf_counter() - t0
+    wreplies, _ = gj.take()
+    t0 = time.perf_counter()
+    local = local_app()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    local_s = time.perf_counter() - t0
+    sizes = check(out, local)
+    check(warm, local)
+    fig = gang_figures(label, replies, device)
+    wfig = gang_figures(label + " warm", wreplies, device)
+    return {**sizes, "nparts": NPARTS, "processes": GANG_PROCS,
+            "cold_wall_s": cold_s, "warm_wall_s": warm_s,
+            "inprocess_wall_s": local_s, **fig,
+            "warm_staged": wfig["staged"], "sent_bytes": sent,
+            "_replies": replies}
+
+
+def _tables_equal(label, a, b) -> None:
+    if set(a) != set(b):
+        raise AssertionError(f"{label}: columns {sorted(a)} != {sorted(b)}")
+    for k in a:
+        same = (list(a[k]) == list(b[k]) if isinstance(a[k], list)
+                else np.array_equal(np.asarray(a[k]), np.asarray(b[k])))
+        if not same:
+            raise AssertionError(f"{label}: column {k} differs from the "
+                                 f"in-process run's")
+
+
+def gang_pagerank(ctx, F, edges, n_nodes: int, n_iters: int):
+    """``apps/pagerank.pagerank`` with its two selects as the shippable
+    ``torch_cluster_fns.pr_contrib`` / ``pr_damp`` (the app's lambdas
+    close over the damping and the node count, and a closure does not
+    ship): the same stages, the same arithmetic."""
+    edges_ds = ctx.from_columns(edges)
+    deg = edges_ds.group_by(["src"], {"deg": ("count", None)})
+    edges_deg = edges_ds.join(deg, ["src"], ["src"], expansion=2.0,
+                              right_unique=True).cache()
+    ranks0 = ctx.from_columns(
+        {"node": np.arange(n_nodes, dtype=np.int32),
+         "rank": np.full(n_nodes, 1.0 / n_nodes, np.float32)})
+    rank_cap = min(n_nodes, 4 * (-(-n_nodes // ctx.nparts)) + 8)
+
+    def body(ranks):
+        return (edges_deg.join(ranks, ["src"], ["node"], expansion=2.0,
+                               right_unique=True)
+                .select(F.pr_contrib).group_by(["node"], {"s": ("sum", "c")})
+                .select(F.pr_damp).with_capacity(rank_cap))
+    return ctx.do_while(ranks0.with_capacity(rank_cap), body,
+                        n_iters=n_iters).collect()
+
+
+def gang_skew_join(ctx, F, li, orders):
+    """skewjoin6m's join (phase 9's ``skew_join_groups`` by custkey) with
+    shippable UDFs, collected."""
+    return (ctx.from_columns(li).join(ctx.from_columns(orders), ["okey"])
+            .where(F.flag0).select(F.rev_by_custkey)
+            .group_by(["custkey"], {"revenue": ("sum", "rev"),
+                                    "n": ("count", None)})).collect()
+
+
+def gang_watchdog(port, cl, events) -> dict:
+    """Both watchdog holds on the card.  A frozen member (SIGSTOP: its
+    heartbeats stop) is declared wedged within the heartbeat timeout and
+    the job replays on a fresh gang; that gang's worker 1 replies
+    GANG_SLOW late with its heartbeats flowing (``DRYAD_TEST_REPLY_DELAY``
+    in the workers' environment), past the 2 s straggler margin, and
+    must not be declared wedged: the replayed job returns the right
+    count with exactly one wedge, the frozen worker's."""
+    import signal
+    cfg = port.JobConfig(cluster_job_timeout_s=600.0, **GANG_WATCHDOG)
+    ctx = port.Context(cluster=cl, config=cfg, event_log=events.append)
+    v = np.arange(40_000, dtype=np.int32)
+    ds = ctx.from_columns({"v": v}).group_by(["v"], {"n": ("count", None)})
+    if ds.count() != len(v):
+        raise AssertionError("gang watchdog: the warm-up count is wrong")
+    n0 = len(events)
+    frozen = cl._procs[1].pid
+    os.environ["DRYAD_TEST_REPLY_DELAY"] = GANG_SLOW
+    os.kill(frozen, signal.SIGSTOP)
+    t0 = time.perf_counter()
+    try:
+        got = ds.count()
+    finally:
+        os.environ.pop("DRYAD_TEST_REPLY_DELAY", None)
+        try:
+            os.kill(frozen, signal.SIGCONT)
+        except OSError:
+            pass
+    wall = time.perf_counter() - t0
+    wedges = [e for e in events[n0:] if e.get("event") == "worker_wedged"]
+    if got != len(v) or len(wedges) != 1 or wedges[0]["workers"] != [1]:
+        raise AssertionError(f"gang watchdog: count {got}, wedges "
+                             f"{[(e['workers'], e['why']) for e in wedges]}")
+    if wall > 120:
+        raise AssertionError(f"gang watchdog: the replay took {wall:.1f} s")
+    return {"frozen_wedged": wedges[0]["why"], "replay_wall_s": wall,
+            "slow_reply_delay": GANG_SLOW, "slow_wedged": False,
+            "config": GANG_WATCHDOG}
+
+
+def phase19_runs(port, hk, wc, ts, corpus, wc_counts, tera, edges,
+                 n_nodes: int, pr, lineitems: int, root: str, held,
+                 device="cuda") -> dict:
+    """Phase 19's cells on one ``LocalCluster(GANG_PROCS, GANG_DPP)`` on
+    the card (P = 8; see the module docstring), each against the same
+    query in this process; the workers' calls held on a replay of
+    terasort1m and two PageRank supersteps here as a gang of threads
+    (``replay_gang``), at the workers' shapes."""
+    import contextlib
+
+    import torch
+    from dryad_tpu_torch.exec.executor import Executor
+    from dryad_tpu_torch.runtime import LocalCluster
+    if TESTS not in sys.path:
+        sys.path.insert(0, TESTS)
+    import torch_cluster_fns as F
+    # every range stage's split points, by the mesh's world: the
+    # in-process run's (1) and the replay's ranks' (GANG_PROCS)
+    bounds = collections.defaultdict(list)
+
+    @contextlib.contextmanager
+    def recording_bounds():
+        real = Executor._range_bounds
+
+        def recorded(self, src, key):
+            b = real(self, src, key)
+            bounds[self.mesh.world].append(b.tolist())
+            return b
+        Executor._range_bounds = recorded
+        try:
+            yield
+        finally:
+            Executor._range_bounds = real
+    old = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = TESTS + (os.pathsep + old if old else "")
+    os.environ["DRYAD_GANG_PR_NODES"] = str(n_nodes)
+    F.PR_NODES = n_nodes
+    lines, events = {}, []
+    t0 = time.perf_counter()
+    cl = LocalCluster(n_processes=GANG_PROCS, devices_per_process=GANG_DPP,
+                      fn_modules=("torch_cluster_fns",), device=device,
+                      log_dir=os.path.join(root, "workers"))
+    start_s = time.perf_counter() - t0
+    gj = GangJobs(cl)
+    try:
+        gctx = port.Context(cluster=cl, event_log=events.append)
+        lctx = port.Context(device=device, nparts=NPARTS)
+        per_part = -(-len(corpus) // NPARTS)
+        # the corpus as a text file each worker reads (no 60 MB column
+        # pickled over the control socket)
+        text = os.path.join(root, "zipf50k.txt")
+        with open(text, "w") as f:
+            f.write("\n".join(corpus) + "\n")
+
+        def wordcount(ctx):
+            return wc.wordcount_query(
+                ctx.read_text(text, max_line_len=96),
+                tokens_per_partition=per_part * 10).collect()
+
+        def wc_check(out, local):
+            _tables_equal("gang_zipf50k", out, local)
+            if dict(zip(out["line"], (int(v) for v in out["n"]))) != \
+                    wc_counts:
+                raise AssertionError("gang_zipf50k: counts differ from "
+                                     "phase 3's (the Counter oracle's)")
+            return {"lines": len(corpus), "words": len(out["line"])}
+        line = gang_cell("gang_zipf50k", gj, lambda: wordcount(gctx),
+                         lambda: wordcount(lctx), wc_check, device)
+        line["cluster_start_s"] = start_s
+        lines["gang_zipf50k"] = line
+
+        data, sml = tera
+
+        def terasort(ctx):
+            return ts.terasort_query(ctx.from_columns(
+                data, str_max_len=sml)).collect()
+
+        def tera_local():
+            # the in-process run's range bounds, kept for the replay's
+            with recording_bounds():
+                return terasort(lctx), list(lctx.executor.stage_log)
+
+        def tera_check(out, local):
+            _tables_equal("gang_terasort1m", out, local[0])
+            tera_local_run[:] = local
+            return {"records": len(out["key"])}
+        tera_local_run = []
+        line = gang_cell("gang_terasort1m", gj, lambda: terasort(gctx),
+                         tera_local, tera_check, device)
+        # the range exchange's received rows per partition: the same
+        # split points, so the same partitions
+        grecv = [e["recv_rows"] for e in line["_replies"][0]["stage_log"]
+                 if e["exchange"] == "range"]
+        tera_out, tlog = tera_local_run
+        lrecv = [e["recv_rows"] for e in tlog if e["exchange"] == "range"]
+        if not grecv or grecv != lrecv:
+            raise AssertionError(f"gang_terasort1m: range-exchanged rows "
+                                 f"{grecv} against the in-process {lrecv}")
+        line["range_recv_rows"] = grecv
+        lines["gang_terasort1m"] = line
+
+        def pagerank(ctx, iters=PR_ITERS):
+            return gang_pagerank(ctx, F, edges, n_nodes, iters)
+
+        def pr_check(out, local):
+            if not np.array_equal(out["node"], local["node"]):
+                raise AssertionError("gang_pagerank100k: nodes differ from "
+                                     "the in-process run's")
+            a, b = (np.asarray(t["rank"], np.float64) for t in (out, local))
+            rel = float((np.abs(a - b) / np.abs(b)).max())
+            if not rel <= 1e-6:
+                raise AssertionError(f"gang_pagerank100k: a rank is {rel} "
+                                     f"off the in-process run's")
+            return {**check_pagerank(out, edges, n_nodes, pr),
+                    "max_rel_diff_inprocess": rel,
+                    "bit_equal_inprocess": a.tobytes() == b.tobytes()}
+        line = gang_cell("gang_pagerank100k", gj, lambda: pagerank(gctx),
+                         lambda: pagerank(lctx), pr_check, device)
+        steps = line["sent_bytes"][2:-1]   # edges, ranks; the collect
+        if not steps or max(steps) > GANG_STEP_BYTES or \
+                line["sent_bytes"][0] < len(edges["src"]) * 8:
+            raise AssertionError(f"gang_pagerank100k: control messages "
+                                 f"{line['sent_bytes']} bytes")
+        line["superstep_message_bytes_max"] = max(steps)
+        lines["gang_pagerank100k"] = line
+
+        li, orders, _ = tpch_tables(lineitems)
+
+        def sj_local():
+            ex = lctx.executor
+            out = gang_skew_join(lctx, F, li, orders)
+            return out, list(ex.stage_log)
+        local_log = []
+
+        def sj_check(out, local):
+            lout, llog = local
+            local_log[:] = llog
+            _tables_equal("gang_skewjoin6m", out, lout)
+            return {"lineitems": lineitems, "groups": len(out["custkey"])}
+        line = gang_cell("gang_skewjoin6m", gj,
+                         lambda: gang_skew_join(gctx, F, li, orders),
+                         sj_local, sj_check, device)
+        keep = ("attempts", "scale", "slack", "salted", "salted_attempts",
+                "slot_rows", "slot_source", "recv_rows")
+        (gjoin,) = [e for e in line["_replies"][0]["stage_log"]
+                    if e["label"] == "join"]
+        (ljoin,) = [e for e in local_log if e["label"] == "join"]
+        if not (gjoin["attempts"] == 2 and gjoin["salted"]
+                and gjoin["salted_attempts"] == 1) or \
+                {k: gjoin[k] for k in keep} != {k: ljoin[k] for k in keep}:
+            raise AssertionError(f"gang_skewjoin6m: join stage {gjoin} "
+                                 f"against the in-process {ljoin}")
+        line["join_stage"] = {k: gjoin[k] for k in keep
+                              if k != "recv_rows"}
+        lines["gang_skewjoin6m"] = line
+        del li, orders
+
+        # terasort1m's output by parallel gzip to_store, read back; then a
+        # cache() healed after a gang restart
+        store = os.path.join(root, "tera_gz")
+        t1 = time.perf_counter()
+        ts.terasort_query(gctx.from_columns(data, str_max_len=sml)) \
+            .to_store(store, compression="gzip")
+        store_s = time.perf_counter() - t1
+        back = gctx.from_store(store).collect()
+        _tables_equal("gang_store_cache read-back", back, tera_out)
+        cached = gctx.from_store(store).cache()
+        n_before = cached.count()
+        n0 = len(events)
+        cl.restart()
+        t1 = time.perf_counter()
+        healed = cached.collect()
+        heal_s = time.perf_counter() - t1
+        _tables_equal("gang_store_cache healed", healed, tera_out)
+        missing = [e for e in events[n0:] if e.get("event") == "job_failed"
+                   and "MissingResidentToken" in e.get("error", "")]
+        if n_before != len(tera_out["key"]) or not missing:
+            raise AssertionError("gang_store_cache: the cache() did not "
+                                 "heal through MissingResidentToken")
+        lines["gang_store_cache"] = {
+            "records": n_before, "store_s": store_s, "heal_s": heal_s,
+            "compression": "gzip", "healed_through": "MissingResidentToken"}
+        gj.take()
+        lines["gang_watchdog"] = gang_watchdog(port, cl, events)
+    finally:
+        gj.close()
+        cl.shutdown()
+        os.environ.pop("DRYAD_GANG_PR_NODES", None)
+        if old is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = old
+
+    # the workers' kernel calls at their shapes: terasort1m and two
+    # PageRank supersteps replayed here as a gang of threads, every call
+    # held against the plain versions; the range bounds (the gang's code
+    # on the gang's partitions) bit-equal to the in-process run's
+    torch.cuda.empty_cache()
+    with recording_bounds():
+        captured, replayed = replay_gang(port, hk, [
+            terasort, lambda c: pagerank(c, 2)], device)
+    # (a settle's replay of the sort stage samples its input again)
+    if len(bounds[GANG_PROCS]) < GANG_PROCS or len(
+            {tuple(b) for b in bounds[1] + bounds[GANG_PROCS]}) != 1:
+        raise AssertionError("gang_terasort1m: the gang's range bounds "
+                             "differ from the in-process run's")
+    lines["gang_terasort1m"]["bounds_bit_equal_inprocess"] = True
+    errs = hold_run(hk, "gang replay", captured)
+    shapes = {k: [tuple(a.shape) for a in calls[0][1]
+                  if hasattr(a, "shape")] for k, calls in captured.items()}
+    del captured
+    total = dict.fromkeys(TPU_KERNEL, 0)
+    for label in ("gang_zipf50k", "gang_terasort1m", "gang_pagerank100k",
+                  "gang_skewjoin6m"):
+        line = lines[label]
+        line.pop("_replies")
+        for w in line["worker_launches"].values():
+            total = add_launches(total, w)
+    missed = [k for k in TPU_KERNEL if not total[k] or not replayed[k]]
+    if missed and device == "cuda":
+        raise AssertionError(f"phase 19: {missed} not launched by the "
+                             f"workers or not replayed")
+    held("gang", total, errs=errs)
+    lines["gang_replay"] = {"replay_launches": replayed,
+                            "max_abs_err": errs, "first_call_shapes": shapes,
+                            "worker_launches": total}
     return lines
 
 
@@ -6784,8 +7342,11 @@ def main(argv=None) -> int:
         sizes = check(out, app_runs)
         del out
         _, _, wload, wquery, wruns = run_app(port, hk, app)
-        prof = profile_path(lambda: run_app(port, hk, app)[:4], label,
-                            a.out, pack=False)
+        # one profiled warm run: the phase's first (salted) cell
+        prof = (profile_path(lambda: run_app(port, hk, app)[:4], label,
+                             a.out, pack=False)
+                if label == "skewjoin6m" else {"wall_s": None,
+                                               "device_ms": None})
         emit({"phase9": label, **sizes, "nparts": NPARTS,
               "launches": launches,
               "exchanging_stages": stages["outside_loop"],
@@ -6851,9 +7412,11 @@ def main(argv=None) -> int:
                     un_work, hk.capture = path_work(hk.capture), None
                 wsizes = check(wout, wruns, True)
                 del wout
-                prof = profile_path(lambda: run_app(
+                # one profiled warm run: unnest6m's (its path_bound line)
+                prof = (profile_path(lambda: run_app(
                     port, hk, warm_app, ctx=ctx)[:4], label, a.out,
-                    pack=False)
+                    pack=False) if label == "unnest6m" else
+                    {"wall_s": None, "device_ms": None, "launches": {}})
                 if label == "unnest6m":
                     un_prof = prof
                 pl = prof["launches"]
@@ -6905,6 +7468,9 @@ def main(argv=None) -> int:
                                 for k in runs[r][1]}
     if unheld:
         raise AssertionError(f"phase 11: no call of {sorted(unheld)} held")
+    # pagerank100k's profiled warm run (phase 11's deferred form, the
+    # default) for its path_bound line
+    pr_prof = eleven["pagerank100k"].pop("_profile")
     emit({"phase": "recovery", **eleven,
           "seconds": time.perf_counter() - t11, "card": card})
     del li9, orders9
@@ -7098,6 +7664,25 @@ def main(argv=None) -> int:
                               if r != "chaos_seed3"},
           "seconds": time.perf_counter() - t18, "card": card})
 
+    # phase 19: the gang, SPMD jobs across two worker processes on the
+    # card (P = 8) against the same queries in this process; stores under
+    # --out, deleted at the end
+    torch.cuda.empty_cache()
+    t19 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase19-", dir=a.out)
+    try:
+        nineteen = phase19_runs(
+            port, hk, wc, ts, corpora["zipf50k"], wc_counts["zipf50k"],
+            (tera_data, tera_sml), edges, a.nodes, pr, a.lineitems, tmp,
+            held)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for label, line in nineteen.items():
+        emit({"phase19": label, **line, "card": card})
+    emit({"phase": "gang", "worker_launches": runs["gang"][0],
+          "max_abs_err": runs["gang"][1],
+          "seconds": time.perf_counter() - t19, "card": card})
+
     wc_prof = profile_path(
         lambda: run_wordcount(port, hk, wc, corpora["zipf50k"])[:4],
         "wordcount_zipf50k", a.out)
@@ -7108,24 +7693,7 @@ def main(argv=None) -> int:
         "groupbyreduce_app10k", a.out)
     emit({"profile": "groupbyreduce app10k warm run",
                       **_no_pack(gbr_prof), "card": card})
-    tera_prof = profile_path(
-        lambda: run_sort(port, hk, tera_data, tera_sml,
-                         [ts.terasort_query])[:4],
-        "terasort1m", a.out)
-    emit({"profile": "terasort1m warm run",
-                      **_no_pack(tera_prof), "card": card})
-    pr_prof = profile_path(
-        lambda: run_pagerank(port, hk, pr, edges, a.nodes)[:4],
-        "pagerank100k", a.out, pack=False)
-    emit({"profile": "pagerank100k warm run", **_no_pack(pr_prof),
-          "card": card})
-    km_prof = profile_path(
-        lambda: run_kmeans(port, hk, km, km_pts)[:4], "kmeans500k", a.out,
-        pack=False)
-    emit({"profile": "kmeans500k warm run", **_no_pack(km_prof),
-          "card": card})
-    for label, prof in (("zipf50k", wc_prof), ("app10k", gbr_prof),
-                        ("terasort1m", tera_prof)):
+    for label, prof in (("zipf50k", wc_prof), ("app10k", gbr_prof)):
         emit({"pack_side": label,
                           **pack_side(prof, timed_calls[label]),
                           "card": card})

@@ -57,13 +57,19 @@ into these same calls.
 ``Context(cluster=LocalCluster(...))`` targets worker processes: the
 driver owns no device, and ``from_columns``, ``read_text`` and
 ``from_store`` make deferred sources (``runtime/sources.py``) that a
-plan ships with (``runtime/shiplan.serialize_for_cluster``: the task
-farm and the job service's cluster fleet run such plans per task).  A
-terminal of a cluster Context (``collect``, ``count``, ``to_store``,
-``cache``, ``do_while`` and the others) is a gang SPMD job across the
-workers, which needs an exchange across processes: it raises
-``ValueError`` naming the gang half of ROADMAP Queue 1 item 11 before
-anything is sent, as do the streamed constructors.
+plan ships with (``runtime/shiplan.serialize_for_cluster``).  The
+context's ``nparts`` is the gang's (``n_processes x
+devices_per_process``), and every terminal (``collect``, ``count``,
+``to_store``, the scalars, ``cache``, ``do_while``) is a gang SPMD job
+(``_cluster_run``: ``LocalCluster.execute``, ``runtime/exec_common.py``)
+whose result equals the in-process run at the same ``nparts``.
+``cache()`` and a ``do_while``'s loop state stay resident on the workers
+under a token (only the plan and the token cross the driver's socket),
+and a token a gang restart lost is healed by re-running its producing
+plan.  The task farm and the job service's cluster fleet size their
+tasks from the cluster's ``devices_per_process``, never from the
+context.  The streamed constructors refuse a cluster Context (ROADMAP
+Queue 1 item 11b.6), as does ``analyze()``.
 
 Telemetry (``obs/``): a Context installs its ``event_log`` as the
 process's span sink (the latest Context owns it; ``install_trace=False``
@@ -287,11 +293,18 @@ class Context:
         self._event_log = event_log
         if cluster is not None:
             # the driver owns no device: sources are deferred specs that
-            # ship with the plan, and a farm task runs it on ONE worker's
-            # partitions
+            # ship with the plan, run SPMD over the gang's partitions
             self.mesh = None
             self.executor = None
-            self.nparts = cluster.devices_per_process
+            # n_processes x devices_per_process (a backend that names no
+            # process count is one process)
+            self.nparts = (getattr(cluster, "n_processes", 1)
+                           * cluster.devices_per_process)
+            self._token_seq = 0
+            # token -> the plan node that produced it: a gang restart
+            # wipes resident state, and a query touching a lost token
+            # re-materializes it from this lineage and retries
+            self._resident_producers: Dict[str, Any] = {}
         else:
             self.mesh = Mesh(resolve_device(device), nparts)
             self.nparts = nparts
@@ -315,12 +328,99 @@ class Context:
         hold the devices)."""
         return self.mesh.device if self.mesh is not None else None
 
-    def _refuse_gang(self) -> None:
-        """A cluster Context's terminals (gang SPMD jobs) raise here,
-        before anything is sent (``runtime.cluster.GANG_LATER``)."""
+    def _refuse_streamed_on_cluster(self) -> None:
+        """The streamed constructors on a cluster Context raise here:
+        streamed plans across the gang are ROADMAP Queue 1 item 11b.6."""
         if self.cluster is not None:
-            from dryad_tpu_torch.runtime.cluster import GANG_LATER
-            raise ValueError(GANG_LATER)
+            raise ValueError(
+                "streamed sources on a cluster Context (the streamed "
+                "cluster plans) come with ROADMAP Queue 1 item 11b.6")
+
+    # -- gang submission ---------------------------------------------------
+
+    def _cluster_run(self, node, collect: Any = True,
+                     store_path: Optional[str] = None,
+                     store_partitioning: Optional[Dict[str, Any]] = None,
+                     keep_token: Optional[str] = None,
+                     want_reply: bool = False,
+                     store_compression: Optional[str] = None,
+                     lint: bool = True):
+        """Plan, serialize and submit one query to the gang; the host
+        table, or with ``want_reply`` worker 0's whole reply.  A job lost
+        to a dead or wedged worker is replayed once on a fresh gang (its
+        sources are re-readable); a job that touched a resident token the
+        gang lost re-materializes it from its producer first (chained
+        residents heal recursively)."""
+        from dryad_tpu_torch.runtime.cluster import (ClusterJobError,
+                                                     WorkerFailure)
+        from dryad_tpu_torch.runtime.shiplan import serialize_for_cluster
+        graph = plan_query(node, self.nparts, config=self.config)
+        if lint:
+            self._pre_submit_lint(node, cluster=True, graph=graph)
+        plan_json, specs = serialize_for_cluster(graph, self.fn_table)
+        # the workers' events go to THIS context's log for the job
+        # (several contexts may share one cluster)
+        prev_log = self.cluster.event_log
+        self.cluster.event_log = self._event_log
+        replayed = False
+        try:
+            for heal in range(8):   # bounds the healing retries
+                try:
+                    reply = self.cluster.execute(
+                        plan_json, specs, collect=collect,
+                        store_path=store_path,
+                        store_partitioning=store_partitioning,
+                        config=self.config,
+                        timeout=self.config.cluster_job_timeout_s,
+                        keep_token=keep_token,
+                        store_compression=store_compression)
+                    break
+                except WorkerFailure:
+                    if replayed or heal == 7:
+                        raise
+                    replayed = True
+                except ClusterJobError as e:
+                    tok = self._lost_resident_token(e)
+                    if tok is None or heal == 7:
+                        raise
+                    self._cluster_run(self._resident_producers[tok],
+                                      collect=False, keep_token=tok)
+        finally:
+            self.cluster.event_log = prev_log
+        return reply if want_reply else reply.get("table")
+
+    def _lost_resident_token(self, err) -> Optional[str]:
+        """The healable token of a lost-resident job error (its producer
+        is registered): read from ``ClusterJobError.missing_token``, set
+        from the worker reply's structured field."""
+        tok = getattr(err, "missing_token", None)
+        if tok is not None and tok in self._resident_producers:
+            return tok
+        return None
+
+    def _fresh_token(self, tag: str) -> str:
+        self._token_seq += 1
+        return f"__{tag}_{id(self):x}_{self._token_seq}"
+
+    def _resident_dataset(self, token: str, capacity: int,
+                          partitioning: E.Partitioning =
+                          E.Partitioning.none(),
+                          producer: Any = None) -> "Dataset":
+        """A Dataset over a cluster-resident intermediate: its queries
+        ship only the token.  When its source node is collected, the
+        token joins the CLUSTER's release list (riding the next job of
+        any Context: the workers hold the memory).  ``producer``, the
+        plan node that computed it, lets a lost token heal."""
+        from dryad_tpu_torch.runtime.sources import DeferredSource
+        node = E.Source(parents=(), data=DeferredSource(
+            {"kind": "resident", "token": token, "capacity": capacity}),
+            _npartitions=self.nparts, _partitioning=partitioning)
+        if producer is not None:
+            self._resident_producers[token] = producer
+            weakref.finalize(node, self._resident_producers.pop, token,
+                             None)
+        weakref.finalize(node, self.cluster.pending_release.append, token)
+        return Dataset(self, node)
 
     # -- pre-submit static analysis (analysis/) ----------------------------
 
@@ -434,7 +534,7 @@ class Context:
         streams (``exec/stream_exec.py``), the device holding
         O(chunk_rows) rows whatever the data size."""
         from dryad_tpu_torch.exec.stream_exec import StreamSource
-        self._refuse_gang()
+        self._refuse_streamed_on_cluster()
         return Dataset(self, E.Source(parents=(), data=StreamSource(source),
                                       _npartitions=1))
 
@@ -446,7 +546,7 @@ class Context:
         ``JobConfig.ooc_chunk_autotune``, else
         ``JobConfig.ooc_chunk_rows``)."""
         from dryad_tpu_torch.exec.ooc import ChunkSource
-        self._refuse_gang()
+        self._refuse_streamed_on_cluster()
         cr = chunk_rows or self._auto_chunk_rows(path) \
             or self.config.ooc_chunk_rows
         return self.from_stream(ChunkSource.from_store(path, cr))
@@ -487,7 +587,7 @@ class Context:
         it), read by ranged requests."""
         from dryad_tpu_torch.exec.ooc import ChunkSource
         from dryad_tpu_torch.io.providers import expand_uris
-        self._refuse_gang()
+        self._refuse_streamed_on_cluster()
         return self.from_stream(ChunkSource.from_text(
             expand_uris(path), chunk_rows or self.config.ooc_chunk_rows,
             max_line_len or self.config.text_max_line_len, column))
@@ -584,13 +684,17 @@ class Context:
         scale learned in the first iteration carries over).  The body must
         keep the per-partition capacity (``with_capacity``).  ``cond``, a
         predicate on the current table collected to the host, stops the
-        loop early when it returns False."""
-        self._refuse_gang()
+        loop early when it returns False.
+
+        On a cluster Context the loop state stays resident on the
+        workers under a token (``_cluster_do_while``)."""
         if n_iters > self.config.max_loop_iterations:
             raise ValueError(
                 f"n_iters={n_iters} exceeds JobConfig.max_loop_iterations="
                 f"{self.config.max_loop_iterations}; raise the knob "
                 f"explicitly for longer loops")
+        if self.cluster is not None:
+            return self._cluster_do_while(init, body, n_iters, cond)
         if self.local_debug:
             cur_host = _oracle.run_oracle(init.node)
             body_node = body(Dataset(self, E.Placeholder(
@@ -634,6 +738,71 @@ class Context:
             if cond is not None and not cond(pdata_to_host(cur)):
                 break
         return self.from_pdata(cur)
+
+    def _cluster_do_while(self, init: "Dataset", body, n_iters: int,
+                          cond) -> "Dataset":
+        """The loop on the gang: the init runs once into a resident
+        token, and each iteration submits the body with its placeholder
+        bound to that token, keeping the output under it again — only
+        the plan and the token cross the driver's socket, never the
+        table (the reference's cluster-resident temp outputs read in
+        place, DrVertex.h:325-351).  ``cond`` collects the table each
+        round (a host predicate).  A loop lost to a gang restart (a dead
+        or wedged worker, or a lost token) replays once from the init."""
+        import dataclasses as _dcs
+
+        from dryad_tpu_torch.runtime.cluster import (ClusterJobError,
+                                                     WorkerFailure)
+        from dryad_tpu_torch.runtime.sources import DeferredSource
+        ph = E.Placeholder(parents=(), name="__loop",
+                           _npartitions=self.nparts)
+        body_node = body(Dataset(self, ph)).node
+
+        def subst(node, token, cap):
+            if isinstance(node, E.Placeholder) and node.name == "__loop":
+                return E.Source(parents=(), data=DeferredSource(
+                    {"kind": "resident", "token": token, "capacity": cap}),
+                    _npartitions=self.nparts)
+            parents = tuple(subst(p, token, cap) for p in node.parents)
+            if parents == node.parents:
+                return node
+            return _dcs.replace(node, parents=parents)
+
+        def run_loop():
+            token = self._fresh_token("loop")
+            try:
+                reply = self._cluster_run(init.node, collect=False,
+                                          keep_token=token, want_reply=True)
+                cap = reply["resident_capacity"]
+                for it in range(n_iters):
+                    # the body plan is the same every round: lint it once
+                    reply = self._cluster_run(
+                        subst(body_node, token, cap),
+                        collect=cond is not None, keep_token=token,
+                        want_reply=True, lint=it == 0)
+                    if reply["resident_capacity"] != cap:
+                        raise ValueError(
+                            "do_while body must preserve per-partition "
+                            f"capacity ({cap} -> "
+                            f"{reply['resident_capacity']}); use explicit "
+                            "capacities (with_capacity) inside the loop")
+                    if cond is not None and not cond(reply["table"]):
+                        break
+                return token, cap
+            except BaseException:
+                # an abandoned token must not pin its PData on the workers
+                self.cluster.pending_release.append(token)
+                raise
+
+        try:
+            token, cap = run_loop()
+        except WorkerFailure:
+            token, cap = run_loop()
+        except ClusterJobError as e:
+            if e.missing_token is None:
+                raise
+            token, cap = run_loop()
+        return self._resident_dataset(token, cap)
 
 
 class Dataset:
@@ -969,13 +1138,24 @@ class Dataset:
         clean re-stream of the query, never wrong rows.  With the tier
         off, streamed data is spooled once to an unvalidated temporary
         store.  Under ``local_debug`` the oracle's table is cached on the
-        host."""
-        self.ctx._refuse_gang()
+        host.  On a cluster Context the result stays resident on the
+        workers under a token, keeping its partitioning claim (dropped
+        when a stage ran salted), and heals after a gang restart by
+        re-running this query."""
         if self.ctx.local_debug:
             return Dataset(self.ctx, E.Source(
                 parents=(), data=None, _npartitions=self.ctx.nparts,
                 host=_oracle.run_oracle(self.node)))
         cfg = self.ctx.config
+        if self.ctx.cluster is not None:
+            token = self.ctx._fresh_token("cache")
+            reply = self.ctx._cluster_run(self.node, collect=False,
+                                          keep_token=token, want_reply=True)
+            return self.ctx._resident_dataset(
+                token, reply["resident_capacity"],
+                partitioning=(E.Partitioning.none() if reply.get("salted")
+                              else self.node.partitioning),
+                producer=self.node)
         if self._streaming():
             if cfg.ooc_restream_cache:
                 return self._cache_restream_local()
@@ -1113,11 +1293,13 @@ class Dataset:
         return self._run()[0]
 
     def collect(self) -> Dict[str, Any]:
-        """Execute and pull all rows to the host."""
-        self.ctx._refuse_gang()
+        """Execute and pull all rows to the host (on a cluster Context the
+        parallel collect: each worker ships its own partitions' rows)."""
         if self.ctx.local_debug:
             return _oracle.run_oracle(self.node)
-        if self._streaming():
+        if self.ctx.cluster is not None:
+            out = self.ctx._cluster_run(self.node)
+        elif self._streaming():
             from dryad_tpu_torch.exec.stream_exec import chunks_to_table
             out = chunks_to_table(self._stream_run())
         else:
@@ -1133,13 +1315,22 @@ class Dataset:
         ``hdfs://``), with this dataset's partitioning claim (dropped
         where ``cache`` drops it).
         ``compression="gzip"`` (default ``JobConfig.store_compression``)
-        writes level-1 gzip part files."""
+        writes level-1 gzip part files.  On a cluster Context the
+        parallel output: each worker writes its own partitions, and
+        worker 0 commits the meta (a shared local path)."""
         from dryad_tpu_torch.io.store import write_store
-        self.ctx._refuse_gang()
         if compression is None:
             compression = self.ctx.config.store_compression
         if compression not in (None, "gzip"):
             raise ValueError(f"unknown compression {compression!r}")
+        if self.ctx.cluster is not None:
+            part = self.node.partitioning
+            self.ctx._cluster_run(
+                self.node, collect=False, store_path=path,
+                store_partitioning={"kind": part.kind,
+                                    "keys": list(part.keys)},
+                store_compression=compression)
+            return
         if self._streaming():
             # one partition file per output chunk, written as the chunks
             # come
@@ -1164,9 +1355,10 @@ class Dataset:
         shippability lint — WITHOUT executing anything.  Returns an
         ``analysis.DiagnosticReport`` with every finding at once (stable
         DTA0xx / DTA1xx codes, source spans).  ``cluster`` turns the
-        cluster-shipping rules on (the port runs on one process, so they
-        are off by default).  ``cost=True`` adds the DTA2xx resource findings (the
-        cost model runs the ops on meta tensors: nothing on the card)."""
+        cluster-shipping rules on (a cluster Context's submissions run
+        them; off by default).  ``cost=True`` adds the DTA2xx resource
+        findings (the cost model runs the ops on meta tensors: nothing on
+        the card)."""
         from dryad_tpu_torch.analysis import check_plan
         report = check_plan(self.node, cluster=cluster,
                             fn_table=self.ctx.fn_table)
@@ -1195,7 +1387,11 @@ class Dataset:
         In-memory execution only: local_debug and streamed plans raise
         ValueError (record a JSONL and use ``python -m
         dryad_tpu_torch.obs analyze`` instead)."""
-        self.ctx._refuse_gang()
+        if self.ctx.cluster is not None:
+            raise ValueError(
+                "EXPLAIN ANALYZE needs an in-process Context: a cluster "
+                "Context's jobs run on the workers — record a JSONL and "
+                "use `python -m dryad_tpu_torch.obs analyze` instead")
         if self.ctx.local_debug:
             raise ValueError(
                 "EXPLAIN ANALYZE needs the executor: a local_debug context "
@@ -1262,10 +1458,12 @@ class Dataset:
     # -- terminal scalars --------------------------------------------------
 
     def count(self) -> int:
-        self.ctx._refuse_gang()
         if self.ctx.local_debug:
             t = _oracle.run_oracle(self.node)
             return len(next(iter(t.values()), ()))
+        if self.ctx.cluster is not None:
+            # the counts only: no row crosses the control plane
+            return self.ctx._cluster_run(self.node, collect="count")
         if self._streaming():
             return sum(c.n for c in self._stream_run())
         return int(self._materialize().counts.sum())
@@ -1275,11 +1473,18 @@ class Dataset:
         device (``scalar_aggregate``), combined on the host as the JAX
         package does: min / max over the non-empty partitions, the mean
         weighted by the counts, None for an empty dataset.  Under
-        ``local_debug``, the oracle's aggregate of the column."""
-        self.ctx._refuse_gang()
+        ``local_debug``, the oracle's aggregate of the column.  On a
+        cluster Context a constant-key group-by ships, so ONE aggregated
+        row crosses the control plane."""
         if self.ctx.local_debug:
             t = _oracle.run_oracle(self.node)
             return _oracle._agg(kind, list(t[column]))
+        if self.ctx.cluster is not None:
+            const = self.select(_add_agg_key, label="agg-key")
+            agg = E.GroupByAgg(parents=(const.node,), keys=("__agg_key",),
+                               aggs={"out": (kind, column)})
+            v = np.asarray(self.ctx._cluster_run(agg)["out"])
+            return v[0] if v.shape and v.shape[0] == 1 else v
         if self._streaming():
             # per-chunk host reductions, combined as they come
             from dryad_tpu_torch.exec.stream_exec import stream_scalar

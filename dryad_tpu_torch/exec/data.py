@@ -69,6 +69,14 @@ def stack_partitions(parts: List[Batch]) -> PData:
     return PData(Batch(cols, count), len(parts))
 
 
+def _local_parts(mesh) -> range:
+    """The global indices of the partitions this process builds: all of
+    them, or a gang rank's own (``parallel/mesh.py``)."""
+    n = getattr(mesh, "local_nparts", mesh.nparts)
+    start = getattr(mesh, "part_start", 0)
+    return range(start, start + n)
+
+
 def _block_slices(n: int, parts: int):
     """Contiguous block partitioning, row order partition-major."""
     base, rem = divmod(n, parts)
@@ -83,7 +91,9 @@ def _block_slices(n: int, parts: int):
 def pdata_from_host(columns: Mapping[str, Any], mesh,
                     capacity: int | None = None,
                     str_max_len: int = 64) -> PData:
-    """Build a PData from host columns (block-partitioned rows)."""
+    """Build a PData from host columns (block-partitioned rows over the
+    mesh's ``nparts``).  A gang rank builds only its own partitions, at
+    the capacity the whole mesh's build gives them."""
     nparts = mesh.nparts
     n = None
     for v in columns.values():
@@ -98,6 +108,13 @@ def pdata_from_host(columns: Mapping[str, Any], mesh,
         raise ValueError(
             f"capacity {cap} too small: {n} rows over {nparts} partitions "
             f"needs per-partition capacity >= {max_block}")
+    local = _local_parts(mesh)
+    if len(local) != nparts:
+        # a gang rank: its partitions' rows only
+        lo, hi = slices[local[0]][0], slices[local[-1]][1]
+        columns = {k: v[lo:hi] for k, v in columns.items()}
+        slices = [(s - lo, e - lo) for s, e in slices[local[0]:local[-1] + 1]]
+        n, nparts = hi - lo, len(local)
     # rows [s, e) of partition p land at stacked row p*cap + (i - s)
     dst = np.concatenate([np.arange(e - s) + p * cap
                           for p, (s, e) in enumerate(slices)]).astype(np.int64)
@@ -125,7 +142,8 @@ def pdata_from_packed_strings(data: np.ndarray, lens: np.ndarray, mesh,
                               capacity: int | None = None) -> PData:
     """A one-string-column PData from an already packed [n, max_len] byte
     matrix (``columnar.pack_lines``), block-partitioned like
-    ``pdata_from_host``, with no per-row Python work."""
+    ``pdata_from_host``, with no per-row Python work (a gang rank: its
+    own partitions)."""
     nparts = mesh.nparts
     n, max_len = data.shape
     slices = _block_slices(n, nparts)
@@ -133,6 +151,9 @@ def pdata_from_packed_strings(data: np.ndarray, lens: np.ndarray, mesh,
     cap = capacity or max_block
     if cap < max_block:
         raise ValueError(f"capacity {cap} < max block {max_block}")
+    local = _local_parts(mesh)
+    slices = [slices[g] for g in local]
+    nparts = len(local)
     sd = np.zeros((nparts, cap, max_len), np.uint8)
     sl = np.zeros((nparts, cap), np.int32)
     for p, (s, e) in enumerate(slices):
@@ -197,8 +218,12 @@ def shrink_pdata(pd: PData, new_cap: int) -> PData:
     return PData(pd.batch.map(lambda x: x[:, :new_cap]), pd.nparts)
 
 
-def maybe_shrink_for_collect(pd: PData, config) -> PData:
-    new_cap = shrink_bucket_cap(pd.counts.cpu().numpy(), pd.capacity,
+def maybe_shrink_for_collect(pd: PData, config, mesh=None) -> PData:
+    """``pd`` at the shrunk capacity when it is grossly oversized.  On a
+    gang ``mesh`` the decision reads every partition's count (ONE
+    all-gather), so every rank shrinks alike."""
+    counts = pd.counts if mesh is None else mesh.gather_parts(pd.counts)
+    new_cap = shrink_bucket_cap(counts.cpu().numpy(), pd.capacity,
                                 config.collect_shrink_min_capacity,
                                 config.collect_shrink_waste_factor)
     return pd if new_cap is None else shrink_pdata(pd, new_cap)

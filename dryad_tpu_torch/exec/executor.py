@@ -92,6 +92,17 @@ of the run that ended last, set when it ends; ``host_reads`` and
 which also guards the shared slot caches (``_slot_feedback``,
 ``_slot_probe_cache``), as the JAX executor's ``_cache_lock`` does.
 
+On a gang mesh (``parallel/mesh.Mesh`` with world > 1: one worker
+process of several, each holding ``local_nparts`` of the ``nparts``
+partitions) every read across partitions is gang-wide: the exchanges
+cross processes (``shuffle``'s ``mesh`` argument), the positional ops,
+the range samples and the sliding window's halo gather what the other
+ranks hold, the slot probe and every info read take the all-reduce
+(max) of every rank's, with per-partition entries at their global
+place.  Every rank then takes the same decisions, and the output is
+the one-process run's partitions.  At world 1 each collective is the
+identity.
+
 Not ported yet (a later slice, see ROADMAP.md): remembered capacity
 scales.
 """
@@ -349,37 +360,39 @@ def _join_global(lparts: List[Batch], rparts: List[Batch], op: StageOp,
             _needs(need.device, _scale_need(need, p["out_capacity"])))
 
 
-def _starts(parts: List[Batch]) -> torch.Tensor:
-    """[P] global row index of each partition's first row (the exclusive
-    prefix of the counts, on the device)."""
-    counts = torch.stack([b.count for b in parts]).to(torch.int64)
-    return torch.cumsum(counts, 0) - counts
+def _starts(parts: List[Batch], mesh) -> torch.Tensor:
+    """[P_loc] global row index of each local partition's first row (the
+    exclusive prefix of every partition's count, on the device; a gang
+    all-gathers the counts first)."""
+    counts = mesh.gather_parts(
+        torch.stack([b.count for b in parts]).to(torch.int64))
+    return mesh.local(torch.cumsum(counts, 0) - counts)
 
 
-def _take_global(parts: List[Batch], p) -> List[Batch]:
+def _take_global(parts: List[Batch], p, mesh) -> List[Batch]:
     """The first ``n`` rows over all partitions in partition order:
     partition p keeps clip(n - sum_{q<p} count_q, 0, count_p)."""
     n = p["n"]
     local = [kernels.take(b, n) for b in parts]
     counts = torch.stack([b.count for b in local])
-    keep = torch.minimum(torch.clamp(n - _starts(local), min=0),
+    keep = torch.minimum(torch.clamp(n - _starts(local, mesh), min=0),
                          counts).to(torch.int32)
     return [Batch(b.columns, keep[q]) for q, b in enumerate(local)]
 
 
-def _row_index_global(parts: List[Batch], p) -> List[Batch]:
+def _row_index_global(parts: List[Batch], p, mesh) -> List[Batch]:
     """A global int32 row-index column: each partition's rows count on
     from the rows of the partitions before it."""
-    starts = _starts(parts)
+    starts = _starts(parts, mesh)
     return [Batch(dict(b.columns, **{p["column"]: (
         starts[q] + torch.arange(b.capacity, device=b.device)).to(
             torch.int32)}), b.count) for q, b in enumerate(parts)]
 
 
-def _skip_global(parts: List[Batch], p) -> List[Batch]:
+def _skip_global(parts: List[Batch], p, mesh) -> List[Batch]:
     """Drop the first ``n`` rows over all partitions: partition q drops
     its first clip(n - start_q, 0, count_q) rows."""
-    starts = _starts(parts)
+    starts = _starts(parts, mesh)
     out = []
     for q, b in enumerate(parts):
         drop = torch.minimum(torch.clamp(p["n"] - starts[q], min=0),
@@ -389,10 +402,12 @@ def _skip_global(parts: List[Batch], p) -> List[Batch]:
     return out
 
 
-def _while_global(parts: List[Batch], p, take: bool) -> List[Batch]:
+def _while_global(parts: List[Batch], p, mesh, take: bool
+                  ) -> List[Batch]:
     """take_while / skip_while over the global row order: the prefix is
     each partition's rows before its first failing row, and counts only
-    while every earlier partition is clean (no failing row)."""
+    while every earlier partition is clean (no failing row; a gang
+    all-gathers every partition's first failing row and count)."""
     firsts = []
     for b in parts:
         valid = b.valid_mask()
@@ -402,11 +417,15 @@ def _while_global(parts: List[Batch], p, take: bool) -> List[Batch]:
             torch.where(fail, idx, b.capacity).min(), b.count))
     first = torch.stack(firsts)
     counts = torch.stack([b.count for b in parts])
+    if mesh.gang:
+        both = mesh.gather_parts(torch.stack([first.to(torch.int32),
+                                              counts.to(torch.int32)], 1))
+        first, counts = both[:, 0], both[:, 1]
     clean = (first >= counts).to(torch.int32)
     # every partition before q clean: the exclusive running product
     before_clean = torch.cat([clean.new_ones(1),
                               torch.cumprod(clean, 0)[:-1]]) > 0
-    prefix = torch.where(before_clean, first, 0)
+    prefix = mesh.local(torch.where(before_clean, first, 0))
     out = []
     for q, b in enumerate(parts):
         if take:
@@ -430,7 +449,23 @@ def _window_take(x: torch.Tensor, nx: torch.Tensor, halo: int,
         tuple(widx.shape) + tuple(x.shape[1:]))
 
 
-def _sliding_window_global(parts: List[Batch], p
+def _halo_from_next_rank(parts: List[Batch], halo: int, mesh) -> Batch:
+    """The next rank's first partition as a halo source: its first
+    min(halo, cap) rows and its count, packed into ONE int32 buffer and
+    sent to the rank before (``Mesh.from_next``; the last rank gets
+    zeros, and takes no halo)."""
+    b0 = parts[0]
+    n = min(halo, b0.capacity)
+    words, spec = kernels._pack_columns_u32(
+        {k: map_column(v, lambda x: x[:n]) for k, v in b0.columns.items()})
+    W = words.shape[1]
+    got = mesh.from_next(torch.cat([words.reshape(-1),
+                                    b0.count.to(torch.int32).reshape(1)]))
+    return Batch(kernels._unpack_columns_u32(got[:-1].view(n, W), spec),
+                 got[-1])
+
+
+def _sliding_window_global(parts: List[Batch], p, mesh
                            ) -> Tuple[List[Batch], torch.Tensor]:
     """Windows of ``w`` consecutive rows in global row order: row i of
     partition q becomes rows i .. i + w - 1, the rows past its count
@@ -439,19 +474,25 @@ def _sliding_window_global(parts: List[Batch], p
     are dropped, so the last partition takes no halo, and padding rows
     never enter a window.  A partition before the last whose next one
     holds fewer than w - 1 rows is an unscalable shortfall, as in the JAX
-    package.  Reads nothing on the host."""
+    package.  Reads nothing on the host.  On a gang the last local
+    partition's next one is the next rank's first
+    (``_halo_from_next_rank``)."""
     w = p["w"]
     halo = w - 1
     dev = parts[0].device
     if halo == 0:
         return [b.map(lambda x: x[:, None]) for b in parts], _needs(dev)
     P = len(parts)
+    last_rank = mesh.rank == mesh.world - 1
+    remote = _halo_from_next_rank(parts, halo, mesh) if mesh.gang else None
     needs = _needs(dev)
     out = []
     for q, b in enumerate(parts):
         nxt = parts[(q + 1) % P]
+        if q == P - 1 and remote is not None:
+            nxt = remote
         cap = b.capacity
-        if q == P - 1:
+        if q == P - 1 and last_rank:
             avail = torch.zeros((), dtype=torch.int32, device=dev)
         else:
             avail = torch.clamp(nxt.count, max=halo)
@@ -480,15 +521,17 @@ def _sliding_window_global(parts: List[Batch], p
     return out, needs
 
 
-# single-input ops over the whole partition list: (partitions, params) ->
-# partitions; each needs every partition's count or "clean" flag, and
-# none can overflow
+# single-input ops over the whole partition list: (partitions, params,
+# mesh) -> partitions; each needs every partition's count or "clean"
+# flag, and none can overflow
 _POSITIONAL = {
     "take": _take_global,
     "row_index": _row_index_global,
     "skip": _skip_global,
-    "take_while": lambda parts, p: _while_global(parts, p, take=True),
-    "skip_while": lambda parts, p: _while_global(parts, p, take=False),
+    "take_while": lambda parts, p, mesh: _while_global(parts, p, mesh,
+                                                       take=True),
+    "skip_while": lambda parts, p, mesh: _while_global(parts, p, mesh,
+                                                       take=False),
 }
 
 
@@ -542,7 +585,7 @@ def _fuse_stage_ops(ops: List[StageOp]) -> List[StageOp]:
 
 def _apply_exchange(parts: List[Batch], ex: Exchange, scale: int,
                     slack: int, bounds: Optional[torch.Tensor],
-                    slot_rows: Optional[int] = None
+                    slot_rows: Optional[int] = None, mesh=None
                     ) -> Tuple[List[Batch], torch.Tensor, torch.Tensor]:
     """Returns (batches, needs[2], slot_used): the exchange's measured
     max send-slot rows (0 for a broadcast), fed back to later runs of the
@@ -556,13 +599,14 @@ def _apply_exchange(parts: List[Batch], ex: Exchange, scale: int,
         # empty keys = whole row; sorted so both legs of a set op agree
         keys = list(ex.keys) or sorted(parts[0].names)
         out, nr, nsl, slot = shuffle.hash_exchange(
-            parts, keys, cap, send_slack=slack, slot_rows=slot_rows)
+            parts, keys, cap, send_slack=slack, slot_rows=slot_rows,
+            mesh=mesh)
     elif ex.kind == "range":
         out, nr, nsl, slot = shuffle.range_exchange(
             parts, ex.bounds_key, bounds, cap, descending=ex.descending,
-            send_slack=slack, slot_rows=slot_rows)
+            send_slack=slack, slot_rows=slot_rows, mesh=mesh)
     elif ex.kind == "broadcast":
-        out, nr, nsl = shuffle.broadcast_gather(parts, cap)
+        out, nr, nsl = shuffle.broadcast_gather(parts, cap, mesh)
     else:
         raise ValueError(ex.kind)
     return (out, _needs(nr.device, _scale_need(nr, ex.out_capacity), nsl),
@@ -636,6 +680,7 @@ class Executor:
         tensors, so probing the same data again reads nothing."""
         b0 = pd.batch
         cap, D = pd.capacity, self.nparts
+        Ploc = pd.nparts
         # the same live tensors (ids whose objects are all still alive)
         leaves = _leaves(b0)
         rkey = (tuple(keys), slack, tuple(id(x) for x in leaves))
@@ -649,12 +694,14 @@ class Executor:
                 del self._slot_probe_cache[rkey]  # a recycled id: no hit
         # every partition's rows hashed at once, as one [P * cap] batch
         flat = Batch({k: map_column(b0.columns[k], lambda x: x.reshape(
-            (D * cap,) + tuple(x.shape[2:]))) for k in keys}, b0.count)
-        lo = hash_batch_keys(flat, keys)[1].reshape(D, cap)
+            (Ploc * cap,) + tuple(x.shape[2:]))) for k in keys}, b0.count)
+        lo = hash_batch_keys(flat, keys)[1].reshape(Ploc, cap)
         valid = (torch.arange(cap, device=lo.device)[None, :]
                  < b0.count[:, None])
         dest = torch.where(valid, (lo % D).to(torch.int32), D)
-        slot = int(hist_buckets_batched(dest, D).max())  # the one read
+        # the one read (of the gang's max, on a gang)
+        slot = int(self.mesh.all_reduce_max(
+            hist_buckets_batched(dest, D).max()))
         self._tally(run, "probes_run")
         c_struct = max(1, -(-slack * cap // D))
         q = max(16, c_struct // 16)
@@ -711,8 +758,7 @@ class Executor:
             if fb is not None:
                 hints.append((_quantize_slot_rows(fb), "feedback"))
             elif (measured and ex.kind == "hash" and not leg.ops
-                  and sum(t.numel() * t.element_size()
-                          for t in _leaves(inp.batch)) / (1 << 20)
+                  and _out_bytes(inp) * self.mesh.world / (1 << 20)
                   >= thresh):
                 keys = list(ex.keys) or sorted(inp.batch.names)
                 hints.append((self._probe_slot_rows(inp, keys, slack,
@@ -727,13 +773,20 @@ class Executor:
         ``range_samples_per_partition`` lanes, invalid sample slots fold
         to the all-ones sentinel and sort last, and the bounds are the
         n_tot * p // P-th of the sorted samples (zeros when no row was
-        sampled).  The same bounds as the JAX package's, bit for bit."""
+        sampled).  The same bounds as the JAX package's, bit for bit; a
+        gang all-gathers every rank's [P_loc, S] samples and counts in
+        partition order first, so every rank sorts the same samples."""
         dev = self.mesh.device
         if self.nparts == 1:
             return torch.zeros(0, dtype=torch.int64, device=dev)
         S = self.config.range_samples_per_partition
         lanes = _sample_lanes(src.batch.columns[key], src.counts, S)
-        take = torch.clamp(src.counts.to(torch.int64), max=S)      # [P]
+        counts = src.counts
+        if self.mesh.gang:
+            both = self.mesh.gather_parts(torch.cat(
+                [lanes, counts.to(torch.int64)[:, None]], 1))
+            lanes, counts = both[:, :S], both[:, S]
+        take = torch.clamp(counts.to(torch.int64), max=S)          # [P]
         valid = torch.arange(S, device=dev)[None, :] < take[:, None]
         flat = torch.where(valid, lanes, M32).reshape(-1)
         srt = torch.sort(flat).values
@@ -745,17 +798,19 @@ class Executor:
     def _run_ops(self, parts: List[Batch], ops: List[StageOp], scale: int,
                  slack: int, needs: torch.Tensor, others=()):
         others = list(others)
+        mesh = self.mesh
         for op in _fuse_stage_ops(ops):
             if op.kind in _POSITIONAL:
-                parts = _POSITIONAL[op.kind](parts, op.params)
+                parts = _POSITIONAL[op.kind](parts, op.params, mesh)
                 continue
             if op.kind == "sliding_window":
-                parts, nd = _sliding_window_global(parts, op.params)
+                parts, nd = _sliding_window_global(parts, op.params, mesh)
                 needs = torch.maximum(needs, nd)
                 continue
             if op.kind == "zip":
                 parts, nr, nsl = shuffle.zip_exchange(
-                    parts, others.pop(0), op.params["suffix"], slack)
+                    parts, others.pop(0), op.params["suffix"], slack,
+                    mesh=mesh)
                 # a destination holds at most its own left rows, so the
                 # receive side fits by construction: only send slots can
                 # fall short under skewed right-side counts
@@ -771,7 +826,7 @@ class Executor:
                          for b, o in zip(parts, others.pop(0))]
                 continue
             outs = []
-            for q, b in enumerate(parts):
+            for q, b in enumerate(parts, mesh.part_start):
                 b, nd = _apply_op(b, op, scale, q)
                 needs = torch.maximum(needs, nd)
                 outs.append(b)
@@ -812,7 +867,8 @@ class Executor:
                 legs[0], legs[1], lex.keys, rex.keys,
                 lex.out_capacity * scale, rex.out_capacity * scale,
                 hot_factor=self.config.salt_hot_factor,
-                topk=self.config.salt_topk, send_slack=slack)
+                topk=self.config.salt_topk, send_slack=slack,
+                mesh=self.mesh)
             nd = _needs(dev, torch.maximum(
                 _scale_need(lnr, lex.out_capacity),
                 _scale_need(rnr, rex.out_capacity)), nsl)
@@ -830,7 +886,8 @@ class Executor:
                     shipped.append((shuffle.send_slot_rows(
                         legs[i][0].capacity, P, slack, rows), source))
                 legs[i], nd, slots[i] = _apply_exchange(
-                    legs[i], leg.exchange, scale, slack, bounds, rows)
+                    legs[i], leg.exchange, scale, slack, bounds, rows,
+                    self.mesh)
                 needs = torch.maximum(needs, nd)
                 exch_need = torch.maximum(exch_need, nd[0])
                 exchanged.append(legs[i])
@@ -841,10 +898,16 @@ class Executor:
         parts, needs = self._run_ops(legs[0], stage.body, scale, slack,
                                      needs, legs[1:])
         out = stack_partitions(parts)
+        # per-partition entries at their global place: the gang's
+        # all-reduce (max) of the info vector gathers them
+        place = self.mesh.place
         recv = [b.count.to(torch.int32) for leg in exchanged for b in leg]
+        recv = torch.stack(recv) if recv else out.counts[:0]
+        if recv.numel() and self.mesh.gang:
+            recv = torch.cat([place(r) for r in recv.view(-1, len(parts))])
         return out, torch.cat([torch.stack(
-            [needs[0], needs[1], exch_need] + slots), out.counts,
-            torch.stack(recv) if recv else out.counts[:0]]), shipped
+            [needs[0], needs[1], exch_need] + slots), place(out.counts),
+            recv]), shipped
 
     @staticmethod
     def _leg_input(leg, results: Dict[int, PData],
@@ -1001,7 +1064,8 @@ class Executor:
             self._log_attempt(run, stage, shipped, salted,
                               run.probes_run - probes, run.job)
             compile_s = round(_build.compile_seconds() - c0, 4)
-            nbytes = _out_bytes(out)
+            # the gang's ranks hold equal shapes: world x one rank's bytes
+            nbytes = _out_bytes(out) * self.mesh.world
             _M_STAGE_RUNS.inc()
             _M_SHUFFLE_B.inc(nbytes)
             if compile_s:
@@ -1021,7 +1085,9 @@ class Executor:
                 stage._send_slack = slack
                 stage._salted = salted
                 return out
-            info = info.tolist()   # the attempt's ONE read of its info
+            # the attempt's ONE read of its info: a gang reads the
+            # all-reduce (max) of every rank's, so every rank decides alike
+            info = self.mesh.all_reduce_max(info).tolist()
             self._tally(run, "host_reads")
             # the measured slots ride that read back to later attempts
             # and runs of this stage

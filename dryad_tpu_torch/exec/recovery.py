@@ -269,7 +269,10 @@ class Run:
         The measured send slots feed back, but a stage's whose input was
         truncated."""
         deferred, self._defer = self._defer, None    # the replay is sync
-        flat = torch.cat([r["info"] for r in deferred]).tolist()
+        # a gang reads the all-reduce (max) of every rank's vectors, so
+        # every rank takes the same decisions
+        flat = self.ex.mesh.all_reduce_max(
+            torch.cat([r["info"] for r in deferred])).tolist()
         self.ex._tally(self, "host_reads")
         P = self.ex.nparts
         bad: Dict[int, tuple] = {}

@@ -43,8 +43,8 @@ import numpy as np
 import torch
 
 from dryad_tpu_torch.data.columnar import StringColumn
-from dryad_tpu_torch.exec.data import PData, pdata_from_numpy, \
-    pdata_to_numpy
+from dryad_tpu_torch.exec.data import PData, _local_parts, \
+    pdata_from_numpy, pdata_to_numpy
 from dryad_tpu_torch.io.fnv import checksum_segments
 from dryad_tpu_torch.utils.atomic import atomic_write_json
 
@@ -431,13 +431,23 @@ def read_store(path: str, mesh, capacity: Optional[int] = None,
     placement stays true (``Context.from_store`` keeps the claim then).
     Otherwise the rows are concatenated and re-blocked evenly, and the
     claim is dropped.  ``partitions`` reads only those store partitions
-    (an incremental refresh's delta)."""
+    (an incremental refresh's delta).  A gang rank (``parallel/mesh.py``)
+    gets only its own partitions, at the capacity the whole mesh's read
+    gives them: the store's own ones verbatim, or its blocks of the
+    re-blocked rows."""
     meta = store_meta(path)
     schema = meta["schema"]
     part_ids = (list(range(int(meta["npartitions"]))) if partitions is None
                 else list(partitions))
     counts = [int(meta["counts"][p]) for p in part_ids]
     nparts = mesh.nparts
+    local = _local_parts(mesh)
+    verbatim = len(counts) == nparts
+    if verbatim:
+        cap = capacity or max(int(meta.get("capacity", 0)),
+                              max(counts or [0]), 1)
+        part_ids = [part_ids[g] for g in local]
+        counts = [counts[g] for g in local]
     if is_remote_store(path):
         views = _parallel(lambda p: remote_read_part_views(path, meta, p),
                           part_ids)
@@ -454,9 +464,7 @@ def read_store(path: str, mesh, capacity: Optional[int] = None,
                                for p, segs in zip(part_ids, segments)])
     if verify:
         verify_checksums(path, meta, segments, partitions=part_ids)
-    if len(counts) == nparts:
-        cap = capacity or max(int(meta.get("capacity", 0)),
-                              max(counts or [0]), 1)
+    if verbatim:
         if cap < max(counts or [0]):
             raise ValueError(f"capacity {cap} < max partition count "
                              f"{max(counts)}")
@@ -468,6 +476,7 @@ def read_store(path: str, mesh, capacity: Optional[int] = None,
     sizes = [base + (1 if p < rem else 0) for p in range(nparts)]
     offs = np.cumsum([0] + sizes)
     cap = capacity or max(1, max(sizes))
+    sizes = [sizes[g] for g in local]
     if cap < max(sizes):
         raise ValueError(f"capacity {cap} < max partition count "
                          f"{max(sizes)}")
@@ -480,6 +489,6 @@ def read_store(path: str, mesh, capacity: Optional[int] = None,
             concat[k] = np.concatenate([c[k] for c in parts])
     blocks = [{k: ((v[0][offs[p]:offs[p + 1]], v[1][offs[p]:offs[p + 1]])
                    if isinstance(v, tuple) else v[offs[p]:offs[p + 1]])
-               for k, v in concat.items()} for p in range(nparts)]
+               for k, v in concat.items()} for p in local]
     return pdata_from_numpy(_stack(schema, blocks, sizes, cap),
                             np.asarray(sizes, np.int32), mesh.device)

@@ -15,7 +15,9 @@ an exchange takes the list of per-partition Batches:
   profiler range ``dryad.exchange.pack``;
   ALL_TO_ALL: none on one device — ``slot_expand`` stores each (source,
   destination) block straight at its place in the receive layout
-  [P_dst, P_src*C, W];
+  [P_dst, P_src*C, W]; across the processes of a gang (a ``mesh`` with
+  world > 1) ONE host-staged all_to_all of that grid and the counts,
+  then a reorder of the received blocks into global source order;
   UNPACK (all P destinations at once): the valid prefix of every source
   block, densely (ONE ``slot_compact`` launch into [P_dst, out_cap, W]),
   unpacked into columns once; each destination's Batch holds views [d]
@@ -81,7 +83,7 @@ def send_slot_rows(cap: int, D: int, send_slack: int,
 
 def exchange_by_dest(parts: List[Batch], dests: List[torch.Tensor],
                      out_capacity: int, send_slack: int = 2,
-                     slot_rows: int | None = None
+                     slot_rows: int | None = None, mesh=None
                      ) -> Tuple[List[Batch], torch.Tensor, torch.Tensor,
                                 torch.Tensor]:
     """Send each valid row of partition p to partition ``dests[p][row]``
@@ -95,14 +97,27 @@ def exchange_by_dest(parts: List[Batch], dests: List[torch.Tensor],
     int32 tensors: the NEEDs are 0 when everything fit, else the measured
     requirement (max rows a destination must hold / the send-slot slack
     factor that would fit); ``slot_used`` is the max rows any source sent
-    one destination (the measured slot an executor feeds back)."""
-    D = len(parts)
+    one destination (the measured slot an executor feeds back).
+
+    On a gang ``mesh`` (``parallel/mesh.py``, world > 1) ``parts`` are
+    this rank's P_loc partitions and the destinations run over all P:
+    the counts are [P_loc, P], the grid [P, P_loc*C, W] holds each
+    destination rank's block contiguously, and ONE host-staged
+    all_to_all sends every rank its block and the counts it needs.  The
+    received grid is reordered rank-major into [P_loc, P*C, W], source
+    blocks in global source order, and ONE ``slot_compact`` unpacks it:
+    every row lands where the one-process exchange puts it.  The NEEDs
+    are then this rank's; the executor's all-reduce (max) of its info
+    vector makes them the gang's."""
+    S = len(parts)
+    gang = mesh is not None and mesh.gang
+    D = mesh.nparts if gang else S
     cap = parts[0].capacity
     C = send_slot_rows(cap, D, send_slack, slot_rows)
 
     # invalid rows go to the sentinel bucket D, which nothing counts
     dest = torch.stack([torch.where(b.valid_mask(), d.to(torch.int32), D)
-                        for b, d in zip(parts, dests)])      # [P, cap]
+                        for b, d in zip(parts, dests)])      # [S, cap]
     packed = [_pack_columns_u32(b.columns) for b in parts]
     spec = packed[0][1]
     with record_function("dryad.exchange.pack"):
@@ -110,17 +125,20 @@ def exchange_by_dest(parts: List[Batch], dests: List[torch.Tensor],
         # exclusive offsets of every row from one scan: the flat
         # exclusive prefix less its row's first entry (exact: 32-bit
         # addition is modular)
-        excl = prefix_sum(counts_m.view(-1)).view(D, D) - counts_m
+        excl = prefix_sum(counts_m.view(-1)).view(S, D) - counts_m
         offsets = excl - excl[:, :1]
         order = torch.sort(dest, dim=1, stable=True).indices  # (dest, row)
-        words = torch.empty((D, cap, packed[0][0].shape[1]),
+        words = torch.empty((S, cap, packed[0][0].shape[1]),
                             dtype=torch.int32, device=dest.device)
         for p, (w, _spec) in enumerate(packed):
             torch.index_select(w, 0, order[p], out=words[p])
         # the all_to_all: block (d, p) lands at recv[d, p*C:(p+1)*C]
         recv = slot_expand_batched(words, offsets, C)      # [dst, src*C, W]
-    send_counts = torch.clamp(counts_m, max=C)
-    recv_counts = send_counts.t().contiguous()             # [dst, src]
+    if gang:
+        recv, counts_in = _cross_exchange(recv, counts_m, C, mesh)
+    else:
+        counts_in = counts_m.t()                           # [dst, src]
+    recv_counts = torch.clamp(counts_in, max=C).contiguous()
     totals = recv_counts.sum(dim=1, dtype=torch.int32)
 
     out = _unpack_dests(slot_compact_batched(recv, recv_counts, C,
@@ -129,11 +147,34 @@ def exchange_by_dest(parts: List[Batch], dests: List[torch.Tensor],
 
     # measured requirements, pre-truncation so they are exact even when
     # this run dropped rows
-    max_total = counts_m.sum(dim=0).max().to(torch.int32)
+    max_total = counts_in.sum(dim=1).max().to(torch.int32)
     need_recv = torch.where(max_total > out_capacity, max_total, 0)
     max_cnt = counts_m.max().to(torch.int32)
     need_slack = torch.where(max_cnt > C, -(-max_cnt * D // cap), 0)
     return out, need_recv, need_slack.to(torch.int32), max_cnt
+
+
+def _cross_exchange(grid: torch.Tensor, counts_m: torch.Tensor, C: int,
+                    mesh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gang's all_to_all of an exchange: ``grid`` [P, P_loc*C, W]
+    (destination-major, so rank r's destinations are one contiguous
+    block) and this rank's unclamped counts [P_loc, P] go out in ONE
+    host-staged all_to_all; returns this rank's receive grid
+    [P_loc, P*C, W] with source blocks in global source order, and its
+    counts [P_loc dst, P src]."""
+    R, L = mesh.world, mesh.local_nparts
+    W = grid.shape[2]
+    n_words = L * L * C * W
+    # per destination rank: its block of the grid, then the counts its
+    # destinations get from this rank's sources, [L dst, L src]
+    cnt = counts_m.view(L, R, L).permute(1, 2, 0)
+    buf = torch.cat([grid.view(R, n_words), cnt.reshape(R, L * L)], 1)
+    got = mesh.all_to_all(buf)                       # [R src rank, ...]
+    recv = got[:, :n_words].view(R, L, L * C, W).permute(1, 0, 2, 3) \
+        .reshape(L, R * L * C, W)
+    counts_in = got[:, n_words:].view(R, L, L).permute(1, 0, 2) \
+        .reshape(L, R * L)
+    return recv, counts_in
 
 
 def _unpack_dests(ow: torch.Tensor, spec, counts: torch.Tensor
@@ -148,16 +189,21 @@ def _unpack_dests(ow: torch.Tensor, spec, counts: torch.Tensor
         counts[d]) for d in range(Dd)]
 
 
+def _nparts(parts: List[Batch], mesh) -> int:
+    """P: every partition of the gang on a gang mesh, else the list's."""
+    return mesh.nparts if mesh is not None and mesh.gang else len(parts)
+
+
 def hash_exchange(parts: List[Batch], keys: Sequence[str],
                   out_capacity: int, send_slack: int = 2,
-                  slot_rows: int | None = None):
+                  slot_rows: int | None = None, mesh=None):
     """Repartition rows by key hash (HashPartition / shuffle for GroupBy):
     row r goes to partition lo(hash(keys[r])) % P."""
-    D = len(parts)
+    D = _nparts(parts, mesh)
     dests = [_canonical_hash_dest(hash_batch_keys(b, keys)[1], D)
              for b in parts]
     return exchange_by_dest(parts, dests, out_capacity, send_slack,
-                            slot_rows)
+                            slot_rows, mesh=mesh)
 
 
 def range_dest_lane(col) -> torch.Tensor:
@@ -180,15 +226,16 @@ def range_dest(col, bounds: torch.Tensor,
 
 def range_exchange(parts: List[Batch], key: str, bounds: torch.Tensor,
                    out_capacity: int, descending: bool = False,
-                   send_slack: int = 2, slot_rows: int | None = None):
+                   send_slack: int = 2, slot_rows: int | None = None,
+                   mesh=None):
     """Repartition by ranges of ``key`` (``range_dest``), with ``bounds``
     from the executor's sampling (``Executor._range_bounds``)."""
     dests = [range_dest(b.columns[key], bounds, descending) for b in parts]
     return exchange_by_dest(parts, dests, out_capacity, send_slack,
-                            slot_rows)
+                            slot_rows, mesh=mesh)
 
 
-def broadcast_gather(parts: List[Batch], out_capacity: int
+def broadcast_gather(parts: List[Batch], out_capacity: int, mesh=None
                      ) -> Tuple[List[Batch], torch.Tensor, torch.Tensor]:
     """Replicate every partition's valid rows to every partition (the
     broadcast join's right side, the k-means centroids): partition-major,
@@ -200,7 +247,10 @@ def broadcast_gather(parts: List[Batch], out_capacity: int
     their packed words [1, P*cap, W] (one destination) with each
     partition a source block of C = cap rows: it packs each block's
     valid prefix in source order, which is that sort's order.  Every
-    partition gets the same Batch.
+    partition gets the same Batch.  On a gang ``mesh`` each rank packs
+    its P_loc partitions and ONE host-staged all_gather (words and counts
+    together) stacks all P of them in partition order before the same
+    one compaction.
 
     Returns ``(batches, need_recv_rows, need_slack = 0)``: the need is the
     total when it exceeds ``out_capacity``, else 0."""
@@ -209,6 +259,11 @@ def broadcast_gather(parts: List[Batch], out_capacity: int
         {k: _cat_column([b.columns[k] for b in parts])
          for k in parts[0].names})
     counts = torch.stack([b.count.to(torch.int32) for b in parts])
+    if mesh is not None and mesh.gang:
+        n = words.numel()
+        got = mesh.all_gather(torch.cat([words.reshape(-1), counts]))
+        words = got[:, :n].reshape(-1, words.shape[1])
+        counts = got[:, n:].reshape(-1)
     total = counts.sum(dtype=torch.int32)
     (batch,) = _unpack_dests(slot_compact_batched(
         words[None], counts[None], cap, out_capacity), spec,
@@ -226,7 +281,7 @@ def _cat_column(cols: list):
 
 
 def _left_heavy_hitters(lo: torch.Tensor, valid: torch.Tensor, topk: int,
-                        hot_factor: float
+                        hot_factor: float, mesh=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Globally hot key hashes from per-partition heavy hitters.  ``lo``
     and ``valid`` are [P, cap]: every partition's lo-hashes and valid
@@ -239,28 +294,40 @@ def _left_heavy_hitters(lo: torch.Tensor, valid: torch.Tensor, topk: int,
     when that exceeds ``hot_factor`` x the balanced per-partition share.
     The JAX package's all_gather of the candidates is the [P, topk]
     result itself here, and its psum of the valid counts a sum.  Ties
-    among equal counts pick any of them, as ``argsort`` does there.
+    among equal counts pick any of them, as ``argsort`` does there.  On a
+    gang ``mesh`` ``lo`` / ``valid`` are this rank's [P_loc, cap] and
+    ONE all_gather brings every rank's candidates, counts and valid
+    total, so every rank holds the same global result.
     Returns (cand [P*topk] int64, hot [P*topk] bool)."""
-    P, cap = lo.shape
+    Ploc, cap = lo.shape
     k = min(topk, cap)
     dev = lo.device
     # invalid rows take a key above every lo-hash and sort last
     s = torch.sort(torch.where(valid, lo, 1 << 32), dim=1).values
     sval = s < (1 << 32)
-    first = torch.ones((P, 1), dtype=torch.bool, device=dev)
+    first = torch.ones((Ploc, 1), dtype=torch.bool, device=dev)
     is_start = sval & torch.cat([first, s[:, 1:] != s[:, :-1]], dim=1)
     # run number of every valid row; the rest go to a dump slot
     seg = torch.where(sval, torch.cumsum(is_start, 1) - 1, cap)
-    counts = torch.zeros((P, cap + 1), dtype=torch.int32, device=dev
+    counts = torch.zeros((Ploc, cap + 1), dtype=torch.int32, device=dev
                          ).scatter_add_(1, seg, sval.to(torch.int32))
-    rep = torch.zeros((P, cap + 1), dtype=torch.int64, device=dev
+    rep = torch.zeros((Ploc, cap + 1), dtype=torch.int64, device=dev
                       ).scatter_(1, torch.where(is_start, seg, cap), s)
     cnts, top = torch.topk(counts[:, :cap], k, dim=1)
     cand = rep.gather(1, top).reshape(-1)
     cnts = cnts.reshape(-1)
+    n_valid = valid.sum()
+    P = Ploc
+    if mesh is not None and mesh.gang:
+        P = mesh.nparts
+        m = cand.numel()
+        got = mesh.all_gather(torch.cat([cand, cnts.to(torch.int64),
+                                         n_valid.reshape(1)]))
+        cand, cnts = got[:, :m].reshape(-1), got[:, m:2 * m].reshape(-1)
+        n_valid = got[:, 2 * m].sum()
     eq = cand[:, None] == cand[None, :]
     global_cnt = (eq * cnts[None, :]).sum(dim=1)
-    share = torch.clamp(valid.sum() // P, min=1)
+    share = torch.clamp(n_valid // P, min=1)
     hot = (cnts > 0) & (global_cnt.to(torch.float32)
                         > hot_factor * share.to(torch.float32))
     return cand, hot
@@ -276,7 +343,7 @@ def _is_member(lo: torch.Tensor, cand: torch.Tensor,
 def skew_join_exchange(left: List[Batch], right: List[Batch], left_keys,
                        right_keys, left_cap: int, right_cap: int,
                        hot_factor: float = 4.0, topk: int = 8,
-                       send_slack: int = 2):
+                       send_slack: int = 2, mesh=None):
     """Hot-key-salted join repartition: the escape a 95 %-hot join key
     needs, where one destination would otherwise hold ~all left rows.
 
@@ -293,18 +360,18 @@ def skew_join_exchange(left: List[Batch], right: List[Batch], left_keys,
 
     Returns (left', right', need_left_rows, need_right_rows,
     need_slack)."""
-    P = len(left)
+    P = _nparts(left, mesh)
     llo = torch.stack([hash_batch_keys(b, list(left_keys))[1]
                        for b in left])
     lvalid = torch.stack([b.valid_mask() for b in left])
-    cand, hot = _left_heavy_hitters(llo, lvalid, topk, hot_factor)
+    cand, hot = _left_heavy_hitters(llo, lvalid, topk, hot_factor, mesh)
     is_hot_l = _is_member(llo, cand, hot)
     base = _canonical_hash_dest(llo, P)
     salt = torch.arange(llo.shape[1], dtype=torch.int32,
                         device=llo.device) % P
     ldest = torch.where(is_hot_l, (base + salt) % P, base)
     lout, lnr, lnsl, _ls = exchange_by_dest(left, list(ldest), left_cap,
-                                            send_slack)
+                                            send_slack, mesh=mesh)
 
     r_hot, r_non = [], []
     for b in right:
@@ -314,18 +381,18 @@ def skew_join_exchange(left: List[Batch], right: List[Batch], left_keys,
         r_hot.append(compact(b, hot_r))
         r_non.append(compact(b, ~hot_r))
     # hot right rows must be visible on every salted destination
-    rh, rnr1, _ = broadcast_gather(r_hot, right_cap)
+    rh, rnr1, _ = broadcast_gather(r_hot, right_cap, mesh)
     # compaction REORDERED the rows: hash_exchange takes the destinations
     # from the compacted batches' own keys
     rn, rnr2, rnsl, _rs = hash_exchange(r_non, list(right_keys), right_cap,
-                                        send_slack)
+                                        send_slack, mesh=mesh)
     rout = [concat2(h, n) for h, n in zip(rh, rn)]
     return (lout, rout, lnr, torch.maximum(rnr1, rnr2),
             torch.maximum(lnsl, rnsl))
 
 
 def zip_exchange(a: List[Batch], b: List[Batch], suffix: str = "_r",
-                 send_slack: int = 2
+                 send_slack: int = 2, mesh=None
                  ) -> Tuple[List[Batch], torch.Tensor, torch.Tensor]:
     """Globally aligned positional Zip (LINQ Zip across partitions): the
     right row with global index g pairs with the left row with global
@@ -342,21 +409,32 @@ def zip_exchange(a: List[Batch], b: List[Batch], suffix: str = "_r",
 
     Returns (batches, need_recv, need_slack).  A destination never
     receives more rows than its left count, so a receive shortfall
-    cannot happen by scaling; only send slots can fall short."""
-    P = len(a)
+    cannot happen by scaling; only send slots can fall short.  On a gang
+    ``mesh`` ONE all_gather brings both sides' counts of every partition
+    (the global row index), and the exchange crosses ranks."""
+    P = _nparts(a, mesh)
     zero = torch.zeros((), dtype=torch.int32, device=a[0].device)
     if P == 1:   # one partition: already globally aligned
         return [zip2(a[0], b[0], suffix)], zero, zero
-    counts_a = torch.stack([x.count for x in a]).to(torch.int64)
-    counts_b = torch.stack([x.count for x in b]).to(torch.int64)
+    if mesh is not None and mesh.gang:
+        got = mesh.all_gather(torch.stack(
+            [x.count for x in a] + [x.count for x in b]).to(torch.int64)
+        ).view(mesh.world, 2, len(a))
+        counts_a = got[:, 0].reshape(-1)
+        counts_b = got[:, 1].reshape(-1)
+        first = mesh.part_start
+    else:
+        counts_a = torch.stack([x.count for x in a]).to(torch.int64)
+        counts_b = torch.stack([x.count for x in b]).to(torch.int64)
+        first = 0
     ends_a = torch.cumsum(counts_a, 0)
     starts_b = torch.cumsum(counts_b, 0) - counts_b
     dests = []
     for p, x in enumerate(b):
-        g = starts_b[p] + torch.arange(x.capacity, device=x.device)
+        g = starts_b[first + p] + torch.arange(x.capacity, device=x.device)
         d = searchsorted_small(ends_a, g, side="right")
         dests.append(torch.where(g < ends_a[-1], d, P))  # past the end: drop
     recv, need_recv, need_slack, _slot = exchange_by_dest(
-        b, dests, a[0].capacity, send_slack)
+        b, dests, a[0].capacity, send_slack, mesh=mesh)
     return ([zip2(x, r, suffix) for x, r in zip(a, recv)], need_recv,
             need_slack)

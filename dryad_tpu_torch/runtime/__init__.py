@@ -7,10 +7,11 @@ submission (LinqToDryad/LocalJobSubmission.cs:97-302), the cluster
 interface (ClusterInterface/Interfaces.cs:324,491), and the per-node
 daemon (ProcessService/ProcessService.cs:389).  Each worker runs farm
 tasks on its own device (the CUDA card by default; several workers
-time-share one card).  The gang half — SPMD jobs across the workers
-(``LocalCluster.execute``, a cluster Context's terminals), the SSH
-backend and the cluster's streamed runtime — needs an exchange across
-processes and comes with ROADMAP Queue 1 item 11.
+time-share one card), and the gang's SPMD jobs across all of them
+(``LocalCluster.execute``, ``exec_common.execute_plan``, a cluster
+Context's terminals), the exchanges crossing processes over gloo.  The
+SSH backend and the cluster's streamed runtime are ROADMAP Queue 1 items
+11b.5 and 11b.6.
 """
 
 from dryad_tpu_torch.runtime.cluster import (ClusterJobError, LocalCluster,

@@ -1,6 +1,6 @@
-"""Driver-side cluster control plane: spawn workers, detect process
-failure, restart — the port of ``dryad_tpu/runtime/cluster.py`` for the
-task farm.
+"""Driver-side cluster control plane: spawn workers, submit gang jobs,
+detect process failure, restart — the port of
+``dryad_tpu/runtime/cluster.py``.
 
 The counterpart of the reference's LocalJobSubmission
 (LinqToDryad/LocalJobSubmission.cs:97-302 — real GM + real worker
@@ -14,9 +14,17 @@ interpreters (never forked from a process that holds a CUDA context),
 with the control-plane secret in their environment.
 
 Farm tasks (``runtime/farm.py``, the job service's cluster fleet) run a
-whole plan on one worker.  A gang SPMD job across the workers
-(``execute``) needs an exchange across processes, which comes with the
-gang half of ROADMAP Queue 1 item 11: it raises before anything is sent.
+whole plan on one worker.  A gang SPMD job (``execute``) runs one plan
+on every gang worker at once (``runtime/exec_common.py``), the
+``nparts = n_processes x devices_per_process`` partitions spread over
+them and the exchanges crossing processes through a gloo process group
+the workers join at start (rendezvous on a free port of this host).  A
+dead worker or an error reply tears the whole gang down (SPMD stages are
+gang-scheduled: one lost process stalls every collective); the next job
+restarts it, and the driver replays a job lost to a dead or wedged
+worker once (its sources are re-readable: the lineage argument).  The
+straggler / wedge watchdog (``_gather_job_replies``) reads the workers'
+heartbeats.
 """
 
 from __future__ import annotations
@@ -34,13 +42,15 @@ from dryad_tpu_torch.runtime import protocol
 from dryad_tpu_torch.runtime.interfaces import ClusterBackend
 
 __all__ = ["LocalCluster", "WorkerFailure", "ClusterJobError",
-           "GANG_LATER", "package_env"]
+           "package_env"]
 
-# what a gang SPMD job (execute) is answered with
-GANG_LATER = ("gang SPMD jobs across the worker processes need an "
-              "exchange across processes: they come with the gang half "
-              "of ROADMAP Queue 1 item 11 (LocalCluster serves farm tasks: "
-              "runtime.farm.TaskFarm, the job service's cluster fleet)")
+
+def _free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
 
 
 def package_env() -> Dict[str, str]:
@@ -66,7 +76,14 @@ class WorkerFailure(RuntimeError):
 
 
 class ClusterJobError(RuntimeError):
-    """A job raised on a worker (plan/UDF/capacity error)."""
+    """A job raised on a worker (plan/UDF/capacity error).
+    ``missing_token`` carries a lost cluster-resident token when that is
+    the cause (structured, from the worker's reply: the driver's healing
+    reads this attribute, never the message text)."""
+
+    def __init__(self, msg: str, missing_token=None):
+        super().__init__(msg)
+        self.missing_token = missing_token
 
 
 class LocalCluster(ClusterBackend):
@@ -75,6 +92,16 @@ class LocalCluster(ClusterBackend):
     built-in "local" ClusterBackend (runtime/interfaces.py seam).
     ``fn_modules`` are imported by workers to resolve plan callables
     (FN_TABLE exports + module:qualname refs into them)."""
+
+    @classmethod
+    def from_config(cls, config, **kw) -> "LocalCluster":
+        """Build from a JobConfig's cluster_* fields (``kw`` overrides)."""
+        base = dict(n_processes=config.cluster_processes,
+                    devices_per_process=config.cluster_devices_per_process,
+                    fn_modules=tuple(config.cluster_fn_modules),
+                    startup_timeout=config.cluster_startup_timeout_s)
+        base.update(kw)
+        return cls(**base)
 
     def __init__(self, n_processes: int = 2, devices_per_process: int = 2,
                  fn_modules: tuple = (), startup_timeout: float = 180.0,
@@ -118,6 +145,10 @@ class LocalCluster(ClusterBackend):
         # and schedulers discard stale replies (a finished farm may leave
         # an ignored-duplicate reply in flight — see runtime/farm.py)
         self._job_seq = 0
+        # resident tokens queued for release (their Dataset was dropped):
+        # they live on the CLUSTER, whose workers hold the memory, and
+        # ride the next gang job of any Context
+        self.pending_release: List[str] = []
         self._start()
 
     def next_job_id(self) -> int:
@@ -159,8 +190,11 @@ class LocalCluster(ClusterBackend):
         self._listener.bind(("127.0.0.1", 0))
         self._listener.listen(self.n_processes)
         control_port = self._listener.getsockname()[1]
+        # the gang's gloo rendezvous (worker 0 hosts its store)
+        coord_port = _free_port()
         for pid in range(self.n_processes):
-            self._procs.append(self._spawn_worker(pid, control_port))
+            self._procs.append(self._spawn_worker(pid, control_port,
+                                                  coord_port))
         deadline = time.time() + self.startup_timeout
         self._listener.settimeout(1.0)
         while len(self._socks) < self.n_processes:
@@ -177,8 +211,11 @@ class LocalCluster(ClusterBackend):
                 continue
             self._accept_worker(conn)
 
-    def _spawn_worker(self, pid: int, control_port: int
+    def _spawn_worker(self, pid: int, control_port: int,
+                      coord_port: Optional[int] = None
                       ) -> subprocess.Popen:
+        """A gang member (``coord_port``: the gloo rendezvous), or with
+        None an elastic ``--standalone`` worker outside the gang."""
         env = package_env()
         if self._secret is not None:
             # in-memory env dict of a direct child: on no command line
@@ -188,6 +225,11 @@ class LocalCluster(ClusterBackend):
                "--process-id", str(pid),
                "--devices-per-process", str(self.devices_per_process),
                "--device", self.device]
+        if coord_port is None:
+            cmd.append("--standalone")
+        else:
+            cmd += ["--coordinator", f"127.0.0.1:{coord_port}",
+                    "--num-processes", str(self.n_processes)]
         for m in self.fn_modules:
             cmd += ["--fn-module", m]
         log = open(os.path.join(self.log_dir, f"worker-{pid}.log"), "ab")
@@ -198,8 +240,9 @@ class LocalCluster(ClusterBackend):
 
     def add_worker(self, timeout: float = 120.0) -> int:
         """Register one ELASTIC worker mid-life (the reference's dynamic
-        computer registration, LocalScheduler/Queues.cs:104-137): it
-        serves farm tasks on its own device like the others.  Returns
+        computer registration, LocalScheduler/Queues.cs:104-137): a
+        ``--standalone`` process outside the gang that serves farm tasks
+        on its own device like the others; gang jobs ignore it.  Returns
         the new worker's pid."""
         if not self.alive():
             self.restart()   # also recreates the listener after teardown
@@ -480,9 +523,206 @@ class LocalCluster(ClusterBackend):
 
     # -- gang jobs ---------------------------------------------------------
 
-    def execute(self, plan_json: str, source_specs: Dict[str, Any],
-                **kw) -> Dict[str, Any]:
-        """A gang SPMD job across the workers: refused (ValueError,
-        ``GANG_LATER``) before anything is sent."""
-        raise ValueError(GANG_LATER)
+    def execute(self, plan_json: str,
+                source_specs: Dict[str, Dict[str, Any]],
+                collect: Any = True, store_path: Optional[str] = None,
+                store_partitioning: Optional[Dict[str, Any]] = None,
+                config=None, timeout: float = 600.0,
+                keep_token: Optional[str] = None,
+                release: tuple = (),
+                store_compression: Optional[str] = None) -> Dict[str, Any]:
+        """Submit one job to the gang; returns worker 0's reply with the
+        host table under "table" (the workers' parts concatenated in pid
+        order, which is partition order), its extras (``stage_log``,
+        ``salted``, ``resident_capacity``, ``graph_rewrites``), and under
+        ``workers`` every worker's ``launches``, ``staged`` collectives
+        and ``stage_log``, by pid.  ``config``
+        (a JobConfig) rides the control message, so the driver's knobs
+        apply on the workers; ``keep_token`` keeps the output resident
+        there; ``release`` (and the cluster's ``pending_release``)
+        drops tokens."""
+        from dryad_tpu_torch.obs import trace
+        if not self.alive():
+            self.restart()
+        job = self.next_job_id()
+        queued = self.pending_release[:]
+        del self.pending_release[:len(queued)]
+        hb_every = config.gang_heartbeat_s if config is not None else 2.0
+        # the driver's job span: its context rides the envelope so the
+        # workers' spans parent-link here; no attached log means level 0,
+        # no span work, and no trace context for the workers either
+        with trace.span(f"job {job}", "job",
+                        sink=trace.leveled(
+                            self._emit,
+                            getattr(self.event_log, "level", None)
+                            if self.event_log is not None else 0),
+                        job=job) as jsp:
+            msg = protocol.attach_trace(
+                {"cmd": "run", "plan": plan_json, "sources": source_specs,
+                 "collect": collect, "store_path": store_path,
+                 "store_partitioning": store_partitioning, "job": job,
+                 "config": config, "keep_token": keep_token,
+                 "release": list(release) + queued,
+                 "store_compression": store_compression,
+                 "hb_every": hb_every}, trace.ctx_of(jsp))
+            for pid in self.gang_pids():
+                s = self._socks[pid]
+                s.setblocking(True)
+                protocol.send_msg(s, msg)
+                s.setblocking(False)
+            replies = self._gather_job_replies(job, timeout, "job",
+                                               config=config)
+        if self.event_log is not None and 0 in replies:
+            for e in replies[0].get("events", []):
+                self.event_log(dict(e, worker=0))
+        reply0 = dict(replies.get(0, {}))
+        reply0["workers"] = {pid: {k: r.get(k) for k in (
+            "launches", "staged", "stage_log")}
+            for pid, r in replies.items()}
+        if collect and collect != "count":
+            # the parallel collect: each column's parts joined once
+            import numpy as np
+            by_col: Dict[str, list] = {}
+            for pid in sorted(replies):
+                for k, v in (replies[pid].get("table_part") or {}).items():
+                    by_col.setdefault(k, []).append(v)
+            reply0["table"] = {
+                k: ([x for p in parts for x in p]
+                    if isinstance(parts[0], list) else
+                    np.concatenate(parts)) for k, parts in by_col.items()}
+        return reply0
 
+    def _gather_job_replies(self, job: int, timeout: float, what: str,
+                            config=None) -> Dict[int, dict]:
+        """One reply per gang worker for ``job``.  On an error reply the
+        others get a 5 s grace (so co-errors reach the diagnosis) and the
+        gang is torn down; ClusterJobError carries the first error, the
+        forensics bundle's path and any worker's lost resident token.
+
+        The straggler / wedge watchdog (the reference duplicates a slow
+        vertex, DrVertex.h:195; a gang cannot duplicate one member, so it
+        replays): workers beat every ``gang_heartbeat_s`` while a job
+        runs; a worker silent past ``gang_heartbeat_timeout_s``, or one
+        that misses the margin after the first reply (max(rel x the
+        first reply's latency, abs seconds)) with its beats stopped too,
+        is declared wedged (``worker_wedged``), the gang is torn down
+        and WorkerFailure lets the driver replay the job on a fresh gang.
+        A worker past the margin whose beats still flow is slow, not
+        wedged, and runs on to the heartbeat timeout or the deadline."""
+        hb_every = config.gang_heartbeat_s if config is not None else 2.0
+        hb_timeout = (config.gang_heartbeat_timeout_s
+                      if config is not None else 60.0)
+        rel = (config.gang_straggler_rel_margin
+               if config is not None else 1.0)
+        abs_m = (config.gang_straggler_abs_margin_s
+                 if config is not None else 15.0)
+        replies: Dict[int, dict] = {}
+        pending = set(self.gang_pids())
+        t0 = time.time()
+        deadline = t0 + timeout
+        first_reply_at: Optional[float] = None
+        last_seen: Dict[int, float] = {p: t0 for p in pending}
+
+        def _wedged(pids, why: str):
+            self._emit({"event": "worker_wedged", "workers": sorted(pids),
+                        "why": why, "what": what,
+                        "log_tails": self._log_tails(800)})
+            self._kill_all()
+            raise WorkerFailure(
+                f"{what}: workers {sorted(pids)} {why} — declared wedged; "
+                f"gang torn down for replay" + self._log_tails())
+
+        def _take(pid) -> bool:
+            """Drain ``pid``; False when its socket died."""
+            nonlocal first_reply_at
+            frames, ok = self.recv_frames(pid, job)
+            if frames:
+                last_seen[pid] = time.time()
+            for r in frames:
+                if "hb" in r:          # liveness only, not a reply
+                    continue
+                replies[pid] = r
+                pending.discard(pid)
+                if first_reply_at is None:
+                    first_reply_at = time.time()
+            return ok
+
+        while pending:
+            now = time.time()
+            if now > deadline:
+                self._kill_all()
+                raise WorkerFailure(
+                    f"{what} timed out after {timeout}s; workers "
+                    f"{sorted(pending)} never replied" + self._log_tails())
+            if hb_every > 0:
+                silent = [p for p in pending
+                          if now - last_seen[p] > hb_timeout]
+                if silent:
+                    _wedged(silent, f"sent no heartbeat for "
+                                    f">{hb_timeout:g}s")
+                if first_reply_at is not None:
+                    margin = max(rel * (first_reply_at - t0), abs_m)
+                    hb_stale = max(3 * hb_every, 10.0)
+                    frozen = [p for p in pending
+                              if now - last_seen[p] > hb_stale]
+                    if now > first_reply_at + margin and frozen:
+                        _wedged(frozen,
+                                f"missed the straggler margin "
+                                f"({margin:.1f}s after the first reply) "
+                                f"with heartbeats stopped >{hb_stale:g}s")
+            self._check_deaths()
+            socks = {self._socks[pid]: pid for pid in pending}
+            ready, _, _ = select.select(list(socks), [], [], 0.25)
+            for s in ready:
+                pid = socks[s]
+                if not _take(pid):
+                    self._kill_all()
+                    raise WorkerFailure(
+                        f"worker {pid} closed its control connection "
+                        f"mid-{what}" + self._log_tails())
+            if pending and any(not r.get("ok") for r in replies.values()):
+                # a worker that failed before a collective leaves the
+                # others blocked in it: a short grace, then tear down
+                grace = time.time() + 5.0
+                while pending and time.time() < grace:
+                    socks = {self._socks[p]: p for p in pending}
+                    ready, _, _ = select.select(list(socks), [], [], 0.25)
+                    for s in ready:
+                        if not _take(socks[s]):
+                            pending.discard(socks[s])
+                break
+
+        errs = {pid: r["error"] for pid, r in replies.items()
+                if not r.get("ok")}
+        if errs:
+            self._emit({"event": "job_failed", "what": what,
+                        "workers": sorted(errs), "error": errs[min(errs)],
+                        "log_tails": self._log_tails(800)})
+            bpath = self._persist_forensics(replies, sorted(errs), config)
+            self._kill_all()   # the gang's state is unknown after an error
+            first = min(errs)
+            # any failing worker's lost-token tag makes the job healable
+            tok = next((replies[p]["missing_token"] for p in sorted(errs)
+                        if replies[p].get("missing_token") is not None),
+                       None)
+            raise ClusterJobError(
+                f"{what} failed on worker(s) {sorted(errs)}; worker "
+                f"{first} error:\n{errs[first]}"
+                + (f"\nforensics bundle: {bpath}\n"
+                   f"  reproduce locally: python -m dryad_tpu_torch.obs "
+                   f"replay {bpath}" if bpath else ""),
+                missing_token=tok)
+        return replies
+
+    def _persist_forensics(self, replies: Dict[int, dict], err_pids,
+                           config) -> Optional[str]:
+        """Persist the first failing worker's flight-recorder bundle (the
+        raised error quotes that worker; the others usually fail as
+        collective aborts of the same cause).  Best effort."""
+        from dryad_tpu_torch.obs import flight
+        for pid in err_pids:
+            path = flight.persist_reply_forensics(
+                replies[pid], config, self.event_log, self._emit)
+            if path:
+                return path
+        return None

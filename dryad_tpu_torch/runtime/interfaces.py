@@ -11,9 +11,8 @@ targets register themselves by name without touching the core.
 
 ``runtime.LocalCluster`` is the built-in "local" backend: real OS worker
 processes on one box, each on its own device (the CUDA card by default)
-— the reference's LocalJobSubmission topology.  Gang SPMD jobs
-(``execute``) need an exchange across processes, which comes with the
-gang half of ROADMAP Queue 1 item 11.
+— the reference's LocalJobSubmission topology — and the gang's SPMD
+jobs across them (``execute``).
 """
 
 from __future__ import annotations

@@ -7,9 +7,15 @@ SPEC — "these columns", "this text file", "this store path" — shipped
 with the plan and materialized by the worker that runs it (the
 reference's data-provider model: the plan names input partition files,
 vertices read them; DataProvider.cs, DrPartitionFile.cpp:607).  The
-spec dicts are the JAX package's, key for key.  A ``resident`` spec (a
-token naming a cluster-resident intermediate) comes with the gang half of
-ROADMAP Queue 1 item 11.
+spec dicts are the JAX package's, key for key.
+
+A gang worker (``runtime/exec_common.py``) builds only its own
+partitions of a spec, at the capacity a one-process build over all the
+gang's partitions gives them (``exec/data.py``, ``io/store.read_store``).
+A ``resident`` spec names a cluster-resident intermediate by its token
+(a ``cache()``, a ``do_while``'s loop state): the worker hands out the
+PData it kept, and a token it does not hold (the gang restarted since)
+raises ``MissingResidentToken``.
 """
 
 from __future__ import annotations
@@ -19,7 +25,26 @@ from typing import Any, Dict, Mapping
 __all__ = ["DeferredSource", "columns_spec", "text_spec", "store_spec",
            "preferred_worker_for_partitions", "locality_hints_for_store",
            "farm_store_tasks", "build_source", "count_lines",
-           "count_lines_file"]
+           "count_lines_file", "MissingResidentToken"]
+
+
+class MissingResidentToken(KeyError):
+    """A plan referenced a cluster-resident token this worker does not
+    hold (the gang restarted since it was cached).  Carries the token as
+    structured data: the worker copies ``.token`` into its error reply's
+    ``missing_token`` field, and the driver's healing
+    (``api/dataset.Context._lost_resident_token``) reads that field,
+    never the message text."""
+
+    def __init__(self, token: str):
+        super().__init__(
+            f"resident token {token!r} not present on this worker — the "
+            f"gang restarted since it was cached; re-run the producing "
+            f"query")
+        self.token = token
+
+    def __str__(self) -> str:  # KeyError quotes its argument
+        return self.args[0]
 
 
 class DeferredSource:
@@ -189,11 +214,18 @@ def preferred_worker_for_partitions(partitions, npartitions: int,
     return max(set(owners), key=owners.count)
 
 
-def build_source(spec: Dict[str, Any], mesh, verify: bool = True):
+def build_source(spec: Dict[str, Any], mesh, verify: bool = True,
+                 resident=None):
     """Materialize a source spec as a PData on ``mesh`` (a worker's own
     device and partitions).  ``verify`` checks a store's partition
-    checksums (``JobConfig.store_verify_checksums``)."""
+    checksums (``JobConfig.store_verify_checksums``); ``resident`` is the
+    gang worker's token -> PData cache."""
     kind = spec["kind"]
+    if kind == "resident":
+        tok = spec["token"]
+        if resident is None or tok not in resident:
+            raise MissingResidentToken(tok)
+        return resident[tok]
     if kind == "columns":
         from dryad_tpu_torch.exec.data import pdata_from_host
         return pdata_from_host(spec["columns"], mesh,
@@ -212,8 +244,4 @@ def build_source(spec: Dict[str, Any], mesh, verify: bool = True):
         return read_store(spec["path"], mesh, capacity=spec["capacity"],
                           partitions=spec.get("partitions"),
                           verify=verify)
-    if kind == "resident":
-        raise ValueError(
-            "a resident source (a cluster-resident token) needs the gang "
-            "half of ROADMAP Queue 1 item 11")
     raise ValueError(f"unknown source kind {kind!r}")

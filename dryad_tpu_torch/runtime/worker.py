@@ -17,8 +17,20 @@ HMAC challenge, and serves commands until told to stop:
   (``launches``, per kernel: the driver cannot see another process's
   counters).  A failure replies with the flight recorder's forensics
   bundle (``obs/flight.py``);
-* ``run`` (a gang SPMD job) is answered with an error: it needs the
-  exchange across processes of the gang half of ROADMAP Queue 1 item 11.
+* ``run``: one gang SPMD job (``runtime/exec_common.execute_plan``):
+  every worker of the gang runs the same plan over its own
+  ``--devices-per-process`` partitions of the gang's, the exchanges
+  crossing processes through the ``torch.distributed`` gloo group the
+  worker joined at start (``--coordinator``, the driver's free port;
+  rank = ``--process-id``, world = ``--num-processes``).  While the job
+  runs a heartbeat thread sends ``{"hb": pid}`` frames every
+  ``hb_every`` seconds, which the driver's wedge watchdog reads
+  (``runtime/cluster.py``).  The reply carries this worker's rows (the
+  parallel collect), the job's extras, the kernel ``launches`` and the
+  staged collectives' totals (``staged``, ``parallel/mesh.STAGED``).  A
+  job that touches a resident token this worker lost replies with the
+  token in ``missing_token``.  A ``--standalone`` (elastic) worker
+  joined no gang and refuses ``run``.
 
 Several workers may share one card: each holds its own CUDA context and
 they time-share the device.
@@ -29,6 +41,7 @@ from __future__ import annotations
 import argparse
 import os
 import socket
+import threading
 import traceback
 
 def task_executor(device, nparts: int):
@@ -87,6 +100,30 @@ def _task_reply(msg: dict, ex, fn_modules, ev) -> dict:
     return out
 
 
+def _tag_missing_token(reply: dict, exc: BaseException) -> None:
+    """Copy a MissingResidentToken's token into the error reply as
+    structured data (the driver's resident healing reads this field, not
+    the traceback text)."""
+    from dryad_tpu_torch.runtime.sources import MissingResidentToken
+    if isinstance(exc, MissingResidentToken):
+        reply["missing_token"] = exc.token
+
+
+def _join_gang(args, device):
+    """The gang mesh: this worker's ``--devices-per-process`` partitions
+    of the gang's ``--num-processes`` x that, in a gloo process group
+    rendezvoused at the driver's ``--coordinator`` port."""
+    from dryad_tpu_torch.parallel.mesh import Mesh
+    world = args.num_processes
+    if world > 1:
+        import torch.distributed as dist
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://{args.coordinator}",
+            rank=args.process_id, world_size=world)
+    return Mesh(device, args.devices_per_process * world,
+                rank=args.process_id, world=world)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m "
                                       "dryad_tpu_torch.runtime.worker")
@@ -99,14 +136,22 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="the device the worker runs its tasks on "
                          "(cuda raises without CUDA)")
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of the gang's gloo rendezvous")
+    ap.add_argument("--num-processes", type=int, default=1,
+                    help="the gang's worker count (the gloo world)")
+    ap.add_argument("--standalone", action="store_true",
+                    help="elastic worker: joins no gang, serves farm "
+                         "tasks, refuses gang jobs (run)")
     args = ap.parse_args(argv)
 
     # worker identity for subsystems that attribute per worker
     os.environ["DRYAD_WORKER_ID"] = str(args.process_id)
     from dryad_tpu_torch.parallel.mesh import resolve_device
     from dryad_tpu_torch.runtime import protocol
-    ex = task_executor(resolve_device(args.device),
-                       args.devices_per_process)
+    device = resolve_device(args.device)
+    ex = task_executor(device, args.devices_per_process)
+    gang = None if args.standalone else _join_gang(args, device)
 
     # snapshot the spawning driver's pid NOW — by the time a severed
     # socket is observed the kernel may already have reparented us, and a
@@ -119,13 +164,15 @@ def main(argv=None) -> int:
     protocol.client_authenticate(sock, protocol.load_secret_from_env())
     protocol.send_msg(sock, {"hello": args.process_id,
                              "devices": args.devices_per_process})
+    send_lock = threading.Lock()   # the reply and the heartbeat thread
 
     def _send_reply(obj) -> bool:
         """Send a control reply; on a severed socket (the driver retired
         this worker, runtime/cluster.py retire_worker) return False
         instead of crashing the process."""
         try:
-            protocol.send_msg(sock, obj)
+            with send_lock:
+                protocol.send_msg(sock, obj)
             return True
         except OSError:
             return False
@@ -151,10 +198,15 @@ def main(argv=None) -> int:
             continue
         if cmd == "run_task":
             reply = _serve_task(msg, args, ex)
-        elif cmd == "run":
-            from dryad_tpu_torch.runtime.cluster import GANG_LATER
+        elif cmd == "run" and gang is None:
+            # a mid-life joiner has no gang membership: gang jobs need a
+            # gang restart, farm tasks do not
             reply = {"ok": False, "pid": args.process_id,
-                     "job": msg.get("job"), "error": GANG_LATER}
+                     "job": msg.get("job"),
+                     "error": "standalone (elastic) worker cannot join "
+                              "gang SPMD jobs"}
+        elif cmd == "run":
+            reply = _serve_job(msg, args, gang, _send_reply)
         else:
             reply = {"ok": False, "pid": args.process_id,
                      "job": msg.get("job"),
@@ -171,7 +223,110 @@ def main(argv=None) -> int:
         import time
         while os.getppid() == parent_pid:
             time.sleep(1.0)
+        return 0
+    if gang is not None and gang.gang:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return 0
+
+
+def _heartbeat(send, pid: int, job, interval: float,
+               stop: threading.Event) -> None:
+    """Progress frames while a gang job runs: the driver's watchdog tells
+    a wedged worker (a frozen process: the beats stop) from a busy one
+    (this thread beats even while the job blocks in a collective)."""
+    while not stop.wait(interval):
+        if not send({"hb": pid, "job": job}):
+            return
+
+
+def _serve_job(msg: dict, args, mesh, send) -> dict:
+    """One ``run``: the gang job with heartbeats, its spans (when the
+    driver traces), its resource sampler, and forensics on error."""
+    import time
+
+    from dryad_tpu_torch.obs import flight as _flight
+    from dryad_tpu_torch.obs import profile as _profile
+    from dryad_tpu_torch.obs import trace as _trace
+    from dryad_tpu_torch.ops import hopper_kernels as hk
+    from dryad_tpu_torch.parallel import mesh as _mesh
+    from dryad_tpu_torch.runtime import protocol
+    from dryad_tpu_torch.runtime.exec_common import execute_plan
+    from dryad_tpu_torch.runtime.shiplan import resolve_fn_table
+
+    events: list = []
+
+    def _ev(e, _events=events):
+        # the emission time, as in run_task
+        e = dict(e, ts=round(time.time(), 4))
+        _events.append(e)
+        _flight.record(e)
+
+    reply: dict = {"ok": True, "pid": args.process_id,
+                   "job": msg.get("job")}
+    stop = threading.Event()
+    hb_every = float(msg.get("hb_every") or 0)
+    beat = None
+    if hb_every > 0:
+        beat = threading.Thread(target=_heartbeat, daemon=True, args=(
+            send, args.process_id, msg.get("job"), hb_every, stop))
+        beat.start()
+    tctx = protocol.extract_trace(msg)
+    evs = _trace.leveled(_ev, 2 if tctx is not None else 0)
+    sampler = _profile.start(
+        _ev if tctx is not None else None,
+        getattr(msg.get("config"), "resource_sample_s", 0.0) or 0.0,
+        device=mesh.device, worker_pid=args.process_id,
+        job=msg.get("job"))
+    before, staged = dict(hk.launches), dict(_mesh.STAGED)
+    try:
+        fn_table = resolve_fn_table(msg["plan"], args.fn_module)
+        collect = msg.get("collect", True)
+        with _trace.tracing(evs, tctx):
+            table, extras = execute_plan(
+                msg["plan"], fn_table, msg["sources"], mesh,
+                event_log=evs, store_path=msg.get("store_path"),
+                store_partitioning=msg.get("store_partitioning"),
+                collect=collect, config=msg.get("config"),
+                keep_token=msg.get("keep_token"),
+                release=tuple(msg.get("release") or ()),
+                store_compression=msg.get("store_compression"))
+        reply.update(extras)
+        if collect == "count":
+            if args.process_id == 0:
+                reply["table"] = table
+        elif collect:
+            # every worker ships its own partitions' rows
+            reply["table_part"] = table
+        after = dict(hk.launches)
+        reply["launches"] = {k: after[k] - before[k] for k in after}
+        reply["staged"] = {k: _mesh.STAGED[k] - staged[k]
+                           for k in _mesh.STAGED}
+        # test hook "pid:seconds": delay ONE worker's reply while its
+        # heartbeats keep flowing (the watchdog's busy-but-alive case)
+        spec = os.environ.get("DRYAD_TEST_REPLY_DELAY", "")
+        if spec:
+            pid, _, secs = spec.partition(":")
+            if int(pid) == args.process_id:
+                time.sleep(float(secs))
+    except Exception as e:
+        reply = {"ok": False, "pid": args.process_id,
+                 "job": msg.get("job"), "error": traceback.format_exc()}
+        _tag_missing_token(reply, e)
+        try:
+            protocol.attach_forensics(reply, _flight.capture_bundle(
+                msg, e, kind="job", worker=args.process_id,
+                fn_modules=args.fn_module, events=events,
+                device=mesh.device.type, nparts=mesh.local_nparts))
+        except Exception:
+            pass
+    finally:
+        _profile.stop(sampler)
+        stop.set()
+        if beat is not None:
+            beat.join(timeout=5)
+    reply["events"] = events
+    return reply
 
 
 def _serve_task(msg: dict, args, ex) -> dict:

@@ -14,8 +14,9 @@ SQL plans.  ``service/durable`` journals the daemon's own state,
 
 Front end: ``python -m dryad_tpu_torch.service serve|submit|status|
 cancel|list|wait`` over HTTP (``service/http.py``); the dashboard at
-``/`` is the obs/history index promoted to a live multi-job view.  The
-cluster fleet comes with ROADMAP Queue 1 item 11.
+``/`` is the obs/history index promoted to a live multi-job view.
+``JobService(cluster=)`` runs jobs as farm tasks on a cluster's workers
+(the cluster fleet).
 """
 
 from dryad_tpu_torch.service.admission import AdmissionQueue

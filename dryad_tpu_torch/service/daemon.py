@@ -550,9 +550,16 @@ class JobService:
     def _cluster_context(self):
         """A cluster Context for lowering and planning a fleet job: ONE
         task runs on ONE worker's partitions, so its sources and plan
-        are sized to ``devices_per_process``, not the whole cluster."""
+        are sized to the cluster's ``devices_per_process``, not to a
+        cluster Context's ``nparts`` (the gang's).  It lowers and plans
+        only: it never submits."""
+        import types
+
         from dryad_tpu_torch.api.dataset import Context
-        return Context(cluster=self.cluster, config=self.job_config,
+        dpp = self.cluster.devices_per_process
+        one_worker = types.SimpleNamespace(
+            n_processes=1, devices_per_process=dpp, nparts=dpp)
+        return Context(cluster=one_worker, config=self.job_config,
                        install_trace=False)
 
     def _build_sql_farm_payload(self, bound, semfp: str, fp: str):

@@ -5,7 +5,7 @@ JAX package, so one set of overrides means the same thing to both."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 from dryad_tpu_torch.adapt.thresholds import \
     SKEW_SIBLING_MEDIAN_FACTOR as _SKEW_FACTOR
@@ -109,10 +109,28 @@ class JobConfig:
     # with `python -m dryad_tpu_torch.obs history <dir>`
     history_dir: Optional[str] = None
 
+    # -- cluster runtime (runtime/cluster.py) ------------------------------
+    cluster_processes: int = 2
+    cluster_devices_per_process: int = 2
+    cluster_startup_timeout_s: float = 180.0
+    cluster_job_timeout_s: float = 600.0
+    cluster_fn_modules: Tuple[str, ...] = ()
+    # the gang's straggler / wedge watchdog (runtime/cluster.py): an SPMD
+    # gang cannot duplicate one member, so a wedged worker tears the gang
+    # down and the job is replayed once on a fresh gang.  Workers send a
+    # progress frame every gang_heartbeat_s while a job runs (0 disables
+    # the watchdog)...
+    gang_heartbeat_s: float = 2.0
+    # ...a worker silent for longer than this is declared wedged...
+    gang_heartbeat_timeout_s: float = 60.0
+    # ...and once the first reply lands, the rest must land within
+    # max(rel x the first reply's latency, abs seconds), unless their
+    # heartbeats still flow
+    gang_straggler_rel_margin: float = 1.0
+    gang_straggler_abs_margin_s: float = 15.0
+
     # -- task farm / speculation (runtime/farm.py) -------------------------
-    # EnableSpeculativeDuplication + DrStageStatistics caps (the gang's
-    # fields, cluster_* and gang_*, come with the gang half of ROADMAP
-    # Queue 1 item 11)
+    # EnableSpeculativeDuplication + DrStageStatistics caps
     speculation_enabled: bool = True
     speculation_duplication_budget: float = 0.2
     speculation_outlier_sigma: float = 3.0
@@ -200,6 +218,16 @@ class JobConfig:
              "spill_compression in (None, 'gzip')"),
             (self.store_compression in (None, "gzip"),
              "store_compression in (None, 'gzip')"),
+            (self.cluster_processes >= 1, "cluster_processes >= 1"),
+            (self.cluster_devices_per_process >= 1,
+             "cluster_devices_per_process >= 1"),
+            (self.gang_heartbeat_s >= 0, "gang_heartbeat_s >= 0"),
+            (self.gang_heartbeat_timeout_s > 0,
+             "gang_heartbeat_timeout_s > 0"),
+            (self.gang_straggler_rel_margin >= 0,
+             "gang_straggler_rel_margin >= 0"),
+            (self.gang_straggler_abs_margin_s > 0,
+             "gang_straggler_abs_margin_s > 0"),
             (0.0 <= self.speculation_duplication_budget <= 1.0,
              "speculation_duplication_budget in [0, 1]"),
             (self.speculation_min_samples >= 1,

@@ -172,8 +172,9 @@ def test_sql_over_a_store_equals_jax_and_reuses_the_plan(tmp_path,
 
 def test_submit_tasks_and_in_process_only_surfaces(tmp_path, cluster):
     ctx = Context(cluster=cluster)
-    # a cluster Context is sized to one farm task: one worker's partitions
-    assert ctx.nparts == cluster.devices_per_process < cluster.nparts
+    # a cluster Context spans the gang; a farm task is sized to one
+    # worker's partitions from the cluster itself
+    assert ctx.nparts == cluster.nparts > cluster.devices_per_process
     q = (ctx.from_columns({"v": np.arange(4, dtype=np.int32)})
          .select(F.double_v).where(F.keep_positive))
     plan_json, specs = serialize_for_cluster(

@@ -14,8 +14,8 @@ device="cpu")``), and its shipping helpers against the JAX package's:
   wins), a SIGKILLed worker (only its in-flight tasks reassigned), an
   elastic joiner, store partitions with writer locality, and ``hdfs://``
   block-host locality through the loopback WebHDFS fake;
-* a gang job (``LocalCluster.execute``, a worker's ``run`` command, a
-  cluster Context's terminal) names the gang half of ROADMAP item 11;
+* a cluster Context's terminals run as gang jobs with the in-process
+  results; an elastic worker refuses a gang job (``run``);
 * a farm task's Run emits no ``job_done``; a reply carries its
   ``launches``.
 """
@@ -353,31 +353,40 @@ def test_farm_hdfs_block_host_locality(cluster):
         srv.close()
 
 
-def test_gang_jobs_name_the_gang_half(cluster):
-    """``LocalCluster.execute`` and a cluster Context's terminals raise
-    before sending anything; a worker answers a ``run`` command with the
-    same refusal."""
-    with pytest.raises(ValueError, match="gang half of ROADMAP Queue 1 "
-                                         "item 11"):
-        cluster.execute("{}", {})
-    ds = _query(Context(cluster=cluster))
-    for terminal in (ds.collect, ds.count, ds.cache,
-                     lambda: ds.to_store("/nonexistent/x"),
-                     lambda: ds.sum("v")):
-        with pytest.raises(ValueError, match="item 11"):
-            terminal()
-    cluster.wait_quiescent()
-    job = cluster.next_job_id()
-    sock = cluster.sockets[0]
-    sock.setblocking(True)
-    protocol.send_msg(sock, {"cmd": "run", "job": job})
-    sock.setblocking(False)
-    import select
-    import time
-    deadline, frames = time.time() + 30, []
-    while not frames and time.time() < deadline:
-        select.select([sock], [], [], 0.5)
-        frames, ok = cluster.recv_frames(0, job)
-        assert ok
-    assert frames and not frames[0]["ok"]
-    assert "gang half of ROADMAP Queue 1 item 11" in frames[0]["error"]
+def test_gang_jobs_name_the_gang_half(cluster, tmp_path):
+    """The terminals that refused before the gang half of item 11 now
+    run as gang jobs and return the in-process results at the same
+    ``nparts``; an elastic ``--standalone`` worker joined no gang and
+    still refuses a ``run`` command."""
+    from dryad_tpu_torch.io.store import store_meta
+    gang = _query(Context(cluster=cluster))
+    local = _query(Context(device="cpu", nparts=cluster.nparts))
+    assert gang.ctx.nparts == cluster.nparts
+    got, exp = gang.collect(), local.collect()
+    np.testing.assert_array_equal(got["v"], exp["v"])
+    assert gang.count() == local.count() == 3
+    assert gang.sum("v") == local.sum("v") == 12
+    np.testing.assert_array_equal(gang.cache().collect()["v"], exp["v"])
+    gang.to_store(str(tmp_path / "s"))
+    assert store_meta(str(tmp_path / "s"))["counts"] == [
+        len(v) for v in np.array_split(np.arange(4), cluster.nparts)
+        for v in [v[(v * 2) > 0]]]
+    pid = cluster.add_worker()
+    try:
+        cluster.wait_quiescent()
+        job = cluster.next_job_id()
+        sock = cluster.sockets[pid]
+        sock.setblocking(True)
+        protocol.send_msg(sock, {"cmd": "run", "job": job})
+        sock.setblocking(False)
+        import select
+        import time
+        deadline, frames = time.time() + 30, []
+        while not frames and time.time() < deadline:
+            select.select([sock], [], [], 0.5)
+            frames, ok = cluster.recv_frames(pid, job)
+            assert ok
+        assert frames and not frames[0]["ok"]
+        assert "standalone (elastic) worker" in frames[0]["error"]
+    finally:
+        cluster._drop_elastic(pid)

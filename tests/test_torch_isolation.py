@@ -463,3 +463,51 @@ def test_workers_farm_and_victim_load_no_jax(tmp_path):
         [sys.executable, "-m", "dryad_tpu_torch.chaos", "--help"],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert help_out.returncode == 0 and "--device" in help_out.stdout
+
+
+GANG_MODULES = ("dryad_tpu_torch.runtime.exec_common",
+                "dryad_tpu_torch.runtime.stream_cluster",
+                "dryad_tpu_torch.parallel.mesh")
+
+
+def test_gang_modules_are_checked():
+    """The gang's job body, its parallel collect and store output, and the
+    mesh's collectives are among the modules the two checks above import
+    and scan."""
+    assert set(GANG_MODULES) <= set(_modules())
+
+
+def test_gang_jobs_load_no_jax():
+    """In a fresh interpreter: a gang of two CPU workers (gloo) runs a
+    query with an exchange, a resident cache() and a do_while whose UDF
+    raises if its worker loaded jax or dryad_tpu; the driver loads
+    neither."""
+    tests = str(ROOT / "tests")
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import torch_cluster_fns as F\n"
+        "from dryad_tpu_torch import Context\n"
+        "from dryad_tpu_torch.runtime import LocalCluster\n"
+        "cl = LocalCluster(n_processes=2, devices_per_process=2,\n"
+        "                  fn_modules=('torch_cluster_fns',), device='cpu')\n"
+        "try:\n"
+        "    ctx = Context(cluster=cl)\n"
+        "    ds = ctx.from_columns({'v': np.arange(40, dtype=np.int32) % 7})"
+        ".select(F.no_jax_loaded).cache()\n"
+        "    g = ds.group_by(['v'], {'n': ('count', None)}).collect()\n"
+        "    assert sorted(g['v'].tolist()) == list(range(7))\n"
+        "    out = ctx.do_while(ds, lambda d: d.select(F.no_jax_loaded)"
+        ".select(F.inc_v), n_iters=2).collect()\n"
+        "    assert sorted(out['v'].tolist()) == sorted("
+        "(np.arange(40) % 7 + 2).tolist())\n"
+        "finally:\n"
+        "    cl.shutdown()\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'dryad_tpu')))\n")
+    env = dict(os.environ, PYTHONPATH=tests + os.pathsep + str(ROOT),
+               OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"

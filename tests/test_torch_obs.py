@@ -593,7 +593,8 @@ def test_chip_smoke_phase15_rehearsal(monkeypatch, tmp_path):
     assert q3["cost_model_miss"] == 0 and q3["checked_stages"]
     assert [(s["label"], s["runs"]) for s in q3["stages"]][0] == ("join", 2)
     pr = out["obs_pagerank100k"]
-    assert pr["ranks_bit_equal"] and len(pr["history_jobs"]) == 3
+    assert pr["ranks_bit_equal"] and \
+        len(pr["history_jobs"]) == chip_smoke.OBS_REPS
     assert sorted(pr["cli_s"]) == sorted(chip_smoke.OBS_CLI)
     for t in pr["telemetry"]:
         assert t["job_spans"] == t["job_done"] == 13
@@ -601,5 +602,6 @@ def test_chip_smoke_phase15_rehearsal(monkeypatch, tmp_path):
     launched = {k: sum(r[0][k] for r in runs.values())
                 for k in chip_smoke.TPU_KERNEL}
     assert all(launched.values()), launched
-    assert len(runs) == 7
+    # the off and on runs, and the ANALYZE run
+    assert len(runs) == 2 * chip_smoke.OBS_REPS + 1
     assert all(e == 0.0 for _, errs in runs.values() for e in errs.values())

@@ -157,8 +157,7 @@ def test_chip_smoke_phase13_rehearsal(monkeypatch, tmp_path):
                                   device="cpu")
     tera = out["terasortooc10m"]
     sort = tera["depth2"]["sort"]
-    assert sort["scattered"] == -(-60_000 // 8_192) == \
-        tera["depth1"]["sort"]["scattered"]
+    assert sort["scattered"] == -(-60_000 // 8_192)
     assert tera["depth2"]["cold"]["launches"]["hist_buckets"] == \
         sort["scattered"] + sort["rebucketed"]
     assert tera["incore"]["launches"]["hist_buckets"] == 0

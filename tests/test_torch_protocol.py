@@ -198,5 +198,27 @@ def test_cluster_config_fields_equal_jax():
         for cls in (JobConfig, JJobConfig):
             with pytest.raises(ValueError):
                 cls(**bad)
-    names = {f.name for f in dataclasses.fields(JobConfig)}
-    assert not {n for n in names if n.startswith(("gang_", "cluster_"))}
+    # the gang's fields: the JAX package's names and defaults, but for
+    # cluster_stream_spool_dir (the streamed cluster plans, 11b.6)
+    names = {f.name for f in dataclasses.fields(JobConfig)
+             if f.name.startswith(("gang_", "cluster_"))}
+    jnames = {f.name for f in dataclasses.fields(JJobConfig)
+              if f.name.startswith(("gang_", "cluster_"))}
+    assert names == jnames - {"cluster_stream_spool_dir"}
+    assert len(names) == 9
+    for name in names:
+        assert getattr(port, name) == getattr(jax, name), name
+    # and their validation
+    for bad in ({"cluster_processes": 0},
+                {"cluster_devices_per_process": 0},
+                {"gang_heartbeat_s": -1.0},
+                {"gang_heartbeat_timeout_s": 0.0},
+                {"gang_straggler_rel_margin": -0.5},
+                {"gang_straggler_abs_margin_s": 0.0}):
+        for cls in (JobConfig, JJobConfig):
+            with pytest.raises(ValueError):
+                cls(**bad)
+    ok = {"gang_heartbeat_s": 0.0, "gang_straggler_rel_margin": 0.0,
+          "cluster_fn_modules": ("m",)}
+    assert JobConfig(**ok).gang_heartbeat_s == JJobConfig(
+        **ok).gang_heartbeat_s == 0.0

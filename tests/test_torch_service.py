@@ -15,8 +15,8 @@
   the float64 sums), DTA501 on equivalent queries, one scan per table,
   a cache hit planning the stages of a miss, the version salt;
 * concurrency: per-job logs, the dashboard; the HTTP routes and the CLI;
-  the daemon without CUDA refused, and the surfaces that wait for the
-  gang half of ROADMAP item 11;
+  the daemon without CUDA refused, and a cluster Context's terminal
+  handed to its cluster as one gang job;
 * a CPU rehearsal of ``chip_smoke.py``'s phase 17.
 """
 
@@ -298,8 +298,9 @@ def test_no_cuda_refuses_and_the_cluster_waits_for_item_11(tmp_path,
     """``JobService()`` runs on the card: without CUDA it raises before
     creating anything, and so does a ``LocalCluster`` on the card before
     spawning a worker.  ``submit_tasks`` needs the cluster fleet; a
-    cluster Context's terminal (a gang job) names the gang half of
-    ROADMAP item 11 before sending anything."""
+    cluster Context's terminal, without a device on the driver, is ONE
+    gang job handed to the cluster's ``execute`` (the gang half of
+    ROADMAP item 11 is in) with the plan and the deferred source."""
     from dryad_tpu_torch import Context
     from dryad_tpu_torch.runtime import LocalCluster
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -311,14 +312,19 @@ def test_no_cuda_refuses_and_the_cluster_waits_for_item_11(tmp_path,
         LocalCluster(n_processes=1, log_dir=str(tmp_path / "logs"))
     assert not (tmp_path / "logs" / "worker-0.log").exists()
     sent = []
-    fake = types.SimpleNamespace(devices_per_process=4,
-                                 execute=sent.append)
+
+    def execute(plan_json, specs, **kw):
+        sent.append((plan_json, specs, kw))
+        return {"table": {"k": np.arange(10, dtype=np.int32)}}
+    fake = types.SimpleNamespace(n_processes=2, devices_per_process=4,
+                                 execute=execute, event_log=None)
     ds = Context(cluster=fake).from_columns(
         {"k": np.arange(10, dtype=np.int32)})
-    with pytest.raises(ValueError, match="gang half of ROADMAP Queue 1 "
-                                         "item 11"):
-        ds.collect()
-    assert sent == []
+    assert ds.ctx.nparts == 8 and ds.ctx.device is None
+    np.testing.assert_array_equal(ds.collect()["k"], np.arange(10))
+    ((plan_json, specs, kw),) = sent
+    assert kw["collect"] is True and '"stages"' in plan_json
+    assert [s["kind"] for s in specs.values()] == ["columns"]
     svc = _svc(tmp_path, slots=1)
     try:
         with pytest.raises(ValueError, match="cluster fleet"):

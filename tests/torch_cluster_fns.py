@@ -6,6 +6,8 @@ the reference's ``assembly!class.method`` vertex entries
 ``torch_cluster_fns:<name>``; the functions take the port's columns
 (torch tensors, ``data.columnar.StringColumn``)."""
 
+import os
+
 
 def double_v(cols):
     return dict(cols, v=cols["v"] * 2)
@@ -37,4 +39,66 @@ def no_jax_loaded(cols):
     return cols
 
 
-FN_TABLE = {}
+
+
+# -- the gang's tests (tests/test_torch_gang.py) ----------------------------
+
+def inc_v(cols):
+    return dict(cols, v=cols["v"] + 1)
+
+
+def _topsum_seed(cols):
+    return cols["v"]
+
+
+def _topsum_merge(a, b):
+    return a + b
+
+
+def make_sum_dec():
+    from dryad_tpu_torch.plan.expr import Decomposable
+    return Decomposable(_topsum_seed, _topsum_merge, None)
+
+
+def second_largest(cols, count):
+    """group_apply fn: a group's second largest v (its largest for a
+    group of one)."""
+    import torch
+    v = cols["v"]
+    lo = (torch.finfo(v.dtype).min if v.dtype.is_floating_point
+          else torch.iinfo(v.dtype).min)
+    masked = torch.where(torch.arange(v.shape[0], device=v.device) < count,
+                         v, lo)
+    s = torch.sort(masked, descending=True).values
+    return ({"second": torch.where(count >= 2, s[1], s[0])[None]},
+            torch.ones((1,), dtype=torch.bool, device=v.device))
+
+
+# registered by name for shipping (shiplan's FN_TABLE path)
+SUM_DEC = make_sum_dec()
+FN_TABLE = {"sum_dec": SUM_DEC}
+
+
+# -- the gang phase of chip_smoke.py (PageRank and the skewed join) ----------
+
+# PageRank's node count: the driver sets it for its workers (they inherit
+# its environment) when it runs another graph size
+PR_NODES = int(os.environ.get("DRYAD_GANG_PR_NODES", "100000"))
+PR_DAMPING = 0.85
+
+
+def pr_contrib(c):
+    return {"node": c["dst"], "c": c["rank"] / c["deg"]}
+
+
+def pr_damp(c):
+    return {"node": c["node"],
+            "rank": (1.0 - PR_DAMPING) / PR_NODES + PR_DAMPING * c["s"]}
+
+
+def flag0(c):
+    return c["flag"] == 0
+
+
+def rev_by_custkey(c):
+    return {"custkey": c["custkey"], "rev": c["price"] * c["qty"]}
