@@ -346,7 +346,8 @@ Phases, each failing the run (non-zero exit, no result line) on error:
   19. the gang: one ``runtime.LocalCluster(2, 4)`` on the card (P = 8,
      as in phases 3-7: each worker holds four partitions, the exchanges
      cross the two processes host-staged over gloo) runs each cell as
-     gang jobs cold and warm, beside the same query in this process:
+     gang jobs (one run each since PR 20's cuts), beside the same query
+     in this process:
      ``gang_zipf50k`` (WordCount over phase 3's zipf corpus: the
      in-process table and the ``Counter`` oracle's counts),
      ``gang_terasort1m`` (TeraSort on phase 6's 1,000,000 records: the
@@ -370,7 +371,41 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      held on a replay of TeraSort and two PageRank supersteps here as a
      gang of two threads (``replay_gang``), at the workers' shapes, the
      range bounds bit-equal to the in-process run's;
- 3-19. after each of those main-path runs, every kernel call it made
+  20. the streamed gang and the SSH backend: one ``LocalCluster(2, 4)``
+     on the card (P = 8) runs phase 13's streamed queries over phase
+     13's stores (kept until this phase ends) as gang jobs of chunk
+     waves (``runtime/stream_plan.py``), beside phase 13's in-process
+     runs (cold and warm, but for PageRank and the SSH cell, one run
+     each): ``gang_stream_terasort10m`` (the 10,000,000
+     TeraGen records in 262,144-row chunks, ``order_by(key)`` to a local
+     store cold and to ``hdfs://`` on ``tests/webhdfs_fake`` warm, every
+     worker uploading its own parts: the rows equal to phase 13's, keys
+     in byte order, the range bounds equal in both workers and to a
+     plain numpy cut from the store's partitions (``numpy_gang_cut``);
+     ``take(1,000)`` after the sort of
+     the 1,000,000-record store the head of phase 13's output),
+     ``gang_stream_wordcount1m`` (bench12's file through
+     ``read_text_stream``, spooled under ``cluster_stream_spool_dir``:
+     the ``Counter``'s counts, the group partials in the waves),
+     ``gang_stream_pagerank100k`` (phase 13's edges as a cluster
+     re-streaming ``cache()``, written by the run and hit by the two
+     ``cache()`` calls again, 10 supersteps with the ranks resident:
+     within 1e-6 of phase 13's ranks),
+     ``gang_stream_q13_1m5`` (the SF1 orders right- and full-joined
+     with the 150,000 customers, orders per customer exactly numpy's,
+     and a ``zip_with`` of two selects of the store) and
+     ``ssh_gang_zipf50k`` (an ``SshCluster`` of two hosts over ``bash
+     -c``, the code staged into a fresh root whose kernels its workers
+     build: phase 19's WordCount table, then worker 1's transport killed
+     and the next job on a fresh gang).  Per cell: walls, waves,
+     retries and exchange attempts, the staged collectives' D2H / gloo
+     / H2D seconds, bytes spilled to bucket stores, each worker's
+     launches (``slot_expand`` once a hash or range wave attempt,
+     ``slot_compact`` once a wave attempt); the SSH cell's staging and
+     kernel-build seconds.  The workers' calls held on a replay of one
+     TeraSort wave and one PageRank superstep here as a gang of two
+     threads (``replay_stream_gang``);
+ 3-20. after each of those main-path runs, every kernel call it made
      is made again through the kernel and through its plain version on
      the very tensors the run passed (integers exactly, prefix_sum2
      within twice its bound);
@@ -414,7 +449,8 @@ its scatter line (``{"phase13": ...}``), one per phase-14 cell
 (``{"phase18": ...}``) and the phase's launches (``{"phase":
 "cluster", ...}``, with each cell's worker launches), one per phase-19
 cell (``{"phase19": ...}``) and the phase's (``{"phase": "gang",
-...}``), per profile, per
+...}``), one per phase-20 cell (``{"phase20": ...}``) and the phase's
+(``{"phase": "stream_gang", ...}``), per profile, per
 pack side
 and per kernel, then
 the card line, then the
@@ -428,8 +464,10 @@ chiprun_out/).
 from __future__ import annotations
 
 import argparse
+import atexit
 import collections
 import dataclasses
+import hashlib
 import itertools
 import json
 import os
@@ -3190,6 +3228,23 @@ def write_teragen(ooc, path: str, n: int, chunk: int):
     return keys, pay
 
 
+def teragen_records(n: int, chunk: int):
+    """``write_teragen``'s records made again, (keys, payload), without
+    a store."""
+    parts = [teragen_chunk(i, min(chunk, n - i * chunk))
+             for i in range(-(-n // chunk))]
+    return (np.concatenate([k for k, _ in parts]),
+            np.concatenate([p for _, p in parts]))
+
+
+def rows_digest(keys, pay) -> str:
+    """sha256 of (keys, payload) in row order: two outputs with one
+    digest hold the same rows in the same order."""
+    h = hashlib.sha256(np.ascontiguousarray(keys).tobytes())
+    h.update(np.ascontiguousarray(pay).tobytes())
+    return h.hexdigest()
+
+
 def _key_lanes(keys):
     """10-byte keys as (first 8 bytes, last 2) big-endian integers: their
     lexicographic order is the keys' byte order."""
@@ -3373,14 +3428,17 @@ def stream_cell(port, hk, ooc, label, app, check, config, rows, held,
 
 
 def terasort_ooc_runs(port, hk, ooc, ts, sizes, tmp, held,
-                      device="cuda") -> dict:
+                      device="cuda", keep=None) -> dict:
     """terasortooc10m: TeraGen records written chunk by chunk, then
     ``read_store_stream(chunk_rows).order_by(key).to_store(out)``, read
     back and held (count, byte order, the input's multiset): ooc_inflight
     2 cold / warm / profiled (one depth: depth 1 ran as fast, the
     copies being pageable), the in-core tier once, the same
     depth-2 query at ``small_records`` (its peak device memory against the
-    big run's), and the ``terasort_ooc`` app."""
+    big run's), and the ``terasort_ooc`` app.  With ``keep`` (a dict) the
+    two TeraGen stores stay for phase 20, and ``keep["tera"]`` holds their
+    paths, the digest of the in-process sorted output and the head of
+    the small one's."""
     chunk = sizes.record_chunk
     src = os.path.join(tmp, "teragen")
     small = os.path.join(tmp, "teragen_small")
@@ -3429,8 +3487,7 @@ def terasort_ooc_runs(port, hk, ooc, ts, sizes, tmp, held,
            "teragen_write_s": gen_s, "started_s": time.perf_counter()}
     line, cold, warm = stream_cell(port, hk, ooc, "terasortooc10m",
                                    query(src), check, ooc_cfg(2),
-                                   sizes.records, held, device,
-                                   profile=True)
+                                   sizes.records, held, device)
     res["depth2"] = {**line, "sort": sort_launches("terasortooc10m", cold)}
     scatter = scatter_hist_calls("terasortooc10m", cold.pop("captured"),
                                  (res["depth2"]["sort"]["n_buckets"],))
@@ -3441,6 +3498,7 @@ def terasort_ooc_runs(port, hk, ooc, ts, sizes, tmp, held,
     inc = stream_run(port, hk, ooc, query(src), ooc_cfg(2, 1 << 30),
                      device)
     check(inc["out"])
+    big_out = first["out"]
     (s,) = inc["sorts"]
     if not s["incore"] or inc["launches"]["hist_buckets"]:
         raise AssertionError(f"terasortooc10m in-core: {s}, "
@@ -3472,17 +3530,23 @@ def terasort_ooc_runs(port, hk, ooc, ts, sizes, tmp, held,
         return read_sorted(ooc, app_out)
     ar = stream_run(port, hk, ooc, app, None, device, capture=True)
     held("terasort_ooc2m", ar["launches"], ar.pop("captured"))
-    keys = np.concatenate([teragen_chunk(i, min(chunk, sizes.app_records
-                                                - i * chunk))[0]
-                           for i in range(-(-sizes.app_records // chunk))])
-    pays = np.concatenate([teragen_chunk(i, min(chunk, sizes.app_records
-                                                - i * chunk))[1]
-                           for i in range(-(-sizes.app_records // chunk))])
-    check_terasort_store("terasort_ooc", ar["out"], (keys, pays))
+    check_terasort_store("terasort_ooc", ar["out"],
+                         teragen_records(sizes.app_records, chunk))
     ar["sorts"] = [info]
     sort_launches("terasort_ooc", ar)
     res["app"] = {**_line(ar, sizes.app_records), "sort": info}
-    for p in (src, small, out, app_out):
+    if keep is not None:
+        # digests and a head, not the 10M-record arrays: they would stay
+        # in this process through phases 14-19
+        keep["tera"] = {"src": src, "small": small, "chunk": chunk,
+                        "records": sizes.records,
+                        "out_digest": rows_digest(*big_out),
+                        "small_records": len(sm["out"][1]),
+                        "small_head": tuple(a[:STREAM_TAKE].copy()
+                                            for a in sm["out"]),
+                        "warm_wall_s": warm["wall_s"]}
+    for p in ((out, app_out) if keep is not None
+              else (src, small, out, app_out)):
         shutil.rmtree(p, ignore_errors=True)
     res["cell_s"] = time.perf_counter() - res.pop("started_s")
     return res, scatter
@@ -3537,19 +3601,21 @@ def scatter_hist_rows(hk, scatter, card) -> list:
 
 
 def phase13_runs(port, hk, sizes, tmp, lines, want_counts, held,
-                 device="cuda") -> dict:
+                 device="cuda", keep=None) -> dict:
     """Phase 13's runs through the public streamed entry points, each
     held to its oracle (see the module docstring).  Stores and files live
     under ``tmp`` and are deleted.  Returns one line per cell, and under
     ``"scatter_calls"`` one captured scatter histogram per (run, ids,
     buckets): the sort's range scatter, PageRank's and k-means' hash
-    scatters."""
+    scatters.  With ``keep`` (a dict) the stores and the text file that
+    phase 20 streams again stay under ``tmp``, and ``keep`` holds their
+    paths, oracles and the in-process runs' outputs and warm walls."""
     from dryad_tpu_torch.apps import kmeans as km
     from dryad_tpu_torch.apps import pagerank as pr
     from dryad_tpu_torch.apps import terasort as ts
     from dryad_tpu_torch.exec import ooc
     tera, scatter = terasort_ooc_runs(port, hk, ooc, ts, sizes, tmp,
-                                      held, device)
+                                      held, device, keep)
     res = {"terasortooc10m": tera}
     chunk = sizes.stream_chunk
 
@@ -3592,6 +3658,11 @@ def phase13_runs(port, hk, sizes, tmp, lines, want_counts, held,
     res["pagerankstream100k"] = {"edges": len(edges["src"]),
                                  "iters": PR_ITERS, "chunk_rows": chunk,
                                  **line}
+    if keep is not None:
+        keep["pagerank"] = {"path": epath, "edges": edges, "ref": pr_ref,
+                            "out": cold["out"], "chunk": chunk,
+                            "nodes": sizes.nodes,
+                            "warm_wall_s": warm["wall_s"]}
     shutil.rmtree(cache_dir, ignore_errors=True)
 
     # k-means over a point stream
@@ -3645,10 +3716,16 @@ def phase13_runs(port, hk, sizes, tmp, lines, want_counts, held,
 
     res["q13stream1m5"] = {}
     for how in ("right", "full"):
-        line, _, _ = stream_cell(
+        line, _, warm = stream_cell(
             port, hk, ooc, f"q13stream1m5_{how}", q13(how),
             check_q13_stream, None, len(orders["okey"]), held,
             device)
+        if keep is not None:
+            keep.setdefault("q13", {"path": opath, "orders": orders,
+                                    "cust": cust, "chunk": chunk,
+                                    "check": check_q13_stream,
+                                    "warm_wall_s": {}})
+            keep["q13"]["warm_wall_s"][how] = warm["wall_s"]
         if line["unmatched_customers"] != n_cust - len(
                 np.unique(orders["custkey"])):
             raise AssertionError("q13stream1m5: customers with no order "
@@ -3674,12 +3751,17 @@ def phase13_runs(port, hk, sizes, tmp, lines, want_counts, held,
                                  "phase 3's")
         return {"lines": len(lines), "words": len(got)}
 
-    line, _, _ = stream_cell(port, hk, ooc, "readtextstream1m", wordcount,
-                             check_wc, None, len(lines), held,
-                             device)
+    line, _, warm = stream_cell(port, hk, ooc, "readtextstream1m",
+                                wordcount, check_wc, None, len(lines), held,
+                                device)
     res["readtextstream1m"] = line
     res["scatter_calls"] = scatter
-    for name in ("edges", "points", "orders", "bench12.txt"):
+    if keep is not None:
+        keep["text"] = {"path": tpath, "chunk": sizes.text_chunk,
+                        "lines": len(lines), "check": check_wc,
+                        "warm_wall_s": warm["wall_s"]}
+    for name in (("points",) if keep is not None
+                 else ("edges", "points", "orders", "bench12.txt")):
         p = os.path.join(tmp, name)
         shutil.rmtree(p, ignore_errors=True) if os.path.isdir(p) \
             else os.remove(p)
@@ -6151,11 +6233,11 @@ def gang_figures(label, replies, device="cuda") -> dict:
 
 def gang_cell(label, gj, gang_app, local_app, check,
               device="cuda") -> dict:
-    """A phase-19 cell: ``gang_app`` on the gang cold, then warm, and
-    ``local_app`` in process (a warm run) beside them; ``check(gang,
-    local)`` holds the results.  Returns its line with the cold run's
-    figures (``gang_figures``) and the cold run's replies under
-    ``"_replies"``."""
+    """A phase-19 cell: ``gang_app`` on the gang (one cold run: the warm
+    rerun was cut for the script's time, PR 20), and ``local_app`` in
+    process beside it; ``check(gang, local)`` holds the results.
+    Returns its line with the run's figures (``gang_figures``) and its
+    replies under ``"_replies"``."""
     import torch
     gj.take()
     t0 = time.perf_counter()
@@ -6163,23 +6245,15 @@ def gang_cell(label, gj, gang_app, local_app, check,
     cold_s = time.perf_counter() - t0
     replies, sent = gj.take()
     t0 = time.perf_counter()
-    warm = gang_app()
-    warm_s = time.perf_counter() - t0
-    wreplies, _ = gj.take()
-    t0 = time.perf_counter()
     local = local_app()
     if device == "cuda":
         torch.cuda.synchronize()
     local_s = time.perf_counter() - t0
     sizes = check(out, local)
-    check(warm, local)
     fig = gang_figures(label, replies, device)
-    wfig = gang_figures(label + " warm", wreplies, device)
     return {**sizes, "nparts": NPARTS, "processes": GANG_PROCS,
-            "cold_wall_s": cold_s, "warm_wall_s": warm_s,
-            "inprocess_wall_s": local_s, **fig,
-            "warm_staged": wfig["staged"], "sent_bytes": sent,
-            "_replies": replies}
+            "cold_wall_s": cold_s, "inprocess_wall_s": local_s, **fig,
+            "sent_bytes": sent, "_replies": replies}
 
 
 def _tables_equal(label, a, b) -> None:
@@ -6267,12 +6341,13 @@ def gang_watchdog(port, cl, events) -> dict:
 
 def phase19_runs(port, hk, wc, ts, corpus, wc_counts, tera, edges,
                  n_nodes: int, pr, lineitems: int, root: str, held,
-                 device="cuda") -> dict:
+                 device="cuda", keep=None) -> dict:
     """Phase 19's cells on one ``LocalCluster(GANG_PROCS, GANG_DPP)`` on
     the card (P = 8; see the module docstring), each against the same
     query in this process; the workers' calls held on a replay of
     terasort1m and two PageRank supersteps here as a gang of threads
-    (``replay_gang``), at the workers' shapes."""
+    (``replay_gang``), at the workers' shapes.  ``keep`` (a dict) gets
+    gang_zipf50k's table under ``"zipf_out"``."""
     import contextlib
 
     import torch
@@ -6326,6 +6401,8 @@ def phase19_runs(port, hk, wc, ts, corpus, wc_counts, tera, edges,
 
         def wc_check(out, local):
             _tables_equal("gang_zipf50k", out, local)
+            if keep is not None:
+                keep["zipf_out"] = out
             if dict(zip(out["line"], (int(v) for v in out["n"]))) != \
                     wc_counts:
                 raise AssertionError("gang_zipf50k: counts differ from "
@@ -6491,6 +6568,575 @@ def phase19_runs(port, hk, wc, ts, corpus, wc_counts, tera, edges,
     lines["gang_replay"] = {"replay_launches": replayed,
                             "max_abs_err": errs, "first_call_shapes": shapes,
                             "worker_launches": total}
+    return lines
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the streamed gang and the SSH backend
+
+STREAM_TAKE = 1_000    # gang_stream_terasort10m's take(n) after the sort
+
+
+def stream_gang_figures(label, replies, device="cuda") -> dict:
+    """A streamed gang cell run's figures from its jobs' replies: each
+    worker's launches, staged collectives and streamed-plan counters
+    (the reply's ``stream``: waves, capacity retries, exchange attempts
+    by kind, bytes spilled to bucket stores, compactions, range bounds).
+    The mirrored counters and the bounds must be equal in both workers;
+    on the card each worker's ``slot_expand`` must equal its hash and
+    range exchange attempts and ``slot_compact`` those plus its
+    broadcasts (a streamed job's only exchange kernels)."""
+    workers = sorted(replies[0]["workers"])
+    launches = {w: dict.fromkeys(TPU_KERNEL, 0) for w in workers}
+    staged = {w: dict.fromkeys(STAGED_KEYS, 0) for w in workers}
+    stream = {w: {"waves": 0, "retries": 0, "compacted_legs": 0,
+                  "compactions": 0, "spilled_bytes": 0,
+                  "attempts": collections.Counter(), "bounds": []}
+              for w in workers}
+    compile_s = dict.fromkeys(workers, 0.0)
+    for r in replies:
+        for w, info in r["workers"].items():
+            for k in TPU_KERNEL:
+                launches[w][k] += info["launches"].get(k, 0)
+            for k in STAGED_KEYS:
+                staged[w][k] += info["staged"].get(k, 0)
+            st = info.get("stream") or {}
+            for k in ("waves", "retries", "compacted_legs", "compactions",
+                      "spilled_bytes"):
+                stream[w][k] += st.get(k, 0)
+            stream[w]["attempts"].update(st.get("attempts", {}))
+            stream[w]["bounds"].extend(st.get("bounds", []))
+            compile_s[w] = max(compile_s[w], info.get("compile_s") or 0.0)
+    s0 = stream[workers[0]]
+    for w in workers:
+        if any(stream[w][k] != s0[k] for k in
+               ("waves", "retries", "attempts", "compacted_legs",
+                "bounds")):
+            raise AssertionError(f"{label}: the workers' waves, retries or "
+                                 f"range bounds differ: {stream}")
+    att = s0["attempts"]
+    for w in (workers if device == "cuda" else ()):
+        ln = launches[w]
+        if (ln["slot_expand"] != att["hash"] + att["range"]
+                or ln["slot_compact"] != att["hash"] + att["range"]
+                + att["broadcast"]):
+            raise AssertionError(f"{label} worker {w}: launches {ln} for "
+                                 f"exchange attempts {dict(att)}")
+    return {"jobs": len(replies), "worker_launches": launches,
+            "staged": staged, "waves": s0["waves"],
+            "retries": s0["retries"], "exchange_attempts": dict(att),
+            "spilled_bytes": {w: stream[w]["spilled_bytes"]
+                              for w in workers},
+            "compacted_legs": s0["compacted_legs"],
+            "compactions": {w: stream[w]["compactions"] for w in workers},
+            "bounds": s0["bounds"], "compile_s": compile_s}
+
+
+def stream_gang_cell(label, gj, cold_app, warm_app, check, local_wall,
+                     device="cuda") -> dict:
+    """A phase-20 cell: ``cold_app`` on the gang, then ``warm_app`` (the
+    same query; the TeraSort's writes to hdfs://; None: no warm run),
+    each checked by ``check(out)``; the in-process streamed run's warm
+    wall (phase 13's) beside them.  Returns its line with both runs'
+    figures and their replies under ``"_replies"``."""
+    gj.take()
+    t0 = time.perf_counter()
+    out = cold_app()
+    cold_s = time.perf_counter() - t0
+    replies, sent = gj.take()
+    sizes = check(out)
+    fig = stream_gang_figures(label, replies, device)
+    line = {**sizes, "nparts": NPARTS, "processes": GANG_PROCS,
+            "cold_wall_s": cold_s, "inprocess_warm_wall_s": local_wall,
+            **fig, "sent_bytes": sent, "_replies": replies}
+    if warm_app is not None:
+        t0 = time.perf_counter()
+        wout = warm_app()
+        line["warm_wall_s"] = time.perf_counter() - t0
+        wreplies, _ = gj.take()
+        check(wout)
+        wfig = stream_gang_figures(label + " warm", wreplies, device)
+        line["warm"] = {k: wfig[k] for k in (
+            "staged", "waves", "retries", "exchange_attempts",
+            "spilled_bytes", "compactions", "worker_launches")}
+        line["_replies"] = replies + wreplies
+    return line
+
+
+def numpy_gang_cut(ooc, path: str, chunk: int, key: str,
+                   per_chunk: int = 512, cap: int = 8192):
+    """The range bounds a gang of GANG_PROCS x GANG_DPP must cut over the
+    string key ``key`` of ``path``, in plain numpy: each store partition
+    read whole (``ChunkSource.from_store`` with one chunk a partition, the
+    reader only) and sliced into ``chunk``-row chunks, ``min(rows,
+    per_chunk)`` evenly spaced rows a chunk, each key's first four bytes
+    big-endian (bytes past its length as 0), at most ``cap`` evenly spaced
+    samples a local partition and a rank (partition g of rank r streams
+    the store partitions p with p mod P = g), the ranks in order, sorted,
+    and the ``len * (i + 1) // P``-th as bound i."""
+    from dryad_tpu_torch.io.store import store_meta
+
+    def capped(s):
+        if len(s) > cap:
+            s = s[np.linspace(0, len(s) - 1, cap).astype(np.int64)]
+        return s
+
+    nparts = store_meta(path)["npartitions"]
+    ranks = []
+    for r in range(GANG_PROCS):
+        rank = []
+        for d in range(GANG_DPP):
+            parts = [p for p in range(nparts)
+                     if p % NPARTS == r * GANG_DPP + d]
+            s = []
+            for whole in ooc.ChunkSource.from_store(path, 1 << 40,
+                                                    partitions=parts):
+                data, lens = whole.cols[key]
+                for a in range(0, whole.n, chunk):
+                    n = min(chunk, whole.n - a)
+                    idx = a + np.linspace(0, n - 1, min(n, per_chunk)
+                                          ).astype(np.int64)
+                    b = np.where(np.arange(4)[None, :] < lens[idx][:, None],
+                                 data[idx, :4], 0).astype(np.uint32)
+                    s.append((b[:, 0] << 24) | (b[:, 1] << 16)
+                             | (b[:, 2] << 8) | b[:, 3])
+            rank.append(capped(np.concatenate(s) if s
+                               else np.zeros((0,), np.uint32)))
+        ranks.append(capped(np.concatenate(rank)))
+    s = np.sort(np.concatenate(ranks))
+    return np.asarray([s[min(len(s) * (i + 1) // NPARTS, len(s) - 1)]
+                       for i in range(NPARTS - 1)], np.uint32)
+
+
+def replay_stream_gang(port, hk, plans, device="cuda"):
+    """Each ``(plan_json, specs)`` of ``plans`` run as a streamed gang job
+    (``runtime/stream_plan.execute_stream_plan``, the count terminal) by
+    GANG_PROCS threads of this process (``thread_mesh``), every kernel
+    call captured.  Returns (captured, launches, each rank's ``stream``
+    counters)."""
+    import threading
+
+    import torch
+    from dryad_tpu_torch.parallel import mesh as port_mesh
+    from dryad_tpu_torch.runtime.shiplan import resolve_fn_table
+    from dryad_tpu_torch.runtime.stream_plan import execute_stream_plan
+    dev = torch.device(device)
+    before = dict(hk.launches)
+    hk.capture = {}
+    errors, stats = [], []
+    for plan_json, specs in plans:
+        rdv = _Rendezvous(GANG_PROCS)
+        fns = resolve_fn_table(plan_json, ("torch_cluster_fns",))
+
+        def rank_run(r, plan_json=plan_json, specs=specs, fns=fns, rdv=rdv):
+            try:
+                mesh = thread_mesh(port_mesh, dev, r, GANG_PROCS, rdv)
+                _n, extras = execute_stream_plan(plan_json, fns, specs, mesh,
+                                                 collect="count")
+                stats.append(extras["stream"])
+            except BaseException as e:      # surfaced after the join
+                errors.append(e)
+                rdv.barrier.abort()
+        threads = [threading.Thread(target=rank_run, args=(r,))
+                   for r in range(GANG_PROCS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            hk.capture = None
+            raise errors[0]
+    captured, hk.capture = hk.capture, None
+    return (captured, {k: hk.launches[k] - before[k] for k in TPU_KERNEL},
+            stats)
+
+
+def cache_stores(root: str) -> dict:
+    """A cache root's entries' data stores, by their sorted column
+    names."""
+    from dryad_tpu_torch.io.store import store_meta
+    out = {}
+    for name in sorted(os.listdir(root)):
+        data = os.path.join(root, name, "data")
+        if os.path.isdir(data):
+            out[tuple(sorted(store_meta(data)["schema"]))] = data
+    return out
+
+
+def ssh_gang_cell(port, wc, corpus, wc_counts, zipf19, root,
+                  device="cuda") -> dict:
+    """ssh_gang_zipf50k: an ``SshCluster`` of two hosts over the ``bash
+    -c`` transport (the code staged into a fresh root, its kernels built
+    there from the staged sources at the workers' start) runs phase 3's
+    zipf WordCount: counts against the ``Counter`` oracle's and the table
+    against phase 19's gang run.  Then worker 1's transport
+    process is killed, and the next job runs on a fresh gang."""
+    from dryad_tpu_torch.runtime import SshCluster
+    text = os.path.join(root, "zipf50k.txt")
+    with open(text, "w") as f:
+        f.write("\n".join(corpus) + "\n")
+    per_part = -(-len(corpus) // NPARTS)
+    t0 = time.perf_counter()
+    cl = SshCluster(hosts=["nodeA", "nodeB"], devices_per_process=GANG_DPP,
+                    driver_host="127.0.0.1", coordinator_host="127.0.0.1",
+                    python=sys.executable,
+                    remote_root=os.path.join(root, "ssh-root"),
+                    device=device, remote_pythonpath=[TESTS],
+                    fn_modules=("torch_cluster_fns",),
+                    rsh=lambda host, cmd: ["bash", "-c", cmd],
+                    log_dir=os.path.join(root, "ssh-workers"))
+    start_s = time.perf_counter() - t0
+    sj = GangJobs(cl)
+    try:
+        ctx = port.Context(cluster=cl)
+
+        def wordcount():
+            return wc.wordcount_query(ctx.read_text(text, max_line_len=96),
+                                      tokens_per_partition=per_part * 10
+                                      ).collect()
+
+        def check(out):
+            if dict(zip(out["line"], (int(v) for v in out["n"]))) != \
+                    wc_counts:
+                raise AssertionError("ssh_gang_zipf50k: counts differ from "
+                                     "phase 3's (the Counter oracle's)")
+            _tables_equal("ssh_gang_zipf50k", out, zipf19)
+        # one run: its warm rerun was cut for the script's time
+        t0 = time.perf_counter()
+        check(wordcount())
+        cold_s = time.perf_counter() - t0
+        replies, _ = sj.take()
+        fig = gang_figures("ssh_gang_zipf50k", replies[:1], device)
+        build_s = max(info.get("compile_s") or 0.0
+                      for info in replies[0]["workers"].values())
+        cl._procs[1].kill()
+        cl._procs[1].wait()
+        t0 = time.perf_counter()
+        check(wordcount())
+        restart_s = time.perf_counter() - t0
+        sj.take()
+        if not cl.alive():
+            raise AssertionError("ssh_gang_zipf50k: no fresh gang")
+    finally:
+        sj.close()
+        cl.shutdown()
+    shutil.rmtree(os.path.join(root, "ssh-root"), ignore_errors=True)
+    return {"hosts": cl.hosts, "transport": "bash -c", "nparts": NPARTS,
+            "processes": GANG_PROCS, "lines": len(corpus),
+            "words": len(zipf19["line"]), "start_s": start_s,
+            "staging_s": cl.stage_s, "kernel_build_s": build_s,
+            "cold_wall_s": cold_s, "restart_wall_s": restart_s, **fig}
+
+
+def phase20_runs(port, hk, wc, corpus, wc_counts, kept, zipf19,
+                 root: str, held, device="cuda") -> dict:
+    """Phase 20's cells on one ``LocalCluster(GANG_PROCS, GANG_DPP)`` on
+    the card (P = 8): phase 13's streamed queries as gang jobs, cold and
+    warm (PageRank once), over phase 13's stores (``kept``: their paths, oracles and the
+    in-process runs), then the SSH cell; the workers' calls held on a
+    replay of one TeraSort wave and one streamed PageRank superstep here
+    as a gang of threads (``replay_stream_gang``)."""
+    from dryad_tpu_torch.exec import ooc
+    from dryad_tpu_torch.plan.planner import plan_query
+    from dryad_tpu_torch.runtime import LocalCluster
+    from dryad_tpu_torch.runtime.shiplan import serialize_for_cluster
+    if TESTS not in sys.path:
+        sys.path.insert(0, TESTS)
+    import torch_cluster_fns as F
+    FakeWebHdfs = loopback_fakes()[1].FakeWebHdfs
+    kt, kp, kq, kx = (kept[k] for k in ("tera", "pagerank", "q13", "text"))
+    n_nodes = kp["nodes"]
+    old = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = TESTS + (os.pathsep + old if old else "")
+    os.environ["DRYAD_GANG_PR_NODES"] = str(n_nodes)
+    F.PR_NODES = n_nodes
+    lines, events = {}, []
+    t0 = time.perf_counter()
+    cl = LocalCluster(n_processes=GANG_PROCS, devices_per_process=GANG_DPP,
+                      fn_modules=("torch_cluster_fns",), device=device,
+                      log_dir=os.path.join(root, "workers"))
+    start_s = time.perf_counter() - t0
+    gj = GangJobs(cl)
+    srv = FakeWebHdfs(block_size=64 << 20)
+    try:
+        gctx = port.Context(cluster=cl, event_log=events.append)
+        chunk = kt["chunk"]
+
+        # gang_stream_terasort10m: to a local store cold, to hdfs:// warm
+        def sort_to(path):
+            def app():
+                gctx.read_store_stream(kt["src"], chunk_rows=chunk).order_by(
+                    [("key", False)]).to_store(path)
+                return read_sorted(ooc, path)
+            return app
+        def tera_check(got):
+            # phase 13's output was held to the input (count, byte order,
+            # multiset): the same keys and payloads in the same order (its
+            # digest) are the same multiset; rows of equal keys may come
+            # in another order, and then the input, made again, is held
+            hi, lo = _key_lanes(got[0])
+            if not ((hi[:-1] < hi[1:]) | ((hi[:-1] == hi[1:])
+                                          & (lo[:-1] <= lo[1:]))).all():
+                raise AssertionError("gang_stream_terasort10m: keys not "
+                                     "non-decreasing")
+            if rows_digest(*got) == kt["out_digest"]:
+                return {"rows": len(got[1]), "equal_phase13_rows": True}
+            return {**check_terasort_store(
+                "gang_stream_terasort10m", got,
+                teragen_records(kt["records"], chunk)),
+                    "equal_phase13_rows": False}
+        url = srv.url + "/gang/sorted"
+        line = stream_gang_cell("gang_stream_terasort10m", gj,
+                                sort_to(os.path.join(root, "gsorted")),
+                                sort_to(url), tera_check,
+                                kt["warm_wall_s"], device)
+        cut = numpy_gang_cut(ooc, kt["src"], chunk, "key").tolist()
+        if line["bounds"] != [cut]:
+            raise AssertionError(f"gang_stream_terasort10m: the gang's "
+                                 f"bounds {line['bounds']} are not numpy's "
+                                 f"cut {cut}")
+        uploads = [p for p in srv.files if p.startswith("/gang/sorted/")]
+        if len(uploads) != NPARTS + 1 or "/gang/sorted.tmp" in srv.dirs:
+            raise AssertionError(f"gang_stream_terasort10m: hdfs:// holds "
+                                 f"{sorted(uploads)}")
+        t1 = time.perf_counter()
+        head = gctx.read_store_stream(kt["small"], chunk_rows=chunk) \
+            .order_by([("key", False)]).take(STREAM_TAKE).collect()
+        take_s = time.perf_counter() - t1
+        sk, sp = kt["small_head"]
+        if (head["key"] != [bytes(r) for r in sk]
+                or not np.array_equal(head["payload"], sp)):
+            raise AssertionError("gang_stream_terasort10m: take(n) after "
+                                 "the sort is not the head of the "
+                                 "in-process output")
+        gj.take()
+        line.update({"records": kt["records"], "chunk_rows": chunk,
+                     "bounds_equal_numpy_cut": True,
+                     "hdfs_parts": len(uploads) - 1, "take_n": STREAM_TAKE,
+                     "take_records": kt["small_records"],
+                     "take_wall_s": take_s,
+                     "cluster_start_s": start_s})
+        shutil.rmtree(os.path.join(root, "gsorted"), ignore_errors=True)
+        srv.files.clear()
+        lines["gang_stream_terasort10m"] = line
+
+        # gang_stream_wordcount1m: the text spooled under
+        # cluster_stream_spool_dir, the group partials in the waves
+        spool = os.path.join(root, "spool")
+        wctx = port.Context(cluster=cl, config=port.JobConfig(
+            cluster_stream_spool_dir=spool))
+
+        def wordcount():
+            tc = kx["chunk"]
+            return (wctx.read_text_stream(kx["path"], chunk_rows=tc,
+                                          max_line_len=96)
+                    .split_words("line", out_capacity=tc * 10, lower=True)
+                    .group_by(["line"], {"n": ("count", None)}).collect())
+        line = stream_gang_cell("gang_stream_wordcount1m", gj, wordcount,
+                                wordcount, kx["check"], kx["warm_wall_s"],
+                                device)
+        if not line["compacted_legs"] or any(line["spilled_bytes"].values()):
+            raise AssertionError(f"gang_stream_wordcount1m: the group "
+                                 f"partials were not compacted in the "
+                                 f"waves: {line['compacted_legs']} legs, "
+                                 f"{line['spilled_bytes']} bytes spilled")
+        line["spooled_stores"] = len(os.listdir(spool))
+        shutil.rmtree(spool, ignore_errors=True)
+        lines["gang_stream_wordcount1m"] = line
+
+        # gang_stream_pagerank100k: the edges a cluster re-streaming
+        # cache, the ranks resident; one run (its warm rerun was cut for
+        # the script's time), then the two caches again: hits
+        cache_dir = os.path.join(root, "prcache")
+        pctx = port.Context(cluster=cl, event_log=events.append,
+                            config=port.JobConfig(ooc_cache_dir=cache_dir))
+        nodes = {"node": np.arange(n_nodes, dtype=np.int32),
+                 "rank": np.full(n_nodes, 1.0 / n_nodes, np.float32)}
+
+        def caches():
+            edges_ds = pctx.read_store_stream(
+                kp["path"], chunk_rows=kp["chunk"]).cache()
+            return edges_ds, edges_ds.group_by(
+                ["src"], {"deg": ("count", None)}).cache()
+
+        def cache_counts(n0):
+            kinds = collections.Counter(e.get("event") for e in events[n0:])
+            return kinds["ooc_cache_write"], kinds["ooc_cache_hit"]
+
+        def pagerank():
+            n0 = len(events)
+            edges_ds, deg = caches()
+
+            def body(ranks):
+                return (edges_ds
+                        .join(deg, ["src"], ["src"], expansion=2.0)
+                        .join(ranks, ["src"], ["node"], expansion=2.0)
+                        .select(F.pr_contrib)
+                        .group_by(["node"], {"s": ("sum", "c")})
+                        .select(F.pr_damp))
+            out = pctx.do_while(pctx.from_columns(nodes), body,
+                                n_iters=PR_ITERS).collect()
+            cache_events.append(cache_counts(n0))
+            return out
+        cache_events = []
+
+        def pr_check(out):
+            ref = kp["out"]
+            o, r = np.argsort(out["node"]), np.argsort(ref["node"])
+            if not np.array_equal(np.asarray(out["node"])[o],
+                                  np.asarray(ref["node"])[r]):
+                raise AssertionError("gang_stream_pagerank100k: nodes differ "
+                                     "from the in-process streamed run's")
+            a = np.asarray(out["rank"], np.float64)[o]
+            b = np.asarray(ref["rank"], np.float64)[r]
+            rel = float((np.abs(a - b) / np.abs(b)).max())
+            if not rel <= 1e-6:
+                raise AssertionError(f"gang_stream_pagerank100k: a rank is "
+                                     f"{rel} off the in-process streamed "
+                                     f"run's")
+            return {**check_pagerank(out, kp["edges"], n_nodes, kp["ref"]),
+                    "max_rel_diff_inprocess": rel}
+        line = stream_gang_cell("gang_stream_pagerank100k", gj, pagerank,
+                                None, pr_check, kp["warm_wall_s"], device)
+        n0 = len(events)
+        caches()
+        cache_events.append(cache_counts(n0))
+        gj.take()
+        if cache_events != [(2, 0), (0, 2)]:
+            raise AssertionError(f"gang_stream_pagerank100k: cache "
+                                 f"(writes, hits) cold and warm "
+                                 f"{cache_events}")
+        line.update({"iters": PR_ITERS, "edges": len(kp["edges"]["src"]),
+                     "cache_writes_hits": cache_events})
+        pr_stores = cache_stores(cache_dir)
+        lines["gang_stream_pagerank100k"] = line
+
+        # gang_stream_q13_1m5: right and full joins with the customers,
+        # and a zip of two selects of one store
+        orders, cust = kq["orders"], kq["cust"]
+
+        def q13(how):
+            def app():
+                return (gctx.read_store_stream(kq["path"],
+                                               chunk_rows=kq["chunk"])
+                        .select(F.q13_hit)
+                        .join(gctx.from_columns(cust), ["custkey"], how=how)
+                        .group_by(["custkey"], {"n": ("sum", "hit"),
+                                                "rows": ("count", None)})
+                        .collect())
+            return app
+        q13_lines = {}
+        for how in ("right", "full"):
+            ln = stream_gang_cell(f"gang_stream_q13_1m5 {how}", gj,
+                                  q13(how), q13(how), kq["check"],
+                                  kq["warm_wall_s"][how], device)
+            if ln["unmatched_customers"] != len(cust["custkey"]) - len(
+                    np.unique(orders["custkey"])):
+                raise AssertionError("gang_stream_q13_1m5: customers with no "
+                                     "order missing")
+            q13_lines[how] = ln
+
+        def zipped(ctx):
+            s = ctx.read_store_stream(kq["path"], chunk_rows=kq["chunk"])
+            return s.select(F.q13_okey).zip_with(
+                s.select(F.q13_cust)).collect()
+        t1 = time.perf_counter()
+        z = zipped(gctx)
+        zip_s = time.perf_counter() - t1
+        zreplies, _ = gj.take()
+        lz = zipped(port.Context(device=device, nparts=NPARTS))
+        ok_, ck = np.asarray(z["okey"]), np.asarray(z["ck"])
+        if (len(ok_) != len(orders["okey"])
+                or not np.array_equal(np.sort(ok_), orders["okey"])
+                or not np.array_equal(ck, orders["custkey"][ok_])):
+            raise AssertionError("gang_stream_q13_1m5: the zip does not pair "
+                                 "each order with its own customer")
+        lo = np.argsort(lz["okey"])
+        if not np.array_equal(np.sort(ok_), np.asarray(lz["okey"])[lo]) or \
+                not np.array_equal(ck[np.argsort(ok_)],
+                                   np.asarray(lz["ck"])[lo]):
+            raise AssertionError("gang_stream_q13_1m5: the zip differs from "
+                                 "the in-process streamed run's")
+        zfig = stream_gang_figures("gang_stream_q13_1m5 zip", zreplies,
+                                   device)
+        lines["gang_stream_q13_1m5"] = {
+            **q13_lines, "zip": {"rows": len(ok_), "wall_s": zip_s,
+                                 **{k: zfig[k] for k in (
+                                     "waves", "exchange_attempts",
+                                     "worker_launches", "staged")}}}
+    finally:
+        srv.close()
+        gj.close()
+        cl.shutdown()
+        os.environ.pop("DRYAD_GANG_PR_NODES", None)
+        if old is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = old
+
+    # the SSH backend (PYTHONPATH of the remote shell: the staged root)
+    lines["ssh_gang_zipf50k"] = ssh_gang_cell(port, wc, corpus, wc_counts,
+                                              zipf19, root, device)
+
+    # the workers' kernel calls at their shapes: one TeraSort wave (phase
+    # 13's 1,000,000 records: one chunk a partition) and one PageRank
+    # superstep over the cells' cached edges and out-degrees, replayed
+    # here as a gang of threads, every call held against the plain
+    # versions
+    import torch
+    torch.cuda.empty_cache()
+    cctx = port.Context(cluster=cl)
+    tera_node = cctx.read_store_stream(kt["small"], chunk_rows=chunk) \
+        .order_by([("key", False)]).node
+    edges_c = cctx.read_store_stream(pr_stores[("dst", "src")],
+                                     chunk_rows=kp["chunk"])
+    deg_c = cctx.read_store_stream(pr_stores[("deg", "src")],
+                                   chunk_rows=kp["chunk"])
+    step_node = (edges_c.join(deg_c, ["src"], ["src"], expansion=2.0)
+                 .join(cctx.from_columns(nodes), ["src"], ["node"],
+                       expansion=2.0)
+                 .select(F.pr_contrib).group_by(["node"], {"s": ("sum", "c")})
+                 .select(F.pr_damp)).node
+    plans = [serialize_for_cluster(plan_query(n, NPARTS))
+             for n in (tera_node, step_node)]
+    captured, replayed, rstats = replay_stream_gang(port, hk, plans, device)
+    if len(rstats) != 2 * GANG_PROCS or rstats[0]["waves"] != 1 or \
+            rstats[0]["bounds"] != rstats[1]["bounds"]:
+        raise AssertionError(f"stream gang replay: {rstats}")
+    att = collections.Counter()
+    for st in rstats:
+        att.update(st["attempts"])
+    # (a CPU rehearsal's counting plain versions count here too)
+    if (replayed["slot_expand"] != att["hash"] + att["range"]
+            or replayed["slot_compact"] != att["hash"] + att["range"]
+            + att["broadcast"]):
+        raise AssertionError(f"stream gang replay: launches {replayed} for "
+                             f"attempts {dict(att)}")
+    errs = hold_run(hk, "stream gang replay", captured)
+    shapes = {k: [tuple(a.shape) for a in calls[0][1]
+                  if hasattr(a, "shape")] for k, calls in captured.items()}
+    del captured
+    total = dict.fromkeys(TPU_KERNEL, 0)
+    for label in ("gang_stream_terasort10m", "gang_stream_wordcount1m",
+                  "gang_stream_pagerank100k"):
+        for r in lines[label].pop("_replies"):
+            for w in r["workers"].values():
+                total = add_launches(total, w["launches"])
+    for how in ("right", "full"):
+        for r in lines["gang_stream_q13_1m5"][how].pop("_replies"):
+            for w in r["workers"].values():
+                total = add_launches(total, w["launches"])
+    for w in lines["gang_stream_q13_1m5"]["zip"]["worker_launches"].values():
+        total = add_launches(total, w)
+    missed = [k for k in TPU_KERNEL if not total[k] or not replayed[k]]
+    if missed and device == "cuda":
+        raise AssertionError(f"phase 20: {missed} not launched by the "
+                             f"workers or not replayed")
+    held("stream_gang", total, errs=errs)
+    lines["stream_gang_replay"] = {"replay_launches": replayed,
+                                   "max_abs_err": errs,
+                                   "first_call_shapes": shapes,
+                                   "worker_launches": total}
     return lines
 
 
@@ -7535,13 +8181,13 @@ def main(argv=None) -> int:
         records=int(10_000_000 * sc), small_records=int(1_000_000 * sc),
         app_records=int(2_000_000 * sc), nodes=int(100_000 * sc),
         points=int(500_000 * sc), lineitems=int(6_000_000 * sc))
-    tmp = tempfile.mkdtemp(prefix="phase13-", dir=a.out)
+    tmp13 = tempfile.mkdtemp(prefix="phase13-", dir=a.out)
+    # phase 20 streams phase 13's stores again: they stay until it ends
+    atexit.register(shutil.rmtree, tmp13, True)
+    kept13 = {}
     t13 = time.perf_counter()
-    try:
-        thirteen = phase13_runs(port, hk, sizes13, tmp, corpora["bench12"],
-                                wc_counts["bench12"], held)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    thirteen = phase13_runs(port, hk, sizes13, tmp13, corpora["bench12"],
+                            wc_counts["bench12"], held, keep=kept13)
     scatter = thirteen.pop("scatter_calls")
     for label, line in thirteen.items():
         emit({"phase13": label, **line, "card": card})
@@ -7670,11 +8316,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     t19 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="phase19-", dir=a.out)
+    kept19 = {}
     try:
         nineteen = phase19_runs(
             port, hk, wc, ts, corpora["zipf50k"], wc_counts["zipf50k"],
             (tera_data, tera_sml), edges, a.nodes, pr, a.lineitems, tmp,
-            held)
+            held, keep=kept19)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for label, line in nineteen.items():
@@ -7682,6 +8329,27 @@ def main(argv=None) -> int:
     emit({"phase": "gang", "worker_launches": runs["gang"][0],
           "max_abs_err": runs["gang"][1],
           "seconds": time.perf_counter() - t19, "card": card})
+
+    # phase 20: the streamed gang (phase 13's streamed queries as chunk
+    # waves across two worker processes, over phase 13's stores) and the
+    # SSH backend; its stores under --out, deleted at its end with phase
+    # 13's
+    torch.cuda.empty_cache()
+    t20 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase20-", dir=a.out)
+    try:
+        twenty = phase20_runs(port, hk, wc, corpora["zipf50k"],
+                              wc_counts["zipf50k"], kept13,
+                              kept19["zipf_out"], tmp, held)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(tmp13, ignore_errors=True)
+    del kept13, kept19
+    for label, line in twenty.items():
+        emit({"phase20": label, **line, "card": card})
+    emit({"phase": "stream_gang", "worker_launches": runs["stream_gang"][0],
+          "max_abs_err": runs["stream_gang"][1],
+          "seconds": time.perf_counter() - t20, "card": card})
 
     wc_prof = profile_path(
         lambda: run_wordcount(port, hk, wc, corpora["zipf50k"])[:4],

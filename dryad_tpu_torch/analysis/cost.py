@@ -42,6 +42,8 @@ from dryad_tpu_torch.analysis.diagnostics import Diagnostic, Span
 from dryad_tpu_torch.analysis.domain import (AbsState, ColSpec, Interval,
                                              abstract_batch, fmt_bytes,
                                              out_bytes, schema_from_columns,
+                                             schema_from_host_columns,
+                                             schema_from_store_schema,
                                              schema_of_abstract)
 
 __all__ = ["StageCostEstimate", "CostReport", "estimate_graph",
@@ -198,13 +200,50 @@ class _Streamed(Exception):
 
 
 def _source_state(data: Any, nparts: int) -> AbsState:
-    """Abstract value of a bound source: a PData's real row count (one
-    copy of its [P] counts to the host, no kernel) and schema; anything
-    else widens to approximate.  A chunk-streamed source (a
-    ``StreamSource``, which wraps its ChunkSource as ``.cs``) ends the
-    pass."""
+    """Abstract value of a bound source: real statistics where they exist
+    (a PData's counts: one copy of its [P] counts to the host, no
+    kernel; a deferred spec's exact rows and schema, from host columns,
+    a text line count or a store manifest), sound widening where they
+    do not.  A chunk-streamed source (a ``StreamSource``, which wraps
+    its ChunkSource as ``.cs``, or a cluster ``store_stream`` spec) ends
+    the pass."""
     if getattr(data, "cs", None) is not None:
         raise _Streamed()
+    spec = getattr(data, "spec", None)
+    if isinstance(spec, dict):                  # a cluster's deferred spec
+        kind = spec.get("kind")
+        cap = int(spec.get("capacity", 0))
+        if kind == "store_stream":
+            raise _Streamed()
+        if kind == "columns":
+            schema = schema_from_host_columns(
+                spec["columns"], spec.get("str_max_len", 64))
+            rows = spec.get("rows")
+            n = (int(rows) if rows is not None
+                 else len(next(iter(spec["columns"].values()), ())))
+            return AbsState(Interval.exact(n), cap, schema)
+        if kind == "text":
+            schema = {spec.get("column", "line"):
+                      ColSpec("str", max_len=int(
+                          spec.get("max_line_len", 256)))}
+            rows = spec.get("rows")
+            rv = (Interval.exact(int(rows)) if rows is not None
+                  else Interval.upto(cap * nparts))
+            return AbsState(rv, cap, schema)
+        if kind == "store":
+            schema = (schema_from_store_schema(spec["schema"])
+                      if spec.get("schema") else None)
+            rows = spec.get("rows")
+            rv = (Interval.exact(int(rows)) if rows is not None
+                  else Interval.upto(cap * nparts))
+            return AbsState(rv, cap, schema, approx=schema is None)
+        if kind == "resident":
+            return AbsState(Interval.upto(cap * nparts), cap, None,
+                            approx=True,
+                            notes=["resident source: schema unknown"])
+        return AbsState(Interval.upto(cap * nparts or None), cap, None,
+                        approx=True,
+                        notes=[f"unknown source kind {kind!r}"])
     batch = getattr(data, "batch", None)
     if batch is not None:                       # PData
         schema = schema_from_columns(batch.columns, lead_dims=2)

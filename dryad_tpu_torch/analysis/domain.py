@@ -27,6 +27,7 @@ import dataclasses
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 __all__ = ["Interval", "ColSpec", "AbsState", "schema_row_bytes",
@@ -166,6 +167,36 @@ def schema_from_columns(columns: Dict[str, Any],
             out[k] = ColSpec("dense", dtype=_dtype_name(v.dtype),
                              shape=tuple(int(d)
                                          for d in v.shape[lead_dims:]))
+    return out
+
+
+def schema_from_store_schema(store_schema: Dict[str, Any]) -> Schema:
+    """From a store's ``meta.json`` ``schema`` block (``io/store.py``)."""
+    out: Schema = {}
+    for k, spec in store_schema.items():
+        if spec["kind"] == "str":
+            out[k] = ColSpec("str", max_len=int(spec["max_len"]))
+        else:
+            out[k] = ColSpec("dense", dtype=str(spec["dtype"]),
+                             shape=tuple(int(d)
+                                         for d in spec.get("shape", ())))
+    return out
+
+
+def schema_from_host_columns(columns: Dict[str, Any],
+                             str_max_len: int) -> Schema:
+    """From user host columns (``from_columns``, a ``columns`` source
+    spec): lists of str / bytes become string columns of
+    ``str_max_len`` bytes."""
+    out: Schema = {}
+    for k, v in columns.items():
+        if isinstance(v, (list, tuple)) and (
+                len(v) == 0 or isinstance(v[0], (str, bytes))):
+            out[k] = ColSpec("str", max_len=int(str_max_len))
+        else:
+            arr = np.asarray(v)
+            out[k] = ColSpec("dense", dtype=str(arr.dtype),
+                             shape=tuple(int(d) for d in arr.shape[1:]))
     return out
 
 

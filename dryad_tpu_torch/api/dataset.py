@@ -68,8 +68,13 @@ under a token (only the plan and the token cross the driver's socket),
 and a token a gang restart lost is healed by re-running its producing
 plan.  The task farm and the job service's cluster fleet size their
 tasks from the cluster's ``devices_per_process``, never from the
-context.  The streamed constructors refuse a cluster Context (ROADMAP
-Queue 1 item 11b.6), as does ``analyze()``.
+context.  A streamed query on a cluster Context (``read_store_stream``,
+and ``read_text_stream`` / ``from_stream``, whose driver-side stream is
+first spooled into a store under ``JobConfig.cluster_stream_spool_dir``)
+is a gang job too: the plan runs as chunk waves across the workers
+(``runtime/stream_plan.py``), and its ``cache()`` is a store the gang
+writes in parallel and later queries stream.  ``analyze()`` refuses a
+cluster Context.
 
 Telemetry (``obs/``): a Context installs its ``event_log`` as the
 process's span sink (the latest Context owns it; ``install_trace=False``
@@ -238,12 +243,23 @@ def _stable_source_fp(data) -> str:
     """Content identity of a Source node's data: a stored or text-file
     stream carries a fingerprint over its path and checksums
     (``ChunkSource.from_store`` / ``from_text``), so changed source
-    bytes change the key; anything else takes the process salt."""
+    bytes change the key; so does a cluster's ``store_stream`` spec, over
+    its store's manifest; anything else takes the process salt."""
     from dryad_tpu_torch.exec.stream_exec import StreamSource
     cs = data.cs if isinstance(data, StreamSource) else data
     fp = getattr(cs, "fingerprint", None)
     if fp:
         return fp
+    spec = getattr(data, "spec", None)
+    if isinstance(spec, dict) and spec.get("kind") == "store_stream":
+        try:
+            from dryad_tpu_torch.io.store import store_meta
+            meta = store_meta(spec["path"])
+            return hashlib.sha256(repr(
+                ("store", spec["path"], meta.get("counts"),
+                 meta.get("checksums"))).encode()).hexdigest()
+        except Exception:
+            pass
     return _local_identity(data)
 
 
@@ -327,14 +343,6 @@ class Context:
         """The context's device (None on a cluster Context: its workers
         hold the devices)."""
         return self.mesh.device if self.mesh is not None else None
-
-    def _refuse_streamed_on_cluster(self) -> None:
-        """The streamed constructors on a cluster Context raise here:
-        streamed plans across the gang are ROADMAP Queue 1 item 11b.6."""
-        if self.cluster is not None:
-            raise ValueError(
-                "streamed sources on a cluster Context (the streamed "
-                "cluster plans) come with ROADMAP Queue 1 item 11b.6")
 
     # -- gang submission ---------------------------------------------------
 
@@ -532,9 +540,28 @@ class Context:
         """A streamed Dataset over an ``exec.ooc.ChunkSource``: a query
         over it plans with one logical partition and runs over chunk
         streams (``exec/stream_exec.py``), the device holding
-        O(chunk_rows) rows whatever the data size."""
+        O(chunk_rows) rows whatever the data size.
+
+        On a cluster Context a driver-side stream cannot run on the
+        workers, so the driver SPOOLS it into a store they reach
+        (``JobConfig.cluster_stream_spool_dir``, a shared filesystem or
+        ``hdfs://``; ``s3://`` is refused, having no atomic commit of a
+        chunk stream; default a driver temporary directory, which serves
+        a one-machine cluster) and the gang streams that store
+        (FromEnumerable parity: DryadLinqContext.cs:1210)."""
         from dryad_tpu_torch.exec.stream_exec import StreamSource
-        self._refuse_streamed_on_cluster()
+        if self.cluster is not None:
+            import uuid
+
+            from dryad_tpu_torch.exec.ooc import write_chunks_to_store
+            root = (self.config.cluster_stream_spool_dir
+                    or tempfile.mkdtemp(prefix="dryad-spool-"))
+            name = f"stream-{uuid.uuid4().hex[:10]}"
+            path = (root.rstrip("/") + "/" + name if "://" in root
+                    else os.path.join(root, name))
+            write_chunks_to_store(path, iter(source), source.schema)
+            return self.read_store_stream(path,
+                                          chunk_rows=source.chunk_rows)
         return Dataset(self, E.Source(parents=(), data=StreamSource(source),
                                       _npartitions=1))
 
@@ -544,11 +571,22 @@ class Context:
         ``hdfs://``) through the plain Dataset API, ``chunk_rows`` rows a
         chunk (default: the autotuned size with
         ``JobConfig.ooc_chunk_autotune``, else
-        ``JobConfig.ooc_chunk_rows``)."""
+        ``JobConfig.ooc_chunk_rows``).
+
+        On a cluster Context the query plans at the gang's partitions,
+        exchanges included, and the gang runs it as chunk waves with
+        per-partition bucket streams (``runtime/stream_plan.py``): each
+        worker streams its own partitions of the store."""
         from dryad_tpu_torch.exec.ooc import ChunkSource
-        self._refuse_streamed_on_cluster()
         cr = chunk_rows or self._auto_chunk_rows(path) \
             or self.config.ooc_chunk_rows
+        if self.cluster is not None:
+            from dryad_tpu_torch.runtime.sources import DeferredSource
+            spec = {"kind": "store_stream", "path": path,
+                    "chunk_rows": cr, "capacity": cr}
+            return Dataset(self, E.Source(parents=(),
+                                          data=DeferredSource(spec),
+                                          _npartitions=self.nparts))
         return self.from_stream(ChunkSource.from_store(path, cr))
 
     def _auto_chunk_rows(self, store_path: str) -> int | None:
@@ -584,10 +622,10 @@ class Context:
         memory whole); ``path`` as for ``read_text``, or a ``http://``,
         ``s3://`` or ``hdfs://`` URI (a listing URL, an ``s3://`` prefix
         ending in ``/`` or an ``hdfs://`` directory streams every file in
-        it), read by ranged requests."""
+        it), read by ranged requests.  On a cluster Context the lines are
+        spooled into a store first (``from_stream``)."""
         from dryad_tpu_torch.exec.ooc import ChunkSource
         from dryad_tpu_torch.io.providers import expand_uris
-        self._refuse_streamed_on_cluster()
         return self.from_stream(ChunkSource.from_text(
             expand_uris(path), chunk_rows or self.config.ooc_chunk_rows,
             max_line_len or self.config.text_max_line_len, column))
@@ -780,12 +818,9 @@ class Context:
                         subst(body_node, token, cap),
                         collect=cond is not None, keep_token=token,
                         want_reply=True, lint=it == 0)
-                    if reply["resident_capacity"] != cap:
-                        raise ValueError(
-                            "do_while body must preserve per-partition "
-                            f"capacity ({cap} -> "
-                            f"{reply['resident_capacity']}); use explicit "
-                            "capacities (with_capacity) inside the loop")
+                    # a streamed body keeps its output at the gang's
+                    # pow2 capacity: the next round reads it at that
+                    cap = reply["resident_capacity"]
                     if cond is not None and not cond(reply["table"]):
                         break
                 return token, cap
@@ -1141,13 +1176,21 @@ class Dataset:
         host.  On a cluster Context the result stays resident on the
         workers under a token, keeping its partitioning claim (dropped
         when a stage ran salted), and heals after a gang restart by
-        re-running this query."""
+        re-running this query; streamed or edge-scale data instead takes
+        the re-streaming tier on the gang (``_cache_restream_cluster``)."""
         if self.ctx.local_debug:
             return Dataset(self.ctx, E.Source(
                 parents=(), data=None, _npartitions=self.ctx.nparts,
                 host=_oracle.run_oracle(self.node)))
         cfg = self.ctx.config
         if self.ctx.cluster is not None:
+            if cfg.ooc_restream_cache and not self._stream_sourced():
+                diag = self._cache_cost_diag()
+                edge = diag is not None and diag.severity == "info"
+            else:
+                edge = False
+            if cfg.ooc_restream_cache and (self._stream_sourced() or edge):
+                return self._cache_restream_cluster()
             token = self.ctx._fresh_token("cache")
             reply = self.ctx._cluster_run(self.node, collect=False,
                                           keep_token=token, want_reply=True)
@@ -1187,6 +1230,52 @@ class Dataset:
             return cache_diagnostic(self.cost(), cfg)
         except Exception:
             return None
+
+    def _stream_sourced(self) -> bool:
+        """Does any source stream: a local ``StreamSource`` or a cluster
+        ``store_stream`` spec (the streamed half of the re-streaming
+        tier's test)?"""
+        from dryad_tpu_torch.analysis.plan_rules import _is_stream_source
+        return any(isinstance(n, E.Source) and n.data is not None
+                   and _is_stream_source(n.data)
+                   for n in E.walk(self.node))
+
+    def _cache_restream_cluster(self) -> "Dataset":
+        """Cluster ``cache()`` of streamed or edge-scale data: the gang
+        writes the entry's data store in parallel (one writer a worker)
+        instead of pinning a dataset-sized resident, and later queries
+        stream it.  The root must be a local or shared filesystem the
+        workers reach: ``ooc_cache_dir``, else
+        ``cluster_stream_spool_dir``, else the Context's temporary root
+        (a one-machine cluster); a remote root has no sidecar file
+        semantics and takes the temporary root too."""
+        from dryad_tpu_torch.exec import ooc
+        cfg = self.ctx.config
+        root = cfg.ooc_cache_dir or cfg.cluster_stream_spool_dir
+        if root is None or "://" in root:
+            root = self.ctx._ooc_cache_root()
+        else:
+            os.makedirs(root, exist_ok=True)
+        key = _stable_node_fp(self.node)
+        ev = self.ctx._cache_event()
+        entry, data, _side = ooc.cache_entry_paths(root, key)
+        warm = ooc.cached_chunk_source(root, key)
+        if warm is None:
+            os.makedirs(entry, exist_ok=True)
+            part = self.node.partitioning
+            self.ctx._cluster_run(
+                self.node, collect=False, store_path=data,
+                store_partitioning={"kind": part.kind,
+                                    "keys": list(part.keys)})
+            sc = ooc.adopt_chunk_cache(root, key, cfg.ooc_chunk_rows)
+            ev({"event": "ooc_cache_write", "path": entry,
+                "rows": sc["rows"], "bytes": sc["bytes"]})
+        else:
+            sc = warm[1]
+            ev({"event": "ooc_cache_hit", "path": entry,
+                "rows": sc.get("rows"), "bytes": sc.get("bytes")})
+        return self.ctx.read_store_stream(
+            data, chunk_rows=int(sc["chunk_rows"]))
 
     def _cache_restream_local(self) -> "Dataset":
         """Streamed cache(): the fingerprinted local chunk cache.  The

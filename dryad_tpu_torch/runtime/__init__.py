@@ -9,9 +9,11 @@ daemon (ProcessService/ProcessService.cs:389).  Each worker runs farm
 tasks on its own device (the CUDA card by default; several workers
 time-share one card), and the gang's SPMD jobs across all of them
 (``LocalCluster.execute``, ``exec_common.execute_plan``, a cluster
-Context's terminals), the exchanges crossing processes over gloo.  The
-SSH backend and the cluster's streamed runtime are ROADMAP Queue 1 items
-11b.5 and 11b.6.
+Context's terminals), the exchanges crossing processes over gloo; a
+streamed query runs there as chunk waves (``stream_plan.py``).  Two
+backends: "local" (worker processes on this machine) and "ssh" (one
+worker per remote host over a remote shell, the code staged there,
+``ssh_cluster.py``).
 """
 
 from dryad_tpu_torch.runtime.cluster import (ClusterJobError, LocalCluster,
@@ -22,10 +24,12 @@ from dryad_tpu_torch.runtime.interfaces import (ClusterBackend,
                                                 register_cluster)
 from dryad_tpu_torch.runtime.sources import DeferredSource
 
-# the built-in backend registers here (Interfaces.cs:545 role): "local"
-# = worker processes on this box
+# the built-in backends register here (Interfaces.cs:545 role): "local"
+# = worker processes on this box; "ssh" = one worker per remote host over
+# a remote shell, the code staged per host (runtime/ssh_cluster.py)
 register_cluster("local", LocalCluster)
+from dryad_tpu_torch.runtime.ssh_cluster import SshCluster  # noqa: E402
 
-__all__ = ["LocalCluster", "WorkerFailure", "ClusterJobError",
+__all__ = ["LocalCluster", "SshCluster", "WorkerFailure", "ClusterJobError",
            "DeferredSource", "ClusterBackend", "register_cluster",
            "make_cluster", "cluster_backends"]

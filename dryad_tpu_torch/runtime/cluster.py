@@ -93,6 +93,14 @@ class LocalCluster(ClusterBackend):
     ``fn_modules`` are imported by workers to resolve plan callables
     (FN_TABLE exports + module:qualname refs into them)."""
 
+    # the address the control listener binds and the workers dial, and
+    # the host of the gang's gloo rendezvous (worker 0's process): this
+    # machine's loopback.  A backend with workers elsewhere
+    # (runtime/ssh_cluster.py) binds the address those workers reach and
+    # names worker 0's host
+    _bind_host = "127.0.0.1"
+    coordinator_host = "127.0.0.1"
+
     @classmethod
     def from_config(cls, config, **kw) -> "LocalCluster":
         """Build from a JobConfig's cluster_* fields (``kw`` overrides)."""
@@ -107,9 +115,8 @@ class LocalCluster(ClusterBackend):
                  fn_modules: tuple = (), startup_timeout: float = 180.0,
                  event_log: Optional[Callable[[dict], None]] = None,
                  log_dir: Optional[str] = None, device="cuda"):
-        from dryad_tpu_torch.parallel.mesh import resolve_device
         # the device first: without CUDA no worker is spawned
-        self.device = resolve_device(device).type
+        self.device = self._resolve_device(device)
         self.n_processes = n_processes
         self.devices_per_process = devices_per_process
         self.fn_modules = list(fn_modules)
@@ -151,6 +158,12 @@ class LocalCluster(ClusterBackend):
         self.pending_release: List[str] = []
         self._start()
 
+    def _resolve_device(self, device) -> str:
+        """The workers' device type: they run on this machine, so CUDA
+        is checked here (``parallel.mesh.resolve_device``)."""
+        from dryad_tpu_torch.parallel.mesh import resolve_device
+        return resolve_device(device).type
+
     def next_job_id(self) -> int:
         self._job_seq += 1
         return self._job_seq
@@ -187,7 +200,7 @@ class LocalCluster(ClusterBackend):
     def _start(self) -> None:
         self._listener = socket.socket()
         self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        self._listener.bind(("127.0.0.1", 0))
+        self._listener.bind((self._bind_host, 0))
         self._listener.listen(self.n_processes)
         control_port = self._listener.getsockname()[1]
         # the gang's gloo rendezvous (worker 0 hosts its store)
@@ -221,14 +234,14 @@ class LocalCluster(ClusterBackend):
             # in-memory env dict of a direct child: on no command line
             env["DRYAD_CONTROL_SECRET"] = self._secret.hex()
         cmd = [sys.executable, "-m", "dryad_tpu_torch.runtime.worker",
-               "--control", f"127.0.0.1:{control_port}",
+               "--control", f"{self._bind_host}:{control_port}",
                "--process-id", str(pid),
                "--devices-per-process", str(self.devices_per_process),
                "--device", self.device]
         if coord_port is None:
             cmd.append("--standalone")
         else:
-            cmd += ["--coordinator", f"127.0.0.1:{coord_port}",
+            cmd += ["--coordinator", f"{self.coordinator_host}:{coord_port}",
                     "--num-processes", str(self.n_processes)]
         for m in self.fn_modules:
             cmd += ["--fn-module", m]
@@ -535,8 +548,10 @@ class LocalCluster(ClusterBackend):
         host table under "table" (the workers' parts concatenated in pid
         order, which is partition order), its extras (``stage_log``,
         ``salted``, ``resident_capacity``, ``graph_rewrites``), and under
-        ``workers`` every worker's ``launches``, ``staged`` collectives
-        and ``stage_log``, by pid.  ``config``
+        ``workers`` every worker's ``launches``, ``staged`` collectives,
+        ``stage_log``, the seconds its process has spent building
+        kernels (``compile_s``) and, for a streamed plan, ``stream`` (its waves,
+        retries, spilled bytes and range bounds), by pid.  ``config``
         (a JobConfig) rides the control message, so the driver's knobs
         apply on the workers; ``keep_token`` keeps the output resident
         there; ``release`` (and the cluster's ``pending_release``)
@@ -577,7 +592,7 @@ class LocalCluster(ClusterBackend):
                 self.event_log(dict(e, worker=0))
         reply0 = dict(replies.get(0, {}))
         reply0["workers"] = {pid: {k: r.get(k) for k in (
-            "launches", "staged", "stage_log")}
+            "launches", "staged", "stage_log", "stream", "compile_s")}
             for pid, r in replies.items()}
         if collect and collect != "count":
             # the parallel collect: each column's parts joined once

@@ -40,12 +40,7 @@ def _gang_executor(mesh, config=None):
     return ex
 
 
-def _refuse_unported(source_specs, config) -> None:
-    kinds = {s.get("kind") for s in source_specs.values()}
-    if "store_stream" in kinds:
-        raise ValueError(
-            "a gang job over streamed sources (store_stream) comes with "
-            "the streamed cluster plans of ROADMAP Queue 1 item 11b.6")
+def _refuse_unported(config) -> None:
     if config is not None and config.adaptive == "on":
         raise ValueError(
             "JobConfig(adaptive='on') on a gang needs the gang-wide "
@@ -73,6 +68,9 @@ def execute_plan(plan_json: str, fn_table: Dict[str, Callable],
     ``keep_token`` keeps the output resident under that token;
     ``release`` drops tokens no longer referenced.
 
+    A plan over streamed sources (``store_stream`` specs) runs through
+    ``runtime/stream_plan.execute_stream_plan`` instead.
+
     ``extras``: the run's ``stage_log``, ``salted`` when a stage ran
     salted or an adaptive rewrite moved the output's placement (a
     persisted partitioning claim is then dropped), ``resident_capacity``
@@ -81,8 +79,19 @@ def execute_plan(plan_json: str, fn_table: Dict[str, Callable],
                                            pdata_to_host)
     from dryad_tpu_torch.plan.serialize import graph_from_json
     from dryad_tpu_torch.runtime.sources import build_source
+    from dryad_tpu_torch.runtime.stream_plan import (execute_stream_plan,
+                                                     has_stream_sources)
 
-    _refuse_unported(source_specs, config)
+    _refuse_unported(config)
+    if has_stream_sources(source_specs):
+        # sources larger than the card: the SAME plan runs as chunk waves
+        # and per-partition bucket streams (runtime/stream_plan.py) — one
+        # lowering, two execution regimes (channelinterface.h:212)
+        return execute_stream_plan(
+            plan_json, fn_table, source_specs, mesh, event_log=event_log,
+            store_path=store_path, store_partitioning=store_partitioning,
+            collect=collect, config=config, keep_token=keep_token,
+            release=release, store_compression=store_compression)
     for tok in release:
         _RESIDENT.pop(tok, None)
     ex = _gang_executor(mesh, config)

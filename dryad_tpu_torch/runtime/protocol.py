@@ -11,8 +11,8 @@ generates a per-cluster 256-bit secret, hands it to the workers it spawns
 out-of-band (process environment locally; a 0600-mode staged file over the
 remote shell for SSH deployments — never on a command line), and rejects
 any peer that cannot MAC its nonce.  This is what makes binding the
-listener on a non-loopback interface sound (the SSH backend is ROADMAP
-Queue 1 item 11b.5); the reference's GM<->daemon
+listener on a non-loopback interface sound (the SSH backend,
+``runtime/ssh_cluster.py``); the reference's GM<->daemon
 channel relies on the cluster security domain the same way
 (ProcessService authenticates callers via the cluster's credentials).
 """

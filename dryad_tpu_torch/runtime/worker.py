@@ -26,8 +26,11 @@ HMAC challenge, and serves commands until told to stop:
   runs a heartbeat thread sends ``{"hb": pid}`` frames every
   ``hb_every`` seconds, which the driver's wedge watchdog reads
   (``runtime/cluster.py``).  The reply carries this worker's rows (the
-  parallel collect), the job's extras, the kernel ``launches`` and the
-  staged collectives' totals (``staged``, ``parallel/mesh.STAGED``).  A
+  parallel collect), the job's extras, the kernel ``launches``, the
+  staged collectives' totals (``staged``, ``parallel/mesh.STAGED``) and
+  the seconds this process has spent building kernels (``compile_s``: a
+  CUDA worker builds every kernel at start, in parallel, where its copy
+  of the sources — a fresh checkout, a staged root — has none built).  A
   job that touches a resident token this worker lost replies with the
   token in ``missing_token``.  A ``--standalone`` (elastic) worker
   joined no gang and refuses ``run``.
@@ -150,6 +153,12 @@ def main(argv=None) -> int:
     from dryad_tpu_torch.parallel.mesh import resolve_device
     from dryad_tpu_torch.runtime import protocol
     device = resolve_device(args.device)
+    if device.type == "cuda":
+        # every kernel from this copy's sources at once (one nvcc each,
+        # in parallel; nothing to do where they are built already), before
+        # a job's first launch would build them one by one
+        from dryad_tpu_torch.ops import _build
+        _build.build()
     ex = task_executor(device, args.devices_per_process)
     gang = None if args.standalone else _join_gang(args, device)
 
@@ -248,6 +257,7 @@ def _serve_job(msg: dict, args, mesh, send) -> dict:
     from dryad_tpu_torch.obs import flight as _flight
     from dryad_tpu_torch.obs import profile as _profile
     from dryad_tpu_torch.obs import trace as _trace
+    from dryad_tpu_torch.ops import _build
     from dryad_tpu_torch.ops import hopper_kernels as hk
     from dryad_tpu_torch.parallel import mesh as _mesh
     from dryad_tpu_torch.runtime import protocol
@@ -302,6 +312,7 @@ def _serve_job(msg: dict, args, mesh, send) -> dict:
         reply["launches"] = {k: after[k] - before[k] for k in after}
         reply["staged"] = {k: _mesh.STAGED[k] - staged[k]
                            for k in _mesh.STAGED}
+        reply["compile_s"] = _build.compile_seconds()
         # test hook "pid:seconds": delay ONE worker's reply while its
         # heartbeats keep flowing (the watchdog's busy-but-alive case)
         spec = os.environ.get("DRYAD_TEST_REPLY_DELAY", "")

@@ -128,6 +128,14 @@ class JobConfig:
     # heartbeats still flow
     gang_straggler_rel_margin: float = 1.0
     gang_straggler_abs_margin_s: float = 15.0
+    # a driver-side stream on a cluster Context (Dataset.from_stream,
+    # read_text_stream) is SPOOLED into a store under this directory,
+    # which the workers must reach (a shared filesystem or hdfs://), and
+    # the gang streams that store (FromEnumerable parity: the client
+    # writes the enumerable into cluster storage, DryadLinqContext.cs:
+    # 1210).  None = a driver temporary directory (single-machine
+    # clusters)
+    cluster_stream_spool_dir: Optional[str] = None
 
     # -- task farm / speculation (runtime/farm.py) -------------------------
     # EnableSpeculativeDuplication + DrStageStatistics caps

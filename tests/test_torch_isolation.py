@@ -511,3 +511,62 @@ def test_gang_jobs_load_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+STREAM_GANG_MODULES = ("dryad_tpu_torch.runtime.stream_plan",
+                       "dryad_tpu_torch.runtime.ssh_cluster")
+
+
+def test_stream_gang_and_ssh_modules_are_checked():
+    """The streamed gang's runner and the SSH backend are among the
+    modules the two checks above import and scan."""
+    assert set(STREAM_GANG_MODULES) <= set(_modules())
+
+
+def test_streamed_gang_and_ssh_jobs_load_no_jax(tmp_path):
+    """In a fresh interpreter: a gang of two CPU workers streams a store
+    through a hash exchange in waves, and an ``SshCluster`` over ``bash
+    -c`` runs a job on its staged copy, both with a UDF that raises if
+    its worker loaded jax or dryad_tpu; the driver loads neither."""
+    tests = str(ROOT / "tests")
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import torch_cluster_fns as F\n"
+        "from dryad_tpu_torch import Context\n"
+        "from dryad_tpu_torch.runtime import LocalCluster, SshCluster\n"
+        f"src = {str(tmp_path / 'src')!r}\n"
+        "Context(device='cpu', nparts=4).from_columns(\n"
+        "    {'v': np.arange(400, dtype=np.int32) % 7}).to_store(src)\n"
+        "cl = LocalCluster(n_processes=2, devices_per_process=2,\n"
+        "                  fn_modules=('torch_cluster_fns',), device='cpu')\n"
+        "try:\n"
+        "    g = Context(cluster=cl).read_store_stream(src, chunk_rows=32)"
+        ".select(F.no_jax_loaded).group_by(['v'], {'n': ('count', None)})"
+        ".collect()\n"
+        "    assert sorted(g['v'].tolist()) == list(range(7))\n"
+        "finally:\n"
+        "    cl.shutdown()\n"
+        "ssh = SshCluster(hosts=['a', 'b'], devices_per_process=1,\n"
+        "                 driver_host='127.0.0.1',\n"
+        "                 coordinator_host='127.0.0.1',\n"
+        f"                 python=sys.executable, device='cpu',\n"
+        f"                 remote_root={str(tmp_path / 'stage')!r},\n"
+        f"                 remote_pythonpath=[{tests!r}],\n"
+        "                 fn_modules=('torch_cluster_fns',),\n"
+        "                 rsh=lambda host, cmd: ['bash', '-c', cmd])\n"
+        "try:\n"
+        "    n = Context(cluster=ssh).from_columns(\n"
+        "        {'v': np.arange(40, dtype=np.int32)})"
+        ".select(F.no_jax_loaded).count()\n"
+        "    assert n == 40\n"
+        "finally:\n"
+        "    ssh.shutdown()\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'dryad_tpu')))\n")
+    env = dict(os.environ, PYTHONPATH=tests + os.pathsep + str(ROOT),
+               OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"

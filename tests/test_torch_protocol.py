@@ -198,14 +198,14 @@ def test_cluster_config_fields_equal_jax():
         for cls in (JobConfig, JJobConfig):
             with pytest.raises(ValueError):
                 cls(**bad)
-    # the gang's fields: the JAX package's names and defaults, but for
-    # cluster_stream_spool_dir (the streamed cluster plans, 11b.6)
+    # the gang's and the cluster's fields: the JAX package's names and
+    # defaults, every one
     names = {f.name for f in dataclasses.fields(JobConfig)
              if f.name.startswith(("gang_", "cluster_"))}
     jnames = {f.name for f in dataclasses.fields(JJobConfig)
               if f.name.startswith(("gang_", "cluster_"))}
-    assert names == jnames - {"cluster_stream_spool_dir"}
-    assert len(names) == 9
+    assert names == jnames
+    assert len(names) == 10
     for name in names:
         assert getattr(port, name) == getattr(jax, name), name
     # and their validation

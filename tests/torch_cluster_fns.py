@@ -70,7 +70,9 @@ def second_largest(cols, count):
     masked = torch.where(torch.arange(v.shape[0], device=v.device) < count,
                          v, lo)
     s = torch.sort(masked, descending=True).values
-    return ({"second": torch.where(count >= 2, s[1], s[0])[None]},
+    # a one-row group capacity (a streamed run's schema probe) has no s[1]
+    second = s[1] if s.shape[0] > 1 else s[0]
+    return ({"second": torch.where(count >= 2, second, s[0])[None]},
             torch.ones((1,), dtype=torch.bool, device=v.device))
 
 
@@ -102,3 +104,59 @@ def flag0(c):
 
 def rev_by_custkey(c):
     return {"custkey": c["custkey"], "rev": c["price"] * c["qty"]}
+
+
+# -- the streamed gang's tests (tests/test_torch_stream_cluster.py) ----------
+
+def zip_x(c):
+    return {"x": c["v"]}
+
+
+def zip_y(c):
+    return {"y": c["v"] * 2}
+
+
+def die_once(c):
+    """Kills the worker of process id 1 the first time it runs (the
+    marker file ``DRYAD_TEST_DIE_MARKER`` does not exist yet): a
+    deterministic worker death in the middle of a streamed job's waves.
+    Any later call passes the rows through."""
+    marker = os.environ.get("DRYAD_TEST_DIE_MARKER")
+    if (marker and os.environ.get("DRYAD_WORKER_ID") == "1"
+            and not os.path.exists(marker)):
+        open(marker, "w").close()
+        os._exit(17)
+    return c
+
+
+# -- the streamed gang phase of chip_smoke.py (gang_stream_q13_1m5) ----------
+
+def q13_hit(c):
+    """The orders' columns plus ``hit`` = 1: summed per customer it counts
+    the customer's orders (0 for a customer no order matched, whose row a
+    right or full join synthesizes)."""
+    import torch
+    return dict(c, hit=torch.ones_like(c["okey"]))
+
+
+def q13_okey(c):
+    return {"okey": c["okey"]}
+
+
+def q13_cust(c):
+    return {"ck": c["custkey"]}
+
+
+# -- the SSH backend's tests (tests/test_torch_ssh_cluster.py) ---------------
+
+def in_staged_copy(c):
+    """Raises in a worker whose ``dryad_tpu_torch`` is not the copy under
+    the first entry of its PYTHONPATH (the staged root, or the first of
+    ``remote_pythonpath`` when nothing is staged)."""
+    import dryad_tpu_torch
+    root = os.environ.get("PYTHONPATH", "").split(os.pathsep)[0]
+    here = os.path.abspath(dryad_tpu_torch.__file__)
+    if not root or not here.startswith(os.path.abspath(root) + os.sep):
+        raise RuntimeError(f"worker imported {here}, not the copy staged "
+                           f"under {root!r}")
+    return c
