@@ -111,8 +111,7 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      as in the JAX bench's skewed join, 1,500,000 orders, 150,000
      customers; ``--lineitems N``), each run cold (held, launches against
      the executor's log, where a salted join attempt counts two hash
-     exchanges and one broadcast) and warm, the first also profiled
-     warm (busy share):
+     exchanges and one broadcast) and warm:
      ``skewjoin6m`` (lineitem joined with orders, flag == 0, revenue per
      customer, cached, collected whole and as its top 10): exactly
      numpy's, the join stage overflowing once unsalted and salted at
@@ -143,7 +142,7 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      over ship order: every window exactly numpy's on the held run, the
      moving sum of net within 7 eps sum|v| after); ``partidx6m`` (each
      lineitem's partition index is lo(hash(okey)) % 8).  Each cold, then
-     warm (unnest6m also profiled warm) in the cold run's context: the
+     warm (unprofiled: cut for the script's time) in the cold run's context: the
      orders
      repartition ships the probe's slot cold and the feedback slot warm.
      A vmap fallback to a Python loop over groups fails the phase.  Every
@@ -156,8 +155,8 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      between them and within rtol 2e-3 of ``pagerank_numpy``, launches
      equal, and per form the host syncs of a run (``torch.cuda.
      set_sync_debug_mode("warn")``, by Python call site), its NEED reads
-     (``Executor.host_reads``: one per executor run when deferred), warm
-     wall, the deferred form's busy share; terasort1m and skewjoin6m with
+     (``Executor.host_reads``: one per executor run when deferred) and
+     warm wall (its profiled run cut for the script's time); terasort1m and skewjoin6m with
      an event log, exactly numpy's, the ``settle_replay`` events naming
      exactly the stages the log flags ``settle_replayed``, launches equal
      to the executor's exchange attempts with the replays, and
@@ -213,7 +212,8 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      must be at most 1.5 times this run's), and the ``terasort_ooc``
      app at 2,000,000; ``hist_buckets`` once per chunk scattered, the
      in-core tier none), ``pagerankstream100k`` (phase 7's graph from a store,
-     ``pagerank_stream`` over its ``cache()``: ranks within rtol 2e-3,
+     ``pagerank_stream`` over its ``cache()``, STREAM_PR_ITERS (5)
+     supersteps (cut for the script's time): ranks within rtol 2e-3,
      two cache writes cold, at least two hits a superstep),
      ``kmeansstream500k`` (phase 8's points from a store,
      ``kmeans_stream``: within 1e-3), ``q13stream1m5_right`` /
@@ -270,8 +270,10 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      launched with nonzero device time; its wall beside the unprofiled
      median).  The history archives stay under ``--out``/phase15, the
      traces are deleted once read.  All five kernels must launch;
-  16. incremental queries and the network stores over phase 14's
-     lineitems (``tag`` 8 bytes), each store under ``--out``, deleted
+  16. incremental queries and the network stores over a quarter of
+     phase 14's lineitems (``--lineitems / INC_SCALE``, SF 0.25 since
+     cut for the script's time; the labels keep ``6m``; ``tag`` 8 bytes), each
+     store under ``--out``, deleted
      after: ``remote_s3_6m`` (``to_store("s3://...")`` on the loopback
      ``tests/torch_fakes.FakeS3``, which verifies every SigV4 signature,
      with 8 MiB multipart puts; ``read_store``; SQL_Q1 over it equal to
@@ -300,10 +302,12 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      against numpy, DTA501 on the 10 equivalent submissions, ONE ``scan``
      io span per table and ``scan_shared`` for every other use, each
      job's events tagged with its id; per-tenant p50 / p95 walls, a warm
-     Q3 job's wall beside phase 14's), ``svc_wordcount`` (three
+     Q3 job's wall beside phase 14's), ``svc_wordcount`` (SVC_WC_JOBS
      ``wordcount`` app jobs of 500,000 lines through the fleet against
-     the same three run one after another without the service, counts
-     against ``collections.Counter``), ``svc_durable_6m``
+     the same jobs run one after another without the service, counts
+     against ``collections.Counter``); the next three cells over a
+     quarter of the lineitems (SVC_SCALE, cut for the script's time; the labels keep
+     ``6m``): ``svc_durable_6m``
      (``durable_spill``: SQL_Q3 paused by ``handoff()`` after its first
      settled stage and resumed by a successor from spill,
      ``stage_restored`` for exactly the settled stages; four SQL jobs on
@@ -347,7 +351,8 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      as in phases 3-7: each worker holds four partitions, the exchanges
      cross the two processes host-staged over gloo) runs each cell as
      gang jobs (one run each since PR 20's cuts), beside the same query
-     in this process:
+     in this process on the gang's own ``(dcn, dp)`` mesh, whose levels
+     a gang plans (``make_mesh(..., hosts=2)``):
      ``gang_zipf50k`` (WordCount over phase 3's zipf corpus: the
      in-process table and the ``Counter`` oracle's counts),
      ``gang_terasort1m`` (TeraSort on phase 6's 1,000,000 records: the
@@ -389,8 +394,8 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      the ``Counter``'s counts, the group partials in the waves),
      ``gang_stream_pagerank100k`` (phase 13's edges as a cluster
      re-streaming ``cache()``, written by the run and hit by the two
-     ``cache()`` calls again, 10 supersteps with the ranks resident:
-     within 1e-6 of phase 13's ranks),
+     ``cache()`` calls again, STREAM_PR_ITERS supersteps with the ranks
+     resident: within 1e-6 of phase 13's ranks),
      ``gang_stream_q13_1m5`` (the SF1 orders right- and full-joined
      with the 150,000 customers, orders per customer exactly numpy's,
      and a ``zip_with`` of two selects of the store) and
@@ -405,7 +410,27 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      kernel-build seconds.  The workers' calls held on a replay of one
      TeraSort wave and one PageRank superstep here as a gang of two
      threads (``replay_stream_gang``);
- 3-20. after each of those main-path runs, every kernel call it made
+  21. multi-axis meshes and hierarchical group aggregation: phase 4's
+     GroupByReduce data (``--rows``) on ``make_mesh("cuda", 8,
+     hosts=2)`` (``mesh2d_app10k``: combine stages ``groupby-dp``,
+     ``groupby-dcn``) and ``make_mesh("cuda", 8, hosts=2, pods=2)``
+     (``mesh3d_app10k``: ``groupby-dp``, ``groupby-host``,
+     ``groupby-dcn``), phase 4's user Decomposable on the 2-D mesh
+     (``mesh2d_decomposable10k``: ``dgroupby-dp``, ``dgroupby-dcn``) and
+     phase 3's zipf corpus on it (``mesh2d_wordcount``), each cold (every
+     kernel call held, one launch of each exchange kernel a level) and
+     warm, held to the numpy oracle and to phase 4's one-axis tables
+     (counts, min and max exactly, f32 sums within the group bound) or
+     to the ``Counter``'s counts; then one ``LocalCluster(2, 4)`` on the
+     card, whose mesh is ``(dcn, dp)`` with ``dcn`` the process
+     boundary: ``gang_mesh_app10k`` (the app equal row for row to the
+     in-process 2-D run; each worker's ``dp`` hop stages 0 bytes, its
+     ``dcn`` hop one all_to_all) and ``gang_adaptive_collapse`` (an
+     ``adaptive="on"`` job over 500 keys whose aggregation tree
+     collapses: the same rewrites on every worker, the result equal to
+     the ``adaptive="off"`` run and to numpy).  The workers' calls held
+     on a replay of the gang's app here as a gang of two threads;
+ 3-21. after each of those main-path runs, every kernel call it made
      is made again through the kernel and through its plain version on
      the very tensors the run passed (integers exactly, prefix_sum2
      within twice its bound);
@@ -425,7 +450,7 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      sync); for slot_compact, whose call is one exchange's unpack, also a
      loop of one-destination calls on the same tensors (``loop_ms``,
      its device µs per exchange and host enqueue).  Per kernel and path
-     (the timed paths, pagerank100k, unnest6m's warm run): the bound of
+     (the two timed paths): the bound of
      the path's captured calls summed beside the path's profiled device
      time (``path_bound`` lines).  The exchange's pack side per exchange
      in the two timed paths' profiles
@@ -450,7 +475,9 @@ its scatter line (``{"phase13": ...}``), one per phase-14 cell
 "cluster", ...}``, with each cell's worker launches), one per phase-19
 cell (``{"phase19": ...}``) and the phase's (``{"phase": "gang",
 ...}``), one per phase-20 cell (``{"phase20": ...}``) and the phase's
-(``{"phase": "stream_gang", ...}``), per profile, per
+(``{"phase": "stream_gang", ...}``), one per phase-21 cell
+(``{"phase21": ...}``) and the phase's (``{"phase": "mesh", ...}``),
+per profile, per
 pack side
 and per kernel, then
 the card line, then the
@@ -467,6 +494,7 @@ import argparse
 import atexit
 import collections
 import dataclasses
+import functools
 import hashlib
 import itertools
 import json
@@ -524,6 +552,24 @@ DEVICE_NAMES = {  # substrings of the compiled kernels' names
 PACK_RANGE = "dryad.exchange.pack"   # parallel/shuffle.py's profiler range
 # the runs whose calls are kept for a pack_side line
 PROFILED = ("zipf50k", "app10k")
+
+
+_ORACLES: dict = {}
+
+
+def host_memo(fn):
+    """``fn`` computed once per argument identity (numbers and strings by
+    value, any other object by identity, kept alive beside the result so
+    that an id is never reused): the phases hold many runs of one query
+    to one oracle."""
+    def memoized(*args):
+        key = (fn.__name__,) + tuple(
+            a if isinstance(a, (int, float, str)) else ("id", id(a))
+            for a in args)
+        if key not in _ORACLES:
+            _ORACLES[key] = (args, fn(*args))
+        return _ORACLES[key][1]
+    return memoized
 
 
 def card_line() -> str:
@@ -1277,6 +1323,8 @@ def broadcast_attempts(stages) -> int:
 
 
 PR_EDGES, PR_ITERS = 1_000_000, 10   # the JAX bench's (bench.py:2038-2045)
+STREAM_PR_ITERS = 5     # phases 13 and 20's streamed PageRank supersteps:
+                        # cut from PR_ITERS for the script's time
 PR_RTOL = 2e-3                       # tests/test_apps.py's test_pagerank
 
 
@@ -1473,8 +1521,8 @@ def run_kmeans(port, hk, km, pts, device="cuda"):
 def check_kmeans(cents, pts, km) -> dict:
     """Every cid present (k rows: a cluster that lost every point would
     drop out), each centroid within rtol and atol KM_TOL of the float64
-    ``kmeans_numpy``."""
-    ref = km.kmeans_numpy(pts, KM_K, KM_ITERS)
+    ``kmeans_numpy`` (computed once per point set: ``host_memo``)."""
+    ref = _kmeans_ref(km, pts["x"], KM_K, KM_ITERS)
     got = np.asarray(cents, np.float64)
     if got.shape != ref.shape:
         raise AssertionError(f"kmeans: {got.shape[0]} centroids, not "
@@ -1486,6 +1534,11 @@ def check_kmeans(cents, pts, km) -> dict:
     return {"points": len(pts["x"]), "dim": KM_DIM, "k": KM_K,
             "iters": KM_ITERS, "max_abs_dev": float(dev.max()),
             "max_rel_dev": float((dev / np.abs(ref)).max())}
+
+
+@host_memo
+def _kmeans_ref(km, x, k: int, iters: int):
+    return km.kmeans_numpy({"x": x}, k, iters)
 
 
 def setop_tables(n: int):
@@ -1647,6 +1700,14 @@ def tpch_tables(n_items: int, seed: int = 0):
     ``custkey`` uniform over [1, n_cust] and never divisible by 3 (as
     O_CUSTKEY), ``prio`` in [0, 5), ``totalprice`` f32 in [850, 550,000).
     customer: ``custkey`` = 1..n_cust, ``seg`` in [0, 5)."""
+    return tuple(dict(t) for t in _tpch_tables(n_items, seed))
+
+
+@functools.lru_cache(maxsize=2)
+def _tpch_tables(n_items: int, seed: int):
+    """The tables of ``tpch_tables``, made once per size and seed (five
+    phases read SF1's); callers get dicts of their own over the same
+    arrays, which no caller writes in place."""
     rng = np.random.RandomState(seed)
     n_orders, n_cust = n_items // 4, n_items // 40
     okey = np.where(rng.rand(n_items) < HOT_FRAC, 0,
@@ -2272,10 +2333,9 @@ def pagerank_forms(port, hk, pr, edges, n_nodes, out_dir, held) -> dict:
     """pagerank100k in both forms, each in a context of its own: a cold
     run, a warm run (its kernel calls held, its launches counted), a warm
     run counting host syncs (``counted_syncs``) and NEED reads
-    (``Executor.host_reads``), and for the deferred form a warm run
-    under the profiler (busy share; its profile under ``"_profile"``);
-    then one timed warm run of each in turns (deferred, sync), each
-    form's wall their mean.  The ranks must be
+    (``Executor.host_reads``).  (The deferred form's profiled warm run
+    and the timed warm run of each form in turns were cut for the
+    script's time: phase 15 profiles PageRank.)  The ranks must be
     bit-identical between the forms, every
     rank within PR_RTOL of ``pagerank_numpy``, and the launches equal
     but for the exchanges of the stages that the deferred settle re-ran
@@ -2283,15 +2343,14 @@ def pagerank_forms(port, hk, pr, edges, n_nodes, out_dir, held) -> dict:
     stage the deferred form runs exactly one attempt more there and the
     same attempts elsewhere."""
     import torch
-    forms, ranks, launched, entries, probes, ctxs = {}, {}, {}, {}, {}, {}
+    forms, ranks, launched, entries, probes = {}, {}, {}, {}, {}
 
     def app(c):
         return pr.pagerank(c, edges, n_nodes, n_iters=PR_ITERS)
 
     for form, cfg in (("deferred", port.JobConfig()),
                       ("sync", port.JobConfig(deferred_needs=False))):
-        ctx = ctxs[form] = port.Context(device="cuda", nparts=NPARTS,
-                                        config=cfg)
+        ctx = port.Context(device="cuda", nparts=NPARTS, config=cfg)
         app(ctx)
         hk.capture = {}
         reads0 = ctx.executor.host_reads
@@ -2326,14 +2385,6 @@ def pagerank_forms(port, hk, pr, edges, n_nodes, out_dir, held) -> dict:
         torch.cuda.synchronize()
         counted_s = time.perf_counter() - t0
         counted_reads = ctx.executor.host_reads - reads0
-        # one profiled warm run, the default (deferred) form's: its
-        # profile also serves pagerank100k's path_bound line
-        prof = (profile_path(lambda: run_app(port, hk, app, ctx=ctx)[:4],
-                             f"pagerank100k_{form}", out_dir, pack=False)
-                if form == "deferred" else {"wall_s": None,
-                                            "device_ms": None})
-        if form == "deferred":
-            profiled = prof
         forms[form] = {
             "host_syncs_per_run": syncs, "sync_sites": sites,
             "need_reads_per_run": reads,
@@ -2343,9 +2394,6 @@ def pagerank_forms(port, hk, pr, edges, n_nodes, out_dir, held) -> dict:
                                   for st in r["stages"]),
             "warm_wall_s": load + qs, "warm_load_s": load,
             "warm_query_s": qs, "counted_run_s": counted_s,
-            "profiled_wall_s": prof["wall_s"],
-            "profiled_device_ms": prof["device_ms"],
-            "device_busy_share": prof.get("device_busy_share"),
             "launches": launches, **sizes}
     if ranks["deferred"].tobytes() != ranks["sync"].tobytes():
         raise AssertionError("pagerank100k: deferred and synchronous ranks "
@@ -2372,17 +2420,6 @@ def pagerank_forms(port, hk, pr, edges, n_nodes, out_dir, held) -> dict:
     forms["settle_extra"] = {"replayed": [(lbl, legs) for lbl, x, legs
                                           in extra if x],
                              "exchanges": more, "launch_diff": diff}
-    turns = collections.defaultdict(list)
-    for form in ("deferred", "sync"):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        app(ctxs[form])
-        torch.cuda.synchronize()
-        turns[form].append(time.perf_counter() - t0)
-    for form, walls in turns.items():
-        forms[form]["turn_walls_s"] = walls
-        forms[form]["turn_wall_mean_s"] = sum(walls) / len(walls)
-    forms["_profile"] = profiled
     return forms
 
 
@@ -2993,15 +3030,18 @@ def adapt_cells(port, hk, cells, out_dir, held) -> dict:
     """Each cell adaptive off and on, each in a context of its own with
     an event log: a cold run of each (off first, cost-checked), its
     kernel calls held, its launches against the executor's log; then
-    ADAPT_WARM_REPS warm runs of each in turns (off, on, ...), one
-    profiled warm run of the adaptive one (busy share).  On must record the
+    ADAPT_WARM_REPS warm runs of each in turns (off, on, ...), and for
+    the first cell one profiled warm run of the adaptive one (busy
+    share; the other cells' profiles were cut for the script's
+    time).  On must record the
     cell's rewrite, off none; the rows of both and of numpy agree.  Per
     mode: cold and warm walls, NEED reads per run, launches, rewrites,
     the order_by stage's output bytes (``shuffle_bytes``)."""
     import torch
     from dryad_tpu_torch.utils.events import EventLog
     res = {}
-    for label, (tables, query, check, kind) in cells.items():
+    for i, (label, (tables, query, check, kind)) in enumerate(
+            cells.items()):
         ctxs, logs, per = {}, {}, {}
         for mode in ("off", "on"):
             logs[mode] = EventLog()
@@ -3069,8 +3109,8 @@ def adapt_cells(port, hk, cells, out_dir, held) -> dict:
                 "warm_wall_mean_s": sum(walls[mode]) / len(walls[mode]),
                 "need_reads_warm": reads[mode],
                 "orderby_out_bytes": sort_bytes})
-            if mode == "on":
-                # one profiled warm run a cell: the rewritten plan's
+            if mode == "on" and i == 0:
+                # one profiled warm run: the rewritten plan's
                 prof = profile_path(lambda: run_app(
                     port, hk, lambda c: query(c, tables).collect(),
                     ctx=ctx)[:4], f"{label}_{mode}", out_dir, pack=False)
@@ -3635,28 +3675,30 @@ def phase13_runs(port, hk, sizes, tmp, lines, want_counts, held,
     def pagerank(ctx):
         return pr.pagerank_stream(ctx, ctx.read_store_stream(
             epath, chunk_rows=chunk).cache(), sizes.nodes,
-            n_iters=PR_ITERS)
+            n_iters=STREAM_PR_ITERS)
 
     # the float64 references, computed once for the cell's three checks
     pr_ref = types.SimpleNamespace(pagerank_numpy=lambda *_a, _r=(
-        pr.pagerank_numpy(edges, sizes.nodes, PR_ITERS)): _r)
+        pr.pagerank_numpy(edges, sizes.nodes, STREAM_PR_ITERS)): _r)
     line, cold, warm = stream_cell(
         port, hk, ooc, "pagerankstream100k", pagerank,
         lambda out: check_pagerank(out, edges, sizes.nodes, pr_ref), cfg,
-        len(edges["src"]) * PR_ITERS, held, device)
+        len(edges["src"]) * STREAM_PR_ITERS, held, device)
     scatter.update(scatter_hist_calls("pagerankstream100k",
                                       cold.pop("captured"), (64,)))
     # the cold run writes the edges' entry and the out-degrees' once;
     # every pass of every superstep re-streams them
+    hits = min(cold["cache_hits"], warm["cache_hits"])
     if cold["cache_writes"] != 2 or warm["cache_writes"] or \
-            min(cold["cache_hits"], warm["cache_hits"]) < 2 * PR_ITERS:
+            hits < 2 * STREAM_PR_ITERS:
         raise AssertionError(f"pagerankstream100k: cache events cold "
                              f"{cold['cache_writes']} writes / "
                              f"{cold['cache_hits']} hits, warm "
                              f"{warm['cache_writes']} / "
                              f"{warm['cache_hits']}")
     res["pagerankstream100k"] = {"edges": len(edges["src"]),
-                                 "iters": PR_ITERS, "chunk_rows": chunk,
+                                 "iters": STREAM_PR_ITERS,
+                                 "chunk_rows": chunk,
                                  **line}
     if keep is not None:
         keep["pagerank"] = {"path": epath, "edges": edges, "ref": pr_ref,
@@ -3808,10 +3850,15 @@ def revenue_oracle(li, flag: int):
     """Per order key whose order has ``flag`` (flag = okey % 2, and every
     lineitem's key names an order): SUM(price * qty) in float64, the row
     count and the sum of |price * qty| (the f32 bound's scale)."""
-    keep = li["okey"] % 2 == flag
-    ok = li["okey"][keep]
-    v = li["price"][keep].astype(np.float64) * li["qty"][keep]
-    nb = int(li["okey"].max()) + 1
+    return _revenue_oracle(li["okey"], li["price"], li["qty"], flag)
+
+
+@host_memo
+def _revenue_oracle(okey, price, qty, flag: int):
+    keep = okey % 2 == flag
+    ok = okey[keep]
+    v = price[keep].astype(np.float64) * qty[keep]
+    nb = int(okey.max()) + 1
     return (np.bincount(ok, weights=v, minlength=nb),
             np.bincount(ok, minlength=nb),
             np.bincount(ok, weights=np.abs(v), minlength=nb))
@@ -3870,14 +3917,8 @@ def check_q1agg(label, out, li) -> dict:
     """SQL_Q1 against numpy: the qty keys in order and the counts, MIN and
     MAX exactly; SUM within 16 eps sum|v| of the float64 sum, AVG within
     that over the count."""
-    mask = np.arange(len(li["qty"])) % 3 != 0
-    q, p = li["qty"][mask], li["price"][mask]
-    keys = np.unique(q)
-    n = np.bincount(q)[keys]
-    s = np.bincount(q, weights=p.astype(np.float64))[keys]
+    keys, n, s, lo, hi, qualifying = _q1_oracle(li["qty"], li["price"])
     tol = 16 * EPS * s                       # prices are positive
-    lo = np.array([p[q == x].min() for x in keys])
-    hi = np.array([p[q == x].max() for x in keys])
     ok = (np.array_equal(np.asarray(out["qty"]), keys)
           and np.array_equal(np.asarray(out["n"]), n)
           and np.array_equal(np.asarray(out["lo"]), lo)
@@ -3887,7 +3928,20 @@ def check_q1agg(label, out, li) -> dict:
                <= tol / n).all())
     if not ok:
         raise AssertionError(f"{label}: the aggregate differs from numpy")
-    return {"rows": len(keys), "qualifying": int(mask.sum())}
+    return {"rows": len(keys), "qualifying": qualifying}
+
+
+@host_memo
+def _q1_oracle(qty, price):
+    """SQL_Q1's groups over the rows whose tag is not ``void`` (every
+    third row): keys, counts, float64 sums, min and max, the rows."""
+    mask = np.arange(len(qty)) % 3 != 0
+    q, p = qty[mask], price[mask]
+    keys = np.unique(q)
+    return (keys, np.bincount(q)[keys],
+            np.bincount(q, weights=p.astype(np.float64))[keys],
+            np.array([p[q == x].min() for x in keys]),
+            np.array([p[q == x].max() for x in keys]), int(mask.sum()))
 
 
 def sql_events(label, ev) -> dict:
@@ -4478,6 +4532,8 @@ INC_OKEY = ("SELECT okey, COUNT(*) AS n, SUM(qty) AS sq, MIN(price) AS lo, "
 INC_APPEND = ("SELECT okey, qty, price FROM lineitem WHERE tag = 'ok' "
               "EMIT EVERY 1")
 INC_ROUNDS = 2
+INC_SCALE = 4     # phase 16 runs on --lineitems / INC_SCALE (SF 0.25): cut
+                  # for the script's time
 INC_SMALL = 200_000        # inc_modes' store (the DTA403 rebuild)
 TAG_LEN = 8                # the stores' tag width (tags are 2-4 bytes)
 REMOTE_CHUNK = 1 << 19     # rows a chunk of the streamed hdfs:// read
@@ -5032,7 +5088,9 @@ SQL_Q3_ALT = ("SELECT COUNT(*) AS n, x.okey, SUM(x.qty * x.price) AS revenue "
               "WHERE y.flag = 0 GROUP BY x.okey ORDER BY revenue DESC "
               "LIMIT 10")
 SVC_SHARES = {"dash": 2.0, "adhoc": 1.0, "batch": 1.0}
-SVC_WC_JOBS = 3
+SVC_WC_JOBS = 2
+SVC_SCALE = 4     # svc_durable_6m, svc_standing_6m and svc_http run on the
+                  # lineitems / SVC_SCALE: cut for the script's time
 SVC_WC_LINES = 500_000
 SVC_WAIT_S = 900.0
 
@@ -5514,20 +5572,29 @@ def svc_http(cat, li, root, device) -> dict:
 def phase17_runs(port, hk, tables, n_items: int, root: str, held,
                  q3_phase14_s=None, device="cuda") -> dict:
     """Phase 17's cells (svc_sql_6m, svc_wordcount, svc_durable_6m,
-    svc_standing_6m, svc_http) over phase 14's ``sql_catalog`` triple
-    ``tables``, each service under ``root``; each cell's kernel calls
-    held under its label."""
+    svc_standing_6m, svc_http), each service under ``root``; each cell's
+    kernel calls held under its label.  svc_sql_6m runs over phase 14's
+    ``sql_catalog`` triple ``tables`` (its warm Q3 beside phase 14's);
+    the durable, standing and HTTP cells over a catalog of
+    ``n_items // SVC_SCALE`` lineitems (their services load the table
+    again at every restart)."""
+    from dryad_tpu_torch import sql
     li, _orders, cat = tables
+    n_small = n_items // SVC_SCALE
+    sli, _sorders, scat = sql_catalog(sql, n_small)
     cells = {
         "svc_sql_6m": lambda: svc_sql_6m(li, cat, root, q3_phase14_s,
                                          device),
         "svc_wordcount": lambda: svc_wordcount(root, device),
-        "svc_durable_6m": lambda: svc_durable_6m(li, cat, root, device),
-        "svc_standing_6m": lambda: svc_standing_6m(port, li, n_items, root,
+        "svc_durable_6m": lambda: svc_durable_6m(sli, scat, root, device),
+        "svc_standing_6m": lambda: svc_standing_6m(port, sli, n_small, root,
                                                    device),
-        "svc_http": lambda: svc_http(cat, li, root, device)}
-    return {label: svc_cell(hk, label, held, fn)
-            for label, fn in cells.items()}
+        "svc_http": lambda: svc_http(scat, sli, root, device)}
+    out = {label: svc_cell(hk, label, held, fn)
+           for label, fn in cells.items()}
+    for label in ("svc_durable_6m", "svc_standing_6m", "svc_http"):
+        out[label]["lineitems"] = n_small
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -6128,7 +6195,6 @@ def replay_gang(port, hk, apps, device="cuda") -> dict:
     import threading
 
     import torch
-    from dryad_tpu_torch.exec.executor import Executor
     from dryad_tpu_torch.parallel import mesh as port_mesh
     dev = torch.device(device)
     before = dict(hk.launches)
@@ -6139,10 +6205,9 @@ def replay_gang(port, hk, apps, device="cuda") -> dict:
 
         def rank_run(r, app=app, rdv=rdv):
             try:
-                ctx = port.Context(device=device, nparts=NPARTS)
-                ctx.mesh = thread_mesh(port_mesh, dev, r, GANG_PROCS, rdv)
-                ctx.executor = Executor(ctx.mesh, config=ctx.config)
-                app(ctx)
+                # a worker's context: the gang mesh's levels, its executor
+                app(port.Context(mesh=thread_mesh(port_mesh, dev, r,
+                                                  GANG_PROCS, rdv)))
             except BaseException as e:      # surfaced after the join
                 errors.append(e)
                 rdv.barrier.abort()
@@ -6386,7 +6451,10 @@ def phase19_runs(port, hk, wc, ts, corpus, wc_counts, tera, edges,
     gj = GangJobs(cl)
     try:
         gctx = port.Context(cluster=cl, event_log=events.append)
-        lctx = port.Context(device=device, nparts=NPARTS)
+        # the gang plans the levels of its (dcn, dp) mesh, so its
+        # in-process counterpart runs on that mesh
+        lctx = port.Context(mesh=port.make_mesh(device, NPARTS,
+                                                hosts=GANG_PROCS))
         per_part = -(-len(corpus) // NPARTS)
         # the corpus as a text file each worker reads (no 60 MB column
         # pickled over the control socket)
@@ -6829,13 +6897,15 @@ def ssh_gang_cell(port, wc, corpus, wc_counts, zipf19, root,
 
 
 def phase20_runs(port, hk, wc, corpus, wc_counts, kept, zipf19,
-                 root: str, held, device="cuda") -> dict:
+                 root: str, held, device="cuda", keep=None) -> dict:
     """Phase 20's cells on one ``LocalCluster(GANG_PROCS, GANG_DPP)`` on
     the card (P = 8): phase 13's streamed queries as gang jobs, cold and
     warm (PageRank once), over phase 13's stores (``kept``: their paths, oracles and the
     in-process runs), then the SSH cell; the workers' calls held on a
     replay of one TeraSort wave and one streamed PageRank superstep here
-    as a gang of threads (``replay_stream_gang``)."""
+    as a gang of threads (``replay_stream_gang``).  With ``keep`` (a
+    dict) the cluster is left running under ``keep["cluster"]`` for
+    phase 21, which shuts it down."""
     from dryad_tpu_torch.exec import ooc
     from dryad_tpu_torch.plan.planner import plan_query
     from dryad_tpu_torch.runtime import LocalCluster
@@ -6935,11 +7005,14 @@ def phase20_runs(port, hk, wc, corpus, wc_counts, kept, zipf19,
         line = stream_gang_cell("gang_stream_wordcount1m", gj, wordcount,
                                 wordcount, kx["check"], kx["warm_wall_s"],
                                 device)
-        if not line["compacted_legs"] or any(line["spilled_bytes"].values()):
+        # the dp level's waves compact the group partials; the dcn
+        # level's leg holds no group op, so its buckets spill, as the
+        # JAX package's streamed gang does
+        if not line["compacted_legs"]:
             raise AssertionError(f"gang_stream_wordcount1m: the group "
                                  f"partials were not compacted in the "
-                                 f"waves: {line['compacted_legs']} legs, "
-                                 f"{line['spilled_bytes']} bytes spilled")
+                                 f"waves: {line['spilled_bytes']} bytes "
+                                 f"spilled")
         line["spooled_stores"] = len(os.listdir(spool))
         shutil.rmtree(spool, ignore_errors=True)
         lines["gang_stream_wordcount1m"] = line
@@ -6975,7 +7048,7 @@ def phase20_runs(port, hk, wc, corpus, wc_counts, kept, zipf19,
                         .group_by(["node"], {"s": ("sum", "c")})
                         .select(F.pr_damp))
             out = pctx.do_while(pctx.from_columns(nodes), body,
-                                n_iters=PR_ITERS).collect()
+                                n_iters=STREAM_PR_ITERS).collect()
             cache_events.append(cache_counts(n0))
             return out
         cache_events = []
@@ -7006,7 +7079,8 @@ def phase20_runs(port, hk, wc, corpus, wc_counts, kept, zipf19,
             raise AssertionError(f"gang_stream_pagerank100k: cache "
                                  f"(writes, hits) cold and warm "
                                  f"{cache_events}")
-        line.update({"iters": PR_ITERS, "edges": len(kp["edges"]["src"]),
+        line.update({"iters": STREAM_PR_ITERS,
+                     "edges": len(kp["edges"]["src"]),
                      "cache_writes_hits": cache_events})
         pr_stores = cache_stores(cache_dir)
         lines["gang_stream_pagerank100k"] = line
@@ -7064,10 +7138,16 @@ def phase20_runs(port, hk, wc, corpus, wc_counts, kept, zipf19,
                                  **{k: zfig[k] for k in (
                                      "waves", "exchange_attempts",
                                      "worker_launches", "staged")}}}
+    except BaseException:
+        cl.shutdown()
+        raise
     finally:
         srv.close()
         gj.close()
-        cl.shutdown()
+        if keep is None:
+            cl.shutdown()
+        else:
+            keep["cluster"] = cl
         os.environ.pop("DRYAD_GANG_PR_NODES", None)
         if old is None:
             os.environ.pop("PYTHONPATH", None)
@@ -7137,6 +7217,245 @@ def phase20_runs(port, hk, wc, corpus, wc_counts, kept, zipf19,
                                    "max_abs_err": errs,
                                    "first_call_shapes": shapes,
                                    "worker_launches": total}
+    return lines
+
+
+# ---------------------------------------------------------------------------
+# phase 21: multi-axis meshes and hierarchical group aggregation
+
+MESH_SHAPES = {"mesh2d": dict(hosts=2), "mesh3d": dict(hosts=2, pods=2)}
+LEVEL_LABELS = {"mesh2d": ["dp", "dcn"], "mesh3d": ["dp", "host", "dcn"]}
+ADAPT_KEYS = 500     # the adaptive job's first group: its rows are under
+                     # JobConfig.adapt_agg_collapse_rows, so it collapses
+
+
+def combine_stages(log) -> list:
+    """The labels of a run's exchanging stages, in order."""
+    return [e["label"] for e in log if e["exchange"]]
+
+
+def run_on_mesh(port, hk, mesh, build, device="cuda") -> tuple:
+    """``build(ctx)`` (load, query, collect) in a Context on ``mesh``:
+    counters zeroed just before, read just after, every kernel call
+    captured.  Returns (table, launches, captured, wall_s, stage log)."""
+    import torch
+    ctx = port.Context(mesh=mesh)
+    hk.reset_launches()
+    hk.capture = {}
+    t0 = time.perf_counter()
+    try:
+        out = build(ctx)
+        if device == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        captured, hk.capture = hk.capture, None
+    return (out, dict(hk.launches), captured, time.perf_counter() - t0,
+            list(ctx.executor.stage_log))
+
+
+def check_one_axis(label, out, flat, exact=("n", "lo", "hi")) -> None:
+    """The columns ``exact`` (counts, min, max) of a hierarchical run
+    equal the one-axis run's (phase 4's) key for key."""
+    o, f = np.argsort(out["k"]), np.argsort(flat["k"])
+    for c in ("k",) + tuple(exact):
+        if not np.array_equal(np.asarray(out[c])[o],
+                              np.asarray(flat[c])[f]):
+            raise AssertionError(f"{label}: column {c} differs from the "
+                                 f"one-axis run's")
+
+
+def adapt_pairs(rows: int, seed: int = 21) -> dict:
+    rng = np.random.RandomState(seed)
+    return {"k": rng.randint(0, ADAPT_KEYS, rows).astype(np.int32),
+            "v": rng.randint(0, 10, rows).astype(np.int32)}
+
+
+def two_groups(ds):
+    """Group sums, then the count of each sum: a merge chain whose first
+    level reads at most ADAPT_KEYS rows (the aggregation-tree collapse)."""
+    return ds.group_by(["k"], {"s": ("sum", "v")}).group_by(
+        ["s"], {"n": ("count", None)})
+
+
+def two_groups_oracle(data) -> dict:
+    s = np.bincount(data["k"], weights=data["v"], minlength=ADAPT_KEYS)
+    s = s[np.bincount(data["k"], minlength=ADAPT_KEYS) > 0].astype(np.int64)
+    vals, cnt = np.unique(s, return_counts=True)
+    return dict(zip(vals.tolist(), cnt.tolist()))
+
+
+def phase21_runs(port, hk, gbr_data, variants, flat_outs, wc, corpus,
+                 wc_counts, held, root: str, device="cuda",
+                 cluster=None) -> dict:
+    """Phase 21's cells (see the module docstring): GroupByReduce's app
+    on a (dcn, dp) and a (dcn, host, dp) mesh and its Decomposable and
+    WordCount on the (dcn, dp) one, each cold with every kernel call
+    held, then warm; the app on a gang whose mesh is (dcn, dp) with dcn
+    the process boundary, against the in-process (dcn, dp) run; one
+    ``adaptive="on"`` gang job whose aggregation tree collapses.  The
+    gang is ``cluster`` (phase 20's, which its caller stops) or a
+    ``LocalCluster(GANG_PROCS, GANG_DPP)`` of its own.  The gang
+    workers' calls held on a replay of the gang's app here as a gang of
+    threads (``replay_gang``)."""
+    import torch
+    from dryad_tpu_torch.runtime import LocalCluster
+    lines = {}
+    meshes = {name: port.make_mesh(device, NPARTS, **kw)
+              for name, kw in MESH_SHAPES.items()}
+    per_part = -(-len(corpus) // NPARTS)
+
+    def wordcount(ctx):
+        return wc.wordcount_query(
+            ctx.from_columns({"line": corpus}, str_max_len=96),
+            tokens_per_partition=per_part * 10).collect()
+
+    def wc_check(label, out):
+        if dict(zip(out["line"], (int(v) for v in out["n"]))) != wc_counts:
+            raise AssertionError(f"{label}: counts differ from phase 3's "
+                                 f"(the Counter oracle's)")
+        return {"words": len(out["line"])}
+
+    def gbr_check(vname):
+        def check(label, out):
+            check_gbr(label, out, gbr_data, variants[vname][2])
+            check_one_axis(label, out, flat_outs[vname])
+            return {"groups": len(out["k"])}
+        return check
+
+    def gbr_build(vname):
+        return lambda c: variants[vname][1](c.from_columns(gbr_data)) \
+            .collect()
+
+    rows = len(gbr_data["k"])
+    cells = [("mesh2d_app10k", "mesh2d", gbr_build("app10k"),
+              gbr_check("app10k"), "groupby", TPU_KERNEL, rows),
+             ("mesh3d_app10k", "mesh3d", gbr_build("app10k"),
+              gbr_check("app10k"), "groupby", TPU_KERNEL, rows),
+             ("mesh2d_decomposable10k", "mesh2d",
+              gbr_build("decomposable10k"), gbr_check("decomposable10k"),
+              "dgroupby", EXCHANGE, rows),
+             ("mesh2d_wordcount", "mesh2d", wordcount, wc_check, "groupby",
+              EXCHANGE, len(corpus))]
+    for label, mname, build, check, prefix, need, n_rows in cells:
+        out, launches, captured, cold_s, log = run_on_mesh(
+            port, hk, meshes[mname], build, device)
+        sizes = check(label, out)
+        held(label, launches, captured)
+        del captured
+        stages = exchanging_stages([log])
+        want = [f"{prefix}-{ax}" for ax in LEVEL_LABELS[mname]]
+        if combine_stages(log) != want:
+            raise AssertionError(f"{label}: combine stages "
+                                 f"{combine_stages(log)}, not {want}")
+        zero = [k for k in need if launches[k] == 0]
+        if zero:
+            raise AssertionError(f"{label}: kernels never launched: {zero}")
+        check_per_exchange(label, launches, exchange_attempts(stages),
+                           probes=probes_run(stages))
+        t0 = time.perf_counter()
+        check(label, build(port.Context(mesh=meshes[mname])))
+        warm_s = time.perf_counter() - t0
+        lines[label] = {**sizes, "mesh": dict(meshes[mname].axes),
+                        "rows": n_rows, "combine_stages": want,
+                        "launches": launches,
+                        "exchanging_stages": stages, "cold_wall_s": cold_s,
+                        "warm_wall_s": warm_s}
+        del out
+
+    # the gang: LocalCluster(2, 4) on the card, dcn = the process boundary
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cl = cluster or LocalCluster(
+        n_processes=GANG_PROCS, devices_per_process=GANG_DPP,
+        device=device, log_dir=os.path.join(root, "workers"))
+    start_s = None if cluster else time.perf_counter() - t0
+    gj = GangJobs(cl)
+    events = []
+    try:
+        gctx = port.Context(cluster=cl)
+        if (gctx.hosts, gctx.levels) != (GANG_PROCS, ("dp", "dcn")):
+            raise AssertionError(f"gang_mesh_app10k: the gang plans levels "
+                                 f"{gctx.levels}")
+        app = gbr_build("app10k")
+
+        def gang_check(out, local):
+            _tables_equal("gang_mesh_app10k", out, local)
+            return gbr_check("app10k")("gang_mesh_app10k", out)
+        line = gang_cell("gang_mesh_app10k", gj, lambda: app(gctx),
+                         lambda: app(port.Context(mesh=meshes["mesh2d"])),
+                         gang_check, device)
+        for w, info in line["_replies"][0]["workers"].items():
+            got = {e["label"]: e["staged_bytes"] for e in info["stage_log"]}
+            if (combine_stages(info["stage_log"])
+                    != ["groupby-dp", "groupby-dcn"]
+                    or any(got["groupby-dp"]) or not all(got["groupby-dcn"])):
+                raise AssertionError(f"gang_mesh_app10k worker {w}: staged "
+                                     f"bytes {got}")
+            line.setdefault("staged_bytes", {})[w] = got
+        line["dp_hop_staged_bytes"] = 0
+        line["cluster_start_s"] = start_s
+        lines["gang_mesh_app10k"] = line
+
+        # adaptive="on": every worker sees the gang's per-partition rows,
+        # so every worker collapses the same tree
+        adata = adapt_pairs(len(gbr_data["k"]))
+        want = two_groups_oracle(adata)
+        on = port.Context(cluster=cl, event_log=events.append,
+                          config=port.JobConfig(adaptive="on"))
+        off = port.Context(cluster=cl)
+        gj.take()
+        t1 = time.perf_counter()
+        out_on = two_groups(on.from_columns(adata)).collect()
+        on_s = time.perf_counter() - t1
+        replies, _ = gj.take()
+        t1 = time.perf_counter()
+        out_off = two_groups(off.from_columns(adata)).collect()
+        off_s = time.perf_counter() - t1
+        gj.take()
+        fig = gang_figures("gang_adaptive_collapse", replies, device)
+        rewrites = [e for e in events if e.get("event") == "graph_rewrite"]
+        counts = {w: info.get("graph_rewrites")
+                  for w, info in replies[0]["workers"].items()}
+        got = dict(zip((int(x) for x in out_on["s"]),
+                       (int(x) for x in out_on["n"])))
+        if (not rewrites or len(set(counts.values())) != 1
+                or counts[0] != len(rewrites)
+                or "agg_tree_collapse" not in {e["kind"] for e in rewrites}
+                or got != want or _row_set(out_on) != _row_set(out_off)):
+            raise AssertionError(f"gang_adaptive_collapse: rewrites "
+                                 f"{[e.get('kind') for e in rewrites]}, "
+                                 f"per worker {counts}, result equal to "
+                                 f"the oracle: {got == want}")
+        lines["gang_adaptive_collapse"] = {
+            "rows": len(adata["k"]), "keys": ADAPT_KEYS,
+            "groups": len(got), "rewrites": [e["kind"] for e in rewrites],
+            "worker_rewrites": counts, "on_wall_s": on_s,
+            "off_wall_s": off_s, **fig}
+    finally:
+        gj.close()
+        if cluster is None:
+            cl.shutdown()
+
+    # the workers' kernel calls at their shapes: the gang's app replayed
+    # here as a gang of threads (both hops, the dcn one across the
+    # threads), every call held against the plain versions
+    torch.cuda.empty_cache()
+    captured, replayed = replay_gang(port, hk, [app], device)
+    errs = hold_run(hk, "mesh gang replay", captured)
+    del captured
+    total = dict.fromkeys(TPU_KERNEL, 0)
+    for label in ("gang_mesh_app10k", "gang_adaptive_collapse"):
+        lines[label].pop("_replies", None)
+        for w in lines[label]["worker_launches"].values():
+            total = add_launches(total, w)
+    missed = [k for k in TPU_KERNEL if not total[k] or not replayed[k]]
+    if missed and device == "cuda":
+        raise AssertionError(f"phase 21: {missed} not launched by the "
+                             f"workers or not replayed")
+    held("mesh_gang", total, errs=errs)
+    lines["mesh_gang_replay"] = {"replay_launches": replayed,
+                                 "max_abs_err": errs,
+                                 "worker_launches": total}
     return lines
 
 
@@ -7799,12 +8118,14 @@ def main(argv=None) -> int:
             "card": card})
 
     variants = gbr_variants(port, gbr)
+    flat_outs = {}   # phase 4's tables, for phase 21's meshes
     for vname, (n_keys, query, cols) in variants.items():
         data = gbr.gen_pairs(a.rows, n_keys, seed=0)
         hk.capture = {}
         out, launches, load, qs, logs = run_gbr(port, hk, data, query)
         captured, hk.capture = hk.capture, None
         check_gbr(vname, out, data, cols)
+        flat_outs[vname] = out
         held(vname, launches, captured)
         zero = [k for k in (TPU_KERNEL if vname == "app10k" else EXCHANGE)
                 if launches[k] == 0]
@@ -7874,8 +8195,6 @@ def main(argv=None) -> int:
     sizes = check_pagerank(out, edges, a.nodes, pr)
     del out
     held("pagerank100k", launches, captured)
-    # a fresh context: the warm, profiled run makes these calls again
-    pr_work = path_work(captured)
     del captured
     zero = [k for k in TPU_KERNEL if launches[k] == 0]
     if zero:
@@ -7971,7 +8290,7 @@ def main(argv=None) -> int:
               "load_s": load, "query_s": qs, "card": card})
 
     # phase 9: each run cold (its calls held, its launches checked against
-    # the executor's log), warm, and warm under the profiler (busy share)
+    # the executor's log), then warm
     for label, (app, check, rows, must) in phase9_runs(
             *tpch_tables(a.lineitems)).items():
         hk.capture = {}
@@ -7988,11 +8307,7 @@ def main(argv=None) -> int:
         sizes = check(out, app_runs)
         del out
         _, _, wload, wquery, wruns = run_app(port, hk, app)
-        # one profiled warm run: the phase's first (salted) cell
-        prof = (profile_path(lambda: run_app(port, hk, app)[:4], label,
-                             a.out, pack=False)
-                if label == "skewjoin6m" else {"wall_s": None,
-                                               "device_ms": None})
+        # (skewjoin6m's profiled warm run was cut for the script's time)
         emit({"phase9": label, **sizes, "nparts": NPARTS,
               "launches": launches,
               "exchanging_stages": stages["outside_loop"],
@@ -8003,18 +8318,12 @@ def main(argv=None) -> int:
               "cold_wall_s": load + qs, "cold_load_s": load,
               "cold_query_s": qs, "warm_wall_s": wload + wquery,
               "warm_load_s": wload, "warm_query_s": wquery,
-              "rows_per_s": rows / (wload + wquery),
-              "profiled_wall_s": prof["wall_s"],
-              "profiled_device_ms": prof["device_ms"],
-              "device_busy_share": prof.get("device_busy_share"),
-              "port_kernels_ms": prof.get("port_kernels_ms"),
-              "top": prof.get("top"), "card": card})
+              "rows_per_s": rows / (wload + wquery), "card": card})
 
     # phase 10: each run cold (its calls held, its launches checked
-    # against the executor's log, slot probes apart), then warm and warm
-    # under the profiler in the cold run's context (measured slots from
-    # the slot feedback); a vmap fallback to a Python loop over groups is
-    # an error
+    # against the executor's log, slot probes apart), then warm in the
+    # cold run's context (measured slots from the slot feedback); a vmap
+    # fallback to a Python loop over groups is an error
     orders = nested_orders(a.orders)
     li_np = flat_lineitems(orders)
     ten = {}
@@ -8048,40 +8357,19 @@ def main(argv=None) -> int:
                     "cold_wall_s": load + qs, "cold_load_s": load,
                     "cold_query_s": qs, "card": card}
             if warm_app is not None:
-                if label == "unnest6m":
-                    # the warm run's calls: the profiled run's shapes (its
-                    # slots come from the feedback, the cold run's not)
-                    hk.capture = {}
+                # (unnest6m's profiled warm run, with its path_bound line,
+                # was cut for the script's time)
                 wout, wlaunches, wload, wquery, wruns = run_app(
                     port, hk, warm_app, ctx=ctx)
-                if hk.capture is not None:
-                    un_work, hk.capture = path_work(hk.capture), None
                 wsizes = check(wout, wruns, True)
                 del wout
-                # one profiled warm run: unnest6m's (its path_bound line)
-                prof = (profile_path(lambda: run_app(
-                    port, hk, warm_app, ctx=ctx)[:4], label, a.out,
-                    pack=False) if label == "unnest6m" else
-                    {"wall_s": None, "device_ms": None, "launches": {}})
-                if label == "unnest6m":
-                    un_prof = prof
-                pl = prof["launches"]
                 line.update({
                     "warm": wsizes, "warm_launches": wlaunches,
                     "warm_exchanging_stages":
                         loop_stages(wruns)["outside_loop"],
                     "warm_wall_s": wload + wquery, "warm_load_s": wload,
                     "warm_query_s": wquery,
-                    "rows_per_s": len(li_np["okey"]) / (wload + wquery),
-                    "profiled_wall_s": prof["wall_s"],
-                    "profiled_device_ms": prof["device_ms"],
-                    "device_busy_share": prof.get("device_busy_share"),
-                    "port_kernels_ms": prof.get("port_kernels_ms"),
-                    # device µs per launch at the measured slots
-                    "device_us_per_launch": {
-                        k: per_launch_us(prof, k) for k in TPU_KERNEL
-                        if pl.get(k)},
-                    "top": prof.get("top")})
+                    "rows_per_s": len(li_np["okey"]) / (wload + wquery)})
                 ten[label] = wquery
             emit(line)
         torch._C._functorch._set_vmap_fallback_warning_enabled(False)
@@ -8114,9 +8402,6 @@ def main(argv=None) -> int:
                                 for k in runs[r][1]}
     if unheld:
         raise AssertionError(f"phase 11: no call of {sorted(unheld)} held")
-    # pagerank100k's profiled warm run (phase 11's deferred form, the
-    # default) for its path_bound line
-    pr_prof = eleven["pagerank100k"].pop("_profile")
     emit({"phase": "recovery", **eleven,
           "seconds": time.perf_counter() - t11, "card": card})
     del li9, orders9
@@ -8246,7 +8531,7 @@ def main(argv=None) -> int:
     t16 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="phase16-", dir=a.out)
     try:
-        sixteen = phase16_runs(port, hk, wc, a.lineitems, tmp,
+        sixteen = phase16_runs(port, hk, wc, a.lineitems // INC_SCALE, tmp,
                                corpora["bench12"], wc_counts["bench12"],
                                held)
     finally:
@@ -8332,24 +8617,57 @@ def main(argv=None) -> int:
 
     # phase 20: the streamed gang (phase 13's streamed queries as chunk
     # waves across two worker processes, over phase 13's stores) and the
-    # SSH backend; its stores under --out, deleted at its end with phase
-    # 13's
+    # SSH backend; phase 13's stores deleted at its end, its own under
+    # --out at phase 21's
     torch.cuda.empty_cache()
     t20 = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="phase20-", dir=a.out)
+    tmp20 = tempfile.mkdtemp(prefix="phase20-", dir=a.out)
+    # phase 21 runs its gang cells on phase 20's cluster (one start less),
+    # whose logs stay until it ends; this process stops it at exit at the
+    # latest
+    atexit.register(shutil.rmtree, tmp20, True)
+    kept20 = {}
     try:
         twenty = phase20_runs(port, hk, wc, corpora["zipf50k"],
                               wc_counts["zipf50k"], kept13,
-                              kept19["zipf_out"], tmp, held)
+                              kept19["zipf_out"], tmp20, held, keep=kept20)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
         shutil.rmtree(tmp13, ignore_errors=True)
-    del kept13, kept19
+    gang = kept20["cluster"]
+    atexit.register(gang.shutdown)
+    del kept13, kept19, kept20
     for label, line in twenty.items():
         emit({"phase20": label, **line, "card": card})
     emit({"phase": "stream_gang", "worker_launches": runs["stream_gang"][0],
           "max_abs_err": runs["stream_gang"][1],
           "seconds": time.perf_counter() - t20, "card": card})
+
+    # phase 21: multi-axis meshes and hierarchical group aggregation, in
+    # process and on a gang whose mesh is (dcn, dp); the workers' logs
+    # under --out, deleted at the end
+    torch.cuda.empty_cache()
+    before = set(runs)
+    t21 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase21-", dir=a.out)
+    try:
+        twentyone = phase21_runs(port, hk, gbr_data, variants, flat_outs,
+                                 wc, corpora["zipf50k"],
+                                 wc_counts["zipf50k"], held, tmp,
+                                 cluster=gang)
+    finally:
+        gang.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(tmp20, ignore_errors=True)
+    for label, line in twentyone.items():
+        emit({"phase21": label, **line, "card": card})
+    new = set(runs) - before
+    launches21 = {k: sum(runs[r][0][k] for r in new) for k in TPU_KERNEL}
+    unheld = set(TPU_KERNEL) - {k for r in new for k in runs[r][1]}
+    if unheld or not all(launches21.values()):
+        raise AssertionError(f"phase 21: launches {launches21}, no call of "
+                             f"{sorted(unheld)} held")
+    emit({"phase": "mesh", "launches": launches21,
+          "seconds": time.perf_counter() - t21, "card": card})
 
     wc_prof = profile_path(
         lambda: run_wordcount(port, hk, wc, corpora["zipf50k"])[:4],
@@ -8367,9 +8685,7 @@ def main(argv=None) -> int:
                           "card": card})
     for label, pwork, prof in (
             ("zipf50k", path_work(timed_calls["zipf50k"]), wc_prof),
-            ("app10k", path_work(timed_calls["app10k"]), gbr_prof),
-            ("pagerank100k", pr_work, pr_prof),
-            ("unnest6m", un_work, un_prof)):
+            ("app10k", path_work(timed_calls["app10k"]), gbr_prof)):
         emit({"path_bound": label, "kernels": path_bound(pwork, prof),
               "card": card})
     emit({"phase": "held", "ok": True, "runs": {

@@ -54,9 +54,16 @@ fleet or on worker processes that share the card
 straggler speculation, forensics bundles replayed by ``python -m
 dryad_tpu_torch.obs replay``); ``python -m dryad_tpu_torch.chaos`` kills
 a durable daemon and checks what its successor recovers.
+
+``make_mesh(device, n, hosts=, pods=)`` lays the partitions out on named
+axes, ``(dcn, dp)`` or ``(dcn, host, dp)``; a ``Context(mesh=...)`` on
+one then plans its group-bys as one combine stage per axis, and a gang
+of worker processes plans the same levels with ``dcn`` its process
+boundary.  Each subpackage re-exports the names of its JAX counterpart.
 """
 
 from dryad_tpu_torch.api.dataset import Context, Dataset  # noqa: F401
+from dryad_tpu_torch.parallel.mesh import make_mesh  # noqa: F401
 from dryad_tpu_torch.plan.expr import Decomposable  # noqa: F401
 from dryad_tpu_torch.utils.config import JobConfig  # noqa: F401
 

@@ -39,10 +39,12 @@ __all__ = ["AdaptiveManager", "levels_of_mesh"]
 
 def levels_of_mesh(mesh) -> tuple:
     """Mesh -> ((axis, size), ...) innermost first, the planner's
-    ``levels`` orientation: the JAX package lists a multi-level mesh's
-    axes here.  The port's ``Mesh`` is one axis of logical partitions on
-    one card, so it has no levels: ``()``."""
-    return ()
+    ``levels`` orientation.  On a worker gang the outermost axis is the
+    process boundary (dcn), so the topology-aware rules see the gang's
+    structure."""
+    if mesh is None:
+        return ()
+    return tuple(reversed(mesh.axes))
 
 
 class AdaptiveManager:

@@ -131,6 +131,11 @@ class CostReport:
     def stage(self, sid: int) -> Optional[StageCostEstimate]:
         return self._by_stage.get(sid)
 
+    def bounds(self, sid: int) -> Optional[Tuple[Interval, Interval]]:
+        """(rows, out_bytes) intervals for the runtime cross-check."""
+        s = self._by_stage.get(sid)
+        return None if s is None else (s.rows, s.out_bytes)
+
     def rows_bounds(self, sid: int) -> Optional[Tuple[int, Optional[int]]]:
         s = self._by_stage.get(sid)
         return s.rows.as_tuple() if s is not None else None
@@ -153,6 +158,9 @@ class CostReport:
                 "device_hbm_bytes": self.device_hbm_bytes,
                 "streamed": self.streamed,
                 "stages": [s.to_payload() for s in self.stages]}
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_payload(), indent=1)
 
     @staticmethod
     def from_payload(d: dict) -> "CostReport":
@@ -639,12 +647,14 @@ def _estimate_stages(graph, nparts: int, config, report: CostReport,
                 notes=tuple(dict.fromkeys(notes))))
 
 
-def estimate_query(node, nparts: int, config=None) -> CostReport:
+def estimate_query(node, nparts: int, hosts: int = 1, levels: tuple = (),
+                   config=None) -> CostReport:
     """Plan ``node`` exactly as a terminal call would and estimate the
     result.  Planning is deterministic, so the report's stage ids line
     up with the graph the executor will run."""
     from dryad_tpu_torch.plan.planner import plan_query
-    graph = plan_query(node, nparts, config=config)
+    graph = plan_query(node, nparts, hosts=hosts, config=config,
+                       levels=levels)
     return estimate_graph(graph, nparts, config=config)
 
 

@@ -18,7 +18,11 @@ full, hash or broadcast, hot-key salted on skew), ``group_join``,
 ``Context(device="cuda", nparts=8)`` runs ``nparts`` logical partitions
 on one CUDA card (``parallel/mesh.py``).  The device is CUDA unless the
 caller asks for the CPU; on a machine without CUDA the default raises
-rather than quietly running on the CPU.  ``event_log`` receives the
+rather than quietly running on the CPU.  ``Context(mesh=make_mesh(
+device, n, hosts=, pods=))`` runs on a mesh of named axes, ``(dcn, dp)``
+or ``(dcn, host, dp)``: its group-bys plan one combine stage per axis,
+innermost first (``groupby-dp``, ``groupby-dcn``), each exchanging over
+its axis only.  ``event_log`` receives the
 executor's events (``utils/events.EventLog``), and ``spill_dir`` makes
 every query spill each stage's output as a store and resume from it
 (``exec/recovery.py``).  Stores: ``Context.from_store``,
@@ -62,7 +66,10 @@ context's ``nparts`` is the gang's (``n_processes x
 devices_per_process``), and every terminal (``collect``, ``count``,
 ``to_store``, the scalars, ``cache``, ``do_while``) is a gang SPMD job
 (``_cluster_run``: ``LocalCluster.execute``, ``runtime/exec_common.py``)
-whose result equals the in-process run at the same ``nparts``.
+whose result equals the in-process run at the same ``nparts``.  A gang
+of more than one process plans the JAX package's levels ``("dp",
+"dcn")``, so it equals the in-process run on ``make_mesh(device,
+nparts, hosts=n_processes)``: ``dcn`` is the process boundary.
 ``cache()`` and a ``do_while``'s loop state stay resident on the workers
 under a token (only the plan and the token cross the driver's socket),
 and a token a gang restart lost is healed by re-running its producing
@@ -291,13 +298,17 @@ def _stable_node_fp(root: E.Node) -> str:
 class Context:
     """Owns the mesh + executor and creates root Datasets."""
 
-    def __init__(self, device="cuda", nparts: int = 8,
+    def __init__(self, device=None, nparts: Optional[int] = None,
                  config: JobConfig | None = None,
                  event_log: Optional[Callable[[dict], None]] = None,
                  spill_dir: Optional[str] = None,
                  local_debug: bool = False,
                  fn_table: Optional[Mapping[str, Any]] = None,
-                 install_trace: bool = True, cluster=None):
+                 install_trace: bool = True, cluster=None, mesh=None):
+        """``device`` (default "cuda") and ``nparts`` (default 8) make a
+        one-axis mesh; a ``mesh`` (``parallel.mesh.make_mesh``) gives
+        both, and a ``device`` or ``nparts`` that contradicts it
+        raises."""
         self.config = config or JobConfig()
         self.local_debug = local_debug
         # names of callables registered for shipping: the analyzer's
@@ -314,16 +325,34 @@ class Context:
             self.executor = None
             # n_processes x devices_per_process (a backend that names no
             # process count is one process)
-            self.nparts = (getattr(cluster, "n_processes", 1)
-                           * cluster.devices_per_process)
+            n_proc = getattr(cluster, "n_processes", 1)
+            self.nparts = n_proc * cluster.devices_per_process
+            # the workers' mesh is (dcn, dp), dcn the process boundary:
+            # the JAX package's levels
+            self.hosts = n_proc
+            self.levels = ("dp", "dcn") if n_proc > 1 else ()
             self._token_seq = 0
             # token -> the plan node that produced it: a gang restart
             # wipes resident state, and a query touching a lost token
             # re-materializes it from this lineage and retries
             self._resident_producers: Dict[str, Any] = {}
         else:
-            self.mesh = Mesh(resolve_device(device), nparts)
-            self.nparts = nparts
+            if mesh is None:
+                mesh = Mesh(resolve_device(device or "cuda"), nparts or 8)
+            elif ((device is not None
+                   and torch.device(device) != torch.device(mesh.device))
+                  or (nparts is not None and nparts != mesh.nparts)):
+                raise ValueError(
+                    f"Context(device={device!r}, nparts={nparts!r}) "
+                    f"contradicts its mesh ({mesh.device}, "
+                    f"{mesh.nparts} partitions)")
+            self.mesh = mesh
+            self.nparts = mesh.nparts
+            # a multi-level mesh plans hierarchical aggregation: one
+            # level per axis, innermost first
+            names = mesh.axis_names
+            self.hosts = mesh.axes[0][1] if len(names) >= 2 else 1
+            self.levels = tuple(reversed(names)) if len(names) >= 2 else ()
             self.executor = Executor(self.mesh, event_log=event_log,
                                      config=self.config)
         # the process span sink is the LATEST Context's log, a log-less
@@ -362,7 +391,8 @@ class Context:
         from dryad_tpu_torch.runtime.cluster import (ClusterJobError,
                                                      WorkerFailure)
         from dryad_tpu_torch.runtime.shiplan import serialize_for_cluster
-        graph = plan_query(node, self.nparts, config=self.config)
+        graph = plan_query(node, self.nparts, hosts=self.hosts,
+                           levels=self.levels, config=self.config)
         if lint:
             self._pre_submit_lint(node, cluster=True, graph=graph)
         plan_json, specs = serialize_for_cluster(graph, self.fn_table)
@@ -763,7 +793,8 @@ class Context:
         cur = init._materialize()
         ph = E.Placeholder(parents=(), name="__loop",
                            _npartitions=self.nparts, capacity=cur.capacity)
-        graph = plan_query(body(Dataset(self, ph)).node, self.nparts)
+        graph = plan_query(body(Dataset(self, ph)).node, self.nparts,
+                           hosts=self.hosts, levels=self.levels)
         # one Run per iteration (its own deferred settle)
         for _ in range(n_iters):
             nxt = self.executor.run(graph, bindings={"__loop": cur})
@@ -1345,14 +1376,15 @@ class Dataset:
         the context's device (``exec/stream_exec.py``); returns the lazy
         output ChunkSource."""
         from dryad_tpu_torch.exec.stream_exec import run_stream_graph
-        graph = plan_query(self.node, 1, config=self.ctx.config)
+        graph = plan_query(self.node, 1, hosts=1, config=self.ctx.config)
         self.ctx._pre_submit_lint(self.node, graph=graph)
         return run_stream_graph(graph, self.ctx.config, self.ctx.device,
                                 spill_dir=self.ctx.spill_dir,
                                 event_log=self.ctx.executor._event)
 
     def plan(self):
-        return plan_query(self.node, self.ctx.nparts, config=self.ctx.config)
+        return plan_query(self.node, self.ctx.nparts, hosts=self.ctx.hosts,
+                          levels=self.ctx.levels, config=self.ctx.config)
 
     def cost(self):
         """The static cost model's report (``analysis.cost.CostReport``)
@@ -1361,6 +1393,7 @@ class Dataset:
         nothing and allocates nothing on the card."""
         from dryad_tpu_torch.analysis.cost import estimate_query
         return estimate_query(self.node, self.ctx.nparts,
+                              hosts=self.ctx.hosts, levels=self.ctx.levels,
                               config=self.ctx.config)
 
     def _run(self):

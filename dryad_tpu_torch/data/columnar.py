@@ -27,9 +27,10 @@ import torch
 
 from dryad_tpu_torch.parallel.mesh import resolve_device
 
-__all__ = ["StringColumn", "Batch", "batch_from_numpy", "batch_to_numpy",
-           "pack_bytes_list", "pack_lines", "unpack_rows",
-           "string_column_from_list"]
+__all__ = ["StringColumn", "Batch", "Schema", "batch_from_numpy",
+           "batch_to_numpy", "pack_bytes_list", "pack_lines", "unpack_rows",
+           "string_column_from_list", "string_column_to_list",
+           "concat_batches"]
 
 
 @dataclasses.dataclass
@@ -46,6 +47,10 @@ class StringColumn:
     @property
     def max_len(self) -> int:
         return self.data.shape[1]
+
+    def gather(self, idx: torch.Tensor) -> "StringColumn":
+        return StringColumn(self.data.index_select(0, idx),
+                            self.lengths.index_select(0, idx))
 
 
 Column = Any  # torch.Tensor | StringColumn
@@ -83,6 +88,12 @@ class Batch:
     def names(self) -> List[str]:
         return list(self.columns)
 
+    def column(self, name: str) -> Column:
+        return self.columns[name]
+
+    def __getitem__(self, name: str) -> Column:
+        return self.columns[name]
+
     def valid_mask(self) -> torch.Tensor:
         """[capacity] bool — True for valid rows."""
         return torch.arange(self.capacity, dtype=torch.int32,
@@ -98,6 +109,13 @@ class Batch:
         cols = dict(self.columns)
         cols.update(new)
         return Batch(cols, self.count)
+
+    def select_columns(self, names: Sequence[str]) -> "Batch":
+        return Batch({n: self.columns[n] for n in names}, self.count)
+
+    def rename(self, mapping: Mapping[str, str]) -> "Batch":
+        return Batch({mapping.get(k, k): v for k, v in self.columns.items()},
+                     self.count)
 
     def with_count(self, count) -> "Batch":
         return Batch(self.columns, torch.as_tensor(count, dtype=torch.int32,
@@ -124,6 +142,38 @@ class Batch:
                      self.count if count is None else
                      torch.as_tensor(count, dtype=torch.int32,
                                      device=self.device))
+
+
+@dataclasses.dataclass(frozen=True)
+class Schema:
+    """Static description of a Batch: column name -> ("str", max_len) or
+    ("dense", torch dtype, trailing shape)."""
+
+    fields: Dict[str, Any]
+
+    @classmethod
+    def of(cls, batch: Batch) -> "Schema":
+        return cls({k: ("str", v.max_len) if isinstance(v, StringColumn)
+                    else ("dense", v.dtype, tuple(v.shape[1:]))
+                    for k, v in batch.columns.items()})
+
+    def empty_batch(self, capacity: int, device="cuda") -> Batch:
+        """An empty Batch (count 0) of ``capacity`` zero rows on
+        ``device``."""
+        device = resolve_device(device)
+        cols: Dict[str, Column] = {}
+        for k, spec in self.fields.items():
+            if spec[0] == "str":
+                cols[k] = StringColumn(
+                    torch.zeros((capacity, spec[1]), dtype=torch.uint8,
+                                device=device),
+                    torch.zeros((capacity,), dtype=torch.int32,
+                                device=device))
+            else:
+                _, dtype, trailing = spec
+                cols[k] = torch.zeros((capacity,) + tuple(trailing),
+                                      dtype=dtype, device=device)
+        return Batch(cols, torch.zeros((), dtype=torch.int32, device=device))
 
 
 # -- host-side packing (numpy) ------------------------------------------------
@@ -201,6 +251,12 @@ def string_column_from_list(strings: Sequence, capacity: int, max_len: int,
                         torch.from_numpy(lens).to(device))
 
 
+def string_column_to_list(col: StringColumn, count: int) -> list:
+    """The first ``count`` rows of a StringColumn as bytes."""
+    return unpack_rows(col.data[:count].cpu().numpy(),
+                       col.lengths[:count].cpu().numpy())
+
+
 def _is_string_list(v, n: int) -> bool:
     return isinstance(v, (list, tuple)) and (
         n == 0 or isinstance(v[0], (str, bytes)))
@@ -238,8 +294,32 @@ def batch_to_numpy(batch: Batch) -> Dict[str, Any]:
     out: Dict[str, Any] = {}
     for k, v in batch.columns.items():
         if isinstance(v, StringColumn):
-            out[k] = unpack_rows(v.data[:n].cpu().numpy(),
-                                 v.lengths[:n].cpu().numpy())
+            out[k] = string_column_to_list(v, n)
         else:
             out[k] = v[:n].cpu().numpy()
     return out
+
+
+def concat_batches(batches: Sequence[Batch], capacity: int | None = None
+                   ) -> Batch:
+    """The valid rows of ``batches``, in order, as one Batch on the first
+    batch's device (a host-side helper: every batch is read back)."""
+    if not batches:
+        raise ValueError("concat_batches of no batches")
+    parts = [batch_to_numpy(b) for b in batches]
+    first = batches[0]
+    total = sum(int(b.count) for b in batches)
+    cap = capacity or max(total, 1)
+    merged: Dict[str, Column] = {}
+    for k in first.names:
+        vals = [p[k] for p in parts]
+        if isinstance(first.columns[k], StringColumn):
+            merged[k] = string_column_from_list(
+                [s for v in vals for s in v], cap, first.columns[k].max_len,
+                first.device)
+        else:
+            arr = np.concatenate(vals, axis=0)
+            pad = [(0, cap - total)] + [(0, 0)] * (arr.ndim - 1)
+            merged[k] = torch.from_numpy(np.pad(arr, pad)).to(first.device)
+    return Batch(merged, torch.tensor(total, dtype=torch.int32,
+                                      device=first.device))

@@ -127,6 +127,7 @@ from dryad_tpu_torch.ops.hopper_kernels import hist_buckets_batched
 from dryad_tpu_torch.ops.text import lower_ascii, split_tokens, \
     tokenize_group_count
 from dryad_tpu_torch.parallel import shuffle
+from dryad_tpu_torch.parallel.mesh import STAGED
 from dryad_tpu_torch.plan.stages import Exchange, Stage, StageGraph, StageOp
 from dryad_tpu_torch.utils.config import JobConfig
 
@@ -589,10 +590,8 @@ def _apply_exchange(parts: List[Batch], ex: Exchange, scale: int,
                     ) -> Tuple[List[Batch], torch.Tensor, torch.Tensor]:
     """Returns (batches, needs[2], slot_used): the exchange's measured
     max send-slot rows (0 for a broadcast), fed back to later runs of the
-    stage."""
-    if ex.axis is not None:
-        raise ValueError(f"exchange over mesh axis {ex.axis!r}: the port's "
-                         f"mesh has one axis, so only global exchanges run")
+    stage.  A hash exchange with ``axis`` set moves rows over that mesh
+    axis only (``shuffle.hash_exchange``)."""
     cap = ex.out_capacity * scale
     slot = torch.zeros((), dtype=torch.int32, device=parts[0].device)
     if ex.kind == "hash":
@@ -600,7 +599,7 @@ def _apply_exchange(parts: List[Batch], ex: Exchange, scale: int,
         keys = list(ex.keys) or sorted(parts[0].names)
         out, nr, nsl, slot = shuffle.hash_exchange(
             parts, keys, cap, send_slack=slack, slot_rows=slot_rows,
-            mesh=mesh)
+            mesh=mesh, axis=ex.axis)
     elif ex.kind == "range":
         out, nr, nsl, slot = shuffle.range_exchange(
             parts, ex.bounds_key, bounds, cap, descending=ex.descending,
@@ -670,20 +669,25 @@ class Executor:
             setattr(self, name, getattr(self, name) + 1)
 
     def _probe_slot_rows(self, pd: PData, keys, slack: int,
-                         run) -> int:
+                         run, axis: Optional[str] = None) -> int:
         """Counts-only pre-hop of a first-wave pure hash exchange: every
         partition's destination counts in ONE batched ``hist_buckets``
         over the [P, cap] destinations, their max, one scalar read.  The
         exchange then ships the measured slot instead of the structural
         slack.  Quantized up to C_struct / 16 rows (at least 16), where
-        C_struct = ceil(slack * cap / P); cached by the input's live
+        C_struct = ceil(slack * cap / D), D the destinations a source
+        reaches (P; an ``axis`` exchange's axis size, whose destination
+        is the row's coordinate on the axis); cached by the input's live
         tensors, so probing the same data again reads nothing."""
         b0 = pd.batch
         cap, D = pd.capacity, self.nparts
         Ploc = pd.nparts
+        radix = 1
+        if axis is not None:
+            radix, D = self.mesh.axis_radix(axis), self.mesh.axis_size(axis)
         # the same live tensors (ids whose objects are all still alive)
         leaves = _leaves(b0)
-        rkey = (tuple(keys), slack, tuple(id(x) for x in leaves))
+        rkey = (tuple(keys), slack, axis, tuple(id(x) for x in leaves))
         with self._cache_lock:
             hit = self._slot_probe_cache.get(rkey)
             if hit is not None:
@@ -698,7 +702,7 @@ class Executor:
         lo = hash_batch_keys(flat, keys)[1].reshape(Ploc, cap)
         valid = (torch.arange(cap, device=lo.device)[None, :]
                  < b0.count[:, None])
-        dest = torch.where(valid, (lo % D).to(torch.int32), D)
+        dest = torch.where(valid, (lo // radix % D).to(torch.int32), D)
         # the one read (of the gang's max, on a gang)
         slot = int(self.mesh.all_reduce_max(
             hist_buckets_batched(dest, D).max()))
@@ -736,8 +740,9 @@ class Executor:
 
         1. "feedback": the slot this leg's exchange measured in an earlier
            attempt or run of the same stage (any hash or range leg);
-        2. "probe": ``_probe_slot_rows`` for a pure hash leg (no ops)
-           whose input holds at least ``exchange_probe_min_mb`` MB;
+        2. "probe": ``_probe_slot_rows`` for a pure hash leg (no ops;
+           over its mesh axis, if any) whose input holds at least
+           ``exchange_probe_min_mb`` MB;
         3. "slack": None, the structural ceil(slack * cap / P).
 
         A salted attempt, one partition, or ``exchange_probe_min_mb < 0``
@@ -762,7 +767,7 @@ class Executor:
                   >= thresh):
                 keys = list(ex.keys) or sorted(inp.batch.names)
                 hints.append((self._probe_slot_rows(inp, keys, slack,
-                                                    run), "probe"))
+                                                    run, ex.axis), "probe"))
             else:
                 hints.append((None, "slack"))
         return hints
@@ -883,8 +888,10 @@ class Executor:
                     continue
                 rows, source = hints[i]
                 if source is not None:
+                    ex = leg.exchange
+                    fan = self.mesh.axis_size(ex.axis) if ex.axis else P
                     shipped.append((shuffle.send_slot_rows(
-                        legs[i][0].capacity, P, slack, rows), source))
+                        legs[i][0].capacity, fan, slack, rows), source))
                 legs[i], nd, slots[i] = _apply_exchange(
                     legs[i], leg.exchange, scale, slack, bounds, rows,
                     self.mesh)
@@ -956,7 +963,7 @@ class Executor:
 
     @staticmethod
     def _log_attempt(run, stage: Stage, shipped, salted: bool,
-                     probes: int, job) -> None:
+                     probes: int, job, staged: int = 0) -> None:
         """Fold one attempt into the stage's entry of ``run.stage_log``
         (made at its first attempt of the current Run.output())."""
         ent = run._log_at.get(stage.id)
@@ -978,6 +985,9 @@ class Executor:
                    "slot_rows": [], "slot_source": [],
                    # slot probes run (one hist_buckets launch each)
                    "probes": 0, "recv_rows": [],
+                   # per attempt, the bytes its probes and exchanges
+                   # staged across a gang's processes (0 in one process)
+                   "staged_bytes": [],
                    # the deferred settle dropped and re-ran this stage
                    # (it overflowed, or an input of it did)
                    "settle_replayed": False, "job": job}
@@ -988,6 +998,7 @@ class Executor:
         ent["slot_rows"].append([c for c, _ in shipped])
         ent["slot_source"].append([src for _, src in shipped])
         ent["probes"] += probes
+        ent["staged_bytes"].append(staged)
 
     def _log_settled(self, run, stage: Stage, scale: int, slack: int,
                      salted: bool, info: List[int]) -> None:
@@ -1057,12 +1068,14 @@ class Executor:
         for attempt in range(retries + 1):
             probes = run.probes_run
             c0 = _build.compile_seconds()
+            staged0 = STAGED["bytes"]
             t0 = time.perf_counter()
             hints = self._slot_hints(stage, inputs, slack, salted, run)
             out, info, shipped = self._run_once(stage, inputs, scale, slack,
                                                 bounds, salted, hints)
             self._log_attempt(run, stage, shipped, salted,
-                              run.probes_run - probes, run.job)
+                              run.probes_run - probes, run.job,
+                              STAGED["bytes"] - staged0)
             compile_s = round(_build.compile_seconds() - c0, 4)
             # the gang's ranks hold equal shapes: world x one rank's bytes
             nbytes = _out_bytes(out) * self.mesh.world

@@ -125,7 +125,8 @@ def _run_statement(ctx, catalog: Catalog, bound: BoundSelect,
     from dryad_tpu_torch.plan.planner import plan_query
     from dryad_tpu_torch.sql.lower import lower
     ds, _handles = lower(ctx, catalog, bound)
-    graph = plan_query(ds.node, ctx.nparts, config=ctx.config)
+    graph = plan_query(ds.node, ctx.nparts, hosts=ctx.hosts,
+                       levels=ctx.levels, config=ctx.config)
     pd = ctx.executor.run(graph, event_log=event, job=job)
     return pdata_to_host(maybe_shrink_for_collect(pd, ctx.config))
 

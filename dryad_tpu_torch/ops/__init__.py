@@ -1,1 +1,10 @@
-"""ops layer of the PyTorch port (see the package docstring)."""
+"""ops layer of the PyTorch port (see the package docstring).
+
+The names that the JAX package's ``ops`` exports are re-exported
+here lazily (``dryad_tpu_torch/_lazy.py``)."""
+
+from dryad_tpu_torch._lazy import lazy_exports
+
+__getattr__, __dir__, __all__ = lazy_exports(__name__, {
+    "dryad_tpu_torch.ops": ("hashing", "kernels", "text",),
+})

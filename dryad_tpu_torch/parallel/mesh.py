@@ -21,6 +21,17 @@ processes on one card, where NCCL cannot place two ranks.  On a
 one-process mesh (``world == 1``) every collective returns its input:
 no copy, no launch, no host sync.
 
+The partitions carry named axes, outermost first, as the JAX package's
+device meshes do: ``("dp",)``, ``("dcn", "dp")`` or ``("dcn", "host",
+"dp")`` (``make_mesh``).  A partition's index is mixed-radix over the
+axes, innermost least significant: partition = dcn_index * |dp| +
+dp_index on ``(dcn, dp)``.  The axes name the levels of the
+hierarchical aggregation (``plan/planner.py``: one combine stage per
+axis, innermost first) and the axis of each of its exchanges
+(``shuffle.hash_exchange(axis=)``).  On a gang the outermost axis is
+``dcn`` and its index is the rank: the ``dp`` axis stays inside a
+process.
+
 ``STAGED`` counts the staged collectives of this process: their number,
 the bytes each moved, the host syncs (one a collective: its
 device-to-host read), and the seconds of the device-to-host copy, the
@@ -32,12 +43,18 @@ host-to-device copy is timed as enqueued).
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
-__all__ = ["Mesh", "resolve_device", "STAGED"]
+__all__ = ["PARTITION_AXIS", "MID_AXIS", "HOST_AXIS", "Mesh", "make_mesh",
+           "mesh_axes", "axis_sizes", "resolve_device", "STAGED"]
+
+PARTITION_AXIS = "dp"
+MID_AXIS = "host"
+HOST_AXIS = "dcn"
 
 # this process's staged-collective totals (see the module docstring)
 STAGED: Dict[str, float] = dict(collectives=0, host_syncs=0, bytes=0,
@@ -59,18 +76,55 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def make_mesh(device="cuda", n: int = 8, hosts: int | None = None,
+              pods: int | None = None) -> "Mesh":
+    """``n`` logical partitions on ``device`` (CUDA unless the caller asks
+    for the CPU), as the JAX package's ``make_mesh`` lays its devices
+    out: ``(dp,)``; with ``hosts`` > 1, ``(dcn, dp)`` — ``hosts`` rows of
+    ``n / hosts`` partitions; with ``pods`` > 1 too, ``(dcn, host, dp)``
+    — ``pods`` x ``hosts`` x ``n / (pods * hosts)``."""
+    dev = resolve_device(device)
+    if pods and pods > 1:
+        if not hosts or hosts < 1:
+            raise ValueError("pods > 1 needs hosts (hosts per pod)")
+        if n % (pods * hosts):
+            raise ValueError(f"{n} devices not divisible by "
+                             f"{pods} pods x {hosts} hosts")
+        return Mesh(dev, n, axes=((HOST_AXIS, pods), (MID_AXIS, hosts),
+                                  (PARTITION_AXIS, n // (pods * hosts))))
+    if hosts and hosts > 1:
+        if n % hosts:
+            raise ValueError(f"{n} devices not divisible by {hosts} hosts")
+        return Mesh(dev, n, axes=((HOST_AXIS, hosts),
+                                  (PARTITION_AXIS, n // hosts)))
+    return Mesh(dev, n)
+
+
+def mesh_axes(mesh: "Mesh") -> tuple:
+    """All partition axes of the mesh, outermost first."""
+    return mesh.axis_names
+
+
+def axis_sizes(mesh: "Mesh") -> dict:
+    return dict(mesh.axes)
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """``nparts`` logical partitions over ``world`` processes, this one
     being ``rank`` and holding ``local_nparts`` of them on ``device``.
     ``group`` is the gang's ``torch.distributed`` process group (None:
-    the default group)."""
+    the default group).  ``axes`` names the partition axes with their
+    sizes, outermost first (default: ``(("dp", nparts),)`` in one
+    process, ``(("dcn", world), ("dp", local_nparts))`` on a gang); a
+    gang's outermost axis is ``("dcn", world)``."""
 
     device: torch.device
     nparts: int
     rank: int = 0
     world: int = 1
     group: Any = dataclasses.field(default=None, compare=False)
+    axes: Tuple[Tuple[str, int], ...] = ()
 
     def __post_init__(self):
         if self.nparts < 1:
@@ -78,6 +132,39 @@ class Mesh:
         if not 0 <= self.rank < self.world or self.nparts % self.world:
             raise ValueError(f"rank {self.rank} of world {self.world} "
                              f"cannot hold {self.nparts} partitions")
+        axes = tuple((str(n), int(z)) for n, z in self.axes) or (
+            ((PARTITION_AXIS, self.nparts),) if self.world == 1 else
+            ((HOST_AXIS, self.world),
+             (PARTITION_AXIS, self.nparts // self.world)))
+        object.__setattr__(self, "axes", axes)
+        names = [n for n, _ in axes]
+        if len(set(names)) != len(names) or math.prod(
+                z for _, z in axes) != self.nparts:
+            raise ValueError(f"mesh axes {axes} do not make "
+                             f"{self.nparts} partitions")
+        if self.world > 1 and axes[0] != (HOST_AXIS, self.world):
+            raise ValueError(f"a gang mesh's outermost axis is "
+                             f"({HOST_AXIS!r}, {self.world}), not "
+                             f"{axes[0]}")
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        """The partition axes, outermost first."""
+        return tuple(n for n, _ in self.axes)
+
+    def axis_size(self, axis: str) -> int:
+        return dict(self.axes)[axis]
+
+    def axis_radix(self, axis: str) -> int:
+        """The product of the sizes of the axes inside ``axis``: a
+        partition's coordinate on it is ``(index // radix) % size``."""
+        radix = 1
+        for n, z in reversed(self.axes):
+            if n == axis:
+                return radix
+            radix *= z
+        raise ValueError(f"mesh has no axis {axis!r} (axes "
+                         f"{self.axis_names})")
 
     @property
     def local_nparts(self) -> int:

@@ -23,7 +23,15 @@ an exchange takes the list of per-partition Batches:
   unpacked into columns once; each destination's Batch holds views [d]
   of them.
 
-A hash exchange sends row r to lo(hash(keys[r])) % P; a range exchange
+A hash exchange sends row r to lo(hash(keys[r])) % P, which on a mesh
+of several axes is the JAX package's mixed-radix destination, so its one
+hop puts every row where the JAX package's hop per axis does.  With
+``axis`` set (the hierarchical aggregation's combine stages) it changes
+only the row's coordinate on that mesh axis, to (lo // radix) % size,
+keeping its others: on one card that is the same exchange to another
+destination; on a gang the ``dp`` hop stays inside each worker (no row
+crosses a process) and the ``dcn`` hop, whose coordinate is the rank,
+is the only one with a cross-process all_to_all.  A range exchange
 to the partition whose sampled split points bracket the row's first sort
 lane (``range_exchange``).  A broadcast (``broadcast_gather``) gives
 every partition all partitions' valid rows: the JAX package's
@@ -83,7 +91,8 @@ def send_slot_rows(cap: int, D: int, send_slack: int,
 
 def exchange_by_dest(parts: List[Batch], dests: List[torch.Tensor],
                      out_capacity: int, send_slack: int = 2,
-                     slot_rows: int | None = None, mesh=None
+                     slot_rows: int | None = None, mesh=None,
+                     fanout: int | None = None
                      ) -> Tuple[List[Batch], torch.Tensor, torch.Tensor,
                                 torch.Tensor]:
     """Send each valid row of partition p to partition ``dests[p][row]``
@@ -108,18 +117,38 @@ def exchange_by_dest(parts: List[Batch], dests: List[torch.Tensor],
     blocks in global source order, and ONE ``slot_compact`` unpacks it:
     every row lands where the one-process exchange puts it.  The NEEDs
     are then this rank's; the executor's all-reduce (max) of its info
-    vector makes them the gang's."""
+    vector makes them the gang's.
+
+    ``fanout`` is the number of destinations a source can reach (an axis
+    exchange's axis size; default all of them): the send slots and the
+    slack need are sized by it, as the JAX package sizes a hop by its
+    axis."""
     S = len(parts)
     gang = mesh is not None and mesh.gang
     D = mesh.nparts if gang else S
+    fan = fanout or D
     cap = parts[0].capacity
-    C = send_slot_rows(cap, D, send_slack, slot_rows)
+    C = send_slot_rows(cap, fan, send_slack, slot_rows)
+    # the all_to_all: block (d, p) lands at recv[d, p*C:(p+1)*C]
+    recv, counts_m, spec = _pack(parts, dests, D, C)   # [dst, src*C, W]
+    if gang:
+        recv, counts_in = _cross_exchange(recv, counts_m, C, mesh)
+    else:
+        counts_in = counts_m.t()                           # [dst, src]
+    return _unpack(recv, counts_in, counts_m, C, out_capacity, fan, cap,
+                   spec)
 
+
+def _pack(parts: List[Batch], dests: List[torch.Tensor], D: int, C: int):
+    """The pack side of an exchange to ``D`` destinations: (the send grid
+    [D, S*C, W] whose block (d, p) holds partition p's rows for d, the
+    counts [S, D], the packed columns' spec)."""
+    S = len(parts)
+    cap = parts[0].capacity
     # invalid rows go to the sentinel bucket D, which nothing counts
     dest = torch.stack([torch.where(b.valid_mask(), d.to(torch.int32), D)
                         for b, d in zip(parts, dests)])      # [S, cap]
     packed = [_pack_columns_u32(b.columns) for b in parts]
-    spec = packed[0][1]
     with record_function("dryad.exchange.pack"):
         counts_m = hist_buckets_batched(dest, D)             # [src, dst]
         # exclusive offsets of every row from one scan: the flat
@@ -132,26 +161,56 @@ def exchange_by_dest(parts: List[Batch], dests: List[torch.Tensor],
                             dtype=torch.int32, device=dest.device)
         for p, (w, _spec) in enumerate(packed):
             torch.index_select(w, 0, order[p], out=words[p])
-        # the all_to_all: block (d, p) lands at recv[d, p*C:(p+1)*C]
-        recv = slot_expand_batched(words, offsets, C)      # [dst, src*C, W]
-    if gang:
-        recv, counts_in = _cross_exchange(recv, counts_m, C, mesh)
-    else:
-        counts_in = counts_m.t()                           # [dst, src]
+        grid = slot_expand_batched(words, offsets, C)
+    return grid, counts_m, packed[0][1]
+
+
+def _unpack(recv: torch.Tensor, counts_in: torch.Tensor,
+            counts_m: torch.Tensor, C: int, out_capacity: int, fan: int,
+            cap: int, spec) -> Tuple[List[Batch], torch.Tensor,
+                                     torch.Tensor, torch.Tensor]:
+    """The unpack side: the valid prefix of every source block of
+    ``recv`` [Dd, S*C, W] (``counts_in`` [Dd, S] unclamped) in ONE
+    ``slot_compact``, and the NEEDs measured before truncation, so they
+    are exact even when this run dropped rows (``counts_m``: what this
+    process sent from partitions of capacity ``cap``, ``fan``
+    destinations a source)."""
     recv_counts = torch.clamp(counts_in, max=C).contiguous()
     totals = recv_counts.sum(dim=1, dtype=torch.int32)
-
     out = _unpack_dests(slot_compact_batched(recv, recv_counts, C,
                                              out_capacity), spec,
                         torch.clamp(totals, max=out_capacity))
-
-    # measured requirements, pre-truncation so they are exact even when
-    # this run dropped rows
     max_total = counts_in.sum(dim=1).max().to(torch.int32)
     need_recv = torch.where(max_total > out_capacity, max_total, 0)
     max_cnt = counts_m.max().to(torch.int32)
-    need_slack = torch.where(max_cnt > C, -(-max_cnt * D // cap), 0)
+    need_slack = torch.where(max_cnt > C, -(-max_cnt * fan // cap), 0)
     return out, need_recv, need_slack.to(torch.int32), max_cnt
+
+
+def _rank_exchange(parts: List[Batch], ranks: List[torch.Tensor],
+                   out_capacity: int, send_slack: int,
+                   slot_rows: int | None, mesh
+                   ) -> Tuple[List[Batch], torch.Tensor, torch.Tensor,
+                              torch.Tensor]:
+    """The ``dcn`` hop on a gang: local partition l's row goes to rank
+    ``ranks[l][row]``, to ITS local partition l (the row keeps its inner
+    coordinates).  The pack kernels see R destinations a source: counts
+    [L, R], a grid [R, L*C, W] holding each destination rank's blocks
+    contiguously; ONE host-staged all_to_all sends every rank its blocks
+    and counts, and destination l's received blocks, one per source
+    rank, are in global source order, so ONE ``slot_compact`` unpacks
+    them as the one-card axis exchange does."""
+    L, R = len(parts), mesh.world
+    cap = parts[0].capacity
+    C = send_slot_rows(cap, R, send_slack, slot_rows)
+    grid, counts_m, spec = _pack(parts, ranks, R, C)
+    n_words = grid[0].numel()
+    got = mesh.all_to_all(torch.cat([grid.view(R, n_words),
+                                     counts_m.t().contiguous()], 1))
+    recv = got[:, :n_words].reshape(R, L, C, grid.shape[2]) \
+        .permute(1, 0, 2, 3).contiguous().view(L, R * C, grid.shape[2])
+    counts_in = got[:, n_words:].t()                     # [l dst, src rank]
+    return _unpack(recv, counts_in, counts_m, C, out_capacity, R, cap, spec)
 
 
 def _cross_exchange(grid: torch.Tensor, counts_m: torch.Tensor, C: int,
@@ -196,14 +255,41 @@ def _nparts(parts: List[Batch], mesh) -> int:
 
 def hash_exchange(parts: List[Batch], keys: Sequence[str],
                   out_capacity: int, send_slack: int = 2,
-                  slot_rows: int | None = None, mesh=None):
+                  slot_rows: int | None = None, mesh=None,
+                  axis: str | None = None):
     """Repartition rows by key hash (HashPartition / shuffle for GroupBy):
-    row r goes to partition lo(hash(keys[r])) % P."""
-    D = _nparts(parts, mesh)
-    dests = [_canonical_hash_dest(hash_batch_keys(b, keys)[1], D)
-             for b in parts]
+    row r goes to partition lo(hash(keys[r])) % P.
+
+    With ``axis`` set, the exchange touches only that axis of ``mesh``
+    (the hierarchical aggregation's hops): the row keeps its source
+    partition's coordinates on the other axes and takes
+    (lo // radix) % size on this one, the same mixed-radix key -> place
+    mapping as the global form, so the last hop leaves each key where
+    the global exchange puts it."""
+    if axis is None:
+        D = _nparts(parts, mesh)
+        dests = [_canonical_hash_dest(hash_batch_keys(b, keys)[1], D)
+                 for b in parts]
+        return exchange_by_dest(parts, dests, out_capacity, send_slack,
+                                slot_rows, mesh=mesh)
+    if mesh is None or axis not in mesh.axis_names:
+        raise ValueError(f"exchange over axis {axis!r}: the mesh has axes "
+                         f"{mesh.axis_names if mesh is not None else ()}")
+    radix, size = mesh.axis_radix(axis), mesh.axis_size(axis)
+    coords = [(hash_batch_keys(b, keys)[1] // radix) % size for b in parts]
+    if mesh.gang and axis == mesh.axis_names[0]:
+        # the dcn coordinate is the rank
+        return _rank_exchange(parts, coords, out_capacity, send_slack,
+                              slot_rows, mesh)
+    # an inner axis stays inside this process: partition q's row goes to
+    # q with its coordinate on ``axis`` replaced (local indices on a gang)
+    dests = []
+    for q, c in enumerate(coords):
+        g = q + mesh.part_start
+        dests.append(g - (g // radix) % size * radix + c * radix
+                     - mesh.part_start)
     return exchange_by_dest(parts, dests, out_capacity, send_slack,
-                            slot_rows, mesh=mesh)
+                            slot_rows, fanout=size)
 
 
 def range_dest_lane(col) -> torch.Tensor:

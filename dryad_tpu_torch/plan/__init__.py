@@ -1,1 +1,12 @@
-"""plan layer of the PyTorch port (see the package docstring)."""
+"""plan layer of the PyTorch port (see the package docstring).
+
+The names that the JAX package's ``plan`` exports are re-exported
+here lazily (``dryad_tpu_torch/_lazy.py``)."""
+
+from dryad_tpu_torch._lazy import lazy_exports
+
+__getattr__, __dir__, __all__ = lazy_exports(__name__, {
+    "dryad_tpu_torch.plan": ("expr",),
+    "dryad_tpu_torch.plan.planner": ("plan_query",),
+    "dryad_tpu_torch.plan.stages": ("StageGraph",),
+})

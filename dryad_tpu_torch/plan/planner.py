@@ -128,8 +128,15 @@ def _has_user_decs(aggs: Dict[str, Any]) -> bool:
 
 
 class Planner:
-    def __init__(self, npartitions: int, config=None):
+    def __init__(self, npartitions: int, hosts: int = 1, config=None,
+                 levels: tuple = ()):
         self.nparts = npartitions
+        self.hosts = hosts  # > 1: a multi-level mesh, hierarchical aggs
+        # the hierarchy's axes, innermost first ("dp", ["host",] "dcn"):
+        # one combine stage per level (the reference's machine -> pod ->
+        # overall aggregation trees); the two-level default is dp -> dcn
+        self.levels = tuple(levels) or (("dp", "dcn") if hosts > 1
+                                        else ())
         self.config = config
         self.stages: List[Stage] = []
         self.frags: Dict[int, Fragment] = {}
@@ -218,12 +225,33 @@ class Planner:
             return f
         f.ops.append(StageOp("dgroup_partial", {"keys": keys, "decs": decs,
                                                 "box": box}))
+        if self.levels:
+            return self._combine_levels(f, keys, "dgroupby", lambda last: [
+                StageOp("dgroup_merge", {"keys": keys, "decs": decs,
+                                         "box": box, "finalize": last})])
         ex = Exchange("hash", keys=keys, out_capacity=f.capacity)
         st = self._new_stage(
             [Leg(f.src, f.ops, ex)],
             [StageOp("dgroup_merge", {"keys": keys, "decs": decs,
                                       "box": box, "finalize": True})],
             "dgroupby")
+        return Fragment(st.id, [], f.capacity, E.Partitioning("hash", keys))
+
+    def _combine_levels(self, f: Fragment, keys: Tuple[str, ...],
+                        prefix: str, body_of) -> Fragment:
+        """Hierarchical aggregation over the mesh axes (the reference's
+        machine -> pod -> overall trees): one combine stage per level,
+        innermost first, each exchanging over its own axis, so each
+        scarcer level carries one partial per (level, key);
+        ``body_of(last)`` is a level's body, the last one finalizing."""
+        src, ops = f.src, f.ops
+        for i, ax in enumerate(self.levels):
+            ex = Exchange("hash", keys=keys, out_capacity=f.capacity,
+                          axis=ax)
+            st = self._new_stage([Leg(src, ops, ex)],
+                                 body_of(i == len(self.levels) - 1),
+                                 f"{prefix}-{ax}")
+            src, ops = st.id, []
         return Fragment(st.id, [], f.capacity, E.Partitioning("hash", keys))
 
     def _frag(self, n: E.Node) -> Fragment:
@@ -323,6 +351,11 @@ class Planner:
                 return f
             partial, final, mean_cols = _decompose_aggs(n.aggs)
             f.ops.append(StageOp("group", {"keys": keys, "aggs": partial}))
+            if self.levels:
+                return self._combine_levels(f, keys, "groupby", lambda last: [
+                    StageOp("group", {"keys": keys, "aggs": final})] + (
+                    [StageOp("mean_fin", {"cols": mean_cols})]
+                    if last and mean_cols else []))
             ex = Exchange("hash", keys=keys, out_capacity=f.capacity)
             body = [StageOp("group", {"keys": keys, "aggs": final})]
             if mean_cols:
@@ -592,5 +625,7 @@ class Planner:
                         else E.Partitioning.none())
 
 
-def plan_query(root: E.Node, npartitions: int, config=None) -> StageGraph:
-    return Planner(npartitions, config=config).plan(root)
+def plan_query(root: E.Node, npartitions: int, hosts: int = 1,
+               config=None, levels: tuple = ()) -> StageGraph:
+    return Planner(npartitions, hosts=hosts, config=config,
+                   levels=levels).plan(root)

@@ -37,8 +37,8 @@ class Exchange:
     overflow.  A range exchange splits on bounds sampled from stage
     ``bounds_from``'s output column ``bounds_key``; ``descending``
     reverses the partition order.  ``axis`` names one mesh axis of a
-    multi-level mesh (a hierarchical aggregation hop); the port's
-    one-axis mesh runs only ``axis=None``, the global exchange."""
+    multi-level mesh (a hierarchical aggregation hop); None is the global
+    exchange over every axis."""
 
     kind: str
     keys: tuple = ()
@@ -119,7 +119,8 @@ class Stage:
                 return "-"
             return (f"{ex.kind}[{','.join(ex.keys)}]cap{ex.out_capacity}"
                     f"{'desc' if ex.descending else ''}"
-                    f"{ex.bounds_key or ''}")
+                    f"{ex.bounds_key or ''}"
+                    f"{'@' + ex.axis if ex.axis else ''}")
 
         legs = ";".join(
             ",".join(op_fp(o) for o in leg.ops) + "=>" + ex_fp(leg.exchange)

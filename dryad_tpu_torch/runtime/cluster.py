@@ -592,7 +592,8 @@ class LocalCluster(ClusterBackend):
                 self.event_log(dict(e, worker=0))
         reply0 = dict(replies.get(0, {}))
         reply0["workers"] = {pid: {k: r.get(k) for k in (
-            "launches", "staged", "stage_log", "stream", "compile_s")}
+            "launches", "staged", "stage_log", "stream", "compile_s",
+            "graph_rewrites")}
             for pid, r in replies.items()}
         if collect and collect != "count":
             # the parallel collect: each column's parts joined once

@@ -40,14 +40,6 @@ def _gang_executor(mesh, config=None):
     return ex
 
 
-def _refuse_unported(config) -> None:
-    if config is not None and config.adaptive == "on":
-        raise ValueError(
-            "JobConfig(adaptive='on') on a gang needs the gang-wide "
-            "StageStats of the hierarchical aggregation, ROADMAP Queue 1 "
-            "item 11b.7")
-
-
 def execute_plan(plan_json: str, fn_table: Dict[str, Callable],
                  source_specs: Dict[str, Dict[str, Any]], mesh,
                  event_log: Optional[Callable[[dict], None]] = None,
@@ -82,7 +74,6 @@ def execute_plan(plan_json: str, fn_table: Dict[str, Callable],
     from dryad_tpu_torch.runtime.stream_plan import (execute_stream_plan,
                                                      has_stream_sources)
 
-    _refuse_unported(config)
     if has_stream_sources(source_specs):
         # sources larger than the card: the SAME plan runs as chunk waves
         # and per-partition bucket streams (runtime/stream_plan.py) — one

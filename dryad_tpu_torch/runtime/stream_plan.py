@@ -207,7 +207,7 @@ def _wave(parts: List[Any], leg_ops: List[StageOp], ex: Exchange,
         keys = list(ex.keys) or sorted(fused[0].names)
         out, nr, nsl, slot = shuffle.hash_exchange(
             fused, keys, out_cap, send_slack=slack, slot_rows=slot_rows,
-            mesh=mesh)
+            mesh=mesh, axis=ex.axis)
     elif ex.kind == "range":
         out, nr, nsl, slot = shuffle.range_exchange(
             fused, ex.bounds_key or ex.keys[0], bounds, out_cap,

@@ -115,16 +115,19 @@ def _tag_missing_token(reply: dict, exc: BaseException) -> None:
 def _join_gang(args, device):
     """The gang mesh: this worker's ``--devices-per-process`` partitions
     of the gang's ``--num-processes`` x that, in a gloo process group
-    rendezvoused at the driver's ``--coordinator`` port."""
-    from dryad_tpu_torch.parallel.mesh import Mesh
-    world = args.num_processes
+    rendezvoused at the driver's ``--coordinator`` port.  Its axes are
+    ``(dcn, dp)``: the process boundary is ``dcn`` (the rank), the
+    worker's own partitions ``dp``; one process is ``(dp,)``."""
+    from dryad_tpu_torch.parallel.mesh import HOST_AXIS, PARTITION_AXIS, Mesh
+    world, dpp = args.num_processes, args.devices_per_process
     if world > 1:
         import torch.distributed as dist
         dist.init_process_group(
             "gloo", init_method=f"tcp://{args.coordinator}",
             rank=args.process_id, world_size=world)
-    return Mesh(device, args.devices_per_process * world,
-                rank=args.process_id, world=world)
+    return Mesh(device, dpp * world, rank=args.process_id, world=world,
+                axes=((HOST_AXIS, world), (PARTITION_AXIS, dpp))
+                if world > 1 else ())
 
 
 def main(argv=None) -> int:

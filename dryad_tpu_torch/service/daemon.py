@@ -584,7 +584,8 @@ class JobService:
         from dryad_tpu_torch.runtime.shiplan import serialize_for_cluster
         ctx = self._cluster_context()
         ds, _handles = _sql.lower(ctx, self.catalog, bound)
-        graph = plan_query(ds.node, self.nparts, config=self.job_config)
+        graph = plan_query(ds.node, self.nparts, hosts=1,
+                           config=self.job_config)
         ctx._pre_submit_lint(ds.node, cluster=True, graph=graph)
         plan_json, specs = serialize_for_cluster(graph, ctx.fn_table)
         try:
@@ -632,7 +633,8 @@ class JobService:
             ctx = self._context()
             ds, handles = _sql.lower(ctx, self.catalog, bound,
                                      loader=self._load_table)
-            graph = plan_query(ds.node, ctx.nparts, config=self.job_config)
+            graph = plan_query(ds.node, ctx.nparts, hosts=ctx.hosts,
+                               levels=ctx.levels, config=self.job_config)
             cost_rep = ctx._pre_submit_lint(ds.node, cluster=False,
                                             graph=graph)
             limit = bound.limit
@@ -708,7 +710,8 @@ class JobService:
             ctx = self._cluster_context()
             q = service_app.build_query(ctx, tasks[0], params,
                                         capacity=cap)
-            graph = plan_query(q.node, self.nparts, config=self.job_config)
+            graph = plan_query(q.node, self.nparts, hosts=1,
+                               config=self.job_config)
             ctx._pre_submit_lint(q.node, cluster=True, graph=graph)
             plan_json, specs = serialize_for_cluster(graph, ctx.fn_table)
             (src_key,) = specs.keys()
@@ -733,7 +736,8 @@ class JobService:
         cols = {k: [x for t in tasks for x in t[k]] for k in tasks[0]}
         ctx = self._context()
         q = service_app.build_query(ctx, cols, params)
-        graph = plan_query(q.node, ctx.nparts, config=self.job_config)
+        graph = plan_query(q.node, ctx.nparts, hosts=ctx.hosts,
+                           levels=ctx.levels, config=self.job_config)
         cost_rep = ctx._pre_submit_lint(q.node, cluster=False,
                                         graph=graph)
 

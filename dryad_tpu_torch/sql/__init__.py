@@ -131,7 +131,7 @@ def _offline_graph(catalog: Catalog, text: str, nparts: int,
     _mode, bound = compile_query(catalog, text, origin=origin)
     ctx = SchemaContext(nparts=nparts)
     ds, _ = lower(ctx, catalog, bound)
-    return plan_query(ds.node, nparts, config=ctx.config), bound
+    return plan_query(ds.node, nparts, hosts=1, config=ctx.config), bound
 
 
 def offline_explain(catalog: Catalog, text: str, nparts: int = 8,

@@ -77,7 +77,7 @@ class _Session:
             # no device)
             sctx = SchemaContext(nparts=self.nparts)
             ds, _ = lower(sctx, self.catalog, bound)
-            print(plan_query(ds.node, self.nparts,
+            print(plan_query(ds.node, self.nparts, hosts=1,
                              config=sctx.config).explain())
             return 0
         # cost needs real source statistics -> a real Context; ANALYZE

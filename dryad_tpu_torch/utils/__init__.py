@@ -1,1 +1,10 @@
-"""utils layer of the PyTorch port (see the package docstring)."""
+"""utils layer of the PyTorch port (see the package docstring).
+
+The names that the JAX package's ``utils`` exports are re-exported
+here lazily (``dryad_tpu_torch/_lazy.py``)."""
+
+from dryad_tpu_torch._lazy import lazy_exports
+
+__getattr__, __dir__, __all__ = lazy_exports(__name__, {
+    "dryad_tpu_torch.utils.events": ("EventLog", "job_report",),
+})

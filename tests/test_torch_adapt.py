@@ -280,12 +280,16 @@ def test_shrink_capacity_grid():
 
 
 def test_agg_tree_declines_on_the_ports_mesh(devices8):
-    """The port's Mesh is one axis: ``levels_of_mesh`` gives (), so the
-    expansion finds no second level and a flat plan has no merge chain
-    to collapse: the rule declines at any size."""
+    """A one-axis mesh (the Context's default): ``levels_of_mesh`` gives
+    its one level, as the JAX package's does for its one-axis mesh, so
+    the expansion finds no second level and a flat plan has no merge
+    chain to collapse: the rule declines at any size.  (The multi-axis
+    meshes, where it fires: ``tests/test_torch_mesh.py``.)"""
+    from dryad_tpu.parallel.mesh import make_mesh as jmake_mesh
     ctx = TContext(device="cpu", nparts=P)
     levels = tmanager.levels_of_mesh(ctx.mesh)
-    assert levels == ()
+    assert levels == (("dp", P),) == jmanager.levels_of_mesh(
+        jmake_mesh(devices8))
     g = _flat_merge(T)
     before = _snapshot(T, g)
     for rows in ((1,) * 8, (1 << 18,) * 8):

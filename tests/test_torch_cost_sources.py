@@ -16,7 +16,7 @@ sys.path.insert(0, HERE)
 from dryad_tpu.analysis import cost as jcost  # noqa: E402
 from dryad_tpu.runtime.sources import DeferredSource as JDeferred  # noqa: E402
 from dryad_tpu.utils.config import JobConfig as JJobConfig  # noqa: E402
-from dryad_tpu_torch import Context  # noqa: E402
+from dryad_tpu_torch import Context, make_mesh  # noqa: E402
 from dryad_tpu_torch.analysis import cost as tcost  # noqa: E402
 from dryad_tpu_torch.runtime import LocalCluster  # noqa: E402
 from dryad_tpu_torch.runtime.sources import DeferredSource  # noqa: E402
@@ -108,8 +108,9 @@ def _rows_by_stage(rep):
 
 def test_cluster_cost_equals_in_process(cluster, tmp_path):
     """The same queries priced on a gang Context (deferred specs) and on
-    an in-process Context at P = 8 (device data): the same stages, rows,
-    capacities and bytes."""
+    an in-process Context at P = 8 (device data) on the (dcn, dp) mesh
+    whose levels a gang of two plans: the same stages, rows, capacities
+    and bytes."""
     rng = np.random.default_rng(5)
     cols = {"k": rng.integers(0, 30, 1000).astype(np.int32),
             "v": rng.integers(0, 99, 1000).astype(np.int32)}
@@ -118,7 +119,7 @@ def test_cluster_cost_equals_in_process(cluster, tmp_path):
     text = tmp_path / "t.txt"
     text.write_text("".join(f"w{i % 13} x{i % 5}\n" for i in range(700)))
     gang = Context(cluster=cluster)
-    local = Context(device="cpu", nparts=P)
+    local = Context(mesh=make_mesh("cpu", P, hosts=2))
 
     def queries(ctx):
         a = ctx.from_columns(cols)

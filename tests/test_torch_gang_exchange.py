@@ -11,7 +11,8 @@ the same rows in the same order, the same NEEDs and measured slots (the
 gang's all-reduce of them), bit-equal bounds, and the same stage log.
 Tolerance: none.  The hash and range repartitions also equal the JAX
 package's on the conftest's 8 virtual CPU devices, as a multiset per
-partition."""
+partition.  The hierarchical aggregation's two hops on the (dcn, dp)
+mesh run too: the ``dp`` hop stages no collective at all."""
 
 import collections
 import os
@@ -59,7 +60,8 @@ def results(tmp_path_factory):
     return one, ranks
 
 
-EXCHANGES = ["hash_k", "hash_s", "hash_sk", "hash_needs", "range_k",
+EXCHANGES = ["hash_k", "hash_s", "hash_sk", "hash_needs", "axis_dp",
+             "axis_dcn", "range_k",
              "range_s_desc", "broadcast", "broadcast_short", "zip",
              "salted", "probe"]
 QUERIES = ["q_hash", "q_range", "q_take", "q_skip", "q_row_index",
@@ -108,6 +110,20 @@ def test_cases_exercise_what_they_claim(results):
     assert len(parts) == cases.P
     assert one["q_take"]["parts"][0] and sum(
         map(len, one["q_take"]["parts"])) == 37
+
+
+def test_dp_hop_stages_no_row(results):
+    """On the gang's (dcn, dp) mesh the ``dp`` hop of the hierarchical
+    aggregation stays inside each rank: it stages no collective, so no
+    row crosses gloo (its NEEDs cross later, in the executor's one
+    all-reduce of the info vector).  The ``dcn`` hop stages exactly one
+    all_to_all.  Both equal the one-process run (above)."""
+    _, ranks = results
+    for r in ranks:
+        assert r["axis_dp"]["staged"] == {"collectives": 0, "bytes": 0}
+        assert r["axis_dcn"]["staged"]["collectives"] == 1
+        assert r["axis_dcn"]["staged"]["bytes"] > 0
+    assert any(_gang_parts(ranks, "axis_dp"))
 
 
 def _multisets(parts):

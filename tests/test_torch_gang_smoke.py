@@ -20,7 +20,7 @@ sys.path.insert(0, ROOT)
 sys.path.insert(0, HERE)
 import chip_smoke  # noqa: E402
 
-from dryad_tpu_torch import Context, JobConfig  # noqa: E402
+from dryad_tpu_torch import Context, JobConfig, make_mesh  # noqa: E402
 from dryad_tpu_torch.apps import pagerank as tpr  # noqa: E402
 from dryad_tpu_torch.apps import terasort as tts  # noqa: E402
 from dryad_tpu_torch.apps import wordcount as twc  # noqa: E402
@@ -56,7 +56,9 @@ def test_chip_smoke_phase19_rehearsal(monkeypatch, tmp_path):
     def ctx(device="cuda", **kw):
         return Context(**kw) if "cluster" in kw else Context(device="cpu",
                                                              **kw)
-    port = types.SimpleNamespace(Context=ctx, JobConfig=JobConfig)
+    port = types.SimpleNamespace(
+        Context=ctx, JobConfig=JobConfig,
+        make_mesh=lambda device="cuda", *a, **kw: make_mesh("cpu", *a, **kw))
     runs = {}
 
     def held(label, launches, captured=None, errs=None):

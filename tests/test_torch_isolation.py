@@ -570,3 +570,78 @@ def test_streamed_gang_and_ssh_jobs_load_no_jax(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+MESH_MODULES = ("dryad_tpu_torch._lazy", "dryad_tpu_torch.parallel.mesh",
+                "dryad_tpu_torch.parallel.shuffle",
+                "dryad_tpu_torch.plan.planner",
+                "dryad_tpu_torch.adapt.manager",
+                "dryad_tpu_torch.data.columnar",
+                "dryad_tpu_torch.analysis.cost") + tuple(
+    f"dryad_tpu_torch.{s}" for s in ("api", "data", "exec", "io", "ops",
+                                     "parallel", "plan", "utils"))
+
+
+def test_mesh_and_export_modules_are_checked():
+    """The multi-axis mesh, the axis exchange, the levelled planner, the
+    mesh's levels and the subpackages' lazy exports are among the
+    modules the two checks above import and scan."""
+    assert set(MESH_MODULES) <= set(_modules())
+
+
+def test_mesh_query_and_levelled_gang_job_load_no_jax():
+    """In a fresh interpreter: a group-by on a (dcn, dp) mesh of eight
+    CPU partitions and an ``adaptive="on"`` levelled job on a gang of two
+    CPU workers (whose UDF raises if its worker loaded jax or
+    dryad_tpu); the driver loads neither."""
+    tests = str(ROOT / "tests")
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import torch_cluster_fns as F\n"
+        "from dryad_tpu_torch import Context, JobConfig, make_mesh\n"
+        "from dryad_tpu_torch.runtime import LocalCluster\n"
+        "v = np.arange(400, dtype=np.int32) % 7\n"
+        "ctx = Context(mesh=make_mesh('cpu', 8, hosts=2))\n"
+        "d = ctx.from_columns({'v': v}).group_by(['v'], {'n': ('count', None)})\n"
+        "assert 'groupby-dcn' in d.explain()\n"
+        "assert sorted(d.collect()['v'].tolist()) == list(range(7))\n"
+        "cl = LocalCluster(n_processes=2, devices_per_process=2,\n"
+        "                  fn_modules=('torch_cluster_fns',), device='cpu')\n"
+        "try:\n"
+        "    g = Context(cluster=cl, config=JobConfig(adaptive='on'))\n"
+        "    out = g.from_columns({'v': v}).select(F.no_jax_loaded)"
+        ".group_by(['v'], {'n': ('count', None)}).collect()\n"
+        "    assert sorted(out['v'].tolist()) == list(range(7))\n"
+        "finally:\n"
+        "    cl.shutdown()\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'dryad_tpu')))\n")
+    env = dict(os.environ, PYTHONPATH=tests + os.pathsep + str(ROOT),
+               OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_subpackage_imports_load_nothing_past_the_package():
+    """In fresh interpreters: importing a subpackage (its lazy exports)
+    loads no module that ``import dryad_tpu_torch`` alone does not, but
+    the subpackage and the lazy-export helper: torch is loaded where it
+    was before the exports came (by the package itself), never
+    earlier."""
+    def loaded(stmt):
+        out = subprocess.run(
+            [sys.executable, "-c",
+             f"import sys\n{stmt}\nprint(sorted(sys.modules))"],
+            cwd=ROOT, capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+        return set(eval(out.stdout.strip().splitlines()[-1]))
+    base = loaded("import dryad_tpu_torch")
+    assert "torch" in base
+    for sub in ("api", "data", "exec", "io", "ops", "parallel", "plan",
+                "utils"):
+        extra = loaded(f"import dryad_tpu_torch.{sub}") - base
+        assert extra <= {f"dryad_tpu_torch.{sub}", "dryad_tpu_torch._lazy"}, \
+            (sub, sorted(extra))

@@ -146,6 +146,7 @@ def test_chip_smoke_phase13_rehearsal(monkeypatch, tmp_path):
         runs[label] = (launches, chip_smoke.hold_run(hk, label, captured))
 
     monkeypatch.setattr(chip_smoke, "PR_ITERS", 3)
+    monkeypatch.setattr(chip_smoke, "STREAM_PR_ITERS", 3)
     monkeypatch.setattr(chip_smoke, "KM_ITERS", 2)
     lines = chip_smoke.bench_corpus(3_000)
     sizes = chip_smoke.Phase13Sizes(

@@ -17,6 +17,7 @@ import datetime
 import json
 import os
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -422,13 +423,25 @@ def test_hdfs_read_store_stream_ranged(srv, force_ranged):
 
 def test_hdfs_ranged_reads_retry_transient_midstream(srv, force_ranged,
                                                      monkeypatch):
+    """Three distinct ranges each fail once mid-stream and are retried.
+    The failures are keyed by (path, offset) under a lock: the segments
+    of a chunk are fetched on a thread pool, and one shared counter let
+    a single range take all three failures, which exhausts its three
+    attempts and raises (the designed bound, held by the next test)."""
     _tctx().from_columns(_table()).to_store(srv.url + "/stores/rt")
     real_open = WebHdfsClient.open
     fails = {"n": 3}
+    failed = set()
+    lock = threading.Lock()
 
     def flaky_open(self, path, offset=0, length=None):
-        if fails["n"] > 0 and offset > 0:
-            fails["n"] -= 1
+        with lock:
+            hit = (fails["n"] > 0 and offset > 0
+                   and (path, offset) not in failed)
+            if hit:
+                failed.add((path, offset))
+                fails["n"] -= 1
+        if hit:
             raise WebHdfsError("synthetic transient mid-stream drop")
         return real_open(self, path, offset=offset, length=length)
 
@@ -450,6 +463,33 @@ def test_hdfs_ranged_reads_retry_transient_midstream(srv, force_ranged,
         _tctx().read_store_stream(srv.url + "/stores/rt",
                                   chunk_rows=64).collect()
     assert calls["n"] <= 5          # one per segment, none retried
+
+
+def test_hdfs_ranged_read_of_one_range_fails_after_three_attempts(
+        srv, force_ranged, monkeypatch):
+    """One range that fails on every attempt raises ``WebHdfsError`` once
+    its three attempts (``retry_transient(retries=2)``) are spent."""
+    _tctx().from_columns(_table()).to_store(srv.url + "/stores/rt1")
+    real_open = WebHdfsClient.open
+    target, tries = [], []
+    lock = threading.Lock()
+
+    def failing_open(self, path, offset=0, length=None):
+        with lock:
+            if offset > 0 and not target:
+                target.append((path, offset))
+            hit = bool(target) and (path, offset) == target[0]
+            if hit:
+                tries.append(offset)
+        if hit:
+            raise WebHdfsError("synthetic transient mid-stream drop")
+        return real_open(self, path, offset=offset, length=length)
+
+    monkeypatch.setattr(WebHdfsClient, "open", failing_open)
+    with pytest.raises(WebHdfsError, match="synthetic"):
+        _tctx().read_store_stream(srv.url + "/stores/rt1",
+                                  chunk_rows=64).collect()
+    assert len(tries) == 3
 
 
 def test_hdfs_small_parts_stream_verified(srv, client):

@@ -22,7 +22,7 @@ sys.path.insert(0, ROOT)
 sys.path.insert(0, HERE)
 import chip_smoke  # noqa: E402
 
-from dryad_tpu_torch import Context, JobConfig  # noqa: E402
+from dryad_tpu_torch import Context, JobConfig, make_mesh  # noqa: E402
 from dryad_tpu_torch.apps import wordcount as twc  # noqa: E402
 from dryad_tpu_torch.ops import hopper_kernels as hk  # noqa: E402
 from tests.test_torch_gang_smoke import _counting  # noqa: E402
@@ -35,6 +35,7 @@ def test_chip_smoke_phase20_rehearsal(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", lambda m: None)
     monkeypatch.setattr(chip_smoke, "PR_ITERS", 3)
+    monkeypatch.setattr(chip_smoke, "STREAM_PR_ITERS", 3)
     monkeypatch.setattr(chip_smoke, "KM_ITERS", 2)
     monkeypatch.setattr(chip_smoke, "STREAM_TAKE", 100)
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
@@ -42,7 +43,9 @@ def test_chip_smoke_phase20_rehearsal(monkeypatch, tmp_path):
     def ctx(device="cuda", **kw):
         return Context(**kw) if "cluster" in kw else Context(device="cpu",
                                                              **kw)
-    port = types.SimpleNamespace(Context=ctx, JobConfig=JobConfig)
+    port = types.SimpleNamespace(
+        Context=ctx, JobConfig=JobConfig,
+        make_mesh=lambda device="cuda", *a, **kw: make_mesh("cpu", *a, **kw))
     runs = {}
 
     def held(label, launches, captured=None, errs=None):
@@ -70,8 +73,16 @@ def test_chip_smoke_phase20_rehearsal(monkeypatch, tmp_path):
         tokens_per_partition=-(-len(zipf) // 8) * 10).collect()
     t20 = tmp_path / "p20"
     t20.mkdir()
-    out = chip_smoke.phase20_runs(port, hk, twc, zipf, counts, kept,
-                                  zipf_out, str(t20), held, device="cpu")
+    # main keeps the gang up for phase 21 (which runs its cells on it)
+    kept20 = {}
+    try:
+        out = chip_smoke.phase20_runs(port, hk, twc, zipf, counts, kept,
+                                      zipf_out, str(t20), held, device="cpu",
+                                      keep=kept20)
+        assert kept20["cluster"].alive()
+    finally:
+        if "cluster" in kept20:
+            kept20["cluster"].shutdown()
     assert sorted(out) == sorted(
         ["gang_stream_terasort10m", "gang_stream_wordcount1m",
          "gang_stream_pagerank100k", "gang_stream_q13_1m5",

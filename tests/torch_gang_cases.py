@@ -6,6 +6,7 @@ a one-process P = 8 mesh; ``rank_main`` runs them in each of four gloo
 processes holding two partitions each.  No jax here: the rank processes
 stay light."""
 
+import dataclasses
 import os
 import pickle
 import types
@@ -17,7 +18,7 @@ from dryad_tpu_torch.exec.data import (pdata_from_host, pdata_to_numpy,
                                        split_partitions, stack_partitions)
 from dryad_tpu_torch.exec.executor import Executor
 from dryad_tpu_torch.parallel import shuffle
-from dryad_tpu_torch.parallel.mesh import Mesh
+from dryad_tpu_torch.parallel.mesh import STAGED, Mesh
 
 P = 8
 WORLD = 4
@@ -107,6 +108,19 @@ def _exchange_cases(mesh):
             parts, keys, out_cap, slot_rows=slot, mesh=mesh)
         out[name] = {"parts": _rows_of(stack_partitions(got)),
                      "needs": _max(mesh, nr, nsl, su)}
+    # the hierarchical aggregation's hops on the (dcn, dp) mesh (the
+    # gang's default axes; one process takes them explicitly): each
+    # hop's rows, NEEDs and the collectives it staged itself
+    m2 = mesh if mesh.gang else dataclasses.replace(
+        mesh, axes=(("dcn", WORLD), ("dp", P // WORLD)))
+    for axis in ("dp", "dcn"):
+        before = dict(STAGED)
+        got, nr, nsl, su = shuffle.hash_exchange(
+            parts, ["k"], 2 * cap, mesh=m2, axis=axis)
+        staged = {k: STAGED[k] - before[k] for k in ("collectives", "bytes")}
+        out[f"axis_{axis}"] = {"parts": _rows_of(stack_partitions(got)),
+                               "needs": _max(mesh, nr, nsl, su),
+                               "staged": staged}
     ex = Executor(mesh)
     bounds = ex._range_bounds(pd, "k")
     got, nr, nsl, su = shuffle.range_exchange(parts, "k", bounds, 2 * cap,
