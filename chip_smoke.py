@@ -4254,12 +4254,35 @@ def obs_sqlq3(port, hk, sql, cat, held, device="cuda") -> dict:
                 for st in rep["stages"]]}
 
 
+def _subtree(spans, root) -> list:
+    """``root`` and every span below it."""
+    kids = {}
+    for s in spans:
+        kids.setdefault(s.get("parent"), []).append(s)
+    out, todo = [], [root]
+    while todo:
+        s = todo.pop()
+        out.append(s)
+        todo.extend(kids.get(s["span"], ()))
+    return out
+
+
+def _run_of(span, by_id):
+    """The nearest ``run`` (kind ``job``) span above ``span``."""
+    up = by_id.get(span.get("parent"))
+    while up is not None and up["kind"] != "job":
+        up = by_id.get(up.get("parent"))
+    return up
+
+
 def check_telemetry(label, log, runs, device) -> dict:
     """One telemetry-on run's events: per executor run one ``run`` job
     span, and a ``stage`` span for each stage the run computed, every
-    one parented to that job span; one ``job_done`` per run carrying the
-    job span's trace id and the metrics snapshot; at least one
-    ``resource_sample``, with ``0 < device_bytes <=
+    one below that job span with no other job span between (the
+    program's own spans, ``op.*``, ``exchange.*``, ``settle`` and the
+    rest, nest between and below them); one ``job_done`` per run
+    carrying the job span's trace id and the metrics snapshot; at least
+    one ``resource_sample``, with ``0 < device_bytes <=
     torch.cuda.max_memory_allocated()`` on the card; and the critical
     path of each run's spans covering its job span's wall (segments
     summing to it)."""
@@ -4267,6 +4290,7 @@ def check_telemetry(label, log, runs, device) -> dict:
 
     from dryad_tpu_torch.obs.critical_path import critical_path
     spans = log.of_type("span")
+    by_id = {s["span"]: s for s in spans}
     jobs = [s for s in spans if s["kind"] == "job"]
     done = log.of_type("job_done")
     errors = []
@@ -4275,10 +4299,10 @@ def check_telemetry(label, log, runs, device) -> dict:
                       f"{len(runs)} runs")
     worst = 0.0
     for job, r, d in zip(jobs, runs, done):
-        mine = [s for s in spans if s["trace"] == job["trace"]]
+        mine = _subtree(spans, job)
         st = [s for s in mine if s["kind"] == "stage"]
-        if (len(mine) != len(st) + 1
-                or any(s.get("parent") != job["span"] for s in st)
+        if (any(s["trace"] != job["trace"] for s in mine)
+                or any(_run_of(s, by_id) is not job for s in st)
                 or {s["attrs"]["stage"] for s in st}
                 != {e["stage"] for e in r["stages"]}):
             errors.append(f"run {job['trace']}: stage spans "

@@ -86,7 +86,14 @@ cluster Context.
 Telemetry (``obs/``): a Context installs its ``event_log`` as the
 process's span sink (the latest Context owns it; ``install_trace=False``
 opts out), and ``JobConfig.history_dir`` makes that log archive the job
-when it closes.  ``Dataset.analyze()`` / ``explain(analyze=True)`` is
+when it closes.  With a sink installed, an in-process terminal's job
+runs in a ``query`` root span (``terminal``: collect, cache, count,
+to_store or the scalar's kind), so all its spans share one trace id:
+``plan`` (the planning, the lint and the cost report, up to the
+executor's run; ``stages``), the Run's ``run`` and its spans, then the
+terminal's own work on the output, ``collect`` (the shrink and the copy
+to the host) or ``cache``.  ``Dataset.analyze()`` /
+``explain(analyze=True)`` is
 EXPLAIN ANALYZE: the query runs once under its own level-2 capture and
 the measured per-stage actuals come back against the cost model
 (``obs/analyze.py``).
@@ -113,6 +120,7 @@ from dryad_tpu_torch.exec.data import PData, maybe_shrink_for_collect, \
     pdata_from_host, pdata_from_packed_strings, pdata_to_host, \
     split_partitions
 from dryad_tpu_torch.exec.executor import Executor
+from dryad_tpu_torch.obs import trace
 from dryad_tpu_torch.ops.kernels import scalar_aggregate
 from dryad_tpu_torch.parallel.mesh import Mesh, resolve_device
 from dryad_tpu_torch.plan import expr as E
@@ -1243,10 +1251,17 @@ class Dataset:
             # edge-scale: a local store instead of device memory, streamed
             # by later queries
             return self._cache_restream_inmem()
+        return self._job("cache", self._cache_local)
+
+    def _cache_local(self) -> "Dataset":
+        """The in-memory ``cache()``: the run, then its output as a
+        source (in a ``cache`` span when tracing)."""
         pd, salted = self._run()
-        return self.ctx.from_pdata(
-            pd, partitioning=(E.Partitioning.none() if salted
-                              else self.node.partitioning))
+        part = E.Partitioning.none() if salted else self.node.partitioning
+        if trace.ACTIVE:
+            with trace.scope("cache", "terminal"):
+                return self.ctx.from_pdata(pd, partitioning=part)
+        return self.ctx.from_pdata(pd, partitioning=part)
 
     def _cache_cost_diag(self):
         """The DTA204 finding for caching this query (None when it is not
@@ -1396,12 +1411,30 @@ class Dataset:
                               hosts=self.ctx.hosts, levels=self.ctx.levels,
                               config=self.ctx.config)
 
+    def _job(self, terminal: str, fn, *args):
+        """``fn(*args)``, an in-process terminal's run and its own work on
+        the output, inside the job's ``query`` root span when tracing."""
+        if trace.ACTIVE:
+            with trace.scope("query", "query", {"terminal": terminal}):
+                return fn(*args)
+        return fn(*args)
+
+    def _planned(self):
+        """(the stage graph, the lint's cost report)."""
+        graph = self.plan()
+        return graph, self.ctx._pre_submit_lint(self.node, graph=graph)
+
     def _run(self):
         """(output, whether the output's placement left the plan's: a
         stage ran salted, or an adaptive rewrite flipped a join's
-        broadcast)."""
-        graph = self.plan()
-        cost_rep = self.ctx._pre_submit_lint(self.node, graph=graph)
+        broadcast).  The planning runs in a ``plan`` span when
+        tracing."""
+        if trace.ACTIVE:
+            with trace.scope("plan", "plan") as sp:
+                graph, cost_rep = self._planned()
+                sp.set(stages=len(graph.stages))
+        else:
+            graph, cost_rep = self._planned()
         ex = self.ctx.executor
         # this query's own run: another run on the same executor (a
         # service fleet thread) must not decide this output's placement
@@ -1425,11 +1458,20 @@ class Dataset:
             from dryad_tpu_torch.exec.stream_exec import chunks_to_table
             out = chunks_to_table(self._stream_run())
         else:
-            out = pdata_to_host(maybe_shrink_for_collect(
-                self._materialize(), self.ctx.config))
+            out = self._job("collect", self._collect_local)
         if isinstance(self.node, E.Take):
             out = {k: v[:self.node.n] for k, v in out.items()}
         return out
+
+    def _collect_local(self) -> Dict[str, Any]:
+        """The in-process collect: the run, then the shrink and the copy
+        to the host (in a ``collect`` span when tracing)."""
+        pd = self._materialize()
+        if trace.ACTIVE:
+            with trace.scope("collect", "terminal"):
+                return pdata_to_host(maybe_shrink_for_collect(
+                    pd, self.ctx.config))
+        return pdata_to_host(maybe_shrink_for_collect(pd, self.ctx.config))
 
     def to_store(self, path: str, compression: str | None = None) -> None:
         """Execute and persist as a store (ToStore) at a local,
@@ -1440,7 +1482,6 @@ class Dataset:
         writes level-1 gzip part files.  On a cluster Context the
         parallel output: each worker writes its own partitions, and
         worker 0 commits the meta (a shared local path)."""
-        from dryad_tpu_torch.io.store import write_store
         if compression is None:
             compression = self.ctx.config.store_compression
         if compression not in (None, "gzip"):
@@ -1464,6 +1505,10 @@ class Dataset:
                 partitioning={"kind": part.kind, "keys": list(part.keys)},
                 compression=compression)
             return
+        self._job("to_store", self._store_local, path, compression)
+
+    def _store_local(self, path: str, compression) -> None:
+        from dryad_tpu_torch.io.store import write_store
         pd, salted = self._run()
         part = E.Partitioning.none() if salted else self.node.partitioning
         write_store(path, pd, partitioning={"kind": part.kind,
@@ -1588,6 +1633,9 @@ class Dataset:
             return self.ctx._cluster_run(self.node, collect="count")
         if self._streaming():
             return sum(c.n for c in self._stream_run())
+        return self._job("count", self._count_local)
+
+    def _count_local(self) -> int:
         return int(self._materialize().counts.sum())
 
     def _scalar(self, kind: str, column: str):
@@ -1611,6 +1659,11 @@ class Dataset:
             # per-chunk host reductions, combined as they come
             from dryad_tpu_torch.exec.stream_exec import stream_scalar
             return stream_scalar(self._stream_run(), kind, column)
+        return self._job(kind, self._scalar_local, kind, column)
+
+    def _scalar_local(self, kind: str, column: str):
+        """The in-process scalar: per-partition partials of the run's
+        output, combined on the host."""
         pd = self._materialize()
         parts = [scalar_aggregate(b, {"out": (kind, column),
                                       "cnt": ("count", None)})

@@ -50,6 +50,14 @@ each partition with the other leg's same partition.  A broadcast leg
 hands every partition the same replicated Batch.  ``run`` binds a
 do_while body's placeholder to the previous iteration's output.
 
+When tracing (``obs/trace.py``: a process sink installed) each fused op
+over the partitions runs in an ``op.<kind>`` span (``kind``, ``parts``),
+the stage's output stacked from its partitions in ``op.stack``, each
+leg's exchange in ``exchange.<kind>`` (``kind``, ``slot_rows``,
+``bytes``: the send grids', from shapes), a range stage's sampled
+bounds in ``exchange.bounds`` and a slot probe in ``exchange.probe``;
+no attribute reads the device.
+
 ``run`` executes a graph through a lineage-tracked ``exec.recovery.Run``.
 With ``JobConfig.deferred_needs`` (the default) a stage's first attempt
 reads nothing back: its info vector stays on the device, and the Run
@@ -120,6 +128,7 @@ import torch
 from dryad_tpu_torch.data.columnar import Batch, StringColumn, map_column
 from dryad_tpu_torch.exec.data import PData, split_partitions, \
     stack_partitions
+from dryad_tpu_torch.obs import trace
 from dryad_tpu_torch.obs.metrics import REGISTRY, family_counter
 from dryad_tpu_torch.ops import _build, kernels
 from dryad_tpu_torch.ops.hashing import M32, hash_batch_keys
@@ -591,7 +600,27 @@ def _apply_exchange(parts: List[Batch], ex: Exchange, scale: int,
     """Returns (batches, needs[2], slot_used): the exchange's measured
     max send-slot rows (0 for a broadcast), fed back to later runs of the
     stage.  A hash exchange with ``axis`` set moves rows over that mesh
-    axis only (``shuffle.hash_exchange``)."""
+    axis only (``shuffle.hash_exchange``).  Runs in an
+    ``exchange.<kind>`` span when tracing (``slot_rows``: the send slot's
+    rows, a broadcast's the whole partition; ``bytes``: the send grids')."""
+    if trace.ACTIVE:
+        # the send slot's rows as the exchange sizes them; the bytes are
+        # the send grids' its packs build (``trace.tally``)
+        fan = (mesh.axis_size(ex.axis) if ex.kind == "hash" and ex.axis
+               else len(parts) if mesh is None else mesh.nparts)
+        C = (parts[0].capacity if ex.kind == "broadcast" else
+             shuffle.send_slot_rows(parts[0].capacity, fan, slack,
+                                    slot_rows))
+        with trace.scope(f"exchange.{ex.kind}", "exchange",
+                         {"kind": ex.kind, "slot_rows": C, "bytes": 0}):
+            return _exchange(parts, ex, scale, slack, bounds, slot_rows,
+                             mesh)
+    return _exchange(parts, ex, scale, slack, bounds, slot_rows, mesh)
+
+
+def _exchange(parts: List[Batch], ex: Exchange, scale: int, slack: int,
+              bounds: Optional[torch.Tensor], slot_rows: Optional[int],
+              mesh) -> Tuple[List[Batch], torch.Tensor, torch.Tensor]:
     cap = ex.out_capacity * scale
     slot = torch.zeros((), dtype=torch.int32, device=parts[0].device)
     if ex.kind == "hash":
@@ -680,9 +709,7 @@ class Executor:
         is the row's coordinate on the axis); cached by the input's live
         tensors, so probing the same data again reads nothing."""
         b0 = pd.batch
-        cap, D = pd.capacity, self.nparts
-        Ploc = pd.nparts
-        radix = 1
+        D, radix = self.nparts, 1
         if axis is not None:
             radix, D = self.mesh.axis_radix(axis), self.mesh.axis_size(axis)
         # the same live tensors (ids whose objects are all still alive)
@@ -696,6 +723,25 @@ class Executor:
                     self._slot_probe_cache.move_to_end(rkey)
                     return rows
                 del self._slot_probe_cache[rkey]  # a recycled id: no hit
+        if trace.ACTIVE:
+            with trace.scope("exchange.probe", "exchange",
+                             {"kind": "probe", "bytes": 0}) as sp:
+                rows = self._probe(pd, keys, slack, run, radix, D)
+                sp.set(slot_rows=rows)
+        else:
+            rows = self._probe(pd, keys, slack, run, radix, D)
+        with self._cache_lock:
+            self._slot_probe_cache[rkey] = (
+                rows, tuple(weakref.ref(x) for x in leaves))
+            while len(self._slot_probe_cache) > 256:
+                self._slot_probe_cache.popitem(last=False)
+        return rows
+
+    def _probe(self, pd: PData, keys, slack: int, run, radix: int,
+               D: int) -> int:
+        """The probe's work: the quantized measured slot rows."""
+        b0 = pd.batch
+        cap, Ploc = pd.capacity, pd.nparts
         # every partition's rows hashed at once, as one [P * cap] batch
         flat = Batch({k: map_column(b0.columns[k], lambda x: x.reshape(
             (Ploc * cap,) + tuple(x.shape[2:]))) for k in keys}, b0.count)
@@ -709,13 +755,7 @@ class Executor:
         self._tally(run, "probes_run")
         c_struct = max(1, -(-slack * cap // D))
         q = max(16, c_struct // 16)
-        rows = max(1, min(c_struct, -(-slot // q) * q))
-        with self._cache_lock:
-            self._slot_probe_cache[rkey] = (
-                rows, tuple(weakref.ref(x) for x in leaves))
-            while len(self._slot_probe_cache) > 256:
-                self._slot_probe_cache.popitem(last=False)
-        return rows
+        return max(1, min(c_struct, -(-slot // q) * q))
 
     def _note_slot_feedback(self, stage: Stage, slots: List[int]) -> None:
         """Keep each hash / range leg's measured send-slot rows from an
@@ -802,41 +842,50 @@ class Executor:
 
     def _run_ops(self, parts: List[Batch], ops: List[StageOp], scale: int,
                  slack: int, needs: torch.Tensor, others=()):
+        """Each fused op over every partition, in an ``op.<kind>`` span
+        when tracing (``obs/trace.py``)."""
         others = list(others)
-        mesh = self.mesh
         for op in _fuse_stage_ops(ops):
-            if op.kind in _POSITIONAL:
-                parts = _POSITIONAL[op.kind](parts, op.params, mesh)
-                continue
-            if op.kind == "sliding_window":
-                parts, nd = _sliding_window_global(parts, op.params, mesh)
-                needs = torch.maximum(needs, nd)
-                continue
-            if op.kind == "zip":
-                parts, nr, nsl = shuffle.zip_exchange(
-                    parts, others.pop(0), op.params["suffix"], slack,
-                    mesh=mesh)
-                # a destination holds at most its own left rows, so the
-                # receive side fits by construction: only send slots can
-                # fall short under skewed right-side counts
-                needs = torch.maximum(needs, _needs(
-                    nr.device, torch.where(nr > 0, _UNSCALABLE, 0), nsl))
-                continue
-            if op.kind == "join":
-                parts, nd = _join_global(parts, others.pop(0), op, scale)
-                needs = torch.maximum(needs, nd)
-                continue
-            if op.kind in _TWO_INPUT_OPS:
-                parts = [_TWO_INPUT_OPS[op.kind](b, o, op.params)
-                         for b, o in zip(parts, others.pop(0))]
-                continue
-            outs = []
-            for q, b in enumerate(parts, mesh.part_start):
-                b, nd = _apply_op(b, op, scale, q)
-                needs = torch.maximum(needs, nd)
-                outs.append(b)
-            parts = outs
+            if trace.ACTIVE:
+                with trace.scope(f"op.{op.kind}", "op",
+                                 {"kind": op.kind, "parts": len(parts)}):
+                    parts, needs = self._run_op(parts, op, scale, slack,
+                                                needs, others)
+            else:
+                parts, needs = self._run_op(parts, op, scale, slack, needs,
+                                            others)
         return parts, needs
+
+    def _run_op(self, parts: List[Batch], op: StageOp, scale: int,
+                slack: int, needs: torch.Tensor, others: list):
+        """One op over every partition: (partitions, needs); a
+        two-input op takes the next of ``others``."""
+        mesh = self.mesh
+        if op.kind in _POSITIONAL:
+            return _POSITIONAL[op.kind](parts, op.params, mesh), needs
+        if op.kind == "sliding_window":
+            parts, nd = _sliding_window_global(parts, op.params, mesh)
+            return parts, torch.maximum(needs, nd)
+        if op.kind == "zip":
+            parts, nr, nsl = shuffle.zip_exchange(
+                parts, others.pop(0), op.params["suffix"], slack, mesh=mesh)
+            # a destination holds at most its own left rows, so the
+            # receive side fits by construction: only send slots can
+            # fall short under skewed right-side counts
+            return parts, torch.maximum(needs, _needs(
+                nr.device, torch.where(nr > 0, _UNSCALABLE, 0), nsl))
+        if op.kind == "join":
+            parts, nd = _join_global(parts, others.pop(0), op, scale)
+            return parts, torch.maximum(needs, nd)
+        if op.kind in _TWO_INPUT_OPS:
+            return [_TWO_INPUT_OPS[op.kind](b, o, op.params)
+                    for b, o in zip(parts, others.pop(0))], needs
+        outs = []
+        for q, b in enumerate(parts, mesh.part_start):
+            b, nd = _apply_op(b, op, scale, q)
+            needs = torch.maximum(needs, nd)
+            outs.append(b)
+        return outs, needs
 
     def _run_once(self, stage: Stage, inputs: List[PData], scale: int,
                   slack: int, bounds: Optional[torch.Tensor], salted: bool,
@@ -904,7 +953,12 @@ class Executor:
                                                    slack), "slack"))
         parts, needs = self._run_ops(legs[0], stage.body, scale, slack,
                                      needs, legs[1:])
-        out = stack_partitions(parts)
+        if trace.ACTIVE:
+            with trace.scope("op.stack", "op",
+                             {"kind": "stack", "parts": len(parts)}):
+                out = stack_partitions(parts)
+        else:
+            out = stack_partitions(parts)
         # per-partition entries at their global place: the gang's
         # all-reduce (max) of the info vector gathers them
         place = self.mesh.place
@@ -1056,8 +1110,13 @@ class Executor:
         for leg in stage.legs:
             ex = leg.exchange
             if ex is not None and ex.kind == "range":
-                bounds = self._range_bounds(run._results[ex.bounds_from],
-                                            ex.bounds_key)
+                src = run._results[ex.bounds_from]
+                if trace.ACTIVE:
+                    with trace.scope("exchange.bounds", "exchange",
+                                     {"kind": "bounds", "bytes": 0}):
+                        bounds = self._range_bounds(src, ex.bounds_key)
+                else:
+                    bounds = self._range_bounds(src, ex.bounds_key)
                 break
         scale = stage._capacity_scale
         slack = stage._send_slack or self.config.initial_send_slack

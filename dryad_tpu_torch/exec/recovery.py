@@ -41,10 +41,16 @@ sink emits the executed plan first (a ``plan`` event,
 
 Telemetry (``obs/``): ``output()`` runs inside a ``run`` job span, and
 each stage computed inside a ``stage <id>:<label>`` span (kind
-``stage``) parented to it; on the deferred path a stage span covers the
-host's enqueue only, as in the JAX package (the device's time is in the
-``JobConfig.profile_dir`` trace).  Spans are recorded when the sink's
-level is 2.  A resource sampler (``obs/profile.py``, every
+``stage``) parented to it, the settle inside a ``settle`` span (its one
+info read and any replay; ``replayed``: the stages it re-ran).  On the
+deferred path a stage span covers the host's enqueue only, as in the JAX
+package; the device's time is found through the launches made inside
+the stage's spans (the executor's ``op.*`` and ``exchange.*``), which,
+like every span, are stamped on the profiler's clock (``obs/trace.py``).
+Spans are recorded when the sink's level is 2; a run whose sink is the
+executor's no-op one sends them to the installed process sink
+(``trace.install``), if any, so a run with no event log of its own can
+be traced.  A resource sampler (``obs/profile.py``, every
 ``JobConfig.resource_sample_s``) runs for the duration of ``output()``
 and is joined before it returns; it reads the device's allocated bytes
 without synchronizing.  ``job_done`` carries the metrics registry's
@@ -151,6 +157,8 @@ class Run:
         self._event = (_tagged(sink, job)
                        if job is not None and sink is not _no_event
                        else sink)
+        # the spans' sink: the run's own, else (None) the process sink
+        self._span_sink = None if sink is _no_event else self._event
         # the adaptive boundary hook's measured stats: a one-slot box of
         # THIS run (a concurrent run on the same executor has its own)
         self._stats_box = [None]
@@ -206,7 +214,7 @@ class Run:
             # the job span: every stage span of this run parents into it;
             # it stays bound past the with-block, so job_done can carry
             # its trace id (the null span below level 2 has none)
-            with trace.span("run", "job", sink=self._event,
+            with trace.span("run", "job", sink=self._span_sink,
                             stages=len(self.graph.stages)) as jsp:
                 # an adaptive rewrite may redirect the output to an
                 # appended stage mid-walk: walk until the output stage
@@ -217,7 +225,11 @@ class Run:
                     if self.graph.out_stage == out_sid:
                         break
                 if self._defer:
-                    out = self._settle()
+                    if trace.ACTIVE:
+                        with trace.scope("settle", "settle") as ssp:
+                            out = self._settle(ssp)
+                    else:
+                        out = self._settle()
         finally:
             _profile.stop(sampler)
             applied = self.adapt.applied if self.adapt is not None else []
@@ -255,7 +267,7 @@ class Run:
             self._event(done)
         return out
 
-    def _settle(self) -> PData:
+    def _settle(self, sp=None) -> PData:
         """Resolve every deferred info vector in ONE device-to-host read.
 
         The vectors differ in length from stage to stage, so they are
@@ -267,7 +279,8 @@ class Run:
         with every stage computed from them (their inputs were
         truncated), then the output is computed again, synchronously.
         The measured send slots feed back, but a stage's whose input was
-        truncated."""
+        truncated.  ``sp`` (the ``settle`` span) gets the number of
+        stages replayed."""
         deferred, self._defer = self._defer, None    # the replay is sync
         # a gang reads the all-reduce (max) of every rank's vectors, so
         # every rank takes the same decisions
@@ -352,6 +365,8 @@ class Run:
                 if ent is not None:
                     ent["settle_replayed"] = True
             self._event({"event": "settle_replay", "stages": sorted(dirty)})
+        if sp is not None:
+            sp.set(replayed=len(dirty))
         return self.result(self.graph.out_stage)
 
     def result(self, sid: int) -> PData:
@@ -398,7 +413,7 @@ class Run:
         # one span per stage computed (its attempts; on the deferred path
         # the host's enqueue only: the device time lands in the settle)
         with trace.span(f"stage {stage.id}:{stage.label}", "stage",
-                        sink=self._event, stage=stage.id,
+                        sink=self._span_sink, stage=stage.id,
                         label=stage.label,
                         deferred=self._defer is not None):
             out = self.ex._run_stage(

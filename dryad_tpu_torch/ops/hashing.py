@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from dryad_tpu_torch.data.columnar import Batch, StringColumn
+from dryad_tpu_torch.obs import trace
 
 __all__ = ["hash_column", "hash_columns", "hash_batch_keys", "M32", "mul32",
            "to_u32", "from_u32", "canon_zero"]
@@ -158,5 +159,11 @@ def hash_columns(cols: Sequence):
 
 
 def hash_batch_keys(batch: Batch, key_names: Sequence[str]):
-    """(hi, lo) int64 lanes in [0, 2**32) of the keys' 64-bit hash."""
+    """(hi, lo) int64 lanes in [0, 2**32) of the keys' 64-bit hash, in a
+    ``hash`` span when tracing (``obs/trace.py``; ``rows``: the batch's
+    capacity)."""
+    if trace.ACTIVE:
+        with trace.scope("hash", "op", {"rows": batch.capacity,
+                                        "keys": len(key_names)}):
+            return hash_columns([batch.columns[k] for k in key_names])
     return hash_columns([batch.columns[k] for k in key_names])

@@ -24,6 +24,12 @@ values becomes an argsort of one folded int64 key (two 32-bit lanes
 stable argsorts, followed by ``index_select`` of whatever rides along.
 32-bit lanes are int64 tensors in [0, 2**32) (see ``ops/hashing``);
 packed rows are int32 word matrices ``[cap, W]``.
+
+When tracing (``obs/trace.py``) lane building and every sort with its
+gathers (``sort_lanes_for``, ``_sort_order``, ``_sort_carrying``,
+``permute_by_sort``, ``sort_by_columns``) run in ONE ``sort`` span per
+outermost call (``rows``: the capacity, ``lanes``: the 32-bit key lanes,
+both from shapes).
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from dryad_tpu_torch.data.columnar import Batch, StringColumn, map_column
+from dryad_tpu_torch.obs import trace
 from dryad_tpu_torch.ops.hashing import (M32, canon_zero, from_u32,
                                          hash_batch_keys, mul32, to_u32)
 from dryad_tpu_torch.ops.hopper_kernels import prefix_sum, prefix_sum2
@@ -159,12 +166,27 @@ def _segment_flags(differs: torch.Tensor, n_valid):
     return is_start, is_end, num_groups
 
 
+def _sort_scope(rows: int, lanes: int):
+    """The ``sort`` span of an outermost sort (a sort inside one records
+    nothing); call only when ``trace.ACTIVE``."""
+    return trace.scope("sort", "op", {"rows": rows, "lanes": lanes},
+                       nest=False)
+
+
 def _sort_order(key_lanes: Sequence[torch.Tensor],
                 stable: bool = True) -> torch.Tensor:
     """Permutation sorting rows by 32-bit ``key_lanes`` (most significant
     first, each an int64 lane in [0, 2**32)), lexicographically unsigned.
     Pairs of lanes fold into one int64 key; more keys chain stable sorts
     from the least significant pair."""
+    if trace.ACTIVE:
+        with _sort_scope(key_lanes[0].shape[0], len(key_lanes)):
+            return _sort_order_of(key_lanes, stable)
+    return _sort_order_of(key_lanes, stable)
+
+
+def _sort_order_of(key_lanes: Sequence[torch.Tensor],
+                   stable: bool) -> torch.Tensor:
     keys = list(key_lanes)
     folded: List[torch.Tensor] = []
     while keys:
@@ -187,6 +209,13 @@ def _sort_order(key_lanes: Sequence[torch.Tensor],
 def _sort_carrying(key_lanes, values, stable: bool = True):
     """Sort by ``key_lanes`` returning (sorted key lanes, sorted values) —
     the argsort + gather form of the JAX value-carry sort."""
+    if trace.ACTIVE:
+        with _sort_scope(key_lanes[0].shape[0], len(key_lanes)):
+            return _sort_carried(key_lanes, values, stable)
+    return _sort_carried(key_lanes, values, stable)
+
+
+def _sort_carried(key_lanes, values, stable: bool):
     order = _sort_order(key_lanes, stable)
     return ([k.index_select(0, order) for k in key_lanes],
             [v.index_select(0, order) for v in values])
@@ -386,9 +415,27 @@ def _string_sort_lanes(col: StringColumn,
 
 
 def sort_lanes_for(col, descending: bool = False) -> List[torch.Tensor]:
+    """A column's 32-bit sort lanes, most significant first."""
+    if trace.ACTIVE:
+        with _sort_scope(col.shape[0] if isinstance(col, torch.Tensor)
+                         else col.capacity, _lane_count(col)):
+            return _lanes_of(col, descending)
+    return _lanes_of(col, descending)
+
+
+def _lanes_of(col, descending: bool) -> List[torch.Tensor]:
     if isinstance(col, StringColumn):
         return _string_sort_lanes(col, descending)
     return _dense_sort_lanes(col, descending)
+
+
+def _lane_count(col) -> int:
+    """How many lanes ``sort_lanes_for`` builds for ``col`` (from its
+    dtype and width alone)."""
+    if isinstance(col, StringColumn):
+        L = col.max_len
+        return (L + (-L) % 4) // 4 + (0 if _string_fold_len(L) else 1)
+    return 2 if col.dtype in (torch.int64, torch.uint64) else 1
 
 
 def _lanes_reconstructible(col) -> bool:
@@ -466,6 +513,10 @@ def permute_by_sort(batch: Batch, key_lanes: Sequence[torch.Tensor],
                     count=None) -> Batch:
     """Stable sort of the batch's rows by 32-bit ``key_lanes`` (most
     significant first), moving every column along."""
+    if trace.ACTIVE:
+        with _sort_scope(batch.capacity, len(key_lanes)):
+            return batch.gather(_sort_order(list(key_lanes)),
+                                batch.count if count is None else count)
     return batch.gather(_sort_order(list(key_lanes)),
                         batch.count if count is None else count)
 
@@ -504,6 +555,15 @@ def sort_by_columns(batch: Batch, keys: Sequence[Tuple[str, bool]]) -> Batch:
     (strings, 1-D dense <= 32-bit) are rebuilt from the sorted lanes, as
     in the JAX package, so their valid rows come out canonical (string
     bytes past the length zero); the other columns are gathered."""
+    if trace.ACTIVE:
+        with _sort_scope(batch.capacity, sum(
+                _lane_count(batch.columns[name]) for name, _d in keys)):
+            return _sorted_by_columns(batch, keys)
+    return _sorted_by_columns(batch, keys)
+
+
+def _sorted_by_columns(batch: Batch,
+                       keys: Sequence[Tuple[str, bool]]) -> Batch:
     lanes: List[torch.Tensor] = []
     recon: Dict[str, Tuple[int, int, bool]] = {}
     for name, desc in keys:

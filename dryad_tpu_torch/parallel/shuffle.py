@@ -46,6 +46,12 @@ exchange exists only for backends
 without its kernels; the port has no such backend.  The NEED channels are
 kept: capacity shortfalls come back as the measured requirement, and the
 executor retries at that size instead of dropping rows.
+
+When tracing (``obs/trace.py``) the pack and the unpack of every
+exchange run in ``pack`` / ``unpack`` spans whose ``bytes`` is the grid
+they write (from its shape), each pack's added to its exchange span's
+``bytes``; the salted and the zip exchanges open their own
+``exchange.skew`` / ``exchange.zip`` spans.
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ import torch
 from torch.profiler import record_function
 
 from dryad_tpu_torch.data.columnar import Batch, StringColumn, map_column
+from dryad_tpu_torch.obs import trace
 from dryad_tpu_torch.ops.hashing import hash_batch_keys
 from dryad_tpu_torch.ops.hopper_kernels import (hist_buckets_batched,
                                                 prefix_sum,
@@ -139,10 +146,29 @@ def exchange_by_dest(parts: List[Batch], dests: List[torch.Tensor],
                    spec)
 
 
+def _grid_bytes(grid: torch.Tensor, sp) -> None:
+    """A grid's bytes (its shape's), on the pack span ``sp`` and added to
+    the enclosing exchange span's."""
+    n = grid.numel() * grid.element_size()
+    sp.set(bytes=n)
+    trace.tally("exchange.", "bytes", n)
+
+
 def _pack(parts: List[Batch], dests: List[torch.Tensor], D: int, C: int):
     """The pack side of an exchange to ``D`` destinations: (the send grid
     [D, S*C, W] whose block (d, p) holds partition p's rows for d, the
-    counts [S, D], the packed columns' spec)."""
+    counts [S, D], the packed columns' spec), in a ``pack`` span when
+    tracing."""
+    if trace.ACTIVE:
+        with trace.scope("pack", "exchange") as sp:
+            out = _pack_grid(parts, dests, D, C)
+            _grid_bytes(out[0], sp)
+            return out
+    return _pack_grid(parts, dests, D, C)
+
+
+def _pack_grid(parts: List[Batch], dests: List[torch.Tensor], D: int,
+               C: int):
     S = len(parts)
     cap = parts[0].capacity
     # invalid rows go to the sentinel bucket D, which nothing counts
@@ -174,7 +200,22 @@ def _unpack(recv: torch.Tensor, counts_in: torch.Tensor,
     ``slot_compact``, and the NEEDs measured before truncation, so they
     are exact even when this run dropped rows (``counts_m``: what this
     process sent from partitions of capacity ``cap``, ``fan``
-    destinations a source)."""
+    destinations a source).  In an ``unpack`` span when tracing, its
+    ``bytes`` the dense words written, [Dd, out_capacity, W]."""
+    if trace.ACTIVE:
+        Dd, _n, W = recv.shape
+        with trace.scope("unpack", "exchange",
+                         {"bytes": Dd * out_capacity * W
+                          * recv.element_size()}):
+            return _unpack_grid(recv, counts_in, counts_m, C, out_capacity,
+                                fan, cap, spec)
+    return _unpack_grid(recv, counts_in, counts_m, C, out_capacity, fan,
+                        cap, spec)
+
+
+def _unpack_grid(recv: torch.Tensor, counts_in: torch.Tensor,
+                 counts_m: torch.Tensor, C: int, out_capacity: int,
+                 fan: int, cap: int, spec):
     recv_counts = torch.clamp(counts_in, max=C).contiguous()
     totals = recv_counts.sum(dim=1, dtype=torch.int32)
     out = _unpack_dests(slot_compact_batched(recv, recv_counts, C,
@@ -339,8 +380,26 @@ def broadcast_gather(parts: List[Batch], out_capacity: int, mesh=None
     one compaction.
 
     Returns ``(batches, need_recv_rows, need_slack = 0)``: the need is the
-    total when it exceeds ``out_capacity``, else 0."""
+    total when it exceeds ``out_capacity``, else 0.  When tracing, the
+    packing runs in a ``pack`` span (``bytes``: the stacked words) and
+    the compaction in an ``unpack`` span."""
     cap = parts[0].capacity
+    if trace.ACTIVE:
+        with trace.scope("pack", "exchange") as sp:
+            words, spec, counts = _broadcast_pack(parts, mesh)
+            _grid_bytes(words, sp)
+        W = words.shape[1]
+        with trace.scope("unpack", "exchange",
+                         {"bytes": out_capacity * W * words.element_size()}):
+            return _broadcast_unpack(parts, words, spec, counts, cap,
+                                     out_capacity)
+    words, spec, counts = _broadcast_pack(parts, mesh)
+    return _broadcast_unpack(parts, words, spec, counts, cap, out_capacity)
+
+
+def _broadcast_pack(parts: List[Batch], mesh):
+    """Every partition's packed words stacked [P*cap, W] (a gang's
+    all-gathered), their spec, and the counts [P]."""
     words, spec = _pack_columns_u32(
         {k: _cat_column([b.columns[k] for b in parts])
          for k in parts[0].names})
@@ -350,6 +409,13 @@ def broadcast_gather(parts: List[Batch], out_capacity: int, mesh=None
         got = mesh.all_gather(torch.cat([words.reshape(-1), counts]))
         words = got[:, :n].reshape(-1, words.shape[1])
         counts = got[:, n:].reshape(-1)
+    return words, spec, counts
+
+
+def _broadcast_unpack(parts: List[Batch], words: torch.Tensor, spec,
+                      counts: torch.Tensor, cap: int, out_capacity: int):
+    """The one compaction of the stacked words, every partition's Batch
+    and the needs."""
     total = counts.sum(dtype=torch.int32)
     (batch,) = _unpack_dests(slot_compact_batched(
         words[None], counts[None], cap, out_capacity), spec,
@@ -445,7 +511,22 @@ def skew_join_exchange(left: List[Batch], right: List[Batch], left_keys,
     so the right side's capacity becomes 2 x ``right_cap``.
 
     Returns (left', right', need_left_rows, need_right_rows,
-    need_slack)."""
+    need_slack).  In an ``exchange.skew`` span when tracing
+    (``slot_rows``: the left exchange's send slot)."""
+    if trace.ACTIVE:
+        with trace.scope("exchange.skew", "exchange", {
+                "kind": "skew", "slot_rows": send_slot_rows(
+                    left[0].capacity, _nparts(left, mesh), send_slack),
+                "bytes": 0}):
+            return _skew_join_exchange(left, right, left_keys, right_keys,
+                                       left_cap, right_cap, hot_factor,
+                                       topk, send_slack, mesh)
+    return _skew_join_exchange(left, right, left_keys, right_keys, left_cap,
+                               right_cap, hot_factor, topk, send_slack, mesh)
+
+
+def _skew_join_exchange(left, right, left_keys, right_keys, left_cap,
+                        right_cap, hot_factor, topk, send_slack, mesh):
     P = _nparts(left, mesh)
     llo = torch.stack([hash_batch_keys(b, list(left_keys))[1]
                        for b in left])
@@ -497,7 +578,19 @@ def zip_exchange(a: List[Batch], b: List[Batch], suffix: str = "_r",
     receives more rows than its left count, so a receive shortfall
     cannot happen by scaling; only send slots can fall short.  On a gang
     ``mesh`` ONE all_gather brings both sides' counts of every partition
-    (the global row index), and the exchange crosses ranks."""
+    (the global row index), and the exchange crosses ranks.  In an
+    ``exchange.zip`` span when tracing."""
+    if trace.ACTIVE:
+        with trace.scope("exchange.zip", "exchange", {
+                "kind": "zip", "slot_rows": send_slot_rows(
+                    b[0].capacity, _nparts(a, mesh), send_slack),
+                "bytes": 0}):
+            return _zip_exchange(a, b, suffix, send_slack, mesh)
+    return _zip_exchange(a, b, suffix, send_slack, mesh)
+
+
+def _zip_exchange(a: List[Batch], b: List[Batch], suffix: str,
+                  send_slack: int, mesh):
     P = _nparts(a, mesh)
     zero = torch.zeros((), dtype=torch.int32, device=a[0].device)
     if P == 1:   # one partition: already globally aligned
