@@ -493,6 +493,7 @@ from __future__ import annotations
 import argparse
 import atexit
 import collections
+import contextlib
 import dataclasses
 import functools
 import hashlib
@@ -532,6 +533,9 @@ TIMED_ON = {"hist_buckets": "zipf50k", "prefix_sum": "zipf50k",
             "prefix_sum2": "app10k", "slot_expand": "zipf50k",
             "slot_compact": "zipf50k"}
 EXCHANGE = ("hist_buckets", "prefix_sum", "slot_expand", "slot_compact")
+# the five and the key hash (hash_keys: no TPU counterpart), which every
+# hashing path launches
+HASHING = (*TPU_KERNEL, "hash_keys")
 # the pack side's two batched kernels
 PACK = ("hist_buckets", "slot_expand")
 # once per hash, range or zip exchange: the two pack kernels and the
@@ -548,6 +552,7 @@ DEVICE_NAMES = {  # substrings of the compiled kernels' names
     "prefix_sum2": ("scan2_lookback",),
     "slot_expand": ("slot_expand_v4",),
     "slot_compact": ("slot_compact_v2",),
+    "hash_keys": ("key_hash_rows",),
 }
 PACK_RANGE = "dryad.exchange.pack"   # parallel/shuffle.py's profiler range
 # the runs whose calls are kept for a pack_side line
@@ -657,6 +662,7 @@ def check_kernels(hk, dev) -> None:
     check_lookback(hk, t, rng)
     check_batched(hk, t, rng)
     check_compact(hk, t, rng)
+    check_hash_keys(hk, t, rng)
 
     for cap, W, D, C in [(64, 3, 1, 5), (500, 8, 8, 3), (65_536, 8, 8, 16_384),
                          (10_000, 7, 16, 700), (300, 2, 8, 300)]:
@@ -772,6 +778,158 @@ def _compact_counts(rng, Dd, S, C):
     for i, v in enumerate((-2, 0, C, C + 5)):
         cnt[:, (3 * i + 1) % S] = v
     return cnt.astype(np.int32)
+
+
+def check_hash_keys(hk, t, rng) -> None:
+    """``hash_batch_keys`` on the card (the ``hash_keys`` kernel, one
+    launch a call) bit-identical to its plain version ``hash_columns`` on
+    the same data on the CPU, whose float conversions (a NaN's bits among
+    them) the kernel follows: every key kind, one to three columns, views,
+    capacities from 0 rows to 2**25 + 3 (there three int32 keys, held to
+    the plain version on the card)."""
+    import torch
+    from dryad_tpu_torch.data.columnar import Batch, StringColumn, map_column
+    from dryad_tpu_torch.ops import hashing
+
+    def strings(n, L):
+        lens = rng.randint(-1, L + 3, n).astype(np.int32)
+        return StringColumn(t(rng.randint(0, 256, (n, L)).astype(np.uint8)),
+                            t(lens))
+
+    def f64(n):
+        v = rng.randn(n) * 10.0 ** rng.randint(-320, 300, n)
+        edge = [0.0, -0.0, np.nan, -np.inf, 1e-40, -1e-50, 1e300, 5e-324]
+        v[:len(edge)] = edge[:n]
+        return t(v)
+
+    for n in (0, 1, 1023, 1025, 4097, 1_000_003, (1 << 25) + 3):
+        i32 = lambda: rng.randint(-2**31, 2**31 - 1, n).astype(np.int32)
+        sets = [{"a": t(i32()), "b": t(i32()), "c": t(i32())}]
+        if n <= 1_000_003:
+            sets += [
+                {"k": t(rng.randint(-2**62, 2**62, n))},
+                {"k": t(rng.randint(-2**62, 2**62, (n, 3)))},
+                {"f": f64(n), "g": f64(n).float()},
+                # no half NaN: the CPU's own bits for one depend on the
+                # tensor's length (its scalar and vector conversions)
+                {"h": torch.nan_to_num(f64(n)).half(),
+                 "e": f64(n).bfloat16(), "b": t(rng.rand(n) < 0.5),
+                 "i": t(rng.randint(-128, 128, n).astype(np.int8))},
+                {"s": strings(n, 24), "j": t(i32())},
+                {"s": strings(n, 512)},
+                {"v": t(rng.randint(-2**31, 2**31 - 1, (n, 4))
+                        .astype(np.int32))[:, 1:3],
+                 "w": t(i32().repeat(2))[::2]},
+                # more key columns than one launch takes
+                {**{f"c{i:02d}": t(i32()) for i in range(37)},
+                 "c31": strings(n, 24), "c33": f64(n),
+                 "c37": t(rng.randint(-2**62, 2**62, n)),
+                 "c38": t(rng.rand(n) < 0.5),
+                 "c39": t(rng.randint(-2**31, 2**31 - 1, (n, 2))
+                          .astype(np.int32))}]
+        for cols in sets:
+            batch = Batch(cols, torch.tensor(n, dtype=torch.int32,
+                                             device="cuda"))
+            before = hk.launches["hash_keys"]
+            hi, lo = hashing.hash_batch_keys(batch, list(cols))
+            torch.cuda.synchronize()
+            if hk.launches["hash_keys"] - before != hash_launches(
+                    hashing, [list(cols.values())]):
+                raise AssertionError("hash_keys: not one launch a call "
+                                     "per 32 key columns")
+            if n > 1_000_003:
+                phi, plo = hashing.hash_columns(list(cols.values()))
+            else:
+                phi, plo = (x.cuda() for x in hashing.hash_columns(
+                    [map_column(c, lambda x: x.cpu())
+                     for c in cols.values()]))
+            if not (torch.equal(hi, phi) and torch.equal(lo, plo)):
+                raise AssertionError(f"hash_keys {sorted(cols)} n={n}: "
+                                     f"kernel != plain")
+
+
+def _hash_rows(cols) -> int:
+    """The rows of a ``hash_batch_keys`` call's key columns."""
+    c = cols[0]
+    return c.capacity if hasattr(c, "capacity") else c.shape[0]
+
+
+def hash_launches(hashing, calls) -> int:
+    """``hash_keys`` launches of these calls (each its key columns): one
+    per ``hashing._MAX_KEY_COLS`` columns, none for zero rows."""
+    return sum(-(-len(cols) // hashing._MAX_KEY_COLS) for cols in calls
+               if _hash_rows(cols))
+
+
+@contextlib.contextmanager
+def hash_calls(hashing):
+    """Within it, the ``hash_batch_keys`` calls of a main-path run by
+    route: ``kernel`` the key columns of each call routed to
+    ``hash_keys``, ``plain_on_card`` the calls of the plain version on
+    CUDA columns (none where the routing holds).  Through the module
+    globals ``hash_batch_keys`` looks up, not the ``capture`` hook."""
+    rec = {"kernel": [], "plain_on_card": 0}
+    kernel, plain = hashing._hash_keys, hashing.hash_columns
+
+    def on_kernel(cols):
+        rec["kernel"].append(list(cols))
+        return kernel(cols)
+
+    def on_plain(cols):
+        if any(t.is_cuda for t in hashing._tensors(cols)):
+            rec["plain_on_card"] += 1
+        return plain(cols)
+
+    hashing._hash_keys, hashing.hash_columns = on_kernel, on_plain
+    try:
+        yield rec
+    finally:
+        hashing._hash_keys, hashing.hash_columns = kernel, plain
+
+
+def hold_hashes(hashing, run, launches, rec) -> float:
+    """A run's ``hash_keys`` launches against its kernel-routed calls
+    (none plain on the card), then each call made again through the
+    kernel and the plain version on the card: equal bits.  Returns the
+    largest |kernel - plain|, 0."""
+    import torch
+    want = hash_launches(hashing, rec["kernel"])
+    if rec["plain_on_card"] or launches["hash_keys"] != want:
+        raise AssertionError(
+            f"{run}: {launches['hash_keys']} hash_keys launches for "
+            f"{len(rec['kernel'])} kernel calls ({want} launches), "
+            f"{rec['plain_on_card']} plain calls on the card")
+    for i, cols in enumerate(rec["kernel"]):
+        got, plain = hashing._hash_keys(cols), hashing.hash_columns(cols)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, p) for g, p in zip(got, plain)):
+            raise AssertionError(f"hash_keys {run} call {i}: kernel != "
+                                 f"plain")
+    return 0.0
+
+
+def hash_work(cols) -> tuple:
+    """(bytes, 32-bit integer operations) of one ``hash_keys`` call,
+    counted from its source: each key element read once and the two
+    int64 lanes written; 44 operations a 32-bit word (its two mixes and
+    the fold into its column's lanes; an int64 element is two words), 28
+    for each further column's combine, and a string's bytes up to its
+    length, 5 operations each, with 60 a row for its length's mixes and
+    the fold."""
+    import torch
+    n = _hash_rows(cols)
+    nbytes, ops = 16 * n, 28 * n * (len(cols) - 1)
+    for c in cols:
+        if hasattr(c, "lengths"):
+            used = int(c.lengths.long().clamp(0, c.max_len).sum())
+            nbytes += 4 * n + used
+            ops += 5 * used + 60 * n
+        else:
+            elems = n * (c.shape[1] if c.dim() == 2 else 1)
+            nbytes += c.element_size() * elems
+            ops += 44 * elems * (2 if c.dtype in (torch.int64, torch.uint64)
+                                 else 1)
+    return nbytes, ops
 
 
 def check_compact(hk, t, rng) -> None:
@@ -5640,14 +5798,14 @@ REPLAY_HOLD_BYTES = 16 << 30
 
 
 def worker_launches(events) -> dict:
-    """Kernel launches the workers reported for a run's tasks (every
-    copy's: ``task_done`` and ``task_duplicate_ignored`` carry their
-    reply's ``launches``)."""
+    """The five kernels' launches the workers reported for a run's tasks
+    (every copy's: ``task_done`` and ``task_duplicate_ignored`` carry
+    their reply's ``launches``)."""
     total = dict.fromkeys(TPU_KERNEL, 0)
     for e in events:
         if e.get("event") in ("task_done", "task_duplicate_ignored"):
-            for k, n in (e.get("launches") or {}).items():
-                total[k] += n
+            for k in TPU_KERNEL:
+                total[k] += (e.get("launches") or {}).get(k, 0)
     return total
 
 
@@ -7969,6 +8127,77 @@ def time_kernels(hk, runs, timed, card) -> list:
     return rows
 
 
+def time_hash_shape(hashing, n: int = 1 << 25) -> dict:
+    """``hash_keys`` at TPC-H Q3's group-by key shape, three int32 keys,
+    at ``n`` rows: the kernel and its plain version on the card, held
+    equal, timed (CUDA events, and the kernel's device time from a
+    profile), beside the bound of its bytes and operations."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(25)
+    cols = [torch.randint(-2**31, 2**31 - 1, (n,), dtype=torch.int32,
+                          device="cuda", generator=g) for _ in range(3)]
+    got, want = hashing._hash_keys(cols), hashing.hash_columns(cols)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("hash_keys: three int32 keys, kernel != plain")
+    del got, want
+    nbytes, ops = hash_work(cols)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    kernel = functools.partial(hashing._hash_keys, cols)
+    return {"rows": n, "keys": "3 x int32", "ms": cuda_ms(kernel),
+            "plain_ms": cuda_ms(functools.partial(hashing.hash_columns,
+                                                  cols), reps=3),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            **profile_calls("hash_keys", kernel),
+            "bytes": nbytes, "ops": ops}
+
+
+def time_hash_keys(hashing, runs, calls, prof, card) -> dict:
+    """The kernels line's row of ``hash_keys``, timed on the largest of
+    the app10k run's calls (``calls``: their key columns) with the
+    kernel, its plain version on the card and the bound of that call's
+    inputs (``hash_work``: bytes / 3.35 TB/s or operations / 67 TOP/s,
+    the larger, as the five's rows), its device time per launch from the
+    profiled warm app10k run (``prof``).  ``launches``: the held runs'."""
+    cols = max(calls, key=lambda c: _hash_rows(c) * len(c))
+    per_run = {r: {"launches": l["hash_keys"], "max_abs_err": e["hash_keys"]}
+               for r, (l, e) in runs.items() if "hash_keys" in e}
+    prof_per_launch = per_launch_us(prof, "hash_keys")
+    if not prof["launches"]["hash_keys"] or prof_per_launch is None:
+        raise AssertionError("hash_keys: no launch or no profiled device "
+                             "time in the profiled app10k run")
+    nbytes, ops = hash_work(cols)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    kernel = functools.partial(hashing._hash_keys, cols)
+    return {
+        "name": "hash_keys", "route": "cuda",
+        "source": "dryad_tpu_torch/ops/csrc/hash_keys.cu",
+        "replaces": None,
+        "launches": sum(r["launches"] for r in per_run.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in per_run.values()),
+        "ms": cuda_ms(kernel),
+        "plain_ms": cuda_ms(functools.partial(hashing.hash_columns, cols)),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+        "runs": per_run,
+        "profiled_launches": prof["launches"]["hash_keys"],
+        "profiled_device_ms_per_launch": prof_per_launch / 1e3,
+        **profile_calls("hash_keys", kernel),
+        "host_enqueue_us": host_enqueue_us(kernel),
+        "timed_on": "app10k",
+        "shape": [[_hash_rows([c]), c.max_len, "str"] if hasattr(
+            c, "max_len") else [*c.shape, str(c.dtype)] for c in cols],
+        "bytes": nbytes, "ops": ops,
+        # TPC-H Q3's group-by key shape, apart from the path
+        "three_int32_keys": time_hash_shape(hashing),
+        "card": card,
+    }
+
+
 def profile_run(run, label, out_dir, pack: bool = True) -> dict:
     """Device time by kernel over one warm run of a path, in a padded
     window (``padded_profile``; the written table includes the pad's
@@ -8078,6 +8307,7 @@ def main(argv=None) -> int:
     from dryad_tpu_torch.apps import terasort as ts
     from dryad_tpu_torch.apps import wordcount as wc
     from dryad_tpu_torch.ops import _build
+    from dryad_tpu_torch.ops import hashing
     from dryad_tpu_torch.ops import hopper_kernels as hk
     dev = torch.device("cuda")
 
@@ -8146,12 +8376,19 @@ def main(argv=None) -> int:
     for vname, (n_keys, query, cols) in variants.items():
         data = gbr.gen_pairs(a.rows, n_keys, seed=0)
         hk.capture = {}
-        out, launches, load, qs, logs = run_gbr(port, hk, data, query)
+        with hash_calls(hashing) as hashed:
+            out, launches, load, qs, logs = run_gbr(port, hk, data, query)
         captured, hk.capture = hk.capture, None
         check_gbr(vname, out, data, cols)
         flat_outs[vname] = out
         held(vname, launches, captured)
-        zero = [k for k in (TPU_KERNEL if vname == "app10k" else EXCHANGE)
+        runs[vname][1]["hash_keys"] = hold_hashes(hashing, vname, launches,
+                                                  hashed)
+        if vname == "app10k":   # its largest call, for the kernels line
+            app_hashes = [max(hashed["kernel"],
+                              key=lambda c: _hash_rows(c) * len(c))]
+        del hashed
+        zero = [k for k in (HASHING if vname == "app10k" else EXCHANGE)
                 if launches[k] == 0]
         if zero:
             raise AssertionError(f"{vname}: kernels never launched: {zero}")
@@ -8718,6 +8955,8 @@ def main(argv=None) -> int:
     rows = time_kernels(hk, runs, {
         "zipf50k": (timed_calls["zipf50k"], wc_prof),
         "app10k": (timed_calls["app10k"], gbr_prof)}, card)
+    rows.append(time_hash_keys(hashing, runs, app_hashes, gbr_prof, card))
+    del app_hashes
     for row in rows:
         emit({"kernel": row})
     emit({"phase": "script", "seconds": time.perf_counter() - started,

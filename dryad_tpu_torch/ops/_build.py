@@ -71,6 +71,8 @@ KERNELS = {
                                           _P]},
     "slot_compact": {"dryad_slot_compact": [_P, _P, _I, _I, _I, _I, _LL,
                                             _P, _P]},
+    "hash_keys": {"dryad_hash_keys": [_P, _I, _LL, _P, _I, _P, _P,
+                                       _P]},
 }
 
 # host C library -> {entry point: (argtypes, restype)}

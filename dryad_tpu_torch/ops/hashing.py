@@ -8,10 +8,19 @@ back to 32 bits, right shifts are then logical, and a product with a
 32-bit constant is split into 16-bit halves so that no intermediate
 leaves int64 (``mul32``).  The results are the JAX package's hashes bit
 for bit, which is what makes the exchange destinations ``lo % D`` agree.
+
+``hash_batch_keys`` routes like the wrappers of ``hopper_kernels``: CUDA
+columns go to the hand-written kernel ``hash_keys``
+(``csrc/hash_keys.cu``: every key column of the call in one launch, or
+one per 32 columns, in uint32 registers), CPU columns and, inside
+``shape_only()``, meta columns to the plain version ``hash_columns``
+above it, whose bits the kernel reproduces; any other device, or a mix,
+raises.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -19,6 +28,8 @@ import torch
 
 from dryad_tpu_torch.data.columnar import Batch, StringColumn
 from dryad_tpu_torch.obs import trace
+from dryad_tpu_torch.ops import _build
+from dryad_tpu_torch.ops import hopper_kernels as hk
 
 __all__ = ["hash_column", "hash_columns", "hash_batch_keys", "M32", "mul32",
            "to_u32", "from_u32", "canon_zero"]
@@ -158,12 +169,124 @@ def hash_columns(cols: Sequence):
     return h
 
 
+# the kernel's column kinds (the k* constants of csrc/hash_keys.cu)
+_KIND = {torch.int8: 0, torch.uint8: 1, torch.int16: 2, torch.uint16: 3,
+         torch.int32: 4, torch.uint32: 4, torch.int64: 5, torch.uint64: 5,
+         torch.bool: 6, torch.float16: 7, torch.bfloat16: 8,
+         torch.float32: 9, torch.float64: 10}
+_KIND_STR = 11
+_MAX_KEY_COLS = 32           # kMaxCols of csrc/hash_keys.cu: columns a launch
+
+# device index -> the byte weights on it (both vectors, as int32 bits),
+# made at the first string key hashed there
+_weights_on = {}
+_WEIGHTS_LOCK = threading.Lock()
+
+
+def _device_weights(dev: torch.device) -> torch.Tensor:
+    with _WEIGHTS_LOCK:
+        w = _weights_on.get(dev.index)
+        if w is None:
+            w1, w2 = _byte_weights()
+            w = torch.from_numpy(np.concatenate([w1, w2]).view(np.int32)
+                                 ).to(dev)
+            # landed before any stream's launch reads them
+            torch.cuda.current_stream(dev).synchronize()
+            _weights_on[dev.index] = w
+        return w
+
+
+def _tensors(cols):
+    for c in cols:
+        if isinstance(c, StringColumn):
+            yield c.data
+            yield c.lengths
+        else:
+            yield c
+
+
+def _descriptor(col):
+    """(the kernel's 7-word descriptor of one key column, the tensor it
+    points into)."""
+    if isinstance(col, StringColumn):
+        data, lens = col.data, col.lengths
+        L = col.max_len
+        if L > _MAX_HASH_LEN:
+            raise ValueError(f"string max_len {L} > hashable "
+                             f"{_MAX_HASH_LEN}")
+        if data.dtype != torch.uint8 or lens.dtype != torch.int32:
+            raise TypeError(f"hash_keys: string bytes {data.dtype} and "
+                            f"lengths {lens.dtype}, not uint8 and int32")
+        if lens.shape != data.shape[:1]:
+            raise ValueError(f"hash_keys: {tuple(lens.shape)} lengths for "
+                             f"{data.shape[0]} strings")
+        if data.stride(1) != 1:
+            data = data.contiguous()
+        return ((data.data_ptr(), lens.data_ptr(), data.stride(0), 1,
+                 lens.stride(0), _KIND_STR, L), data)
+    kind = _KIND.get(col.dtype)
+    if kind is None:
+        raise TypeError(f"hash_keys: no kernel for key dtype {col.dtype}")
+    if col.dim() not in (1, 2):
+        raise ValueError(f"hash_keys: key columns are [n] or [n, k], got "
+                         f"{tuple(col.shape)}")
+    es = col.element_size()
+    wide = col.dim() == 2
+    return ((col.data_ptr(), 0, col.stride(0) * es,
+             col.stride(1) * es if wide else 0, 0, kind,
+             col.shape[1] if wide else 1), col)
+
+
+def _hash_keys(cols: Sequence):
+    """The kernel ``hash_keys`` on CUDA key columns (the caller routed
+    them): ``hash_columns``' bits in one launch over every column, or one
+    per ``_MAX_KEY_COLS`` columns, each later launch combining its columns
+    into the lanes the one before wrote.  A zero-row call launches
+    nothing."""
+    n = (cols[0].capacity if isinstance(cols[0], StringColumn)
+         else cols[0].shape[0])
+    desc, held = [], []     # held: the tensors read, kept to the launch
+    for col in cols:
+        d, t = _descriptor(col)
+        if t.shape[0] != n:
+            raise ValueError(f"hash_keys: key columns of {t.shape[0]} and "
+                             f"{n} rows")
+        desc.append(d)
+        held.append(t)
+    dev = held[0].device
+    hi = torch.empty(n, dtype=torch.int64, device=dev)
+    lo = torch.empty(n, dtype=torch.int64, device=dev)
+    if n == 0:
+        return hi, lo
+    weights = (_device_weights(dev) if any(
+        isinstance(c, StringColumn) for c in cols) else None)
+    desc = np.asarray(desc, dtype=np.int64)
+    lib = _build.library("hash_keys")
+    stream = hk._stream(hi)
+    for first in range(0, len(cols), _MAX_KEY_COLS):
+        chunk = desc[first:first + _MAX_KEY_COLS]
+        hk._ok("hash_keys", lib.dryad_hash_keys(
+            chunk.ctypes.data, len(chunk), n,
+            None if weights is None else weights.data_ptr(), int(first > 0),
+            hi.data_ptr(), lo.data_ptr(), stream))
+        hk._launched("hash_keys")
+    return hi, lo
+
+
 def hash_batch_keys(batch: Batch, key_names: Sequence[str]):
-    """(hi, lo) int64 lanes in [0, 2**32) of the keys' 64-bit hash, in a
-    ``hash`` span when tracing (``obs/trace.py``; ``rows``: the batch's
-    capacity)."""
+    """(hi, lo) int64 lanes in [0, 2**32) of the keys' 64-bit hash: the
+    kernel for CUDA columns, ``hash_columns`` for CPU ones (and meta ones
+    inside ``shape_only()``).  In a ``hash`` span when tracing
+    (``obs/trace.py``; ``rows``: the batch's capacity; ``route``:
+    ``"kernel"`` or ``"plain"``)."""
+    cols = [batch.columns[k] for k in key_names]
+    if not cols:
+        raise ValueError("hash_columns needs at least one column")
+    fn = _hash_keys if hk._on_card("hash_keys", *_tensors(cols)) \
+        else hash_columns
     if trace.ACTIVE:
-        with trace.scope("hash", "op", {"rows": batch.capacity,
-                                        "keys": len(key_names)}):
-            return hash_columns([batch.columns[k] for k in key_names])
-    return hash_columns([batch.columns[k] for k in key_names])
+        with trace.scope("hash", "op", {
+                "rows": batch.capacity, "keys": len(key_names),
+                "route": "kernel" if fn is _hash_keys else "plain"}):
+            return fn(cols)
+    return fn(cols)

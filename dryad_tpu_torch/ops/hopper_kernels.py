@@ -20,6 +20,11 @@ The port's counterparts of the five TPU kernels in
 A one-row (one-partition) call of a batched kernel is the batched call
 with P = 1: one kernel, one launch counter, one capture name.
 
+A sixth kernel, ``hash_keys`` (the 64-bit key hash of a
+``hash_batch_keys`` call), has no TPU counterpart; its wrapper lives
+beside its plain version in ``ops/hashing.py``, routes and counts through
+this module's ``_on_card`` and ``launches``, and is not captured.
+
 Each kernel is CUDA C++ for ``sm_90a`` under ``csrc/`` (its file says what
 it replaces, what bounds it and how it is built), compiled by ``_build`` on
 first use and called through ``ctypes`` on PyTorch's current stream.
@@ -56,7 +61,7 @@ __all__ = ["hist_buckets", "hist_buckets_batched", "prefix_sum",
            "reset_launches"]
 
 launches = {"hist_buckets": 0, "prefix_sum": 0, "prefix_sum2": 0,
-            "slot_expand": 0, "slot_compact": 0}
+            "slot_expand": 0, "slot_compact": 0, "hash_keys": 0}
 
 _SCAN_TILE = 4096            # kTile of csrc/prefix_sum.cu and prefix_sum2.cu
 _SCAN_HEAD_WORDS = 2         # lookback::kHeadWords of csrc/scan_lookback.cuh

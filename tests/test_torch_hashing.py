@@ -13,6 +13,7 @@ from dryad_tpu.data import columnar as jcol
 from dryad_tpu.ops import hashing as jh
 from dryad_tpu_torch.data import columnar as tcol
 from dryad_tpu_torch.ops import hashing as th
+import hash_key_cases as hc
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 N = 2_000
@@ -85,3 +86,38 @@ def test_mul32_wraps_like_uint32(c):
         0, 2**32, 10_000, dtype=np.uint64).astype(np.uint32)
     got = th.mul32(torch.from_numpy(x.astype(np.int64)), c).numpy()
     np.testing.assert_array_equal(got, (x * np.uint32(c)).astype(np.int64))
+
+
+@pytest.mark.parametrize("kind", sorted(hc.JAX_DIGESTS))
+def test_jax_hashes_match_the_kernel_tests_digests(kind):
+    """The JAX package's lanes of each case of ``hash_key_cases`` are the
+    digest the card tests of the hash kernel hold the card to, and so are
+    the port's plain lanes on the CPU."""
+    _seed, str_max_len, _extra, x64 = hc.CASES[kind]
+    cols = hc.columns(kind)
+    keys, cap = list(cols), hc.capacity(kind, cols)
+    with jax.enable_x64(x64):
+        jb = jcol.batch_from_numpy(cols, capacity=cap,
+                                   str_max_len=str_max_len)
+        jhi, jlo = (np.asarray(a) for a in jh.hash_batch_keys(jb, keys))
+    assert hc.digest(jhi, jlo) == hc.JAX_DIGESTS[kind]
+    tb = tcol.batch_from_numpy(cols, capacity=cap, str_max_len=str_max_len,
+                               device="cpu")
+    thi, tlo = th.hash_batch_keys(tb, keys)
+    assert hc.digest(thi.numpy(), tlo.numpy()) == hc.JAX_DIGESTS[kind]
+
+
+@pytest.mark.parametrize("kind", hc.PLAIN_ONLY)
+def test_the_packages_differ_only_where_the_kernel_tests_say(kind):
+    """Where ``hash_key_cases`` holds the card to the port's plain version
+    alone, the JAX package's lanes do differ from the port's."""
+    _seed, str_max_len, _extra, x64 = hc.CASES[kind]
+    cols = hc.columns(kind)
+    with jax.enable_x64(x64):
+        jb = jcol.batch_from_numpy(cols, str_max_len=str_max_len)
+        jhi, jlo = (np.asarray(a) for a in jh.hash_batch_keys(jb, ["k"]))
+    tb = tcol.batch_from_numpy(cols, str_max_len=str_max_len, device="cpu")
+    thi, tlo = th.hash_batch_keys(tb, ["k"])
+    differ = (thi.numpy() != jhi.astype(np.int64)) | (
+        tlo.numpy() != jlo.astype(np.int64))
+    assert differ[:6].any() and not differ[6:].any()

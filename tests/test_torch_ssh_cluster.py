@@ -60,8 +60,8 @@ def test_ssh_staging_and_gang(ssh_cluster):
     assert os.path.isdir(os.path.join(pkg, "runtime"))
     cus = sorted(f for f in os.listdir(os.path.join(pkg, "ops", "csrc"))
                  if f.endswith(".cu"))
-    assert cus == ["hist_buckets.cu", "prefix_sum.cu", "prefix_sum2.cu",
-                   "slot_compact.cu", "slot_expand.cu"]
+    assert cus == ["hash_keys.cu", "hist_buckets.cu", "prefix_sum.cu",
+                   "prefix_sum2.cu", "slot_compact.cu", "slot_expand.cu"]
     assert os.path.exists(os.path.join(pkg, "ops", "csrc", "host_fnv.c"))
     assert not os.path.exists(os.path.join(root, "dryad_tpu"))
     staged = [p for d, _, fs in os.walk(pkg) for p in fs]
