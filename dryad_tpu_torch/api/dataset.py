@@ -760,7 +760,8 @@ class Context:
         scale learned in the first iteration carries over).  The body must
         keep the per-partition capacity (``with_capacity``).  ``cond``, a
         predicate on the current table collected to the host, stops the
-        loop early when it returns False.
+        loop early when it returns False.  When tracing, the loop runs in
+        a ``loop`` span and each iteration's run in a ``loop.iter`` span.
 
         On a cluster Context the loop state stays resident on the
         workers under a token (``_cluster_do_while``)."""
@@ -798,22 +799,43 @@ class Context:
                 if cond is not None and not cond(cur_host):
                     break
             return self.from_columns(cur_host)
+        if trace.ACTIVE:
+            with trace.scope("loop", "loop",
+                             {"iters": n_iters, "planned": 1}) as sp:
+                return self._loop_local(init, body, n_iters, cond, sp)
+        return self._loop_local(init, body, n_iters, cond)
+
+    def _loop_local(self, init: "Dataset", body, n_iters: int, cond,
+                    sp=None) -> "Dataset":
+        """The in-memory loop: the init run, the body planned once, one
+        Run per iteration (its own deferred settle), each in a
+        ``loop.iter`` span when tracing; ``sp``, the ``loop`` span, gets
+        the body's stage count and the iterations run."""
         cur = init._materialize()
         ph = E.Placeholder(parents=(), name="__loop",
                            _npartitions=self.nparts, capacity=cur.capacity)
         graph = plan_query(body(Dataset(self, ph)).node, self.nparts,
                            hosts=self.hosts, levels=self.levels)
-        # one Run per iteration (its own deferred settle)
-        for _ in range(n_iters):
-            nxt = self.executor.run(graph, bindings={"__loop": cur})
+        if sp is not None:
+            sp.set(stages=len(graph.stages))
+        done = 0
+        for i in range(n_iters):
+            if trace.ACTIVE:
+                with trace.scope("loop.iter", "loop", {"i": i}):
+                    nxt = self.executor.run(graph, bindings={"__loop": cur})
+            else:
+                nxt = self.executor.run(graph, bindings={"__loop": cur})
             if nxt.capacity != cur.capacity:
                 raise ValueError(
                     "do_while body must preserve per-partition capacity "
                     f"({cur.capacity} -> {nxt.capacity}); use explicit "
                     "capacities (with_capacity) inside the loop")
             cur = nxt
+            done += 1
             if cond is not None and not cond(pdata_to_host(cur)):
                 break
+        if sp is not None:
+            sp.set(iters_run=done)
         return self.from_pdata(cur)
 
     def _cluster_do_while(self, init: "Dataset", body, n_iters: int,

@@ -13,8 +13,11 @@ sink.  Below them the program opens spans where the work happens
 (``scope``): a terminal's ``query`` root with its ``plan`` and
 ``collect`` / ``cache``, each fused op (``op.<kind>``), each exchange
 (``exchange.<kind>``) with its ``pack`` and ``unpack``, the key ``hash``,
-the ``sort`` lanes and the ``settle``.  Their attributes come from
-shapes and capacities, never from a device read.
+the ``sort`` lanes and the ``settle``; an in-memory ``do_while`` opens
+a ``loop`` (``iters``, ``stages``, ``planned``, and ``iters_run`` on
+close) with one ``loop.iter`` (``i``) around each iteration's run.
+Their attributes come from shapes and capacities, never from a device
+read.
 
 Clock: a span stamps its start and end as integer nanoseconds of ONE
 clock, ``time.time_ns()`` (``start_ns`` / ``end_ns`` on the event), the
