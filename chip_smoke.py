@@ -50,7 +50,12 @@ Phases, each failing the run (non-zero exit, no result line) on error:
      means within the group bound); every launch counter must rise in the
      app's run, prefix_sum2 once per partition, and the exchange's four
      in every run (hist_buckets, slot_expand and slot_compact once per
-     exchange);
+     exchange); then ``q1int64``, TPC-H Q1's aggregate set over five
+     int64 decimals (as many rows, two int32 keys of 3 and 2 values),
+     held exactly against numpy: the group op's scan lowering in both
+     stages, so ``seg_scan`` once per partition at least.  Every main-path run's
+     segmented scans (``seg_scan_calls``) are held against the plain
+     version and their launches counted against the run's counters;
   6. the sort paths through the same entry points: TeraSort on
      1,000,000 records (``terasort.gen_records(N, seed=0)``, the JAX
      bench's in-memory size, ``str_max_len=10``: a range exchange of
@@ -553,7 +558,11 @@ DEVICE_NAMES = {  # substrings of the compiled kernels' names
     "slot_expand": ("slot_expand_v4",),
     "slot_compact": ("slot_compact_v2",),
     "hash_keys": ("key_hash_rows",),
+    "seg_scan": ("seg_tile_reduce", "seg_tile_carry", "seg_tile_apply"),
 }
+# device kernels a wrapper call may launch (seg_scan: reduce, carry, apply)
+KERNELS_A_CALL = {"seg_scan": 3}
+SEG_HOLD_BYTES = 6 << 30      # a run's held segmented-scan inputs, at most
 PACK_RANGE = "dryad.exchange.pack"   # parallel/shuffle.py's profiler range
 # the runs whose calls are kept for a pack_side line
 PROFILED = ("zipf50k", "app10k")
@@ -906,6 +915,113 @@ def hold_hashes(hashing, run, launches, rec) -> float:
             raise AssertionError(f"hash_keys {run} call {i}: kernel != "
                                  f"plain")
     return 0.0
+
+
+def seg_scan_launches(hk, calls) -> int:
+    """``seg_scan`` launches of these calls (each its leaves and flags):
+    one per ``hk._SEG_MAX_LANES`` lanes (a column of an [n, k] leaf is a
+    lane), none for zero rows."""
+    total = 0
+    for leaves, starts in calls:
+        lanes = sum(1 if v.dim() == 1 else v.shape[1] for v, _ in leaves)
+        if starts.shape[0] and lanes:
+            total += -(-lanes // hk._SEG_MAX_LANES)
+    return total
+
+
+def seg_scan_calls(hk) -> dict:
+    """Record, from now on, the group op's segmented scans made inside a
+    main-path run's capture window (while ``hk.capture`` is set):
+    ``window`` the kernel-routed calls (leaves, flags) not yet held,
+    ``since_reset`` those since the last ``hk.reset_launches()``,
+    ``plain_on_card`` the plain version's calls on CUDA tensors (none
+    where the routing holds), ``dropped`` the calls past
+    ``SEG_HOLD_BYTES`` of held inputs, counted but not kept.  Through the
+    module globals ``kernels._seg_scan_multi`` looks up, not the
+    ``capture`` hook; ``rec["restore"]()`` puts them back."""
+    rec = {"window": [], "since_reset": [], "plain_on_card": 0,
+           "dropped": 0, "bytes": 0, "kernel": hk.seg_scan_multi,
+           "plain": hk.seg_scan_multi_plain}
+    reset = hk.reset_launches
+
+    def on_kernel(vals_ops, is_start):
+        if hk.capture is not None:
+            call = (list(vals_ops), is_start)
+            rec["since_reset"].append(call)
+            size = sum(v.numel() * v.element_size() for v, _ in vals_ops)
+            if rec["bytes"] + size <= SEG_HOLD_BYTES:
+                rec["window"].append(call)
+                rec["bytes"] += size
+            else:
+                rec["dropped"] += 1
+        return rec["kernel"](vals_ops, is_start)
+
+    def on_plain(vals_ops, is_start):
+        if is_start.is_cuda:
+            rec["plain_on_card"] += 1
+        return rec["plain"](vals_ops, is_start)
+
+    def on_reset():
+        rec["since_reset"] = []
+        reset()
+
+    def restore():
+        hk.seg_scan_multi, hk.seg_scan_multi_plain = (rec["kernel"],
+                                                      rec["plain"])
+        hk.reset_launches = reset
+
+    hk.seg_scan_multi, hk.seg_scan_multi_plain = on_kernel, on_plain
+    hk.reset_launches = on_reset
+    rec["restore"] = restore
+    return rec
+
+
+def hold_seg_scans(hk, run, launches, rec, count: bool):
+    """A run's segmented scans: with ``count``, its ``seg_scan`` launches
+    against its kernel calls since the last reset; none plain on the
+    card; then each call of its window made again through the kernel and
+    the plain version on the card: integers, bool and min / max equal
+    (NaN where the plain version has NaN), float sums NaN where the plain
+    version's are, else within 16 eps x the running sum of magnitudes.
+    Returns the largest |kernel - plain| (float sums), 0 for a run whose
+    scans are all exact, None for a run with no scan."""
+    import torch
+    window, calls = rec["window"], rec["since_reset"]
+    rec["window"], rec["since_reset"], rec["bytes"] = [], [], 0
+    want = seg_scan_launches(hk, calls)
+    if rec["plain_on_card"] or (count and launches.get("seg_scan", 0)
+                                != want):
+        raise AssertionError(
+            f"{run}: {launches.get('seg_scan')} seg_scan launches for "
+            f"{len(calls)} kernel calls ({want} launches), "
+            f"{rec['plain_on_card']} plain calls on the card")
+    if not window:
+        return None
+    err = 0.0
+    for i, (leaves, starts) in enumerate(window):
+        got = rec["kernel"](leaves, starts)
+        plain = rec["plain"](leaves, starts)
+        for j, ((v, op), g, p) in enumerate(zip(leaves, got, plain)):
+            gn, pn = ((torch.isnan(g), torch.isnan(p))
+                      if g.is_floating_point() else (None, None))
+            if not g.is_floating_point():
+                ok = torch.equal(g, p)
+            elif op is torch.add:
+                mag = rec["plain"]([(v.double().abs(), torch.add)],
+                                   starts)[0]
+                eps = torch.finfo(g.dtype).eps / 2
+                d = torch.where(gn, 0.0, (g.double() - p.double()).abs())
+                ok = torch.equal(gn, pn) and bool(
+                    (d <= 16 * eps * mag.nan_to_num(0.0)).all())
+                err = max(err, float(d.max()) if d.numel() else 0.0)
+            else:
+                ok = torch.equal(gn, pn) and torch.equal(
+                    torch.where(gn, 0.0, g), torch.where(pn, 0.0, p))
+            if not ok:
+                raise AssertionError(f"seg_scan {run} call {i} leaf {j} "
+                                     f"({v.dtype}, {op.__name__}): "
+                                     f"kernel != plain")
+    return err
 
 
 def hash_work(cols) -> tuple:
@@ -1307,6 +1423,54 @@ def run_gbr(port, hk, data, query):
     t2 = time.perf_counter()
     return (out, dict(hk.launches), t1 - t0, t2 - t1,
             [list(ctx.executor.stage_log)])
+
+
+Q1_INT64_AGGS = {"sum_qty": ("sum", "qty"), "sum_price": ("sum", "price"),
+                 "sum_disc_price": ("sum", "disc_price"),
+                 "sum_charge": ("sum", "charge"), "avg_qty": ("mean", "qty"),
+                 "avg_price": ("mean", "price"), "avg_disc": ("mean", "disc"),
+                 "n": ("count", None)}
+
+
+def q1_int64_data(n: int, seed: int = 0) -> dict:
+    """TPC-H Q1's group-by shape: two small int32 keys (flag: 3 values,
+    status: 2) and five int64 decimal columns below 10**11."""
+    rng = np.random.RandomState(seed)
+    cols = {"flag": rng.randint(0, 3, n).astype(np.int32),
+            "status": rng.randint(0, 2, n).astype(np.int32)}
+    for c in ("qty", "price", "disc", "disc_price", "charge"):
+        cols[c] = rng.randint(0, 10**11, n, dtype=np.int64)
+    return cols
+
+
+def q1_int64_query(ctx, data):
+    """Q1's aggregate set over int64 decimals: 8-byte sums, so the group
+    op's scan lowering in the partial and the final stage."""
+    return ctx.from_columns(data).group_by(["flag", "status"],
+                                           Q1_INT64_AGGS).collect()
+
+
+def check_q1_int64(out, data) -> int:
+    """Against numpy: the groups, counts and int64 sums exactly, the means
+    within 1e-6 of the exact quotient.  Returns the number of groups."""
+    key = data["flag"] * 2 + data["status"]
+    got = np.asarray(out["flag"]) * 2 + np.asarray(out["status"])
+    if sorted(got.tolist()) != sorted(set(key.tolist())):
+        raise AssertionError(f"q1int64: groups {sorted(got.tolist())}")
+    for i, k in enumerate(got.tolist()):
+        g = key == k
+        n = int(g.sum())
+        if int(out["n"][i]) != n:
+            raise AssertionError(f"q1int64: group {k} counts {out['n'][i]}")
+        for name, (kind, col) in Q1_INT64_AGGS.items():
+            if kind == "sum" and int(out[name][i]) != int(data[col][g].sum()):
+                raise AssertionError(f"q1int64: group {k} {name} differs")
+            if kind == "mean":
+                want = int(data[col][g].sum()) / n
+                if abs(float(out[name][i]) - want) > 1e-6 * abs(want):
+                    raise AssertionError(f"q1int64: group {k} {name} "
+                                         f"{out[name][i]} != {want}")
+    return len(got)
 
 
 def check_gbr(name, out, data, cols) -> None:
@@ -4665,7 +4829,8 @@ def obs_profile_pagerank(port, hk, pr, edges, n_nodes, ranks, out_dir,
                    if any(sub in n for sub in subs)) / 1e3
             for k, subs in DEVICE_NAMES.items()}
     missing = [k for k, n in launches.items() if n and not ours[k]]
-    extra = [k for k in launches if seen[k] > launches[k]]
+    extra = [k for k in launches
+             if seen[k] > launches[k] * KERNELS_A_CALL.get(k, 1)]
     if len(paths) != len(runs) or missing or extra or any(lost):
         raise AssertionError(
             f"obs_profile_pagerank100k: {len(paths)} traces for "
@@ -8198,6 +8363,77 @@ def time_hash_keys(hashing, runs, calls, prof, card) -> dict:
     }
 
 
+def time_seg_scan(hk, runs, dropped, card, n: int = 22_500_000) -> dict:
+    """The kernels line's row of ``seg_scan``.  ``launches`` and
+    ``max_abs_err``: the held main-path runs' (``runs``, each scan call
+    made again through the kernel and the plain version by
+    ``hold_seg_scans``; ``dropped``: calls past ``SEG_HOLD_BYTES``, not
+    held).  Timed at TPC-H Q1's partial group-by in one partition: ``n``
+    rows of start flags (four segments, Q1's four groups), the int32
+    count leaf and five int64 sums, held equal to the plain version on
+    the card, then timed (CUDA events; its three launches' device time
+    from a profile) beside the bound of its bytes: the flags and each
+    leaf read once, each output written once (``design_bytes``: what the
+    kernel moves, reading the inputs twice)."""
+    import torch
+    per_run = {r: {"launches": l["seg_scan"], "max_abs_err": e["seg_scan"]}
+               for r, (l, e) in runs.items() if l.get("seg_scan")}
+    if not per_run:
+        raise AssertionError("seg_scan: no held main-path run launched it")
+    g = torch.Generator(device="cuda").manual_seed(27)
+    starts = torch.zeros(n, dtype=torch.bool, device="cuda")
+    starts[torch.arange(4, device="cuda") * (n // 4)] = True
+    cnt = (torch.arange(n, device="cuda") < n - n // 50).to(torch.int32)
+    leaves = [(cnt, torch.add)] + [
+        (torch.randint(0, 10**12, (n,), dtype=torch.int64, device="cuda",
+                       generator=g), torch.add) for _ in range(5)]
+    before = hk.launches["seg_scan"]
+    got = hk.seg_scan_multi(leaves, starts)
+    launches = hk.launches["seg_scan"] - before
+    want = hk.seg_scan_multi_plain(leaves, starts)
+    torch.cuda.synchronize()
+    if launches != 1 or not all(torch.equal(a, b)
+                                for a, b in zip(got, want)):
+        raise AssertionError(f"seg_scan: Q1's shape, {launches} launches, "
+                             f"kernel != plain")
+    del got, want
+    es = sum(v.element_size() for v, _ in leaves)
+    nbytes = n * (1 + 2 * es)
+    ops = n * len(leaves)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    kernel = functools.partial(hk.seg_scan_multi, leaves, starts)
+    calls = 20
+    by_kernel = {sub: us / calls
+                 for key, _count, us in profile_window(kernel, calls,
+                                                       "seg_scan")
+                 for sub in DEVICE_NAMES["seg_scan"] if sub in key}
+    device_ms = sum(by_kernel.values()) / 1e3
+    return {
+        "name": "seg_scan", "route": "cuda",
+        "source": "dryad_tpu_torch/ops/csrc/seg_scan.cu",
+        "replaces": None,
+        "launches": sum(r["launches"] for r in per_run.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in per_run.values()),
+        "runs": per_run, "calls_not_held": dropped,
+        "ms": cuda_ms(kernel),
+        "plain_ms": cuda_ms(functools.partial(
+            hk.seg_scan_multi_plain, leaves, starts), reps=3),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+        "device_ms": device_ms,
+        "device_us_by_kernel": by_kernel,
+        "share": max(t_bytes, t_ops) / device_ms,
+        **profile_calls("seg_scan", kernel, per_call=3),
+        "host_enqueue_us": host_enqueue_us(kernel),
+        "timed_on": "q1_partition",
+        "shape": [[n, "bool"], [n, "int32"], *([[n, "int64"]] * 5)],
+        "bytes": nbytes, "design_bytes": n * (2 * (1 + es) + es),
+        "ops": ops, "card": card,
+    }
+
+
 def profile_run(run, label, out_dir, pack: bool = True) -> dict:
     """Device time by kernel over one warm run of a path, in a padded
     window (``padded_profile``; the written table includes the pad's
@@ -8328,12 +8564,19 @@ def main(argv=None) -> int:
     runs, timed_calls = {}, {}
     wc_counts = {}   # phase 3's in-memory WordCount counts by corpus
 
+    scans = seg_scan_calls(hk)   # the group op's scans, held in held()
+
     def held(label, launches, captured=None, errs=None):
         """Record a main-path run: its launches and its calls held
         (``captured``), or the largest errors of calls already held
-        (``errs``)."""
+        (``errs``); its segmented scans held too, their launches counted
+        against its counters where the run's own (``captured``)."""
         if errs is None:
             errs = hold_run(hk, label, captured)
+        seg = hold_seg_scans(hk, label, launches, scans,
+                             count=captured is not None)
+        if "seg_scan" in launches:
+            errs = {**errs, "seg_scan": seg or 0.0}
         runs[label] = (launches, errs)
         if label in PROFILED:
             timed_calls[label] = captured
@@ -8418,6 +8661,25 @@ def main(argv=None) -> int:
             "warm_wall_s": warm, "warm_load_s": wload,
             "warm_query_s": wquery, "rows_per_s": a.rows / warm,
             "card": card})
+
+    # Q1's aggregate set over int64 decimals: the group op's scan
+    # lowering in both stages (app10k above reaches it only in its final
+    # merge of two min / max columns)
+    q1d = q1_int64_data(a.rows)
+    hk.capture = {}
+    out, launches, load, qs, _ = run_app(
+        port, hk, lambda c: q1_int64_query(c, q1d))
+    captured, hk.capture = hk.capture, None
+    groups = check_q1_int64(out, q1d)
+    held("q1int64", launches, captured)
+    del captured, out, q1d
+    if launches["seg_scan"] < NPARTS:
+        raise AssertionError(f"q1int64: seg_scan launched "
+                             f"{launches['seg_scan']} times, not once per "
+                             f"partition in the partial stage at least")
+    emit({"q1int64": {"rows": a.rows, "groups": groups, "nparts": NPARTS,
+                      "launches": launches, "cold_wall_s": load + qs},
+          "card": card})
 
     sorts = sort_runs(ts, gbr, a.records, a.rows)
     for sname, ((data, sml), queries, check) in sorts.items():
@@ -8956,6 +9218,8 @@ def main(argv=None) -> int:
         "zipf50k": (timed_calls["zipf50k"], wc_prof),
         "app10k": (timed_calls["app10k"], gbr_prof)}, card)
     rows.append(time_hash_keys(hashing, runs, app_hashes, gbr_prof, card))
+    scans["restore"]()
+    rows.append(time_seg_scan(hk, runs, scans["dropped"], card))
     del app_hashes
     for row in rows:
         emit({"kernel": row})

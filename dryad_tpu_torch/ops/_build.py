@@ -73,6 +73,7 @@ KERNELS = {
                                             _P, _P]},
     "hash_keys": {"dryad_hash_keys": [_P, _I, _LL, _P, _I, _P, _P,
                                        _P]},
+    "seg_scan": {"dryad_seg_scan": [_P, _I, _LL, _P, _P, _P, _P]},
 }
 
 # host C library -> {entry point: (argtypes, restype)}

@@ -23,7 +23,12 @@ with P = 1: one kernel, one launch counter, one capture name.
 A sixth kernel, ``hash_keys`` (the 64-bit key hash of a
 ``hash_batch_keys`` call), has no TPU counterpart; its wrapper lives
 beside its plain version in ``ops/hashing.py``, routes and counts through
-this module's ``_on_card`` and ``launches``, and is not captured.
+this module's ``_on_card`` and ``launches``, and is not captured.  A
+seventh, ``seg_scan`` (the group op's segmented scans,
+``seg_scan_multi``: every leaf of a call in one pass), has none either:
+the JAX package leaves that scan to ``lax.associative_scan``.  It is not
+captured; its caller, ``kernels._seg_scan_multi``, routes between it and
+``seg_scan_multi_plain`` as ``hash_batch_keys`` does for ``hash_keys``.
 
 Each kernel is CUDA C++ for ``sm_90a`` under ``csrc/`` (its file says what
 it replaces, what bounds it and how it is built), compiled by ``_build`` on
@@ -45,7 +50,9 @@ from __future__ import annotations
 
 import contextlib
 import threading
+from typing import List
 
+import numpy as np
 import torch
 
 from dryad_tpu_torch.ops import _build
@@ -57,11 +64,12 @@ __all__ = ["hist_buckets", "hist_buckets_batched", "prefix_sum",
            "hist_buckets_batched_plain", "prefix_sum_plain",
            "prefix_sum2_plain", "slot_expand_plain",
            "slot_expand_batched_plain", "slot_compact_plain",
-           "slot_compact_batched_plain", "dd_add", "launches",
-           "reset_launches"]
+           "slot_compact_batched_plain", "dd_add", "seg_scan_multi",
+           "seg_scan_multi_plain", "launches", "reset_launches"]
 
 launches = {"hist_buckets": 0, "prefix_sum": 0, "prefix_sum2": 0,
-            "slot_expand": 0, "slot_compact": 0, "hash_keys": 0}
+            "slot_expand": 0, "slot_compact": 0, "hash_keys": 0,
+            "seg_scan": 0}
 
 _SCAN_TILE = 4096            # kTile of csrc/prefix_sum.cu and prefix_sum2.cu
 _SCAN_HEAD_WORDS = 2         # lookback::kHeadWords of csrc/scan_lookback.cuh
@@ -536,3 +544,112 @@ def slot_compact(words: torch.Tensor, counts: torch.Tensor, C: int,
     _check("slot_compact", words, (torch.int32,), 2)
     _check_offsets("slot_compact", counts)
     return slot_compact_batched(words[None], counts[None], C, out_rows)[0]
+
+
+# ---------------------------------------------------------------------------
+# seg_scan
+
+# a lane's kind and op in csrc/seg_scan.cu (kI32, kI64, kF32, kF64; kAdd,
+# kMin, kMax)
+_SEG_KIND = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
+             torch.float64: 3}
+_SEG_OPS = {torch.add: 0, torch.minimum: 1, torch.maximum: 2}
+# leaves scanned in a wider dtype and narrowed back: exact for min / max,
+# for integer adds (they wrap modulo 2^32, so modulo 2^w too) and for
+# bool's add (any: a nonzero count); 16-bit float sums round once at the
+# end instead of at every add
+_SEG_WIDEN = {torch.bool: torch.int32, torch.int8: torch.int32,
+              torch.uint8: torch.int32, torch.int16: torch.int32,
+              torch.float16: torch.float32, torch.bfloat16: torch.float32}
+_SEG_TILE = 2048             # kTile of csrc/seg_scan.cu
+_SEG_MAX_LANES = 16          # kMaxLanes of csrc/seg_scan.cu: lanes a launch
+
+
+def seg_scan_multi_plain(vals_ops, is_start: torch.Tensor
+                         ) -> List[torch.Tensor]:
+    """The segmented scans as ONE log-step (Hillis–Steele)
+    ``associative_scan`` over the flags and every leaf: the passes and the
+    flags are shared instead of paid per leaf; pass d gives row i
+    ``where(f_i, x_i, op(x_{i-d}, x_i))``."""
+
+    def comb(a, b):
+        fa, va = a[0], a[1:]
+        fb, vb = b[0], b[1:]
+        out = [torch.where(fb.reshape(fb.shape + (1,) * (xa.dim() - 1)),
+                           xb, op(xa, xb))
+               for xa, xb, (_, op) in zip(va, vb, vals_ops)]
+        return (fa | fb,) + tuple(out)
+
+    res = associative_scan(comb, (is_start,) + tuple(v for v, _ in vals_ops))
+    return list(res[1:])
+
+
+def _seg_lanes(v: torch.Tensor, out: torch.Tensor, op) -> List[tuple]:
+    """The kernel's descriptor of each column of a leaf (one for [n], k
+    for [n, k]): input and output pointers and byte strides, kind, op and
+    whether 16-byte vector loads and stores apply."""
+    es = v.element_size()
+    cols = 1 if v.dim() == 1 else v.shape[1]
+    lanes = []
+    for j in range(cols):
+        ip = v.data_ptr() + (j * v.stride(1) * es if v.dim() == 2 else 0)
+        opt = out.data_ptr() + (j * out.stride(1) * es if v.dim() == 2
+                                else 0)
+        ist, ost = v.stride(0) * es, out.stride(0) * es
+        vec = int(ist == es and ost == es and ip % 16 == 0 and opt % 16 == 0)
+        lanes.append((ip, opt, ist, ost, _SEG_KIND[v.dtype], _SEG_OPS[op],
+                      vec))
+    return lanes
+
+
+def seg_scan_multi(vals_ops, is_start: torch.Tensor) -> List[torch.Tensor]:
+    """The kernel ``seg_scan`` on CUDA tensors (``kernels._seg_scan_multi``
+    routes them here): running segment reduces of several (value, op)
+    leaves over segment-sorted rows (``is_start``, bool [n], marks each
+    segment's first row; each segment's total lands on its last row),
+    every lane in one pass, one launch per ``_SEG_MAX_LANES`` lanes.
+    Leaves are [n] or [n, k] tensors of a dtype in ``_SEG_KIND`` or
+    ``_SEG_WIDEN`` under ``torch.add``, ``torch.minimum`` or
+    ``torch.maximum``; any other leaf raises.  Outputs: each leaf's dtype
+    and shape, contiguous; integers, bool and min / max equal the plain
+    version's bits, float sums agree within a sum's rounding
+    (``csrc/seg_scan.cu`` gives the kernel's order and its rule for signed
+    zeros)."""
+    n = is_start.shape[0]
+    for v, op in vals_ops:
+        if not (isinstance(v, torch.Tensor) and v.dim() in (1, 2)
+                and v.shape[0] == n and op in _SEG_OPS
+                and (v.dtype in _SEG_KIND or v.dtype in _SEG_WIDEN)):
+            raise ValueError(f"seg_scan: a leaf the kernel does not take "
+                             f"({getattr(v, 'dtype', type(v).__name__)}, "
+                             f"{getattr(v, 'shape', None)}, {op})")
+    if is_start.dtype != torch.bool or is_start.dim() != 1:
+        raise ValueError(f"seg_scan: flags are bool [n], got "
+                         f"{is_start.dtype} {tuple(is_start.shape)}")
+    if not _on_card("seg_scan", is_start, *(v for v, _ in vals_ops)):
+        raise ValueError("seg_scan: the kernel takes CUDA tensors")
+    dev = is_start.device
+    flags = is_start.contiguous()
+    held, outs, lanes = [], [], []     # held: the inputs read, kept to the launch
+    for v, op in vals_ops:
+        x = v.to(_SEG_WIDEN[v.dtype]) if v.dtype in _SEG_WIDEN else v
+        out = torch.empty(x.shape, dtype=x.dtype, device=dev)
+        held.append(x)
+        outs.append(out)
+        lanes.extend(_seg_lanes(x, out, op))
+    if n > 0 and lanes:
+        desc = np.asarray(lanes, dtype=np.int64)
+        tiles = -(-n // _SEG_TILE)
+        agg = torch.empty(min(len(lanes), _SEG_MAX_LANES) * tiles,
+                          dtype=torch.int64, device=dev)
+        agg_start = torch.empty(tiles, dtype=torch.int32, device=dev)
+        lib = _build.library("seg_scan")
+        stream = _stream(flags)
+        for first in range(0, len(lanes), _SEG_MAX_LANES):
+            chunk = desc[first:first + _SEG_MAX_LANES]
+            _ok("seg_scan", lib.dryad_seg_scan(
+                chunk.ctypes.data, len(chunk), n, flags.data_ptr(),
+                agg.data_ptr(), agg_start.data_ptr(), stream))
+            _launched("seg_scan")
+    return [o if o.dtype == v.dtype else o.to(v.dtype)
+            for o, (v, _) in zip(outs, vals_ops)]

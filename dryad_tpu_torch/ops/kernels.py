@@ -42,6 +42,7 @@ from torch.utils import _pytree as pytree
 
 from dryad_tpu_torch.data.columnar import Batch, StringColumn, map_column
 from dryad_tpu_torch.obs import trace
+from dryad_tpu_torch.ops import hopper_kernels as hk
 from dryad_tpu_torch.ops.hashing import (M32, canon_zero, from_u32,
                                          hash_batch_keys, mul32, to_u32)
 from dryad_tpu_torch.ops.hopper_kernels import prefix_sum, prefix_sum2
@@ -1031,7 +1032,7 @@ def _group_aggregate_scan(batch: Batch, key_names: Sequence[str],
 
 
 # ---------------------------------------------------------------------------
-# segmented scans (the port's associative_scan, ops/scan.py)
+# segmented scans (the seg_scan kernel, or the port's associative_scan)
 
 
 def _bcast(flag: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -1040,19 +1041,23 @@ def _bcast(flag: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 def _seg_scan_multi(vals_ops, is_start: torch.Tensor) -> List[torch.Tensor]:
     """Running segment reduces for SEVERAL (value, op) pairs in ONE scan:
-    the log2(cap) passes and the boundary flags are shared instead of
-    paid per aggregate.  Rows are segment-sorted, ``is_start`` marks each
-    segment's first row; each segment's total sits at its last row."""
-
-    def comb(a, b):
-        fa, va = a[0], a[1:]
-        fb, vb = b[0], b[1:]
-        out = [torch.where(_bcast(fb, xa), xb, op(xa, xb))
-               for xa, xb, (_, op) in zip(va, vb, vals_ops)]
-        return (fa | fb,) + tuple(out)
-
-    res = associative_scan(comb, (is_start,) + tuple(v for v, _ in vals_ops))
-    return list(res[1:])
+    the ``seg_scan`` kernel for CUDA tensors
+    (``hopper_kernels.seg_scan_multi``: every leaf in one pass), else the
+    plain version, one log-step scan whose passes and flags are shared by
+    every leaf (CPU tensors; meta ones inside ``shape_only()``).  Rows are
+    segment-sorted, ``is_start`` marks each segment's first row; each
+    segment's total sits at its last row.  In a ``seg_scan`` span when
+    tracing (``rows``: the capacity; ``cols``: the leaves; ``route``:
+    ``"kernel"`` or ``"plain"``)."""
+    card = hk._on_card("seg_scan", is_start, *(
+        v for v, _ in vals_ops if isinstance(v, torch.Tensor)))
+    fn = hk.seg_scan_multi if card else hk.seg_scan_multi_plain
+    if trace.ACTIVE:
+        with trace.scope("seg_scan", "op", {
+                "rows": is_start.shape[0], "cols": len(vals_ops),
+                "route": "kernel" if card else "plain"}):
+            return fn(vals_ops, is_start)
+    return fn(vals_ops, is_start)
 
 
 def _seg_scan_reduce(v: torch.Tensor, is_start: torch.Tensor, op,

@@ -96,7 +96,7 @@ def test_app_results_equal_both_in_process_services(tmp_path, cluster):
             assert len(done) == svc.job(j).n_tasks
             assert all(set(e["launches"]) == {
                 "hist_buckets", "prefix_sum", "prefix_sum2", "slot_expand",
-                "slot_compact", "hash_keys"} for e in done)
+                "slot_compact", "hash_keys", "seg_scan"} for e in done)
             # one job_done (the service's), none from the workers' tasks
             assert [e["event"] for e in ev].count("job_done") == 1
     finally:

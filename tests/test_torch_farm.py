@@ -222,7 +222,7 @@ def test_farm_results_equal_numpy_and_the_in_process_run(cluster):
     done = [e for e in farm.events if e["event"] == "task_done"]
     assert len(done) == 6 and all(set(e["launches"]) == {
         "hist_buckets", "prefix_sum", "prefix_sum2", "slot_expand",
-        "slot_compact", "hash_keys"} for e in done)
+        "slot_compact", "hash_keys", "seg_scan"} for e in done)
     # each task's run events come back in its own reply, tagged with its
     # worker; a farm task is a slice of the farm's job: no job_done
     stages = [e for e in farm.events if e.get("event") == "stage_done"]

@@ -247,7 +247,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     tk.prefix_sum(torch.ones(10, dtype=torch.int32))
     tk.prefix_sum2(torch.ones(10))
     assert set(tk.launches) == {"hist_buckets", "prefix_sum", "prefix_sum2",
-                                "slot_expand", "slot_compact", "hash_keys"}
+                                "slot_expand", "slot_compact", "hash_keys",
+                                "seg_scan"}
     assert sum(tk.launches.values()) == 0
 
 

@@ -61,7 +61,8 @@ def test_ssh_staging_and_gang(ssh_cluster):
     cus = sorted(f for f in os.listdir(os.path.join(pkg, "ops", "csrc"))
                  if f.endswith(".cu"))
     assert cus == ["hash_keys.cu", "hist_buckets.cu", "prefix_sum.cu",
-                   "prefix_sum2.cu", "slot_compact.cu", "slot_expand.cu"]
+                   "prefix_sum2.cu", "seg_scan.cu", "slot_compact.cu",
+                   "slot_expand.cu"]
     assert os.path.exists(os.path.join(pkg, "ops", "csrc", "host_fnv.c"))
     assert not os.path.exists(os.path.join(root, "dryad_tpu"))
     staged = [p for d, _, fs in os.walk(pkg) for p in fs]
